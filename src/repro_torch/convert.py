@@ -1,0 +1,68 @@
+"""Parameters and state across the framework boundary, as numpy.
+
+The JAX package and the port use the same parameter trees: nested dicts
+with the same leaf names and shapes. These helpers carry them across as
+numpy arrays (which is how the parity tests hand the reference's initial
+parameters and states to the port), and bring the port's results back.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.permfl import PerMFLState
+from repro_torch.flat import Layout
+
+__all__ = ["params_from_numpy", "state_from_numpy", "to_numpy"]
+
+
+def params_from_numpy(tree, device="cpu", dtype=None) -> dict:
+    """Nested dict of arrays (numpy, anything ``np.asarray`` takes, or
+    tensors) -> nested dict of tensors on ``device`` (new copies)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().to(device, copy=True)
+    else:
+        t = torch.from_numpy(np.array(tree, copy=True)).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def state_from_numpy(state, device="cpu") -> PerMFLState:
+    """A PerMFL state given as ``{"x", "w", "theta", "round"}`` (tiers as
+    nested dicts of arrays with leading (), (M,), (M, N) axes; the
+    reference's ``PerMFLState`` fields) -> the port's flat state."""
+    x = params_from_numpy(state["x"], device)
+    w = params_from_numpy(state["w"], device)
+    theta = params_from_numpy(state["theta"], device)
+    layout = Layout.of(x)
+    first_w = next(iter(_leaves(w)))
+    first_t = next(iter(_leaves(theta)))
+    return PerMFLState(
+        x=layout.flatten(x), w=layout.flatten(w, lead=first_w.shape[:1]),
+        theta=layout.flatten(theta, lead=first_t.shape[:2]),
+        round=int(state.get("round", 0)), layout=layout)
+
+
+def to_numpy(obj):
+    """Tensors, nested dicts of tensors, or a ``PerMFLState`` (as
+    ``{"x", "w", "theta", "round"}`` of nested numpy dicts) -> numpy."""
+    if isinstance(obj, PerMFLState):
+        return {"x": to_numpy(obj.params("x")),
+                "w": to_numpy(obj.params("w")),
+                "theta": to_numpy(obj.params("theta")),
+                "round": obj.round}
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    return np.asarray(obj)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree

@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each kernel is one ``.cu`` file with a plain C interface, compiled for
+Hopper (``sm_90a``) into a shared library at first use. The library goes
+into ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``) under a name that carries a digest of its source and
+flags, so an edited source builds anew and an unchanged one is loaded as
+it is. ``nvcc`` writes to a temporary name that is renamed into place,
+so two processes building at once never load a half-written library.
+``-Xptxas -v`` is always on; its report (registers, spills) is kept
+beside the library and returned by :func:`build_log`.
+
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for them together.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "KERNEL_SOURCES", "NVCC_FLAGS", "build",
+           "build_log", "load", "nvcc_path"]
+
+_KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
+
+# kernel name -> its CUDA source
+KERNEL_SOURCES = {
+    "prox_update": _KERNELS_DIR / "prox_update" / "csrc" / "prox_update.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``CUDA_HOME``
+    (default ``/usr/local/cuda``). Raises if there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME or /usr/local/cuda): the CUDA "
+        "kernels are built at first use and need the CUDA toolkit")
+
+
+def _library(name: str) -> Path:
+    src = KERNEL_SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names=None) -> dict:
+    """Compile the kernels ``names`` (default: all) that are not built
+    yet, one ``nvcc`` each, started together. Returns {name: library
+    path}. Raises with the compiler's output if any build fails."""
+    names = list(KERNEL_SOURCES if names is None else names)
+    out = {n: _library(n) for n in names}
+    todo = {n: p for n, p in out.items() if not p.exists()}
+    if not todo:
+        return out
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, lib in todo.items():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCES[n])]
+        procs[n] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        lib = todo[n]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{n} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (``-Xptxas -v``) from building ``name``."""
+    path = build([name])[name].with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The built library of kernel ``name``, loaded (built if needed)."""
+    return ctypes.CDLL(str(build([name])[name]))

@@ -1,0 +1,73 @@
+"""Kernel dispatch for the PyTorch port, and the kernels' launch counts.
+
+Every kernel package under ``repro_torch.kernels`` holds a CUDA kernel
+written for Hopper and its plain PyTorch version (``ref.py``). Which one
+runs follows the device of the tensors it is given:
+
+  * ``CUDA``  -- the hand-written kernel; for tensors on a CUDA device.
+  * ``TORCH`` -- the plain PyTorch version; for tensors on the CPU.
+
+An explicit ``mode="torch"`` runs the plain version on any device. It
+exists so that a comparison (``chip_smoke.py``, the GPU-marked tests)
+can hold the kernel against its plain version on the card. No
+environment variable switches the main path: a CUDA tensor launches the
+kernel or raises, and nothing falls back to the plain version.
+
+``LAUNCHES`` counts, per kernel name, the launches each wrapper made: a
+run can read it to show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+from enum import Enum
+
+import torch
+
+__all__ = ["KernelType", "LAUNCHES", "count_launch", "kernel_mode",
+           "reset_launches"]
+
+
+class KernelType(Enum):
+    """Which implementation of a kernel runs (see module docstring)."""
+    CUDA = "cuda"
+    TORCH = "torch"
+
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES: dict = {}
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name``: called by a wrapper right where
+    it launches its kernel, and nowhere else."""
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def kernel_mode(tensor: torch.Tensor, mode=None) -> KernelType:
+    """The implementation that runs on ``tensor``.
+
+    ``mode`` None follows the tensor's device: CUDA kernel for a CUDA
+    tensor, plain version for a CPU tensor. ``mode`` "torch" (or
+    ``KernelType.TORCH``) forces the plain version; "cuda" demands the
+    kernel and raises for a tensor that is not on a CUDA device.
+    """
+    dev = tensor.device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for tensors on {tensor.device}")
+    if mode is None:
+        return KernelType.CUDA if dev == "cuda" else KernelType.TORCH
+    if not isinstance(mode, KernelType):
+        try:
+            mode = KernelType(str(mode).strip().lower())
+        except ValueError:
+            raise ValueError(
+                f"unknown kernel mode {mode!r}; expected one of "
+                f"{[t.value for t in KernelType]}") from None
+    if mode is KernelType.CUDA and dev != "cuda":
+        raise ValueError(f"mode='cuda' needs CUDA tensors, got {dev}")
+    return mode

@@ -1,0 +1,178 @@
+"""The PerMFL device step (paper eq. 4): CUDA kernel or plain version.
+
+Two wrappers over one kernel (``csrc/prox_update.cu``):
+
+  * :func:`prox_sgd` -- one tensor of any shape, new outputs; the port of
+    the reference's single-array ``prox_sgd``.
+  * :func:`prox_step_` -- the op the round runs: the whole stacked device
+    tier as one (rows, cols) tensor, updated in place by one launch, with
+    the anchor given per team (one anchor row for every ``rows //
+    anchor_rows`` device rows).
+
+Which implementation runs follows the tensors' device
+(:func:`repro_torch.kernels.interface.kernel_mode`): the kernel for CUDA
+tensors, the plain version (``ref.py``) for CPU tensors or for an
+explicit ``mode="torch"``. Each launch adds one to
+``LAUNCHES["prox_update"]``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import load
+from repro_torch.kernels.interface import KernelType, count_launch, kernel_mode
+from repro_torch.kernels.prox_update.ref import prox_sgd_ref
+
+__all__ = ["prox_sgd", "prox_step_"]
+
+_NAME = "prox_update"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _library():
+    lib = load(_NAME)
+    fn = lib.prox_update
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int64] * 7 + [ctypes.c_float] * 4
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _aligned(*tensors) -> bool:
+    """True when 16-byte vector accesses are valid for every 2-D operand:
+    the data pointer and every row start 16-byte aligned."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+        if t.shape[0] > 1 and (t.stride(0) * t.element_size()) % 16:
+            return False
+    return True
+
+
+def _launch(out, theta, grad, anchor, m_out, mom, *, alpha, lam, momentum,
+            weight_decay):
+    """Launch the kernel on 2-D CUDA operands whose columns are unit
+    stride; ``out``/``m_out`` may be ``theta``/``mom`` themselves."""
+    rows, cols = theta.shape
+    use_mom = momentum > 0.0
+    moms = (m_out, mom) if use_mom else ()
+    vec = _aligned(out, theta, grad, anchor, *moms)
+    fn = _library()
+    stream = torch.cuda.current_stream(theta.device).cuda_stream
+    count_launch(_NAME)
+    err = fn(_DTYPE_CODES[theta.dtype], out.data_ptr(), theta.data_ptr(),
+             grad.data_ptr(), anchor.data_ptr(),
+             m_out.data_ptr() if use_mom else None,
+             mom.data_ptr() if use_mom else None,
+             rows, cols, theta.stride(0), grad.stride(0), anchor.stride(0),
+             mom.stride(0) if use_mom else 0, rows // anchor.shape[0],
+             float(alpha), float(lam), float(momentum), float(weight_decay),
+             int(vec), stream)
+    if err:
+        raise RuntimeError(f"prox_update kernel launch failed: CUDA error "
+                           f"{err} (rows={rows}, cols={cols})")
+
+
+def _check(theta, grad, anchor, mom, momentum):
+    if theta.dtype not in _DTYPE_CODES:
+        raise TypeError(f"prox_update takes float32 or bfloat16, got "
+                        f"{theta.dtype}")
+    for name, t in (("grad", grad), ("anchor", anchor)):
+        if t.dtype != theta.dtype:
+            raise TypeError(f"{name} is {t.dtype}, theta is {theta.dtype}")
+    if grad.shape != theta.shape:
+        raise ValueError(f"grad {tuple(grad.shape)} != theta "
+                         f"{tuple(theta.shape)}")
+    if momentum > 0.0:
+        if mom is None:
+            raise ValueError("momentum > 0 needs a momentum buffer")
+        if mom.dtype != torch.float32 or mom.shape != theta.shape:
+            raise ValueError(f"momentum buffer must be float32 of shape "
+                             f"{tuple(theta.shape)}, got {mom.dtype} "
+                             f"{tuple(mom.shape)}")
+    devs = {t.device for t in (theta, grad, anchor, mom) if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+
+
+def prox_sgd(theta, grad, anchor, mom_buf=None, *, alpha, lam,
+             momentum=0.0, weight_decay=0.0, mode=None):
+    """One tensor of any shape; theta/grad/anchor share shape and dtype.
+    Returns new (theta, mom) and leaves the inputs as they are; with
+    ``momentum == 0`` the returned buffer is ``mom_buf`` itself (zeros if
+    None). On CUDA the operands must be contiguous."""
+    if mom_buf is None:
+        mom_buf = torch.zeros(theta.shape, dtype=torch.float32,
+                              device=theta.device)
+    if anchor.shape != theta.shape:
+        raise ValueError(f"anchor {tuple(anchor.shape)} != theta "
+                         f"{tuple(theta.shape)}")
+    _check(theta, grad, anchor, mom_buf, momentum)
+    if kernel_mode(theta, mode) is KernelType.TORCH:
+        return prox_sgd_ref(theta, grad, anchor, mom_buf=mom_buf,
+                            alpha=alpha, lam=lam, momentum=momentum,
+                            weight_decay=weight_decay)
+    for name, t in (("theta", theta), ("grad", grad), ("anchor", anchor),
+                    ("mom_buf", mom_buf)):
+        if not t.is_contiguous():
+            raise ValueError(f"prox_sgd kernel needs contiguous {name}")
+    out = torch.empty_like(theta)
+    m_out = torch.empty_like(mom_buf) if momentum > 0.0 else mom_buf
+    if theta.numel():
+        flat = lambda t: t.view(1, -1)
+        _launch(flat(out), flat(theta), flat(grad), flat(anchor),
+                flat(m_out), flat(mom_buf), alpha=alpha, lam=lam,
+                momentum=momentum, weight_decay=weight_decay)
+    return out, m_out
+
+
+@torch.no_grad()
+def prox_step_(theta, grad, anchor, mom=None, *, alpha, lam, momentum=0.0,
+               weight_decay=0.0, mode=None):
+    """The stacked device step, in place: one launch for all devices.
+
+    theta, grad: (rows, cols); anchor: (anchor_rows, cols) with
+    ``rows % anchor_rows == 0``, device row r anchored to anchor row
+    ``r // (rows // anchor_rows)`` -- the team tier w (M, P) for the
+    device tier theta (M*N, P). mom: (rows, cols) float32, needed when
+    ``momentum > 0``. Rows may be strided (a padded row length); columns
+    must be unit stride.
+
+    theta (and mom, when momentum > 0) are overwritten with the updated
+    values, which saves a buffer of the tier's size per step; the
+    caller's autograd graph must not need their old values. Returns
+    (theta, mom).
+    """
+    _check(theta, grad, anchor, mom, momentum)
+    if theta.dim() != 2 or anchor.dim() != 2 or grad.dim() != 2:
+        raise ValueError("prox_step_ takes 2-D (rows, cols) operands")
+    rows, cols = theta.shape
+    if anchor.shape[1] != cols or anchor.shape[0] < 1 \
+            or rows % anchor.shape[0]:
+        raise ValueError(f"anchor {tuple(anchor.shape)} does not tile "
+                         f"theta {tuple(theta.shape)} by rows")
+    ops = (theta, grad, anchor) + ((mom,) if momentum > 0.0 else ())
+    if any(t.stride(1) != 1 for t in ops):
+        raise ValueError("prox_step_ needs unit-stride columns")
+    if kernel_mode(theta, mode) is KernelType.TORCH:
+        q = rows // anchor.shape[0]
+        new, mb = prox_sgd_ref(
+            theta.unflatten(0, (-1, q)), grad.unflatten(0, (-1, q)),
+            anchor[:, None], alpha=alpha, lam=lam, momentum=momentum,
+            mom_buf=None if mom is None else mom.unflatten(0, (-1, q)),
+            weight_decay=weight_decay)
+        theta.copy_(new.flatten(0, 1))
+        if momentum > 0.0:
+            mom.copy_(mb.flatten(0, 1))
+        return theta, mom
+    if rows > 65535:
+        raise ValueError(f"prox_step_ kernel takes at most 65535 rows, "
+                         f"got {rows}")
+    if rows and cols:
+        _launch(theta, theta, grad, anchor, mom, mom, alpha=alpha, lam=lam,
+                momentum=momentum, weight_decay=weight_decay)
+    return theta, mom

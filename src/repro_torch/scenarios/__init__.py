@@ -1,0 +1,11 @@
+"""Scenario registry and runner of the port (the PerMFL paper cells)."""
+from repro_torch.scenarios.registry import (SCENARIOS, families,
+                                            get_scenario, register)
+from repro_torch.scenarios.runner import (ScenarioBuild, build_scenario,
+                                          run_scenario)
+from repro_torch.scenarios.spec import (AlgoSpec, DataSpec, FLScenario,
+                                        ModelSpec)
+
+__all__ = ["AlgoSpec", "DataSpec", "FLScenario", "ModelSpec", "SCENARIOS",
+           "ScenarioBuild", "build_scenario", "families", "get_scenario",
+           "register", "run_scenario"]

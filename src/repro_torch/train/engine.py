@@ -1,0 +1,160 @@
+"""Multi-round FL engine: a host loop over rounds.
+
+The reference compiles a whole experiment into one ``lax.scan``; PyTorch
+runs eagerly, so here the rounds are a plain loop with the same
+semantics:
+
+    for each round:
+        participation masks (all ones, sampled, or injected)
+        state = algo.round(state, data, masks)
+        record realized (team-gated) participation counts
+        every eval_every rounds, and after the last: algo.eval(state, ...)
+
+The eval points are those of the reference's chunked scan (chunks of
+``eval_every`` rounds, then a remainder chunk ending at the last round).
+Full participation draws no random numbers and uses all-ones masks.
+Sampled participation draws from a ``torch.Generator`` seeded with
+``seed``; its masks cannot equal the reference's threefry masks, so a
+parity run injects the reference's masks through ``masks=``.
+
+Cohort sampling, the system simulator and run telemetry are not ported
+yet (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.participation import sample_masks
+from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
+
+__all__ = ["FLResult", "check_participation", "eval_points",
+           "run_experiment"]
+
+
+@dataclass
+class FLResult:
+    """One experiment's outcome: metric histories (one entry per eval
+    point), host-clock times, final state and realized per-round
+    participation counts.
+
+    ``round_seconds[t]`` is the host clock around round t (and its eval,
+    when it has one), ending after the device has finished its work;
+    ``seconds`` is their sum."""
+    pm_acc: list = field(default_factory=list)   # per-eval personalized acc
+    tm_acc: list = field(default_factory=list)
+    gm_acc: list = field(default_factory=list)
+    train_loss: list = field(default_factory=list)
+    seconds: float = 0.0
+    round_seconds: list = field(default_factory=list)
+    state: Any = None
+    participation: list = field(default_factory=list)  # (teams, devices)/rnd
+    rounds: int = 0
+    eval_every: int = 1
+    device: str = ""
+
+    def last(self, which="pm"):
+        """Final-eval value of metric `which` ('pm'|'tm'|'gm'); NaN if the
+        algorithm never reported it."""
+        hist = {"pm": self.pm_acc, "tm": self.tm_acc, "gm": self.gm_acc}[which]
+        return hist[-1] if hist else float("nan")
+
+
+_METRIC_FIELDS = {"pm": "pm_acc", "tm": "tm_acc", "gm": "gm_acc",
+                  "train_loss": "train_loss"}
+
+
+def eval_points(rounds: int, eval_every: int) -> list:
+    """1-based rounds after which the engine evaluates: every
+    ``eval_every`` rounds and after the final round."""
+    return [t + 1 for t in range(rounds)
+            if (t + 1) % eval_every == 0 or t == rounds - 1]
+
+
+def check_participation(algo, team_frac: float, device_frac: float):
+    """Reject sampled participation for algorithms that ignore masks."""
+    if (team_frac < 1.0 or device_frac < 1.0) and \
+            not getattr(algo, "supports_participation", False):
+        raise ValueError(
+            f"{getattr(algo, 'name', type(algo).__name__)} ignores "
+            "participation masks; team_frac/device_frac < 1 would sample "
+            "masks that never gate anything")
+
+
+def _mask(a) -> torch.Tensor:
+    """A participation mask as a new float32 CPU tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32, copy=True)
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _to_device(data, device):
+    return {k: torch.as_tensor(v).to(device) for k, v in data.items()}
+
+
+def run_experiment(algo, params0, train_data, val_data, *,
+                   metric_fn: Callable, rounds: int, m: int, n: int,
+                   team_frac: float = 1.0, device_frac: float = 1.0,
+                   seed: int = 0, eval_every: int = 1,
+                   masks: Optional[Callable] = None,
+                   device=DEFAULT_DEVICE, cohort=None, system=None,
+                   trace=None, trace_dir=None) -> FLResult:
+    """Drive ``algo`` for ``rounds`` global rounds on ``device``,
+    evaluating every ``eval_every`` rounds and after the final round.
+
+    params0: one model, a nested dict of tensors or numpy arrays.
+    train_data / val_data: {"x", "y"} with leading (M, N) axes, tensors
+        or numpy arrays; moved to ``device``.
+    masks: optional ``masks(t) -> (team_mask (M,), device_mask (M, N))``
+        for round t (0-based), replacing sampling: the parity tests hand
+        the port the reference's masks this way.
+    device: "cuda" (default; raises without a card) or "cpu".
+    """
+    for name, val in (("cohort", cohort), ("system", system),
+                      ("trace", trace), ("trace_dir", trace_dir)):
+        if val is not None:
+            raise NotImplementedError(
+                f"run_experiment({name}=...) is not ported yet "
+                "(ROADMAP.md queue 1)")
+    if eval_every < 1:
+        raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    check_participation(algo, team_frac, device_frac)
+    dev = resolve_device(device)
+    params0 = params_from_numpy(params0, dev)
+    train, val = _to_device(train_data, dev), _to_device(val_data, dev)
+
+    sampled = team_frac < 1.0 or device_frac < 1.0
+    gen = torch.Generator().manual_seed(seed) \
+        if sampled and masks is None else None
+    res = FLResult(rounds=rounds, eval_every=eval_every, device=str(dev))
+    evals = set(eval_points(rounds, eval_every))
+    state = algo.init_state(params0, m, n)
+    for t in range(rounds):
+        t0 = time.perf_counter()
+        if masks is not None:
+            tm, dm = masks(t)
+        elif sampled:
+            tm, dm = sample_masks(gen, m, n, team_frac=team_frac,
+                                  device_frac=device_frac)
+        else:
+            tm, dm = torch.ones(m), torch.ones(m, n)
+        tm, dm = _mask(tm), _mask(dm)
+        gated = dm * tm[:, None]
+        res.participation.append((int(tm.sum()), int(gated.sum())))
+        state = algo.round(state, train, team_mask=tm.to(dev),
+                           device_mask=dm.to(dev))
+        if t + 1 in evals:
+            metrics = algo.eval(state, train, val, metric_fn)
+            for k, v in metrics.items():
+                getattr(res, _METRIC_FIELDS[k]).append(float(v))
+        synchronize(dev)
+        res.round_seconds.append(time.perf_counter() - t0)
+    res.seconds = sum(res.round_seconds)
+    res.state = state
+    return res
+

@@ -30,3 +30,8 @@ def tabular_fed_data():
     devices = synthetic_tabular(rng, 12, min_samples=40, max_samples=80)
     return partition_tabular(devices, m_teams=4, n_devices=3,
                              samples_per_device=32)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (skips without one)")

@@ -1,0 +1,82 @@
+"""The PyTorch port's public API must stay documented, as the JAX
+package's is (tests/test_docs.py): a module docstring, an ``__all__``,
+and a docstring on every exported class and function and on the public
+methods those classes define. Also: no module of the port imports JAX or
+the JAX package."""
+import ast
+import importlib
+import inspect
+import pathlib
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+PUBLIC_MODULES = (
+    "repro_torch.configs",
+    "repro_torch.convert",
+    "repro_torch.core",
+    "repro_torch.core.algorithm",
+    "repro_torch.core.participation",
+    "repro_torch.core.permfl",
+    "repro_torch.device",
+    "repro_torch.flat",
+    "repro_torch.kernels.build",
+    "repro_torch.kernels.interface",
+    "repro_torch.kernels.prox_update",
+    "repro_torch.kernels.prox_update.ops",
+    "repro_torch.models.paper_models",
+    "repro_torch.scenarios",
+    "repro_torch.scenarios.registry",
+    "repro_torch.scenarios.runner",
+    "repro_torch.scenarios.spec",
+    "repro_torch.train.engine",
+    "repro_torch.train.fl_trainer",
+)
+
+
+def _public_methods(cls):
+    for name, member in vars(cls).items():
+        if name.startswith("_"):
+            continue
+        if inspect.isfunction(member):
+            yield name, member
+        elif isinstance(member, (classmethod, staticmethod)):
+            yield name, member.__func__
+
+
+@pytest.mark.parametrize("modname", PUBLIC_MODULES)
+def test_public_api_is_documented(modname):
+    mod = importlib.import_module(modname)
+    assert (mod.__doc__ or "").strip(), f"{modname}: no module docstring"
+    assert hasattr(mod, "__all__"), f"{modname}: no __all__"
+    missing = []
+    for name in mod.__all__:
+        obj = getattr(mod, name)
+        if not (inspect.isclass(obj) or inspect.isfunction(obj)):
+            continue
+        if not (obj.__doc__ or "").strip():
+            missing.append(name)
+        if inspect.isclass(obj):
+            missing += [f"{name}.{m}" for m, f in _public_methods(obj)
+                        if not (f.__doc__ or "").strip()]
+    assert not missing, f"{modname}: undocumented: {missing}"
+
+
+def _top_level_imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(SRC.rglob("*.py")) + [SRC.parents[1] / "chip_smoke.py"],
+    ids=lambda p: p.name if p.name == "chip_smoke.py"
+    else str(p.relative_to(SRC)))
+def test_imports_neither_jax_nor_the_jax_package(path):
+    bad = set(_top_level_imports(path)) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path}: imports {sorted(bad)}"
