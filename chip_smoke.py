@@ -3,7 +3,7 @@
 kernel of it against its plain PyTorch version.
 
     python3 chip_smoke.py            # the whole check, on one card
-    python3 chip_smoke.py --profile  # + one profiled round, top kernels
+    python3 chip_smoke.py --profile  # + round times, profiled rounds
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -11,19 +11,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      TF32 off for float32 matmuls and convolutions.
   2. build: nvcc for every kernel source, all at once; the -Xptxas -v
      report (registers, spills).
-  3. kernel check at the main path's shapes: each kernel against its plain
-     version on the card (max abs / rel error within the stated
-     tolerance), its time by CUDA events over many launches, the plain
-     version's time (each with the L2 cache cold), and the least time
-     the card could take.
+  3. kernel check at the main paths' shapes: each kernel against its plain
+     version on the card (prox_update within the stated tolerance; the
+     four compress kernels bit for bit on every output, at the CNN and
+     MCLR LAN uplinks, with runs of zeros and ties), its time by CUDA
+     events, the plain version's time (each with the L2 cache cold), and
+     the least time the card could take; for the compress kernels also
+     the time of the torch ops outside them (select thresholds, sign
+     scales).
   4. main path: ``run_scenario("fig2/fmnist/cnn/permfl", rounds=3)`` on the
      card at the registered size (4 teams x 10 devices, paper CNN at its
      published widths, K=5, L=10), with every launch count set to 0 just
-     before and read just after: each kernel must have run, prox_update
-     exactly rounds*K*L times.
-  5. path consistency: one round from the same state through the kernels
-     and through the plain versions; the states must agree.
-  6. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+     before and read just after: prox_update exactly rounds*K*L times, no
+     compress kernel.
+  5. compressed paths, each with the counts set to 0 just before it and
+     read just after: every ``comm/mnist/mclr/*`` cell at its registered
+     size (3 rounds), and the paper CNN of step 4 with each lossy
+     compressor (2 rounds): finite metrics, a lower loss, the ledger's
+     bytes equal to the byte model, the compressor's kernel launched
+     exactly rounds*(K+1) times and no other compress kernel.
+  6. path consistency: one round from the same state through the kernels
+     and through the plain versions, uncompressed and with each lossy
+     compressor (same generator seed); the states must agree.
+  7. with ``--profile``: the CNN round's host-clock time, uncompressed and
+     with each lossy compressor, over several unprofiled rounds in
+     alternating order (medians and ranges, and the host time spent
+     issuing the compression), then one profiled round of each.
+  8. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -31,6 +45,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -39,13 +54,34 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
 SCENARIO = "fig2/fmnist/cnn/permfl"
 ROUNDS = 3
+COMM_CELLS = tuple(f"comm/mnist/mclr/{c}" for c in (
+    "uncompressed", "identity", "topk_10", "topk_25", "randk_10", "int8",
+    "sign"))
+COMM_ROUNDS = 3
+CNN_COMM_ROUNDS = 2
+# compressor -> the kernel its error-feedback uplinks launch
+COMPRESS_KERNEL = {"topk": "ef_topk", "randk": "ef_randk", "int8": "ef_int8",
+                   "sign": "ef_sign"}
+# float32 operations per value: msg add, score, compares, select, ef' sub;
+# int8 also the row max, divide, add, floor, two clamps and q * scale
+COMPRESS_OPS_PER_VALUE = {"ef_topk": 5, "ef_randk": 4, "ef_int8": 10,
+                          "ef_sign": 5}
+TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
+    "prox_update": "src/repro/kernels/prox_update/prox_update.py:22",
+    "ef_topk": "src/repro/kernels/compress/compress.py:107",
+    "ef_randk": "src/repro/kernels/compress/compress.py:123",
+    "ef_int8": "src/repro/kernels/compress/compress.py:133",
+    "ef_sign": "src/repro/kernels/compress/compress.py:168",
+}
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 TIMED_LAUNCHES = 200
+ROUND_REPS = 8                   # unprofiled CNN rounds per variant
 SLEEP_CYCLES = 100_000_000       # ~50 ms at the H100's 1.98 GHz boost
 L2_FLUSH_BYTES = 256 * 2**20     # > 5x the H100's 50 MB L2
 
@@ -133,11 +169,11 @@ def phase_kernel_check(layout, m, n):
     from repro_torch.kernels.prox_update import prox_step_
 
     rows, p, s = m * n, layout.size, layout.stride
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
 
     def buf(r, dtype):
-        b = torch.zeros(r, s, device="cuda", dtype=dtype)
-        b[:, :p] = torch.randn(r, p, device="cuda", generator=gen)
+        b = torch.zeros(r, s, device=DEVICE, dtype=dtype)
+        b[:, :p] = torch.randn(r, p, device=DEVICE, generator=gen)
         return b[:, :p]
 
     cases = [  # (label, dtype, momentum, weight_decay); the first is the
@@ -193,23 +229,172 @@ def phase_kernel_check(layout, m, n):
     return out
 
 
+def compress_inputs(layout, senders, seed):
+    """(delta, ef, u) as the round gives them: (senders, S) rows laid out
+    by ``layout``, random, with a run of exact zeros in
+    the largest leaf, tied uniforms there, all-equal values in the leaf
+    before it, and a first leaf of one nonzero value (top-k threshold 0),
+    so the tie-fill runs on the card."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p, s = layout.size, layout.stride
+    delta = torch.zeros(senders, s, device=DEVICE)
+    ef = torch.zeros(senders, s, device=DEVICE)
+    delta[:, :p] = torch.randn(senders, p, device=DEVICE, generator=gen)
+    ef[:, :p] = 0.1 * torch.randn(senders, p, device=DEVICE, generator=gen)
+    u = torch.rand(senders, s, device=DEVICE, generator=gen)
+    sizes = layout.leaf_sizes
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
+    big = max(range(len(sizes)), key=sizes.__getitem__)
+    o, n = offs[big], sizes[big]
+    delta[:, o:o + n // 2] = 0.0
+    ef[:, o:o + n // 2] = 0.0
+    u[:, o:o + n] = torch.floor(u[:, o:o + n] * 8.0) / 8.0
+    if big > 0:
+        o2, n2 = offs[big - 1], sizes[big - 1]
+        delta[:, o2:o2 + n2] = 0.5
+        ef[:, o2:o2 + n2] = 0.0
+    first = next(i for i, q in enumerate(sizes) if q >= 10)
+    o3, n3 = offs[first], sizes[first]
+    delta[:, o3:o3 + n3] = 0.0
+    ef[:, o3:o3 + n3] = 0.0
+    delta[:, o3 + n3 - 1] = 1.0
+    return delta, ef, u
+
+
+def run_compress(op, delta, ef, u, segs, given, mode=None):
+    """One compress op; ``given`` is its thresholds or sign scales."""
+    from repro_torch.kernels import compress as K
+
+    if op == "ef_topk":
+        return K.ef_topk(delta, ef, segs, thresh=given, mode=mode)
+    if op == "ef_randk":
+        return K.ef_randk(u, delta, ef, segs, thresh=given, mode=mode)
+    if op == "ef_int8":
+        return K.ef_int8(delta, ef, u, segs, mode=mode)
+    return K.ef_sign(delta, ef, segs, scales=given, mode=mode)
+
+
+def compress_bytes(op, senders, layout, segs):
+    """Bytes the op must move: each input read once, each output written
+    once (rows of S columns; uniforms of P; the per-leaf tables)."""
+    b, c, p, nseg = senders, layout.stride, layout.size, len(segs.lengths)
+    rows = segs.rows
+    if op == "ef_topk":      # delta, ef, thresh in; dq, ef', ranks out
+        return b * c * 4 * 5 + b * nseg * 4
+    if op == "ef_randk":     # + u in
+        return b * c * 4 * 5 + b * p * 4 + b * nseg * 4
+    if op == "ef_int8":      # delta, ef, u in; dq, ef', q, scales out
+        return b * c * (4 * 4 + 1) + b * p * 4 + b * rows * 4
+    return b * c * 4 * 4 + b * nseg * 4 + b * rows * 16   # ef_sign
+
+
+def phase_compress_check(layouts, senders):
+    """The four compress kernels at the LAN uplinks of ``layouts``
+    ({label: Layout}, the first the timed one) against their plain
+    versions, bit for bit, given the same thresholds, scales and
+    uniforms."""
+    import torch
+
+    from repro_torch.comm import CommConfig, compression_plan
+    from repro_torch.kernels import compress as K
+
+    out = {}
+    for li, (label, layout) in enumerate(layouts.items()):
+        delta, ef, u = compress_inputs(layout, senders, seed=li)
+        sizes = layout.leaf_sizes
+        for op in ("ef_topk", "ef_randk", "ef_int8", "ef_sign"):
+            plan = compression_plan(CommConfig(op[3:]), sizes)
+            segs = K.segments(sizes, tuple(pl.k for pl in plan)
+                              if op in ("ef_topk", "ef_randk") else None)
+            if op == "ef_topk":
+                side = lambda: K.segment_thresholds((delta + ef).abs(), segs)
+            elif op == "ef_randk":
+                side = lambda: K.segment_thresholds(u, segs)
+            elif op == "ef_sign":
+                side = lambda: K.sign_scales(delta, ef, segs)
+            else:
+                side = lambda: None
+            given = side()
+            got = run_compress(op, delta, ef, u, segs, given)
+            want = run_compress(op, delta, ef, u, segs, given, mode="torch")
+            torch.cuda.synchronize()
+            err = 0.0
+            for g, w in zip(got, want):
+                if g.shape != w.shape or g.dtype != w.dtype \
+                        or not torch.equal(g, w):
+                    raise AssertionError(
+                        f"{op} {label}: kernel and plain version differ "
+                        f"({g.dtype} {tuple(g.shape)})")
+                if g.is_floating_point():
+                    err = max(err, float((g - w).abs().max()))
+            if li:
+                say("kernel", f"{op} {label} ({senders}x{layout.size}, "
+                    f"{len(sizes)} leaves): equal to the plain version bit "
+                    "for bit")
+                continue
+            ms = cuda_time_ms(
+                lambda: run_compress(op, delta, ef, u, segs, given),
+                TIMED_LAUNCHES)
+            plain_ms = cuda_time_ms(
+                lambda: run_compress(op, delta, ef, u, segs, given,
+                                     mode="torch"), 10)
+            side_ms = (cuda_time_ms(side, 20) if op != "ef_int8" else None)
+            moved = compress_bytes(op, senders, layout, segs)
+            ops = senders * layout.size * COMPRESS_OPS_PER_VALUE[op]
+            bound_ms = max(moved / HBM_BYTES_PER_S,
+                           ops / F32_OPS_PER_S) * 1e3
+            by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S \
+                else "operations"
+            what = {"ef_topk": "thresholds (torch.topk)",
+                    "ef_randk": "thresholds (torch.topk)",
+                    "ef_sign": "sign scales (mean |msg|)"}.get(op)
+            extra = (f"; {what} {side_ms * 1e3:.1f} us" if what else "")
+            say("kernel", f"{op} {label} ({senders}x{layout.size}, "
+                f"{len(sizes)} leaves): equal to the plain version bit for "
+                f"bit; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} "
+                f"us, bound {bound_ms * 1e3:.1f} us ({moved / 1e6:.1f} MB by "
+                f"{by}), {bound_ms / ms:.1%} of bound{extra}")
+            out[op] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by, side_ms=side_ms)
+    return out
+
+
+def check_launches(launches, expect, path):
+    """Every kernel in ``expect`` launched exactly that often on ``path``,
+    every other kernel not at all."""
+    from repro_torch.kernels.compress import KERNELS
+
+    for name in ("prox_update",) + KERNELS:
+        want = expect.get(name, 0)
+        if launches.get(name, 0) != want:
+            raise AssertionError(
+                f"{path}: kernel {name} launched {launches.get(name, 0)} "
+                f"times, expected {want}")
+
+
+def untrained_loss(spec):
+    """Train loss of the model run_scenario starts from (seed 0)."""
+    from repro_torch.scenarios import build_scenario
+
+    b = build_scenario(spec, seed=0, device=DEVICE)
+    return b.algo.eval(b.algo.init_state(b.params0, b.m, b.n), b.train,
+                       b.val, b.metric_fn)["train_loss"]
+
+
 def phase_main_path():
     import torch
 
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
-    from repro_torch.scenarios import (build_scenario, get_scenario,
-                                       run_scenario)
+    from repro_torch.scenarios import get_scenario, run_scenario
 
     s = get_scenario(SCENARIO)
     hp = s.algo.hparams()
-    # the loss of the untrained model run_scenario starts from (seed 0)
-    b = build_scenario(s, seed=0, device="cuda")
-    loss0 = b.algo.eval(b.algo.init_state(b.params0, b.m, b.n), b.train,
-                        b.val, b.metric_fn)["train_loss"]
-    del b
+    loss0 = untrained_loss(s)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    res = run_scenario(SCENARIO, rounds=ROUNDS, device="cuda")
+    res = run_scenario(SCENARIO, rounds=ROUNDS, device=DEVICE)
     launches = dict(LAUNCHES)
     d = s.data
     say("main", f"{SCENARIO}: {d.m_teams} teams x {d.n_devices} devices, "
@@ -224,14 +409,7 @@ def phase_main_path():
     peak = torch.cuda.max_memory_allocated() / 2**20
     say("main", f"peak device memory {peak:.1f} MiB; launches {launches}")
     expect = ROUNDS * hp.k_team * hp.l_local
-    if launches.get("prox_update") != expect:
-        raise AssertionError(f"prox_update launched "
-                             f"{launches.get('prox_update')} times on the "
-                             f"main path, expected {expect}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"kernel {name} did not run on the main "
-                                 "path")
+    check_launches(launches, {"prox_update": expect}, SCENARIO)
     hist = res.pm_acc + res.tm_acc + res.gm_acc + res.train_loss
     if len(res.pm_acc) != ROUNDS or not all(map(math.isfinite, hist)):
         raise AssertionError(f"bad metric history: {hist}")
@@ -249,56 +427,207 @@ def phase_main_path():
     return res, launches
 
 
-def phase_consistency():
-    """One round from the same state through the kernel and through the
-    plain version, on the card."""
+def run_comm_path(spec, rounds, loss0):
+    """One compressed (or uncompressed) scenario on the card, with the
+    launch counts set to 0 just before and read just after; checks
+    metrics, loss, ledger bytes and launches. Returns the launches."""
     import torch
 
+    from repro_torch.comm import compressed_leaf_bytes, full_leaf_bytes
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import run_scenario
+
+    hp = spec.algo.hparams()
+    d = spec.data
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_scenario(spec, rounds=rounds, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    label = spec.name + ("" if spec.comm is None
+                         else f" [{spec.comm.compressor}]")
+    hist = res.pm_acc + res.tm_acc + res.gm_acc + res.train_loss
+    if len(res.pm_acc) != rounds or not all(map(math.isfinite, hist)):
+        raise AssertionError(f"{label}: bad metric history {hist}")
+    if not res.train_loss[-1] < loss0:
+        raise AssertionError(f"{label}: training did not lower the loss "
+                             f"{loss0} -> {res.train_loss}")
+    expect = {"prox_update": rounds * hp.k_team * hp.l_local}
+    mb = None
+    if spec.comm is not None:
+        sizes = res.state.layout.leaf_sizes
+        comp = sum(compressed_leaf_bytes(spec.comm, p) for p in sizes)
+        full = sum(full_leaf_bytes(p) for p in sizes)
+        m, devs = d.m_teams, d.m_teams * d.n_devices
+        model = rounds * (m * (comp + full)
+                          + hp.k_team * devs * (comp + full))
+        if res.comm.total_bytes() != model:
+            raise AssertionError(f"{label}: ledger {res.comm.total_bytes()} "
+                                 f"B, byte model {model} B")
+        mb = model / 1e6
+        kernel = COMPRESS_KERNEL.get(spec.comm.compressor)
+        if kernel:
+            expect[kernel] = rounds * (hp.k_team + 1)
+    check_launches(launches, expect, label)
+    say("comm", f"{label}: {rounds} rounds in {wall:.2f} s (host clock, "
+        f"eval included); PM {res.pm_acc[-1]:.4f} TM {res.tm_acc[-1]:.4f} "
+        f"GM {res.gm_acc[-1]:.4f} train_loss {loss0:.4f} -> "
+        f"{res.train_loss[-1]:.4f}; "
+        + (f"{mb:.2f} MB on the links (= byte model); " if mb else "")
+        + f"launches {launches}")
+    return launches
+
+
+def phase_comm_paths():
+    """Every comm/mnist/mclr/* cell, then the paper CNN of the main path
+    with each lossy compressor. Returns {kernel: launches} of the CNN
+    runs (the full-width model's path of each compress kernel)."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.scenarios import get_scenario
+
+    mclr_loss0 = untrained_loss(get_scenario(COMM_CELLS[0]))
+    for name in COMM_CELLS:
+        run_comm_path(get_scenario(name), COMM_ROUNDS, mclr_loss0)
+    cnn = get_scenario(SCENARIO)
+    cnn_loss0 = untrained_loss(cnn)
+    out = {}
+    for comp, kernel in COMPRESS_KERNEL.items():
+        spec = dataclasses.replace(cnn, comm=CommConfig(comp))
+        out[kernel] = run_comm_path(spec, CNN_COMM_ROUNDS,
+                                    cnn_loss0).get(kernel, 0)
+    return out
+
+
+def phase_consistency():
+    """One round from the same state through the kernels and through the
+    plain versions, on the card: uncompressed, then with each lossy
+    compressor (the same generator seed, so the same uniforms)."""
+    import torch
+
+    from repro_torch.comm import CommConfig
     from repro_torch.core import permfl as P
     from repro_torch.scenarios import build_scenario
 
-    b = build_scenario(SCENARIO, seed=1, device="cuda")
+    b = build_scenario(SCENARIO, seed=1, device=DEVICE)
     hp = b.scenario.algo.hparams()
-    state = P.init_state(b.params0, b.m, b.n)
+    for comp in (None,) + tuple(COMPRESS_KERNEL):
+        cfg = None if comp is None else CommConfig(comp)
+        state = P.init_state(b.params0, b.m, b.n, comm=cfg)
+        out = {}
+        for mode in (None, "torch"):
+            out[mode] = P.permfl_round(state, b.train, hp, b.loss_fn,
+                                       m_teams=b.m, n_devices=b.n, comm=cfg,
+                                       mode=mode)
+        torch.cuda.synchronize()
+        pairs = [(getattr(out[None], t), getattr(out["torch"], t))
+                 for t in ("x", "w", "theta")]
+        if cfg is not None:
+            pairs += [(getattr(out[None].comm, t), getattr(out["torch"].comm,
+                                                           t))
+                      for t in ("ef_dev", "ef_team")]
+        worst = max(float((g - w).abs().max()) for g, w in pairs)
+        what = "x, w, theta" + ("" if cfg is None else ", ef_dev, ef_team")
+        say("consistency", f"one round [{comp or 'uncompressed'}] kernel vs "
+            f"plain path: max |diff| over {what} = {worst:.3g} (tol 1e-4)")
+        if not worst <= 1e-4:
+            raise AssertionError("kernel and plain paths disagree")
+
+
+def phase_round_times(reps):
+    """``reps`` unprofiled rounds of the CNN cell per variant (uncompressed
+    and each lossy compressor), in one order and then the reverse, each
+    from a synchronized card to a synchronized card on the host clock;
+    and the host time of each round spent inside ``compress_flat_ef``
+    (issuing the uplinks' compression, no synchronize). Prints the
+    medians and ranges; returns {variant: median seconds}."""
+    import torch
+
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import permfl as P
+    from repro_torch.scenarios import build_scenario
+
+    b = build_scenario(SCENARIO, seed=3, device=DEVICE)
+    hp = b.scenario.algo.hparams()
+    variants = (None,) + tuple(COMPRESS_KERNEL)
+    cfgs = {c: None if c is None else CommConfig(c) for c in variants}
+    states = {c: P.init_state(b.params0, b.m, b.n, comm=cfgs[c])
+              for c in variants}
+    spent = [0.0]
+    compress = P.compress_flat_ef
+
+    def timed_compress(*args, **kw):
+        t0 = time.perf_counter()
+        out = compress(*args, **kw)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    def one_round(c):
+        return P.permfl_round(states[c], b.train, hp, b.loss_fn,
+                              m_teams=b.m, n_devices=b.n, comm=cfgs[c])
+
+    walls = {c: [] for c in variants}
+    inside = {c: [] for c in variants}
+    P.compress_flat_ef = timed_compress
+    try:
+        for c in variants:                               # warm-up
+            one_round(c)
+        for rep in range(reps):
+            for c in (variants if rep % 2 == 0 else variants[::-1]):
+                torch.cuda.synchronize()
+                spent[0] = 0.0
+                t0 = time.perf_counter()
+                one_round(c)
+                torch.cuda.synchronize()
+                walls[c].append(time.perf_counter() - t0)
+                inside[c].append(spent[0])
+    finally:
+        P.compress_flat_ef = compress
     out = {}
-    for mode in (None, "torch"):
-        out[mode] = P.permfl_round(state, b.train, hp, b.loss_fn,
-                                   m_teams=b.m, n_devices=b.n, mode=mode)
-    torch.cuda.synchronize()
-    worst = max(float((getattr(out[None], t) - getattr(out["torch"], t))
-                      .abs().max()) for t in ("x", "w", "theta"))
-    say("consistency", f"one round kernel vs plain path: max |diff| over "
-        f"x, w, theta = {worst:.3g} (tol 1e-4)")
-    if not worst <= 1e-4:
-        raise AssertionError("kernel and plain paths disagree")
+    for c in variants:
+        w, i = sorted(walls[c]), sorted(inside[c])
+        out[c] = w[reps // 2]
+        say("rounds", f"[{c or 'uncompressed'}] {reps} rounds, alternating "
+            f"order: median {out[c]:.4f} s host clock (min {w[0]:.4f}, max "
+            f"{w[-1]:.4f}); inside compress_flat_ef median "
+            f"{i[reps // 2] * 1e3:.2f} ms")
+    base = out[None]
+    say("rounds", "median minus uncompressed median: " + ", ".join(
+        f"{c} {(out[c] - base) * 1e3:+.1f} ms" for c in variants[1:]))
+    return out
 
 
-def phase_profile():
-    """One more round under torch.profiler: device time by kernel and the
-    device's busy share of the round's host-clock time."""
+def phase_profile(comp=None):
+    """One more round under torch.profiler (uncompressed, or with
+    compressor ``comp``): device time by kernel and the device's busy
+    share of the round's host-clock time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.comm import CommConfig
     from repro_torch.core import permfl as P
     from repro_torch.scenarios import build_scenario
 
-    b = build_scenario(SCENARIO, seed=2, device="cuda")
+    b = build_scenario(SCENARIO, seed=2, device=DEVICE)
     hp = b.scenario.algo.hparams()
-    state = P.init_state(b.params0, b.m, b.n)
-    P.permfl_round(state, b.train, hp, b.loss_fn, m_teams=b.m,
-                   n_devices=b.n)                   # warm-up
+    cfg = None if comp is None else CommConfig(comp)
+    state = P.init_state(b.params0, b.m, b.n, comm=cfg)
+
+    def one_round():
+        return P.permfl_round(state, b.train, hp, b.loss_fn, m_teams=b.m,
+                              n_devices=b.n, comm=cfg)
+
+    one_round()                                      # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    P.permfl_round(state, b.train, hp, b.loss_fn, m_teams=b.m,
-                   n_devices=b.n)
+    one_round()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        P.permfl_round(state, b.train, hp, b.loss_fn, m_teams=b.m,
-                       n_devices=b.n)
+        one_round()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: an operator's own row repeats the time of
@@ -307,13 +636,14 @@ def phase_profile():
             if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    say("profile", f"one round: {plain_wall:.3f} s host clock unprofiled, "
-        f"{wall:.3f} s profiled; kernels {busy:.3f} s of device time, "
-        f"busy {busy / plain_wall:.1%} of the unprofiled round "
+    tag = f"[{comp or 'uncompressed'}]"
+    say("profile", f"one round {tag}: {plain_wall:.3f} s host clock "
+        f"unprofiled, {wall:.3f} s profiled; kernels {busy:.3f} s of device "
+        f"time, busy {busy / plain_wall:.1%} of the unprofiled round "
         f"({busy / wall:.1%} of the profiled one); "
         f"{sum(e.count for e in rows)} kernel launches")
-    for e in rows[:15]:
-        say("profile", f"{e.self_device_time_total / 1e3:9.2f} ms "
+    for e in rows[:15 if comp is None else 8]:
+        say("profile", f"{tag} {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
 
@@ -332,6 +662,7 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.paper_cnn import CONFIG as CNN
+    from repro_torch.configs.paper_mclr import CONFIG as MCLR
     from repro_torch.flat import Layout
     from repro_torch.models.paper_models import init_params
     from repro_torch.scenarios import get_scenario
@@ -340,24 +671,33 @@ def main(argv) -> int:
     phase_environment()
     phase_build()
     d = get_scenario(SCENARIO).data
-    layout = Layout.of(init_params(CNN, torch.Generator().manual_seed(0)))
+    gen = torch.Generator().manual_seed(0)
+    layout = Layout.of(init_params(CNN, gen))
     checks = phase_kernel_check(layout, d.m_teams, d.n_devices)
+    checks.update(phase_compress_check(
+        {"cnn": layout, "mclr": Layout.of(init_params(MCLR, gen))},
+        d.m_teams * d.n_devices))
     _, launches = phase_main_path()
+    launches.update(phase_comm_paths())
     phase_consistency()
     if "--profile" in argv:
-        phase_profile()
-    main_case = checks["f32"]
+        phase_round_times(ROUND_REPS)
+        for comp in (None,) + tuple(COMPRESS_KERNEL):
+            phase_profile(comp)
+    checks["prox_update"] = checks["f32"]
     say("done", f"{time.perf_counter() - t_start:.1f} s")
+    src = "src/repro_torch/kernels/{}/csrc/{}.cu"
     print(json.dumps({"kernels": [{
-        "name": "prox_update", "route": "cuda",
-        "source": "src/repro_torch/kernels/prox_update/csrc/prox_update.cu",
-        "replaces": "src/repro/kernels/prox_update/prox_update.py:22",
-        "launches": launches["prox_update"],
-        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None}]}),
-        flush=True)
+        "name": name, "route": "cuda",
+        "source": (src.format("prox_update", "prox_update")
+                   if name == "prox_update"
+                   else src.format("compress", "compress")),
+        "replaces": TPU_KERNEL[name], "launches": launches[name],
+        "max_abs_err": checks[name]["max_abs_err"],
+        "ms": checks[name]["ms"], "plain_ms": checks[name]["plain_ms"],
+        "bound_ms": checks[name]["bound_ms"],
+        "bound_by": checks[name]["bound_by"], "library_ms": None}
+        for name in TPU_KERNEL]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

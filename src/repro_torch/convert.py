@@ -4,16 +4,21 @@ The JAX package and the port use the same parameter trees: nested dicts
 with the same leaf names and shapes. These helpers carry them across as
 numpy arrays (which is how the parity tests hand the reference's initial
 parameters and states to the port), and bring the port's results back.
+A compressed run's error-feedback residuals cross the same way: the
+reference's ``CommState`` trees (ef_dev (M, N, ...), ef_team (M, ...))
+become the port's flat buffers, so a JAX state can be continued.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.comm import CommState
 from repro_torch.core.permfl import PerMFLState
 from repro_torch.flat import Layout
 
-__all__ = ["params_from_numpy", "state_from_numpy", "to_numpy"]
+__all__ = ["comm_state_from_numpy", "params_from_numpy", "state_from_numpy",
+           "to_numpy"]
 
 
 def params_from_numpy(tree, device="cpu", dtype=None) -> dict:
@@ -29,30 +34,56 @@ def params_from_numpy(tree, device="cpu", dtype=None) -> dict:
     return t if dtype is None else t.to(dtype)
 
 
+def comm_state_from_numpy(comm, layout: Layout, device="cpu") -> CommState:
+    """The reference's error-feedback residuals, ``{"ef_dev", "ef_team"}``
+    (trees with leading (M, N) and (M,) axes; its ``CommState`` fields)
+    -> the port's flat ``CommState`` on ``device``. The reference's
+    threefry key has no counterpart: the new generator is seeded with 0
+    (build ``CommState`` directly for another stream)."""
+    ef_dev = params_from_numpy(comm["ef_dev"], device, torch.float32)
+    ef_team = params_from_numpy(comm["ef_team"], device, torch.float32)
+    lead_d = next(iter(_leaves(ef_dev))).shape[:2]
+    lead_t = next(iter(_leaves(ef_team))).shape[:1]
+    return CommState(
+        ef_dev=layout.flatten(ef_dev, lead=lead_d),
+        ef_team=layout.flatten(ef_team, lead=lead_t),
+        gen=torch.Generator(device=torch.device(device)).manual_seed(0))
+
+
 def state_from_numpy(state, device="cpu") -> PerMFLState:
     """A PerMFL state given as ``{"x", "w", "theta", "round"}`` (tiers as
     nested dicts of arrays with leading (), (M,), (M, N) axes; the
-    reference's ``PerMFLState`` fields) -> the port's flat state."""
+    reference's ``PerMFLState`` fields), plus ``"comm"`` for a compressed
+    run (see :func:`comm_state_from_numpy`) -> the port's flat state."""
     x = params_from_numpy(state["x"], device)
     w = params_from_numpy(state["w"], device)
     theta = params_from_numpy(state["theta"], device)
     layout = Layout.of(x)
     first_w = next(iter(_leaves(w)))
     first_t = next(iter(_leaves(theta)))
+    comm = state.get("comm")
     return PerMFLState(
         x=layout.flatten(x), w=layout.flatten(w, lead=first_w.shape[:1]),
         theta=layout.flatten(theta, lead=first_t.shape[:2]),
-        round=int(state.get("round", 0)), layout=layout)
+        round=int(state.get("round", 0)), layout=layout,
+        comm=None if comm is None else comm_state_from_numpy(
+            comm, layout, device))
 
 
 def to_numpy(obj):
     """Tensors, nested dicts of tensors, or a ``PerMFLState`` (as
-    ``{"x", "w", "theta", "round"}`` of nested numpy dicts) -> numpy."""
+    ``{"x", "w", "theta", "round"}`` of nested numpy dicts, plus
+    ``"comm": {"ef_dev", "ef_team"}`` for a compressed run) -> numpy."""
     if isinstance(obj, PerMFLState):
-        return {"x": to_numpy(obj.params("x")),
-                "w": to_numpy(obj.params("w")),
-                "theta": to_numpy(obj.params("theta")),
-                "round": obj.round}
+        out = {"x": to_numpy(obj.params("x")),
+               "w": to_numpy(obj.params("w")),
+               "theta": to_numpy(obj.params("theta")),
+               "round": obj.round}
+        if obj.comm is not None:
+            out["comm"] = {
+                "ef_dev": to_numpy(obj.layout.unflatten(obj.comm.ef_dev)),
+                "ef_team": to_numpy(obj.layout.unflatten(obj.comm.ef_team))}
+        return out
     if isinstance(obj, dict):
         return {k: to_numpy(v) for k, v in obj.items()}
     if isinstance(obj, torch.Tensor):

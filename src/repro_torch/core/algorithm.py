@@ -9,9 +9,12 @@ Masks are (M,) / (M, N) float32 tensors; algorithms without a
 participation notion ignore them. ``eval`` returns scalar metrics (keys
 among "pm" / "tm" / "gm" / "train_loss"). Implementations are frozen
 dataclasses: change a hyperparameter by building a new instance.
+Algorithms that move compressed bytes implement ``make_ledger`` /
+``log_comm_round``, and the engine feeds them the realized (team-gated)
+participation counts.
 
-Only PerMFL is ported so far; the baselines, probes, health detectors,
-serving export and byte ledger are later items of ROADMAP.md.
+Only PerMFL is ported so far; the baselines, probes, health detectors
+and serving export are later items of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.comm import CommConfig, CommLedger, check_ported
 from repro_torch.core import permfl as P
 
 __all__ = ["FLAlgorithm", "FLAlgorithmBase", "PerMFL"]
@@ -47,41 +51,56 @@ class FLAlgorithm(Protocol):
 
 class FLAlgorithmBase:
     """Defaults: no participation support (the engine then refuses
-    team_frac/device_frac < 1)."""
+    team_frac/device_frac < 1) and no byte ledger."""
 
     supports_participation = False
+
+    def make_ledger(self, params) -> Optional[CommLedger]:
+        """Host-side byte ledger for this algorithm, or None (no comm
+        accounting). params: one (unstacked) model giving the leaf
+        sizes."""
+        return None
+
+    def log_comm_round(self, ledger: CommLedger, *, n_teams: int,
+                       n_devices: int) -> None:
+        """Account one round's bytes from realized (team-gated)
+        participation counts. No-op unless the algorithm moves bytes."""
 
 
 @dataclass(frozen=True)
 class PerMFL(FLAlgorithmBase):
     """Algorithm 1 (``core.permfl``) behind the unified API.
 
-    comm: compressed uplinks are not ported yet; anything but None
-    raises.
+    comm: optional CommConfig -- uplinks cross compressed with per-sender
+    error feedback; the engine accounts bytes via make_ledger /
+    log_comm_round from realized (gated) participation counts. A lossy
+    compressor without error feedback raises (not ported yet).
     """
     loss_fn: Callable
     hp: P.PerMFLHParams
-    comm: Optional[Any] = None
+    comm: Optional[CommConfig] = None
 
     name = "permfl"
     supports_participation = True   # paper modes 1-4 (§3.1)
 
     def __post_init__(self):
         if self.comm is not None:
-            raise NotImplementedError(
-                "compressed uplinks are not ported yet (ROADMAP.md queue "
-                "1, item 6)")
+            check_ported(self.comm)
 
     def init_state(self, params, m: int, n: int) -> P.PerMFLState:
-        """All tiers (x / w / theta) broadcast from one model."""
-        return P.init_state(params, m, n)
+        """All tiers (x / w / theta) broadcast from one model; EF
+        residuals zeroed when comm is configured."""
+        return P.init_state(params, m, n, comm=self.comm)
 
-    def round(self, state, data, *, team_mask, device_mask):
-        """One Algorithm-1 global round (K team iters x L device steps)."""
+    def round(self, state, data, *, team_mask, device_mask, uniforms=None):
+        """One Algorithm-1 global round (K team iters x L device steps);
+        ``uniforms`` injects the compressors' uniforms (see
+        ``permfl_round``)."""
         m, n = device_mask.shape
         return P.permfl_round(state, data, self.hp, self.loss_fn,
                               m_teams=m, n_devices=n, team_mask=team_mask,
-                              device_mask=device_mask)
+                              device_mask=device_mask, comm=self.comm,
+                              uniforms=uniforms)
 
     def tree_hparams(self):
         """``(leaves, rebuild)``: the SWEEPABLE_HPARAMS floats of ``hp`` by
@@ -110,3 +129,16 @@ class PerMFL(FLAlgorithmBase):
         out["train_loss"] = float(
             self.loss_fn(state.layout.unflatten(theta), train).mean())
         return out
+
+    def make_ledger(self, params):
+        """CommLedger sized from the model's leaf sizes; None when no
+        compression is configured."""
+        if self.comm is None:
+            return None
+        return CommLedger.for_params(self.comm, params)
+
+    def log_comm_round(self, ledger, *, n_teams, n_devices):
+        """Bill one round: K LAN uplinks per participating device, one WAN
+        uplink per participating team (counts pre-gated by the engine)."""
+        ledger.log_round(k_team=self.hp.k_team, n_teams=n_teams,
+                         n_devices=n_devices)

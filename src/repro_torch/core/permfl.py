@@ -22,10 +22,13 @@ uncompressed (the ``comm`` branch is not ported yet).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch.comm import (CommConfig, CommState, check_ported,
+                              compress_flat_ef, init_comm_state,
+                              needs_uniforms)
 from repro_torch.flat import Layout
 from repro_torch.kernels.prox_update import prox_step_
 
@@ -55,12 +58,14 @@ class PerMFLHParams:
 class PerMFLState:
     """x (S,): global model; w (M, S): team models; theta (M, N, S):
     device models -- flat tier buffers laid out by ``layout``;
-    round: rounds done so far."""
+    round: rounds done so far; comm: the error-feedback state when the
+    uplinks are compressed, else None."""
     x: torch.Tensor
     w: torch.Tensor
     theta: torch.Tensor
     round: int
     layout: Layout
+    comm: Optional[CommState] = None
 
     def params(self, tier: str) -> dict:
         """Tier ``"x"``, ``"w"`` or ``"theta"`` as a parameter tree (views
@@ -68,15 +73,19 @@ class PerMFLState:
         return self.layout.unflatten(getattr(self, tier))
 
 
-def init_state(params, m_teams: int, n_devices: int) -> PerMFLState:
+def init_state(params, m_teams: int, n_devices: int,
+               comm: Optional[CommConfig] = None) -> PerMFLState:
     """All tiers initialized from one (unstacked) model, on the device
-    its leaves are on (Algorithm 1, init)."""
+    its leaves are on (Algorithm 1, init); zero residuals and a seeded
+    generator when ``comm`` is given."""
     layout = Layout.of(params)
     x = layout.flatten(params)
+    cs = None if comm is None else init_comm_state(params, m_teams,
+                                                   n_devices, comm)
     return PerMFLState(
         x=x, w=x.expand(m_teams, -1).clone(),
         theta=x.expand(m_teams, n_devices, -1).clone(), round=0,
-        layout=layout)
+        layout=layout, comm=cs)
 
 
 def _keep_where(mask, new, old):
@@ -123,9 +132,31 @@ def device_grads(loss_fn: Callable, layout: Layout, theta: torch.Tensor,
     return g
 
 
+def _uplink_uniforms(comm: CommConfig, uniforms, gen, t: int, k: int,
+                     b: int, layout: Layout, dev):
+    """The uniforms of uplink ``k`` of round ``t`` (k < K: a LAN uplink,
+    k == K: the WAN uplink) as a (b, S) buffer whose first P columns are
+    the values, or None when the compressor uses none: from the injected
+    source, else drawn from ``gen``. Rows of S columns keep every row
+    start 16-byte aligned for the kernels."""
+    if not needs_uniforms(comm):
+        return None
+    if uniforms is None:
+        return torch.rand((b, layout.stride), generator=gen, device=dev)
+    u = torch.as_tensor(uniforms(t, k, b), dtype=torch.float32)
+    if tuple(u.shape) != (b, layout.size):
+        raise ValueError(f"uniforms({t}, {k}, {b}) gave {tuple(u.shape)}, "
+                         f"expected {(b, layout.size)}")
+    buf = torch.zeros((b, layout.stride), dtype=torch.float32, device=dev)
+    buf[:, :layout.size] = u
+    return buf
+
+
 def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
                  loss_fn: Callable, *, m_teams: int, n_devices: int,
-                 team_mask=None, device_mask=None, comm=None, mode=None):
+                 team_mask=None, device_mask=None,
+                 comm: Optional[CommConfig] = None, uniforms=None,
+                 mode=None):
     """One global round.
 
     data: dict of tensors with leading (M, N, ...) -- each device's
@@ -133,14 +164,26 @@ def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
         (D,) per-device losses for parameter leaves (D, ...).
     team_mask: (M,) in {0,1}; device_mask: (M, N). None = full
         participation (the paper's default mode 1).
-    mode: kernel mode of the device step (None: by device; "torch": the
-        plain version, for comparisons on the card).
+    comm: optional CommConfig: the device->team theta deltas (each team
+        iteration) and the team->server w deltas (once per round) cross
+        compressed, with per-sender error feedback in ``state.comm``
+        (build the state with ``init_state(..., comm=cfg)``).
+    uniforms: optional ``uniforms(t, k, b) -> (b, P)`` source of the
+        rand-k / int8 uniforms of uplink k of round t (k < K: the LAN
+        uplink of team iteration k, M*N senders; k == K: the WAN uplink,
+        M senders), leaves back to back in row order. None draws them
+        from the state's generator; the parity tests hand the port the
+        reference's streams this way.
+    mode: kernel mode of the device step and the compress ops (None: by
+        device; "torch": the plain versions, for comparisons on the card).
     Returns the new state; ``state`` is left as it was.
     """
     if comm is not None:
-        raise NotImplementedError(
-            "compressed uplinks are not ported yet (ROADMAP.md queue 1, "
-            "item 6)")
+        if state.comm is None:
+            raise ValueError("comm config given but state carries no "
+                             "CommState; build the state with "
+                             "init_state(..., comm=cfg)")
+        check_ported(comm)
     m, n = m_teams, n_devices
     dev = state.x.device
     team_mask, device_mask = normalize_masks(team_mask, device_mask, m, n,
@@ -151,11 +194,17 @@ def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
     batch = {k: v.reshape((m * n,) + tuple(v.shape[2:]))
              for k, v in data.items()}
     c = 1.0 - hp.eta * hp.lam - hp.eta * hp.gamma
+    if comm is not None:
+        # devices of masked-out teams may run locally but never transmit:
+        # their residuals must not record undelivered messages
+        ef_gate = device_mask * team_mask[:, None]
+        ef_dev = state.comm.ef_dev
+        gen = state.comm.generator_copy()
 
     # w_i^{t,0} = x^t
     w = x.expand(m, stride).clone()
     theta = state.theta
-    for _ in range(hp.k_team):
+    for k in range(hp.k_team):
         # re-init theta from w (LAN downlink); momentum restarts at zero
         theta = w[:, None].expand(m, n, stride).clone()
         flat = theta.view(m * n, stride)
@@ -168,19 +217,45 @@ def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
                        None if mom is None else layout.columns(mom),
                        alpha=hp.alpha, lam=hp.lam, momentum=hp.momentum,
                        weight_decay=hp.weight_decay, mode=mode)
+        if comm is None:
+            theta_up = theta
+        else:
+            # LAN uplink: each device ships C(theta - w + ef); the team
+            # adds the decompressed delta to the anchor w it holds
+            anchor = w[:, None].expand(m, n, stride)
+            u = _uplink_uniforms(comm, uniforms, gen, state.round, k,
+                                 m * n, layout, dev)
+            chat, ef_new = compress_flat_ef(
+                comm, layout, (theta - anchor).view(m * n, stride),
+                ef_dev.reshape(m * n, stride), u, mode=mode)
+            ef_dev = _keep_where(ef_gate, ef_new.view(m, n, stride), ef_dev)
+            theta_up = anchor + chat.view(m, n, stride)
         # team update (eq. 9)
-        theta_bar = _masked_mean(theta, device_mask, axis=1, fallback=w)
+        theta_bar = _masked_mean(theta_up, device_mask, axis=1, fallback=w)
         w = c * w + hp.eta * hp.gamma * x[None] + hp.lam * hp.eta * theta_bar
 
     # eq. 13 (global) -- non-participating teams keep w out of the average
     # and do not move (their w snaps back to x next round anyway)
     w_eff = _keep_where(team_mask, w, state.w)
-    w_bar = _masked_mean(w_eff, team_mask, axis=0, fallback=x)
+    if comm is None:
+        w_bar = _masked_mean(w_eff, team_mask, axis=0, fallback=x)
+        comm_state = state.comm
+    else:
+        # WAN uplink: each team ships C(w - x + ef); the server adds the
+        # decompressed delta to the x it holds. Masked-out teams need no
+        # substitute value: the masked mean zeroes their contribution.
+        u = _uplink_uniforms(comm, uniforms, gen, state.round, hp.k_team, m,
+                             layout, dev)
+        chat, ef_new = compress_flat_ef(comm, layout, w - x[None],
+                                        state.comm.ef_team, u, mode=mode)
+        ef_team = _keep_where(team_mask, ef_new, state.comm.ef_team)
+        w_bar = _masked_mean(x[None] + chat, team_mask, axis=0, fallback=x)
+        comm_state = CommState(ef_dev=ef_dev, ef_team=ef_team, gen=gen)
     x_new = (1.0 - hp.beta * hp.gamma) * x + hp.beta * hp.gamma * w_bar
     # devices that did not participate keep their previous theta
     th_eff = _keep_where(device_mask, theta, state.theta)
     return PerMFLState(x=x_new, w=w_eff, theta=th_eff,
-                       round=state.round + 1, layout=layout)
+                       round=state.round + 1, layout=layout, comm=comm_state)
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,11 @@ class Layout:
                               else chunk.squeeze(-1))
         return tree
 
+    @property
+    def leaf_sizes(self) -> tuple:
+        """The number of values of each leaf, in row order."""
+        return tuple(_numel(s) for s in self.shapes)
+
     def columns(self, buf: torch.Tensor) -> torch.Tensor:
         """The P real columns of ``buf`` (a view without the padding)."""
         return buf[..., :self.size]

@@ -32,6 +32,7 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 # kernel name -> its CUDA source
 KERNEL_SOURCES = {
     "prox_update": _KERNELS_DIR / "prox_update" / "csrc" / "prox_update.cu",
+    "compress": _KERNELS_DIR / "compress" / "csrc" / "compress.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

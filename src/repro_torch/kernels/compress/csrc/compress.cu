@@ -1,0 +1,514 @@
+// Error-feedback compression of the PerMFL uplinks for Hopper, sm_90a.
+//
+// Replaces the Pallas TPU kernels of repro/kernels/compress/compress.py:
+//
+//   ef_select (top-k)  _ef_topk_kernel   compress.py:107
+//   ef_select (rand-k) _ef_randk_kernel  compress.py:123
+//   ef_int8            _ef_quant_kernel  compress.py:133
+//   ef_sign            _ef_sign_kernel   compress.py:168
+//
+// Semantics are pinned by the plain PyTorch versions in ../ref.py (and the
+// reference's repro/kernels/compress/ref.py). Every kernel first forms
+// msg = delta + ef and finally writes dq (what the receiver adds) and the new
+// residual ef' = msg - dq:
+//
+//   select  keep every value whose score (|msg| for top-k, the given uniform
+//           u for rand-k) is strictly above the segment's threshold (its k-th
+//           largest score), then fill the remaining k - n_strict slots with
+//           == threshold ties in index order; ranks = wire slot in [0, k) or
+//           -1, dq = msg where kept, else 0.
+//   int8    per 128-value row of the leaf: scale = max(absmax * f32(1/127),
+//           1e-12), q = clip(floor(msg / scale + u), -127, 127), dq = q*scale.
+//   sign    bits (rows, 16) u8 per leaf, lane 8c+j of a row at bit j of byte
+//           c, 1 where msg >= 0; dq = scale * sign(msg), sign(0) = 0, with
+//           the leaf's scale given.
+//
+// Layout. A tier is one flat row per sender with the parameter leaves packed
+// back to back (repro_torch/flat.py), so every launch covers ALL senders and
+// ALL leaves at once: a segment table (int64 x 4 per leaf: offset in the
+// row, length p, k, first wire row) says where each leaf lies, and int8
+// scales / sign bytes are per 128-value row OF THE LEAF, counted from the
+// leaf's first value, the last row zero-padded. Leaf offsets are mostly not
+// 16-byte aligned, so 16-byte vector accesses are taken only where the
+// caller vouches for the base pointers and row strides (`vec`) AND the
+// leaf's offset is a multiple of 4; everything else takes the scalar path.
+//
+// What bounds them on the card: HBM bytes (a handful of flops per value).
+// At the CNN LAN uplink, 40 senders x 206,922 f32 values, 3.35 TB/s:
+//   ef_topk   delta, ef read; dq, ef' written; ranks i32 written: 20 B/value,
+//             165.5 MB -> 49.4 us
+//   ef_randk  + the uniforms read: 24 B/value, 198.6 MB -> 59.3 us
+//   ef_int8   delta, ef, u read; dq, ef' written; q i8 written: 21 B/value
+//             + 4 B per scale, 174.1 MB -> 52.0 us
+//   ef_sign   delta, ef read; dq, ef' written: 16 B/value + 16 B per row of
+//             bits, 133.5 MB -> 39.8 us
+// What the design does about it:
+//  * int8 and sign give one warp to each 128-value row: 4 values per lane
+//    (one float4 where aligned), the row absmax by warp shuffles, the sign
+//    byte by one shuffle between lane pairs. All sender rows of all leaves
+//    run at once (~65k warps at the CNN LAN uplink), so they stream.
+//  * The select needs an exact prefix count over the WHOLE leaf, and the
+//    tie-fill needs the leaf's full strict count (cap = k - n_strict) before
+//    any tie is decided. It is one block per (sender, leaf): a count pass,
+//    then a scan pass over 4096-value tiles (4 values a thread), a block-wide
+//    int32 scan of the packed (strict << 16 | tie) counts per tile, carried
+//    from tile to tile. Simple and exact, but the largest leaf (200,704
+//    values) has only one block per sender: 40 blocks on 132 SMs stream it
+//    serially, far from the bound. A multi-block scan (decoupled look-back)
+//    is the way to the bound.
+//
+// Each operation rounds on its own, in the plain version's order: __fadd_rn
+// for msg, __fsub_rn for ef', __fmul_rn for absmax * (1/127) and q * scale,
+// __fdiv_rn for msg / scale. So no multiply-add contracts into an FMA, and
+// the kernels agree with the plain version bit for bit (build without
+// --use_fast_math). The kernels run on the caller's stream and allocate
+// nothing.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLanes = 128;         // values per int8 scale / sign row
+constexpr int kSelThreads = 1024;
+constexpr int kSelItems = 4;        // consecutive values per thread and tile
+constexpr int kSelTile = kSelThreads * kSelItems;
+constexpr int kRowWarps = 8;        // leaf rows (one warp each) per block
+constexpr float kInv127 = 0x1.020408p-7f;  // f32(1/127), as the reference
+
+struct Seg {
+  int64_t off, len, k, row0;
+};
+
+__device__ __forceinline__ Seg load_seg(const int64_t* segs, int s) {
+  return Seg{segs[4 * s], segs[4 * s + 1], segs[4 * s + 2], segs[4 * s + 3]};
+}
+
+// The segment that holds wire row `row`: the last one whose first row is
+// <= row (segments are in row order and none is empty).
+__device__ __forceinline__ int find_seg(const int64_t* segs, int nseg,
+                                        int64_t row) {
+  int lo = 0, hi = nseg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (segs[4 * mid + 3] <= row)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// Exclusive block-wide prefix sum of v over threadIdx.x; *total gets the
+// block's sum. Every thread of the block must call it.
+__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
+                                                         uint32_t* smem,
+                                                         uint32_t* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  uint32_t incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t n = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += n;
+  }
+  if (lane == 31) smem[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const uint32_t w = lane < nwarps ? smem[lane] : 0u;
+    uint32_t wi = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t n = __shfl_up_sync(kFull, wi, o);
+      if (lane >= o) wi += n;
+    }
+    smem[lane] = wi - w;
+    if (lane == 31) smem[32] = wi;
+  }
+  __syncthreads();
+  const uint32_t excl = smem[warp] + incl - v;
+  *total = smem[32];
+  __syncthreads();  // smem is reused by the next call
+  return excl;
+}
+
+template <bool RANDK>
+__device__ __forceinline__ float score_of(float msg, float u) {
+  return RANDK ? u : fabsf(msg);
+}
+
+// One block per (leaf segment, sender): blockIdx.x = segment, blockIdx.y =
+// sender. Outputs share one row stride ld_o (dq, ranks, ef_out). The last
+// segment's block also writes the columns [end, cols) past the last leaf:
+// nothing sent, dq 0, ranks -1, ef' = msg.
+template <bool RANDK>
+__global__ void __launch_bounds__(kSelThreads)
+    ef_select_kernel(const float* __restrict__ delta,
+                     const float* __restrict__ ef,
+                     const float* __restrict__ u, float* __restrict__ dq,
+                     int32_t* __restrict__ ranks,
+                     float* __restrict__ ef_out,
+                     const int64_t* __restrict__ segs,
+                     const float* __restrict__ thresh, int nseg,
+                     int64_t cols, int64_t ld_d, int64_t ld_e, int64_t ld_u,
+                     int64_t ld_o, int vec) {
+  __shared__ uint32_t smem[33];
+  const int s = blockIdx.x;
+  const int64_t b = blockIdx.y;
+  const Seg sg = load_seg(segs, s);
+  if (s == nseg - 1) {
+    const int64_t end = sg.off + sg.len;
+    for (int64_t c = end + threadIdx.x; c < cols; c += kSelThreads) {
+      dq[b * ld_o + c] = 0.0f;
+      ranks[b * ld_o + c] = -1;
+      ef_out[b * ld_o + c] = __fadd_rn(delta[b * ld_d + c], ef[b * ld_e + c]);
+    }
+  }
+  const int64_t len = sg.len;
+  const float thr = thresh[b * nseg + s];
+  delta += b * ld_d + sg.off;
+  ef += b * ld_e + sg.off;
+  if (RANDK) u += b * ld_u + sg.off;
+  dq += b * ld_o + sg.off;
+  ranks += b * ld_o + sg.off;
+  ef_out += b * ld_o + sg.off;
+  const bool vec_ok = vec != 0 && (sg.off % 4) == 0;
+
+  // pass 1: the leaf's strict count (rand-k scores need only u)
+  uint32_t n = 0;
+  for (int64_t i = threadIdx.x; i < len; i += kSelThreads) {
+    const float sc = RANDK ? u[i] : fabsf(__fadd_rn(delta[i], ef[i]));
+    n += sc > thr;
+  }
+  uint32_t n_strict;
+  block_exclusive_scan(n, smem, &n_strict);
+  const int64_t cap = sg.k - static_cast<int64_t>(n_strict);
+
+  // pass 2: tiles in index order, prefix counts carried across tiles
+  int64_t carry_s = 0, carry_t = 0;
+  for (int64_t tile = 0; tile < len; tile += kSelTile) {
+    const int64_t base = tile + int64_t(threadIdx.x) * kSelItems;
+    const bool full = vec_ok && base + kSelItems <= len;
+    float m[kSelItems], sc[kSelItems];
+    if (full) {
+      const float4 dv = *reinterpret_cast<const float4*>(delta + base);
+      const float4 ev = *reinterpret_cast<const float4*>(ef + base);
+      m[0] = __fadd_rn(dv.x, ev.x);
+      m[1] = __fadd_rn(dv.y, ev.y);
+      m[2] = __fadd_rn(dv.z, ev.z);
+      m[3] = __fadd_rn(dv.w, ev.w);
+      float4 uv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (RANDK) uv = *reinterpret_cast<const float4*>(u + base);
+      sc[0] = score_of<RANDK>(m[0], uv.x);
+      sc[1] = score_of<RANDK>(m[1], uv.y);
+      sc[2] = score_of<RANDK>(m[2], uv.z);
+      sc[3] = score_of<RANDK>(m[3], uv.w);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSelItems; ++j) {
+        m[j] = 0.0f;
+        sc[j] = 0.0f;
+        if (base + j < len) {
+          m[j] = __fadd_rn(delta[base + j], ef[base + j]);
+          sc[j] = score_of<RANDK>(m[j], RANDK ? u[base + j] : 0.0f);
+        }
+      }
+    }
+    bool strict[kSelItems], tie[kSelItems];
+    uint32_t cs = 0, ct = 0;
+#pragma unroll
+    for (int j = 0; j < kSelItems; ++j) {
+      const bool in = base + j < len;
+      strict[j] = in && sc[j] > thr;
+      tie[j] = in && sc[j] == thr;
+      cs += strict[j];
+      ct += tie[j];
+    }
+    // a tile holds 4096 values, so each count fits in 16 bits
+    uint32_t tot;
+    const uint32_t ex = block_exclusive_scan((cs << 16) | ct, smem, &tot);
+    int64_t ps = carry_s + (ex >> 16);
+    int64_t pt = carry_t + (ex & 0xffffu);
+    float d[kSelItems], e[kSelItems];
+    int32_t r[kSelItems];
+#pragma unroll
+    for (int j = 0; j < kSelItems; ++j) {
+      ps += strict[j];
+      pt += tie[j];
+      const bool sel = strict[j] || (tie[j] && pt <= cap);
+      d[j] = sel ? m[j] : 0.0f;
+      r[j] = sel ? static_cast<int32_t>(ps + (pt < cap ? pt : cap) - 1) : -1;
+      e[j] = __fsub_rn(m[j], d[j]);
+    }
+    if (full) {
+      *reinterpret_cast<float4*>(dq + base) = make_float4(d[0], d[1], d[2], d[3]);
+      *reinterpret_cast<float4*>(ef_out + base) =
+          make_float4(e[0], e[1], e[2], e[3]);
+      *reinterpret_cast<int4*>(ranks + base) = make_int4(r[0], r[1], r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSelItems; ++j) {
+        if (base + j < len) {
+          dq[base + j] = d[j];
+          ef_out[base + j] = e[j];
+          ranks[base + j] = r[j];
+        }
+      }
+    }
+    carry_s += tot >> 16;
+    carry_t += tot & 0xffffu;
+  }
+}
+
+// Where a warp's row lies: lane values start at column `start + 4 * lane`
+// of the flat row, `n` of the row's 128 values are real.
+struct RowAt {
+  int s;
+  int64_t start;
+  int n;
+  bool vec;
+};
+
+__device__ __forceinline__ RowAt locate_row(const int64_t* segs, int nseg,
+                                            int64_t row, int vec) {
+  const int s = find_seg(segs, nseg, row);
+  const Seg sg = load_seg(segs, s);
+  const int64_t r = row - sg.row0;
+  const int64_t rest = sg.len - r * kLanes;
+  return RowAt{s, sg.off + r * kLanes,
+               static_cast<int>(rest < kLanes ? rest : kLanes),
+               vec != 0 && (sg.off % 4) == 0};
+}
+
+// msg = delta + ef for the lane's 4 values; padding lanes read 0.
+__device__ __forceinline__ void load_msg(const float* d, const float* e,
+                                         int j0, int n, bool vec, float m[4]) {
+  if (vec && j0 + 4 <= n) {
+    const float4 dv = *reinterpret_cast<const float4*>(d + j0);
+    const float4 ev = *reinterpret_cast<const float4*>(e + j0);
+    m[0] = __fadd_rn(dv.x, ev.x);
+    m[1] = __fadd_rn(dv.y, ev.y);
+    m[2] = __fadd_rn(dv.z, ev.z);
+    m[3] = __fadd_rn(dv.w, ev.w);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      m[t] = j0 + t < n ? __fadd_rn(d[j0 + t], e[j0 + t]) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* dq, float* ef_out, int j0,
+                                           int n, bool vec, const float d[4],
+                                           const float e[4]) {
+  if (vec && j0 + 4 <= n) {
+    *reinterpret_cast<float4*>(dq + j0) = make_float4(d[0], d[1], d[2], d[3]);
+    *reinterpret_cast<float4*>(ef_out + j0) =
+        make_float4(e[0], e[1], e[2], e[3]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (j0 + t < n) {
+        dq[j0 + t] = d[t];
+        ef_out[j0 + t] = e[t];
+      }
+    }
+  }
+}
+
+// Columns [end, cols) past the last leaf, by the warp of the last wire
+// row: nothing sent, dq 0 (and q 0), ef' = msg.
+__device__ __forceinline__ void write_tail(const float* delta, const float* ef,
+                                           float* dq, float* ef_out, int8_t* q,
+                                           int64_t end, int64_t cols,
+                                           int lane) {
+  for (int64_t c = end + lane; c < cols; c += 32) {
+    dq[c] = 0.0f;
+    ef_out[c] = __fadd_rn(delta[c], ef[c]);
+    if (q) q[c] = 0;
+  }
+}
+
+// One warp per 128-value leaf row: blockIdx.x * kRowWarps + warp = the
+// sender's wire row (over all leaves), blockIdx.y = sender. dq, ef_out and
+// q share the row stride ld_o; scales (senders, rows_total).
+__global__ void __launch_bounds__(kRowWarps * 32)
+    ef_int8_kernel(const float* __restrict__ delta,
+                   const float* __restrict__ ef,
+                   const float* __restrict__ noise, int8_t* __restrict__ q,
+                   float* __restrict__ scales, float* __restrict__ dq,
+                   float* __restrict__ ef_out,
+                   const int64_t* __restrict__ segs, int nseg,
+                   int64_t rows_total, int64_t end, int64_t cols,
+                   int64_t ld_d, int64_t ld_e, int64_t ld_n, int64_t ld_o,
+                   int vec) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = int64_t(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows_total) return;  // the whole warp
+  const int64_t b = blockIdx.y;
+  if (row == rows_total - 1)
+    write_tail(delta + b * ld_d, ef + b * ld_e, dq + b * ld_o,
+               ef_out + b * ld_o, q + b * ld_o, end, cols, lane);
+  const RowAt at = locate_row(segs, nseg, row, vec);
+  const int j0 = 4 * lane;
+  float m[4], u[4];
+  load_msg(delta + b * ld_d + at.start, ef + b * ld_e + at.start, j0, at.n,
+           at.vec, m);
+  const float* nz = noise + b * ld_n + at.start;
+  if (at.vec && j0 + 4 <= at.n) {
+    const float4 uv = *reinterpret_cast<const float4*>(nz + j0);
+    u[0] = uv.x;
+    u[1] = uv.y;
+    u[2] = uv.z;
+    u[3] = uv.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) u[t] = j0 + t < at.n ? nz[j0 + t] : 0.0f;
+  }
+  float amax = fmaxf(fmaxf(fabsf(m[0]), fabsf(m[1])),
+                     fmaxf(fabsf(m[2]), fabsf(m[3])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+  const float scale = fmaxf(__fmul_rn(amax, kInv127), 1e-12f);
+  float d[4], e[4];
+  int8_t qi[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float qf = fminf(
+        fmaxf(floorf(__fadd_rn(__fdiv_rn(m[t], scale), u[t])), -127.0f),
+        127.0f);
+    qi[t] = static_cast<int8_t>(qf);
+    d[t] = __fmul_rn(qf, scale);
+    e[t] = __fsub_rn(m[t], d[t]);
+  }
+  store_pair(dq + b * ld_o + at.start, ef_out + b * ld_o + at.start, j0,
+             at.n, at.vec, d, e);
+  int8_t* qrow = q + b * ld_o + at.start;
+  if (at.vec && j0 + 4 <= at.n) {
+    *reinterpret_cast<char4*>(qrow + j0) = make_char4(qi[0], qi[1], qi[2], qi[3]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (j0 + t < at.n) qrow[j0 + t] = qi[t];
+  }
+  if (lane == 0) scales[b * rows_total + row] = scale;
+}
+
+// One warp per 128-value leaf row, as ef_int8_kernel. scale: (senders,
+// nseg), the leaf's mean |msg|; bits: (senders, rows_total, 16).
+__global__ void __launch_bounds__(kRowWarps * 32)
+    ef_sign_kernel(const float* __restrict__ delta,
+                   const float* __restrict__ ef,
+                   const float* __restrict__ scale, uint8_t* __restrict__ bits,
+                   float* __restrict__ dq, float* __restrict__ ef_out,
+                   const int64_t* __restrict__ segs, int nseg,
+                   int64_t rows_total, int64_t end, int64_t cols,
+                   int64_t ld_d, int64_t ld_e, int64_t ld_o, int vec) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = int64_t(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
+  if (row >= rows_total) return;  // the whole warp
+  const int64_t b = blockIdx.y;
+  if (row == rows_total - 1)
+    write_tail(delta + b * ld_d, ef + b * ld_e, dq + b * ld_o,
+               ef_out + b * ld_o, nullptr, end, cols, lane);
+  const RowAt at = locate_row(segs, nseg, row, vec);
+  const int j0 = 4 * lane;
+  float m[4];
+  load_msg(delta + b * ld_d + at.start, ef + b * ld_e + at.start, j0, at.n,
+           at.vec, m);
+  const float sc = scale[b * nseg + at.s];
+  uint32_t nib = 0;
+  float d[4], e[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    nib |= (m[t] >= 0.0f ? 1u : 0u) << t;
+    const float sg = m[t] > 0.0f ? 1.0f : (m[t] < 0.0f ? -1.0f : 0.0f);
+    d[t] = __fmul_rn(sc, sg);
+    e[t] = __fsub_rn(m[t], d[t]);
+  }
+  // byte c of the row = lanes 2c (bits 0-3) and 2c+1 (bits 4-7)
+  const uint32_t hi = __shfl_down_sync(kFull, nib, 1);
+  if ((lane & 1) == 0)
+    bits[(b * rows_total + row) * (kLanes / 8) + (lane >> 1)] =
+        static_cast<uint8_t>(nib | (hi << 4));
+  store_pair(dq + b * ld_o + at.start, ef_out + b * ld_o + at.start, j0,
+             at.n, at.vec, d, e);
+}
+
+int row_grid(int64_t rows_total, int64_t senders, dim3* grid) {
+  const int64_t bx = (rows_total + kRowWarps - 1) / kRowWarps;
+  if (rows_total < 1 || senders < 1 || senders > 65535 || bx > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *grid = dim3(static_cast<unsigned>(bx), static_cast<unsigned>(senders));
+  return 0;
+}
+
+}  // namespace
+
+// All functions: pointers are device pointers on the caller's stream;
+// ld_* are row strides in elements; segs is the (nseg, 4) int64 segment
+// table (offset, length >= 1, k, first wire row) in row order, the leaves
+// back to back from column 0; cols >= the last leaf's end is the width of
+// the rows, and columns past the last leaf get dq 0 (ranks -1, q 0) and
+// ef' = msg; vec = 1 vouches that every pointer and row start is 16-byte
+// aligned, so leaves whose offset is a multiple of 4 take 16-byte
+// accesses. Each returns cudaGetLastError() after its launch (0 on
+// success).
+
+// randk = 0: top-k on |delta + ef|; randk = 1: rand-k on u. thresh is
+// (senders, nseg), the k-th largest score of each (sender, leaf).
+extern "C" int ef_select(int randk, const float* delta, const float* ef,
+                         const float* u, float* dq, int32_t* ranks,
+                         float* ef_out, const int64_t* segs,
+                         const float* thresh, int nseg, int64_t cols,
+                         int64_t senders, int64_t ld_d, int64_t ld_e,
+                         int64_t ld_u, int64_t ld_o, int vec, void* stream) {
+  if (nseg < 1 || senders < 1 || senders > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(nseg), static_cast<unsigned>(senders));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (randk)
+    ef_select_kernel<true><<<grid, kSelThreads, 0, s>>>(
+        delta, ef, u, dq, ranks, ef_out, segs, thresh, nseg, cols, ld_d, ld_e,
+        ld_u, ld_o, vec);
+  else
+    ef_select_kernel<false><<<grid, kSelThreads, 0, s>>>(
+        delta, ef, u, dq, ranks, ef_out, segs, thresh, nseg, cols, ld_d, ld_e,
+        ld_u, ld_o, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q shares dq's row stride ld_o; scales is (senders, rows_total).
+extern "C" int ef_int8(const float* delta, const float* ef, const float* noise,
+                       int8_t* q, float* scales, float* dq, float* ef_out,
+                       const int64_t* segs, int nseg, int64_t rows_total,
+                       int64_t end, int64_t cols, int64_t senders,
+                       int64_t ld_d, int64_t ld_e, int64_t ld_n, int64_t ld_o,
+                       int vec, void* stream) {
+  dim3 grid;
+  if (nseg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = row_grid(rows_total, senders, &grid)) return err;
+  ef_int8_kernel<<<grid, kRowWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      delta, ef, noise, q, scales, dq, ef_out, segs, nseg, rows_total, end,
+      cols, ld_d, ld_e, ld_n, ld_o, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scale is (senders, nseg); bits is (senders, rows_total, 16).
+extern "C" int ef_sign(const float* delta, const float* ef, const float* scale,
+                       uint8_t* bits, float* dq, float* ef_out,
+                       const int64_t* segs, int nseg, int64_t rows_total,
+                       int64_t end, int64_t cols, int64_t senders,
+                       int64_t ld_d, int64_t ld_e, int64_t ld_o, int vec,
+                       void* stream) {
+  dim3 grid;
+  if (nseg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = row_grid(rows_total, senders, &grid)) return err;
+  ef_sign_kernel<<<grid, kRowWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      delta, ef, scale, bits, dq, ef_out, segs, nseg, rows_total, end, cols,
+      ld_d, ld_e, ld_o, vec);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,156 @@
+"""Plain PyTorch versions of the error-feedback compression kernels.
+
+Semantics and wire formats are the reference's
+(``repro/kernels/compress/ref.py``); every function here takes a batch
+of senders, one row each, for ONE leaf of ``p`` values:
+
+* top-k / rand-k select is *strict-above + tie-fill*: every position
+  whose score is strictly above the k-th largest score is kept, and the
+  remaining ``k - n_strict`` slots go to ``== threshold`` ties in index
+  order -- ``lax.top_k``'s exact kept set. ``ranks`` holds each kept
+  coordinate's wire slot in [0, k), else -1.
+* int8: per 128-value row of the leaf (the last row zero-padded),
+  ``scale = max(absmax * (1/127), 1e-12)``,
+  ``q = clip(floor(msg / scale + u), -127, 127)``, ``dq = q * scale``.
+* sign: one bit per value, 8 per byte, (rows, 16) uint8 per leaf; lane
+  ``8c + j`` of a row at bit ``j`` of byte ``c``, 1 where ``msg >= 0``
+  (padding lanes read 0, so their bit is 1); ``dq = scale * sign(msg)``
+  with ``sign(0) = 0``.
+* error feedback: ``msg = delta + ef``; outputs are ``dq`` and
+  ``ef_new = msg - dq``.
+
+The threshold (:func:`kth_threshold`) and the sign scale (``mean |msg|``)
+are computed outside the kernels, as in the reference, and handed to
+both versions. Each operation is one rounding in the reference's order,
+so the CUDA kernels (``csrc/compress.cu``) agree with these bit for bit.
+The CPU path runs them; on the card they run only under
+``mode="torch"``, for comparisons.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["INV127", "LANES", "ef_quantize_int8_ref", "ef_randk_select_ref",
+           "ef_sign_compress_ref", "ef_topk_select_ref", "kth_threshold",
+           "pack_topk", "sign_unpack", "unpack_topk"]
+
+LANES = 128
+# the float32 the reference multiplies the row absmax by: f32(1/127)
+INV127 = float.fromhex("0x1.020408p-7")
+
+
+def kth_threshold(score: torch.Tensor, k: int) -> torch.Tensor:
+    """k-th largest entry of each row of ``score`` (B, p) -> (B,)."""
+    return torch.topk(score, k, dim=-1, sorted=True).values[..., -1]
+
+
+def _select(score, v, thresh, k: int):
+    """Strict-above + tie-fill select on (B, p) -> (dq, ranks int32)."""
+    t = thresh[..., None]
+    strict = score > t
+    tie = score == t
+    cap = k - strict.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    inc_s = strict.cumsum(dim=-1, dtype=torch.int32)
+    inc_t = tie.cumsum(dim=-1, dtype=torch.int32)
+    sel = strict | (tie & (inc_t <= cap))
+    rank = inc_s + torch.minimum(inc_t, cap) - 1
+    dq = torch.where(sel, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    ranks = torch.where(sel, rank, torch.full_like(rank, -1))
+    return dq, ranks
+
+
+def ef_topk_select_ref(delta, ef, k: int, thresh=None):
+    """EF + magnitude top-k: select on ``|delta + ef|``. ``thresh`` (B,)
+    is the k-th largest ``|msg|`` (computed here if None). Returns
+    (dq, ranks, ef_new)."""
+    msg = delta + ef
+    score = msg.abs()
+    if thresh is None:
+        thresh = kth_threshold(score, k)
+    dq, ranks = _select(score, msg, thresh, k)
+    return dq, ranks, msg - dq
+
+
+def ef_randk_select_ref(u, delta, ef, k: int, thresh=None):
+    """EF + contractive rand-k: keep the k positions with the largest
+    uniforms ``u`` (B, p); ``thresh`` is the k-th largest ``u``. Returns
+    (dq, ranks, ef_new)."""
+    msg = delta + ef
+    if thresh is None:
+        thresh = kth_threshold(u, k)
+    dq, ranks = _select(u, msg, thresh, k)
+    return dq, ranks, msg - dq
+
+
+def _to_rows(v):
+    """(B, p) -> (B, rows, 128), zero-padded."""
+    b, p = v.shape
+    rows = -(-p // LANES)
+    out = v.new_zeros((b, rows * LANES))
+    out[:, :p] = v
+    return out.view(b, rows, LANES)
+
+
+def ef_quantize_int8_ref(delta, ef, noise):
+    """EF + stochastic int8 over the leaf's 128-value rows. Returns
+    (q (B, p) int8, scales (B, rows) f32, dq (B, p), ef_new (B, p))."""
+    msg = delta + ef
+    p = msg.shape[-1]
+    m2, n2 = _to_rows(msg), _to_rows(noise)
+    absmax = m2.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(absmax * INV127, 1e-12)
+    q = torch.clamp(torch.floor(m2 / scale + n2), -127.0, 127.0)
+    dq = (q * scale).flatten(1)[:, :p]
+    return (q.to(torch.int8).flatten(1)[:, :p], scale.squeeze(-1), dq,
+            msg - dq)
+
+
+def _pack_bits(nonneg):
+    """(B, rows, 128) bool -> (B, rows, 16) uint8, lane 8c+j at bit j of
+    byte c."""
+    b = nonneg.to(torch.uint8).unflatten(-1, (LANES // 8, 8))
+    weights = (1 << torch.arange(8, dtype=torch.uint8, device=b.device))
+    return (b * weights).sum(dim=-1, dtype=torch.uint8)
+
+
+def ef_sign_compress_ref(delta, ef, scale=None):
+    """EF + 1-bit sign; ``scale`` (B,) defaults to ``mean |msg|``.
+    Returns (bits (B, rows, 16) uint8, scale (B,), dq, ef_new)."""
+    msg = delta + ef
+    if scale is None:
+        scale = msg.abs().mean(dim=-1)
+    bits = _pack_bits(_to_rows(msg) >= 0)
+    dq = scale[..., None] * torch.sign(msg)
+    return bits, scale, dq, msg - dq
+
+
+def pack_topk(dq, ranks, k: int):
+    """Dense (dq, ranks) of one leaf (p,) -> the (k,) wire buffers
+    (values, int32 indices); slots no coordinate fills read 0 / -1."""
+    p = dq.shape[-1]
+    safe = torch.where(ranks >= 0, ranks.long(), torch.full_like(
+        ranks, k, dtype=torch.long))
+    vals = dq.new_zeros((k + 1,)).scatter(0, safe, dq)[:k]
+    idx = torch.full((k + 1,), -1, dtype=torch.int32,
+                     device=dq.device).scatter(
+        0, safe, torch.arange(p, dtype=torch.int32, device=dq.device))[:k]
+    return vals, idx
+
+
+def unpack_topk(vals, idx, p: int):
+    """Scatter the (k,) wire buffers back to a dense (p,) leaf: the
+    receiver side of the top-k / rand-k link."""
+    safe = torch.where(idx >= 0, idx.long(),
+                       torch.full_like(idx, p, dtype=torch.long))
+    kept = torch.where(idx >= 0, vals, torch.zeros_like(vals))
+    return vals.new_zeros((p + 1,)).scatter(0, safe, kept)[:p]
+
+
+def sign_unpack(bits, scale, p: int):
+    """Decode one leaf's 1-bit wire, (rows, 16) uint8 + scale, to (p,)
+    values of ``±scale``. Exact zeros were sent as ``+scale``, the one
+    lossy edge of the wire format."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    lanes = (bits[..., None] >> shifts) & 1
+    pm1 = lanes.reshape(-1).to(torch.float32) * 2.0 - 1.0
+    return (scale * pm1)[:p]

@@ -23,7 +23,7 @@ from enum import Enum
 import torch
 
 __all__ = ["KernelType", "LAUNCHES", "count_launch", "kernel_mode",
-           "reset_launches"]
+           "reset_launches", "vec_aligned"]
 
 
 class KernelType(Enum):
@@ -71,3 +71,14 @@ def kernel_mode(tensor: torch.Tensor, mode=None) -> KernelType:
     if mode is KernelType.CUDA and dev != "cuda":
         raise ValueError(f"mode='cuda' needs CUDA tensors, got {dev}")
     return mode
+
+
+def vec_aligned(*tensors) -> bool:
+    """True when 16-byte vector accesses are valid for every 2-D operand:
+    the data pointer and every row start 16-byte aligned."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+        if t.shape[0] > 1 and (t.stride(0) * t.element_size()) % 16:
+            return False
+    return True

@@ -22,7 +22,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.interface import KernelType, count_launch, kernel_mode
+from repro_torch.kernels.interface import (KernelType, count_launch,
+                                           kernel_mode, vec_aligned)
 from repro_torch.kernels.prox_update.ref import prox_sgd_ref
 
 __all__ = ["prox_sgd", "prox_step_"]
@@ -42,17 +43,6 @@ def _library():
     return fn
 
 
-def _aligned(*tensors) -> bool:
-    """True when 16-byte vector accesses are valid for every 2-D operand:
-    the data pointer and every row start 16-byte aligned."""
-    for t in tensors:
-        if t.data_ptr() % 16:
-            return False
-        if t.shape[0] > 1 and (t.stride(0) * t.element_size()) % 16:
-            return False
-    return True
-
-
 def _launch(out, theta, grad, anchor, m_out, mom, *, alpha, lam, momentum,
             weight_decay):
     """Launch the kernel on 2-D CUDA operands whose columns are unit
@@ -60,7 +50,7 @@ def _launch(out, theta, grad, anchor, m_out, mom, *, alpha, lam, momentum,
     rows, cols = theta.shape
     use_mom = momentum > 0.0
     moms = (m_out, mom) if use_mom else ()
-    vec = _aligned(out, theta, grad, anchor, *moms)
+    vec = vec_aligned(out, theta, grad, anchor, *moms)
     fn = _library()
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     count_launch(_NAME)

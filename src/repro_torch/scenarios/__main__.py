@@ -7,8 +7,9 @@
 ``list`` prints one line per registered scenario (name, topology,
 partitioner, model, algorithm, default rounds, spec hash -- the same
 hash as the reference's). ``run`` trains it through the engine on the
-card (``--device cpu`` for the CPU) and prints the final metrics;
-``--json`` prints them as one JSON object on stdout instead.
+card (``--device cpu`` for the CPU) and prints the final metrics, and
+for a compressed scenario the megabytes its links carried; ``--json``
+prints them as one JSON object on stdout instead.
 """
 from __future__ import annotations
 
@@ -46,16 +47,23 @@ def _cmd_run(args) -> int:
                        eval_every=args.eval_every, device=args.device)
     finals = {m: getattr(res, f"{m}_acc")[-1] for m in ("pm", "tm", "gm")}
     if args.json:
-        print(json.dumps({
-            "scenario": s.name, "spec_hash": s.spec_hash(),
-            "rounds": rounds, "device": res.device, **finals,
-            "train_loss": res.train_loss[-1], "seconds": res.seconds,
-            "participation": res.participation[-1]}, sort_keys=True))
+        rec = {"scenario": s.name, "spec_hash": s.spec_hash(),
+               "rounds": rounds, "device": res.device, **finals,
+               "train_loss": res.train_loss[-1], "seconds": res.seconds,
+               "participation": res.participation[-1]}
+        if res.comm is not None:
+            rec["comm"] = res.comm.summary()
+        print(json.dumps(rec, sort_keys=True))
         return 0
     print(f"{s.name}: rounds={rounds} "
           + " ".join(f"{m}={v:.4f}" for m, v in finals.items())
           + f" train_loss={res.train_loss[-1]:.4f} ({res.seconds:.1f}s on "
           f"{res.device})")
+    if res.comm is not None:
+        t = res.comm.totals()
+        print(f"  comm: {t.total / 1e6:.2f} MB total "
+              f"(wan_up {t.wan_up / 1e6:.2f} MB, "
+              f"lan_up {t.lan_up / 1e6:.2f} MB)")
     for metric, acc in s.paper_ref:
         print(f"  paper {metric}: {acc}% (A100, full rounds)")
     return 0

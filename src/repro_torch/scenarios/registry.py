@@ -1,13 +1,15 @@
 """`SCENARIOS` -- the registry of the scenarios the port runs.
 
 The PerMFL paper cells: Table 1 (MCLR and the non-convex model on mnist,
-fmnist, emnist10 and synthetic) and Fig 2 (fmnist, MCLR and CNN), each
-registered exactly as in the reference, published numbers included.
+fmnist, emnist10 and synthetic), Fig 2 (fmnist, MCLR and CNN) and the
+compressed-uplink family (``comm/mnist/mclr/*``), each registered exactly
+as in the reference, published numbers included.
 Other names of the reference's registry are not ported yet and raise a
 KeyError that says so.
 """
 from __future__ import annotations
 
+from repro_torch.comm import CommConfig
 from repro_torch.scenarios.paper_refs import table1_ref
 from repro_torch.scenarios.spec import (ALGO_METRICS, AlgoSpec, DataSpec,
                                         FLScenario, ModelSpec)
@@ -38,7 +40,7 @@ def get_scenario(name_or_spec) -> FLScenario:
         return SCENARIOS[name]
     raise KeyError(
         f"scenario {name!r} is not in the port's registry: it runs only "
-        f"the PerMFL cells {sorted(SCENARIOS)}; the rest of the "
+        f"the cells {sorted(SCENARIOS)}; the rest of the "
         f"reference's scenarios are still to be ported (ROADMAP.md "
         f"queue 1)")
 
@@ -86,5 +88,23 @@ def _register_fig2():
             notes="Fig 2: convergence vs multi-tier SOTA"))
 
 
+def _register_comm():
+    comms = [("uncompressed", None),
+             ("identity", CommConfig("identity")),
+             ("topk_10", CommConfig("topk", k_frac=0.1)),
+             ("topk_25", CommConfig("topk", k_frac=0.25)),
+             ("randk_10", CommConfig("randk", k_frac=0.1)),
+             ("int8", CommConfig("int8")),
+             ("sign", CommConfig("sign"))]
+    for cname, ccfg in comms:
+        register(FLScenario(
+            name=f"comm/mnist/mclr/{cname}",
+            data=DataSpec(dataset="mnist"),
+            comm=ccfg,
+            rounds=40, data_seed=6, family="comm",
+            notes="accuracy-vs-MB tradeoff for the tiered comm subsystem"))
+
+
 _register_table1()
 _register_fig2()
+_register_comm()

@@ -57,13 +57,15 @@ def build_scenario(name_or_spec, seed: int = 0,
     params0 = params_from_numpy(init_model(cfg, seed), dev)
     return ScenarioBuild(scenario=s, fd=fd, config=cfg, train=train,
                          val=val, loss_fn=loss, metric_fn=metric,
-                         algo=s.algo.build(loss), params0=params0,
+                         algo=s.algo.build(loss, comm=s.comm),
+                         params0=params0,
                          device=dev)
 
 
 def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
                  seed: int = 0, init_seed: Optional[int] = None,
                  eval_every: int = 1, masks: Optional[Callable] = None,
+                 uniforms: Optional[Callable] = None,
                  device=DEFAULT_DEVICE) -> FLResult:
     """Run one scenario through the engine on ``device`` (default the
     card; raises without one).
@@ -72,6 +74,7 @@ def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
     seed: participation-sampling seed and (by default) model-init seed.
     init_seed: a separate model-init seed.
     masks: injected participation masks (see ``run_experiment``).
+    uniforms: injected compressor uniforms (see ``permfl_round``).
     """
     s = get_scenario(name_or_spec)
     b = build_scenario(s, seed if init_seed is None else init_seed,
@@ -80,5 +83,6 @@ def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
         b.algo, b.params0, b.train, b.val, metric_fn=b.metric_fn,
         rounds=s.rounds if rounds is None else rounds, m=b.m, n=b.n,
         team_frac=s.team_frac, device_frac=s.device_frac, seed=seed,
-        eval_every=eval_every, masks=masks, device=b.device)
+        eval_every=eval_every, masks=masks, uniforms=uniforms,
+        device=b.device)
 

@@ -1,19 +1,20 @@
 """The declarative `FLScenario` spec: data x topology x model x algorithm
-x participation as one frozen, serializable value.
+x participation x comm as one frozen, serializable value.
 
 The port's copy of the reference's spec for the PerMFL cells it runs.
 ``to_dict()`` and ``spec_hash()`` equal the reference's for every ported
 scenario, so a scenario names the same experiment in both packages.
-What the port does not run yet -- compressed uplinks (``comm``), the
-system simulator (``system``), cohort sampling (``cohort_size``) and the
-baseline algorithms -- is refused where a spec would ask for it.
+What the port does not run yet -- the system simulator (``system``),
+cohort sampling (``cohort_size``) and the baseline algorithms -- is
+refused where a spec would ask for it.
 
     FLScenario
       ├── DataSpec   dataset + partitioner + (M, N) topology + team
       │              formation strategy + heterogeneity knobs
       ├── ModelSpec  which paper model (mclr | cnn | dnn)
       └── AlgoSpec   algorithm name + hyperparameter overrides
-      plus rounds, team/device participation fractions, the data seed,
+      plus rounds, team/device participation fractions, an optional
+      CommConfig (compressed uplinks + byte accounting), the data seed,
       and presentation metadata (family, paper reference numbers, notes).
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm import CommConfig
 from repro_torch.configs.base import PaperModelConfig
 from repro_torch.core import PerMFL
 from repro_torch.core.permfl import PerMFLHParams
@@ -225,16 +227,17 @@ class AlgoSpec:
         """The resolved PerMFLHParams."""
         return PerMFLHParams(**self.resolved())
 
-    def build(self, loss_fn: Callable):
-        """The frozen FLAlgorithm instance for the engine."""
-        return PerMFL(loss_fn, self.hparams())
+    def build(self, loss_fn: Callable, comm: Optional[CommConfig] = None):
+        """The frozen FLAlgorithm instance for the engine; ``comm``
+        compresses PerMFL's uplinks."""
+        return PerMFL(loss_fn, self.hparams(), comm=comm)
 
 
 # ---------------------------------------------------------------------------
 # FLScenario
 # ---------------------------------------------------------------------------
 
-_UNPORTED_KEYS = ("comm", "system", "cohort_size")
+_UNPORTED_KEYS = ("system", "cohort_size")
 
 
 @dataclass(frozen=True)
@@ -244,6 +247,7 @@ class FLScenario:
     data / model / algo: the nested physical specs.
     rounds: default global-round budget (overridable at run time).
     team_frac / device_frac: participation fractions (paper §3.1 modes).
+    comm: optional CommConfig -- compressed uplinks + byte accounting.
     data_seed: seed the federated partition is built from.
     family / paper_ref / notes: presentation metadata -- excluded from
         ``spec_hash()``. paper_ref holds (metric, paper accuracy %) pairs.
@@ -255,6 +259,7 @@ class FLScenario:
     rounds: int = 10
     team_frac: float = 1.0
     device_frac: float = 1.0
+    comm: Optional[CommConfig] = None
     data_seed: int = 0
     family: str = ""
     paper_ref: Tuple[Tuple[str, float], ...] = ()
@@ -287,7 +292,7 @@ class FLScenario:
             "rounds": self.rounds,
             "team_frac": self.team_frac,
             "device_frac": self.device_frac,
-            "comm": None,
+            "comm": dataclasses.asdict(self.comm) if self.comm else None,
             "data_seed": self.data_seed,
             "family": self.family,
             "paper_ref": [[k, v] for k, v in self.paper_ref],
@@ -312,6 +317,7 @@ class FLScenario:
             rounds=d["rounds"],
             team_frac=d["team_frac"],
             device_frac=d["device_frac"],
+            comm=CommConfig(**d["comm"]) if d.get("comm") else None,
             data_seed=d["data_seed"],
             family=d.get("family", ""),
             paper_ref=tuple(tuple(p) for p in d.get("paper_ref", ())),

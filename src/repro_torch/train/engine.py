@@ -9,13 +9,15 @@ semantics:
         state = algo.round(state, data, masks)
         record realized (team-gated) participation counts
         every eval_every rounds, and after the last: algo.eval(state, ...)
+    then, for a compressed run, the byte ledger from the realized counts
 
 The eval points are those of the reference's chunked scan (chunks of
 ``eval_every`` rounds, then a remainder chunk ending at the last round).
 Full participation draws no random numbers and uses all-ones masks.
 Sampled participation draws from a ``torch.Generator`` seeded with
 ``seed``; its masks cannot equal the reference's threefry masks, so a
-parity run injects the reference's masks through ``masks=``.
+parity run injects the reference's masks through ``masks=``, and the
+reference's compressor uniforms through ``uniforms=``.
 
 Cohort sampling, the system simulator and run telemetry are not ported
 yet (ROADMAP.md queue 1).
@@ -54,6 +56,7 @@ class FLResult:
     round_seconds: list = field(default_factory=list)
     state: Any = None
     participation: list = field(default_factory=list)  # (teams, devices)/rnd
+    comm: Any = None        # CommLedger of a compressed run, else None
     rounds: int = 0
     eval_every: int = 1
     device: str = ""
@@ -102,6 +105,7 @@ def run_experiment(algo, params0, train_data, val_data, *,
                    team_frac: float = 1.0, device_frac: float = 1.0,
                    seed: int = 0, eval_every: int = 1,
                    masks: Optional[Callable] = None,
+                   uniforms: Optional[Callable] = None,
                    device=DEFAULT_DEVICE, cohort=None, system=None,
                    trace=None, trace_dir=None) -> FLResult:
     """Drive ``algo`` for ``rounds`` global rounds on ``device``,
@@ -113,6 +117,8 @@ def run_experiment(algo, params0, train_data, val_data, *,
     masks: optional ``masks(t) -> (team_mask (M,), device_mask (M, N))``
         for round t (0-based), replacing sampling: the parity tests hand
         the port the reference's masks this way.
+    uniforms: optional ``uniforms(t, k, b)`` source of the compressors'
+        uniforms, handed to ``algo.round`` (see ``permfl_round``).
     device: "cuda" (default; raises without a card) or "cpu".
     """
     for name, val in (("cohort", cohort), ("system", system),
@@ -134,6 +140,8 @@ def run_experiment(algo, params0, train_data, val_data, *,
     res = FLResult(rounds=rounds, eval_every=eval_every, device=str(dev))
     evals = set(eval_points(rounds, eval_every))
     state = algo.init_state(params0, m, n)
+    ledger = algo.make_ledger(params0)
+    extra = {} if uniforms is None else {"uniforms": uniforms}
     for t in range(rounds):
         t0 = time.perf_counter()
         if masks is not None:
@@ -147,7 +155,7 @@ def run_experiment(algo, params0, train_data, val_data, *,
         gated = dm * tm[:, None]
         res.participation.append((int(tm.sum()), int(gated.sum())))
         state = algo.round(state, train, team_mask=tm.to(dev),
-                           device_mask=dm.to(dev))
+                           device_mask=dm.to(dev), **extra)
         if t + 1 in evals:
             metrics = algo.eval(state, train, val, metric_fn)
             for k, v in metrics.items():
@@ -156,5 +164,9 @@ def run_experiment(algo, params0, train_data, val_data, *,
         res.round_seconds.append(time.perf_counter() - t0)
     res.seconds = sum(res.round_seconds)
     res.state = state
+    if ledger is not None:
+        for n_teams, n_devices in res.participation:
+            algo.log_comm_round(ledger, n_teams=n_teams, n_devices=n_devices)
+        res.comm = ledger
     return res
 

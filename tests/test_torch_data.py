@@ -72,9 +72,10 @@ def test_ported_scenarios_equal_the_reference():
     from repro.scenarios import SCENARIOS as J_SCENARIOS
     from repro_torch.scenarios import SCENARIOS, FLScenario
 
-    assert len(SCENARIOS) == 10
-    expect = {n for n in J_SCENARIOS if n.endswith("/permfl")
-              and n.split("/")[0] in ("table1", "fig2")}
+    assert len(SCENARIOS) == 17
+    expect = {n for n in J_SCENARIOS if (n.endswith("/permfl")
+              and n.split("/")[0] in ("table1", "fig2"))
+              or n.startswith("comm/mnist/mclr/")}
     assert set(SCENARIOS) == expect
     for name, s in SCENARIOS.items():
         assert s.to_dict() == J_SCENARIOS[name].to_dict(), name
@@ -94,11 +95,11 @@ def test_unported_scenarios_and_fields_are_refused():
     from repro_torch.scenarios import AlgoSpec, FLScenario, get_scenario
 
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_scenario("comm/mnist/mclr/topk_10")
+        get_scenario("fig4/mnist/mclr/full")
     with pytest.raises(ValueError, match="not ported yet"):
         AlgoSpec("fedavg")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        FLScenario.from_dict(J_SCENARIOS["comm/mnist/mclr/int8"].to_dict())
+        FLScenario.from_dict(J_SCENARIOS["cohort/virtual/n1000"].to_dict())
 
 
 def _as_port_hp(jhp):

@@ -15,6 +15,10 @@ pytest.importorskip("torch")
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 PUBLIC_MODULES = (
+    "repro_torch.comm",
+    "repro_torch.comm.compressors",
+    "repro_torch.comm.config",
+    "repro_torch.comm.ledger",
     "repro_torch.configs",
     "repro_torch.convert",
     "repro_torch.core",
@@ -24,6 +28,9 @@ PUBLIC_MODULES = (
     "repro_torch.device",
     "repro_torch.flat",
     "repro_torch.kernels.build",
+    "repro_torch.kernels.compress",
+    "repro_torch.kernels.compress.ops",
+    "repro_torch.kernels.compress.ref",
     "repro_torch.kernels.interface",
     "repro_torch.kernels.prox_update",
     "repro_torch.kernels.prox_update.ops",

@@ -129,3 +129,137 @@ def test_round_kernel_path_matches_plain_path(cuda):
     for tier in ("x", "w", "theta"):
         torch.testing.assert_close(getattr(s_k, tier), getattr(s_t, tier),
                                    rtol=0, atol=1e-4)
+
+
+# -------------------------------------------------- compress kernels
+
+# leaf sizes of one flat row: ragged int8/sign rows, a 4097-value leaf, and
+# offsets that are mostly not multiples of 4 (the scalar path)
+SMALL_LEAVES = (1, 10, 127, 128, 129, 1000, 4097)
+
+
+def _compress_rows(rng, b, leaves, ld, cuda, zero_run=True, tie_run=True):
+    """(delta, ef, u) as (b, end) views of zeroed (b, ld) buffers. The
+    largest leaf gets a run of exact zeros and tied uniforms, the leaf
+    before it all-equal values, and the first leaf of at least 10 values
+    only one nonzero (its top-k threshold is 0): the tie-fill runs."""
+    end = sum(leaves)
+
+    def rows(scale=1.0):
+        buf = torch.zeros(b, ld, device=cuda)
+        buf[:, :end] = torch.from_numpy(
+            scale * rng.standard_normal((b, end)).astype(np.float32))
+        return buf[:, :end]
+
+    delta, ef = rows(), rows(0.1)
+    u = torch.zeros(b, ld, device=cuda)
+    u[:, :end] = torch.from_numpy(rng.random((b, end)).astype(np.float32))
+    u = u[:, :end]
+    big = int(np.argmax(leaves))
+    o = sum(leaves[:big])
+    n = leaves[big]
+    if zero_run:
+        delta[:, o:o + n // 2] = 0.0
+        ef[:, o:o + n // 2] = 0.0
+    if tie_run and len(leaves) > 1:
+        o2 = sum(leaves[:big - 1])
+        delta[:, o2:o2 + leaves[big - 1]] = 0.5
+        ef[:, o2:o2 + leaves[big - 1]] = 0.0
+        u[:, o:o + n] = torch.floor(u[:, o:o + n] * 8.0) / 8.0
+        i = next(j for j, p in enumerate(leaves) if p >= 10)
+        o3 = sum(leaves[:i])
+        delta[:, o3:o3 + leaves[i]] = 0.0
+        ef[:, o3:o3 + leaves[i]] = 0.0
+        delta[:, o3 + leaves[i] - 1] = 1.0
+    return delta, ef, u
+
+
+def _run_compress(op, delta, ef, u, segs, mode=None):
+    from repro_torch.kernels import compress as K
+
+    if op == "ef_topk":
+        return K.ef_topk(delta, ef, segs, mode=mode)
+    if op == "ef_randk":
+        return K.ef_randk(u, delta, ef, segs, mode=mode)
+    if op == "ef_int8":
+        return K.ef_int8(delta, ef, u, segs, mode=mode)
+    return K.ef_sign(delta, ef, segs, mode=mode)
+
+
+def _cnn_leaves():
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.flat import Layout
+    from repro_torch.models.paper_models import init_params
+
+    layout = Layout.of(init_params(CONFIG, torch.Generator().manual_seed(0)))
+    return layout.leaf_sizes, layout.stride
+
+
+@pytest.mark.parametrize("op", ["ef_topk", "ef_randk", "ef_int8", "ef_sign"])
+@pytest.mark.parametrize("shape", ["small-aligned", "small-odd-stride",
+                                   "mclr", "cnn-lan"])
+def test_compress_kernel_matches_plain(cuda, op, shape):
+    """Each compress kernel against its plain version on the card, bit
+    for bit, on every output; one launch for all (sender, leaf) pairs."""
+    from repro_torch.kernels import compress as K
+    from repro_torch.kernels.interface import LAUNCHES
+
+    rng = np.random.default_rng(sum(map(ord, op + shape)))
+    if shape == "cnn-lan":
+        leaves, ld = _cnn_leaves()
+        b = 40
+    elif shape == "mclr":
+        leaves, ld, b = (10, 7840), 7872, 40
+    else:
+        leaves, b = SMALL_LEAVES, 3
+        ld = 5504 if shape == "small-aligned" else sum(SMALL_LEAVES) + 3
+    ks = tuple(max(1, round(0.1 * p)) for p in leaves)
+    segs = K.segments(leaves, ks if op in ("ef_topk", "ef_randk") else None)
+    delta, ef, u = _compress_rows(rng, b, leaves, ld, cuda)
+    before = LAUNCHES.get(op, 0)
+    got = _run_compress(op, delta, ef, u, segs)
+    torch.cuda.synchronize()
+    assert LAUNCHES[op] == before + 1
+    want = _run_compress(op, delta, ef, u, segs, mode="torch")
+    assert LAUNCHES[op] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("compressor", ["topk", "randk", "int8", "sign"])
+def test_compressed_round_kernel_path_matches_plain_path(cuda, compressor):
+    """One compressed PerMFL round of a small CNN scenario on the card
+    through the kernels and through the plain versions, from the same
+    state and generator seed: (K + 1) compress launches, and the same
+    tiers and residuals."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import permfl as P
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.scenarios import build_scenario, get_scenario
+
+    name = {"topk": "ef_topk", "randk": "ef_randk", "int8": "ef_int8",
+            "sign": "ef_sign"}[compressor]
+    cfg = CommConfig(compressor)
+    s = get_scenario("table1/mnist/cnn/permfl").scaled(
+        m_teams=2, n_devices=3, samples_per_device=16,
+        algo_overrides={"k_team": 2, "l_local": 3})
+    b = build_scenario(s, seed=0, device=cuda)
+    hp = s.algo.hparams()
+    state = P.init_state(b.params0, b.m, b.n, comm=cfg)
+    before = LAUNCHES.get(name, 0)
+    out = {}
+    for mode in (None, "torch"):
+        out[mode] = P.permfl_round(state, b.train, hp, b.loss_fn,
+                                   m_teams=b.m, n_devices=b.n, comm=cfg,
+                                   mode=mode)
+        torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + hp.k_team + 1
+    for tier in ("x", "w", "theta"):
+        torch.testing.assert_close(getattr(out[None], tier),
+                                   getattr(out["torch"], tier), rtol=0,
+                                   atol=1e-4)
+    for tier in ("ef_dev", "ef_team"):
+        torch.testing.assert_close(getattr(out[None].comm, tier),
+                                   getattr(out["torch"].comm, tier), rtol=0,
+                                   atol=1e-4)

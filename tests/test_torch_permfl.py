@@ -235,12 +235,19 @@ def test_round_continues_a_converted_jax_state(small_fed_data,
 
 
 def test_round_refuses_comm(small_fed_data):
+    """Compressed uplinks without error feedback need the non-EF kernels,
+    which are not ported: a lossy compressor with error_feedback=False
+    raises, naming the roadmap."""
+    from repro_torch.comm import CommConfig
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import permfl as P
 
     fd = small_fed_data
-    state = P.init_state(params_from_numpy(_jax_init("mclr")), 4, 3)
-    with pytest.raises(NotImplementedError, match="compressed uplinks"):
-        P.permfl_round(state, params_from_numpy(_data(fd)[0]),
-                       P.PerMFLHParams(), _port_fns("mclr")[0], m_teams=4,
-                       n_devices=3, comm=object())
+    for name in ("topk", "randk", "int8", "sign"):
+        cfg = CommConfig(name, error_feedback=False)
+        state = P.init_state(params_from_numpy(_jax_init("mclr")), 4, 3,
+                             comm=cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            P.permfl_round(state, params_from_numpy(_data(fd)[0]),
+                           P.PerMFLHParams(), _port_fns("mclr")[0],
+                           m_teams=4, n_devices=3, comm=cfg)
