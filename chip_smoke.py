@@ -13,12 +13,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      report (registers, spills).
   3. kernel check at the main paths' shapes: each kernel against its plain
      version on the card (prox_update within the stated tolerance; the
-     four compress kernels bit for bit on every output, at the CNN and
-     MCLR LAN uplinks, with runs of zeros and ties), its time by CUDA
-     events, the plain version's time (each with the L2 cache cold), and
-     the least time the card could take; for the compress kernels also
-     the time of the torch ops outside them (select thresholds, sign
-     scales).
+     compress kernels -- with error feedback: ef_topk, ef_randk, ef_int8,
+     ef_sign; without: topk, randk, sign, and quantize -- bit for bit on
+     every output, at the CNN LAN (40 senders) and WAN (4 senders) and the
+     MCLR LAN uplinks, with runs of zeros, ties and tied uniforms; quantize
+     also at the int8 store export, noise 0.5), its time by CUDA events,
+     the plain version's time (each with the L2 cache cold), and the least
+     time the card could take; for the compress kernels also the time of
+     the torch ops outside them (select thresholds, sign scales).
   4. main path: ``run_scenario("fig2/fmnist/cnn/permfl", rounds=3)`` on the
      card at the registered size (4 teams x 10 devices, paper CNN at its
      published widths, K=5, L=10), with every launch count set to 0 just
@@ -27,17 +29,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   5. compressed paths, each with the counts set to 0 just before it and
      read just after: every ``comm/mnist/mclr/*`` cell at its registered
      size (3 rounds), and the paper CNN of step 4 with each lossy
-     compressor (2 rounds): finite metrics, a lower loss, the ledger's
-     bytes equal to the byte model, the compressor's kernel launched
-     exactly rounds*(K+1) times and no other compress kernel.
+     compressor, with error feedback and without (2 rounds each): finite
+     metrics, a lower loss, the ledger's bytes equal to the byte model,
+     the compressor's kernel (EF or non-EF) launched exactly
+     rounds*(K+1) times and no other compress kernel.
   6. path consistency: one round from the same state through the kernels
      and through the plain versions, uncompressed and with each lossy
-     compressor (same generator seed); the states must agree.
-  7. with ``--profile``: the CNN round's host-clock time, uncompressed and
+     compressor with and without error feedback (same generator seed);
+     the states must agree.
+  7. serving, from step 4's trained state: a ``ModelStore`` exported in
+     each encoding (the int8 export exactly one quantize launch, no other
+     kernel), saved and reloaded bit-equal, decoded device rows equal to
+     theta (delta, raw bit for bit; int8 within half a row scale); 512
+     Zipf requests (batch 64, alpha 1.2, 10% unknown principals) replayed
+     through ``serve`` and ``serve_cached``: the same outputs (bit for bit
+     under delta and raw), the same tier counts summing to 512; qps,
+     latency percentiles, the stage split, the device-tier MB and the
+     cache hit rate.
+  8. with ``--profile``: the CNN round's host-clock time, uncompressed and
      with each lossy compressor, over several unprofiled rounds in
      alternating order (medians and ranges, and the host time spent
      issuing the compression), then one profiled round of each.
-  8. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+  9. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -65,17 +78,29 @@ CNN_COMM_ROUNDS = 2
 # compressor -> the kernel its error-feedback uplinks launch
 COMPRESS_KERNEL = {"topk": "ef_topk", "randk": "ef_randk", "int8": "ef_int8",
                    "sign": "ef_sign"}
-# float32 operations per value: msg add, score, compares, select, ef' sub;
-# int8 also the row max, divide, add, floor, two clamps and q * scale
+# compressor -> the kernel its uplinks without error feedback launch
+PLAIN_KERNEL = {"topk": "topk", "randk": "randk", "int8": "quantize",
+                "sign": "sign"}
+# float32 operations per value: msg add (EF), score, compares, select,
+# ef' sub (EF); rand-k without EF the p/k multiply; int8 also the row
+# max, divide, add, floor, two clamps and q * scale; sign the compare,
+# sign and multiply
 COMPRESS_OPS_PER_VALUE = {"ef_topk": 5, "ef_randk": 4, "ef_int8": 10,
-                          "ef_sign": 5}
+                          "ef_sign": 5, "topk": 3, "randk": 3,
+                          "quantize": 8, "sign": 3}
 TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
     "prox_update": "src/repro/kernels/prox_update/prox_update.py:22",
     "ef_topk": "src/repro/kernels/compress/compress.py:107",
     "ef_randk": "src/repro/kernels/compress/compress.py:123",
     "ef_int8": "src/repro/kernels/compress/compress.py:133",
     "ef_sign": "src/repro/kernels/compress/compress.py:168",
+    "topk": "src/repro/kernels/compress/compress.py:99",
+    "randk": "src/repro/kernels/compress/compress.py:116",
+    "sign": "src/repro/kernels/compress/compress.py:161",
+    "quantize": "src/repro/kernels/quantize/quantize.py:23",
 }
+SERVE_REQUESTS = 512
+SERVE_BATCH = 64
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -263,9 +288,16 @@ def compress_inputs(layout, senders, seed):
     return delta, ef, u
 
 
+EF_OPS = ("ef_topk", "ef_randk", "ef_int8", "ef_sign")
+PLAIN_OPS = ("topk", "randk", "sign", "quantize")
+
+
 def run_compress(op, delta, ef, u, segs, given, mode=None):
-    """One compress op; ``given`` is its thresholds or sign scales."""
+    """One compress op; ``given`` is its thresholds or sign scales. The
+    ops without error feedback compress ``delta`` (unbiased rand-k, as
+    the uplinks run it); quantize rounds with the noise ``u``."""
     from repro_torch.kernels import compress as K
+    from repro_torch.kernels.quantize import quantize_int8
 
     if op == "ef_topk":
         return K.ef_topk(delta, ef, segs, thresh=given, mode=mode)
@@ -273,91 +305,159 @@ def run_compress(op, delta, ef, u, segs, given, mode=None):
         return K.ef_randk(u, delta, ef, segs, thresh=given, mode=mode)
     if op == "ef_int8":
         return K.ef_int8(delta, ef, u, segs, mode=mode)
-    return K.ef_sign(delta, ef, segs, scales=given, mode=mode)
+    if op == "ef_sign":
+        return K.ef_sign(delta, ef, segs, scales=given, mode=mode)
+    if op == "topk":
+        return K.topk(delta, segs, thresh=given, mode=mode)
+    if op == "randk":
+        return K.randk(u, delta, segs, unbiased=True, thresh=given,
+                       mode=mode)
+    if op == "sign":
+        return K.sign(delta, segs, scales=given, mode=mode)
+    return quantize_int8(delta, u, segs, mode=mode)
 
 
-def compress_bytes(op, senders, layout, segs):
+def op_segments(op, layout):
+    """The segment table the uplinks give ``op`` for ``layout``."""
+    from repro_torch.comm import CommConfig, compression_plan
+    from repro_torch.kernels import compress as K
+
+    comp = op[3:] if op.startswith("ef_") else \
+        {"quantize": "int8"}.get(op, op)
+    sizes = layout.leaf_sizes
+    if comp in ("topk", "randk"):
+        plan = compression_plan(CommConfig(comp), sizes)
+        return K.segments(sizes, tuple(pl.k for pl in plan))
+    return K.segments(sizes)
+
+
+def side_op(op, delta, ef, u, segs):
+    """The torch ops the round runs beside ``op`` (thresholds, sign
+    scales) as (what, fn), or None."""
+    from repro_torch.kernels import compress as K
+
+    if op == "ef_topk":
+        return "thresholds (torch.topk)", \
+            lambda: K.segment_thresholds((delta + ef).abs(), segs)
+    if op == "topk":
+        return "thresholds (torch.topk)", \
+            lambda: K.segment_thresholds(delta.abs(), segs)
+    if op in ("ef_randk", "randk"):
+        return "thresholds (torch.topk)", \
+            lambda: K.segment_thresholds(u, segs)
+    if op == "ef_sign":
+        return "sign scales (mean |msg|)", \
+            lambda: K.sign_scales(delta, segs, ef)
+    if op == "sign":
+        return "sign scales (mean |v|)", lambda: K.sign_scales(delta, segs)
+    return None
+
+
+def compress_bytes(op, senders, layout, segs, noise_rows=None):
     """Bytes the op must move: each input read once, each output written
-    once (rows of S columns; uniforms of P; the per-leaf tables)."""
+    once (rows of S columns; uniforms of P, or ``noise_rows`` rows of
+    them; the per-leaf tables)."""
     b, c, p, nseg = senders, layout.stride, layout.size, len(segs.lengths)
     rows = segs.rows
+    noise = (b if noise_rows is None else noise_rows) * p * 4
     if op == "ef_topk":      # delta, ef, thresh in; dq, ef', ranks out
         return b * c * 4 * 5 + b * nseg * 4
     if op == "ef_randk":     # + u in
         return b * c * 4 * 5 + b * p * 4 + b * nseg * 4
     if op == "ef_int8":      # delta, ef, u in; dq, ef', q, scales out
         return b * c * (4 * 4 + 1) + b * p * 4 + b * rows * 4
-    return b * c * 4 * 4 + b * nseg * 4 + b * rows * 16   # ef_sign
+    if op == "ef_sign":
+        return b * c * 4 * 4 + b * nseg * 4 + b * rows * 16
+    if op == "topk":         # v, thresh in; dq, ranks out
+        return b * c * 4 * 3 + b * nseg * 4
+    if op == "randk":        # + u and the per-leaf scales in
+        return b * c * 4 * 3 + b * p * 4 + b * nseg * 4 + nseg * 4
+    if op == "sign":         # v, scales in; dq, bits out
+        return b * c * 4 * 2 + b * nseg * 4 + b * rows * 16
+    return b * c * (4 + 1 + 4) + noise + b * rows * 4      # quantize
 
 
-def phase_compress_check(layouts, senders):
-    """The four compress kernels at the LAN uplinks of ``layouts``
-    ({label: Layout}, the first the timed one) against their plain
-    versions, bit for bit, given the same thresholds, scales and
-    uniforms."""
+def time_compress(op, label, senders, layout, segs, fn, plain_fn, side,
+                  noise_rows=None):
+    """Time ``fn`` (the kernel) and ``plain_fn`` with the L2 cold, and
+    the torch ops beside it; print and return the numbers."""
+    ms = cuda_time_ms(fn, TIMED_LAUNCHES)
+    plain_ms = cuda_time_ms(plain_fn, 10)
+    side_ms = cuda_time_ms(side[1], 20) if side else None
+    moved = compress_bytes(op, senders, layout, segs, noise_rows)
+    ops = senders * layout.size * COMPRESS_OPS_PER_VALUE[op]
+    bound_ms = max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S \
+        else "operations"
+    extra = f"; {side[0]} {side_ms * 1e3:.1f} us" if side else ""
+    say("kernel", f"{op} {label} ({senders}x{layout.size}, "
+        f"{len(segs.lengths)} leaves): equal to the plain version bit for "
+        f"bit; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+        f"bound {bound_ms * 1e3:.1f} us ({moved / 1e6:.1f} MB by {by}), "
+        f"{bound_ms / ms:.1%} of bound{extra}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                side_ms=side_ms)
+
+
+def assert_bit_equal(name, got, want):
+    """Every output of the kernel equal to the plain version's; returns
+    the largest float difference (0)."""
     import torch
 
-    from repro_torch.comm import CommConfig, compression_plan
-    from repro_torch.kernels import compress as K
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"({g.dtype} {tuple(g.shape)})")
+        if g.is_floating_point():
+            err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def phase_compress_check(cases):
+    """Every compress kernel (with error feedback and without) at the
+    uplinks of ``cases`` [(label, Layout, senders)], the first the timed
+    one, against its plain version, bit for bit, given the same
+    thresholds, scales and uniforms; then quantize at the int8 store
+    export of the first case (noise 0.5 as one expanded row)."""
+    import torch
+
+    from repro_torch.kernels.quantize import quantize_int8
 
     out = {}
-    for li, (label, layout) in enumerate(layouts.items()):
-        delta, ef, u = compress_inputs(layout, senders, seed=li)
-        sizes = layout.leaf_sizes
-        for op in ("ef_topk", "ef_randk", "ef_int8", "ef_sign"):
-            plan = compression_plan(CommConfig(op[3:]), sizes)
-            segs = K.segments(sizes, tuple(pl.k for pl in plan)
-                              if op in ("ef_topk", "ef_randk") else None)
-            if op == "ef_topk":
-                side = lambda: K.segment_thresholds((delta + ef).abs(), segs)
-            elif op == "ef_randk":
-                side = lambda: K.segment_thresholds(u, segs)
-            elif op == "ef_sign":
-                side = lambda: K.sign_scales(delta, ef, segs)
-            else:
-                side = lambda: None
-            given = side()
+    for ci, (label, layout, senders) in enumerate(cases):
+        delta, ef, u = compress_inputs(layout, senders, seed=ci)
+        for op in EF_OPS + PLAIN_OPS:
+            segs = op_segments(op, layout)
+            side = side_op(op, delta, ef, u, segs)
+            given = side[1]() if side else None
             got = run_compress(op, delta, ef, u, segs, given)
             want = run_compress(op, delta, ef, u, segs, given, mode="torch")
             torch.cuda.synchronize()
-            err = 0.0
-            for g, w in zip(got, want):
-                if g.shape != w.shape or g.dtype != w.dtype \
-                        or not torch.equal(g, w):
-                    raise AssertionError(
-                        f"{op} {label}: kernel and plain version differ "
-                        f"({g.dtype} {tuple(g.shape)})")
-                if g.is_floating_point():
-                    err = max(err, float((g - w).abs().max()))
-            if li:
+            err = assert_bit_equal(f"{op} {label}", got, want)
+            if ci:
                 say("kernel", f"{op} {label} ({senders}x{layout.size}, "
-                    f"{len(sizes)} leaves): equal to the plain version bit "
-                    "for bit")
+                    f"{len(segs.lengths)} leaves): equal to the plain "
+                    "version bit for bit")
                 continue
-            ms = cuda_time_ms(
+            out[op] = dict(max_abs_err=err, **time_compress(
+                op, label, senders, layout, segs,
                 lambda: run_compress(op, delta, ef, u, segs, given),
-                TIMED_LAUNCHES)
-            plain_ms = cuda_time_ms(
                 lambda: run_compress(op, delta, ef, u, segs, given,
-                                     mode="torch"), 10)
-            side_ms = (cuda_time_ms(side, 20) if op != "ef_int8" else None)
-            moved = compress_bytes(op, senders, layout, segs)
-            ops = senders * layout.size * COMPRESS_OPS_PER_VALUE[op]
-            bound_ms = max(moved / HBM_BYTES_PER_S,
-                           ops / F32_OPS_PER_S) * 1e3
-            by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S \
-                else "operations"
-            what = {"ef_topk": "thresholds (torch.topk)",
-                    "ef_randk": "thresholds (torch.topk)",
-                    "ef_sign": "sign scales (mean |msg|)"}.get(op)
-            extra = (f"; {what} {side_ms * 1e3:.1f} us" if what else "")
-            say("kernel", f"{op} {label} ({senders}x{layout.size}, "
-                f"{len(sizes)} leaves): equal to the plain version bit for "
-                f"bit; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} "
-                f"us, bound {bound_ms * 1e3:.1f} us ({moved / 1e6:.1f} MB by "
-                f"{by}), {bound_ms / ms:.1%} of bound{extra}")
-            out[op] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=by, side_ms=side_ms)
+                                     mode="torch"), side))
+    label, layout, senders = cases[0]
+    delta, _, _ = compress_inputs(layout, senders, seed=len(cases))
+    noise = torch.full((1, layout.stride), 0.5, device=DEVICE) \
+        .expand(senders, layout.stride)
+    segs = op_segments("quantize", layout)
+    assert_bit_equal("quantize store export",
+                     quantize_int8(delta, noise, segs),
+                     quantize_int8(delta, noise, segs, mode="torch"))
+    out["quantize_export"] = time_compress(
+        "quantize", "int8 store export", senders, layout, segs,
+        lambda: quantize_int8(delta, noise, segs),
+        lambda: quantize_int8(delta, noise, segs, mode="torch"), None,
+        noise_rows=1)
     return out
 
 
@@ -365,8 +465,9 @@ def check_launches(launches, expect, path):
     """Every kernel in ``expect`` launched exactly that often on ``path``,
     every other kernel not at all."""
     from repro_torch.kernels.compress import KERNELS
+    from repro_torch.kernels.quantize import KERNELS as QUANTIZE
 
-    for name in ("prox_update",) + KERNELS:
+    for name in ("prox_update",) + KERNELS + QUANTIZE:
         want = expect.get(name, 0)
         if launches.get(name, 0) != want:
             raise AssertionError(
@@ -445,8 +546,10 @@ def run_comm_path(spec, rounds, loss0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    label = spec.name + ("" if spec.comm is None
-                         else f" [{spec.comm.compressor}]")
+    label = spec.name + ("" if spec.comm is None else
+                         f" [{spec.comm.compressor}"
+                         + ("" if spec.comm.error_feedback else ", no EF")
+                         + "]")
     hist = res.pm_acc + res.tm_acc + res.gm_acc + res.train_loss
     if len(res.pm_acc) != rounds or not all(map(math.isfinite, hist)):
         raise AssertionError(f"{label}: bad metric history {hist}")
@@ -466,7 +569,8 @@ def run_comm_path(spec, rounds, loss0):
             raise AssertionError(f"{label}: ledger {res.comm.total_bytes()} "
                                  f"B, byte model {model} B")
         mb = model / 1e6
-        kernel = COMPRESS_KERNEL.get(spec.comm.compressor)
+        kernel = (COMPRESS_KERNEL if spec.comm.error_feedback
+                  else PLAIN_KERNEL).get(spec.comm.compressor)
         if kernel:
             expect[kernel] = rounds * (hp.k_team + 1)
     check_launches(launches, expect, label)
@@ -481,8 +585,9 @@ def run_comm_path(spec, rounds, loss0):
 
 def phase_comm_paths():
     """Every comm/mnist/mclr/* cell, then the paper CNN of the main path
-    with each lossy compressor. Returns {kernel: launches} of the CNN
-    runs (the full-width model's path of each compress kernel)."""
+    with each lossy compressor, with error feedback and without. Returns
+    {kernel: launches} of the CNN runs (the full-width model's path of
+    each compress kernel)."""
     from repro_torch.comm import CommConfig
     from repro_torch.scenarios import get_scenario
 
@@ -492,17 +597,20 @@ def phase_comm_paths():
     cnn = get_scenario(SCENARIO)
     cnn_loss0 = untrained_loss(cnn)
     out = {}
-    for comp, kernel in COMPRESS_KERNEL.items():
-        spec = dataclasses.replace(cnn, comm=CommConfig(comp))
-        out[kernel] = run_comm_path(spec, CNN_COMM_ROUNDS,
-                                    cnn_loss0).get(kernel, 0)
+    for ef, kernels in ((True, COMPRESS_KERNEL), (False, PLAIN_KERNEL)):
+        for comp, kernel in kernels.items():
+            spec = dataclasses.replace(
+                cnn, comm=CommConfig(comp, error_feedback=ef))
+            out[kernel] = run_comm_path(spec, CNN_COMM_ROUNDS,
+                                        cnn_loss0).get(kernel, 0)
     return out
 
 
 def phase_consistency():
     """One round from the same state through the kernels and through the
     plain versions, on the card: uncompressed, then with each lossy
-    compressor (the same generator seed, so the same uniforms)."""
+    compressor with error feedback and without (the same generator seed,
+    so the same uniforms)."""
     import torch
 
     from repro_torch.comm import CommConfig
@@ -511,8 +619,9 @@ def phase_consistency():
 
     b = build_scenario(SCENARIO, seed=1, device=DEVICE)
     hp = b.scenario.algo.hparams()
-    for comp in (None,) + tuple(COMPRESS_KERNEL):
-        cfg = None if comp is None else CommConfig(comp)
+    cfgs = [None] + [CommConfig(c, error_feedback=ef) for ef in (True, False)
+                     for c in COMPRESS_KERNEL]
+    for cfg in cfgs:
         state = P.init_state(b.params0, b.m, b.n, comm=cfg)
         out = {}
         for mode in (None, "torch"):
@@ -528,10 +637,126 @@ def phase_consistency():
                       for t in ("ef_dev", "ef_team")]
         worst = max(float((g - w).abs().max()) for g, w in pairs)
         what = "x, w, theta" + ("" if cfg is None else ", ef_dev, ef_team")
-        say("consistency", f"one round [{comp or 'uncompressed'}] kernel vs "
+        tag = "uncompressed" if cfg is None else cfg.compressor + (
+            "" if cfg.error_feedback else ", no EF")
+        say("consistency", f"one round [{tag}] kernel vs "
             f"plain path: max |diff| over {what} = {worst:.3g} (tol 1e-4)")
         if not worst <= 1e-4:
             raise AssertionError("kernel and plain paths disagree")
+
+
+def phase_serving(res):
+    """The serving path from the main path's trained state ``res``: a
+    store exported in each encoding, saved and reloaded, decoded, and
+    Zipf traffic replayed through ``serve`` and ``serve_cached``.
+    Returns the int8 export's quantize launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.kernels.quantize import row_of_column
+    from repro_torch.kernels.segments import segments
+    from repro_torch.models import paper_models as pm
+    from repro_torch.scenarios import build_scenario
+    from repro_torch.serve import (ENCODINGS, ModelStore, PersonalizedServer,
+                                   replay_traffic, zipf_requests)
+
+    b = build_scenario(SCENARIO, seed=0, device=DEVICE)
+    st, m, n = res.state, b.m, b.n
+    cfg = b.config
+    pool = b.val["x"].reshape((-1,) + tuple(b.val["x"].shape[3:]))
+    apply = lambda p, x: pm.apply(p, cfg, x[:, None])[:, 0]
+    ts = np.repeat(np.arange(m), n)
+    ds = np.tile(np.arange(n), m)
+    theta = st.theta.reshape(m * n, -1)
+    export_launches = 0
+    for enc in ENCODINGS:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        store = ModelStore.from_result(b.algo, res, m=m, n=n, encoding=enc)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {k: c for k, c in LAUNCHES.items() if c}
+        check_launches(launches, {"quantize": 1} if enc == "int8" else {},
+                       f"store export [{enc}]")
+        export_launches += launches.get("quantize", 0)
+        with tempfile.TemporaryDirectory() as tmp:
+            store.save(f"{tmp}/store.ckpt")
+            back = ModelStore.load(f"{tmp}/store.ckpt", device=DEVICE)
+        pairs = [(store.global_row, back.global_row),
+                 (store.team_rows, back.team_rows)]
+        pairs += ([(store.payload[k], back.payload[k])
+                   for k in ("q", "scales")] if enc == "int8"
+                  else [(store.payload, back.payload)])
+        if not all(torch.equal(a, c) for a, c in pairs):
+            raise AssertionError(f"store [{enc}]: reloaded tiers differ")
+        rows = store.gather(ts, ds)
+        if enc == "int8":
+            segs = segments(st.layout.leaf_sizes)
+            scale = store.payload["scales"].reshape(m * n, -1)[
+                :, row_of_column(segs, DEVICE)]
+            p = st.layout.size
+            w = st.w[torch.as_tensor(ts, device=DEVICE)][:, :p]
+            err = (rows[:, :p] - theta[:, :p]).abs()
+            tol = 0.5 * scale * (1 + 1e-6) \
+                + 2.0**-21 * (theta[:, :p].abs() + w.abs())
+            if not bool((err <= tol).all()):
+                raise AssertionError("int8 decode beyond half a row scale")
+            check = (f"decoded rows within half a row scale of theta (max "
+                     f"|err| {float(err.max()):.3g}, max |err| / scale "
+                     f"{float((err / scale).max()):.3f})")
+        else:
+            if not torch.equal(rows, theta):
+                raise AssertionError(f"store [{enc}]: decode is not theta")
+            check = "decoded rows equal theta bit for bit"
+        say("serve", f"[{enc}] export {sec * 1e3:.1f} ms (host clock), "
+            f"launches {launches}; saved and reloaded bit-equal; {check}")
+        say("serve", f"[{enc}] device tier "
+            f"{store.device_tier_nbytes() / 1e6:.3f} MB ({m}x{n} devices)")
+        kw = dict(requests=SERVE_REQUESTS, batch=SERVE_BATCH, alpha=1.2,
+                  unknown_frac=0.1, seed=0)
+        tags = zipf_requests(m, n, SERVE_REQUESTS, alpha=1.2,
+                             unknown_frac=0.1, seed=0)
+        xs = pool[torch.as_tensor(np.arange(SERVE_REQUESTS) % len(pool),
+                                  device=DEVICE)]
+        a = PersonalizedServer(store, apply)
+        c = PersonalizedServer(store, apply)
+        worst = 0.0
+        for lo in range(0, SERVE_REQUESTS, SERVE_BATCH):
+            sl = slice(lo, lo + SERVE_BATCH)
+            got = a.serve(tags[0][sl], tags[1][sl], xs[sl])
+            cached = c.serve_cached(tags[0][sl], tags[1][sl], xs[sl])
+            if enc != "int8" and not torch.equal(got, cached):
+                raise AssertionError(f"[{enc}] serve and serve_cached differ")
+            worst = max(worst, float((got - cached).abs().max()))
+        if a.tier_counts != c.tier_counts or \
+                sum(a.tier_counts.values()) != SERVE_REQUESTS:
+            raise AssertionError(f"[{enc}] tier counts {a.tier_counts} / "
+                                 f"{c.tier_counts}")
+        say("serve", f"[{enc}] serve vs serve_cached on {SERVE_REQUESTS} "
+            f"Zipf requests: max |diff| {worst:.3g}; tiers {a.tier_counts}")
+        for cached in (False, True):
+            server = PersonalizedServer(store, apply)
+            stats = replay_traffic(server, pool, cached=cached, **kw)
+            if sum(stats["tier_counts"].values()) != SERVE_REQUESTS:
+                raise AssertionError(f"replay tiers {stats['tier_counts']}")
+            path = "serve_cached" if cached else "serve"
+            say("serve", f"[{enc}] replay {path}: qps {stats['qps']:.1f}")
+            say("serve", f"[{enc}] replay {path}: p50 "
+                f"{stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms, "
+                f"p99 {stats['p99_ms']:.3f} ms (host clock, batch "
+                f"{SERVE_BATCH}, synchronized)")
+            say("serve", f"[{enc}] replay {path}: stages gather "
+                f"{stats['stage_gather_ms']:.3f} ms, forward "
+                f"{stats['stage_forward_ms']:.3f} ms per batch")
+            say("serve", f"[{enc}] replay {path}: tiers "
+                f"{stats['tier_counts']}"
+                + (f", cache hit rate {stats['cache_hit_rate']:.2%}"
+                   if cached else ""))
+    return export_launches
 
 
 def phase_round_times(reps):
@@ -674,12 +899,15 @@ def main(argv) -> int:
     gen = torch.Generator().manual_seed(0)
     layout = Layout.of(init_params(CNN, gen))
     checks = phase_kernel_check(layout, d.m_teams, d.n_devices)
-    checks.update(phase_compress_check(
-        {"cnn": layout, "mclr": Layout.of(init_params(MCLR, gen))},
-        d.m_teams * d.n_devices))
-    _, launches = phase_main_path()
+    checks.update(phase_compress_check([
+        ("cnn LAN", layout, d.m_teams * d.n_devices),
+        ("cnn WAN", layout, d.m_teams),
+        ("mclr LAN", Layout.of(init_params(MCLR, gen)),
+         d.m_teams * d.n_devices)]))
+    res, launches = phase_main_path()
     launches.update(phase_comm_paths())
     phase_consistency()
+    launches["quantize"] += phase_serving(res)
     if "--profile" in argv:
         phase_round_times(ROUND_REPS)
         for comp in (None,) + tuple(COMPRESS_KERNEL):

@@ -1,6 +1,7 @@
-"""Tiered communication of the port: compressed uplinks with error
-feedback, their per-sender residual state, and the per-tier byte ledger."""
-from repro_torch.comm.compressors import (LeafPlan, check_ported,
+"""Tiered communication of the port: compressed uplinks with and without
+error feedback, their per-sender residual state, and the per-tier byte
+ledger."""
+from repro_torch.comm.compressors import (LeafPlan, compress_flat,
                                           compress_flat_ef, compression_plan,
                                           leaf_k, leaf_plan, needs_uniforms)
 from repro_torch.comm.config import (COMPRESSORS, CommConfig, CommState,
@@ -10,7 +11,7 @@ from repro_torch.comm.ledger import (CommLedger, RoundBytes,
                                      model_bytes)
 
 __all__ = ["COMPRESSORS", "CommConfig", "CommLedger", "CommState",
-           "LeafPlan", "RoundBytes", "check_ported", "compress_flat_ef",
+           "LeafPlan", "RoundBytes", "compress_flat", "compress_flat_ef",
            "compressed_leaf_bytes", "compression_plan", "full_leaf_bytes",
            "init_comm_state",
            "leaf_k", "leaf_plan", "model_bytes", "needs_uniforms"]

@@ -1,12 +1,14 @@
 """Delta compressors for the tiered uplinks, over flat sender rows.
 
-The reference's ``compress_tree_ef`` loops over a tree's leaves and
-``vmap``s a per-leaf compressor over the senders. The port keeps a tier
-as one flat row per sender (``repro_torch.flat``), so
-:func:`compress_flat_ef` compresses a whole (senders, S) buffer in ONE
-kernel launch: the leaves are segments of the row, each compressed on
-its own -- its own k, int8 rows and sign scale -- exactly as the
-reference compresses each (sender, leaf) pair.
+The reference's ``compress_tree`` / ``compress_tree_ef`` loop over a
+tree's leaves and ``vmap`` a per-leaf compressor over the senders. The
+port keeps a tier as one flat row per sender (``repro_torch.flat``), so
+:func:`compress_flat` (no error feedback) and :func:`compress_flat_ef`
+compress a whole (senders, S) buffer in ONE kernel launch: the leaves
+are segments of the row, each compressed on its own -- its own k, int8
+rows and sign scale -- exactly as the reference compresses each
+(sender, leaf) pair. Without error feedback rand-k is unbiased (kept
+values times p / k), as in the reference.
 
 Static per-leaf facts (k, wire-buffer shapes) come from the cached
 :func:`leaf_plan` / :func:`compression_plan`, as in the reference. The
@@ -15,8 +17,6 @@ column of the senders' rows, per uplink) and handed in, so a test can give
 the port the reference's streams. Byte costs of the wire formats live in
 ``repro_torch.comm.ledger``.
 
-Only error feedback is ported: ``error_feedback=False`` with a lossy
-compressor needs the non-EF kernels and raises ``NotImplementedError``.
 The reference's ``REPRO_COMPRESS_FUSED=0`` legacy path has no
 counterpart; no environment variable switches the port's main path.
 """
@@ -31,9 +31,10 @@ import torch
 from repro_torch.comm.config import CommConfig
 from repro_torch.flat import Layout
 from repro_torch.kernels import compress as K
-from repro_torch.kernels.compress.ref import LANES
+from repro_torch.kernels.quantize import quantize_int8
+from repro_torch.kernels.segments import LANES
 
-__all__ = ["LANES", "LeafPlan", "check_ported", "compress_flat_ef",
+__all__ = ["LANES", "LeafPlan", "compress_flat", "compress_flat_ef",
            "compression_plan", "leaf_k", "leaf_plan", "needs_uniforms"]
 
 
@@ -82,53 +83,73 @@ def compression_plan(cfg: CommConfig, leaf_sizes: tuple) -> tuple:
     return tuple(leaf_plan(cfg, p) for p in leaf_sizes)
 
 
-def check_ported(cfg: CommConfig) -> None:
-    """Raise for the uplinks the port cannot run yet: a lossy compressor
-    without error feedback needs the non-EF kernels."""
-    if cfg.lossy and not cfg.error_feedback:
-        raise NotImplementedError(
-            f"CommConfig({cfg.compressor!r}, error_feedback=False) needs the "
-            "non-error-feedback compress kernels, which are not ported yet "
-            "(ROADMAP.md queue 2; PERF.md kernel table rows 2, 4, 7 and 9)")
-
-
 def needs_uniforms(cfg: CommConfig) -> bool:
     """True when the compressor consumes one uniform per value (rand-k's
     scores, int8's rounding noise)."""
     return cfg.compressor in ("randk", "int8")
 
 
+def _plan_segments(cfg: CommConfig, layout: Layout, b: int, u):
+    """The segment table of ``layout`` for ``cfg`` (with top-k / rand-k's
+    kept counts), after checking that a compressor which needs uniforms
+    got them."""
+    sizes = layout.leaf_sizes
+    if needs_uniforms(cfg) and u is None:
+        raise ValueError(f"{cfg.compressor} needs uniforms u of shape "
+                         f"({b}, {layout.size})")
+    if cfg.compressor in ("topk", "randk"):
+        return K.segments(sizes, tuple(
+            pl.k for pl in compression_plan(cfg, sizes)))
+    return K.segments(sizes)
+
+
+def compress_flat(cfg: CommConfig, layout: Layout, msg: torch.Tensor,
+                  u: Optional[torch.Tensor] = None, *, mode=None):
+    """Compress every sender row of ``msg`` without error feedback.
+
+    msg: (B, S) float32 rows laid out by ``layout``; u: (B, >= P)
+    uniforms, needed by rand-k and int8 (:func:`needs_uniforms`). mode:
+    kernel mode (None: by device; "torch": the plain versions). Returns
+    chat (B, S): what the receiver adds to the anchor it holds (zero
+    past the P real columns). Identity sends ``msg`` itself; rand-k is
+    unbiased.
+    """
+    name = cfg.compressor
+    if name == "identity":
+        return msg
+    segs = _plan_segments(cfg, layout, msg.shape[0], u)
+    if name == "topk":
+        return K.topk(msg, segs, mode=mode)[0]
+    if name == "randk":
+        return K.randk(u, msg, segs, unbiased=True, mode=mode)[0]
+    if name == "int8":
+        return quantize_int8(msg, u, segs, mode=mode)[2]
+    return K.sign(msg, segs, mode=mode)[2]
+
+
 def compress_flat_ef(cfg: CommConfig, layout: Layout, delta: torch.Tensor,
                      ef: torch.Tensor, u: Optional[torch.Tensor] = None, *,
                      mode=None):
-    """Compress every sender row of ``delta`` with its residual ``ef``.
+    """Compress every sender row of ``delta`` with its residual ``ef``
+    (error feedback).
 
     delta, ef: (B, S) float32 rows laid out by ``layout``; u: (B, >= P)
     uniforms, needed by rand-k and int8 (:func:`needs_uniforms`). mode:
     kernel mode (None: by device; "torch": the plain versions).
     Returns (chat, ef_new), both (B, S): what the receiver adds to the
-    anchor it holds, and the senders' new residuals. Identity under
-    error feedback sends ``delta + ef`` and leaves no residual.
+    anchor it holds, and the senders' new residuals. Identity sends
+    ``delta + ef`` and leaves no residual.
     """
-    check_ported(cfg)
     name = cfg.compressor
     if name == "identity":
-        msg = delta + ef
-        return msg, (torch.zeros_like(ef) if cfg.error_feedback else ef)
-    sizes = layout.leaf_sizes
-    plan = compression_plan(cfg, sizes)
-    if needs_uniforms(cfg) and u is None:
-        raise ValueError(f"{name} needs uniforms u of shape "
-                         f"({delta.shape[0]}, {layout.size})")
+        return delta + ef, torch.zeros_like(ef)
+    segs = _plan_segments(cfg, layout, delta.shape[0], u)
     if name == "topk":
-        segs = K.segments(sizes, tuple(pl.k for pl in plan))
         dq, _, ef_new = K.ef_topk(delta, ef, segs, mode=mode)
     elif name == "randk":
-        segs = K.segments(sizes, tuple(pl.k for pl in plan))
         dq, _, ef_new = K.ef_randk(u, delta, ef, segs, mode=mode)
     elif name == "int8":
-        _, _, dq, ef_new = K.ef_int8(delta, ef, u, K.segments(sizes),
-                                     mode=mode)
+        _, _, dq, ef_new = K.ef_int8(delta, ef, u, segs, mode=mode)
     else:
-        _, _, dq, ef_new = K.ef_sign(delta, ef, K.segments(sizes), mode=mode)
+        _, _, dq, ef_new = K.ef_sign(delta, ef, segs, mode=mode)
     return dq, ef_new

@@ -11,10 +11,11 @@ among "pm" / "tm" / "gm" / "train_loss"). Implementations are frozen
 dataclasses: change a hyperparameter by building a new instance.
 Algorithms that move compressed bytes implement ``make_ledger`` /
 ``log_comm_round``, and the engine feeds them the realized (team-gated)
-participation counts.
+participation counts. ``serving_params`` is the export hook of the
+personalized serving store (``repro_torch.serve.store``).
 
-Only PerMFL is ported so far; the baselines, probes, health detectors
-and serving export are later items of ROADMAP.md.
+Only PerMFL is ported so far; the baselines, probes and health detectors
+are later items of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.comm import CommConfig, CommLedger, check_ported
+from repro_torch.comm import CommConfig, CommLedger
 from repro_torch.core import permfl as P
 
 __all__ = ["FLAlgorithm", "FLAlgorithmBase", "PerMFL"]
@@ -66,15 +67,33 @@ class FLAlgorithmBase:
         """Account one round's bytes from realized (team-gated)
         participation counts. No-op unless the algorithm moves bytes."""
 
+    def serving_params(self, state, team=None, device=None):
+        """The flat parameter row this algorithm serves to one principal:
+        the export hook the serving store builds its tiers from.
+
+        ``serving_params(state)`` is the global model,
+        ``serving_params(state, t)`` team t's and
+        ``serving_params(state, t, d)`` device (t, d)'s; integer tensors
+        for ``team`` / ``device`` give stacked rows, so a whole tier is
+        one gather. Default: the state is one global model row, served
+        to everybody; personalized algorithms override this."""
+        if team is None:
+            return state
+        shape = torch.as_tensor(team).shape
+        if device is not None:
+            shape = torch.broadcast_shapes(shape,
+                                           torch.as_tensor(device).shape)
+        return state.expand(tuple(shape) + tuple(state.shape))
+
 
 @dataclass(frozen=True)
 class PerMFL(FLAlgorithmBase):
     """Algorithm 1 (``core.permfl``) behind the unified API.
 
-    comm: optional CommConfig -- uplinks cross compressed with per-sender
-    error feedback; the engine accounts bytes via make_ledger /
-    log_comm_round from realized (gated) participation counts. A lossy
-    compressor without error feedback raises (not ported yet).
+    comm: optional CommConfig -- uplinks cross compressed, with
+    per-sender error feedback or without; the engine accounts bytes via
+    make_ledger / log_comm_round from realized (gated) participation
+    counts.
     """
     loss_fn: Callable
     hp: P.PerMFLHParams
@@ -82,10 +101,6 @@ class PerMFL(FLAlgorithmBase):
 
     name = "permfl"
     supports_participation = True   # paper modes 1-4 (§3.1)
-
-    def __post_init__(self):
-        if self.comm is not None:
-            check_ported(self.comm)
 
     def init_state(self, params, m: int, n: int) -> P.PerMFLState:
         """All tiers (x / w / theta) broadcast from one model; EF
@@ -129,6 +144,17 @@ class PerMFL(FLAlgorithmBase):
         out["train_loss"] = float(
             self.loss_fn(state.layout.unflatten(theta), train).mean())
         return out
+
+    def serving_params(self, state, team=None, device=None):
+        """Three-tier serving: device (t, d) gets its personal row
+        ``theta[t, d]``, a team-only principal ``w[t]`` and the global
+        tier is ``x`` -- the fallback ladder the serving store resolves
+        unknown principals down. Integer tensors index whole tiers."""
+        if team is None:
+            return state.x
+        if device is None:
+            return state.w[team]
+        return state.theta[team, device]
 
     def make_ledger(self, params):
         """CommLedger sized from the model's leaf sizes; None when no

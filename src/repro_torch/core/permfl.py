@@ -16,8 +16,10 @@ One call = one global round t:
                team update (eq. 9)
     x^{t+1} = (1 - beta*gamma) x^t + beta*gamma * mean_i w_i^{t,K}  (eq. 13)
 
-The JAX reference's fori_loops become host loops; uplinks are
-uncompressed (the ``comm`` branch is not ported yet).
+With a ``CommConfig`` the device->team and team->server uplinks cross
+compressed (``repro_torch.comm``): one compress launch per uplink, with
+error feedback or without. The JAX reference's fori_loops become host
+loops.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.comm import (CommConfig, CommState, check_ported,
+from repro_torch.comm import (CommConfig, CommState, compress_flat,
                               compress_flat_ef, init_comm_state,
                               needs_uniforms)
 from repro_torch.flat import Layout
@@ -166,8 +168,11 @@ def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
         participation (the paper's default mode 1).
     comm: optional CommConfig: the device->team theta deltas (each team
         iteration) and the team->server w deltas (once per round) cross
-        compressed, with per-sender error feedback in ``state.comm``
-        (build the state with ``init_state(..., comm=cfg)``).
+        compressed, with the per-sender residuals in ``state.comm``
+        (build the state with ``init_state(..., comm=cfg)``). With error
+        feedback each sender ships C(delta + ef) and keeps the new
+        residual; without, it ships C(delta + ef) with ``ef`` left as it
+        was (zero from ``init_state``), as the reference does.
     uniforms: optional ``uniforms(t, k, b) -> (b, P)`` source of the
         rand-k / int8 uniforms of uplink k of round t (k < K: the LAN
         uplink of team iteration k, M*N senders; k == K: the WAN uplink,
@@ -183,7 +188,6 @@ def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
             raise ValueError("comm config given but state carries no "
                              "CommState; build the state with "
                              "init_state(..., comm=cfg)")
-        check_ported(comm)
     m, n = m_teams, n_devices
     dev = state.x.device
     team_mask, device_mask = normalize_masks(team_mask, device_mask, m, n,
@@ -225,10 +229,17 @@ def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
             anchor = w[:, None].expand(m, n, stride)
             u = _uplink_uniforms(comm, uniforms, gen, state.round, k,
                                  m * n, layout, dev)
-            chat, ef_new = compress_flat_ef(
-                comm, layout, (theta - anchor).view(m * n, stride),
-                ef_dev.reshape(m * n, stride), u, mode=mode)
-            ef_dev = _keep_where(ef_gate, ef_new.view(m, n, stride), ef_dev)
+            if comm.error_feedback:
+                chat, ef_new = compress_flat_ef(
+                    comm, layout, (theta - anchor).view(m * n, stride),
+                    ef_dev.reshape(m * n, stride), u, mode=mode)
+                ef_dev = _keep_where(ef_gate, ef_new.view(m, n, stride),
+                                     ef_dev)
+            else:
+                chat = compress_flat(
+                    comm, layout, (theta - anchor + ef_dev).view(m * n,
+                                                                 stride),
+                    u, mode=mode)
             theta_up = anchor + chat.view(m, n, stride)
         # team update (eq. 9)
         theta_bar = _masked_mean(theta_up, device_mask, axis=1, fallback=w)
@@ -246,9 +257,14 @@ def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
         # substitute value: the masked mean zeroes their contribution.
         u = _uplink_uniforms(comm, uniforms, gen, state.round, hp.k_team, m,
                              layout, dev)
-        chat, ef_new = compress_flat_ef(comm, layout, w - x[None],
-                                        state.comm.ef_team, u, mode=mode)
-        ef_team = _keep_where(team_mask, ef_new, state.comm.ef_team)
+        ef_team = state.comm.ef_team
+        if comm.error_feedback:
+            chat, ef_new = compress_flat_ef(comm, layout, w - x[None],
+                                            ef_team, u, mode=mode)
+            ef_team = _keep_where(team_mask, ef_new, ef_team)
+        else:
+            chat = compress_flat(comm, layout, w - x[None] + ef_team, u,
+                                 mode=mode)
         w_bar = _masked_mean(x[None] + chat, team_mask, axis=0, fallback=x)
         comm_state = CommState(ef_dev=ef_dev, ef_team=ef_team, gen=gen)
     x_new = (1.0 - hp.beta * hp.gamma) * x + hp.beta * hp.gamma * w_bar

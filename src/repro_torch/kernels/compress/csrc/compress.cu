@@ -1,22 +1,31 @@
-// Error-feedback compression of the PerMFL uplinks for Hopper, sm_90a.
+// Compression of the PerMFL uplinks for Hopper, sm_90a: with error feedback
+// (EF) and without, and the bare int8 quantize.
 //
-// Replaces the Pallas TPU kernels of repro/kernels/compress/compress.py:
+// Replaces the Pallas TPU kernels of repro/kernels/compress/compress.py and
+// repro/kernels/quantize/quantize.py, each a variant of one kernel template
+// here (EF = with error feedback):
 //
-//   ef_select (top-k)  _ef_topk_kernel   compress.py:107
-//   ef_select (rand-k) _ef_randk_kernel  compress.py:123
-//   ef_int8            _ef_quant_kernel  compress.py:133
-//   ef_sign            _ef_sign_kernel   compress.py:168
+//   select_kernel<RANDK=0, EF=1>  _ef_topk_kernel    compress.py:107
+//   select_kernel<RANDK=1, EF=1>  _ef_randk_kernel   compress.py:123
+//   select_kernel<RANDK=0, EF=0>  _topk_kernel       compress.py:99
+//   select_kernel<RANDK=1, EF=0>  _randk_kernel      compress.py:116
+//   int8_kernel<EF=1>             _ef_quant_kernel   compress.py:133
+//   int8_kernel<EF=0>             _quant_kernel      quantize.py:23
+//   sign_kernel<EF=1>             _ef_sign_kernel    compress.py:168
+//   sign_kernel<EF=0>             _sign_kernel       compress.py:161
 //
-// Semantics are pinned by the plain PyTorch versions in ../ref.py (and the
-// reference's repro/kernels/compress/ref.py). Every kernel first forms
-// msg = delta + ef and finally writes dq (what the receiver adds) and the new
-// residual ef' = msg - dq:
+// Semantics are pinned by the plain PyTorch versions in ../ref.py and
+// ../../quantize/ref.py (and the reference's ref.py files). With EF every
+// kernel first forms msg = delta + ef and finally writes dq (what the
+// receiver adds) and the new residual ef' = msg - dq; without EF the message
+// is the input v and only dq (and the wire outputs) are written:
 //
 //   select  keep every value whose score (|msg| for top-k, the given uniform
 //           u for rand-k) is strictly above the segment's threshold (its k-th
 //           largest score), then fill the remaining k - n_strict slots with
 //           == threshold ties in index order; ranks = wire slot in [0, k) or
-//           -1, dq = msg where kept, else 0.
+//           -1, dq = msg where kept, else 0. Unbiased rand-k (no EF) keeps
+//           msg * f32(p / k), the leaf's scale given.
 //   int8    per 128-value row of the leaf: scale = max(absmax * f32(1/127),
 //           1e-12), q = clip(floor(msg / scale + u), -127, 127), dq = q*scale.
 //   sign    bits (rows, 16) u8 per leaf, lane 8c+j of a row at bit j of byte
@@ -36,12 +45,14 @@
 // What bounds them on the card: HBM bytes (a handful of flops per value).
 // At the CNN LAN uplink, 40 senders x 206,922 f32 values, 3.35 TB/s:
 //   ef_topk   delta, ef read; dq, ef' written; ranks i32 written: 20 B/value,
-//             165.5 MB -> 49.4 us
-//   ef_randk  + the uniforms read: 24 B/value, 198.6 MB -> 59.3 us
+//             165.5 MB -> 49.4 us; topk (no EF) v read, dq and ranks
+//             written: 12 B/value, 99 MB -> 30 us
+//   ef_randk  + the uniforms read: 24 B/value, 198.6 MB -> 59.3 us; randk
+//             16 B/value, 132 MB -> 40 us
 //   ef_int8   delta, ef, u read; dq, ef' written; q i8 written: 21 B/value
-//             + 4 B per scale, 174.1 MB -> 52.0 us
+//             + 4 B per scale, 174.1 MB -> 52.0 us; quantize 13 B/value
 //   ef_sign   delta, ef read; dq, ef' written: 16 B/value + 16 B per row of
-//             bits, 133.5 MB -> 39.8 us
+//             bits, 133.5 MB -> 39.8 us; sign 8 B/value
 // What the design does about it:
 //  * int8 and sign give one warp to each 128-value row: 4 values per lane
 //    (one float4 where aligned), the row absmax by warp shuffles, the sign
@@ -56,13 +67,15 @@
 //    values) has only one block per sender: 40 blocks on 132 SMs stream it
 //    serially, far from the bound. A multi-block scan (decoupled look-back)
 //    is the way to the bound.
+//  * Without EF the variants read and write less and nothing else changes:
+//    the EF operands are compile-time absent, not branched on per value.
 //
 // Each operation rounds on its own, in the plain version's order: __fadd_rn
-// for msg, __fsub_rn for ef', __fmul_rn for absmax * (1/127) and q * scale,
-// __fdiv_rn for msg / scale. So no multiply-add contracts into an FMA, and
-// the kernels agree with the plain version bit for bit (build without
-// --use_fast_math). The kernels run on the caller's stream and allocate
-// nothing.
+// for msg, __fsub_rn for ef', __fmul_rn for absmax * (1/127), q * scale and
+// msg * f32(p / k), __fdiv_rn for msg / scale. So no multiply-add contracts
+// into an FMA, and the kernels agree with the plain versions bit for bit
+// (build without --use_fast_math). The kernels run on the caller's stream
+// and allocate nothing.
 
 #include <cuda_runtime.h>
 
@@ -140,21 +153,46 @@ __device__ __forceinline__ float score_of(float msg, float u) {
   return RANDK ? u : fabsf(msg);
 }
 
+// The message at i: v + ef with error feedback, else v itself.
+template <bool EF>
+__device__ __forceinline__ float msg_at(const float* v, const float* e,
+                                        int64_t i) {
+  return EF ? __fadd_rn(v[i], e[i]) : v[i];
+}
+
+// The messages of 4 consecutive values at an aligned i (16-byte loads).
+template <bool EF>
+__device__ __forceinline__ void msg4(const float* v, const float* e,
+                                     int64_t i, float m[4]) {
+  const float4 dv = *reinterpret_cast<const float4*>(v + i);
+  m[0] = dv.x;
+  m[1] = dv.y;
+  m[2] = dv.z;
+  m[3] = dv.w;
+  if (EF) {
+    const float4 ev = *reinterpret_cast<const float4*>(e + i);
+    m[0] = __fadd_rn(m[0], ev.x);
+    m[1] = __fadd_rn(m[1], ev.y);
+    m[2] = __fadd_rn(m[2], ev.z);
+    m[3] = __fadd_rn(m[3], ev.w);
+  }
+}
+
 // One block per (leaf segment, sender): blockIdx.x = segment, blockIdx.y =
-// sender. Outputs share one row stride ld_o (dq, ranks, ef_out). The last
-// segment's block also writes the columns [end, cols) past the last leaf:
-// nothing sent, dq 0, ranks -1, ef' = msg.
-template <bool RANDK>
+// sender. Outputs share one row stride ld_o (dq, ranks, and ef_out with
+// EF). scale: (nseg,) kept-value factors (unbiased rand-k) or null. The
+// last segment's block also writes the columns [end, cols) past the last
+// leaf: nothing sent, dq 0, ranks -1, ef' = msg.
+template <bool RANDK, bool EF>
 __global__ void __launch_bounds__(kSelThreads)
-    ef_select_kernel(const float* __restrict__ delta,
-                     const float* __restrict__ ef,
-                     const float* __restrict__ u, float* __restrict__ dq,
-                     int32_t* __restrict__ ranks,
-                     float* __restrict__ ef_out,
-                     const int64_t* __restrict__ segs,
-                     const float* __restrict__ thresh, int nseg,
-                     int64_t cols, int64_t ld_d, int64_t ld_e, int64_t ld_u,
-                     int64_t ld_o, int vec) {
+    select_kernel(const float* __restrict__ v, const float* __restrict__ ef,
+                  const float* __restrict__ u, float* __restrict__ dq,
+                  int32_t* __restrict__ ranks, float* __restrict__ ef_out,
+                  const int64_t* __restrict__ segs,
+                  const float* __restrict__ thresh,
+                  const float* __restrict__ scale, int nseg, int64_t cols,
+                  int64_t ld_v, int64_t ld_e, int64_t ld_u, int64_t ld_o,
+                  int vec) {
   __shared__ uint32_t smem[33];
   const int s = blockIdx.x;
   const int64_t b = blockIdx.y;
@@ -164,23 +202,25 @@ __global__ void __launch_bounds__(kSelThreads)
     for (int64_t c = end + threadIdx.x; c < cols; c += kSelThreads) {
       dq[b * ld_o + c] = 0.0f;
       ranks[b * ld_o + c] = -1;
-      ef_out[b * ld_o + c] = __fadd_rn(delta[b * ld_d + c], ef[b * ld_e + c]);
+      if (EF) ef_out[b * ld_o + c] = msg_at<EF>(v + b * ld_v, ef + b * ld_e, c);
     }
   }
   const int64_t len = sg.len;
   const float thr = thresh[b * nseg + s];
-  delta += b * ld_d + sg.off;
-  ef += b * ld_e + sg.off;
+  const bool scaled = scale != nullptr;
+  const float kscale = scaled ? scale[s] : 1.0f;
+  v += b * ld_v + sg.off;
+  if (EF) ef += b * ld_e + sg.off;
   if (RANDK) u += b * ld_u + sg.off;
   dq += b * ld_o + sg.off;
   ranks += b * ld_o + sg.off;
-  ef_out += b * ld_o + sg.off;
+  if (EF) ef_out += b * ld_o + sg.off;
   const bool vec_ok = vec != 0 && (sg.off % 4) == 0;
 
   // pass 1: the leaf's strict count (rand-k scores need only u)
   uint32_t n = 0;
   for (int64_t i = threadIdx.x; i < len; i += kSelThreads) {
-    const float sc = RANDK ? u[i] : fabsf(__fadd_rn(delta[i], ef[i]));
+    const float sc = RANDK ? u[i] : fabsf(msg_at<EF>(v, ef, i));
     n += sc > thr;
   }
   uint32_t n_strict;
@@ -194,12 +234,7 @@ __global__ void __launch_bounds__(kSelThreads)
     const bool full = vec_ok && base + kSelItems <= len;
     float m[kSelItems], sc[kSelItems];
     if (full) {
-      const float4 dv = *reinterpret_cast<const float4*>(delta + base);
-      const float4 ev = *reinterpret_cast<const float4*>(ef + base);
-      m[0] = __fadd_rn(dv.x, ev.x);
-      m[1] = __fadd_rn(dv.y, ev.y);
-      m[2] = __fadd_rn(dv.z, ev.z);
-      m[3] = __fadd_rn(dv.w, ev.w);
+      msg4<EF>(v, ef, base, m);
       float4 uv = make_float4(0.f, 0.f, 0.f, 0.f);
       if (RANDK) uv = *reinterpret_cast<const float4*>(u + base);
       sc[0] = score_of<RANDK>(m[0], uv.x);
@@ -212,7 +247,7 @@ __global__ void __launch_bounds__(kSelThreads)
         m[j] = 0.0f;
         sc[j] = 0.0f;
         if (base + j < len) {
-          m[j] = __fadd_rn(delta[base + j], ef[base + j]);
+          m[j] = msg_at<EF>(v, ef, base + j);
           sc[j] = score_of<RANDK>(m[j], RANDK ? u[base + j] : 0.0f);
         }
       }
@@ -239,22 +274,24 @@ __global__ void __launch_bounds__(kSelThreads)
       ps += strict[j];
       pt += tie[j];
       const bool sel = strict[j] || (tie[j] && pt <= cap);
-      d[j] = sel ? m[j] : 0.0f;
+      const float kept = scaled ? __fmul_rn(m[j], kscale) : m[j];
+      d[j] = sel ? kept : 0.0f;
       r[j] = sel ? static_cast<int32_t>(ps + (pt < cap ? pt : cap) - 1) : -1;
-      e[j] = __fsub_rn(m[j], d[j]);
+      e[j] = EF ? __fsub_rn(m[j], d[j]) : 0.0f;
     }
     if (full) {
       *reinterpret_cast<float4*>(dq + base) = make_float4(d[0], d[1], d[2], d[3]);
-      *reinterpret_cast<float4*>(ef_out + base) =
-          make_float4(e[0], e[1], e[2], e[3]);
       *reinterpret_cast<int4*>(ranks + base) = make_int4(r[0], r[1], r[2], r[3]);
+      if (EF)
+        *reinterpret_cast<float4*>(ef_out + base) =
+            make_float4(e[0], e[1], e[2], e[3]);
     } else {
 #pragma unroll
       for (int j = 0; j < kSelItems; ++j) {
         if (base + j < len) {
           dq[base + j] = d[j];
-          ef_out[base + j] = e[j];
           ranks[base + j] = r[j];
+          if (EF) ef_out[base + j] = e[j];
         }
       }
     }
@@ -283,36 +320,34 @@ __device__ __forceinline__ RowAt locate_row(const int64_t* segs, int nseg,
                vec != 0 && (sg.off % 4) == 0};
 }
 
-// msg = delta + ef for the lane's 4 values; padding lanes read 0.
-__device__ __forceinline__ void load_msg(const float* d, const float* e,
+// The messages of the lane's 4 values; padding lanes read 0.
+template <bool EF>
+__device__ __forceinline__ void load_msg(const float* v, const float* e,
                                          int j0, int n, bool vec, float m[4]) {
   if (vec && j0 + 4 <= n) {
-    const float4 dv = *reinterpret_cast<const float4*>(d + j0);
-    const float4 ev = *reinterpret_cast<const float4*>(e + j0);
-    m[0] = __fadd_rn(dv.x, ev.x);
-    m[1] = __fadd_rn(dv.y, ev.y);
-    m[2] = __fadd_rn(dv.z, ev.z);
-    m[3] = __fadd_rn(dv.w, ev.w);
+    msg4<EF>(v, e, j0, m);
   } else {
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
-      m[t] = j0 + t < n ? __fadd_rn(d[j0 + t], e[j0 + t]) : 0.0f;
+    for (int t = 0; t < 4; ++t) m[t] = j0 + t < n ? msg_at<EF>(v, e, j0 + t) : 0.0f;
   }
 }
 
-__device__ __forceinline__ void store_pair(float* dq, float* ef_out, int j0,
-                                           int n, bool vec, const float d[4],
-                                           const float e[4]) {
+// dq (and ef' with EF) of the lane's 4 values.
+template <bool EF>
+__device__ __forceinline__ void store_out(float* dq, float* ef_out, int j0,
+                                          int n, bool vec, const float d[4],
+                                          const float e[4]) {
   if (vec && j0 + 4 <= n) {
     *reinterpret_cast<float4*>(dq + j0) = make_float4(d[0], d[1], d[2], d[3]);
-    *reinterpret_cast<float4*>(ef_out + j0) =
-        make_float4(e[0], e[1], e[2], e[3]);
+    if (EF)
+      *reinterpret_cast<float4*>(ef_out + j0) =
+          make_float4(e[0], e[1], e[2], e[3]);
   } else {
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       if (j0 + t < n) {
         dq[j0 + t] = d[t];
-        ef_out[j0 + t] = e[t];
+        if (EF) ef_out[j0 + t] = e[t];
       }
     }
   }
@@ -320,42 +355,44 @@ __device__ __forceinline__ void store_pair(float* dq, float* ef_out, int j0,
 
 // Columns [end, cols) past the last leaf, by the warp of the last wire
 // row: nothing sent, dq 0 (and q 0), ef' = msg.
-__device__ __forceinline__ void write_tail(const float* delta, const float* ef,
+template <bool EF>
+__device__ __forceinline__ void write_tail(const float* v, const float* ef,
                                            float* dq, float* ef_out, int8_t* q,
                                            int64_t end, int64_t cols,
                                            int lane) {
   for (int64_t c = end + lane; c < cols; c += 32) {
     dq[c] = 0.0f;
-    ef_out[c] = __fadd_rn(delta[c], ef[c]);
+    if (EF) ef_out[c] = msg_at<EF>(v, ef, c);
     if (q) q[c] = 0;
   }
 }
 
 // One warp per 128-value leaf row: blockIdx.x * kRowWarps + warp = the
-// sender's wire row (over all leaves), blockIdx.y = sender. dq, ef_out and
-// q share the row stride ld_o; scales (senders, rows_total).
+// sender's wire row (over all leaves), blockIdx.y = sender. dq, q (and
+// ef_out with EF) share the row stride ld_o; scales (senders, rows_total).
+template <bool EF>
 __global__ void __launch_bounds__(kRowWarps * 32)
-    ef_int8_kernel(const float* __restrict__ delta,
-                   const float* __restrict__ ef,
-                   const float* __restrict__ noise, int8_t* __restrict__ q,
-                   float* __restrict__ scales, float* __restrict__ dq,
-                   float* __restrict__ ef_out,
-                   const int64_t* __restrict__ segs, int nseg,
-                   int64_t rows_total, int64_t end, int64_t cols,
-                   int64_t ld_d, int64_t ld_e, int64_t ld_n, int64_t ld_o,
-                   int vec) {
+    int8_kernel(const float* __restrict__ v, const float* __restrict__ ef,
+                const float* __restrict__ noise, int8_t* __restrict__ q,
+                float* __restrict__ scales, float* __restrict__ dq,
+                float* __restrict__ ef_out, const int64_t* __restrict__ segs,
+                int nseg, int64_t rows_total, int64_t end, int64_t cols,
+                int64_t ld_v, int64_t ld_e, int64_t ld_n, int64_t ld_o,
+                int vec) {
   const int lane = threadIdx.x & 31;
   const int64_t row = int64_t(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
   if (row >= rows_total) return;  // the whole warp
   const int64_t b = blockIdx.y;
+  const float* vb = v + b * ld_v;
+  const float* eb = EF ? ef + b * ld_e : nullptr;
+  float* ob = EF ? ef_out + b * ld_o : nullptr;
   if (row == rows_total - 1)
-    write_tail(delta + b * ld_d, ef + b * ld_e, dq + b * ld_o,
-               ef_out + b * ld_o, q + b * ld_o, end, cols, lane);
+    write_tail<EF>(vb, eb, dq + b * ld_o, ob, q + b * ld_o, end, cols, lane);
   const RowAt at = locate_row(segs, nseg, row, vec);
   const int j0 = 4 * lane;
   float m[4], u[4];
-  load_msg(delta + b * ld_d + at.start, ef + b * ld_e + at.start, j0, at.n,
-           at.vec, m);
+  load_msg<EF>(vb + at.start, EF ? eb + at.start : nullptr, j0, at.n, at.vec,
+               m);
   const float* nz = noise + b * ld_n + at.start;
   if (at.vec && j0 + 4 <= at.n) {
     const float4 uv = *reinterpret_cast<const float4*>(nz + j0);
@@ -382,10 +419,10 @@ __global__ void __launch_bounds__(kRowWarps * 32)
         127.0f);
     qi[t] = static_cast<int8_t>(qf);
     d[t] = __fmul_rn(qf, scale);
-    e[t] = __fsub_rn(m[t], d[t]);
+    e[t] = EF ? __fsub_rn(m[t], d[t]) : 0.0f;
   }
-  store_pair(dq + b * ld_o + at.start, ef_out + b * ld_o + at.start, j0,
-             at.n, at.vec, d, e);
+  store_out<EF>(dq + b * ld_o + at.start, EF ? ob + at.start : nullptr, j0,
+                at.n, at.vec, d, e);
   int8_t* qrow = q + b * ld_o + at.start;
   if (at.vec && j0 + 4 <= at.n) {
     *reinterpret_cast<char4*>(qrow + j0) = make_char4(qi[0], qi[1], qi[2], qi[3]);
@@ -397,28 +434,30 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   if (lane == 0) scales[b * rows_total + row] = scale;
 }
 
-// One warp per 128-value leaf row, as ef_int8_kernel. scale: (senders,
-// nseg), the leaf's mean |msg|; bits: (senders, rows_total, 16).
+// One warp per 128-value leaf row, as int8_kernel. scale: (senders, nseg),
+// the leaf's mean |msg|; bits: (senders, rows_total, 16).
+template <bool EF>
 __global__ void __launch_bounds__(kRowWarps * 32)
-    ef_sign_kernel(const float* __restrict__ delta,
-                   const float* __restrict__ ef,
-                   const float* __restrict__ scale, uint8_t* __restrict__ bits,
-                   float* __restrict__ dq, float* __restrict__ ef_out,
-                   const int64_t* __restrict__ segs, int nseg,
-                   int64_t rows_total, int64_t end, int64_t cols,
-                   int64_t ld_d, int64_t ld_e, int64_t ld_o, int vec) {
+    sign_kernel(const float* __restrict__ v, const float* __restrict__ ef,
+                const float* __restrict__ scale, uint8_t* __restrict__ bits,
+                float* __restrict__ dq, float* __restrict__ ef_out,
+                const int64_t* __restrict__ segs, int nseg,
+                int64_t rows_total, int64_t end, int64_t cols, int64_t ld_v,
+                int64_t ld_e, int64_t ld_o, int vec) {
   const int lane = threadIdx.x & 31;
   const int64_t row = int64_t(blockIdx.x) * kRowWarps + (threadIdx.x >> 5);
   if (row >= rows_total) return;  // the whole warp
   const int64_t b = blockIdx.y;
+  const float* vb = v + b * ld_v;
+  const float* eb = EF ? ef + b * ld_e : nullptr;
+  float* ob = EF ? ef_out + b * ld_o : nullptr;
   if (row == rows_total - 1)
-    write_tail(delta + b * ld_d, ef + b * ld_e, dq + b * ld_o,
-               ef_out + b * ld_o, nullptr, end, cols, lane);
+    write_tail<EF>(vb, eb, dq + b * ld_o, ob, nullptr, end, cols, lane);
   const RowAt at = locate_row(segs, nseg, row, vec);
   const int j0 = 4 * lane;
   float m[4];
-  load_msg(delta + b * ld_d + at.start, ef + b * ld_e + at.start, j0, at.n,
-           at.vec, m);
+  load_msg<EF>(vb + at.start, EF ? eb + at.start : nullptr, j0, at.n, at.vec,
+               m);
   const float sc = scale[b * nseg + at.s];
   uint32_t nib = 0;
   float d[4], e[4];
@@ -427,15 +466,15 @@ __global__ void __launch_bounds__(kRowWarps * 32)
     nib |= (m[t] >= 0.0f ? 1u : 0u) << t;
     const float sg = m[t] > 0.0f ? 1.0f : (m[t] < 0.0f ? -1.0f : 0.0f);
     d[t] = __fmul_rn(sc, sg);
-    e[t] = __fsub_rn(m[t], d[t]);
+    e[t] = EF ? __fsub_rn(m[t], d[t]) : 0.0f;
   }
   // byte c of the row = lanes 2c (bits 0-3) and 2c+1 (bits 4-7)
   const uint32_t hi = __shfl_down_sync(kFull, nib, 1);
   if ((lane & 1) == 0)
     bits[(b * rows_total + row) * (kLanes / 8) + (lane >> 1)] =
         static_cast<uint8_t>(nib | (hi << 4));
-  store_pair(dq + b * ld_o + at.start, ef_out + b * ld_o + at.start, j0,
-             at.n, at.vec, d, e);
+  store_out<EF>(dq + b * ld_o + at.start, EF ? ob + at.start : nullptr, j0,
+                at.n, at.vec, d, e);
 }
 
 int row_grid(int64_t rows_total, int64_t senders, dim3* grid) {
@@ -455,60 +494,88 @@ int row_grid(int64_t rows_total, int64_t senders, dim3* grid) {
 // the rows, and columns past the last leaf get dq 0 (ranks -1, q 0) and
 // ef' = msg; vec = 1 vouches that every pointer and row start is 16-byte
 // aligned, so leaves whose offset is a multiple of 4 take 16-byte
-// accesses. Each returns cudaGetLastError() after its launch (0 on
-// success).
+// accesses. ef and ef_out are both given (error feedback: msg = v + ef,
+// ef' written) or both null (msg = v). Each returns cudaGetLastError()
+// after its launch (0 on success).
 
-// randk = 0: top-k on |delta + ef|; randk = 1: rand-k on u. thresh is
-// (senders, nseg), the k-th largest score of each (sender, leaf).
-extern "C" int ef_select(int randk, const float* delta, const float* ef,
-                         const float* u, float* dq, int32_t* ranks,
-                         float* ef_out, const int64_t* segs,
-                         const float* thresh, int nseg, int64_t cols,
-                         int64_t senders, int64_t ld_d, int64_t ld_e,
-                         int64_t ld_u, int64_t ld_o, int vec, void* stream) {
-  if (nseg < 1 || senders < 1 || senders > 65535)
+// randk = 0: top-k on |msg|; randk = 1: rand-k on u. thresh is (senders,
+// nseg), the k-th largest score of each (sender, leaf); scale is (nseg,)
+// factors of the kept values (unbiased rand-k without EF) or null.
+extern "C" int compress_select(int randk, const float* v, const float* ef,
+                               const float* u, float* dq, int32_t* ranks,
+                               float* ef_out, const int64_t* segs,
+                               const float* thresh, const float* scale,
+                               int nseg, int64_t cols, int64_t senders,
+                               int64_t ld_v, int64_t ld_e, int64_t ld_u,
+                               int64_t ld_o, int vec, void* stream) {
+  if (nseg < 1 || senders < 1 || senders > 65535 ||
+      (ef == nullptr) != (ef_out == nullptr) || (ef != nullptr && scale))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(nseg), static_cast<unsigned>(senders));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (randk)
-    ef_select_kernel<true><<<grid, kSelThreads, 0, s>>>(
-        delta, ef, u, dq, ranks, ef_out, segs, thresh, nseg, cols, ld_d, ld_e,
-        ld_u, ld_o, vec);
-  else
-    ef_select_kernel<false><<<grid, kSelThreads, 0, s>>>(
-        delta, ef, u, dq, ranks, ef_out, segs, thresh, nseg, cols, ld_d, ld_e,
-        ld_u, ld_o, vec);
+#define CS_LAUNCH(R, E)                                                       \
+  select_kernel<R, E><<<grid, kSelThreads, 0, s>>>(v, ef, u, dq, ranks,       \
+                                                   ef_out, segs, thresh,      \
+                                                   scale, nseg, cols, ld_v,   \
+                                                   ld_e, ld_u, ld_o, vec)
+  if (ef != nullptr) {
+    if (randk)
+      CS_LAUNCH(true, true);
+    else
+      CS_LAUNCH(false, true);
+  } else {
+    if (randk)
+      CS_LAUNCH(true, false);
+    else
+      CS_LAUNCH(false, false);
+  }
+#undef CS_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
 // q shares dq's row stride ld_o; scales is (senders, rows_total).
-extern "C" int ef_int8(const float* delta, const float* ef, const float* noise,
-                       int8_t* q, float* scales, float* dq, float* ef_out,
-                       const int64_t* segs, int nseg, int64_t rows_total,
-                       int64_t end, int64_t cols, int64_t senders,
-                       int64_t ld_d, int64_t ld_e, int64_t ld_n, int64_t ld_o,
-                       int vec, void* stream) {
+extern "C" int compress_int8(const float* v, const float* ef,
+                             const float* noise, int8_t* q, float* scales,
+                             float* dq, float* ef_out, const int64_t* segs,
+                             int nseg, int64_t rows_total, int64_t end,
+                             int64_t cols, int64_t senders, int64_t ld_v,
+                             int64_t ld_e, int64_t ld_n, int64_t ld_o,
+                             int vec, void* stream) {
   dim3 grid;
-  if (nseg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nseg < 1 || (ef == nullptr) != (ef_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (const int err = row_grid(rows_total, senders, &grid)) return err;
-  ef_int8_kernel<<<grid, kRowWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      delta, ef, noise, q, scales, dq, ef_out, segs, nseg, rows_total, end,
-      cols, ld_d, ld_e, ld_n, ld_o, vec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ef != nullptr)
+    int8_kernel<true><<<grid, kRowWarps * 32, 0, s>>>(
+        v, ef, noise, q, scales, dq, ef_out, segs, nseg, rows_total, end,
+        cols, ld_v, ld_e, ld_n, ld_o, vec);
+  else
+    int8_kernel<false><<<grid, kRowWarps * 32, 0, s>>>(
+        v, ef, noise, q, scales, dq, ef_out, segs, nseg, rows_total, end,
+        cols, ld_v, ld_e, ld_n, ld_o, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 // scale is (senders, nseg); bits is (senders, rows_total, 16).
-extern "C" int ef_sign(const float* delta, const float* ef, const float* scale,
-                       uint8_t* bits, float* dq, float* ef_out,
-                       const int64_t* segs, int nseg, int64_t rows_total,
-                       int64_t end, int64_t cols, int64_t senders,
-                       int64_t ld_d, int64_t ld_e, int64_t ld_o, int vec,
-                       void* stream) {
+extern "C" int compress_sign(const float* v, const float* ef,
+                             const float* scale, uint8_t* bits, float* dq,
+                             float* ef_out, const int64_t* segs, int nseg,
+                             int64_t rows_total, int64_t end, int64_t cols,
+                             int64_t senders, int64_t ld_v, int64_t ld_e,
+                             int64_t ld_o, int vec, void* stream) {
   dim3 grid;
-  if (nseg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nseg < 1 || (ef == nullptr) != (ef_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (const int err = row_grid(rows_total, senders, &grid)) return err;
-  ef_sign_kernel<<<grid, kRowWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      delta, ef, scale, bits, dq, ef_out, segs, nseg, rows_total, end, cols,
-      ld_d, ld_e, ld_o, vec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ef != nullptr)
+    sign_kernel<true><<<grid, kRowWarps * 32, 0, s>>>(
+        v, ef, scale, bits, dq, ef_out, segs, nseg, rows_total, end, cols,
+        ld_v, ld_e, ld_o, vec);
+  else
+    sign_kernel<false><<<grid, kRowWarps * 32, 0, s>>>(
+        v, ef, scale, bits, dq, ef_out, segs, nseg, rows_total, end, cols,
+        ld_v, ld_e, ld_o, vec);
   return static_cast<int>(cudaGetLastError());
 }

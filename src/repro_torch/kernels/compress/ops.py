@@ -1,27 +1,35 @@
-"""Error-feedback compression of flat sender rows: CUDA kernels or plain
-versions, with the reference's gradient rules.
+"""Compression of flat sender rows, with error feedback (EF) and without:
+CUDA kernels or plain versions, with the reference's gradient rules.
 
 Every op takes a batch of senders as (B, C) float32 rows (unit column
 stride; rows may be strided) holding several parameter leaves back to
-back, and a :class:`Segments` table of where each leaf lies. Each leaf
-of each sender is compressed on its own -- its own k, int8 rows and sign
-scale -- as the reference's ``compress_tree_ef`` does per (sender, leaf)
-pair, but ONE kernel launch covers every (sender, leaf) pair:
+back, and a :class:`Segments` table of where each leaf lies
+(``repro_torch.kernels.segments``). Each leaf of each sender is
+compressed on its own -- its own k, int8 rows and sign scale -- as the
+reference compresses each (sender, leaf) pair, but ONE kernel launch
+covers every (sender, leaf) pair:
 
   * :func:`ef_topk`  -> (dq, ranks, ef_new)        kernel ``ef_topk``
   * :func:`ef_randk` -> (dq, ranks, ef_new)        kernel ``ef_randk``
   * :func:`ef_int8`  -> (q, scales, dq, ef_new)    kernel ``ef_int8``
   * :func:`ef_sign`  -> (bits, scales, dq, ef_new) kernel ``ef_sign``
+  * :func:`topk`     -> (dq, ranks)                kernel ``topk``
+  * :func:`randk`    -> (dq, ranks)                kernel ``randk``
+  * :func:`sign`     -> (bits, scales, dq)         kernel ``sign``
 
+(int8 without error feedback is ``repro_torch.kernels.quantize``.) With
+EF the message is ``delta + ef``; without, the rows ``v`` themselves.
 dq, ranks, ef_new and q have the rows' shape (B, C); columns past the
-last leaf read dq 0, ranks -1, q 0 and ef_new = delta + ef. int8 scales
-are (B, rows) and sign bits (B, rows, 16), ``rows`` counting each leaf's
+last leaf read dq 0, ranks -1, q 0 and ef_new = msg. int8 scales are
+(B, rows) and sign bits (B, rows, 16), ``rows`` counting each leaf's
 128-value rows in leaf order; sign scales are (B, leaves).
 
 The select threshold (the k-th largest score of each (sender, leaf),
 ``ref.kth_threshold``) and the sign scale (``mean |msg|``) are torch ops
 computed here, outside the kernels, as the reference computes them in
 XLA outside its Pallas kernels; both versions get the same values.
+Unbiased rand-k multiplies the kept values by each leaf's float32
+f32(p / k), the reference's Python ``p / k`` rounded once.
 
 Which version runs follows the tensors' device
 (:func:`repro_torch.kernels.interface.kernel_mode`): the kernel
@@ -30,15 +38,16 @@ for CPU tensors or an explicit ``mode="torch"``. Each launch adds one to
 ``LAUNCHES[name]``.
 
 Each op is a ``torch.autograd.Function`` with the reference's backward
-rules (``repro/kernels/compress/ops.py``): top-k and rand-k route the
-cotangent of a kept coordinate to dq and of a dropped one to ef_new;
-int8 and sign are straight-through (d dq / d msg = I).
+rules (``repro/kernels/compress/ops.py``): with EF, top-k and rand-k
+route the cotangent of a kept coordinate to dq and of a dropped one to
+ef_new; without, a kept coordinate's cotangent (times rand-k's scale)
+reaches v and a dropped one's is 0, and rand-k's uniforms get 0; int8
+and sign are straight-through (d dq / d msg = I).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 
 import torch
 
@@ -46,194 +55,109 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.compress import ref as R
 from repro_torch.kernels.interface import (KernelType, count_launch,
                                            kernel_mode, vec_aligned)
+from repro_torch.kernels.quantize.ops import quantize_rows
+from repro_torch.kernels.segments import (Segments, check_rows, given,
+                                          leaf_columns, raise_on, segments,
+                                          senders_ok, stream)
 
 __all__ = ["KERNELS", "Segments", "ef_int8", "ef_randk", "ef_sign",
-           "ef_topk", "segment_thresholds", "segments", "sign_scales"]
+           "ef_topk", "randk", "segment_thresholds", "segments", "sign",
+           "sign_scales", "topk", "unbiased_scales"]
 
-_LIB = "compress"
 # launch-count names of the kernels this module launches
-KERNELS = ("ef_topk", "ef_randk", "ef_int8", "ef_sign")
-
-
-@dataclass(frozen=True)
-class Segments:
-    """Where each leaf lies in a flat sender row.
-
-    offsets / lengths: each leaf's first column and size p (>= 1), in
-    row order, back to back from column 0; ks: the values top-k / rand-k
-    keep of each leaf (0 where unused); row0: each leaf's first 128-value
-    wire row among all leaves' rows.
-    """
-    offsets: tuple
-    lengths: tuple
-    ks: tuple
-    row0: tuple
-
-    @property
-    def end(self) -> int:
-        """One past the last leaf's last column."""
-        return self.offsets[-1] + self.lengths[-1]
-
-    @property
-    def rows(self) -> int:
-        """The 128-value wire rows of all leaves together."""
-        return self.row0[-1] + -(-self.lengths[-1] // R.LANES)
-
-    def table(self, device) -> torch.Tensor:
-        """The kernels' (leaves, 4) int64 table on ``device``: offset,
-        length, k, first wire row."""
-        return _table(self, str(torch.device(device)))
-
-
-@functools.lru_cache(maxsize=1024)
-def segments(lengths: tuple, ks: tuple = None) -> Segments:
-    """The (cached) :class:`Segments` of leaves of ``lengths`` packed
-    back to back; ``ks`` the kept counts for top-k / rand-k."""
-    lengths = tuple(int(n) for n in lengths)
-    if not lengths or min(lengths) < 1:
-        raise ValueError(f"every leaf needs at least one value: {lengths}")
-    ks = (0,) * len(lengths) if ks is None else tuple(int(k) for k in ks)
-    if len(ks) != len(lengths) or any(
-            not 0 <= k <= n for k, n in zip(ks, lengths)):
-        raise ValueError(f"bad k per leaf {ks} for leaves {lengths}")
-    offsets, row0 = [0], [0]
-    for n in lengths[:-1]:
-        offsets.append(offsets[-1] + n)
-        row0.append(row0[-1] + -(-n // R.LANES))
-    return Segments(tuple(offsets), lengths, ks, tuple(row0))
-
-
-@functools.lru_cache(maxsize=256)
-def _table(segs: Segments, device: str) -> torch.Tensor:
-    rows = list(zip(segs.offsets, segs.lengths, segs.ks, segs.row0))
-    return torch.tensor(rows, dtype=torch.int64, device=device)
-
-
-def _cols(segs: Segments):
-    """(leaf index, column slice, k) per leaf."""
-    return [(i, slice(o, o + n), k) for i, (o, n, k) in
-            enumerate(zip(segs.offsets, segs.lengths, segs.ks))]
+KERNELS = ("ef_topk", "ef_randk", "ef_int8", "ef_sign", "topk", "randk",
+           "sign")
 
 
 def segment_thresholds(score: torch.Tensor, segs: Segments) -> torch.Tensor:
     """(B, leaves) k-th largest ``score`` of each (sender, leaf)."""
     return torch.stack([R.kth_threshold(score[:, sl], k)
-                        for _, sl, k in _cols(segs)], dim=1).contiguous()
+                        for _, sl, k in leaf_columns(segs)],
+                       dim=1).contiguous()
 
 
-def sign_scales(delta, ef, segs: Segments) -> torch.Tensor:
-    """(B, leaves) ``mean |delta + ef|`` of each (sender, leaf)."""
-    return torch.stack([(delta[:, sl] + ef[:, sl]).abs().mean(dim=-1)
-                        for _, sl, _ in _cols(segs)], dim=1).contiguous()
+def sign_scales(v, segs: Segments, ef=None) -> torch.Tensor:
+    """(B, leaves) ``mean |msg|`` of each (sender, leaf); msg = v (+ ef)."""
+    msg = v if ef is None else v + ef
+    return torch.stack([msg[:, sl].abs().mean(dim=-1)
+                        for _, sl, _ in leaf_columns(segs)],
+                       dim=1).contiguous()
 
 
-def _check(segs: Segments, **rows):
-    b = None
-    devs = set()
-    for name, t in rows.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 2:
-            raise ValueError(f"{name} must be (senders, columns), got "
-                             f"{tuple(t.shape)}")
-        if t.shape[1] > 1 and t.stride(1) != 1:
-            raise ValueError(f"{name} needs unit-stride columns")
-        if t.shape[1] < segs.end:
-            raise ValueError(f"{name} has {t.shape[1]} columns, the leaves "
-                             f"need {segs.end}")
-        if b is not None and t.shape[0] != b:
-            raise ValueError(f"{name} has {t.shape[0]} senders, not {b}")
-        b = t.shape[0]
-        devs.add(t.device)
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {devs}")
+@functools.lru_cache(maxsize=256)
+def _unbiased(segs: Segments, device: str) -> torch.Tensor:
+    return torch.tensor([p / k for p, k in zip(segs.lengths, segs.ks)],
+                        dtype=torch.float32, device=device)
 
 
-def _tail(segs, delta, ef, dq, ef_new, *ints):
-    """Plain version of the columns past the last leaf: nothing sent, the
-    message kept (the kernels write them themselves)."""
-    e = segs.end
-    if e < delta.shape[1]:
-        dq[:, e:] = 0.0
-        ef_new[:, e:] = delta[:, e:] + ef[:, e:]
-        for t, fill in ints:
-            t[:, e:] = fill
+def unbiased_scales(segs: Segments, device) -> torch.Tensor:
+    """(leaves,) float32 f32(p / k) of each leaf: unbiased rand-k's factor
+    of the kept values (cached per table and device)."""
+    return _unbiased(segs, str(torch.device(device)))
 
 
-def _library():
-    lib = load(_LIB)
-    if lib.ef_select.argtypes is None:
+def _functions():
+    lib = load("compress")
+    if lib.compress_select.argtypes is None:
         p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.ef_select.argtypes = [i] + [p] * 8 + [i] + [n] * 6 + [i, p]
-        lib.ef_int8.argtypes = [p] * 8 + [i] + [n] * 8 + [i, p]
-        lib.ef_sign.argtypes = [p] * 7 + [i] + [n] * 7 + [i, p]
-        for fn in (lib.ef_select, lib.ef_int8, lib.ef_sign):
+        lib.compress_select.argtypes = [i] + [p] * 9 + [i] + [n] * 6 \
+            + [i, p]
+        lib.compress_sign.argtypes = [p] * 7 + [i] + [n] * 7 + [i, p]
+        for fn in (lib.compress_select, lib.compress_sign):
             fn.restype = ctypes.c_int
     return lib
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err, name, t):
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"(senders={t.shape[0]}, columns={t.shape[1]})")
-
-
-def _senders_ok(t):
-    if t.shape[0] > 65535:
-        raise ValueError(f"the compress kernels take at most 65535 "
-                         f"senders, got {t.shape[0]}")
-    return t.shape[0] > 0
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 # ------------------------------------------------------------ select
 
-def _given(t, b, segs, what):
-    """A caller's (B, leaves) per-(sender, leaf) value, checked."""
-    if t.shape != (b, len(segs.lengths)) or t.dtype != torch.float32:
-        raise ValueError(f"{what} must be float32 (senders, leaves) = "
-                         f"{(b, len(segs.lengths))}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
-    return t.contiguous()
-
-
-def _select(randk, u, delta, ef, segs, thresh, mode):
-    if randk:
-        _check(segs, u=u, delta=delta, ef=ef)
-    else:
-        _check(segs, delta=delta, ef=ef)
+def _select(u, v, ef, segs, thresh, unbiased, mode):
+    """Top-k (``u`` None) or rand-k of msg = v (+ ef): (dq, ranks,
+    ef_new or None)."""
+    randk = u is not None
+    check_rows(segs, u=u, v=v, ef=ef)
+    b = v.shape[0]
     if thresh is None:
-        thresh = segment_thresholds(u if randk else (delta + ef).abs(), segs)
-    thresh = _given(thresh, delta.shape[0], segs, "thresh")
-    dq = torch.empty(delta.shape, dtype=torch.float32, device=delta.device)
-    ranks = torch.empty(delta.shape, dtype=torch.int32, device=delta.device)
-    ef_new = torch.empty_like(dq)
-    if kernel_mode(delta, mode) is KernelType.TORCH:
-        for i, sl, k in _cols(segs):
+        thresh = segment_thresholds(
+            u if randk else (v if ef is None else v + ef).abs(), segs)
+    thresh = given(thresh, b, segs, "thresh")
+    scale = unbiased_scales(segs, v.device) if unbiased else None
+    dq = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    ranks = torch.empty(v.shape, dtype=torch.int32, device=v.device)
+    ef_new = None
+    if kernel_mode(v, mode) is KernelType.TORCH:
+        msg = v if ef is None else v + ef
+        for i, sl, k in leaf_columns(segs):
             if randk:
-                out = R.ef_randk_select_ref(u[:, sl], delta[:, sl],
-                                            ef[:, sl], k, thresh[:, i])
+                out = R.randk_select_ref(
+                    u[:, sl], msg[:, sl], k,
+                    None if scale is None else scale[i], thresh[:, i])
             else:
-                out = R.ef_topk_select_ref(delta[:, sl], ef[:, sl], k,
-                                           thresh[:, i])
-            dq[:, sl], ranks[:, sl], ef_new[:, sl] = out
-        _tail(segs, delta, ef, dq, ef_new, (ranks, -1))
-    elif _senders_ok(delta):
-        name = "ef_randk" if randk else "ef_topk"
-        ops = (delta, ef, dq, ranks, ef_new) + ((u,) if randk else ())
-        fn = _library().ef_select
+                out = R.topk_select_ref(msg[:, sl], k, thresh[:, i])
+            dq[:, sl], ranks[:, sl] = out
+        dq[:, segs.end:] = 0.0
+        ranks[:, segs.end:] = -1
+        if ef is not None:
+            ef_new = msg - dq
+    elif senders_ok(v):
+        name = ("ef_" if ef is not None else "") + \
+            ("randk" if randk else "topk")
+        if ef is not None:
+            ef_new = torch.empty_like(dq)
+        ops = [t for t in (v, ef, u, dq, ranks, ef_new) if t is not None]
+        fn = _functions().compress_select
         count_launch(name)
-        err = fn(int(randk), delta.data_ptr(), ef.data_ptr(),
-                 u.data_ptr() if randk else None, dq.data_ptr(),
-                 ranks.data_ptr(), ef_new.data_ptr(),
-                 segs.table(delta.device).data_ptr(), thresh.data_ptr(),
-                 len(segs.lengths), delta.shape[1], delta.shape[0],
-                 delta.stride(0), ef.stride(0), u.stride(0) if randk else 0,
-                 dq.stride(0), int(vec_aligned(*ops)), _stream(delta))
-        _raise_on(err, name, delta)
+        err = fn(int(randk), v.data_ptr(), _ptr(ef), _ptr(u), dq.data_ptr(),
+                 ranks.data_ptr(), _ptr(ef_new),
+                 segs.table(v.device).data_ptr(), thresh.data_ptr(),
+                 _ptr(scale), len(segs.lengths), v.shape[1], b, v.stride(0),
+                 0 if ef is None else ef.stride(0),
+                 u.stride(0) if randk else 0, dq.stride(0),
+                 int(vec_aligned(*ops)), stream(v))
+        raise_on(err, name, v)
     return dq, ranks, ef_new
 
 
@@ -243,8 +167,7 @@ class _EFSelect(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u, delta, ef, segs, thresh, mode):
-        dq, ranks, ef_new = _select(u is not None, u, delta, ef, segs,
-                                    thresh, mode)
+        dq, ranks, ef_new = _select(u, delta, ef, segs, thresh, False, mode)
         ctx.mark_non_differentiable(ranks)
         ctx.save_for_backward(ranks)
         return dq, ranks, ef_new
@@ -254,6 +177,37 @@ class _EFSelect(torch.autograd.Function):
         (ranks,) = ctx.saved_tensors
         g_msg = torch.where(ranks >= 0, g_dq, g_ef)
         return None, g_msg, g_msg, None, None, None
+
+
+class _Select(torch.autograd.Function):
+    """Top-k (``u`` None) or rand-k without EF; a kept coordinate's
+    cotangent (times rand-k's scale where unbiased) reaches v, a dropped
+    one's is 0; the uniforms get 0."""
+
+    @staticmethod
+    def forward(ctx, u, v, segs, thresh, unbiased, mode):
+        dq, ranks, _ = _select(u, v, None, segs, thresh, unbiased, mode)
+        ctx.mark_non_differentiable(ranks)
+        ctx.save_for_backward(ranks)
+        ctx.segs, ctx.unbiased, ctx.u_shape = segs, unbiased, \
+            None if u is None else u.shape
+        return dq, ranks
+
+    @staticmethod
+    def backward(ctx, g_dq, _g_ranks):
+        (ranks,) = ctx.saved_tensors
+        g = g_dq
+        if ctx.unbiased:
+            scale = unbiased_scales(ctx.segs, g_dq.device)
+            g = g_dq.clone()
+            for i, sl, _ in leaf_columns(ctx.segs):
+                g[:, sl] = g_dq[:, sl] * scale[i]
+        g_v = torch.where(ranks >= 0, g, torch.zeros_like(g))
+        g_u = None
+        if ctx.needs_input_grad[0]:
+            g_u = torch.zeros(ctx.u_shape, dtype=g_dq.dtype,
+                              device=g_dq.device)
+        return g_u, g_v, None, None, None, None
 
 
 def ef_topk(delta, ef, segs: Segments, *, thresh=None, mode=None):
@@ -273,43 +227,28 @@ def ef_randk(u, delta, ef, segs: Segments, *, thresh=None, mode=None):
     return _EFSelect.apply(u, delta, ef, segs, thresh, mode)
 
 
+def topk(v, segs: Segments, *, thresh=None, mode=None):
+    """Magnitude top-k of every (sender, leaf) of the rows ``v``: keep
+    each leaf's ``segs.ks`` largest ``|v|`` (ties to the lowest index).
+    Returns (dq, ranks int32)."""
+    return _Select.apply(None, v, segs, thresh, False, mode)
+
+
+def randk(u, v, segs: Segments, *, unbiased=False, thresh=None,
+          mode=None):
+    """Rand-k of every (sender, leaf): keep the k positions with the
+    largest uniforms ``u`` (B, >= segs.end); ``unbiased`` multiplies the
+    kept values by f32(p / k) (:func:`unbiased_scales`), the estimator
+    used without error feedback. Returns (dq, ranks int32)."""
+    return _Select.apply(u, v, segs, thresh, bool(unbiased), mode)
+
+
 # -------------------------------------------------------------- int8
-
-def _int8(delta, ef, noise, segs, mode):
-    _check(segs, delta=delta, ef=ef, noise=noise)
-    b = delta.shape[0]
-    q = torch.empty(delta.shape, dtype=torch.int8, device=delta.device)
-    scales = torch.empty((b, segs.rows), dtype=torch.float32,
-                         device=delta.device)
-    dq = torch.empty(delta.shape, dtype=torch.float32, device=delta.device)
-    ef_new = torch.empty_like(dq)
-    if kernel_mode(delta, mode) is KernelType.TORCH:
-        for i, sl, _ in _cols(segs):
-            qi, si, di, ei = R.ef_quantize_int8_ref(delta[:, sl], ef[:, sl],
-                                                    noise[:, sl])
-            r0 = segs.row0[i]
-            q[:, sl], dq[:, sl], ef_new[:, sl] = qi, di, ei
-            scales[:, r0:r0 + si.shape[1]] = si
-        _tail(segs, delta, ef, dq, ef_new, (q, 0))
-    elif _senders_ok(delta):
-        fn = _library().ef_int8
-        count_launch("ef_int8")
-        err = fn(delta.data_ptr(), ef.data_ptr(), noise.data_ptr(),
-                 q.data_ptr(), scales.data_ptr(), dq.data_ptr(),
-                 ef_new.data_ptr(), segs.table(delta.device).data_ptr(),
-                 len(segs.lengths), segs.rows, segs.end, delta.shape[1], b,
-                 delta.stride(0), ef.stride(0), noise.stride(0),
-                 dq.stride(0),
-                 int(vec_aligned(delta, ef, noise, q, dq, ef_new)),
-                 _stream(delta))
-        _raise_on(err, "ef_int8", delta)
-    return q, scales, dq, ef_new
-
 
 class _EFInt8(torch.autograd.Function):
     @staticmethod
     def forward(ctx, delta, ef, noise, segs, mode):
-        q, scales, dq, ef_new = _int8(delta, ef, noise, segs, mode)
+        q, scales, dq, ef_new = quantize_rows(delta, ef, noise, segs, mode)
         ctx.mark_non_differentiable(q, scales)
         return q, scales, dq, ef_new
 
@@ -327,34 +266,41 @@ def ef_int8(delta, ef, noise, segs: Segments, *, mode=None):
 
 # -------------------------------------------------------------- sign
 
-def _sign(delta, ef, segs, scales, mode):
-    _check(segs, delta=delta, ef=ef)
-    b = delta.shape[0]
+def _sign(v, ef, segs, scales, mode):
+    """Sign of msg = v (+ ef): (bits, scales, dq, ef_new or None)."""
+    check_rows(segs, v=v, ef=ef)
+    b = v.shape[0]
     if scales is None:
-        scales = sign_scales(delta, ef, segs)
-    scales = _given(scales, b, segs, "scales")
+        scales = sign_scales(v, segs, ef)
+    scales = given(scales, b, segs, "scales")
     bits = torch.empty((b, segs.rows, R.LANES // 8), dtype=torch.uint8,
-                       device=delta.device)
-    dq = torch.empty(delta.shape, dtype=torch.float32, device=delta.device)
-    ef_new = torch.empty_like(dq)
-    if kernel_mode(delta, mode) is KernelType.TORCH:
-        for i, sl, _ in _cols(segs):
-            bi, _, di, ei = R.ef_sign_compress_ref(delta[:, sl], ef[:, sl],
-                                                   scales[:, i])
+                       device=v.device)
+    dq = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    ef_new = None
+    if kernel_mode(v, mode) is KernelType.TORCH:
+        msg = v if ef is None else v + ef
+        for i, sl, _ in leaf_columns(segs):
+            bi, _, di = R.sign_compress_ref(msg[:, sl], scales[:, i])
             r0 = segs.row0[i]
             bits[:, r0:r0 + bi.shape[1]] = bi
-            dq[:, sl], ef_new[:, sl] = di, ei
-        _tail(segs, delta, ef, dq, ef_new)
-    elif _senders_ok(delta):
-        fn = _library().ef_sign
-        count_launch("ef_sign")
-        err = fn(delta.data_ptr(), ef.data_ptr(), scales.data_ptr(),
-                 bits.data_ptr(), dq.data_ptr(), ef_new.data_ptr(),
-                 segs.table(delta.device).data_ptr(), len(segs.lengths),
-                 segs.rows, segs.end, delta.shape[1], b, delta.stride(0),
-                 ef.stride(0), dq.stride(0),
-                 int(vec_aligned(delta, ef, dq, ef_new)), _stream(delta))
-        _raise_on(err, "ef_sign", delta)
+            dq[:, sl] = di
+        dq[:, segs.end:] = 0.0
+        if ef is not None:
+            ef_new = msg - dq
+    elif senders_ok(v):
+        name = "sign" if ef is None else "ef_sign"
+        if ef is not None:
+            ef_new = torch.empty_like(dq)
+        ops = [t for t in (v, ef, dq, ef_new) if t is not None]
+        fn = _functions().compress_sign
+        count_launch(name)
+        err = fn(v.data_ptr(), _ptr(ef), scales.data_ptr(), bits.data_ptr(),
+                 dq.data_ptr(), _ptr(ef_new),
+                 segs.table(v.device).data_ptr(), len(segs.lengths),
+                 segs.rows, segs.end, v.shape[1], b, v.stride(0),
+                 0 if ef is None else ef.stride(0), dq.stride(0),
+                 int(vec_aligned(*ops)), stream(v))
+        raise_on(err, name, v)
     return bits, scales, dq, ef_new
 
 
@@ -370,9 +316,28 @@ class _EFSign(torch.autograd.Function):
         return g_dq, g_dq, None, None, None
 
 
+class _Sign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, segs, scales, mode):
+        bits, scales, dq, _ = _sign(v, None, segs, scales, mode)
+        ctx.mark_non_differentiable(bits, scales)
+        return bits, scales, dq
+
+    @staticmethod
+    def backward(ctx, _g_bits, _g_scales, g_dq):
+        return g_dq, None, None, None
+
+
 def ef_sign(delta, ef, segs: Segments, *, scales=None, mode=None):
     """EF + 1-bit sign of every (sender, leaf), scaled by the leaf's
     ``mean |msg|`` (``scales`` (B, leaves), if the caller has them:
     :func:`sign_scales`). Returns (bits (B, rows, 16) uint8, scales (B,
     leaves), dq, ef_new)."""
     return _EFSign.apply(delta, ef, segs, scales, mode)
+
+
+def sign(v, segs: Segments, *, scales=None, mode=None):
+    """1-bit sign of every (sender, leaf) of the rows ``v``, scaled by the
+    leaf's ``mean |v|`` (``scales`` (B, leaves), if the caller has them).
+    Returns (bits (B, rows, 16) uint8, scales (B, leaves), dq)."""
+    return _Sign.apply(v, segs, scales, mode)

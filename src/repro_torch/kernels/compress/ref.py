@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the error-feedback compression kernels.
+"""Plain PyTorch versions of the compression kernels.
 
 Semantics and wire formats are the reference's
 (``repro/kernels/compress/ref.py``); every function here takes a batch
@@ -8,16 +8,19 @@ of senders, one row each, for ONE leaf of ``p`` values:
   whose score is strictly above the k-th largest score is kept, and the
   remaining ``k - n_strict`` slots go to ``== threshold`` ties in index
   order -- ``lax.top_k``'s exact kept set. ``ranks`` holds each kept
-  coordinate's wire slot in [0, k), else -1.
-* int8: per 128-value row of the leaf (the last row zero-padded),
-  ``scale = max(absmax * (1/127), 1e-12)``,
-  ``q = clip(floor(msg / scale + u), -127, 127)``, ``dq = q * scale``.
+  coordinate's wire slot in [0, k), else -1. Unbiased rand-k multiplies
+  the kept values by the float32 ``scale`` = f32(p / k).
+* int8: ``repro_torch.kernels.quantize.ref`` -- per 128-value row of the
+  leaf (the last row zero-padded), ``scale = max(absmax * (1/127),
+  1e-12)``, ``q = clip(floor(msg / scale + u), -127, 127)``,
+  ``dq = q * scale``.
 * sign: one bit per value, 8 per byte, (rows, 16) uint8 per leaf; lane
   ``8c + j`` of a row at bit ``j`` of byte ``c``, 1 where ``msg >= 0``
   (padding lanes read 0, so their bit is 1); ``dq = scale * sign(msg)``
   with ``sign(0) = 0``.
-* error feedback: ``msg = delta + ef``; outputs are ``dq`` and
-  ``ef_new = msg - dq``.
+* error feedback (the ``ef_*`` functions): ``msg = delta + ef``; outputs
+  are ``dq`` and ``ef_new = msg - dq``. Without it the message is the
+  input ``v`` itself and there is no residual.
 
 The threshold (:func:`kth_threshold`) and the sign scale (``mean |msg|``)
 are computed outside the kernels, as in the reference, and handed to
@@ -30,13 +33,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.quantize.ref import INV127, quantize_int8_ref, \
+    to_rows
+from repro_torch.kernels.segments import LANES
+
 __all__ = ["INV127", "LANES", "ef_quantize_int8_ref", "ef_randk_select_ref",
            "ef_sign_compress_ref", "ef_topk_select_ref", "kth_threshold",
-           "pack_topk", "sign_unpack", "unpack_topk"]
-
-LANES = 128
-# the float32 the reference multiplies the row absmax by: f32(1/127)
-INV127 = float.fromhex("0x1.020408p-7")
+           "pack_topk", "randk_select_ref", "sign_compress_ref",
+           "sign_unpack", "topk_select_ref", "unpack_topk"]
 
 
 def kth_threshold(score: torch.Tensor, k: int) -> torch.Tensor:
@@ -44,8 +48,9 @@ def kth_threshold(score: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(score, k, dim=-1, sorted=True).values[..., -1]
 
 
-def _select(score, v, thresh, k: int):
-    """Strict-above + tie-fill select on (B, p) -> (dq, ranks int32)."""
+def _select(score, v, thresh, k: int, scale=None):
+    """Strict-above + tie-fill select on (B, p) -> (dq, ranks int32);
+    kept values times ``scale`` where one is given."""
     t = thresh[..., None]
     strict = score > t
     tie = score == t
@@ -54,55 +59,54 @@ def _select(score, v, thresh, k: int):
     inc_t = tie.cumsum(dim=-1, dtype=torch.int32)
     sel = strict | (tie & (inc_t <= cap))
     rank = inc_s + torch.minimum(inc_t, cap) - 1
-    dq = torch.where(sel, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    kept = v if scale is None else v * scale
+    dq = torch.where(sel, kept,
+                     torch.zeros((), dtype=v.dtype, device=v.device))
     ranks = torch.where(sel, rank, torch.full_like(rank, -1))
     return dq, ranks
 
 
-def ef_topk_select_ref(delta, ef, k: int, thresh=None):
-    """EF + magnitude top-k: select on ``|delta + ef|``. ``thresh`` (B,)
-    is the k-th largest ``|msg|`` (computed here if None). Returns
-    (dq, ranks, ef_new)."""
-    msg = delta + ef
-    score = msg.abs()
+def topk_select_ref(v, k: int, thresh=None):
+    """Magnitude top-k: select on ``|v|``. ``thresh`` (B,) is the k-th
+    largest ``|v|`` (computed here if None). Returns (dq, ranks)."""
+    score = v.abs()
     if thresh is None:
         thresh = kth_threshold(score, k)
-    dq, ranks = _select(score, msg, thresh, k)
+    return _select(score, v, thresh, k)
+
+
+def randk_select_ref(u, v, k: int, scale=None, thresh=None):
+    """Rand-k: keep the k positions with the largest uniforms ``u``
+    (B, p), values times the float32 ``scale`` (f32(p / k) for the
+    unbiased estimator; None keeps them as they are); ``thresh`` is the
+    k-th largest ``u``. Returns (dq, ranks)."""
+    if thresh is None:
+        thresh = kth_threshold(u, k)
+    return _select(u, v, thresh, k, scale)
+
+
+def ef_topk_select_ref(delta, ef, k: int, thresh=None):
+    """EF + magnitude top-k on ``msg = delta + ef``. Returns (dq, ranks,
+    ef_new)."""
+    msg = delta + ef
+    dq, ranks = topk_select_ref(msg, k, thresh)
     return dq, ranks, msg - dq
 
 
 def ef_randk_select_ref(u, delta, ef, k: int, thresh=None):
-    """EF + contractive rand-k: keep the k positions with the largest
-    uniforms ``u`` (B, p); ``thresh`` is the k-th largest ``u``. Returns
-    (dq, ranks, ef_new)."""
+    """EF + contractive rand-k (values unscaled). Returns (dq, ranks,
+    ef_new)."""
     msg = delta + ef
-    if thresh is None:
-        thresh = kth_threshold(u, k)
-    dq, ranks = _select(u, msg, thresh, k)
+    dq, ranks = randk_select_ref(u, msg, k, None, thresh)
     return dq, ranks, msg - dq
-
-
-def _to_rows(v):
-    """(B, p) -> (B, rows, 128), zero-padded."""
-    b, p = v.shape
-    rows = -(-p // LANES)
-    out = v.new_zeros((b, rows * LANES))
-    out[:, :p] = v
-    return out.view(b, rows, LANES)
 
 
 def ef_quantize_int8_ref(delta, ef, noise):
     """EF + stochastic int8 over the leaf's 128-value rows. Returns
     (q (B, p) int8, scales (B, rows) f32, dq (B, p), ef_new (B, p))."""
     msg = delta + ef
-    p = msg.shape[-1]
-    m2, n2 = _to_rows(msg), _to_rows(noise)
-    absmax = m2.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(absmax * INV127, 1e-12)
-    q = torch.clamp(torch.floor(m2 / scale + n2), -127.0, 127.0)
-    dq = (q * scale).flatten(1)[:, :p]
-    return (q.to(torch.int8).flatten(1)[:, :p], scale.squeeze(-1), dq,
-            msg - dq)
+    q, scales, dq = quantize_int8_ref(msg, noise)
+    return q, scales, dq, msg - dq
 
 
 def _pack_bits(nonneg):
@@ -113,14 +117,20 @@ def _pack_bits(nonneg):
     return (b * weights).sum(dim=-1, dtype=torch.uint8)
 
 
+def sign_compress_ref(v, scale=None):
+    """1-bit sign; ``scale`` (B,) defaults to ``mean |v|``. Returns
+    (bits (B, rows, 16) uint8, scale (B,), dq)."""
+    if scale is None:
+        scale = v.abs().mean(dim=-1)
+    bits = _pack_bits(to_rows(v) >= 0)
+    return bits, scale, scale[..., None] * torch.sign(v)
+
+
 def ef_sign_compress_ref(delta, ef, scale=None):
     """EF + 1-bit sign; ``scale`` (B,) defaults to ``mean |msg|``.
     Returns (bits (B, rows, 16) uint8, scale (B,), dq, ef_new)."""
     msg = delta + ef
-    if scale is None:
-        scale = msg.abs().mean(dim=-1)
-    bits = _pack_bits(_to_rows(msg) >= 0)
-    dq = scale[..., None] * torch.sign(msg)
+    bits, scale, dq = sign_compress_ref(msg, scale)
     return bits, scale, dq, msg - dq
 
 

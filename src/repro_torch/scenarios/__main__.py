@@ -3,13 +3,24 @@
     PYTHONPATH=src python -m repro_torch.scenarios list [--family F]
     PYTHONPATH=src python -m repro_torch.scenarios run NAME [--rounds R]
         [--eval-every E] [--seed S] [--device cuda|cpu] [--json]
+    PYTHONPATH=src python -m repro_torch.scenarios serve NAME [--rounds R]
+        [--seed S] [--smoke] [--encoding delta|int8|raw] [--store PATH]
+        [--requests Q] [--batch B] [--alpha A] [--unknown-frac F]
+        [--cached] [--device cuda|cpu] [--json]
 
 ``list`` prints one line per registered scenario (name, topology,
 partitioner, model, algorithm, default rounds, spec hash -- the same
 hash as the reference's). ``run`` trains it through the engine on the
 card (``--device cpu`` for the CPU) and prints the final metrics, and
 for a compressed scenario the megabytes its links carried; ``--json``
-prints them as one JSON object on stdout instead.
+prints them as one JSON object on stdout instead. ``serve`` closes the
+train -> deploy -> measure loop: it trains the scenario, exports the
+personalized (team, device) ``ModelStore`` (``--encoding`` picks the
+device-tier encoding; ``--store PATH`` saves it and reloads it from
+disk), then replays Zipf-popularity traffic through the tier-fallback
+batched server (``--cached``: through the LRU) and prints the latency
+percentiles and queries per second. ``--smoke`` shrinks the scenario to
+2 teams x 3 devices x 16 samples for 2 rounds.
 """
 from __future__ import annotations
 
@@ -69,8 +80,65 @@ def _cmd_run(args) -> int:
     return 0
 
 
+def _cmd_serve(args) -> int:
+    from repro_torch.models import paper_models as pm
+    from repro_torch.scenarios import (build_scenario, get_scenario,
+                                       run_scenario)
+    from repro_torch.serve import (ModelStore, PersonalizedServer,
+                                   replay_traffic)
+
+    s = get_scenario(args.name)
+    if args.smoke:
+        s = s.scaled(m_teams=2, n_devices=3, samples_per_device=16,
+                     rounds=2)
+    res = run_scenario(s, rounds=args.rounds, seed=args.seed,
+                       device=args.device)
+    b = build_scenario(s, seed=args.seed, device=args.device)
+    store = ModelStore.from_result(b.algo, res, m=b.m, n=b.n,
+                                   encoding=args.encoding)
+    if args.store:
+        store.save(args.store)
+        store = ModelStore.load(args.store, device=args.device)
+        print(f"# store: {args.store} ({store.encoding}, "
+              f"{store.m}x{store.n}, device tier "
+              f"{store.device_tier_nbytes() / 1e6:.2f} MB)")
+    cfg = b.config
+    xv = b.val["x"]
+    pool = xv.reshape((-1,) + tuple(xv.shape[3:]))
+    server = PersonalizedServer(
+        store, lambda p, x: pm.apply(p, cfg, x[:, None])[:, 0])
+    stats = replay_traffic(server, pool, requests=args.requests,
+                           batch=args.batch, alpha=args.alpha,
+                           unknown_frac=args.unknown_frac, seed=args.seed,
+                           cached=args.cached)
+    stats["scenario"] = s.name
+    if args.json:
+        print(json.dumps({k: v for k, v in stats.items() if k != "lat_ms"},
+                         sort_keys=True))
+        return 0
+    print(f"{s.name}: served {stats['requests']} requests "
+          f"(batch {stats['batch']}, Zipf a={stats['alpha']:g}, "
+          f"{stats['unknown_frac']:.0%} unknown, "
+          f"encoding={stats['encoding']}"
+          + (", cached" if stats["cached"] else "")
+          + f") on {stats['device']}")
+    print(f"  qps={stats['qps']:.1f} p50={stats['p50_ms']:.3f}ms "
+          f"p95={stats['p95_ms']:.3f}ms p99={stats['p99_ms']:.3f}ms "
+          f"mean={stats['mean_ms']:.3f}ms")
+    tiers = stats["tier_counts"]
+    print(f"  tiers: device={tiers['device']} team={tiers['team']} "
+          f"global={tiers['global']}"
+          + (f"  cache_hit_rate={stats['cache_hit_rate']:.2%}"
+             if "cache_hit_rate" in stats else ""))
+    print(f"  stages: gather {stats['stage_gather_ms']:.3f}ms, forward "
+          f"{stats['stage_forward_ms']:.3f}ms")
+    print(f"  device tier: {stats['device_tier_bytes'] / 1e6:.2f} MB "
+          f"({stats['m']}x{stats['n']} devices)")
+    return 0
+
+
 def main(argv=None) -> int:
-    """Entry point: dispatch list / run."""
+    """Entry point: dispatch list / run / serve."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.scenarios",
         description="Browse and run the port's scenario registry.")
@@ -87,6 +155,34 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true",
                    help="print the final metrics as JSON on stdout")
     p.set_defaults(fn=_cmd_run)
+    p = sub.add_parser(
+        "serve", help="train -> export personalized store -> replay "
+                      "Zipf traffic")
+    p.add_argument("name")
+    p.add_argument("--rounds", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--smoke", action="store_true",
+                   help="2x3x16 topology, 2 rounds")
+    p.add_argument("--encoding", default="delta",
+                   choices=("delta", "int8", "raw"),
+                   help="device-tier encoding (delta = exact bit-pattern "
+                        "residual, int8 = quantized residual)")
+    p.add_argument("--store", default=None,
+                   help="save the exported store here and reload it from "
+                        "disk before serving")
+    p.add_argument("--requests", type=int, default=512)
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--alpha", type=float, default=1.2,
+                   help="Zipf popularity exponent (>1)")
+    p.add_argument("--unknown-frac", type=float, default=0.0,
+                   help="fraction of requests tagged with unknown "
+                        "principals (exercises tier fallback)")
+    p.add_argument("--cached", action="store_true",
+                   help="serve through the LRU unique-principal path")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--json", action="store_true",
+                   help="print the replay stats as JSON on stdout")
+    p.set_defaults(fn=_cmd_serve)
     args = ap.parse_args(argv)
     return args.fn(args)
 

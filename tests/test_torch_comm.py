@@ -122,32 +122,53 @@ def _ref_uplink(cfg, key, delta, ef, batch_shape):
     return _REF_UPLINK(cfg, key, delta, ef, batch_shape)
 
 
-def _port_uplink(cfg, layout, delta, ef, u=None, **kw):
-    p = layout.size
+def _ref_uplink_plain(cfg, key, msg, batch_shape):
+    """The reference's ``compress_tree`` (no error feedback), recording
+    its messages as :func:`_ref_uplink` does."""
+    b = int(np.prod(batch_shape))
+    flat = jnp.concatenate([m.reshape(b, -1) for m in jax.tree.leaves(msg)],
+                           axis=1)
+    jax.debug.callback(_record_ref, flat, ordered=True)
+    return _REF_PLAIN(cfg, key, msg, batch_shape)
+
+
+def _record_port(msg, u, p):
     _SINK["port"].append((
-        (delta + ef)[:, :p].detach().numpy().copy(),
+        msg[:, :p].detach().numpy().copy(),
         None if u is None else u[:, :p].detach().numpy().copy()))
+
+
+def _port_uplink(cfg, layout, delta, ef, u=None, **kw):
+    _record_port(delta + ef, u, layout.size)
     return _PORT_UPLINK(cfg, layout, delta, ef, u, **kw)
 
 
-_REF_UPLINK = JP.compress_tree_ef
-_PORT_UPLINK = None
+def _port_uplink_plain(cfg, layout, msg, u=None, **kw):
+    _record_port(msg, u, layout.size)
+    return _PORT_PLAIN(cfg, layout, msg, u, **kw)
+
+
+_REF_UPLINK, _REF_PLAIN = JP.compress_tree_ef, JP.compress_tree
+_PORT_UPLINK = _PORT_PLAIN = None
 
 
 @contextlib.contextmanager
 def recording():
-    """Both rounds' uplinks record their messages into the yielded sink
-    (run the reference with ``jax_fns_recorded`` inside)."""
-    global _PORT_UPLINK
+    """Both rounds' uplinks, with error feedback and without, record their
+    messages into the yielded sink (run the reference with
+    ``jax_fns_recorded`` inside)."""
+    global _PORT_UPLINK, _PORT_PLAIN
     from repro_torch.core import permfl as P
 
-    _PORT_UPLINK = P.compress_flat_ef
+    _PORT_UPLINK, _PORT_PLAIN = P.compress_flat_ef, P.compress_flat
     _SINK.update(ref=[], port=[])
     JP.compress_tree_ef, P.compress_flat_ef = _ref_uplink, _port_uplink
+    JP.compress_tree, P.compress_flat = _ref_uplink_plain, _port_uplink_plain
     try:
         yield _SINK
     finally:
         JP.compress_tree_ef, P.compress_flat_ef = _REF_UPLINK, _PORT_UPLINK
+        JP.compress_tree, P.compress_flat = _REF_PLAIN, _PORT_PLAIN
 
 
 def _choices(name, m, u, k):
@@ -270,7 +291,8 @@ def run_port(kind, state, train, rounds, cfg, masks):
     return state
 
 
-def run_both(kind, fd, rounds, compressor, masks, k_frac=0.1):
+def run_both(kind, fd, rounds, compressor, masks, k_frac=0.1,
+             error_feedback=True):
     """``rounds`` compressed rounds of both implementations from the JAX
     init, recorded; returns (port state, JAX state, Flips)."""
     from repro_torch.comm import CommConfig
@@ -279,8 +301,10 @@ def run_both(kind, fd, rounds, compressor, masks, k_frac=0.1):
 
     m, n = fd.m_teams, fd.n_devices
     train = {"x": fd.train_x, "y": fd.train_y}
-    jcfg = JCommConfig(compressor, k_frac=k_frac)
-    cfg = CommConfig(compressor, k_frac=k_frac)
+    jcfg = JCommConfig(compressor, k_frac=k_frac,
+                       error_feedback=error_feedback)
+    cfg = CommConfig(compressor, k_frac=k_frac,
+                     error_feedback=error_feedback)
     state = P.init_state(params_from_numpy(jax_init(kind)), m, n, comm=cfg)
     with recording() as sink:
         js = run_jax(kind, JP.init_state(jax_init(kind), m, n, comm=jcfg),
@@ -416,15 +440,42 @@ def test_round_leaves_its_input_state_and_generator_alone(small_fed_data):
     assert not torch.equal(a.comm.gen.get_state(), gen_state)
 
 
-def test_lossy_compressor_without_error_feedback_raises():
+def test_lossy_compressor_without_error_feedback_raises(small_fed_data):
+    """Once refused; now every lossy compressor without error feedback
+    builds a ``PerMFL`` and rounds through it: finite tiers, residuals
+    left at zero, and one compress call per uplink (K LAN + 1 WAN) with
+    no error-feedback call. Only a config no compressor knows raises."""
     from repro_torch.comm import CommConfig
+    from repro_torch.convert import params_from_numpy
     from repro_torch.core import PerMFL, PerMFLHParams
+    from repro_torch.core import permfl as P
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PerMFL(None, PerMFLHParams(), comm=CommConfig("sign",
-                                                      error_feedback=False))
-    PerMFL(None, PerMFLHParams(), comm=CommConfig("identity",
-                                                  error_feedback=False))
+    fd = small_fed_data
+    train = params_from_numpy({"x": fd.train_x, "y": fd.train_y})
+    calls = []
+    plain, with_ef = P.compress_flat, P.compress_flat_ef
+    P.compress_flat = lambda *a, **k: calls.append("plain") or plain(*a, **k)
+    P.compress_flat_ef = lambda *a, **k: calls.append("ef") \
+        or with_ef(*a, **k)
+    try:
+        for name in ("topk", "randk", "int8", "sign"):
+            calls.clear()
+            cfg = CommConfig(name, error_feedback=False)
+            algo = PerMFL(port_loss("mclr"),
+                          PerMFLHParams(k_team=2, l_local=2), comm=cfg)
+            state = algo.init_state(params_from_numpy(jax_init("mclr")),
+                                    fd.m_teams, fd.n_devices)
+            new = algo.round(state, train, team_mask=torch.ones(4),
+                             device_mask=torch.ones(4, 3))
+            assert calls == ["plain"] * 3, (name, calls)
+            assert new.round == 1 and torch.isfinite(new.theta).all()
+            assert not torch.equal(new.x, state.x)
+            assert float(new.comm.ef_dev.abs().max()) == 0.0
+            assert float(new.comm.ef_team.abs().max()) == 0.0
+    finally:
+        P.compress_flat, P.compress_flat_ef = plain, with_ef
+    with pytest.raises(ValueError, match="unknown compressor"):
+        CommConfig("gzip", error_feedback=False)
 
 
 def test_converted_jax_comm_state_continues(small_fed_data):

@@ -34,11 +34,19 @@ PUBLIC_MODULES = (
     "repro_torch.kernels.interface",
     "repro_torch.kernels.prox_update",
     "repro_torch.kernels.prox_update.ops",
+    "repro_torch.kernels.quantize",
+    "repro_torch.kernels.quantize.ops",
+    "repro_torch.kernels.quantize.ref",
+    "repro_torch.kernels.segments",
     "repro_torch.models.paper_models",
     "repro_torch.scenarios",
     "repro_torch.scenarios.registry",
     "repro_torch.scenarios.runner",
     "repro_torch.scenarios.spec",
+    "repro_torch.serve",
+    "repro_torch.serve.personalized",
+    "repro_torch.serve.store",
+    "repro_torch.train.checkpoint",
     "repro_torch.train.engine",
     "repro_torch.train.fl_trainer",
 )

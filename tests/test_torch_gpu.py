@@ -263,3 +263,170 @@ def test_compressed_round_kernel_path_matches_plain_path(cuda, compressor):
         torch.testing.assert_close(getattr(out[None].comm, tier),
                                    getattr(out["torch"].comm, tier), rtol=0,
                                    atol=1e-4)
+
+
+# ------------------------------ compress kernels without error feedback
+
+def _run_plain(op, v, u, segs, mode=None, noise=None):
+    from repro_torch.kernels import compress as K
+    from repro_torch.kernels.quantize import quantize_int8
+
+    if op == "topk":
+        return K.topk(v, segs, mode=mode)
+    if op in ("randk", "randk_unbiased"):
+        return K.randk(u, v, segs, unbiased=op == "randk_unbiased",
+                       mode=mode)
+    if op == "sign":
+        return K.sign(v, segs, mode=mode)
+    return quantize_int8(v, u if noise is None else noise, segs, mode=mode)
+
+
+@pytest.mark.parametrize("op", ["topk", "randk", "randk_unbiased", "sign",
+                                "quantize"])
+@pytest.mark.parametrize("shape", ["small-aligned", "small-odd-stride",
+                                   "mclr", "cnn-lan", "cnn-wan"])
+def test_plain_compress_kernel_matches_plain(cuda, op, shape):
+    """Each compress kernel without error feedback (and quantize) against
+    its plain version on the card, bit for bit, on every output; one
+    launch for all (sender, leaf) pairs, and no error-feedback kernel."""
+    from repro_torch.kernels.interface import LAUNCHES
+
+    name = {"randk_unbiased": "randk"}.get(op, op)
+    rng = np.random.default_rng(sum(map(ord, op + shape)) + 1)
+    if shape.startswith("cnn"):
+        leaves, ld = _cnn_leaves()
+        b = 40 if shape == "cnn-lan" else 4
+    elif shape == "mclr":
+        leaves, ld, b = (10, 7840), 7872, 40
+    else:
+        leaves, b = SMALL_LEAVES, 3
+        ld = 5504 if shape == "small-aligned" else sum(SMALL_LEAVES) + 3
+    ks = tuple(max(1, round(0.1 * p)) for p in leaves)
+    segs = _segs_for(op, leaves, ks)
+    v, _, u = _compress_rows(rng, b, leaves, ld, cuda)
+    before = dict(LAUNCHES)
+    got = _run_plain(op, v, u, segs)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before.get(name, 0) + 1
+    want = _run_plain(op, v, u, segs, mode="torch")
+    assert {k: c - before.get(k, 0) for k, c in LAUNCHES.items()
+            if c != before.get(k, 0)} == {name: 1}
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+def _segs_for(op, leaves, ks):
+    from repro_torch.kernels import compress as K
+
+    return K.segments(leaves, ks if op.startswith(("topk", "randk"))
+                      else None)
+
+
+def test_quantize_kernel_at_the_store_export(cuda):
+    """The int8 store export's call: residual rows of M*N devices and the
+    noise 0.5 as one expanded (stride-0) row; bit-equal to the plain
+    version."""
+    from repro_torch.kernels.quantize import quantize_int8
+    from repro_torch.kernels.segments import segments
+
+    leaves, ld = _cnn_leaves()
+    rng = np.random.default_rng(8)
+    v, _, _ = _compress_rows(rng, 40, leaves, ld, cuda)
+    noise = torch.full((1, ld), 0.5, device=cuda).expand(40, ld)
+    segs = segments(leaves)
+    got = quantize_int8(v, noise, segs)
+    want = quantize_int8(v, noise, segs, mode="torch")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("compressor", ["topk", "randk", "int8", "sign"])
+def test_round_without_ef_kernel_path_matches_plain_path(cuda, compressor):
+    """One PerMFL round of a small CNN scenario without error feedback,
+    through the kernels and through the plain versions, from the same
+    state and generator seed: (K + 1) launches of the compressor's
+    non-EF kernel, none of an EF kernel, and the same tiers."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import permfl as P
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.scenarios import build_scenario, get_scenario
+
+    name = {"int8": "quantize"}.get(compressor, compressor)
+    cfg = CommConfig(compressor, error_feedback=False)
+    s = get_scenario("table1/mnist/cnn/permfl").scaled(
+        m_teams=2, n_devices=3, samples_per_device=16,
+        algo_overrides={"k_team": 2, "l_local": 3})
+    b = build_scenario(s, seed=0, device=cuda)
+    hp = s.algo.hparams()
+    state = P.init_state(b.params0, b.m, b.n, comm=cfg)
+    before = dict(LAUNCHES)
+    out = {}
+    for mode in (None, "torch"):
+        out[mode] = P.permfl_round(state, b.train, hp, b.loss_fn,
+                                   m_teams=b.m, n_devices=b.n, comm=cfg,
+                                   mode=mode)
+        torch.cuda.synchronize()
+    moved = {k: c - before.get(k, 0) for k, c in LAUNCHES.items()
+             if c != before.get(k, 0)}
+    assert moved == {"prox_update": hp.k_team * hp.l_local,
+                     name: hp.k_team + 1}
+    for tier in ("x", "w", "theta"):
+        torch.testing.assert_close(getattr(out[None], tier),
+                                   getattr(out["torch"], tier), rtol=0,
+                                   atol=1e-4)
+
+
+# ---------------------------------------------------------- serving
+
+@pytest.mark.parametrize("encoding", ["delta", "int8", "raw"])
+def test_serve_path_on_the_card(cuda, encoding):
+    """A trained small CNN state exported on the card: the int8 export is
+    one quantize launch and its payload equals the plain version's; the
+    decoded rows equal the CPU store's (delta, raw bit for bit); save and
+    reload are bit-equal; serve equals serve_cached; a replay's tier
+    counts sum to the requests."""
+    import tempfile
+
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.models import paper_models as pm
+    from repro_torch.scenarios import get_scenario, run_scenario
+    from repro_torch.serve import (ModelStore, PersonalizedServer,
+                                   replay_traffic)
+
+    s = get_scenario("table1/mnist/cnn/permfl").scaled(
+        m_teams=2, n_devices=3, samples_per_device=16,
+        algo_overrides={"k_team": 2, "l_local": 2})
+    res = run_scenario(s, rounds=1, device=cuda)
+    algo, st = s.algo.build(None), res.state
+    before = LAUNCHES.get("quantize", 0)
+    store = ModelStore.from_state(algo, st, m=2, n=3, encoding=encoding)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("quantize", 0) == before + (encoding == "int8")
+    plain = ModelStore.from_state(algo, st, m=2, n=3, encoding=encoding,
+                                  mode="torch")
+    t = np.array([0, 0, 1, 1, 1, 0, 5, -1])
+    d = np.array([0, 2, 1, 2, 9, -1, 0, 1])
+    rows = store.gather(t, d)
+    if encoding == "int8":
+        for k in ("q", "scales"):
+            assert torch.equal(store.payload[k], plain.payload[k])
+        assert torch.equal(rows, plain.gather(t, d))
+    else:
+        assert torch.equal(rows[:6][[0, 1, 2, 3]],
+                           st.theta[[0, 0, 1, 1], [0, 2, 1, 2]])
+    with tempfile.TemporaryDirectory() as tmp:
+        store.save(f"{tmp}/s.ckpt")
+        back = ModelStore.load(f"{tmp}/s.ckpt", device=cuda)
+    assert torch.equal(back.gather(t, d), rows)
+    cfg = s.model_config()
+    apply = lambda p, x: pm.apply(p, cfg, x[:, None])[:, 0]
+    server = PersonalizedServer(store, apply)
+    xv = res.state.x.new_tensor(np.random.default_rng(0).random(
+        (len(t),) + tuple(cfg.input_shape)).astype(np.float32))
+    assert torch.equal(server.serve(t, d, xv), server.serve_cached(t, d, xv))
+    stats = replay_traffic(server, xv, requests=128, batch=32,
+                           unknown_frac=0.1)
+    assert sum(stats["tier_counts"].values()) == 128
+    assert stats["device"] == torch.cuda.get_device_name(cuda)

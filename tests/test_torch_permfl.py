@@ -6,6 +6,7 @@ which takes the masked-mean fallback, and a masked-out team); the
 momentum and weight-decay branches; and eval_stacked's PM/TM/GM
 matrices. The JAX round runs its prox step through the XLA reference,
 as the JAX suite does on the CPU."""
+import dataclasses
 import functools
 
 import jax
@@ -235,19 +236,48 @@ def test_round_continues_a_converted_jax_state(small_fed_data,
 
 
 def test_round_refuses_comm(small_fed_data):
-    """Compressed uplinks without error feedback need the non-EF kernels,
-    which are not ported: a lossy compressor with error_feedback=False
-    raises, naming the roadmap."""
+    """Once: a lossy compressor without error feedback was refused. Now
+    the non-EF uplinks run, and identity with error_feedback=False still
+    sends ``theta - anchor + ef``: from a JAX state whose residuals are
+    nonzero, one round of each implementation agrees, both leave the
+    residuals as they were, and the result differs from the round with
+    zero residuals (so ``ef`` really rode the message)."""
+    from repro.comm import CommConfig as JCommConfig
+    from repro.comm.config import CommState as JCommState
     from repro_torch.comm import CommConfig
-    from repro_torch.convert import params_from_numpy
+    from repro_torch.convert import params_from_numpy, state_from_numpy
     from repro_torch.core import permfl as P
 
     fd = small_fed_data
-    for name in ("topk", "randk", "int8", "sign"):
-        cfg = CommConfig(name, error_feedback=False)
-        state = P.init_state(params_from_numpy(_jax_init("mclr")), 4, 3,
-                             comm=cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            P.permfl_round(state, params_from_numpy(_data(fd)[0]),
-                           P.PerMFLHParams(), _port_fns("mclr")[0],
-                           m_teams=4, n_devices=3, comm=cfg)
+    m, n = fd.m_teams, fd.n_devices
+    jcfg = JCommConfig("identity", error_feedback=False)
+    cfg = CommConfig("identity", error_feedback=False)
+    js0 = JP.init_state(_jax_init("mclr"), m, n, comm=jcfg)
+    rng = np.random.default_rng(4)
+    ef = jax.tree.map(lambda t: jnp.asarray(
+        1e-3 * rng.standard_normal(t.shape).astype(np.float32)),
+        {"ef_dev": js0.comm.ef_dev, "ef_team": js0.comm.ef_team})
+    js = dataclasses.replace(
+        js0, comm=JCommState(key=js0.comm.key, **ef))
+    train, _ = _data(fd)
+    jhp = JP.PerMFLHParams(k_team=2, l_local=2)
+    jnext = JP.permfl_round(js, jax.tree.map(jnp.asarray, train), jhp,
+                            _jax_fns("mclr")[0], m_teams=m, n_devices=n,
+                            comm=jcfg)
+    as_np = {k: jax.tree.map(np.asarray, getattr(js, k))
+             for k in ("x", "w", "theta")}
+    as_np["comm"] = jax.tree.map(np.asarray, ef)
+    state = state_from_numpy(as_np)
+    hp = P.PerMFLHParams(k_team=2, l_local=2)
+    nxt = P.permfl_round(state, params_from_numpy(train), hp,
+                         _port_fns("mclr")[0], m_teams=m, n_devices=n,
+                         comm=cfg)
+    _assert_state_close(nxt, jnext, TOL_1)
+    assert torch.equal(nxt.comm.ef_dev, state.comm.ef_dev)
+    assert torch.equal(nxt.comm.ef_team, state.comm.ef_team)
+    zero = P.init_state(params_from_numpy(_jax_init("mclr")), m, n,
+                        comm=cfg)
+    plain = P.permfl_round(zero, params_from_numpy(train), hp,
+                           _port_fns("mclr")[0], m_teams=m, n_devices=n,
+                           comm=cfg)
+    assert float((plain.x - nxt.x).abs().max()) > 1e-5
