@@ -46,11 +46,39 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      under delta and raw), the same tier counts summing to 512; qps,
      latency percentiles, the stage split, the device-tier MB and the
      cache hit rate.
-  8. with ``--profile``: the CNN round's host-clock time, uncompressed and
-     with each lossy compressor, over several unprofiled rounds in
-     alternating order (medians and ranges, and the host time spent
-     issuing the compression), then one profiled round of each.
-  9. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+  8. LLM kernel check: flash_attention against its plain version at the
+     serving path's shapes in bf16 (deepseek-moe-16b prefill (4, 1024,
+     16, 128) causal; decode (4, 1, 16, 128) against a 1,040-slot cache
+     at q_offset 1,030) and, small, in f32 and bf16: GQA 40:8, head_dim
+     96, a 256 window, non-causal, q bf16 over an f32 cache (f32 within
+     1e-5, bf16 within 2e-2); moe_router at (4096, 64, k=6), (4, 64, k=6)
+     and with tied rows (ids bit-equal, gates and statistics within 1e-6).
+     Times with the L2 cold, the plain versions' times, the bounds, and
+     for attention the library call's time (scaled_dot_product_attention
+     on the same tensors; never the port's path).
+  9. LLM serving at full width: deepseek-moe-16b (28 layers, its
+     published widths) in bf16, drawn on the card from a seeded
+     generator; ``ServeEngine(max_len=1040, cache_dtype=bf16).generate``
+     of 4 prompts of 1,024 tokens, 16 new tokens greedy, with the counts
+     set to 0 just before and read just after: flash_attention and
+     moe_router exactly 28 x 16 = 448 launches each, no other kernel,
+     (4, 16) tokens in range, finite logits; prefill ms, decode ms per
+     step, tokens/s, peak device memory.
+ 10. LLM path consistency: the same config cut to 1 layer, in f32, the
+     kernel path against the plain path: prefill logits of every position
+     and the first decode step's. Tokens whose routed and kept expert
+     sets agree match within 1e-4; a token routed differently (a flip)
+     must lie within 1e-5 of a tie in the plain run; a token displaced
+     from an expert's capacity by an earlier flip in its group is counted.
+ 11. with ``--profile``: the LLM serving path's time by layer part
+     (attention, router, the rest of the MoE layer, head) for a prefill
+     and 8 decode steps, and a profiled decode step and prefill (busy
+     share, time by kernel); then the CNN round's host-clock time,
+     uncompressed and with each lossy compressor, over several
+     unprofiled rounds in alternating order (medians and ranges, and the
+     host time spent issuing the compression), then one profiled round
+     of each.
+ 12. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -98,7 +126,20 @@ TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
     "randk": "src/repro/kernels/compress/compress.py:116",
     "sign": "src/repro/kernels/compress/compress.py:161",
     "quantize": "src/repro/kernels/quantize/quantize.py:23",
+    "flash_attention": "src/repro/kernels/flash_attention/"
+                       "flash_attention.py:29",
+    "moe_router": "src/repro/kernels/moe_router/moe_router.py:22",
 }
+KERNEL_SOURCE = {  # kernel -> its CUDA source
+    "prox_update": "prox_update/csrc/prox_update.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "moe_router": "moe_router/csrc/moe_router.cu",
+}
+LLM_ARCH = "deepseek-moe-16b"
+LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_MAX_LEN = 4, 1024, 16, 1040
+LLM_DECODE_OFFSET = 1030           # the timed decode's cache position
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # absolute
+BF16_OPS_PER_S = 989e12            # H100 SXM data sheet, dense tensor core
 SERVE_REQUESTS = 512
 SERVE_BATCH = 64
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak
@@ -465,9 +506,11 @@ def check_launches(launches, expect, path):
     """Every kernel in ``expect`` launched exactly that often on ``path``,
     every other kernel not at all."""
     from repro_torch.kernels.compress import KERNELS
+    from repro_torch.kernels.flash_attention import KERNELS as ATTENTION
+    from repro_torch.kernels.moe_router import KERNELS as ROUTER
     from repro_torch.kernels.quantize import KERNELS as QUANTIZE
 
-    for name in ("prox_update",) + KERNELS + QUANTIZE:
+    for name in ("prox_update",) + KERNELS + QUANTIZE + ATTENTION + ROUTER:
         want = expect.get(name, 0)
         if launches.get(name, 0) != want:
             raise AssertionError(
@@ -759,6 +802,506 @@ def phase_serving(res):
     return export_launches
 
 
+def attention_cases():
+    """(label, b, sq, skv, hq, hkv, d, causal, window, q_offset, q dtype,
+    kv dtype, timed): the serving path's two shapes in bf16 first (timed),
+    then the small shapes in f32 and bf16."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, p, n = LLM_BATCH, LLM_PROMPT, LLM_MAX_LEN
+    cases = [("deepseek prefill", b, p, p, 16, 16, 128, True, 0, 0, bf16,
+              bf16, True),
+             ("deepseek decode", b, 1, n, 16, 16, 128, True, 0,
+              LLM_DECODE_OFFSET, bf16, bf16, True)]
+    for dt in (f32, bf16):
+        cases += [("GQA 40:8", 1, 256, 256, 40, 8, 128, True, 0, 0, dt, dt,
+                   False),
+                  ("head_dim 96", 2, 256, 256, 8, 8, 96, True, 0, 0, dt, dt,
+                   False),
+                  ("window 256", 1, 1024, 1024, 4, 4, 128, True, 256, 0, dt,
+                   dt, False),
+                  ("non-causal", 2, 128, 160, 4, 4, 64, False, 0, 0, dt, dt,
+                   False)]
+    cases.append(("q bf16 / cache f32 decode", b, 1, n, 16, 16, 128, True, 0,
+                  LLM_DECODE_OFFSET, bf16, f32, False))
+    return cases
+
+
+def attention_bound(b, sq, skv, hq, hkv, d, causal, window, q_offset, qdt,
+                    kvdt):
+    """(bound ms, bound by, MB moved, GFLOP): q, k, v read once (k and v up
+    to the last position a query sees), o written once; 4 FLOPs per live
+    (query, key) pair and dim over the bf16 tensor-core peak."""
+    from repro_torch.kernels.flash_attention import live_pairs
+
+    kv_rows = min(skv, q_offset + sq) if causal else skv
+    moved = (2 * b * sq * hq * d * qdt.itemsize
+             + 2 * b * kv_rows * hkv * d * kvdt.itemsize)
+    flops = 4 * b * hq * d * live_pairs(sq, skv, causal=causal,
+                                        window=window, q_offset=q_offset)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, moved / 1e6, flops / 1e9
+
+
+def sdpa_call(q, k, v, causal, q_offset):
+    """The library call computing the same attention on the same tensors:
+    ``scaled_dot_product_attention`` over (b, h, s, d) views; a causal
+    prefill with ``is_causal``, a decode with a boolean mask over the
+    cache."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
+    if q.shape[1] > 1 or not causal:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, **kw)
+    mask = torch.arange(k.shape[1], device=q.device) <= q_offset
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[None, None, None, :], **kw)
+
+
+def phase_attention_check():
+    """flash_attention against its plain version at every case of
+    :func:`attention_cases`; the timed ones with their plain version's
+    time, bound and the library call's time. Returns {label: numbers}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    out = {}
+    for (label, b, sq, skv, hq, hkv, d, causal, window, q_offset, qdt, kvdt,
+         timed) in attention_cases():
+        q = torch.randn(b, sq, hq, d, device=DEVICE, generator=gen).to(qdt)
+        k = torch.randn(b, skv, hkv, d, device=DEVICE, generator=gen).to(kvdt)
+        v = torch.randn(b, skv, hkv, d, device=DEVICE, generator=gen).to(kvdt)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = attention(q, k, v, **kw)
+        want = attention(q, k, v, mode="torch", **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[str(qdt).split(".")[-1]]
+        name = f"{label} {str(qdt).split('.')[-1]}/{str(kvdt).split('.')[-1]}"
+        shape = f"q ({b}, {sq}, {hq}, {d}), kv ({b}, {skv}, {hkv}, {d})"
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {name}: kernel and plain "
+                                 f"version differ by {err} (tol {tol})")
+        if not timed:
+            say("kernel", f"flash_attention {name} {shape}: max abs err "
+                f"{err:.3g} (tol {tol:g})")
+            continue
+        ms = cuda_time_ms(lambda: attention(q, k, v, **kw),
+                          20 if sq > 1 else TIMED_LAUNCHES)
+        plain_ms = cuda_time_ms(lambda: attention(q, k, v, mode="torch",
+                                                  **kw), 10)
+        lib_ms = cuda_time_ms(sdpa_call(q, k, v, causal, q_offset),
+                              20 if sq > 1 else TIMED_LAUNCHES)
+        bound_ms, by, mb, gflop = attention_bound(b, sq, skv, hq, hkv, d,
+                                                  causal, window, q_offset,
+                                                  qdt, kvdt)
+        say("kernel", f"flash_attention {name} {shape}, q_offset "
+            f"{q_offset}: max abs err {err:.3g} (tol {tol:g}); kernel "
+            f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+            f"scaled_dot_product_attention {lib_ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.1f} us ({mb:.1f} MB, {gflop:.2f} GFLOP; by "
+            f"{by}), {bound_ms / ms:.1%} of bound")
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    return out
+
+
+def router_logits(t, e, gen, tied):
+    import torch
+
+    x = 2 * torch.randn(t, e, device=DEVICE, generator=gen)
+    if tied:        # all-equal rows, tied maxima, a tied top-k boundary
+        x[0::7] = 0.25
+        x[1::7, 5] = x[1::7, e - 2] = 9.0
+        x[2::7, :8] = 3.0
+    return x
+
+
+def phase_router_check():
+    """moe_router against its plain version: ids bit-equal, gates and
+    statistics within 1e-6, at the prefill and decode shapes of the
+    serving path (timed) and with tied rows. Returns {label: numbers}."""
+    import torch
+
+    from repro_torch.kernels.moe_router import route_topk
+    from repro_torch.kernels.moe_router.ops import BLOCK_TOKENS, launch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    e = 64
+    out = {}
+    for label, t, k, tied in (("prefill", LLM_BATCH * LLM_PROMPT, 6, False),
+                              ("decode", LLM_BATCH, 6, False),
+                              ("tied rows", 512, 6, True),
+                              ("tied rows k=1", 70, 1, True)):
+        x = router_logits(t, e, gen, tied)
+        g, i, aux = route_topk(x, top_k=k)
+        g_p, i_p, aux_p = route_topk(x, top_k=k, mode="torch")
+        torch.cuda.synchronize()
+        err = max([float((g - g_p).abs().max())]
+                  + [float((aux[n] - aux_p[n]).abs().max())
+                     for n in ("mean_prob", "frac_tokens")])
+        if not torch.equal(i, i_p) or not err <= 1e-6:
+            raise AssertionError(f"moe_router {label}: ids equal "
+                                 f"{torch.equal(i, i_p)}, max err {err}")
+        if label not in ("prefill", "decode"):
+            say("kernel", f"moe_router {label} ({t}x{e}, k={k}): ids "
+                f"bit-equal, gates and stats max abs err {err:.3g}")
+            continue
+        blocks = -(-t // BLOCK_TOKENS)
+        outs = (torch.empty_like(g), torch.empty_like(i),
+                torch.empty(blocks, 2, e, device=DEVICE))
+        ms = cuda_time_ms(lambda: launch(x, *outs, top_k=k, renormalize=True),
+                          TIMED_LAUNCHES)
+        op_ms = cuda_time_ms(lambda: route_topk(x, top_k=k), TIMED_LAUNCHES)
+        plain_ms = cuda_time_ms(lambda: route_topk(x, top_k=k, mode="torch"),
+                                20)
+        # logits in; gates, ids and the two (E,) statistics out (the
+        # kernel's per-block partials are its own, not the function's)
+        moved = t * e * 4 + 2 * t * k * 4 + 2 * e * 4
+        ops = t * e * (5 + 2 * k)      # softmax, k arg-max rounds, stats
+        t_b, t_o = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        by = "bytes" if t_b >= t_o else "operations"
+        bound_ms = max(t_b, t_o) * 1e3
+        say("kernel", f"moe_router {label} ({t}x{e}, k={k}): ids bit-equal, "
+            f"gates and stats max abs err {err:.3g}; kernel {ms * 1e3:.1f} "
+            f"us (the op, with the blocks' statistics summed, "
+            f"{op_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.2f} "
+            f"us ({moved / 1e6:.2f} MB by {by}), {bound_ms / ms:.1%} of "
+            f"bound")
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return out
+
+
+def llm_prompts(vocab):
+    """The serving path's prompts: (4, 1024) int32 from seed 1."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    return torch.randint(0, vocab, (LLM_BATCH, LLM_PROMPT), device=DEVICE,
+                         generator=gen, dtype=torch.int32)
+
+
+def phase_llm_serving():
+    """deepseek-moe-16b at its published widths, bf16, through
+    ``ServeEngine.generate``: a warm-up generate of 2 tokens, then the
+    counted one of 16. Returns its launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = get_config(LLM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = M.init_params(gen, cfg, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    say("llm", f"{LLM_ARCH}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} routed + "
+        f"{cfg.moe.num_shared_experts} shared experts (top "
+        f"{cfg.moe.top_k}, d_ff {cfg.moe.expert_d_ff}), vocab "
+        f"{cfg.vocab_size}: {n / 1e9:.3f} B parameters in bf16 "
+        f"(param_count {param_count(cfg) / 1e9:.3f} B), drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    # param_count leaves out the final norm and the vocabulary's padding
+    pad = (M.padded_vocab(cfg) - cfg.vocab_size) * cfg.d_model * 2
+    if n != param_count(cfg) + cfg.d_model + pad:
+        raise AssertionError(f"{n} parameters, param_count {param_count(cfg)}")
+    engine = ServeEngine(cfg=cfg, params=params, max_len=LLM_MAX_LEN,
+                         cache_dtype=torch.bfloat16, device=DEVICE)
+    prompts = {"tokens": llm_prompts(cfg.vocab_size)}
+    steps = {"prefill": [], "decode": []}
+    finite = []
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            steps[key].append(time.perf_counter() - t1)
+            return res
+        return run
+
+    def checked_greedy(logits, gen=None):
+        finite.append(torch.isfinite(logits).all())
+        return greedy(logits)
+
+    greedy = engine_mod.sampler_lib.greedy
+    engine._prefill = timed(engine._prefill, "prefill")
+    engine._decode = timed(engine._decode, "decode")
+    engine_mod.sampler_lib.greedy = checked_greedy
+    try:
+        engine.generate(prompts, max_new_tokens=2)           # warm-up
+        torch.cuda.synchronize()
+        for v in steps.values():
+            v.clear()
+        finite.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, max_new_tokens=LLM_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c for k, c in LAUNCHES.items() if c}
+    finally:
+        engine_mod.sampler_lib.greedy = greedy
+    per = LLM_NEW * cfg.num_layers
+    check_launches(launches, {"flash_attention": per, "moe_router": per},
+                   f"{LLM_ARCH} generate")
+    if out.shape != (LLM_BATCH, LLM_NEW) or out.dtype != torch.int32:
+        raise AssertionError(f"tokens {tuple(out.shape)} {out.dtype}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError("token ids outside the vocabulary")
+    if len(finite) != LLM_NEW or not bool(torch.stack(finite).all()):
+        raise AssertionError("non-finite logits")
+    dec = sorted(steps["decode"])
+    med, p95 = dec[len(dec) // 2], dec[min(len(dec) - 1,
+                                           math.ceil(0.95 * len(dec)) - 1)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say("llm", f"generate: {LLM_BATCH} prompts x {LLM_PROMPT} tokens, "
+        f"{LLM_NEW} new (greedy), cache bf16 x {LLM_MAX_LEN}; launches "
+        f"{launches}; tokens {out[0].tolist()}...")
+    say("llm", f"prefill {steps['prefill'][0] * 1e3:.1f} ms; decode per "
+        f"step median {med * 1e3:.2f} ms, p95 {p95 * 1e3:.2f} ms over "
+        f"{len(dec)} steps (host clock, each from a synchronized card to a "
+        f"synchronized card)")
+    say("llm", f"generate {wall:.3f} s: {LLM_BATCH * LLM_NEW / wall:.1f} "
+        f"new tokens/s end to end; decode {LLM_BATCH / med:.1f} tokens/s "
+        f"at the median step; peak device memory {peak:.2f} GiB")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def kept_sets(idx, t, top_k, num_experts, cap, group):
+    """Per token (first ``t`` rows of the router's padded rows): the set of
+    experts it is routed to and the set it is kept by after capacity
+    (the reference's cumsum priority)."""
+    import torch
+
+    g = idx.shape[0] // group
+    sel = torch.nn.functional.one_hot(idx.long(), num_experts).float()
+    flat = sel.reshape(g, group * top_k, num_experts)
+    pos = (flat.cumsum(1) - flat).reshape(g * group, top_k, num_experts)
+    kept = (sel * (pos < cap)).sum(1)[:t] > 0
+    routed = sel.sum(1)[:t] > 0
+    return routed, kept
+
+
+def phase_llm_consistency():
+    """The serving path cut to 1 layer in f32, through the kernels and
+    through the plain versions: prefill logits of every position and the
+    first decode step's, under the flip rule of the module docstring."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config(LLM_ARCH).replace(num_layers=1)
+    m = cfg.moe
+    params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                           dtype=torch.float32, device=DEVICE)
+    prompts = llm_prompts(cfg.vocab_size)
+    tok = torch.randint(0, cfg.vocab_size, (LLM_BATCH, 1), device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(2),
+                        dtype=torch.int32)
+    route = moe_mod.route_topk
+    runs = {}
+    for mode in (None, "torch"):
+        calls = []
+
+        def recording(logits, **kw):
+            res = route(logits, **kw)
+            calls.append((logits, res[1]))
+            return res
+
+        moe_mod.route_topk = recording
+        try:
+            with torch.inference_mode():
+                cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN,
+                                     dtype=torch.float32, device=DEVICE)
+                pre, cache = M.prefill(params, cfg, {"tokens": prompts},
+                                       cache, mode=mode)
+                dec, _ = M.decode_step(params, cfg, cache, {"tokens": tok},
+                                       LLM_PROMPT, mode=mode)
+        finally:
+            moe_mod.route_topk = route
+        runs[mode] = (pre, dec, calls)
+        del cache
+    torch.cuda.synchronize()
+    for step, which, t, gs in (("prefill", 0, LLM_BATCH * LLM_PROMPT,
+                                min(1024, LLM_BATCH * LLM_PROMPT)),
+                               ("decode", 1, LLM_BATCH, LLM_BATCH)):
+        got, want = runs[None][which], runs["torch"][which]
+        got, want = got.reshape(t, -1), want.reshape(t, -1)
+        _, idx_k = runs[None][2][which]
+        lg_p, idx_p = runs["torch"][2][which]
+        cap = moe_mod._capacity(gs, m.num_experts, m.top_k,
+                                m.capacity_factor)
+        r_k, kept_k = kept_sets(idx_k, t, m.top_k, m.num_experts, cap, gs)
+        r_p, kept_p = kept_sets(idx_p, t, m.top_k, m.num_experts, cap, gs)
+        flipped = (r_k != r_p).any(1)
+        displaced = (kept_k != kept_p).any(1) & ~flipped
+        agree = ~flipped & ~displaced
+        err = (got[agree] - want[agree]).abs().max()
+        probs = torch.softmax(lg_p[:t].float(), dim=-1)
+        top = probs.topk(m.top_k + 1, dim=-1).values
+        gaps = (top[:, m.top_k - 1] - top[:, m.top_k])[flipped]
+        flips = flipped.nonzero()[:, 0]
+        lone = [i for i in displaced.nonzero()[:, 0].tolist()
+                if not bool(((flips < i) & (flips // gs == i // gs)).any())]
+        say("consistency", f"{LLM_ARCH} x 1 layer f32, {step} ({t} tokens): "
+            f"kernel vs plain path, max |logit diff| over the {int(agree.sum())}"
+            f" agreeing tokens {float(err):.3g} (tol 1e-4); flipped "
+            f"{int(flipped.sum())} (tie gaps in the plain run "
+            f"{[float(x) for x in gaps]}), displaced {int(displaced.sum())}")
+        if not float(err) <= 1e-4:
+            raise AssertionError(f"{step}: kernel and plain paths disagree")
+        if len(gaps) and not float(gaps.max()) <= 1e-5:
+            raise AssertionError(f"{step}: a flip off a tie ({gaps})")
+        if lone:
+            raise AssertionError(f"{step}: tokens {lone} displaced without "
+                                 "an earlier flip in their group")
+    del runs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_llm_profile(decode_steps=8):
+    """``--profile``: where the serving path's time goes, deepseek-moe-16b
+    at full width in bf16 (drawn anew). One prefill and ``decode_steps``
+    decode steps with each part of a layer timed on the host clock
+    between synchronizes (attention layer with its projections, the
+    router op, the rest of the MoE layer, the head; the remainder is the
+    norms, residuals and embedding), then one decode step and one prefill
+    under torch.profiler: the device's busy share and time by kernel."""
+    import gc
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config(LLM_ARCH)
+    params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                           dtype=torch.bfloat16, device=DEVICE)
+    prompts = {"tokens": llm_prompts(cfg.vocab_size)}
+    spent = {}
+    patched = [(attn_mod, "attn_prefill", "attention"),
+               (attn_mod, "attn_decode", "attention"),
+               (moe_mod, "moe_apply", "moe"), (moe_mod, "route_topk", "router"),
+               (M, "_logits_out", "head")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def one(step, fn):
+        spent.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        parts = dict(spent)
+        parts["moe"] = parts.get("moe", 0.0) - parts.get("router", 0.0)
+        parts["rest"] = wall - sum(parts.values())
+        return out, wall, parts
+
+    with torch.inference_mode():
+        cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN,
+                             dtype=torch.bfloat16, device=DEVICE)
+        tok = prompts["tokens"][:, -1:]
+        prefill = lambda: M.prefill(params, cfg, prompts, cache,
+                                    last_only=True)
+        decode = lambda: M.decode_step(params, cfg, cache, {"tokens": tok},
+                                       LLM_PROMPT)
+        prefill()
+        decode()                                        # warm-up
+        for mod, name, key in patched:
+            setattr(mod, name, timed(getattr(mod, name), key))
+        try:
+            rows = [("prefill", *one("prefill", prefill)[1:])]
+            for i in range(decode_steps):
+                rows.append(("decode", *one("decode", decode)[1:]))
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        for step in ("prefill", "decode"):
+            got = [r for r in rows if r[0] == step]
+            wall = sorted(r[1] for r in got)[len(got) // 2]
+            keys = ("attention", "router", "moe", "head", "rest")
+            med = {k: sorted(r[2][k] for r in got)[len(got) // 2]
+                   for k in keys}
+            say("profile", f"llm {step} (median of {len(got)}, synchronized "
+                f"parts, host clock): {wall * 1e3:.2f} ms = " + ", ".join(
+                    f"{k} {med[k] * 1e3:.2f} ms ({med[k] / wall:.0%})"
+                    for k in keys))
+        for step, fn in (("decode", decode), ("prefill", prefill)):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+            busy = sum(e.self_device_time_total for e in ev) / 1e6
+            say("profile", f"llm {step} under torch.profiler: {wall * 1e3:.2f}"
+                f" ms host clock, kernels {busy * 1e3:.2f} ms of device time "
+                f"(busy {busy / wall:.1%}), {sum(e.count for e in ev)} kernel "
+                f"launches")
+            for e in ev[:10]:
+                say("profile", f"llm {step} {e.self_device_time_total / 1e3:9.2f}"
+                    f" ms {e.count:5d}x  {e.key[:90]}")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_round_times(reps):
     """``reps`` unprofiled rounds of the CNN cell per variant (uncompressed
     and each lossy compressor), in one order and then the reverse, each
@@ -908,23 +1451,31 @@ def main(argv) -> int:
     launches.update(phase_comm_paths())
     phase_consistency()
     launches["quantize"] += phase_serving(res)
+    attn = phase_attention_check()
+    router = phase_router_check()
+    launches.update(phase_llm_serving())
+    phase_llm_consistency()
     if "--profile" in argv:
+        phase_llm_profile()
         phase_round_times(ROUND_REPS)
         for comp in (None,) + tuple(COMPRESS_KERNEL):
             phase_profile(comp)
     checks["prox_update"] = checks["f32"]
+    # the JSON line carries each LLM kernel at the serving path's prefill
+    # shape; the decode shape's numbers are on the lines above
+    checks["flash_attention"] = attn["deepseek prefill"]
+    checks["moe_router"] = router["prefill"]
     say("done", f"{time.perf_counter() - t_start:.1f} s")
-    src = "src/repro_torch/kernels/{}/csrc/{}.cu"
+    src = "src/repro_torch/kernels/"
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": (src.format("prox_update", "prox_update")
-                   if name == "prox_update"
-                   else src.format("compress", "compress")),
+        "source": src + KERNEL_SOURCE.get(name, "compress/csrc/compress.cu"),
         "replaces": TPU_KERNEL[name], "launches": launches[name],
         "max_abs_err": checks[name]["max_abs_err"],
         "ms": checks[name]["ms"], "plain_ms": checks[name]["plain_ms"],
         "bound_ms": checks[name]["bound_ms"],
-        "bound_by": checks[name]["bound_by"], "library_ms": None}
+        "bound_by": checks[name]["bound_by"],
+        "library_ms": checks[name].get("library_ms")}
         for name in TPU_KERNEL]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,12 @@ numpy arrays (which is how the parity tests hand the reference's initial
 parameters and states to the port), and bring the port's results back.
 A compressed run's error-feedback residuals cross the same way: the
 reference's ``CommState`` trees (ef_dev (M, N, ...), ef_team (M, ...))
-become the port's flat buffers, so a JAX state can be continued.
+become the port's flat buffers, so a JAX state can be continued. The LLM
+zoo's trees cross with :func:`params_from_numpy` as they are: a
+``repro.models.model.init_params`` tree (blocks stacked ``(n_blocks,
+...)``) and an ``init_cache`` tree have the port's leaf names and
+shapes; bfloat16 leaves (``ml_dtypes``' numpy type) arrive as
+``torch.bfloat16`` bit for bit.
 """
 from __future__ import annotations
 
@@ -30,7 +35,12 @@ def params_from_numpy(tree, device="cpu", dtype=None) -> dict:
     if isinstance(tree, torch.Tensor):
         t = tree.detach().to(device, copy=True)
     else:
-        t = torch.from_numpy(np.array(tree, copy=True)).to(device)
+        arr = np.array(tree, copy=True)
+        if arr.dtype.name == "bfloat16":       # ml_dtypes, as JAX gives it
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        t = t.to(device)
     return t if dtype is None else t.to(dtype)
 
 

@@ -33,6 +33,9 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 KERNEL_SOURCES = {
     "prox_update": _KERNELS_DIR / "prox_update" / "csrc" / "prox_update.cu",
     "compress": _KERNELS_DIR / "compress" / "csrc" / "compress.cu",
+    "flash_attention": (_KERNELS_DIR / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
+    "moe_router": _KERNELS_DIR / "moe_router" / "csrc" / "moe_router.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,1 +1,3 @@
-"""The paper models of the port (batched over devices)."""
+"""Models of the port: the paper models (batched over devices) and the
+LLM zoo's decoder (``layers``, ``attention``, ``moe``, ``transformer``,
+``model``)."""

@@ -1,0 +1,126 @@
+"""Public LLM model API of the port: init / forward / loss / prefill /
+decode (the port of ``repro/models/model.py``).
+
+Batch conventions, as the reference's (plain LM):
+  * forward / prefill: {"tokens": (b, s) int}, or {"embeds": (b, s, d)}
+    with "mrope_positions" (b, s, 3) for a VLM;
+  * decode:            {"tokens": (b, 1) int}.
+
+Every function takes ``mode``, the kernels' dispatch mode: None runs the
+hand-written kernels for CUDA tensors and their plain versions for CPU
+tensors; "torch" runs the plain versions on any device (for comparing
+the two paths on the card). ``loss_fn`` is forward-only here: training
+the zoo is a later slice, and the attention kernel has no backward yet.
+The reference's ``input_specs`` / ``param_specs`` / ``cache_specs`` are
+XLA dry-run helpers and have no counterpart yet (ROADMAP.md queue 1
+item 14).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import layers, transformer
+
+__all__ = ["decode_step", "forward", "init_cache", "init_params", "loss_fn",
+           "padded_vocab", "prefill"]
+
+
+def padded_vocab(cfg) -> int:
+    """Vocab rounded up to a multiple of 128 unless it is one of 16 (the
+    reference's rule); pad rows are masked to -1e30 in the logits."""
+    v = cfg.vocab_size
+    return v if v % 16 == 0 else -(-v // 128) * 128
+
+
+def init_params(gen, cfg, dtype=torch.float32, device=DEFAULT_DEVICE):
+    """Random parameters under the reference's tree ({"embed", "blocks",
+    "final_norm", "lm_head"}), drawn on ``device`` (default the card;
+    raises without one) from ``gen``: a ``torch.Generator`` on that
+    device, or an int seed for one."""
+    dev = resolve_device(device)
+    if isinstance(gen, int):
+        gen = torch.Generator(device=dev).manual_seed(gen)
+    if gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, parameters asked on "
+                         f"{dev}: draw on the device they live on")
+    pv = padded_vocab(cfg)
+    p = {
+        "embed": layers.embed_init(gen, pv, cfg.d_model, dtype),
+        "blocks": transformer.stack_init(gen, cfg, dtype),
+        "final_norm": layers.norm_init(cfg, dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.dense_init(gen, cfg.d_model, pv, dtype)
+    return p
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=DEFAULT_DEVICE):
+    """{"layers": stacked KV cache}: zeros (n_blocks, batch, max_len, hkv,
+    hd) per attention position, on ``device``."""
+    return {"layers": transformer.stack_cache(cfg, batch, max_len, dtype,
+                                              resolve_device(device))}
+
+
+def _embed_in(params, cfg, batch):
+    if "embeds" in batch:
+        return batch["embeds"]
+    return params["embed"][batch["tokens"].long()]
+
+
+def _logits_out(params, cfg, x):
+    x = layers.norm_apply(cfg, params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ head).float()
+    pv = head.shape[-1]
+    if pv != cfg.vocab_size:
+        keep = torch.arange(pv, device=logits.device) < cfg.vocab_size
+        logits = torch.where(keep, logits, -1e30)
+    return logits
+
+
+def forward(params, cfg, batch, *, mode=None):
+    """Full-sequence forward -> (logits (b, s, V) float32, aux_loss)."""
+    x = _embed_in(params, cfg, batch)
+    x, _, aux = transformer.stack_apply(
+        params["blocks"], cfg, x, mode="full",
+        mrope_positions=batch.get("mrope_positions"), kmode=mode)
+    return _logits_out(params, cfg, x), aux
+
+
+def loss_fn(params, cfg, batch, *, mode=None):
+    """Mean next-token cross-entropy + MoE aux loss (forward only).
+    Targets of -100 (any negative) are masked."""
+    logits, aux = forward(params, cfg, batch, mode=mode)
+    targets = batch["targets"].long()
+    mask = (targets >= 0).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+    ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce + aux
+
+
+def prefill(params, cfg, batch, cache, *, last_only=False, mode=None):
+    """Forward that also fills the cache's slots [0, s) in place. Returns
+    (logits, cache); ``last_only`` computes the final position's logits
+    only (b, 1, V), as serving does."""
+    x = _embed_in(params, cfg, batch)
+    x, layers_cache, _ = transformer.stack_apply(
+        params["blocks"], cfg, x, mode="full", cache=cache["layers"],
+        mrope_positions=batch.get("mrope_positions"), kmode=mode)
+    if last_only:
+        x = x[:, -1:, :]
+    return _logits_out(params, cfg, x), {"layers": layers_cache}
+
+
+def decode_step(params, cfg, cache, batch, pos, *, mode=None):
+    """One-token decode at cache position ``pos`` (a host int). batch:
+    {"tokens": (b, 1)}. Writes slot ``pos`` of the cache in place.
+    Returns (logits (b, 1, V) float32, cache)."""
+    x = _embed_in(params, cfg, batch)
+    x, layers_cache, _ = transformer.stack_apply(
+        params["blocks"], cfg, x, mode="decode", cache=cache["layers"],
+        pos=int(pos), mrope_positions=batch.get("mrope_positions"),
+        kmode=mode)
+    return _logits_out(params, cfg, x), {"layers": layers_cache}

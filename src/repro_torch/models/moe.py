@@ -1,0 +1,113 @@
+"""Fine-grained Mixture-of-Experts layer, DeepSeek-MoE / DBRX style (the
+port of ``repro/models/moe.py``).
+
+Shared experts (always on) plus routed experts with top-k gating and
+capacity-based dispatch, with the reference's GShard semantics: tokens in
+groups of ``DEFAULT_GROUP``, capacity ``int(gs * k / E * factor)`` (at
+least k) per expert and group, earlier tokens and earlier choices win
+capacity (cumsum priority), padded tokens' gates zeroed. Routing is the
+``moe_router`` kernel (``repro_torch.kernels.moe_router.route_topk``);
+dispatch and combine are one-hot einsums, the expert products batched
+einsums, as the reference leaves them to XLA. The router weight is
+float32 even in a bfloat16 model, and the router logits are computed in
+float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.moe_router import route_topk
+from repro_torch.models import layers
+
+__all__ = ["DEFAULT_GROUP", "moe_apply", "moe_init"]
+
+DEFAULT_GROUP = 1024
+
+
+def moe_init(gen, cfg, dtype=torch.float32, lead=()):
+    """router (d, E) float32; experts {"w_gate", "w_up"} (E, d, e_ff),
+    {"w_down"} (E, e_ff, d); shared SwiGLU of width e_ff * shared."""
+    d = cfg.d_model
+    m = cfg.moe
+    e_ff = m.expert_d_ff or cfg.d_ff
+    lead = tuple(lead)
+    n = m.num_experts
+    bank = lead + (n,)          # one (d_in, d_out) matrix per expert
+    p = {
+        "router": layers.dense_init(gen, d, n, torch.float32, lead=lead),
+        "experts": {
+            "w_gate": layers.dense_init(gen, d, e_ff, dtype, lead=bank),
+            "w_up": layers.dense_init(gen, d, e_ff, dtype, lead=bank),
+            "w_down": layers.dense_init(gen, e_ff, d, dtype, lead=bank),
+        },
+    }
+    if m.num_shared_experts:
+        p["shared"] = layers.swiglu_init(gen, d, e_ff * m.num_shared_experts,
+                                         dtype, lead=lead)
+    return p
+
+
+def _capacity(group_size: int, num_experts: int, top_k: int,
+              factor: float) -> int:
+    cap = int(group_size * top_k / num_experts * factor)
+    return max(cap, top_k)
+
+
+def moe_apply(params, cfg, x, *, group_size: int = DEFAULT_GROUP,
+              mode=None):
+    """x: (b, s, d) -> (y (b, s, d), aux_loss scalar float32).
+
+    Tokens over capacity are dropped: their output is the shared experts'
+    alone (the residual is added by the caller). ``mode`` picks the
+    router's implementation (see ``route_topk``)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    gs = min(group_size, t)
+    n_groups = -(-t // gs)
+    pad = n_groups * gs - t
+    xp = F.pad(xt, (0, 0, 0, pad)) if pad else xt
+
+    logits = xp.float() @ params["router"]                        # (T, E)
+    gates, idx, aux = route_topk(logits, top_k=m.top_k, mode=mode)
+    if pad:
+        valid = torch.arange(n_groups * gs, device=x.device) < t
+        gates = torch.where(valid[:, None], gates, 0.0)
+
+    e, k = m.num_experts, m.top_k
+    cap = _capacity(gs, e, k, m.capacity_factor)
+    gates_g = gates.reshape(n_groups, gs, k).float()
+    idx_g = idx.reshape(n_groups, gs, k).long()
+
+    # position of each (token, choice) in its expert's capacity buffer;
+    # earlier tokens (and earlier choices) win capacity
+    sel = F.one_hot(idx_g, e).float()                             # (g,s,k,E)
+    sel_flat = sel.reshape(n_groups, gs * k, e)
+    pos_in_expert = (sel_flat.cumsum(dim=1) - sel_flat) \
+        .reshape(n_groups, gs, k, e)
+    sel = sel * (pos_in_expert < cap)
+    pos_idx = (pos_in_expert * sel).sum(dim=-1).long()            # (g,s,k)
+    cap_onehot = F.one_hot(pos_idx, cap).float()                  # (g,s,k,C)
+    dispatch = torch.einsum("gske,gskc->gsec", sel, cap_onehot)
+    # each (token, expert) has at most one choice, so folding the gate
+    # into sel first is the reference's three-operand einsum exactly
+    combine = torch.einsum("gske,gskc->gsec", sel * gates_g[..., None],
+                           cap_onehot)
+
+    xg = xp.reshape(n_groups, gs, d)
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+    ex = params["experts"]
+    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, ex["w_gate"]))
+    h = h * torch.einsum("gecd,edf->gecf", expert_in, ex["w_up"])
+    expert_out = torch.einsum("gecf,efd->gecd", h, ex["w_down"])
+    yt = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), expert_out)
+    yt = yt.reshape(n_groups * gs, d)[:t]
+
+    if m.num_shared_experts:
+        yt = yt + layers.swiglu_apply(params["shared"], xt)
+
+    aux_loss = m.router_aux_weight * e * torch.sum(
+        aux["frac_tokens"] * aux["mean_prob"])
+    return yt.reshape(b, s, d), aux_loss

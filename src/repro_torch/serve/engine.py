@@ -1,0 +1,105 @@
+"""Batched LLM serving engine: prefill once, then one-token decode steps
+against a preallocated KV cache (the port of ``repro/serve/engine.py``).
+
+``make_prefill_step`` / ``make_decode_step`` return the step functions;
+``ServeEngine`` drives them. Everything runs eagerly under
+``torch.inference_mode()``; the decode position is a host int and the
+cache is written in place. On the card every attention layer launches
+the ``flash_attention`` kernel once per step and every MoE layer the
+``moe_router`` kernel once.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import model as model_lib
+from repro_torch.serve import sampler as sampler_lib
+
+__all__ = ["ServeEngine", "make_decode_step", "make_prefill_step"]
+
+
+def make_prefill_step(cfg, *, mode=None):
+    """``(params, batch, cache) -> (last-token logits (b, 1, V), cache)``:
+    one whole-prompt forward that fills the cache."""
+    def prefill_step(params, batch, cache):
+        return model_lib.prefill(params, cfg, batch, cache, last_only=True,
+                                 mode=mode)
+    return prefill_step
+
+
+def make_decode_step(cfg, *, sample: str = "greedy", temp: float = 1.0,
+                     mode=None):
+    """``(params, cache, tokens (b, 1), pos, gen) -> (next tokens (b, 1)
+    int32, cache)``: one new token against the cache at host position
+    ``pos``, sampled greedily or by temperature from ``gen``."""
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "decoding a VLM (M-RoPE decode positions, embeds prefill) is "
+            "not ported yet: ROADMAP.md queue 1 item 16")
+    if sample not in ("greedy", "temp"):
+        raise ValueError(f"unknown sampler {sample!r}")
+
+    def decode_step(params, cache, tokens, pos, gen):
+        logits, cache = model_lib.decode_step(
+            params, cfg, cache, {"tokens": tokens}, pos, mode=mode)
+        if sample == "greedy":
+            return sampler_lib.greedy(logits), cache
+        return sampler_lib.temperature(logits, gen, temp), cache
+    return decode_step
+
+
+@dataclass
+class ServeEngine:
+    """Single-model autoregressive serving loop: prefill once, then
+    ``max_new_tokens - 1`` one-token decode steps. The KV cache
+    (``cache_dtype``, float32 by default as in the reference) is
+    allocated per ``generate`` call at ``max_len`` positions. ``device``
+    defaults to the card and raises without one; ``mode="torch"`` runs
+    the kernels' plain versions."""
+    cfg: object
+    params: object
+    max_len: int
+    cache_dtype: object = torch.float32
+    sample: str = "greedy"
+    temp: float = 1.0
+    device: object = DEFAULT_DEVICE
+    mode: object = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self._prefill = make_prefill_step(self.cfg, mode=self.mode)
+        self._decode = make_decode_step(self.cfg, sample=self.sample,
+                                        temp=self.temp, mode=self.mode)
+
+    def generate(self, batch, *, max_new_tokens: int, seed: int = 0):
+        """batch: prefill inputs ({"tokens": (b, s)}, tensors or arrays).
+        Returns the new tokens (b, max_new_tokens) int32 on the engine's
+        device; temperature sampling draws from a generator seeded with
+        ``seed``."""
+        with torch.inference_mode():
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in batch.items()}
+            first = next(iter(batch.values()))
+            b = first.shape[0]
+            prompt_len = batch["tokens"].shape[1] if "tokens" in batch \
+                else batch["embeds"].shape[1]
+            if prompt_len + max_new_tokens - 1 > self.max_len:
+                raise ValueError(
+                    f"prompt {prompt_len} + {max_new_tokens - 1} decode "
+                    f"steps exceed max_len {self.max_len}")
+            cache = model_lib.init_cache(self.cfg, b, self.max_len,
+                                         dtype=self.cache_dtype,
+                                         device=self.device)
+            logits, cache = self._prefill(self.params, batch, cache)
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            tok = sampler_lib.greedy(logits) if self.sample == "greedy" \
+                else sampler_lib.temperature(logits, gen, self.temp)
+            out = [tok]
+            for i in range(max_new_tokens - 1):
+                tok, cache = self._decode(self.params, cache, tok,
+                                          prompt_len + i, gen)
+                out.append(tok)
+            return torch.cat(out, dim=1)

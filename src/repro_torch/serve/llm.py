@@ -1,0 +1,79 @@
+"""Batched LLM serving from the command line: prefill + autoregressive
+decode with a KV cache, on a REDUCED variant of a registered arch (the
+port of ``examples/serve_model.py``'s LLM path).
+
+    python -m repro_torch.serve.llm --arch deepseek-moe-16b
+    python -m repro_torch.serve.llm --arch phi3-mini-3.8b --device cpu
+
+Options: ``--batch 4 --prompt-len 32 --new 16 --sample greedy|temp``,
+as the reference's. Random weights (seed 0) and prompts (seed 1), vocab
+512; it generates twice (the first warms up) and prints the tokens and
+tokens/s of the second. Without ``--device cpu`` it runs on the card and
+raises without one. The attention-free, hybrid, audio and vision
+families (rwkv6, jamba, whisper, qwen2-vl) raise ``NotImplementedError``
+from the model or the engine: they come in later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_reduced_config
+from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
+from repro_torch.models import model as M
+from repro_torch.serve.engine import ServeEngine
+
+__all__ = ["main", "run"]
+
+VOCAB = 512
+
+
+def run(arch, *, batch=4, prompt_len=32, new=16, sample="greedy",
+        device=DEFAULT_DEVICE):
+    """Serve the reduced ``arch``: returns (tokens (batch, new) int32,
+    seconds of the timed ``generate``)."""
+    cfg = get_reduced_config(arch).replace(vocab_size=VOCAB)
+    dev = resolve_device(device)
+    params = M.init_params(0, cfg, device=dev)
+    engine = ServeEngine(cfg=cfg, params=params, max_len=prompt_len + new,
+                         sample=sample, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = {"tokens": torch.randint(0, VOCAB, (batch, prompt_len),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32)}
+    engine.generate(prompt, max_new_tokens=2)                 # warm-up
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = engine.generate(prompt, max_new_tokens=new)
+    synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def main(argv=None) -> int:
+    """The command line (see the module docstring)."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.serve.llm")
+    ap.add_argument("--arch", default="phi3-mini-3.8b", choices=ARCH_IDS)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new", type=int, default=16)
+    ap.add_argument("--sample", default="greedy", choices=["greedy", "temp"])
+    ap.add_argument("--device", default=DEFAULT_DEVICE)
+    args = ap.parse_args(argv)
+    out, sec = run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                   new=args.new, sample=args.sample, device=args.device)
+    cfg = get_reduced_config(args.arch)
+    dev = out.device
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
+    print(f"arch={args.arch} family={cfg.family} cache=kv")
+    for i, row in enumerate(out.tolist()):
+        print(f"  request {i}: {row}")
+    n = args.batch * args.new
+    print(f"{n} tokens in {sec:.3f}s = {n / sec:.1f} tok/s (reduced model, "
+          f"{where})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -20,6 +20,7 @@ PUBLIC_MODULES = (
     "repro_torch.comm.config",
     "repro_torch.comm.ledger",
     "repro_torch.configs",
+    "repro_torch.configs.base",
     "repro_torch.convert",
     "repro_torch.core",
     "repro_torch.core.algorithm",
@@ -31,20 +32,34 @@ PUBLIC_MODULES = (
     "repro_torch.kernels.compress",
     "repro_torch.kernels.compress.ops",
     "repro_torch.kernels.compress.ref",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
     "repro_torch.kernels.interface",
+    "repro_torch.kernels.moe_router",
+    "repro_torch.kernels.moe_router.ops",
+    "repro_torch.kernels.moe_router.ref",
     "repro_torch.kernels.prox_update",
     "repro_torch.kernels.prox_update.ops",
     "repro_torch.kernels.quantize",
     "repro_torch.kernels.quantize.ops",
     "repro_torch.kernels.quantize.ref",
     "repro_torch.kernels.segments",
+    "repro_torch.models.attention",
+    "repro_torch.models.layers",
+    "repro_torch.models.model",
+    "repro_torch.models.moe",
     "repro_torch.models.paper_models",
+    "repro_torch.models.transformer",
     "repro_torch.scenarios",
     "repro_torch.scenarios.registry",
     "repro_torch.scenarios.runner",
     "repro_torch.scenarios.spec",
     "repro_torch.serve",
+    "repro_torch.serve.engine",
+    "repro_torch.serve.llm",
     "repro_torch.serve.personalized",
+    "repro_torch.serve.sampler",
     "repro_torch.serve.store",
     "repro_torch.train.checkpoint",
     "repro_torch.train.engine",

@@ -430,3 +430,131 @@ def test_serve_path_on_the_card(cuda, encoding):
                            unknown_frac=0.1)
     assert sum(stats["tier_counts"].values()) == 128
     assert stats["device"] == torch.cuda.get_device_name(cuda)
+
+
+# --- LLM kernels: flash_attention and moe_router -------------------------
+
+# (b, sq, skv, hq, hkv, d, causal, window, q_offset)
+LLM_ATTN_CASES = [
+    (2, 128, 128, 4, 4, 64, True, 0, None),
+    (1, 96, 256, 40, 8, 128, True, 0, None),      # GQA 40:8 (qwen3-14b)
+    (2, 80, 80, 4, 4, 96, True, 0, None),         # head_dim 96 (phi3)
+    (1, 300, 300, 2, 2, 128, True, 64, None),     # sliding window
+    (1, 64, 72, 4, 2, 32, False, 0, 0),           # non-causal (encoder)
+    (2, 1, 1040, 4, 4, 128, True, 0, 1030),       # decode in a long cache
+    (2, 1, 96, 4, 2, 64, True, 0, 50),            # GQA decode
+]
+# f32: the kernel's online softmax against one softmax over the row;
+# bf16: one rounding of the output (the chip_smoke tolerances)
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _attn_inputs(rng, case, q_dtype, kv_dtype, cuda):
+    b, sq, skv, hq, hkv, d = case[:6]
+    return (_randn(rng, (b, sq, hq, d), q_dtype, cuda),
+            _randn(rng, (b, skv, hkv, d), kv_dtype, cuda),
+            _randn(rng, (b, skv, hkv, d), kv_dtype, cuda))
+
+
+@pytest.mark.parametrize("case", LLM_ATTN_CASES, ids=lambda c: "x".join(
+    map(str, c[:6])) + ("c" if c[6] else "n") + f"w{c[7]}o{c[8]}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.interface import LAUNCHES
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v = _attn_inputs(rng, case, dt, dt, cuda)
+    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    before = LAUNCHES.get("flash_attention", 0)
+    got = attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = attention(q, k, v, mode="torch", **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], err
+
+
+def test_flash_attention_bf16_q_f32_cache(cuda):
+    """The engine's default: a bfloat16 model's q against a float32
+    cache, read as it is (no cast of the cache); output bfloat16."""
+    from repro_torch.kernels.flash_attention import attention
+
+    rng = np.random.default_rng(9)
+    case = (2, 1, 1040, 4, 4, 128)
+    q, k, v = _attn_inputs(rng, case, torch.bfloat16, torch.float32, cuda)
+    got = attention(q, k, v, q_offset=700)
+    want = attention(q, k, v, q_offset=700, mode="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) <= \
+        ATTN_TOL["bfloat16"]
+
+
+def test_flash_attention_strided_views(cuda):
+    """q, k, v as strided views (heads sliced out of wider tensors, rows
+    not 16-byte aligned) take the scalar path and agree."""
+    from repro_torch.kernels.flash_attention import attention
+
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (2, 40, 6, 64), torch.float32, cuda)[:, :, 1:5]
+    kv = _randn(rng, (2, 50, 5, 65), torch.float32, cuda)
+    k, v = kv[:, :, 1:3, 1:], kv[:, :, 3:5, :64]
+    got = attention(q, k, v)
+    want = attention(q, k, v, mode="torch")
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTN_TOL["float32"]
+
+
+@pytest.mark.parametrize("t", [4, 37, 4096])
+@pytest.mark.parametrize("e,k", [(16, 2), (64, 6), (64, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_router_kernel_matches_plain(cuda, t, e, k, dtype):
+    """idx bit-equal (tied rows included), gates and statistics within
+    1e-6 of the plain version."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.moe_router import route_topk
+
+    rng = np.random.default_rng(t + e + k)
+    x = _randn(rng, (t, e), getattr(torch, dtype), cuda) * 2
+    x[0] = 0.5
+    if t > 1:
+        x[1, 2] = x[1, e - 1] = x[1].max() + 1
+    before = LAUNCHES.get("moe_router", 0)
+    g, i, aux = route_topk(x, top_k=k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["moe_router"] == before + 1
+    g_p, i_p, aux_p = route_topk(x, top_k=k, mode="torch")
+    assert torch.equal(i, i_p) and g.dtype == x.dtype
+    assert float((g.float() - g_p.float()).abs().max()) <= 1e-6
+    for key in ("mean_prob", "frac_tokens"):
+        assert float((aux[key] - aux_p[key]).abs().max()) <= 1e-6
+    assert i[0].tolist() == list(range(k))
+
+
+def test_llm_generate_launch_counts(cuda):
+    """Reduced deepseek-moe-16b (2 layers, MoE in each): one prefill and
+    3 decode steps launch flash_attention and moe_router once per layer
+    each, and no other kernel; greedy tokens equal to the plain path's."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_reduced_config("deepseek-moe-16b")
+    params = M.init_params(0, cfg, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 24), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    kernel = ServeEngine(cfg=cfg, params=params, max_len=32)
+    plain = ServeEngine(cfg=cfg, params=params, max_len=32, mode="torch")
+    reset_launches()
+    out = kernel.generate({"tokens": prompt}, max_new_tokens=4)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    assert launches == {"flash_attention": 4 * cfg.num_layers,
+                        "moe_router": 4 * cfg.num_layers}, launches
+    assert torch.equal(out, plain.generate({"tokens": prompt},
+                                           max_new_tokens=4))
+    assert out.shape == (3, 4) and out.dtype == torch.int32
