@@ -70,15 +70,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      sets agree match within 1e-4; a token routed differently (a flip)
      must lie within 1e-5 of a tie in the plain run; a token displaced
      from an expert's capacity by an earlier flip in its group is counted.
- 11. with ``--profile``: the LLM serving path's time by layer part
-     (attention, router, the rest of the MoE layer, head) for a prefill
-     and 8 decode steps, and a profiled decode step and prefill (busy
-     share, time by kernel); then the CNN round's host-clock time,
-     uncompressed and with each lossy compressor, over several
-     unprofiled rounds in alternating order (medians and ranges, and the
-     host time spent issuing the compression), then one profiled round
-     of each.
- 12. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+ 11. RWKV kernel check: rwkv6_scan against its plain version at the
+     rwkv6-7b serving shapes, bf16 r/k/v and f32 w in (0, 1) from a given
+     nonzero state (prefill (4, 1024, 64, 64), decode (4, 1, 64, 64)),
+     and small f32 cases (head size 16 and 32, t = 33 and 130, no state),
+     and a state carried across a split (17 steps, then the rest) equal to
+     one scan. f32 within 1e-5 of the output's scale (sums in another
+     order); a bf16 output within one bf16 rounding (2^-7 relative) of
+     the plain one's. Times with the L2 cold, the plain version's times,
+     the bounds; no PyTorch call computes the recurrence.
+ 12. RWKV serving at full width: rwkv6-7b (32 layers, its published
+     widths, 7,534,546,944 parameters as the reference's tree counts
+     them) in bf16 with the float32 decay_w0 and bonus_u leaves, drawn on
+     the card after the deepseek phases free theirs; the same generate
+     as step 9 with exactly 32 x 16 = 512 launches of rwkv6_scan and no
+     other kernel; prefill ms, decode ms per step, tokens/s, peak memory
+     and the recurrent cache's bytes.
+ 13. RWKV path consistency: rwkv6-7b cut to 1 layer, in f32, the kernel
+     path against the plain path: prefill logits of every position and
+     the first decode step's within 1e-4.
+ 14. with ``--profile``: each LLM serving path's time by layer part
+     (deepseek: attention, router, the rest of the MoE layer, head;
+     rwkv6-7b: the time mix's GEMMs and elementwise ops, the decay LoRA,
+     the WKV scan, the channel mix, head) for a prefill and 8 decode
+     steps, and a profiled decode step and prefill (busy share, time by
+     kernel); then the CNN round's host-clock time, uncompressed and with
+     each lossy compressor, over several unprofiled rounds in alternating
+     order (medians and ranges, and the host time spent issuing the
+     compression), then one profiled round of each.
+ 15. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -129,13 +149,24 @@ TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
     "flash_attention": "src/repro/kernels/flash_attention/"
                        "flash_attention.py:29",
     "moe_router": "src/repro/kernels/moe_router/moe_router.py:22",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:25",
 }
 KERNEL_SOURCE = {  # kernel -> its CUDA source
     "prox_update": "prox_update/csrc/prox_update.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "moe_router": "moe_router/csrc/moe_router.cu",
+    "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan.cu",
 }
 LLM_ARCH = "deepseek-moe-16b"
+RWKV_ARCH = "rwkv6-7b"
+# parameters of the reference's rwkv6-7b tree (jax.eval_shape of
+# repro.models.model.init_params; the CPU tests hold the port's tree to
+# it). Its param_count (5,675,155,456) counts the layers otherwise.
+RWKV_PARAMS = 7_534_546_944
+# the least float32 operations per state element and step: the bonus
+# folds into one dot product a step, out_t = r_t.S + (sum_i r_i u_i k_i) v_t,
+# so r.S is one FMA and S <- w*S + k v^T one multiply and one FMA
+RWKV_OPS_PER_ELEMENT = 5
 LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_MAX_LEN = 4, 1024, 16, 1040
 LLM_DECODE_OFFSET = 1030           # the timed decode's cache position
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # absolute
@@ -509,8 +540,10 @@ def check_launches(launches, expect, path):
     from repro_torch.kernels.flash_attention import KERNELS as ATTENTION
     from repro_torch.kernels.moe_router import KERNELS as ROUTER
     from repro_torch.kernels.quantize import KERNELS as QUANTIZE
+    from repro_torch.kernels.rwkv6_scan import KERNELS as RWKV
 
-    for name in ("prox_update",) + KERNELS + QUANTIZE + ATTENTION + ROUTER:
+    for name in (("prox_update",) + KERNELS + QUANTIZE + ATTENTION + ROUTER
+                 + RWKV):
         want = expect.get(name, 0)
         if launches.get(name, 0) != want:
             raise AssertionError(
@@ -981,6 +1014,121 @@ def phase_router_check():
     return out
 
 
+def wkv_inputs(b, t, h, n, dtype, gen, state=True):
+    """r, k, v (b, t, h, n) in ``dtype``; w float32 in (0, 1) around the
+    model's decay (exp(-exp(x)), x ~ N(-3, 1)); u (h, n) float32; a nonzero
+    float32 state (b, h, n, n), or None."""
+    import torch
+
+    def normal(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=DEVICE, generator=gen)
+
+    r, k, v = (normal(b, t, h, n, scale=0.3).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(normal(b, t, h, n) - 3.0))
+    u = normal(h, n, scale=0.1)
+    return r, k, v, w, u, (normal(b, h, n, n) if state else None)
+
+
+def wkv_errors(got, want):
+    """(max |out diff|, max |state diff|, within tolerance, the tolerance
+    in words): f32 outputs within 1e-5 of the plain output's scale (the
+    sum over keys in another order); a bf16 output within one bf16
+    rounding, 2^-7 of the value, plus that; the float32 state within
+    1e-5 of its scale."""
+    import torch
+
+    (o, s), (o_p, s_p) = got, want
+    eo = (o.float() - o_p.float()).abs()
+    es = (s - s_p).abs()
+    rel = 2.0 ** -7 if o.dtype == torch.bfloat16 else 0.0
+    ok = bool((eo <= rel * o_p.float().abs()
+               + 1e-5 * float(o_p.float().abs().max())).all()) and \
+        float(es.max()) <= 1e-5 * float(s_p.abs().max())
+    tol = ("out within 2^-7 of each value + 1e-5 of the scale (one bf16 "
+           "rounding)" if rel else "out within 1e-5 of the scale") \
+        + ", state within 1e-5 of its scale"
+    return float(eo.max()), float(es.max()), ok, tol
+
+
+def wkv_bound(b, t, h, n, dtype, state):
+    """(bound ms, bound by, MB moved, GFLOP): r, k, v read and out written
+    in ``dtype``, w read in float32, u read, the state read (if given) and
+    written once; RWKV_OPS_PER_ELEMENT float32 operations per state
+    element and step over the card's float32 peak. That is the function's
+    least work, not the kernel's own order: the bonus term
+    sum_i r_i u_i k_i v_t[j] is one O(n) dot product a step times v_t, so
+    only r.S (an FMA) and w*S + k v^T (a multiply and an FMA) scale with
+    the n x n state."""
+    tokens = b * t * h * n
+    moved = 4 * tokens * dtype.itemsize + 4 * tokens + 4 * h * n \
+        + (2 if state else 1) * b * h * n * n * 4
+    flops = RWKV_OPS_PER_ELEMENT * b * t * h * n * n
+    t_b, t_o = moved / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    by = "bytes" if t_b >= t_o else "operations"
+    return max(t_b, t_o) * 1e3, by, moved / 1e6, flops / 1e9
+
+
+def phase_rwkv_check():
+    """rwkv6_scan against its plain version: the rwkv6-7b serving shapes
+    (timed), the small f32 cases, and a state carried across a split.
+    Returns {label: numbers}."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import wkv
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    b, p = LLM_BATCH, LLM_PROMPT
+    cases = [("prefill", b, p, 64, 64, bf16, True, 10),
+             ("decode", b, 1, 64, 64, bf16, True, TIMED_LAUNCHES),
+             ("n 16 t 33", 2, 33, 3, 16, f32, False, 0),
+             ("n 16 t 130", 2, 130, 3, 16, f32, False, 0),
+             ("n 32 t 33", 2, 33, 3, 32, f32, False, 0),
+             ("n 32 t 130", 2, 130, 3, 32, f32, False, 0),
+             ("n 64 t 130 bf16", 2, 130, 4, 64, bf16, False, 0)]
+    out = {}
+    for label, b_, t, h, n, dt, state, iters in cases:
+        r, k, v, w, u, s0 = wkv_inputs(b_, t, h, n, dt, gen, state)
+        got = wkv(r, k, v, w, u, s0)
+        want = wkv(r, k, v, w, u, s0, mode="torch")
+        torch.cuda.synchronize()
+        eo, es, ok, tol = wkv_errors(got, want)
+        shape = f"({b_}, {t}, {h}, {n}) {str(dt).split('.')[-1]}/f32 w, " \
+            + ("a given state" if state else "state None")
+        if not ok:
+            raise AssertionError(f"rwkv6_scan {label} {shape}: kernel and "
+                                 f"plain version differ (out {eo}, state "
+                                 f"{es}; tol: {tol})")
+        if not iters:
+            say("kernel", f"rwkv6_scan {label} {shape}: max abs err out "
+                f"{eo:.3g}, state {es:.3g} (tol: {tol})")
+            continue
+        ms = cuda_time_ms(lambda: wkv(r, k, v, w, u, s0), iters)
+        plain_ms = cuda_time_ms(lambda: wkv(r, k, v, w, u, s0, mode="torch"),
+                                3 if t > 1 else 20)
+        bound_ms, by, mb, gflop = wkv_bound(b_, t, h, n, dt, state)
+        say("kernel", f"rwkv6_scan rwkv6-7b {label} {shape}: max abs err "
+            f"out {eo:.3g}, state {es:.3g} (tol: {tol}); kernel "
+            f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.1f} us ({mb:.1f} MB, {gflop:.2f} GFLOP; by "
+            f"{by}), {bound_ms / ms:.1%} of bound; no library call")
+        out[label] = dict(max_abs_err=eo, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None)
+    # a state carried across a split equals one scan
+    r, k, v, w, u, s0 = wkv_inputs(2, 130, 4, 64, f32, gen)
+    whole = wkv(r, k, v, w, u, s0)
+    o1, s1 = wkv(*(x[:, :17] for x in (r, k, v, w)), u, s0)
+    o2, s2 = wkv(*(x[:, 17:] for x in (r, k, v, w)), u, s1)
+    torch.cuda.synchronize()
+    eo, es, ok, _ = wkv_errors((torch.cat([o1, o2], 1), s2), whole)
+    say("kernel", f"rwkv6_scan state carried across a split (17 + 113 of "
+        f"(2, 130, 4, 64) f32) vs one scan: max abs err out {eo:.3g}, state "
+        f"{es:.3g}")
+    if not ok:
+        raise AssertionError("rwkv6_scan: a carried state differs")
+    return out
+
+
 def llm_prompts(vocab):
     """The serving path's prompts: (4, 1024) int32 from seed 1."""
     import torch
@@ -990,40 +1138,19 @@ def llm_prompts(vocab):
                          generator=gen, dtype=torch.int32)
 
 
-def phase_llm_serving():
-    """deepseek-moe-16b at its published widths, bf16, through
-    ``ServeEngine.generate``: a warm-up generate of 2 tokens, then the
-    counted one of 16. Returns its launches."""
-    import gc
-
+def counted_generate(cfg, params):
+    """``ServeEngine(max_len=LLM_MAX_LEN, cache_dtype=bf16).generate`` of
+    the serving prompts: a warm-up generate of 2 tokens, then the counted
+    one of ``LLM_NEW`` with every launch count set to 0 just before and
+    read just after. Checks the tokens ((b, new) int32 in the vocabulary)
+    and that every step's logits are finite; prints the step times.
+    Returns the launches."""
     import torch
 
-    from repro_torch.configs import get_config, param_count
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
-    from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
     from repro_torch.serve import engine as engine_mod
 
-    cfg = get_config(LLM_ARCH)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    params = M.init_params(gen, cfg, dtype=torch.bfloat16, device=DEVICE)
-    torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
-    say("llm", f"{LLM_ARCH}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads} heads of "
-        f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} routed + "
-        f"{cfg.moe.num_shared_experts} shared experts (top "
-        f"{cfg.moe.top_k}, d_ff {cfg.moe.expert_d_ff}), vocab "
-        f"{cfg.vocab_size}: {n / 1e9:.3f} B parameters in bf16 "
-        f"(param_count {param_count(cfg) / 1e9:.3f} B), drawn on the card "
-        f"in {time.perf_counter() - t0:.1f} s")
-    # param_count leaves out the final norm and the vocabulary's padding
-    pad = (M.padded_vocab(cfg) - cfg.vocab_size) * cfg.d_model * 2
-    if n != param_count(cfg) + cfg.d_model + pad:
-        raise AssertionError(f"{n} parameters, param_count {param_count(cfg)}")
     engine = ServeEngine(cfg=cfg, params=params, max_len=LLM_MAX_LEN,
                          cache_dtype=torch.bfloat16, device=DEVICE)
     prompts = {"tokens": llm_prompts(cfg.vocab_size)}
@@ -1062,9 +1189,6 @@ def phase_llm_serving():
         launches = {k: c for k, c in LAUNCHES.items() if c}
     finally:
         engine_mod.sampler_lib.greedy = greedy
-    per = LLM_NEW * cfg.num_layers
-    check_launches(launches, {"flash_attention": per, "moe_router": per},
-                   f"{LLM_ARCH} generate")
     if out.shape != (LLM_BATCH, LLM_NEW) or out.dtype != torch.int32:
         raise AssertionError(f"tokens {tuple(out.shape)} {out.dtype}")
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
@@ -1075,19 +1199,115 @@ def phase_llm_serving():
     med, p95 = dec[len(dec) // 2], dec[min(len(dec) - 1,
                                            math.ceil(0.95 * len(dec)) - 1)]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    say("llm", f"generate: {LLM_BATCH} prompts x {LLM_PROMPT} tokens, "
+    tag = cfg.name
+    say("llm", f"{tag} generate: {LLM_BATCH} prompts x {LLM_PROMPT} tokens, "
         f"{LLM_NEW} new (greedy), cache bf16 x {LLM_MAX_LEN}; launches "
         f"{launches}; tokens {out[0].tolist()}...")
-    say("llm", f"prefill {steps['prefill'][0] * 1e3:.1f} ms; decode per "
-        f"step median {med * 1e3:.2f} ms, p95 {p95 * 1e3:.2f} ms over "
+    say("llm", f"{tag} prefill {steps['prefill'][0] * 1e3:.1f} ms; decode "
+        f"per step median {med * 1e3:.2f} ms, p95 {p95 * 1e3:.2f} ms over "
         f"{len(dec)} steps (host clock, each from a synchronized card to a "
         f"synchronized card)")
-    say("llm", f"generate {wall:.3f} s: {LLM_BATCH * LLM_NEW / wall:.1f} "
-        f"new tokens/s end to end; decode {LLM_BATCH / med:.1f} tokens/s "
+    say("llm", f"{tag} generate {wall:.3f} s: {LLM_BATCH * LLM_NEW / wall:.1f}"
+        f" new tokens/s end to end; decode {LLM_BATCH / med:.1f} tokens/s "
         f"at the median step; peak device memory {peak:.2f} GiB")
-    del engine, params
+    return launches
+
+
+def release():
+    """Free the card's memory of a phase (its tensors already dropped)."""
+    import gc
+
+    import torch
+
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_llm_serving():
+    """deepseek-moe-16b at its published widths, bf16, through
+    ``ServeEngine.generate`` (:func:`counted_generate`): flash_attention
+    and moe_router once per layer and step each. Returns its launches."""
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as M
+
+    cfg = get_config(LLM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = M.init_params(gen, cfg, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    say("llm", f"{LLM_ARCH}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} routed + "
+        f"{cfg.moe.num_shared_experts} shared experts (top "
+        f"{cfg.moe.top_k}, d_ff {cfg.moe.expert_d_ff}), vocab "
+        f"{cfg.vocab_size}: {n / 1e9:.3f} B parameters in bf16 "
+        f"(param_count {param_count(cfg) / 1e9:.3f} B), drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    # param_count leaves out the final norm and the vocabulary's padding
+    pad = (M.padded_vocab(cfg) - cfg.vocab_size) * cfg.d_model * 2
+    if n != param_count(cfg) + cfg.d_model + pad:
+        raise AssertionError(f"{n} parameters, param_count {param_count(cfg)}")
+    launches = counted_generate(cfg, params)
+    per = LLM_NEW * cfg.num_layers
+    check_launches(launches, {"flash_attention": per, "moe_router": per},
+                   f"{LLM_ARCH} generate")
+    del params
+    release()
+    return launches
+
+
+def phase_rwkv_serving():
+    """rwkv6-7b at its published widths, bf16 (the decay_w0 and bonus_u
+    leaves float32), through ``ServeEngine.generate``
+    (:func:`counted_generate`): rwkv6_scan once per layer and step.
+    Returns its launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(RWKV_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = M.init_params(gen, cfg, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    tm = params["blocks"]["pos0"]["tm"]
+    say("llm", f"{RWKV_ARCH}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} WKV heads of {cfg.rwkv_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n:,} parameters "
+        f"({nbytes / 1e9:.2f} GB; decay_w0 {tm['decay_w0'].dtype}, bonus_u "
+        f"{tm['bonus_u'].dtype}, the rest bf16), drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n != RWKV_PARAMS:
+        raise AssertionError(f"{n} parameters, the reference's tree has "
+                             f"{RWKV_PARAMS}")
+    leaves = [t for t in _leaves(params)
+              if t is not tm["decay_w0"] and t is not tm["bonus_u"]]
+    if tm["decay_w0"].dtype != torch.float32 or \
+            tm["bonus_u"].dtype != torch.float32 or \
+            any(t.dtype != torch.bfloat16 for t in leaves):
+        raise AssertionError("rwkv6-7b leaves in the wrong dtypes")
+    cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN, dtype=torch.bfloat16,
+                         device=DEVICE)["layers"]["pos0"]
+    say("llm", f"{RWKV_ARCH} recurrent cache per generate: wkv state "
+        f"{cache['wkv'].numel() * 4 / 1e6:.1f} MB float32, token shifts "
+        f"{2 * cache['tm_last'].numel() * 2 / 1e6:.1f} MB bf16 (whatever "
+        f"max_len)")
+    del cache
+    launches = counted_generate(cfg, params)
+    check_launches(launches, {"rwkv6_scan": LLM_NEW * cfg.num_layers},
+                   f"{RWKV_ARCH} generate")
+    del params, tm, leaves
+    release()
     return launches
 
 
@@ -1118,8 +1338,6 @@ def phase_llm_consistency():
     """The serving path cut to 1 layer in f32, through the kernels and
     through the plain versions: prefill logits of every position and the
     first decode step's, under the flip rule of the module docstring."""
-    import gc
-
     import torch
 
     from repro_torch.configs import get_config
@@ -1192,38 +1410,72 @@ def phase_llm_consistency():
             raise AssertionError(f"{step}: tokens {lone} displaced without "
                                  "an earlier flip in their group")
     del runs, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
 
-def phase_llm_profile(decode_steps=8):
-    """``--profile``: where the serving path's time goes, deepseek-moe-16b
-    at full width in bf16 (drawn anew). One prefill and ``decode_steps``
-    decode steps with each part of a layer timed on the host clock
-    between synchronizes (attention layer with its projections, the
-    router op, the rest of the MoE layer, the head; the remainder is the
-    norms, residuals and embedding), then one decode step and one prefill
-    under torch.profiler: the device's busy share and time by kernel."""
-    import gc
+def phase_rwkv_consistency():
+    """rwkv6-7b cut to 1 layer in f32, through the kernel and through the
+    plain version: prefill logits of every position and the first decode
+    step's within 1e-4."""
+    import torch
 
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(RWKV_ARCH).replace(num_layers=1)
+    params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                           dtype=torch.float32, device=DEVICE)
+    prompts = llm_prompts(cfg.vocab_size)
+    tok = torch.randint(0, cfg.vocab_size, (LLM_BATCH, 1), device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(2),
+                        dtype=torch.int32)
+    runs = {}
+    for mode in (None, "torch"):
+        with torch.inference_mode():
+            cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN,
+                                 dtype=torch.float32, device=DEVICE)
+            pre, cache = M.prefill(params, cfg, {"tokens": prompts}, cache,
+                                   mode=mode)
+            dec, _ = M.decode_step(params, cfg, cache, {"tokens": tok},
+                                   LLM_PROMPT, mode=mode)
+        runs[mode] = (pre, dec)
+        del cache
+    torch.cuda.synchronize()
+    for step, i in (("prefill", 0), ("decode", 1)):
+        got, want = runs[None][i], runs["torch"][i]
+        err = float((got - want).abs().max())
+        say("consistency", f"{RWKV_ARCH} x 1 layer f32, {step} "
+            f"({got.shape[0] * got.shape[1]} positions): kernel vs plain "
+            f"path, max |logit diff| {err:.3g} (tol 1e-4; logits up to "
+            f"{float(want.abs().max()):.3g})")
+        if not err <= 1e-4:
+            raise AssertionError(f"{RWKV_ARCH} {step}: kernel and plain "
+                                 "paths disagree")
+    del runs, params
+    release()
+
+
+def profile_serving(arch, patched, nested, keys, decode_steps):
+    """Where a serving path's time goes, ``arch`` at full width in bf16
+    (drawn anew). One prefill and ``decode_steps`` decode steps with the
+    functions ``patched`` [(module, name, part)] each timed on the host
+    clock between synchronizes (a part ``nested`` {outer: inner parts}
+    has its inner parts' time taken out; "rest" is what no part covers:
+    norms, residuals, embedding), printing the medians over ``keys``;
+    then one decode step and one prefill under torch.profiler: the
+    device's busy share and time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import model as M
-    from repro_torch.models import moe as moe_mod
 
-    cfg = get_config(LLM_ARCH)
+    cfg = get_config(arch)
     params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
                            dtype=torch.bfloat16, device=DEVICE)
     prompts = {"tokens": llm_prompts(cfg.vocab_size)}
     spent = {}
-    patched = [(attn_mod, "attn_prefill", "attention"),
-               (attn_mod, "attn_decode", "attention"),
-               (moe_mod, "moe_apply", "moe"), (moe_mod, "route_topk", "router"),
-               (M, "_logits_out", "head")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
 
     def timed(fn, key):
@@ -1236,17 +1488,18 @@ def phase_llm_profile(decode_steps=8):
             return out
         return run
 
-    def one(step, fn):
+    def one(fn):
         spent.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        parts = dict(spent)
-        parts["moe"] = parts.get("moe", 0.0) - parts.get("router", 0.0)
+        parts = {k: spent.get(k, 0.0) for k in keys if k != "rest"}
+        for outer, inner in nested.items():
+            parts[outer] -= sum(parts[k] for k in inner)
         parts["rest"] = wall - sum(parts.values())
-        return out, wall, parts
+        return wall, parts
 
     with torch.inference_mode():
         cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN,
@@ -1261,22 +1514,21 @@ def phase_llm_profile(decode_steps=8):
         for mod, name, key in patched:
             setattr(mod, name, timed(getattr(mod, name), key))
         try:
-            rows = [("prefill", *one("prefill", prefill)[1:])]
+            rows = [("prefill", *one(prefill))]
             for i in range(decode_steps):
-                rows.append(("decode", *one("decode", decode)[1:]))
+                rows.append(("decode", *one(decode)))
         finally:
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
         for step in ("prefill", "decode"):
             got = [r for r in rows if r[0] == step]
             wall = sorted(r[1] for r in got)[len(got) // 2]
-            keys = ("attention", "router", "moe", "head", "rest")
             med = {k: sorted(r[2][k] for r in got)[len(got) // 2]
                    for k in keys}
-            say("profile", f"llm {step} (median of {len(got)}, synchronized "
-                f"parts, host clock): {wall * 1e3:.2f} ms = " + ", ".join(
-                    f"{k} {med[k] * 1e3:.2f} ms ({med[k] / wall:.0%})"
-                    for k in keys))
+            say("profile", f"{arch} {step} (median of {len(got)}, "
+                f"synchronized parts, host clock): {wall * 1e3:.2f} ms = "
+                + ", ".join(f"{k} {med[k] * 1e3:.2f} ms ({med[k] / wall:.0%})"
+                            for k in keys))
         for step, fn in (("decode", decode), ("prefill", prefill)):
             fn()
             torch.cuda.synchronize()
@@ -1290,16 +1542,53 @@ def phase_llm_profile(decode_steps=8):
                   if e.device_type == DeviceType.CUDA]
             ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
             busy = sum(e.self_device_time_total for e in ev) / 1e6
-            say("profile", f"llm {step} under torch.profiler: {wall * 1e3:.2f}"
-                f" ms host clock, kernels {busy * 1e3:.2f} ms of device time "
-                f"(busy {busy / wall:.1%}), {sum(e.count for e in ev)} kernel "
-                f"launches")
+            say("profile", f"{arch} {step} under torch.profiler: "
+                f"{wall * 1e3:.2f} ms host clock, kernels {busy * 1e3:.2f} ms "
+                f"of device time (busy {busy / wall:.1%}), "
+                f"{sum(e.count for e in ev)} kernel launches")
             for e in ev[:10]:
-                say("profile", f"llm {step} {e.self_device_time_total / 1e3:9.2f}"
-                    f" ms {e.count:5d}x  {e.key[:90]}")
+                say("profile", f"{arch} {step} "
+                    f"{e.self_device_time_total / 1e3:9.2f} ms {e.count:5d}x  "
+                    f"{e.key[:90]}")
     del params, cache
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
+
+
+def phase_llm_profile(decode_steps=8):
+    """``--profile`` of deepseek-moe-16b serving: the attention layer with
+    its projections, the router op, the rest of the MoE layer, the head
+    (:func:`profile_serving`)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    profile_serving(
+        LLM_ARCH, [(attn_mod, "attn_prefill", "attention"),
+                   (attn_mod, "attn_decode", "attention"),
+                   (moe_mod, "moe_apply", "moe"),
+                   (moe_mod, "route_topk", "router"),
+                   (M, "_logits_out", "head")],
+        {"moe": ("router",)}, ("attention", "router", "moe", "head", "rest"),
+        decode_steps)
+
+
+def phase_rwkv_profile(decode_steps=8):
+    """``--profile`` of rwkv6-7b serving: the time mix's GEMMs and
+    elementwise ops ("time mix"), its decay LoRA, the WKV scan (the
+    kernel and its wrapper), the channel mix, the head
+    (:func:`profile_serving`)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv as rwkv_mod
+
+    profile_serving(
+        RWKV_ARCH, [(rwkv_mod, "timemix_apply", "time mix"),
+                    (rwkv_mod, "_decay", "decay LoRA"),
+                    (rwkv_mod, "wkv", "WKV"),
+                    (rwkv_mod, "channelmix_apply", "channel mix"),
+                    (M, "_logits_out", "head")],
+        {"time mix": ("decay LoRA", "WKV")},
+        ("time mix", "decay LoRA", "WKV", "channel mix", "head", "rest"),
+        decode_steps)
 
 
 def phase_round_times(reps):
@@ -1453,10 +1742,14 @@ def main(argv) -> int:
     launches["quantize"] += phase_serving(res)
     attn = phase_attention_check()
     router = phase_router_check()
+    scan = phase_rwkv_check()
     launches.update(phase_llm_serving())
     phase_llm_consistency()
+    launches.update(phase_rwkv_serving())
+    phase_rwkv_consistency()
     if "--profile" in argv:
         phase_llm_profile()
+        phase_rwkv_profile()
         phase_round_times(ROUND_REPS)
         for comp in (None,) + tuple(COMPRESS_KERNEL):
             phase_profile(comp)
@@ -1465,6 +1758,7 @@ def main(argv) -> int:
     # shape; the decode shape's numbers are on the lines above
     checks["flash_attention"] = attn["deepseek prefill"]
     checks["moe_router"] = router["prefill"]
+    checks["rwkv6_scan"] = scan["prefill"]
     say("done", f"{time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/"
     print(json.dumps({"kernels": [{

@@ -36,6 +36,7 @@ KERNEL_SOURCES = {
     "flash_attention": (_KERNELS_DIR / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
     "moe_router": _KERNELS_DIR / "moe_router" / "csrc" / "moe_router.cu",
+    "rwkv6_scan": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

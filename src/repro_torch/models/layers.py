@@ -20,7 +20,7 @@ import torch.nn.functional as F
 __all__ = ["apply_mrope", "apply_rope", "dense_init", "embed_init",
            "gelu_mlp_apply", "gelu_mlp_init", "layernorm_apply",
            "layernorm_init", "norm_apply", "norm_init", "normal_init",
-           "rmsnorm_apply", "rmsnorm_init", "sinusoidal_positions",
+           "promoted_matmul", "rmsnorm_apply", "rmsnorm_init", "sinusoidal_positions",
            "swiglu_apply", "swiglu_init"]
 
 
@@ -58,6 +58,14 @@ def dense_init(gen, d_in, d_out, dtype=torch.float32, scale=None, lead=()):
 def embed_init(gen, vocab, d, dtype=torch.float32, lead=()):
     """(vocab, d) embedding table, normal * 0.02."""
     return normal_init(gen, tuple(lead) + (vocab, d), 0.02, dtype)
+
+
+def promoted_matmul(a, w):
+    """``a @ w`` in the promoted type of the two, as ``jnp.matmul``
+    promotes (``torch.matmul`` refuses mixed types): a float32 activation
+    against bfloat16 weights computes in float32."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -57,8 +57,11 @@ def init_params(gen, cfg, dtype=torch.float32, device=DEFAULT_DEVICE):
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=DEFAULT_DEVICE):
-    """{"layers": stacked KV cache}: zeros (n_blocks, batch, max_len, hkv,
-    hd) per attention position, on ``device``."""
+    """{"layers": stacked cache} on ``device``, per position of the block:
+    attention, the KV cache, zeros (n_blocks, batch, max_len, hkv, hd) in
+    ``dtype``; RWKV, the recurrent state, ``tm_last`` / ``cm_last`` zeros
+    (n_blocks, batch, d) in ``dtype`` and ``wkv`` zeros (n_blocks, batch,
+    h, n, n) float32, whatever ``max_len``."""
     return {"layers": transformer.stack_cache(cfg, batch, max_len, dtype,
                                               resolve_device(device))}
 
@@ -72,7 +75,7 @@ def _embed_in(params, cfg, batch):
 def _logits_out(params, cfg, x):
     x = layers.norm_apply(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head).float()
+    logits = layers.promoted_matmul(x, head).float()
     pv = head.shape[-1]
     if pv != cfg.vocab_size:
         keep = torch.arange(pv, device=logits.device) < cfg.vocab_size
@@ -102,7 +105,9 @@ def loss_fn(params, cfg, batch, *, mode=None):
 
 
 def prefill(params, cfg, batch, cache, *, last_only=False, mode=None):
-    """Forward that also fills the cache's slots [0, s) in place. Returns
+    """Forward that also fills the cache in place: the KV cache's slots
+    [0, s), or the recurrent state after the prompt (continued from the
+    state the cache holds). Returns
     (logits, cache); ``last_only`` computes the final position's logits
     only (b, 1, V), as serving does."""
     x = _embed_in(params, cfg, batch)
@@ -116,7 +121,8 @@ def prefill(params, cfg, batch, cache, *, last_only=False, mode=None):
 
 def decode_step(params, cfg, cache, batch, pos, *, mode=None):
     """One-token decode at cache position ``pos`` (a host int). batch:
-    {"tokens": (b, 1)}. Writes slot ``pos`` of the cache in place.
+    {"tokens": (b, 1)}. Writes slot ``pos`` of a KV cache, or the whole
+    recurrent state (which ignores ``pos``), in place.
     Returns (logits (b, 1, V) float32, cache)."""
     x = _embed_in(params, cfg, batch)
     x, layers_cache, _ = transformer.stack_apply(

@@ -9,8 +9,11 @@ JAX ``init_params`` tree carries across as it is
 reads views ``leaf[i]``; the KV cache is stacked the same way and each
 block's slice is written in place.
 
-This slice ports the attention mixer with the SwiGLU or MoE FFN. The
-RWKV and Mamba mixers and the encoder-decoder (Whisper) branches raise
+Two mixer kinds are ported: attention, with the SwiGLU or MoE FFN, and
+RWKV-6 (``"rwkv"``: time mix, then channel mix, ``models/rwkv.py``),
+whose cache is the recurrent state (``tm_last``, ``cm_last`` in the cache
+dtype and the float32 ``wkv`` state), also written in place. The Mamba
+mixer and the encoder-decoder (Whisper) branches raise
 ``NotImplementedError``; they come in later slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -19,13 +22,11 @@ import math
 
 import torch
 
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, rwkv
 
 __all__ = ["block_pattern", "stack_apply", "stack_cache", "stack_init"]
 
 _NOT_YET = {
-    "rwkv": "the RWKV-6 mixer (models/rwkv.py, the rwkv6_scan kernel) is "
-            "not ported yet: ROADMAP.md queue 1 item 15",
     "mamba": "the Mamba mixer (models/mamba.py, Jamba) is not ported yet: "
              "ROADMAP.md queue 1 item 17",
     "encdec": "the encoder-decoder branches (Whisper) are not ported yet: "
@@ -34,7 +35,7 @@ _NOT_YET = {
 
 
 def _refuse(cfg, kind):
-    if kind in ("rwkv", "mamba"):
+    if kind == "mamba":
         raise NotImplementedError(_NOT_YET[kind])
     if cfg.is_encoder_decoder:
         raise NotImplementedError(_NOT_YET["encdec"])
@@ -70,8 +71,12 @@ def _position_init(gen, cfg, kind, is_moe, dtype, lead):
     _refuse(cfg, kind)
     dev = gen.device
     p = {"norm1": layers.norm_init(cfg, dtype=dtype, device=dev, lead=lead),
-         "norm2": layers.norm_init(cfg, dtype=dtype, device=dev, lead=lead),
-         "attn": attention.attn_init(gen, cfg, dtype, lead)}
+         "norm2": layers.norm_init(cfg, dtype=dtype, device=dev, lead=lead)}
+    if kind == "rwkv":
+        p["tm"] = rwkv.timemix_init(gen, cfg, dtype, lead)
+        p["cm"] = rwkv.channelmix_init(gen, cfg, dtype, lead)
+        return p
+    p["attn"] = attention.attn_init(gen, cfg, dtype, lead)
     if is_moe:
         p["moe"] = moe.moe_init(gen, cfg, dtype, lead)
     else:
@@ -86,6 +91,8 @@ def _apply_position(p, cfg, kind, is_moe, x, *, mode, cache=None, pos=None,
     dispatch mode (None, or "torch" for the plain versions). Returns (x,
     cache (updated in place), aux)."""
     _refuse(cfg, kind)
+    if kind == "rwkv":
+        return _apply_rwkv(p, cfg, x, cache=cache, kmode=kmode)
     aux = 0.0
     h = layers.norm_apply(cfg, p["norm1"], x)
     if mode == "full":
@@ -110,6 +117,29 @@ def _apply_position(p, cfg, kind, is_moe, x, *, mode, cache=None, pos=None,
     return x + y2, cache, aux
 
 
+def _apply_rwkv(p, cfg, x, *, cache=None, kmode=None):
+    """One RWKV-6 layer: time mix then channel mix, each on its normed
+    input. With a cache (prefill or decode alike) the mixes start from
+    its token shifts and WKV state, and the cache is written in place:
+    the last normed input of each mix, cast to the cache dtype, and the
+    new state (the kernel writes it straight into the cache)."""
+    h = layers.norm_apply(cfg, p["norm1"], x)
+    if cache is None:
+        y, _ = rwkv.timemix_apply(p["tm"], cfg, h, mode=kmode)
+    else:
+        y, (tm_last, _) = rwkv.timemix_apply(
+            p["tm"], cfg, h, last=cache["tm_last"], state=cache["wkv"],
+            state_out=cache["wkv"], mode=kmode)
+        cache["tm_last"].copy_(tm_last)
+    x = x + y
+    h2 = layers.norm_apply(cfg, p["norm2"], x)
+    y2, cm_last = rwkv.channelmix_apply(
+        p["cm"], cfg, h2, last=None if cache is None else cache["cm_last"])
+    if cache is not None:
+        cache["cm_last"].copy_(cm_last)
+    return x + y2, cache, 0.0
+
+
 # ---------------------------------------------------------------------------
 # stack init / apply
 # ---------------------------------------------------------------------------
@@ -124,13 +154,21 @@ def stack_init(gen, cfg, dtype=torch.float32):
 
 
 def stack_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
-    """{"pos{i}": {"k", "v"} zeros (n_blocks, batch, max_len, hkv, hd)}."""
+    """{"pos{i}": cache} with leaves stacked (n_blocks, ...): {"k", "v"}
+    zeros (n_blocks, batch, max_len, hkv, hd) per attention position;
+    {"tm_last", "cm_last"} zeros (n_blocks, batch, d) in ``dtype`` and
+    {"wkv"} zeros (n_blocks, batch, h, n, n) float32 per RWKV position
+    (``max_len`` does not bound a recurrent state)."""
     n_blocks, pattern = block_pattern(cfg)
     out = {}
     for i, (kind, _) in enumerate(pattern):
         _refuse(cfg, kind)
-        out[f"pos{i}"] = attention.init_kv_cache(cfg, batch, max_len, dtype,
-                                                 device, lead=(n_blocks,))
+        if kind == "rwkv":
+            out[f"pos{i}"] = rwkv.init_rwkv_cache(cfg, batch, dtype, device,
+                                                  lead=(n_blocks,))
+        else:
+            out[f"pos{i}"] = attention.init_kv_cache(
+                cfg, batch, max_len, dtype, device, lead=(n_blocks,))
     return out
 
 

@@ -1,12 +1,15 @@
 """Batched LLM serving engine: prefill once, then one-token decode steps
-against a preallocated KV cache (the port of ``repro/serve/engine.py``).
+against a preallocated cache (the port of ``repro/serve/engine.py``): a
+KV cache of ``max_len`` slots for attention layers, the recurrent state
+(token shifts and the float32 WKV state) for RWKV-6 layers.
 
 ``make_prefill_step`` / ``make_decode_step`` return the step functions;
 ``ServeEngine`` drives them. Everything runs eagerly under
 ``torch.inference_mode()``; the decode position is a host int and the
-cache is written in place. On the card every attention layer launches
-the ``flash_attention`` kernel once per step and every MoE layer the
-``moe_router`` kernel once.
+cache is written in place. On the card, at every step (the prefill and
+each decode step), every attention layer launches the ``flash_attention``
+kernel once, every MoE layer the ``moe_router`` kernel once and every
+RWKV layer the ``rwkv6_scan`` kernel once.
 """
 from __future__ import annotations
 
@@ -54,9 +57,10 @@ def make_decode_step(cfg, *, sample: str = "greedy", temp: float = 1.0,
 @dataclass
 class ServeEngine:
     """Single-model autoregressive serving loop: prefill once, then
-    ``max_new_tokens - 1`` one-token decode steps. The KV cache
-    (``cache_dtype``, float32 by default as in the reference) is
-    allocated per ``generate`` call at ``max_len`` positions. ``device``
+    ``max_new_tokens - 1`` one-token decode steps. The cache
+    (``cache_dtype``, float32 by default as in the reference; an RWKV
+    state stays float32) is allocated per ``generate`` call at ``max_len``
+    positions. ``device``
     defaults to the card and raises without one; ``mode="torch"`` runs
     the kernels' plain versions."""
     cfg: object

@@ -1,17 +1,20 @@
 """Batched LLM serving from the command line: prefill + autoregressive
-decode with a KV cache, on a REDUCED variant of a registered arch (the
+decode with a cache, on a REDUCED variant of a registered arch (the
 port of ``examples/serve_model.py``'s LLM path).
 
     python -m repro_torch.serve.llm --arch deepseek-moe-16b
     python -m repro_torch.serve.llm --arch phi3-mini-3.8b --device cpu
+    python -m repro_torch.serve.llm --arch rwkv6-7b --device cpu
 
 Options: ``--batch 4 --prompt-len 32 --new 16 --sample greedy|temp``,
 as the reference's. Random weights (seed 0) and prompts (seed 1), vocab
 512; it generates twice (the first warms up) and prints the tokens and
-tokens/s of the second. Without ``--device cpu`` it runs on the card and
-raises without one. The attention-free, hybrid, audio and vision
-families (rwkv6, jamba, whisper, qwen2-vl) raise ``NotImplementedError``
-from the model or the engine: they come in later slices (ROADMAP.md).
+tokens/s of the second, with the cache kind as the reference names it
+(``recurrent-state`` for the attention-free ``ssm`` family, rwkv6-7b;
+``hybrid`` for hybrid; ``kv`` otherwise). Without ``--device cpu`` it
+runs on the card and raises without one. The hybrid, audio and vision
+families (jamba, whisper, qwen2-vl) raise ``NotImplementedError`` from
+the model or the engine: they come in later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,9 +28,17 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeEngine
 
-__all__ = ["main", "run"]
+__all__ = ["cache_kind", "main", "run"]
 
 VOCAB = 512
+
+
+def cache_kind(cfg) -> str:
+    """The cache the family serves from, as the reference's CLI prints
+    it: "recurrent-state" (ssm), "hybrid" (hybrid) or "kv"."""
+    if cfg.family == "ssm":
+        return "recurrent-state"
+    return "hybrid" if cfg.family == "hybrid" else "kv"
 
 
 def run(arch, *, batch=4, prompt_len=32, new=16, sample="greedy",
@@ -61,12 +72,13 @@ def main(argv=None) -> int:
     ap.add_argument("--sample", default="greedy", choices=["greedy", "temp"])
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     args = ap.parse_args(argv)
+    torch.set_float32_matmul_precision("highest")     # no TF32 (the default)
     out, sec = run(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                    new=args.new, sample=args.sample, device=args.device)
     cfg = get_reduced_config(args.arch)
     dev = out.device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
-    print(f"arch={args.arch} family={cfg.family} cache=kv")
+    print(f"arch={args.arch} family={cfg.family} cache={cache_kind(cfg)}")
     for i, row in enumerate(out.tolist()):
         print(f"  request {i}: {row}")
     n = args.batch * args.new

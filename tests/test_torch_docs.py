@@ -44,12 +44,16 @@ PUBLIC_MODULES = (
     "repro_torch.kernels.quantize",
     "repro_torch.kernels.quantize.ops",
     "repro_torch.kernels.quantize.ref",
+    "repro_torch.kernels.rwkv6_scan",
+    "repro_torch.kernels.rwkv6_scan.ops",
+    "repro_torch.kernels.rwkv6_scan.ref",
     "repro_torch.kernels.segments",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
     "repro_torch.models.model",
     "repro_torch.models.moe",
     "repro_torch.models.paper_models",
+    "repro_torch.models.rwkv",
     "repro_torch.models.transformer",
     "repro_torch.scenarios",
     "repro_torch.scenarios.registry",

@@ -558,3 +558,131 @@ def test_llm_generate_launch_counts(cuda):
     assert torch.equal(out, plain.generate({"tokens": prompt},
                                            max_new_tokens=4))
     assert out.shape == (3, 4) and out.dtype == torch.int32
+
+
+# --- RWKV-6: rwkv6_scan ---------------------------------------------------
+
+# (b, t, h, n, given state): head sizes 16/32/64, t off the kernel's tile
+RWKV_CASES = [(2, 33, 3, 16, False), (2, 130, 2, 32, True),
+              (1, 1, 4, 64, True), (2, 40, 4, 64, False),
+              (1, 257, 2, 64, True)]
+
+
+def _wkv_inputs(rng, b, t, h, n, dtype, w_dtype, state, cuda):
+    r, k, v = (_randn(rng, (b, t, h, n), torch.float32, cuda).mul(0.3)
+               .to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(_randn(rng, (b, t, h, n), torch.float32, cuda)
+                             - 3.0)).to(w_dtype)
+    u = _randn(rng, (h, n), torch.float32, cuda) * 0.1
+    s = _randn(rng, (b, h, n, n), torch.float32, cuda) if state else None
+    return r, k, v, w, u, s
+
+
+def _assert_wkv_close(got, want):
+    """f32 within 1e-5 of the output's scale (keys summed in another
+    order); a bf16 output within one bf16 rounding (2^-7) of the plain
+    one's; the float32 state within 1e-5 of its scale."""
+    (o, s), (o_p, s_p) = got, want
+    scale = float(o_p.float().abs().max())
+    rel = 2.0 ** -7 if o.dtype == torch.bfloat16 else 0.0
+    err = (o.float() - o_p.float()).abs()
+    assert bool((err <= rel * o_p.float().abs() + 1e-5 * scale).all()), \
+        float(err.max())
+    assert float((s - s_p).abs().max()) <= 1e-5 * float(s_p.abs().max())
+
+
+@pytest.mark.parametrize("case", RWKV_CASES,
+                         ids=lambda c: "x".join(map(str, c[:4]))
+                         + ("s" if c[4] else "z"))
+@pytest.mark.parametrize("dtype,w_dtype", [("float32", "float32"),
+                                           ("bfloat16", "float32"),
+                                           ("bfloat16", "bfloat16")])
+def test_rwkv6_scan_kernel_matches_plain(cuda, case, dtype, w_dtype):
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.rwkv6_scan import wkv
+
+    rng = np.random.default_rng(sum(case[:4]))
+    args = _wkv_inputs(rng, *case[:4], getattr(torch, dtype),
+                       getattr(torch, w_dtype), case[4], cuda)
+    before = LAUNCHES.get("rwkv6_scan", 0)
+    got = wkv(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rwkv6_scan"] == before + 1
+    assert got[0].dtype == args[0].dtype and got[1].dtype == torch.float32
+    _assert_wkv_close(got, wkv(*args, mode="torch"))
+
+
+def test_rwkv6_scan_in_place_and_split(cuda):
+    """The state written in place into the cache it was read from, and a
+    state carried across a split at 17, equal one scan."""
+    from repro_torch.kernels.rwkv6_scan import wkv
+
+    rng = np.random.default_rng(21)
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 2, 100, 4, 64, torch.bfloat16,
+                                    torch.float32, True, cuda)
+    whole = wkv(r, k, v, w, u, s0)
+    cache = s0.clone()
+    o1, s1 = wkv(r[:, :17], k[:, :17], v[:, :17], w[:, :17], u, cache,
+                 out_state=cache)
+    o2, s2 = wkv(r[:, 17:], k[:, 17:], v[:, 17:], w[:, 17:], u, cache,
+                 out_state=cache)
+    torch.cuda.synchronize()
+    assert s1 is cache and s2 is cache
+    assert torch.equal(torch.cat([o1, o2], 1), whole[0])
+    assert torch.equal(cache, whole[1])
+    _assert_wkv_close(whole, wkv(r, k, v, w, u, s0, mode="torch"))
+
+
+def test_rwkv6_scan_decay_stays_float32(cuda):
+    """w = 0.9975 (the model's decay at decay_w0 = -6) over 1,024 steps
+    decays the state to w^1024 ~ 0.077, not bf16(w)^1024 ~ 0.135."""
+    from repro_torch.kernels.rwkv6_scan import wkv
+
+    t, n = 1024, 64
+    w = torch.full((1, t, 2, n), float(np.exp(-np.exp(-6.0))), device=cuda)
+    z = torch.zeros(1, t, 2, n, dtype=torch.bfloat16, device=cuda)
+    _, s = wkv(z, z, z, w, torch.zeros(2, n, device=cuda),
+               torch.ones(1, 2, n, n, device=cuda))
+    torch.cuda.synchronize()
+    want = float(np.exp(-np.exp(-6.0), dtype=np.float64) ** t)
+    np.testing.assert_allclose(s.cpu().numpy(), want, rtol=1e-4)
+
+
+def test_rwkv6_scan_refuses_unsupported_head_size(cuda):
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.rwkv6_scan import wkv
+
+    rng = np.random.default_rng(22)
+    args = _wkv_inputs(rng, 1, 4, 2, 8, torch.float32, torch.float32, False,
+                       cuda)
+    before = LAUNCHES.get("rwkv6_scan", 0)
+    with pytest.raises(ValueError, match="head size"):
+        wkv(*args)
+    assert LAUNCHES.get("rwkv6_scan", 0) == before
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_rwkv_generate_launch_counts(cuda, cache_dtype):
+    """Reduced rwkv6-7b (2 layers): one prefill and 3 decode steps launch
+    rwkv6_scan once per layer each and no other kernel; greedy tokens
+    equal to the plain path's."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_reduced_config("rwkv6-7b")
+    params = M.init_params(0, cfg, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 24), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    kw = dict(cfg=cfg, params=params, max_len=32,
+              cache_dtype=getattr(torch, cache_dtype))
+    reset_launches()
+    out = ServeEngine(**kw).generate({"tokens": prompt}, max_new_tokens=4)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    assert launches == {"rwkv6_scan": 4 * cfg.num_layers}, launches
+    plain = ServeEngine(mode="torch", **kw).generate({"tokens": prompt},
+                                                     max_new_tokens=4)
+    assert torch.equal(out, plain)
+    assert out.shape == (3, 4) and out.dtype == torch.int32

@@ -160,8 +160,8 @@ def test_cli_serves_on_the_cpu(arch, capsys):
     assert "8 tokens in" in out and "(reduced model, CPU)" in out
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b",
-                                  "whisper-small", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-small",
+                                  "qwen2-vl-2b"])
 def test_cli_refuses_families_of_later_slices(arch):
     from repro_torch.serve.llm import run
 
