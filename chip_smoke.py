@@ -49,9 +49,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   8. LLM kernel check: flash_attention against its plain version at the
      serving path's shapes in bf16 (deepseek-moe-16b prefill (4, 1024,
      16, 128) causal; decode (4, 1, 16, 128) against a 1,040-slot cache
-     at q_offset 1,030) and, small, in f32 and bf16: GQA 40:8, head_dim
-     96, a 256 window, non-causal, q bf16 over an f32 cache (f32 within
-     1e-5, bf16 within 2e-2); moe_router at (4096, 64, k=6), (4, 64, k=6)
+     at q_offset 1,030), each case with the variant ``plan`` picks
+     (wgmma, split_kv and its chunks, simt); small bf16 cases on the
+     Hopper variants (a ragged prefill, head_dim 64, GQA 40:8 and 12:2
+     decode, a windowed decode); and, small, in f32 and bf16: GQA 40:8,
+     head_dim 96, a 256 window, non-causal, q bf16 over an f32 cache (f32
+     within 1e-5, bf16 within 2e-2); moe_router at (4096, 64, k=6), (4, 64, k=6)
      and with tied rows (ids bit-equal, gates and statistics within 1e-6).
      Times with the L2 cold, the plain versions' times, the bounds, and
      for attention the library call's time (scaled_dot_product_attention
@@ -62,8 +65,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      of 4 prompts of 1,024 tokens, 16 new tokens greedy, with the counts
      set to 0 just before and read just after: flash_attention and
      moe_router exactly 28 x 16 = 448 launches each, no other kernel,
-     (4, 16) tokens in range, finite logits; prefill ms, decode ms per
-     step, tokens/s, peak device memory.
+     flash_attention's variants exactly 28 wgmma (the prefill) and 420
+     split_kv (the decode steps), (4, 16) tokens in range, finite logits;
+     prefill ms, decode ms per step, tokens/s, peak device memory.
  10. LLM path consistency: the same config cut to 1 layer, in f32, the
      kernel path against the plain path: prefill logits of every position
      and the first decode step's. Tokens whose routed and kept expert
@@ -153,7 +157,9 @@ TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
 }
 KERNEL_SOURCE = {  # kernel -> its CUDA source
     "prox_update": "prox_update/csrc/prox_update.cu",
-    "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    # the serving path's variants (wgmma, split_kv); the simt kernel of
+    # the other cases is flash_attention/csrc/flash_attention.cu
+    "flash_attention": "flash_attention/csrc/flash_attention_hopper.cu",
     "moe_router": "moe_router/csrc/moe_router.cu",
     "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan.cu",
 }
@@ -187,13 +193,17 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_time_ms(fn, iters):
+def cuda_time_ms(fn, iters, clean=False):
     """Device time of one call of ``fn`` with the L2 cache cold: the
     median over ``iters`` calls, each preceded on the stream by zeroing a
     buffer five times the L2's size and bracketed alone by CUDA events.
     The card first sleeps ~50 ms on the stream while the host queues all
     the calls, so the events time the device, not the host's launch
-    rate (and the card's clocks have ramped up)."""
+    rate (and the card's clocks have ramped up). The zeroing leaves the
+    L2 full of dirty lines, whose write-back the timed call pays for as
+    it reads; ``clean`` then also reads the buffer once, so that the L2
+    holds clean lines of it (a diagnostic: what a read-bound call costs
+    without that write-back)."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
@@ -205,6 +215,8 @@ def cuda_time_ms(fn, iters):
     torch.cuda._sleep(SLEEP_CYCLES)
     for start, end in events:
         flush.zero_()
+        if clean:
+            flush.sum()
         start.record()
         fn()
         end.record()
@@ -253,9 +265,32 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{n} -> {p.name}" for n, p in libs.items()))
     for name in KERNEL_SOURCES:
+        entry = ""
         for line in build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                say("build", f"{name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_entry(line) + ": "
+            elif "registers" in line or "spill" in line:
+                say("build", f"{name}: {entry}{line.strip()}")
+
+
+def kernel_entry(line):
+    """``name<int template arguments>`` of the kernel a ptxas
+    ``Compiling entry function '<mangled>'`` line names."""
+    import re
+
+    mangled = line.split("'")[1]
+    if not mangled.startswith("_Z"):
+        return mangled
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while (m := re.match(r"\d+", mangled[pos:])):   # <length><name> ...
+        pos += len(m[0])
+        name, pos = mangled[pos:pos + int(m[0])], pos + int(m[0])
+        if name.endswith("kernel"):
+            args = re.match(r"I((?:Li\d+E)+)", mangled[pos:])
+            if args is None:
+                return name
+            return f"{name}<{', '.join(re.findall(r'Li(\d+)E', args[1]))}>"
+    return mangled[:40]
 
 
 def phase_kernel_check(layout, m, n):
@@ -846,7 +881,17 @@ def attention_cases():
     cases = [("deepseek prefill", b, p, p, 16, 16, 128, True, 0, 0, bf16,
               bf16, True),
              ("deepseek decode", b, 1, n, 16, 16, 128, True, 0,
-              LLM_DECODE_OFFSET, bf16, bf16, True)]
+              LLM_DECODE_OFFSET, bf16, bf16, True),
+             ("ragged prefill", 1, 300, 300, 2, 2, 128, True, 0, 0, bf16,
+              bf16, False),
+             ("head_dim 64 prefill", 2, 256, 256, 12, 12, 64, True, 0, 0,
+              bf16, bf16, False),
+             ("GQA 40:8 decode", 1, 1, n, 40, 8, 128, True, 0, n - 1, bf16,
+              bf16, False),
+             ("GQA 12:2 decode", 2, 1, n, 12, 2, 128, True, 0, 0, bf16,
+              bf16, False),
+             ("window 256 decode", 1, 1, n, 4, 4, 128, True, 256,
+              LLM_DECODE_OFFSET, bf16, bf16, False)]
     for dt in (f32, bf16):
         cases += [("GQA 40:8", 1, 256, 256, 40, 8, 128, True, 0, 0, dt, dt,
                    False),
@@ -902,7 +947,7 @@ def phase_attention_check():
     time, bound and the library call's time. Returns {label: numbers}."""
     import torch
 
-    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.flash_attention import attention, plan
 
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     out = {}
@@ -912,12 +957,15 @@ def phase_attention_check():
         k = torch.randn(b, skv, hkv, d, device=DEVICE, generator=gen).to(kvdt)
         v = torch.randn(b, skv, hkv, d, device=DEVICE, generator=gen).to(kvdt)
         kw = dict(causal=causal, window=window, q_offset=q_offset)
+        variant, splits = plan(q, k, v, **kw)
         got = attention(q, k, v, **kw)
         want = attention(q, k, v, mode="torch", **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         tol = ATTN_TOL[str(qdt).split(".")[-1]]
-        name = f"{label} {str(qdt).split('.')[-1]}/{str(kvdt).split('.')[-1]}"
+        name = (f"{label} {str(qdt).split('.')[-1]}/"
+                f"{str(kvdt).split('.')[-1]} [{variant}"
+                + (f", {splits} chunks]" if variant == "split_kv" else "]"))
         shape = f"q ({b}, {sq}, {hq}, {d}), kv ({b}, {skv}, {hkv}, {d})"
         if not err <= tol:
             raise AssertionError(f"flash_attention {name}: kernel and plain "
@@ -932,6 +980,10 @@ def phase_attention_check():
                                                   **kw), 10)
         lib_ms = cuda_time_ms(sdpa_call(q, k, v, causal, q_offset),
                               20 if sq > 1 else TIMED_LAUNCHES)
+        clean_ms = cuda_time_ms(lambda: attention(q, k, v, **kw), 20,
+                                clean=True)
+        clean_lib = cuda_time_ms(sdpa_call(q, k, v, causal, q_offset), 20,
+                                 clean=True)
         bound_ms, by, mb, gflop = attention_bound(b, sq, skv, hq, hkv, d,
                                                   causal, window, q_offset,
                                                   qdt, kvdt)
@@ -940,7 +992,9 @@ def phase_attention_check():
             f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
             f"scaled_dot_product_attention {lib_ms * 1e3:.1f} us, bound "
             f"{bound_ms * 1e3:.1f} us ({mb:.1f} MB, {gflop:.2f} GFLOP; by "
-            f"{by}), {bound_ms / ms:.1%} of bound")
+            f"{by}), {bound_ms / ms:.1%} of bound; after a flush that leaves "
+            f"the L2 clean: kernel {clean_ms * 1e3:.1f} us, "
+            f"scaled_dot_product_attention {clean_lib * 1e3:.1f} us")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
     return out
@@ -1147,6 +1201,7 @@ def counted_generate(cfg, params):
     Returns the launches."""
     import torch
 
+    from repro_torch.kernels.flash_attention import VARIANTS, reset_variants
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
     from repro_torch.serve import ServeEngine
     from repro_torch.serve import engine as engine_mod
@@ -1182,6 +1237,7 @@ def counted_generate(cfg, params):
             v.clear()
         finite.clear()
         reset_launches()
+        reset_variants()
         t0 = time.perf_counter()
         out = engine.generate(prompts, max_new_tokens=LLM_NEW)
         torch.cuda.synchronize()
@@ -1202,7 +1258,9 @@ def counted_generate(cfg, params):
     tag = cfg.name
     say("llm", f"{tag} generate: {LLM_BATCH} prompts x {LLM_PROMPT} tokens, "
         f"{LLM_NEW} new (greedy), cache bf16 x {LLM_MAX_LEN}; launches "
-        f"{launches}; tokens {out[0].tolist()}...")
+        f"{launches}; flash_attention variants "
+        f"{ {k: c for k, c in VARIANTS.items() if c} }; tokens "
+        f"{out[0].tolist()}...")
     say("llm", f"{tag} prefill {steps['prefill'][0] * 1e3:.1f} ms; decode "
         f"per step median {med * 1e3:.2f} ms, p95 {p95 * 1e3:.2f} ms over "
         f"{len(dec)} steps (host clock, each from a synchronized card to a "
@@ -1252,10 +1310,19 @@ def phase_llm_serving():
     pad = (M.padded_vocab(cfg) - cfg.vocab_size) * cfg.d_model * 2
     if n != param_count(cfg) + cfg.d_model + pad:
         raise AssertionError(f"{n} parameters, param_count {param_count(cfg)}")
+    from repro_torch.kernels.flash_attention import VARIANTS
+
     launches = counted_generate(cfg, params)
     per = LLM_NEW * cfg.num_layers
     check_launches(launches, {"flash_attention": per, "moe_router": per},
                    f"{LLM_ARCH} generate")
+    # bf16 cache, 1,024-token prompts: the prefill on the tensor cores, every
+    # decode step split over the cache
+    want = {"wgmma": cfg.num_layers, "split_kv": per - cfg.num_layers}
+    ran = {k: c for k, c in VARIANTS.items() if c}
+    if ran != want:
+        raise AssertionError(f"{LLM_ARCH} generate: flash_attention variants "
+                             f"{ran}, expected {want}")
     del params
     release()
     return launches

@@ -35,6 +35,8 @@ KERNEL_SOURCES = {
     "compress": _KERNELS_DIR / "compress" / "csrc" / "compress.cu",
     "flash_attention": (_KERNELS_DIR / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
+    "flash_attention_hopper": (_KERNELS_DIR / "flash_attention" / "csrc"
+                               / "flash_attention_hopper.cu"),
     "moe_router": _KERNELS_DIR / "moe_router" / "csrc" / "moe_router.cu",
     "rwkv6_scan": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
 }

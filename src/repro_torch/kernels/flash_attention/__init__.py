@@ -1,9 +1,16 @@
 """Flash attention (causal / sliding-window / non-causal, GQA): the Hopper
-CUDA kernel and its plain PyTorch version."""
+CUDA kernels (a tensor-core prefill, a split-kv decode, a CUDA-core kernel
+for the rest) and their plain PyTorch version."""
 from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, KERNELS,
-                                                     attention)
-from repro_torch.kernels.flash_attention.ref import (attention_ref,
-                                                     live_pairs, sm_scale)
+                                                     VARIANTS, attention,
+                                                     plan, reset_variants)
+from repro_torch.kernels.flash_attention.ref import (attention_partials,
+                                                     attention_ref,
+                                                     combine_partials,
+                                                     live_pairs, sm_scale,
+                                                     visible_keys)
 
-__all__ = ["HEAD_DIMS", "KERNELS", "attention", "attention_ref",
-           "live_pairs", "sm_scale"]
+__all__ = ["HEAD_DIMS", "KERNELS", "VARIANTS", "attention",
+           "attention_partials", "attention_ref", "combine_partials",
+           "live_pairs", "plan", "reset_variants", "sm_scale",
+           "visible_keys"]

@@ -20,9 +20,12 @@
 // heads of 128) the work is ~17 GFLOP against ~67 MB, far above the
 // card's ~295 operations per byte, so tensor-core throughput would be the
 // bound; at decode (one query against the cache) it is the K/V bytes.
-// This first kernel uses no tensor cores: float32 FMAs on CUDA cores, K/V
-// tiles staged through shared memory. It is simple and right first; the
-// tensor-core (wgmma, TMA) version and a split-kv decode are later work.
+// This kernel uses no tensor cores: float32 FMAs on CUDA cores, K/V tiles
+// staged through shared memory. bfloat16 prefill and decode at head_dim 64
+// and 128 run on the tensor-core and split-kv kernels of
+// flash_attention_hopper.cu instead (ops.py::plan); this one ("simt")
+// serves float32, a bfloat16 q against a float32 cache, unaligned rows and
+// head_dim 32 and 96.
 //
 // Design:
 //  * Grid (query tiles, q-heads, batch). q-head h reads kv-head

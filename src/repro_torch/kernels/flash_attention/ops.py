@@ -1,45 +1,111 @@
-"""Public attention op: the CUDA flash-attention kernel or its plain
+"""Public attention op: the CUDA flash-attention kernels or their plain
 version.
 
 :func:`attention` takes q (b, sq, hq, d) and k, v (b, skv, hkv, d) in the
 reference's (batch, sequence, head, dim) layout, float32 or bfloat16, q
 and k/v each in its own type; the output has q's shape and type. Which
 implementation runs follows the tensors' device
-(:func:`repro_torch.kernels.interface.kernel_mode`): the kernel
-(``csrc/flash_attention.cu``) for CUDA tensors, the plain version
-(``ref.py``) for CPU tensors or an explicit ``mode="torch"``. The kernel
-reads q, k and v through their strides (unit stride along d) and takes
-head_dim 32, 64, 96 or 128; it raises for anything else. Each launch
-adds one to ``LAUNCHES["flash_attention"]``.
+(:func:`repro_torch.kernels.interface.kernel_mode`): a kernel for CUDA
+tensors, the plain version (``ref.py``) for CPU tensors or an explicit
+``mode="torch"``.
+
+On a CUDA tensor, :func:`plan` picks one of three kernel variants by type
+and shape, written out (no variant gives way to another):
+
+  * ``"wgmma"``: bfloat16 q, k, v, more than one query row, head_dim 64 or
+    128, 16-byte aligned rows. The tensor-core prefill
+    (``csrc/flash_attention_hopper.cu``, TMA + wgmma); p is rounded to
+    bfloat16 before the PV product, as the JAX package's ``attention_ref``
+    rounds it.
+  * ``"split_kv"``: the same types, head dims and alignment, one query row
+    (decode). The visible keys are cut into ``splits`` chunks, one CTA per
+    (chunk, kv-head, batch); the last CTA of each (batch, kv-head) merges
+    them (an atomic ticket): one CUDA launch. Its tickets are int32
+    counters that each launch leaves at 0, kept per (device, stream).
+  * ``"simt"``: everything else -- float32, a bfloat16 q against a float32
+    cache, rows that are not 16-byte aligned, head_dim 32 and 96. The
+    CUDA-core kernel ``csrc/flash_attention.cu`` (p stays float32).
+
+All read q, k and v through their strides (unit stride along d). Each op
+call adds one to ``LAUNCHES["flash_attention"]`` and to
+``VARIANTS[variant]``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.flash_attention.ref import attention_ref, sm_scale
+from repro_torch.kernels.flash_attention.ref import attention_ref, sm_scale, \
+    visible_keys
 from repro_torch.kernels.interface import KernelType, count_launch, \
     kernel_mode
 
-__all__ = ["HEAD_DIMS", "KERNELS", "attention"]
+__all__ = ["HEAD_DIMS", "KERNELS", "VARIANTS", "attention", "plan",
+           "reset_variants"]
 
 _NAME = "flash_attention"
 KERNELS = (_NAME,)
 HEAD_DIMS = (32, 64, 96, 128)
+_TC_HEAD_DIMS = (64, 128)         # wgmma and split_kv
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SM_COUNT = 132                   # H100 SXM
+_SPLIT_WAVES = 4                  # split_kv: aim for 4 CTAs per SM
+_SPLIT_MIN_ROWS = 64              # ... of at least 64 keys each
+_SPLIT_MAX = 64
+_SPLIT_HEADS = 8                  # q-heads one split_kv CTA serves at most
+
+# variant -> op calls that ran it since the last reset_variants()
+VARIANTS = {"wgmma": 0, "split_kv": 0, "simt": 0}
 
 
-def _library():
-    fn = load(_NAME).flash_attention
+def reset_variants() -> None:
+    """Set every variant's count to 0."""
+    for name in VARIANTS:
+        VARIANTS[name] = 0
+
+
+def _fn(lib, name, argtypes):
+    fn = getattr(load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
-                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+
+
+def _simt_fn():
+    return _fn(_NAME, "flash_attention",
+               [_I] * 3 + [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 3
+               + [_F, _I, _P])
+
+
+def _wgmma_fn():
+    return _fn("flash_attention_hopper", "flash_attention_wgmma",
+               [_I] + [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 3 + [_F, _P])
+
+
+def _split_fn():
+    return _fn("flash_attention_hopper", "flash_attention_split_kv",
+               [_I] + [_P] * 8 + [_I] * 3 + [_L] * 10 + [_I] * 4 + [_F, _P])
+
+
+# (device, stream) -> int32 zeros: the split_kv tickets, which every launch
+# leaves at 0 again (launches on one stream never overlap)
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream: int, n: int) -> torch.Tensor:
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def _check(q, k, v):
@@ -65,10 +131,36 @@ def _check(q, k, v):
 
 
 def _aligned(t) -> bool:
-    """Every (b, s, h) row of ``t`` starts on a 16-byte boundary."""
+    """Every (b, s, h) row of ``t`` starts on a 16-byte boundary (the
+    stride of an axis of length 1 is never followed)."""
     es = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
-        (t.stride(i) * es) % 16 == 0 for i in range(3))
+        (t.stride(i) * es) % 16 == 0 for i in range(3) if t.shape[i] > 1)
+
+
+def plan(q, k, v, *, causal=True, window=0, q_offset=None):
+    """(variant, splits) of the kernel :func:`attention` launches for these
+    tensors: ``"wgmma"`` for bfloat16 q, k, v with sq > 1, head_dim 64 or
+    128 and 16-byte aligned rows with unit stride along d; ``"split_kv"``
+    for the same with sq == 1; ``"simt"`` otherwise. ``splits`` (1 but for
+    split_kv) cuts the visible keys into chunks so that the grid holds
+    about 4 CTAs per SM, of at least 64 keys each, at most 64 chunks. A
+    pure function of shapes, types, strides and addresses."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    fast = (all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and d in _TC_HEAD_DIMS
+            and all(t.stride(3) == 1 and _aligned(t) for t in (q, k, v)))
+    if not fast:
+        return "simt", 1
+    if sq > 1:
+        return "wgmma", 1
+    q_offset = skv - 1 if q_offset is None else int(q_offset)
+    _, n = visible_keys(skv, causal=causal, window=window, q_offset=q_offset)
+    blocks = b * hkv * math.ceil(hq // hkv / _SPLIT_HEADS)
+    splits = min(_SPLIT_MAX, n // _SPLIT_MIN_ROWS,
+                 math.ceil(_SPLIT_WAVES * _SM_COUNT / blocks))
+    return "split_kv", max(1, splits)
 
 
 def attention(q, k, v, *, causal=True, window=0, q_offset=None, mode=None):
@@ -98,16 +190,45 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=None, mode=None):
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or skv == 0:
         return out.zero_()
-    fn = _library()
+    variant, splits = plan(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    count_launch(_NAME)
-    err = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], d, q.data_ptr(),
-             k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *out.stride()[:3], q_offset, int(bool(causal)), int(window),
-             sm_scale(d), int(_aligned(k) and _aligned(v)), stream)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *out.stride()[:3])
+    if variant == "wgmma":
+        fn = _wgmma_fn()
+        count_launch(_NAME)
+        err = fn(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, sq, skv, hq, hkv, *strides, q_offset, int(bool(causal)),
+                 int(window), sm_scale(d) * math.log2(math.e), stream)
+    elif variant == "split_kv":
+        fn = _split_fn()
+        lo, n = visible_keys(skv, causal=causal, window=window,
+                             q_offset=q_offset)
+        rows = b * hq * splits
+        part = torch.empty((2 + d) * rows, dtype=torch.float32,
+                           device=q.device)     # m, l, acc of each chunk
+        pm, pl, pacc = part[:rows], part[rows:2 * rows], part[2 * rows:]
+        tickets = _tickets(q.device, stream,
+                           b * hkv * math.ceil(hq // hkv / _SPLIT_HEADS))
+        count_launch(_NAME)
+        err = fn(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
+                 tickets.data_ptr(), b, hq, hkv,
+                 q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+                 out.stride(0), out.stride(2), lo, n,
+                 max(1, -(-n // splits)), splits, sm_scale(d), stream)
+    else:
+        fn = _simt_fn()
+        count_launch(_NAME)
+        err = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], d,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                 sq, skv, hq, hkv, *strides, q_offset, int(bool(causal)),
+                 int(window), sm_scale(d),
+                 int(_aligned(k) and _aligned(v)), stream)
+    VARIANTS[variant] += 1
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
                            f"error {err} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)})")
     return out

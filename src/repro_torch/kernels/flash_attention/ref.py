@@ -13,18 +13,26 @@ window w > 0, ``k_pos > q_pos - w``, where ``q_pos = q_offset + i``.
 Rows with no key to see come out 0, as in the Pallas kernel. q-head h
 reads kv-head ``h // (hq // hkv)`` without repeating K/V.
 
-``p`` stays float32 into the PV product, as in the Pallas kernel. (The
-reference's XLA path, ``repro/kernels/flash_attention/ref.py``, rounds
-``p`` to the activation dtype first, so in bfloat16 the two agree only
-to bfloat16 rounding.) The softmax is taken over the whole row at once;
+``p`` stays float32 into the PV product, as in the Pallas kernel and the
+CUDA-core kernel (``simt``). The reference's XLA path,
+``repro/kernels/flash_attention/ref.py``, rounds ``p`` to the activation
+dtype first, and so does the tensor-core kernel (``wgmma``,
+``csrc/flash_attention_hopper.cu``): in bfloat16 those agree with this
+version only to bfloat16 rounding. The softmax is taken over the whole row at once;
 the kernel's online softmax over kv tiles gives the same function up to
 float32 rounding. The CPU path runs this version.
+
+:func:`attention_partials` and :func:`combine_partials` are the split-kv
+decode's math in plain PyTorch (``csrc/flash_attention_hopper.cu``): the
+keys one query sees, cut into chunks, each chunk's (m, l, acc), and the
+merge. Together they equal :func:`attention_ref` for a single query row.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "attention_ref", "live_pairs", "sm_scale"]
+__all__ = ["NEG_INF", "attention_partials", "attention_ref",
+           "combine_partials", "live_pairs", "sm_scale", "visible_keys"]
 
 NEG_INF = -1e30
 
@@ -74,3 +82,57 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=None):
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     o = o / l.clamp_min(1e-30)
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def visible_keys(skv, *, causal=True, window=0, q_offset=0):
+    """(lo, n): the keys [lo, lo + n) a single query at position
+    ``q_offset`` sees in a cache of ``skv`` slots (n may be 0)."""
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    hi = min(skv - 1, q_offset) if causal else skv - 1
+    return lo, max(0, hi - lo + 1)
+
+
+def attention_partials(q, k, v, *, causal=True, window=0, q_offset=None,
+                       splits=1):
+    """The split-kv decode's chunks: for q (b, 1, hq, d) and k, v (b, skv,
+    hkv, d), the visible keys [lo, lo + n) cut into ``splits`` chunks of
+    ceil(n / splits) rows; per chunk and (batch, q-head) the float32 row
+    max m of the scores, l = sum(exp(s - m)) and acc = exp(s - m) @ v.
+    Returns m, l (b, hq, splits) and acc (b, hq, splits, d); a chunk in
+    which nothing is seen has m = -1e30, l = 0, acc = 0."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if sq != 1:
+        raise ValueError(f"split-kv takes one query row, got {sq}")
+    if q_offset is None:
+        q_offset = skv - 1
+    lo, n = visible_keys(skv, causal=causal, window=window,
+                         q_offset=int(q_offset))
+    chunk = -(-n // splits) if n else 1
+    group = hq // hkv
+    qf = (q.float() * sm_scale(d)).reshape(b, hkv, group, d)
+    m = torch.full((b, hq, splits), NEG_INF, device=q.device)
+    l = torch.zeros(b, hq, splits, device=q.device)
+    acc = torch.zeros(b, hq, splits, d, device=q.device)
+    for i in range(splits):
+        a, e = lo + i * chunk, min(lo + (i + 1) * chunk, lo + n)
+        if a >= e:
+            continue
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, k[:, a:e].float())
+        mi = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - mi)
+        m[:, :, i] = mi.reshape(b, hq)
+        l[:, :, i] = p.sum(dim=-1).reshape(b, hq)
+        acc[:, :, i] = torch.einsum("bhgk,bkhd->bhgd", p,
+                                    v[:, a:e].float()).reshape(b, hq, d)
+    return m, l, acc
+
+
+def combine_partials(m, l, acc, dtype=torch.float32):
+    """Merge the chunks of :func:`attention_partials`: weights w_i =
+    exp(m_i - max m), out = sum(acc_i w_i) / max(sum(l_i w_i), 1e-30).
+    Returns (b, 1, hq, d) in ``dtype``."""
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    num = (acc * w[..., None]).sum(dim=2)
+    den = (l * w).sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (num / den)[:, None].to(dtype)

@@ -1,0 +1,167 @@
+"""The attention op's dispatch and the split-kv decode's math, on the CPU.
+
+``plan`` picks the kernel variant (``wgmma`` / ``split_kv`` / ``simt``)
+from types, shapes, strides and addresses alone, so it is held here
+without a card for the served models' shapes. ``attention_partials`` +
+``combine_partials`` are the split-kv kernel's math in plain PyTorch
+(chunks of the visible keys, each chunk's (m, l, acc), the merge); in
+float32 they must equal ``attention_ref`` within 1e-6 (one softmax over the
+row against chunked ones: float32 rounding). The JAX package's
+``attention_ref`` holds the same numbers for the decode rows.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro.kernels.flash_attention.ref import \
+    attention_ref as jax_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    VARIANTS, attention, attention_partials, attention_ref, combine_partials,
+    plan, visible_keys)
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _t(shape, dtype=BF16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+def _cache(b, n, hkv, d, dtype=BF16):
+    """k, v as the engine hands them over: slices of a stacked cache."""
+    stack = torch.zeros(2, 3, b, n, hkv, d, dtype=dtype)
+    return stack[0, 1], stack[1, 1]
+
+
+# (label, q shape, kv shape, q dtype, kv dtype, q_offset, window, expected)
+PLAN_CASES = [
+    ("deepseek prefill", (4, 1024, 16, 128), (4, 1024, 16, 128), BF16, BF16,
+     0, 0, ("wgmma", 1)),
+    ("deepseek decode", (4, 1, 16, 128), (4, 1040, 16, 128), BF16, BF16,
+     1030, 0, ("split_kv", 9)),
+    ("qwen3 40:8 prefill", (1, 96, 40, 128), (1, 96, 8, 128), BF16, BF16,
+     0, 0, ("wgmma", 1)),
+    ("qwen3 40:8 decode", (1, 1, 40, 128), (1, 1040, 8, 128), BF16, BF16,
+     1039, 0, ("split_kv", 16)),
+    ("qwen2-vl 12:2 decode", (2, 1, 12, 128), (2, 1040, 2, 128), BF16, BF16,
+     700, 0, ("split_kv", 10)),
+    ("qwen2-vl 12:2 prefill", (2, 300, 12, 128), (2, 300, 2, 128), BF16,
+     BF16, 0, 0, ("wgmma", 1)),
+    ("whisper head_dim 64 prefill", (2, 256, 12, 64), (2, 256, 12, 64), BF16,
+     BF16, 0, 0, ("wgmma", 1)),
+    ("decode at q_offset 0", (4, 1, 16, 128), (4, 1040, 16, 128), BF16,
+     BF16, 0, 0, ("split_kv", 1)),
+    ("windowed decode", (1, 1, 4, 128), (1, 1040, 4, 128), BF16, BF16, 1000,
+     256, ("split_kv", 4)),
+    ("f32 prefill", (4, 1024, 16, 128), (4, 1024, 16, 128), F32, F32, 0, 0,
+     ("simt", 1)),
+    ("f32 decode", (4, 1, 16, 128), (4, 1040, 16, 128), F32, F32, 1030, 0,
+     ("simt", 1)),
+    ("bf16 q, f32 cache", (4, 1, 16, 128), (4, 1040, 16, 128), BF16, F32,
+     1030, 0, ("simt", 1)),
+    ("head_dim 96", (2, 256, 8, 96), (2, 256, 8, 96), BF16, BF16, 0, 0,
+     ("simt", 1)),
+    ("head_dim 32 decode", (2, 1, 4, 32), (2, 96, 2, 32), BF16, BF16, 50, 0,
+     ("simt", 1)),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: c[0])
+def test_plan_picks_variant(case):
+    _, qs, kvs, qdt, kvdt, q_offset, window, want = case
+    k, v = _cache(kvs[0], kvs[1], kvs[2], kvs[3], kvdt)
+    assert plan(_t(qs, qdt), k, v, causal=True, window=window,
+                q_offset=q_offset) == want
+
+
+def test_plan_deepseek_decode_chunks():
+    """deepseek's decode (64 (b, h) pairs, 1,031 visible keys) gets 8-16
+    chunks of 64-128 rows: a grid of several waves on 132 SMs."""
+    k, v = _cache(4, 1040, 16, 128)
+    _, splits = plan(_t((4, 1, 16, 128)), k, v, q_offset=1030)
+    _, n = visible_keys(1040, q_offset=1030)
+    assert 8 <= splits <= 16 and 64 <= -(-n // splits) <= 128
+    assert splits * 4 * 16 >= 4 * 132
+
+
+def test_plan_unaligned_views_take_simt():
+    """Rows that do not start on 16 bytes (heads sliced at an odd column,
+    an odd offset) cannot be read by TMA or 16-byte loads: simt."""
+    kv = torch.zeros(2, 50, 5, 136, dtype=BF16)
+    k, v = kv[:, :, 1:3, 1:129], kv[:, :, 3:5, :128]
+    q = torch.zeros(2, 40, 4, 128, dtype=BF16)
+    assert plan(q, k, v) == ("simt", 1)
+    assert plan(q[:, :1], k, v) == ("simt", 1)
+    k2, v2 = kv[:, :, 1:3, 8:136], kv[:, :, 3:5, :128]    # 16-byte offset
+    assert plan(q, k2, v2) == ("wgmma", 1)
+    wide = torch.zeros(2, 40, 4, 129, dtype=BF16)[..., :128]  # odd stride
+    assert plan(wide, k2, v2) == ("simt", 1)
+
+
+def test_plan_ignores_strides_of_length_one_axes():
+    """A batch of one or a single head never follows its stride."""
+    k, v = _cache(1, 1040, 16, 128)
+    q = torch.zeros(16 * 128, dtype=BF16).as_strided((1, 1, 16, 128),
+                                                     (5, 3, 128, 1))
+    assert plan(q, k, v, q_offset=500)[0] == "split_kv"
+    q3 = torch.zeros(3 * 16 * 128, dtype=BF16).as_strided((1, 3, 16, 128),
+                                                          (5, 3, 128, 1))
+    assert plan(q3, k, v, q_offset=500)[0] == "simt"
+
+
+def test_cpu_attention_counts_no_variant():
+    """On the CPU the plain version runs: no kernel variant is counted."""
+    before = dict(VARIANTS)
+    q = torch.randn(1, 1, 4, 64).to(BF16)
+    k = torch.randn(1, 40, 4, 64).to(BF16)
+    attention(q, k, k, q_offset=30)
+    assert VARIANTS == before
+
+
+# (b, skv, hq, hkv, d, causal, window, q_offset, splits)
+PARTIAL_CASES = [
+    (2, 1040, 16, 16, 128, True, 0, 1030, 9),      # deepseek decode
+    (2, 1040, 16, 16, 128, True, 0, 1039, 9),      # the cache's last slot
+    (2, 96, 8, 2, 64, True, 0, 0, 4),               # q_offset 0: one key
+    (1, 300, 40, 8, 128, True, 64, 250, 7),         # window starts mid-chunk
+    (1, 300, 12, 2, 64, True, 100, 299, 3),
+    (2, 200, 4, 4, 64, False, 0, 50, 64),           # empty chunks
+    (1, 50, 4, 1, 32, True, 30, 10, 5),
+    (1, 40, 4, 2, 64, True, 0, -1, 2),              # nothing seen at all
+]
+
+
+@pytest.mark.parametrize("case", PARTIAL_CASES, ids=lambda c: "x".join(
+    map(str, c[:5])) + ("c" if c[5] else "n") + f"w{c[6]}o{c[7]}s{c[8]}")
+def test_split_partials_combine_to_attention_ref(case):
+    b, skv, hq, hkv, d, causal, window, q_offset, splits = case
+    rng = np.random.default_rng(sum(case[:5]))
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((b, 1, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    m, l, acc = attention_partials(q, k, v, splits=splits, **kw)
+    assert m.shape == l.shape == (b, hq, splits)
+    assert acc.shape == (b, hq, splits, d)
+    lo, n = visible_keys(skv, **kw)
+    chunk = -(-n // splits) if n else 1
+    empty = [i for i in range(splits) if lo + i * chunk >= lo + n]
+    for i in empty:    # a chunk with nothing to see does not poison the merge
+        assert bool((m[:, :, i] == -1e30).all() and (l[:, :, i] == 0).all())
+    got = combine_partials(m, l, acc)
+    want = attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape == (b, 1, hq, d)
+    assert float((got - want).abs().max()) <= 1e-6
+    if q_offset >= 0:
+        jax_want = np.asarray(jax_attention_ref(
+            *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=causal,
+            window=window, q_offset=q_offset))
+        np.testing.assert_allclose(got.numpy(), jax_want, atol=2e-5)
+
+
+def test_split_partials_take_one_row_only():
+    q = torch.zeros(1, 2, 4, 64)
+    k = torch.zeros(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="one query row"):
+        attention_partials(q, k, k, q_offset=7)

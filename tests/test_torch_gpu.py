@@ -434,15 +434,25 @@ def test_serve_path_on_the_card(cuda, encoding):
 
 # --- LLM kernels: flash_attention and moe_router -------------------------
 
-# (b, sq, skv, hq, hkv, d, causal, window, q_offset)
+# (b, sq, skv, hq, hkv, d, causal, window, q_offset, the variant bf16
+# reaches; float32 always reaches "simt")
 LLM_ATTN_CASES = [
-    (2, 128, 128, 4, 4, 64, True, 0, None),
-    (1, 96, 256, 40, 8, 128, True, 0, None),      # GQA 40:8 (qwen3-14b)
-    (2, 80, 80, 4, 4, 96, True, 0, None),         # head_dim 96 (phi3)
-    (1, 300, 300, 2, 2, 128, True, 64, None),     # sliding window
-    (1, 64, 72, 4, 2, 32, False, 0, 0),           # non-causal (encoder)
-    (2, 1, 1040, 4, 4, 128, True, 0, 1030),       # decode in a long cache
-    (2, 1, 96, 4, 2, 64, True, 0, 50),            # GQA decode
+    (2, 128, 128, 4, 4, 64, True, 0, None, "wgmma"),
+    (1, 96, 256, 40, 8, 128, True, 0, None, "wgmma"),   # GQA 40:8 (qwen3)
+    (2, 80, 80, 4, 4, 96, True, 0, None, "simt"),       # head_dim 96 (phi3)
+    (1, 300, 300, 2, 2, 128, True, 64, None, "wgmma"),  # sliding window
+    (1, 64, 72, 4, 2, 32, False, 0, 0, "simt"),         # non-causal, d 32
+    (2, 1, 1040, 4, 4, 128, True, 0, 1030, "split_kv"),  # decode, long cache
+    (2, 1, 96, 4, 2, 64, True, 0, 50, "split_kv"),      # GQA decode
+    (1, 300, 300, 2, 2, 128, True, 0, None, "wgmma"),   # ragged q tiles
+    (1, 129, 129, 2, 2, 128, True, 0, None, "wgmma"),
+    (2, 1, 1040, 4, 4, 128, True, 0, 0, "split_kv"),    # decode, 1 key
+    (2, 1, 1040, 4, 4, 128, True, 0, 1039, "split_kv"),  # the last slot
+    (1, 1, 1040, 40, 8, 128, True, 0, 1030, "split_kv"),  # GQA 40:8 decode
+    (2, 1, 1040, 12, 2, 128, True, 0, 700, "split_kv"),  # 12:2 (qwen2-vl)
+    (1, 1, 1040, 4, 4, 128, True, 256, 1000, "split_kv"),  # windowed decode
+    (2, 256, 256, 12, 12, 64, True, 0, None, "wgmma"),  # d 64 (whisper)
+    (2, 1, 96, 4, 2, 64, True, 0, -1, "split_kv"),     # no key seen: 0
 ]
 # f32: the kernel's online softmax against one softmax over the row;
 # bf16: one rounding of the output (the chip_smoke tolerances)
@@ -460,17 +470,21 @@ def _attn_inputs(rng, case, q_dtype, kv_dtype, cuda):
     map(str, c[:6])) + ("c" if c[6] else "n") + f"w{c[7]}o{c[8]}")
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
-    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.flash_attention import VARIANTS, attention
     from repro_torch.kernels.interface import LAUNCHES
 
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(sum(case[:6]))
     q, k, v = _attn_inputs(rng, case, dt, dt, cuda)
     kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    variant = case[9] if dtype == "bfloat16" else "simt"
     before = LAUNCHES.get("flash_attention", 0)
+    ran = dict(VARIANTS)
     got = attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == before + 1
+    ran[variant] += 1
+    assert VARIANTS == ran
     want = attention(q, k, v, mode="torch", **kw)
     assert got.dtype == q.dtype and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
@@ -506,6 +520,28 @@ def test_flash_attention_strided_views(cuda):
     want = attention(q, k, v, mode="torch")
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= ATTN_TOL["float32"]
+
+
+@pytest.mark.parametrize("sq,variant", [(200, "wgmma"), (1, "split_kv")])
+def test_flash_attention_bf16_strided_views_tensor_core(cuda, sq, variant):
+    """bf16 q, k, v as 16-byte aligned strided views (k and v heads
+    interleaved in one tensor, q heads sliced out of a wider one) go
+    through the tensor maps and row strides of the Hopper variants."""
+    from repro_torch.kernels.flash_attention import VARIANTS, attention
+
+    rng = np.random.default_rng(12 + sq)
+    q = _randn(rng, (2, sq, 6, 128), torch.bfloat16, cuda)[:, :, 1:5]
+    kv = _randn(rng, (2, 240, 4, 128), torch.bfloat16, cuda)
+    k, v = kv[:, :, 0::2], kv[:, :, 1::2]
+    ran = dict(VARIANTS)
+    got = attention(q, k, v, q_offset=230 if sq == 1 else None)
+    want = attention(q, k, v, q_offset=230 if sq == 1 else None,
+                     mode="torch")
+    torch.cuda.synchronize()
+    ran[variant] += 1
+    assert VARIANTS == ran
+    assert float((got.float() - want.float()).abs().max()) <= \
+        ATTN_TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("t", [4, 37, 4096])
