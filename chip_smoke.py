@@ -76,23 +76,31 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      from an expert's capacity by an earlier flip in its group is counted.
  11. RWKV kernel check: rwkv6_scan against its plain version at the
      rwkv6-7b serving shapes, bf16 r/k/v and f32 w in (0, 1) from a given
-     nonzero state (prefill (4, 1024, 64, 64), decode (4, 1, 64, 64)),
-     and small f32 cases (head size 16 and 32, t = 33 and 130, no state),
-     and a state carried across a split (17 steps, then the rest) equal to
-     one scan. f32 within 1e-5 of the output's scale (sums in another
+     nonzero state: the prefill (4, 1024, 64, 64) on the chunked
+     tensor-core kernel, the decode (4, 1, 64, 64) on the sequential simt
+     kernel, each case printing the variant ``plan`` picks; on chunked also
+     t = 16, 17, 33, 130, bf16 w, strong decays with w exactly 0 and 1,
+     state None, the state written in place; small f32 cases on simt
+     (head size 16 and 32, t = 33 and 130, no state); and a state carried
+     across a split (17 steps, then the rest) equal to one scan, in f32
+     and in bf16. f32 within 1e-5 of the output's scale (sums in another
      order); a bf16 output within one bf16 rounding (2^-7 relative) of
-     the plain one's. Times with the L2 cold, the plain version's times,
-     the bounds; no PyTorch call computes the recurrence.
+     the plain one's; the state within 1e-5 of its scale. Times with the
+     L2 cold and with a clean L2, simt's time on the prefill's tensors,
+     the timing floor (one elementwise add on 16 bytes, timed the same
+     way), the plain version's times, the bounds (bytes: a tensor-core
+     form exists); no PyTorch call computes the recurrence.
  12. RWKV serving at full width: rwkv6-7b (32 layers, its published
      widths, 7,534,546,944 parameters as the reference's tree counts
      them) in bf16 with the float32 decay_w0 and bonus_u leaves, drawn on
      the card after the deepseek phases free theirs; the same generate
      as step 9 with exactly 32 x 16 = 512 launches of rwkv6_scan and no
-     other kernel; prefill ms, decode ms per step, tokens/s, peak memory
-     and the recurrent cache's bytes.
- 13. RWKV path consistency: rwkv6-7b cut to 1 layer, in f32, the kernel
-     path against the plain path: prefill logits of every position and
-     the first decode step's within 1e-4.
+     other kernel, its variants exactly 32 chunked (the prefill) and 480
+     simt (the decode steps); prefill ms, decode ms per step, tokens/s,
+     peak memory and the recurrent cache's bytes.
+ 13. RWKV path consistency: rwkv6-7b cut to 1 layer, in f32 (the simt
+     kernel), the kernel path against the plain path: prefill logits of
+     every position and the first decode step's within 1e-4.
  14. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, router, the rest of the MoE layer, head;
      rwkv6-7b: the time mix's GEMMs and elementwise ops, the decay LoRA,
@@ -161,7 +169,9 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     # the other cases is flash_attention/csrc/flash_attention.cu
     "flash_attention": "flash_attention/csrc/flash_attention_hopper.cu",
     "moe_router": "moe_router/csrc/moe_router.cu",
-    "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan.cu",
+    # the served prefill's variant (chunked); the sequential simt kernel of
+    # the decode and the f32 path is rwkv6_scan/csrc/rwkv6_scan.cu
+    "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan_hopper.cu",
 }
 LLM_ARCH = "deepseek-moe-16b"
 RWKV_ARCH = "rwkv6-7b"
@@ -1068,19 +1078,28 @@ def phase_router_check():
     return out
 
 
-def wkv_inputs(b, t, h, n, dtype, gen, state=True):
-    """r, k, v (b, t, h, n) in ``dtype``; w float32 in (0, 1) around the
-    model's decay (exp(-exp(x)), x ~ N(-3, 1)); u (h, n) float32; a nonzero
-    float32 state (b, h, n, n), or None."""
+def wkv_inputs(b, t, h, n, dtype, gen, state=True, decays="model",
+               w_dtype=None):
+    """r, k, v (b, t, h, n) in ``dtype``; w float32 (or ``w_dtype``) in
+    [0, 1]: around the model's decay (exp(-exp(x)), x ~ N(-3, 1)), or
+    ``decays="strong"``: x ~ N(0, 2) with entries of w exactly 0 and
+    exactly 1; u (h, n) float32; a nonzero float32 state (b, h, n, n), or
+    None."""
     import torch
 
     def normal(*shape, scale=1.0):
         return scale * torch.randn(*shape, device=DEVICE, generator=gen)
 
     r, k, v = (normal(b, t, h, n, scale=0.3).to(dtype) for _ in range(3))
-    w = torch.exp(-torch.exp(normal(b, t, h, n) - 3.0))
+    if decays == "strong":
+        w = torch.exp(-torch.exp(normal(b, t, h, n, scale=2.0)))
+        w[..., ::7] = 0.0
+        w[:, 3::5, :, 1::6] = 1.0
+    else:
+        w = torch.exp(-torch.exp(normal(b, t, h, n) - 3.0))
     u = normal(h, n, scale=0.1)
-    return r, k, v, w, u, (normal(b, h, n, n) if state else None)
+    return (r, k, v, w.to(w_dtype or torch.float32), u,
+            normal(b, h, n, n) if state else None)
 
 
 def wkv_errors(got, want):
@@ -1105,81 +1124,148 @@ def wkv_errors(got, want):
 
 
 def wkv_bound(b, t, h, n, dtype, state):
-    """(bound ms, bound by, MB moved, GFLOP): r, k, v read and out written
-    in ``dtype``, w read in float32, u read, the state read (if given) and
-    written once; RWKV_OPS_PER_ELEMENT float32 operations per state
-    element and step over the card's float32 peak. That is the function's
-    least work, not the kernel's own order: the bonus term
-    sum_i r_i u_i k_i v_t[j] is one O(n) dot product a step times v_t, so
-    only r.S (an FMA) and w*S + k v^T (a multiply and an FMA) scale with
-    the n x n state."""
+    """(bound ms, bound by, MB moved, the sequential form's CUDA-core floor
+    ms): r, k, v read and out written in ``dtype``, w read in float32, u
+    read, the state read (if given) and written once, over the card's
+    memory rate. A tensor-core form of the scan exists (the chunked
+    kernel), so the bytes are the function's least time. The step-by-step
+    form on CUDA cores needs RWKV_OPS_PER_ELEMENT float32 operations per
+    state element and step over the card's float32 peak (80.1 us at the
+    serving prefill): the bonus term sum_i r_i u_i k_i v_t[j] is one O(n)
+    dot product a step times v_t, so only r.S (an FMA) and w*S + k v^T (a
+    multiply and an FMA) scale with the n x n state."""
     tokens = b * t * h * n
     moved = 4 * tokens * dtype.itemsize + 4 * tokens + 4 * h * n \
         + (2 if state else 1) * b * h * n * n * 4
     flops = RWKV_OPS_PER_ELEMENT * b * t * h * n * n
-    t_b, t_o = moved / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
-    by = "bytes" if t_b >= t_o else "operations"
-    return max(t_b, t_o) * 1e3, by, moved / 1e6, flops / 1e9
+    return (moved / HBM_BYTES_PER_S * 1e3, "bytes", moved / 1e6,
+            flops / F32_OPS_PER_S * 1e3)
+
+
+def timing_floor():
+    """(L2-cold ms, clean-L2 ms) of one PyTorch elementwise add on 4 floats
+    (16 bytes) under :func:`cuda_time_ms`: what the timing itself costs a
+    kernel that moves next to nothing."""
+    import torch
+
+    x = torch.zeros(4, device=DEVICE)
+    return (cuda_time_ms(lambda: x.add_(1.0), TIMED_LAUNCHES),
+            cuda_time_ms(lambda: x.add_(1.0), TIMED_LAUNCHES, clean=True))
 
 
 def phase_rwkv_check():
     """rwkv6_scan against its plain version: the rwkv6-7b serving shapes
-    (timed), the small f32 cases, and a state carried across a split.
-    Returns {label: numbers}."""
+    (timed: the prefill on ``chunked`` and, on the same tensors, on
+    ``simt``; the decode on ``simt``; each L2-cold and with a clean L2,
+    beside the timing floor), the chunked kernel's edge cases and the
+    small f32 cases (untimed), the state written in place, and a state
+    carried across a split on each variant. Returns {label: numbers}."""
     import torch
 
-    from repro_torch.kernels.rwkv6_scan import wkv
+    from repro_torch.kernels.rwkv6_scan import plan, wkv
+    from repro_torch.kernels.rwkv6_scan.ops import launch
 
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     b, p = LLM_BATCH, LLM_PROMPT
-    cases = [("prefill", b, p, 64, 64, bf16, True, 10),
-             ("decode", b, 1, 64, 64, bf16, True, TIMED_LAUNCHES),
-             ("n 16 t 33", 2, 33, 3, 16, f32, False, 0),
-             ("n 16 t 130", 2, 130, 3, 16, f32, False, 0),
-             ("n 32 t 33", 2, 33, 3, 32, f32, False, 0),
-             ("n 32 t 130", 2, 130, 3, 32, f32, False, 0),
-             ("n 64 t 130 bf16", 2, 130, 4, 64, bf16, False, 0)]
+    floor_ms, floor_clean = timing_floor()
+    say("kernel", f"timing floor: one elementwise add on 16 bytes "
+        f"{floor_ms * 1e3:.1f} us L2-cold, {floor_clean * 1e3:.1f} us with "
+        f"a clean L2 (cuda_time_ms)")
+    # (label, b, t, h, n, r/k/v dtype, given state, decays, w dtype, timed)
+    cases = [("prefill", b, p, 64, 64, bf16, True, "model", f32, 10),
+             ("decode", b, 1, 64, 64, bf16, True, "model", f32,
+              TIMED_LAUNCHES),
+             ("t 16", 2, 16, 4, 64, bf16, True, "model", f32, 0),
+             ("t 17", 2, 17, 4, 64, bf16, True, "model", f32, 0),
+             ("t 33", 2, 33, 4, 64, bf16, True, "model", f32, 0),
+             ("t 130", 2, 130, 4, 64, bf16, True, "model", f32, 0),
+             ("bf16 w", 2, 130, 4, 64, bf16, True, "model", bf16, 0),
+             ("strong decays, w 0 and 1", 2, 130, 4, 64, bf16, True,
+              "strong", f32, 0),
+             ("n 16 t 33", 2, 33, 3, 16, f32, False, "model", f32, 0),
+             ("n 16 t 130", 2, 130, 3, 16, f32, False, "model", f32, 0),
+             ("n 32 t 33", 2, 33, 3, 32, f32, False, "model", f32, 0),
+             ("n 32 t 130", 2, 130, 3, 32, f32, False, "model", f32, 0),
+             ("n 64 t 130 bf16", 2, 130, 4, 64, bf16, False, "model", f32,
+              0)]
     out = {}
-    for label, b_, t, h, n, dt, state, iters in cases:
-        r, k, v, w, u, s0 = wkv_inputs(b_, t, h, n, dt, gen, state)
+    for label, b_, t, h, n, dt, state, decays, wdt, iters in cases:
+        r, k, v, w, u, s0 = wkv_inputs(b_, t, h, n, dt, gen, state, decays,
+                                       wdt)
+        variant = plan(r, k, v, w, s0)
         got = wkv(r, k, v, w, u, s0)
         want = wkv(r, k, v, w, u, s0, mode="torch")
         torch.cuda.synchronize()
         eo, es, ok, tol = wkv_errors(got, want)
-        shape = f"({b_}, {t}, {h}, {n}) {str(dt).split('.')[-1]}/f32 w, " \
+        shape = f"({b_}, {t}, {h}, {n}) {str(dt).split('.')[-1]}/" \
+            f"{str(wdt).split('.')[-1].replace('float', 'f')} w, " \
             + ("a given state" if state else "state None")
         if not ok:
-            raise AssertionError(f"rwkv6_scan {label} {shape}: kernel and "
-                                 f"plain version differ (out {eo}, state "
-                                 f"{es}; tol: {tol})")
+            raise AssertionError(f"rwkv6_scan {label} {shape} [{variant}]: "
+                                 f"kernel and plain version differ (out "
+                                 f"{eo}, state {es}; tol: {tol})")
         if not iters:
-            say("kernel", f"rwkv6_scan {label} {shape}: max abs err out "
-                f"{eo:.3g}, state {es:.3g} (tol: {tol})")
+            say("kernel", f"rwkv6_scan {label} {shape} [{variant}]: max abs "
+                f"err out {eo:.3g}, state {es:.3g} (tol: {tol})")
             continue
+        o, so = torch.empty_like(got[0]), torch.empty_like(got[1])
         ms = cuda_time_ms(lambda: wkv(r, k, v, w, u, s0), iters)
+        clean_ms = cuda_time_ms(lambda: wkv(r, k, v, w, u, s0), iters,
+                                clean=True)
         plain_ms = cuda_time_ms(lambda: wkv(r, k, v, w, u, s0, mode="torch"),
                                 3 if t > 1 else 20)
-        bound_ms, by, mb, gflop = wkv_bound(b_, t, h, n, dt, state)
-        say("kernel", f"rwkv6_scan rwkv6-7b {label} {shape}: max abs err "
-            f"out {eo:.3g}, state {es:.3g} (tol: {tol}); kernel "
-            f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-            f"{bound_ms * 1e3:.1f} us ({mb:.1f} MB, {gflop:.2f} GFLOP; by "
-            f"{by}), {bound_ms / ms:.1%} of bound; no library call")
+        bound_ms, by, mb, cc_ms = wkv_bound(b_, t, h, n, dt, state)
+        simt = ""
+        if variant != "simt":
+            launch(r, k, v, w, u, s0, o, so, variant="simt")
+            simt_ms = cuda_time_ms(lambda: launch(r, k, v, w, u, s0, o, so,
+                                                  variant="simt"), iters)
+            simt_clean = cuda_time_ms(lambda: launch(r, k, v, w, u, s0, o,
+                                                     so, variant="simt"),
+                                      iters, clean=True)
+            simt = (f"; simt on the same tensors {simt_ms * 1e3:.1f} us "
+                    f"({simt_ms / ms:.2f}x the {variant} kernel's time), "
+                    f"clean L2 {simt_clean * 1e3:.1f} us")
+        say("kernel", f"rwkv6_scan rwkv6-7b {label} {shape} [{variant}]: max "
+            f"abs err out {eo:.3g}, state {es:.3g} (state relative "
+            f"{es / float(want[1].abs().max()):.2g}; tol: {tol}); kernel "
+            f"{ms * 1e3:.1f} us L2-cold, {clean_ms * 1e3:.1f} us clean L2 "
+            f"(timing floor {floor_ms * 1e3:.1f} / {floor_clean * 1e3:.1f} "
+            f"us); plain {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f}"
+            f" us ({mb:.1f} MB, by {by}), {bound_ms / ms:.1%} of bound; the "
+            f"sequential form's CUDA-core floor {cc_ms * 1e3:.1f} us" + simt
+            + "; no library call")
         out[label] = dict(max_abs_err=eo, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=by, library_ms=None)
-    # a state carried across a split equals one scan
-    r, k, v, w, u, s0 = wkv_inputs(2, 130, 4, 64, f32, gen)
-    whole = wkv(r, k, v, w, u, s0)
-    o1, s1 = wkv(*(x[:, :17] for x in (r, k, v, w)), u, s0)
-    o2, s2 = wkv(*(x[:, 17:] for x in (r, k, v, w)), u, s1)
+    # the state written in place into the cache it was read from
+    r, k, v, w, u, s0 = wkv_inputs(2, 130, 4, 64, bf16, gen)
+    want = wkv(r, k, v, w, u, s0, mode="torch")
+    cache = s0.clone()
+    got = wkv(r, k, v, w, u, cache, out_state=cache)
     torch.cuda.synchronize()
-    eo, es, ok, _ = wkv_errors((torch.cat([o1, o2], 1), s2), whole)
-    say("kernel", f"rwkv6_scan state carried across a split (17 + 113 of "
-        f"(2, 130, 4, 64) f32) vs one scan: max abs err out {eo:.3g}, state "
+    eo, es, ok, _ = wkv_errors(got, want)
+    say("kernel", f"rwkv6_scan state written in place ((2, 130, 4, 64) bf16 "
+        f"[{plan(r, k, v, w, cache)}]): max abs err out {eo:.3g}, state "
         f"{es:.3g}")
-    if not ok:
-        raise AssertionError("rwkv6_scan: a carried state differs")
+    if not ok or got[1] is not cache:
+        raise AssertionError("rwkv6_scan: the state written in place "
+                             "differs")
+    # a state carried across a split equals one scan, on each variant
+    for dt in (f32, bf16):
+        r, k, v, w, u, s0 = wkv_inputs(2, 130, 4, 64, dt, gen)
+        whole = wkv(r, k, v, w, u, s0)
+        o1, s1 = wkv(*(x[:, :17] for x in (r, k, v, w)), u, s0)
+        o2, s2 = wkv(*(x[:, 17:] for x in (r, k, v, w)), u, s1)
+        torch.cuda.synchronize()
+        eo, es, ok, _ = wkv_errors((torch.cat([o1, o2], 1), s2), whole)
+        variants = [plan(*(x[:, sl] for x in (r, k, v, w)), s0)
+                    for sl in (slice(None), slice(0, 17), slice(17, None))]
+        say("kernel", f"rwkv6_scan state carried across a split (17 + 113 of "
+            f"(2, 130, 4, 64) {str(dt).split('.')[-1]}, {variants}) vs one "
+            f"scan: max abs err out {eo:.3g}, state {es:.3g}")
+        if not ok:
+            raise AssertionError("rwkv6_scan: a carried state differs")
     return out
 
 
@@ -1201,6 +1287,7 @@ def counted_generate(cfg, params):
     Returns the launches."""
     import torch
 
+    from repro_torch.kernels import rwkv6_scan
     from repro_torch.kernels.flash_attention import VARIANTS, reset_variants
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
     from repro_torch.serve import ServeEngine
@@ -1238,6 +1325,7 @@ def counted_generate(cfg, params):
         finite.clear()
         reset_launches()
         reset_variants()
+        rwkv6_scan.reset_variants()
         t0 = time.perf_counter()
         out = engine.generate(prompts, max_new_tokens=LLM_NEW)
         torch.cuda.synchronize()
@@ -1259,7 +1347,8 @@ def counted_generate(cfg, params):
     say("llm", f"{tag} generate: {LLM_BATCH} prompts x {LLM_PROMPT} tokens, "
         f"{LLM_NEW} new (greedy), cache bf16 x {LLM_MAX_LEN}; launches "
         f"{launches}; flash_attention variants "
-        f"{ {k: c for k, c in VARIANTS.items() if c} }; tokens "
+        f"{ {k: c for k, c in VARIANTS.items() if c} }; rwkv6_scan variants "
+        f"{ {k: c for k, c in rwkv6_scan.VARIANTS.items() if c} }; tokens "
         f"{out[0].tolist()}...")
     say("llm", f"{tag} prefill {steps['prefill'][0] * 1e3:.1f} ms; decode "
         f"per step median {med * 1e3:.2f} ms, p95 {p95 * 1e3:.2f} ms over "
@@ -1370,9 +1459,18 @@ def phase_rwkv_serving():
         f"{2 * cache['tm_last'].numel() * 2 / 1e6:.1f} MB bf16 (whatever "
         f"max_len)")
     del cache
+    from repro_torch.kernels.rwkv6_scan import VARIANTS
+
     launches = counted_generate(cfg, params)
     check_launches(launches, {"rwkv6_scan": LLM_NEW * cfg.num_layers},
                    f"{RWKV_ARCH} generate")
+    # bf16 activations: the 1,024-token prefill on the chunked tensor-core
+    # scan, every decode step on the sequential one
+    want = {"chunked": cfg.num_layers,
+            "simt": (LLM_NEW - 1) * cfg.num_layers}
+    if VARIANTS != want:
+        raise AssertionError(f"{RWKV_ARCH} generate: rwkv6_scan variants "
+                             f"{VARIANTS}, expected {want}")
     del params, tm, leaves
     release()
     return launches
@@ -1489,9 +1587,12 @@ def phase_rwkv_consistency():
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
+    from repro_torch.kernels.rwkv6_scan import VARIANTS, reset_variants
+
     cfg = get_config(RWKV_ARCH).replace(num_layers=1)
     params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
                            dtype=torch.float32, device=DEVICE)
+    reset_variants()
     prompts = llm_prompts(cfg.vocab_size)
     tok = torch.randint(0, cfg.vocab_size, (LLM_BATCH, 1), device=DEVICE,
                         generator=torch.Generator(DEVICE).manual_seed(2),
@@ -1508,6 +1609,9 @@ def phase_rwkv_consistency():
         runs[mode] = (pre, dec)
         del cache
     torch.cuda.synchronize()
+    if VARIANTS != {"chunked": 0, "simt": 2}:     # f32: the sequential scan
+        raise AssertionError(f"{RWKV_ARCH} f32 consistency: rwkv6_scan "
+                             f"variants {VARIANTS}")
     for step, i in (("prefill", 0), ("decode", 1)):
         got, want = runs[None][i], runs["torch"][i]
         err = float((got - want).abs().max())

@@ -39,6 +39,8 @@ KERNEL_SOURCES = {
                                / "flash_attention_hopper.cu"),
     "moe_router": _KERNELS_DIR / "moe_router" / "csrc" / "moe_router.cu",
     "rwkv6_scan": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
+    "rwkv6_scan_hopper": (_KERNELS_DIR / "rwkv6_scan" / "csrc"
+                          / "rwkv6_scan_hopper.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,6 +1,9 @@
 """RWKV-6 WKV recurrence (data-dependent decay linear attention): the
-Hopper CUDA kernel and its plain PyTorch version."""
-from repro_torch.kernels.rwkv6_scan.ops import HEAD_SIZES, KERNELS, wkv
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+Hopper CUDA kernels (a chunked tensor-core scan and a sequential one) and
+their plain PyTorch versions."""
+from repro_torch.kernels.rwkv6_scan.ops import HEAD_SIZES, KERNELS, \
+    VARIANTS, plan, reset_variants, wkv
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked, wkv6_ref
 
-__all__ = ["HEAD_SIZES", "KERNELS", "wkv", "wkv6_ref"]
+__all__ = ["HEAD_SIZES", "KERNELS", "VARIANTS", "plan", "reset_variants",
+           "wkv", "wkv6_chunked", "wkv6_ref"]

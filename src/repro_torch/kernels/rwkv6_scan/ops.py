@@ -1,18 +1,28 @@
-"""Public WKV-6 op: the CUDA scan kernel or its plain version.
+"""Public WKV-6 op: the CUDA scan kernels or their plain version.
 
 :func:`wkv` takes r, k, v, w (b, t, h, n), u (h, n) and an optional
 float32 state (b, h, n, n), and returns the output in r's type and the
 final state in float32. Which implementation runs follows the tensors'
-device (:func:`repro_torch.kernels.interface.kernel_mode`): the kernel
-(``csrc/rwkv6_scan.cu``) for CUDA tensors, the plain version (``ref.py``)
-for CPU tensors or an explicit ``mode="torch"``. The kernel takes r, k, v
-in float32 or bfloat16 (one type for the three) and w in float32 or
-bfloat16 (its own type, never rounded: the model's decay is float32),
-head size n in :data:`HEAD_SIZES`, and raises for anything else; there
-is no fallback to the plain version for a CUDA tensor. ``out_state``
-names where the final state goes, and may be ``state`` itself (the
-model's recurrent cache, updated in place). Each launch adds one to
-``LAUNCHES["rwkv6_scan"]``.
+device (:func:`repro_torch.kernels.interface.kernel_mode`): a kernel for
+CUDA tensors, the plain version (``ref.py``) for CPU tensors or an
+explicit ``mode="torch"``.
+
+On a CUDA tensor, :func:`plan` picks one of two kernel variants by type
+and shape, written out (no variant gives way to another):
+
+  * ``"chunked"``: bfloat16 r, k, v, float32 or bfloat16 w, head size 64,
+    t >= 16 (a prefill). The scan 16 steps at a time with its products on
+    the tensor cores (``csrc/rwkv6_scan_hopper.cu``, 3xTF32 mma.sync).
+  * ``"simt"``: everything else -- the decode (t < 16), float32 r/k/v, head
+    sizes 16 and 32. The sequential scan on CUDA cores
+    (``csrc/rwkv6_scan.cu``).
+
+Both take w in its own type and never round it (the model's decay is
+float32), and raise for what they do not take; there is no fallback to
+the plain version for a CUDA tensor. ``out_state`` names where the final
+state goes, and may be ``state`` itself (the model's recurrent cache,
+updated in place). Each launch adds one to ``LAUNCHES["rwkv6_scan"]``
+and to ``VARIANTS[variant]``.
 """
 from __future__ import annotations
 
@@ -25,21 +35,55 @@ from repro_torch.kernels.interface import KernelType, count_launch, \
     kernel_mode
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
-__all__ = ["HEAD_SIZES", "KERNELS", "launch", "wkv"]
+__all__ = ["HEAD_SIZES", "KERNELS", "VARIANTS", "launch", "plan",
+           "reset_variants", "wkv"]
 
 _NAME = "rwkv6_scan"
 KERNELS = (_NAME,)
 HEAD_SIZES = (16, 32, 64)
+_CHUNK = 16                       # chunked: steps a chunk, and its least t
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# variant -> launches that ran it since the last reset_variants()
+VARIANTS = {"chunked": 0, "simt": 0}
 
-def _library():
-    fn = load(_NAME).rwkv6_scan
+
+def reset_variants() -> None:
+    """Set every variant's count to 0."""
+    for name in VARIANTS:
+        VARIANTS[name] = 0
+
+
+def _fn(lib, name, argtypes):
+    fn = getattr(load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _simt_fn():
+    return _fn(_NAME, "rwkv6_scan", [_I] * 3 + [_P] * 8 + [_I] * 3 + [_P])
+
+
+def _chunked_fn():
+    return _fn("rwkv6_scan_hopper", "rwkv6_scan_chunked",
+               [_I] + [_P] * 8 + [_I] * 3 + [_P])
+
+
+def plan(r, k, v, w, state=None):
+    """The kernel variant :func:`wkv` launches for these tensors:
+    ``"chunked"`` for bfloat16 r, k, v with float32 or bfloat16 w, head
+    size 64 and t >= 16; ``"simt"`` otherwise. A pure function of types
+    and shapes (``state`` is float32 or None either way)."""
+    t, n = r.shape[1], r.shape[3]
+    if (all(x.dtype == torch.bfloat16 for x in (r, k, v))
+            and w.dtype in _DTYPE_CODES and n == 64 and t >= _CHUNK):
+        return "chunked"
+    return "simt"
 
 
 def _check(r, k, v, w, u, state, out_state):
@@ -63,13 +107,15 @@ def _check(r, k, v, w, u, state, out_state):
         raise ValueError(f"wkv operands on several devices: {devs}")
 
 
-def launch(r, k, v, w, u, state, out, out_state):
-    """One launch of the kernel into given outputs: r, k, v, w (b, t, h,
-    n) and ``out`` (r's shape and type), u (h, n) float32, ``state``
-    (float32 (b, h, n, n), or None for zeros) and ``out_state`` (the
-    same; may be ``state``), all contiguous on one CUDA device. Checks
-    what the kernel takes, head size first, and raises before building
-    or launching anything it would refuse."""
+def launch(r, k, v, w, u, state, out, out_state, *, variant=None):
+    """One launch of the variant :func:`plan` picks (or ``variant``,
+    named explicitly, as a measurement compares the two), into given
+    outputs: r, k, v, w (b, t, h, n) and ``out`` (r's shape and type), u
+    (h, n) float32, ``state`` (float32 (b, h, n, n), or None for zeros)
+    and ``out_state`` (the same; may be ``state``), all contiguous on one
+    CUDA device; for ``chunked`` also 16-byte aligned. Checks what the
+    variant takes, head size first, and raises before building or
+    launching anything it would refuse."""
     b, t, h, n = r.shape
     if n not in HEAD_SIZES:
         raise ValueError(f"rwkv6_scan kernel takes head size n in "
@@ -88,19 +134,38 @@ def launch(r, k, v, w, u, state, out, out_state):
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan kernel needs CUDA tensors, got "
                          f"{r.device}")
+    if variant is None:
+        variant = plan(r, k, v, w, state)
+    elif variant not in VARIANTS:
+        raise ValueError(f"rwkv6_scan variant {variant!r} is not one of "
+                         f"{tuple(VARIANTS)}")
+    if variant == "chunked":
+        if n != 64 or r.dtype != torch.bfloat16 or t < 1:
+            raise ValueError(f"rwkv6_scan chunked kernel takes bfloat16 r, "
+                             f"k, v of head size 64 and t >= 1, got "
+                             f"{r.dtype}, n {n}, t {t}")
+        if any(x.data_ptr() % 16 for x in (r, k, v, w, out)):
+            raise ValueError("rwkv6_scan chunked kernel takes r, k, v, w, "
+                             "out on 16-byte boundaries")
     if b * h == 0:
         return
-    fn = _library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    count_launch(_NAME)
-    err = fn(_DTYPE_CODES[r.dtype], _DTYPE_CODES[w.dtype], n, r.data_ptr(),
-             k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-             None if state is None else state.data_ptr(), out.data_ptr(),
-             out_state.data_ptr(), b, t, h, stream)
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if state is None else state.data_ptr(),
+            out.data_ptr(), out_state.data_ptr(), b, t, h, stream)
+    if variant == "chunked":
+        fn = _chunked_fn()
+        count_launch(_NAME)
+        err = fn(_DTYPE_CODES[w.dtype], *ptrs)
+    else:
+        fn = _simt_fn()
+        count_launch(_NAME)
+        err = fn(_DTYPE_CODES[r.dtype], _DTYPE_CODES[w.dtype], n, *ptrs)
+    VARIANTS[variant] += 1
     if err:
-        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
-                           f"{err} (r {tuple(r.shape)} {r.dtype}, w "
-                           f"{w.dtype})")
+        raise RuntimeError(f"rwkv6_scan {variant} kernel launch failed: "
+                           f"CUDA error {err} (r {tuple(r.shape)} {r.dtype}, "
+                           f"w {w.dtype})")
 
 
 def wkv(r, k, v, w, u, state=None, *, out_state=None, mode=None):
@@ -115,7 +180,10 @@ def wkv(r, k, v, w, u, state=None, *, out_state=None, mode=None):
             return out, s
         return out, out_state.copy_(s)
     b, t, h, n = r.shape
-    r, k, v, w = (x.contiguous() for x in (r, k, v, w))
+    # contiguous, and on 16-byte boundaries (a new allocation is)
+    r, k, v, w = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
+                  else x.clone(memory_format=torch.contiguous_format)
+                  for x in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
     if state is not None:
         state = state.to(torch.float32).contiguous()

@@ -12,12 +12,18 @@ A Python loop over t in float32, batched over (batch, head); the sum
 over i is taken as the Pallas kernel takes it, elementwise then summed
 (no matrix product, so no TF32 on the card). The CPU path runs this
 version; on the card it is the oracle (``mode="torch"``).
+
+:func:`wkv6_chunked` is the same function in the order of the chunked
+tensor-core kernel (``csrc/rwkv6_scan_hopper.cu``): 16 steps at a time,
+from prefix, suffix and pairwise products of the decays, with the option
+of the kernel's 3xTF32 operand splits. The CPU tests hold it to
+:func:`wkv6_ref`; nothing on the card's path calls it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["wkv6_ref"]
+__all__ = ["wkv6_chunked", "wkv6_ref"]
 
 
 def wkv6_ref(r, k, v, w, u, state=None):
@@ -37,3 +43,82 @@ def wkv6_ref(r, k, v, w, u, state=None):
         out[:, i] = ((s + uf * kv) * rf[:, i, :, :, None]).sum(dim=-2)
         s = wf[:, i, :, :, None] * s + kv
     return out.to(r.dtype), s
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds it: float32 in and out."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """x = hi + lo, both TF32 (lo the rounded remainder)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm(a, b, passes):
+    """a @ b in float32; with ``passes`` 3 or 2 the kernel's split
+    product: hi.hi' + hi.lo' + lo.hi' (3) or, b exact in TF32, a's hi and
+    lo times b (2); None takes it as it is."""
+    if passes is None:
+        return a @ b
+    ah, al = _split(a)
+    if passes == 2:
+        b = _tf32(b)
+        return al @ b + ah @ b
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def wkv6_chunked(r, k, v, w, u, state=None, *, chunk=16, split_tf32=False):
+    """:func:`wkv6_ref` taken ``chunk`` steps at a time, as the chunked
+    kernel takes it. Per (batch, head) and key i, over a chunk's L steps
+    from the state S_c at its start: prefix P_t = prod_{m<t} w_m, suffix
+    Q_s = prod_{s<m<L} w_m, total D = prod_m w_m, and the pairwise decay
+    W(t, s) = prod_{s<m<t} w_m as running products along t (no division,
+    no logarithm); then
+
+        A[t, s] = sum_i r_t W(t, s) k_s (s < t),  A[t, t] = sum_i r_t u k_t,
+        out     = (r * P) . S_c + A . v,
+        S_c+1   = diag(D) S_c + (k * Q)^T . v.
+
+    The last chunk runs its own steps only. With ``split_tf32`` each
+    product takes its operands as the kernel does: ``(r * P) . S`` in 3
+    TF32 passes, ``A . v`` and ``(k * Q)^T . v`` in 2 (v taken as TF32).
+    Same arguments and results as :func:`wkv6_ref`."""
+    b, t, h, n = r.shape
+    rf, kf, vf, wf = (x.float().transpose(1, 2) for x in (r, k, v, w))
+    uf = u.float()[None, :, :]                              # (1, h, n)
+    if state is None:
+        s = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    else:
+        s = state.float().clone()
+    out = torch.empty((b, h, t, n), dtype=torch.float32, device=r.device)
+    p3, p2 = (3, 2) if split_tf32 else (None, None)
+    for c0 in range(0, t, chunk):
+        rc, kc, vc, wc = (x[:, :, c0:c0 + chunk] for x in (rf, kf, vf, wf))
+        L = rc.shape[2]
+        pre = torch.empty_like(rc)                          # P_t
+        suf = torch.empty_like(kc)                          # Q_s
+        run = torch.ones_like(rc[:, :, 0])
+        for i in range(L):
+            pre[:, :, i] = run
+            run = run * wc[:, :, i]
+        d = run                                             # D
+        run = torch.ones_like(kc[:, :, 0])
+        for i in reversed(range(L)):
+            suf[:, :, i] = run
+            run = run * wc[:, :, i]
+        a = torch.zeros((b, h, L, L), dtype=torch.float32, device=r.device)
+        for j in range(L):
+            kw = kc[:, :, j]
+            for i in range(j + 1, L):
+                if i > j + 1:
+                    kw = kw * wc[:, :, i - 1]
+                a[:, :, i, j] = (rc[:, :, i] * kw).sum(-1)
+            a[:, :, j, j] = (rc[:, :, j] * uf * kc[:, :, j]).sum(-1)
+        out[:, :, c0:c0 + L] = _mm(rc * pre, s, p3) + _mm(a, vc, p2)
+        s = d[..., None] * s + _mm((kc * suf).transpose(-1, -2), vc, p2)
+    return out.transpose(1, 2).to(r.dtype), s

@@ -650,23 +650,77 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, case, dtype, w_dtype):
 
 def test_rwkv6_scan_in_place_and_split(cuda):
     """The state written in place into the cache it was read from, and a
-    state carried across a split at 17, equal one scan."""
-    from repro_torch.kernels.rwkv6_scan import wkv
+    state carried across a split at 17, equal one scan: bit for bit on
+    the sequential simt kernel (f32), within the plain version's
+    tolerance on the chunked one (bf16), whose chunks start elsewhere
+    after a split."""
+    from repro_torch.kernels.rwkv6_scan import VARIANTS, reset_variants, wkv
 
-    rng = np.random.default_rng(21)
-    r, k, v, w, u, s0 = _wkv_inputs(rng, 2, 100, 4, 64, torch.bfloat16,
-                                    torch.float32, True, cuda)
-    whole = wkv(r, k, v, w, u, s0)
-    cache = s0.clone()
-    o1, s1 = wkv(r[:, :17], k[:, :17], v[:, :17], w[:, :17], u, cache,
-                 out_state=cache)
-    o2, s2 = wkv(r[:, 17:], k[:, 17:], v[:, 17:], w[:, 17:], u, cache,
-                 out_state=cache)
+    for dtype, exact in ((torch.float32, True), (torch.bfloat16, False)):
+        rng = np.random.default_rng(21)
+        r, k, v, w, u, s0 = _wkv_inputs(rng, 2, 100, 4, 64, dtype,
+                                        torch.float32, True, cuda)
+        reset_variants()
+        whole = wkv(r, k, v, w, u, s0)
+        cache = s0.clone()
+        o1, s1 = wkv(r[:, :17], k[:, :17], v[:, :17], w[:, :17], u, cache,
+                     out_state=cache)
+        o2, s2 = wkv(r[:, 17:], k[:, 17:], v[:, 17:], w[:, 17:], u, cache,
+                     out_state=cache)
+        torch.cuda.synchronize()
+        assert VARIANTS == {"chunked": 0 if exact else 3,
+                            "simt": 3 if exact else 0}
+        assert s1 is cache and s2 is cache
+        split = (torch.cat([o1, o2], 1), cache)
+        if exact:
+            assert torch.equal(split[0], whole[0])
+            assert torch.equal(split[1], whole[1])
+        else:
+            _assert_wkv_close(split, whole)
+        _assert_wkv_close(whole, wkv(r, k, v, w, u, s0, mode="torch"))
+
+
+# (t, decays, given state, w dtype): the chunked kernel at one chunk, a
+# chunk and a step, ragged lengths; strong decays with w exactly 0 and 1
+RWKV_CHUNKED_CASES = [(16, "chip", True, "float32"),
+                      (17, "chip", False, "float32"),
+                      (33, "chip", True, "bfloat16"),
+                      (130, "chip", True, "float32"),
+                      (130, "strong", True, "float32"),
+                      (130, "strong", False, "bfloat16"),
+                      (1024, "model", True, "float32")]
+
+
+@pytest.mark.parametrize("case", RWKV_CHUNKED_CASES,
+                         ids=lambda c: f"t{c[0]}-{c[1]}-"
+                         f"{'s' if c[2] else 'z'}-w{c[3]}")
+def test_rwkv6_scan_chunked_matches_plain(cuda, case):
+    """bf16 r/k/v at head size 64 and t >= 16 go to the chunked kernel,
+    which holds the plain version's tolerance."""
+    from repro_torch.kernels.rwkv6_scan import VARIANTS, plan, \
+        reset_variants, wkv
+
+    t, decays, state, w_dtype = case
+    rng = np.random.default_rng(t)
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 2, t, 4, 64, torch.bfloat16,
+                                    torch.float32, state, cuda)
+    if decays == "strong":
+        x = 2 * _randn(rng, w.shape, torch.float32, cuda)
+        w = torch.exp(-torch.exp(x))
+        w[..., ::7] = 0.0
+        w[:, 3::5, :, 1::6] = 1.0
+    elif decays == "model":
+        x = -6.0 + 0.5 * torch.tanh(_randn(rng, w.shape, torch.float32,
+                                           cuda))
+        w = torch.exp(-torch.exp(x))
+    w = w.to(getattr(torch, w_dtype))
+    assert plan(r, k, v, w, s0) == "chunked"
+    reset_variants()
+    got = wkv(r, k, v, w, u, s0)
     torch.cuda.synchronize()
-    assert s1 is cache and s2 is cache
-    assert torch.equal(torch.cat([o1, o2], 1), whole[0])
-    assert torch.equal(cache, whole[1])
-    _assert_wkv_close(whole, wkv(r, k, v, w, u, s0, mode="torch"))
+    assert VARIANTS == {"chunked": 1, "simt": 0}
+    assert bool(torch.isfinite(got[0]).all())
+    _assert_wkv_close(got, wkv(r, k, v, w, u, s0, mode="torch"))
 
 
 def test_rwkv6_scan_decay_stays_float32(cuda):
@@ -704,6 +758,7 @@ def test_rwkv_generate_launch_counts(cuda, cache_dtype):
     equal to the plain path's."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.kernels.rwkv6_scan import VARIANTS, reset_variants
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
 
@@ -714,11 +769,42 @@ def test_rwkv_generate_launch_counts(cuda, cache_dtype):
     kw = dict(cfg=cfg, params=params, max_len=32,
               cache_dtype=getattr(torch, cache_dtype))
     reset_launches()
+    reset_variants()
     out = ServeEngine(**kw).generate({"tokens": prompt}, max_new_tokens=4)
     torch.cuda.synchronize()
     launches = {n: c for n, c in LAUNCHES.items() if c}
     assert launches == {"rwkv6_scan": 4 * cfg.num_layers}, launches
+    # float32 activations: every launch on the sequential kernel
+    assert VARIANTS == {"chunked": 0, "simt": 4 * cfg.num_layers}
     plain = ServeEngine(mode="torch", **kw).generate({"tokens": prompt},
                                                      max_new_tokens=4)
     assert torch.equal(out, plain)
     assert out.shape == (3, 4) and out.dtype == torch.int32
+
+
+def test_rwkv_generate_bf16_variants(cuda):
+    """Reduced rwkv6-7b (2 layers) in bf16: the 24-token prefill runs the
+    chunked kernel once per layer, the 3 decode steps the simt kernel; the
+    tokens lie in the vocabulary."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.kernels.rwkv6_scan import VARIANTS, reset_variants
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_reduced_config("rwkv6-7b")
+    params = M.init_params(0, cfg, dtype=torch.bfloat16, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 24), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    reset_launches()
+    reset_variants()
+    out = ServeEngine(cfg=cfg, params=params, max_len=32,
+                      cache_dtype=torch.bfloat16).generate(
+        {"tokens": prompt}, max_new_tokens=4)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in LAUNCHES.items() if c} == \
+        {"rwkv6_scan": 4 * cfg.num_layers}
+    assert VARIANTS == {"chunked": cfg.num_layers,
+                        "simt": 3 * cfg.num_layers}
+    assert out.shape == (3, 4) and out.dtype == torch.int32
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
