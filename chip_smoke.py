@@ -20,7 +20,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      also at the int8 store export, noise 0.5), its time by CUDA events,
      the plain version's time (each with the L2 cache cold), and the least
      time the card could take; for the compress kernels also the time of
-     the torch ops outside them (select thresholds, sign scales).
+     the torch ops outside them (select thresholds, sign scales). The
+     select kernels (topk, randk, ef_topk, ef_randk) are timed at all
+     three uplinks, L2-cold and with a clean L2, each printing its grid
+     (tiles x senders; a count and a scan launch), beside the timing floor
+     (one elementwise add on 16 bytes); their thresholds (the least of an
+     unsorted top-k) also by a sorted top-k, equal and timed.
   4. main path: ``run_scenario("fig2/fmnist/cnn/permfl", rounds=3)`` on the
      card at the registered size (4 teams x 10 devices, paper CNN at its
      published widths, K=5, L=10), with every launch count set to 0 just
@@ -165,6 +170,8 @@ TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
 }
 KERNEL_SOURCE = {  # kernel -> its CUDA source
     "prox_update": "prox_update/csrc/prox_update.cu",
+    **{op: "compress/csrc/select_hopper.cu"
+       for op in ("topk", "randk", "ef_topk", "ef_randk")},
     # the serving path's variants (wgmma, split_kv); the simt kernel of
     # the other cases is flash_attention/csrc/flash_attention.cu
     "flash_attention": "flash_attention/csrc/flash_attention_hopper.cu",
@@ -531,16 +538,59 @@ def assert_bit_equal(name, got, want):
     return err
 
 
+SELECT_OPS = ("ef_topk", "ef_randk", "topk", "randk")
+
+
+def kth_sorted(score, segs):
+    """``segment_thresholds`` as the k-th value of a sorted top-k: what
+    the least of the unsorted top-k (``ref.kth_threshold``) must equal."""
+    import torch
+
+    from repro_torch.kernels.segments import leaf_columns
+
+    return torch.stack([torch.topk(score[:, sl], k, dim=-1,
+                                   sorted=True).values[..., -1]
+                        for _, sl, k in leaf_columns(segs)],
+                       dim=1).contiguous()
+
+
+def select_extras(op, label, delta, ef, u, segs, given):
+    """For select ``op``: its grid (tiles of ``compress.TILE`` values by
+    the senders, two launches), its time with a clean L2, and the
+    thresholds by a sorted top-k, equal to the unsorted one's the op uses,
+    and timed."""
+    import torch
+
+    from repro_torch.kernels import compress as K
+
+    out = {"grid": f"{K.tiles(segs)[-1]} tiles x {delta.shape[0]} senders",
+           "clean_ms": cuda_time_ms(
+               lambda: run_compress(op, delta, ef, u, segs, given),
+               TIMED_LAUNCHES, clean=True)}
+    score = u if op.endswith("randk") else \
+        (delta + ef if op.startswith("ef_") else delta).abs()
+    if not torch.equal(kth_sorted(score, segs), given):
+        raise AssertionError(f"{op} {label}: the sorted top-k's "
+                             "thresholds differ from the unsorted one's")
+    out["sorted_ms"] = cuda_time_ms(lambda: kth_sorted(score, segs), 20)
+    return out
+
+
 def phase_compress_check(cases):
     """Every compress kernel (with error feedback and without) at the
     uplinks of ``cases`` [(label, Layout, senders)], the first the timed
     one, against its plain version, bit for bit, given the same
-    thresholds, scales and uniforms; then quantize at the int8 store
-    export of the first case (noise 0.5 as one expanded row)."""
+    thresholds, scales and uniforms; the select kernels timed at every
+    case, L2-cold and clean, beside the timing floor and a sorted top-k's
+    thresholds; then quantize at the int8 store export of the first case
+    (noise 0.5 as one expanded row)."""
     import torch
 
     from repro_torch.kernels.quantize import quantize_int8
 
+    floor = timing_floor()
+    say("kernel", f"timing floor (one elementwise add on 16 bytes): "
+        f"{floor[0] * 1e3:.1f} us L2-cold, {floor[1] * 1e3:.1f} us clean")
     out = {}
     for ci, (label, layout, senders) in enumerate(cases):
         delta, ef, u = compress_inputs(layout, senders, seed=ci)
@@ -552,16 +602,29 @@ def phase_compress_check(cases):
             want = run_compress(op, delta, ef, u, segs, given, mode="torch")
             torch.cuda.synchronize()
             err = assert_bit_equal(f"{op} {label}", got, want)
-            if ci:
+            sel = op in SELECT_OPS
+            extra = select_extras(op, label, delta, ef, u, segs,
+                                  given) if sel else {}
+            if ci and not sel:
                 say("kernel", f"{op} {label} ({senders}x{layout.size}, "
                     f"{len(segs.lengths)} leaves): equal to the plain "
                     "version bit for bit")
                 continue
-            out[op] = dict(max_abs_err=err, **time_compress(
+            nums = dict(max_abs_err=err, **extra, **time_compress(
                 op, label, senders, layout, segs,
                 lambda: run_compress(op, delta, ef, u, segs, given),
                 lambda: run_compress(op, delta, ef, u, segs, given,
                                      mode="torch"), side))
+            if sel:
+                say("kernel", f"{op} {label} [count + scan over "
+                    f"{nums['grid']}]: {nums['ms'] * 1e3:.1f} us L2-cold, "
+                    f"{nums['clean_ms'] * 1e3:.1f} us clean (timing floor "
+                    f"{floor[0] * 1e3:.1f} / {floor[1] * 1e3:.1f} us); "
+                    "thresholds (unsorted top-k + amin) "
+                    f"{nums['side_ms'] * 1e3:.1f} us, by a sorted top-k "
+                    f"{nums['sorted_ms'] * 1e3:.1f} us (equal)")
+            if ci == 0:
+                out[op] = nums
     label, layout, senders = cases[0]
     delta, _, _ = compress_inputs(layout, senders, seed=len(cases))
     noise = torch.full((1, layout.stride), 0.5, device=DEVICE) \

@@ -33,6 +33,8 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 KERNEL_SOURCES = {
     "prox_update": _KERNELS_DIR / "prox_update" / "csrc" / "prox_update.cu",
     "compress": _KERNELS_DIR / "compress" / "csrc" / "compress.cu",
+    "select_hopper": (_KERNELS_DIR / "compress" / "csrc"
+                      / "select_hopper.cu"),
     "flash_attention": (_KERNELS_DIR / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
     "flash_attention_hopper": (_KERNELS_DIR / "flash_attention" / "csrc"

@@ -1,14 +1,11 @@
-// Compression of the PerMFL uplinks for Hopper, sm_90a: with error feedback
-// (EF) and without, and the bare int8 quantize.
+// Compression of the PerMFL uplinks for Hopper, sm_90a: int8 and sign, with
+// error feedback (EF) and without, and the bare int8 quantize. (Top-k and
+// rand-k are select_hopper.cu.)
 //
 // Replaces the Pallas TPU kernels of repro/kernels/compress/compress.py and
 // repro/kernels/quantize/quantize.py, each a variant of one kernel template
 // here (EF = with error feedback):
 //
-//   select_kernel<RANDK=0, EF=1>  _ef_topk_kernel    compress.py:107
-//   select_kernel<RANDK=1, EF=1>  _ef_randk_kernel   compress.py:123
-//   select_kernel<RANDK=0, EF=0>  _topk_kernel       compress.py:99
-//   select_kernel<RANDK=1, EF=0>  _randk_kernel      compress.py:116
 //   int8_kernel<EF=1>             _ef_quant_kernel   compress.py:133
 //   int8_kernel<EF=0>             _quant_kernel      quantize.py:23
 //   sign_kernel<EF=1>             _ef_sign_kernel    compress.py:168
@@ -20,12 +17,6 @@
 // receiver adds) and the new residual ef' = msg - dq; without EF the message
 // is the input v and only dq (and the wire outputs) are written:
 //
-//   select  keep every value whose score (|msg| for top-k, the given uniform
-//           u for rand-k) is strictly above the segment's threshold (its k-th
-//           largest score), then fill the remaining k - n_strict slots with
-//           == threshold ties in index order; ranks = wire slot in [0, k) or
-//           -1, dq = msg where kept, else 0. Unbiased rand-k (no EF) keeps
-//           msg * f32(p / k), the leaf's scale given.
 //   int8    per 128-value row of the leaf: scale = max(absmax * f32(1/127),
 //           1e-12), q = clip(floor(msg / scale + u), -127, 127), dq = q*scale.
 //   sign    bits (rows, 16) u8 per leaf, lane 8c+j of a row at bit j of byte
@@ -44,11 +35,6 @@
 //
 // What bounds them on the card: HBM bytes (a handful of flops per value).
 // At the CNN LAN uplink, 40 senders x 206,922 f32 values, 3.35 TB/s:
-//   ef_topk   delta, ef read; dq, ef' written; ranks i32 written: 20 B/value,
-//             165.5 MB -> 49.4 us; topk (no EF) v read, dq and ranks
-//             written: 12 B/value, 99 MB -> 30 us
-//   ef_randk  + the uniforms read: 24 B/value, 198.6 MB -> 59.3 us; randk
-//             16 B/value, 132 MB -> 40 us
 //   ef_int8   delta, ef, u read; dq, ef' written; q i8 written: 21 B/value
 //             + 4 B per scale, 174.1 MB -> 52.0 us; quantize 13 B/value
 //   ef_sign   delta, ef read; dq, ef' written: 16 B/value + 16 B per row of
@@ -58,23 +44,14 @@
 //    (one float4 where aligned), the row absmax by warp shuffles, the sign
 //    byte by one shuffle between lane pairs. All sender rows of all leaves
 //    run at once (~65k warps at the CNN LAN uplink), so they stream.
-//  * The select needs an exact prefix count over the WHOLE leaf, and the
-//    tie-fill needs the leaf's full strict count (cap = k - n_strict) before
-//    any tie is decided. It is one block per (sender, leaf): a count pass,
-//    then a scan pass over 4096-value tiles (4 values a thread), a block-wide
-//    int32 scan of the packed (strict << 16 | tie) counts per tile, carried
-//    from tile to tile. Simple and exact, but the largest leaf (200,704
-//    values) has only one block per sender: 40 blocks on 132 SMs stream it
-//    serially, far from the bound. A multi-block scan (decoupled look-back)
-//    is the way to the bound.
 //  * Without EF the variants read and write less and nothing else changes:
 //    the EF operands are compile-time absent, not branched on per value.
 //
 // Each operation rounds on its own, in the plain version's order: __fadd_rn
-// for msg, __fsub_rn for ef', __fmul_rn for absmax * (1/127), q * scale and
-// msg * f32(p / k), __fdiv_rn for msg / scale. So no multiply-add contracts
-// into an FMA, and the kernels agree with the plain versions bit for bit
-// (build without --use_fast_math). The kernels run on the caller's stream
+// for msg, __fsub_rn for ef', __fmul_rn for absmax * (1/127) and q * scale,
+// __fdiv_rn for msg / scale. So no multiply-add contracts into an FMA, and
+// the kernels agree with the plain versions bit for bit (build without
+// --use_fast_math). The kernels run on the caller's stream
 // and allocate nothing.
 
 #include <cuda_runtime.h>
@@ -85,9 +62,6 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLanes = 128;         // values per int8 scale / sign row
-constexpr int kSelThreads = 1024;
-constexpr int kSelItems = 4;        // consecutive values per thread and tile
-constexpr int kSelTile = kSelThreads * kSelItems;
 constexpr int kRowWarps = 8;        // leaf rows (one warp each) per block
 constexpr float kInv127 = 0x1.020408p-7f;  // f32(1/127), as the reference
 
@@ -114,45 +88,6 @@ __device__ __forceinline__ int find_seg(const int64_t* segs, int nseg,
   return lo;
 }
 
-// Exclusive block-wide prefix sum of v over threadIdx.x; *total gets the
-// block's sum. Every thread of the block must call it.
-__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
-                                                         uint32_t* smem,
-                                                         uint32_t* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  uint32_t incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t n = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += n;
-  }
-  if (lane == 31) smem[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const uint32_t w = lane < nwarps ? smem[lane] : 0u;
-    uint32_t wi = w;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t n = __shfl_up_sync(kFull, wi, o);
-      if (lane >= o) wi += n;
-    }
-    smem[lane] = wi - w;
-    if (lane == 31) smem[32] = wi;
-  }
-  __syncthreads();
-  const uint32_t excl = smem[warp] + incl - v;
-  *total = smem[32];
-  __syncthreads();  // smem is reused by the next call
-  return excl;
-}
-
-template <bool RANDK>
-__device__ __forceinline__ float score_of(float msg, float u) {
-  return RANDK ? u : fabsf(msg);
-}
-
 // The message at i: v + ef with error feedback, else v itself.
 template <bool EF>
 __device__ __forceinline__ float msg_at(const float* v, const float* e,
@@ -175,128 +110,6 @@ __device__ __forceinline__ void msg4(const float* v, const float* e,
     m[1] = __fadd_rn(m[1], ev.y);
     m[2] = __fadd_rn(m[2], ev.z);
     m[3] = __fadd_rn(m[3], ev.w);
-  }
-}
-
-// One block per (leaf segment, sender): blockIdx.x = segment, blockIdx.y =
-// sender. Outputs share one row stride ld_o (dq, ranks, and ef_out with
-// EF). scale: (nseg,) kept-value factors (unbiased rand-k) or null. The
-// last segment's block also writes the columns [end, cols) past the last
-// leaf: nothing sent, dq 0, ranks -1, ef' = msg.
-template <bool RANDK, bool EF>
-__global__ void __launch_bounds__(kSelThreads)
-    select_kernel(const float* __restrict__ v, const float* __restrict__ ef,
-                  const float* __restrict__ u, float* __restrict__ dq,
-                  int32_t* __restrict__ ranks, float* __restrict__ ef_out,
-                  const int64_t* __restrict__ segs,
-                  const float* __restrict__ thresh,
-                  const float* __restrict__ scale, int nseg, int64_t cols,
-                  int64_t ld_v, int64_t ld_e, int64_t ld_u, int64_t ld_o,
-                  int vec) {
-  __shared__ uint32_t smem[33];
-  const int s = blockIdx.x;
-  const int64_t b = blockIdx.y;
-  const Seg sg = load_seg(segs, s);
-  if (s == nseg - 1) {
-    const int64_t end = sg.off + sg.len;
-    for (int64_t c = end + threadIdx.x; c < cols; c += kSelThreads) {
-      dq[b * ld_o + c] = 0.0f;
-      ranks[b * ld_o + c] = -1;
-      if (EF) ef_out[b * ld_o + c] = msg_at<EF>(v + b * ld_v, ef + b * ld_e, c);
-    }
-  }
-  const int64_t len = sg.len;
-  const float thr = thresh[b * nseg + s];
-  const bool scaled = scale != nullptr;
-  const float kscale = scaled ? scale[s] : 1.0f;
-  v += b * ld_v + sg.off;
-  if (EF) ef += b * ld_e + sg.off;
-  if (RANDK) u += b * ld_u + sg.off;
-  dq += b * ld_o + sg.off;
-  ranks += b * ld_o + sg.off;
-  if (EF) ef_out += b * ld_o + sg.off;
-  const bool vec_ok = vec != 0 && (sg.off % 4) == 0;
-
-  // pass 1: the leaf's strict count (rand-k scores need only u)
-  uint32_t n = 0;
-  for (int64_t i = threadIdx.x; i < len; i += kSelThreads) {
-    const float sc = RANDK ? u[i] : fabsf(msg_at<EF>(v, ef, i));
-    n += sc > thr;
-  }
-  uint32_t n_strict;
-  block_exclusive_scan(n, smem, &n_strict);
-  const int64_t cap = sg.k - static_cast<int64_t>(n_strict);
-
-  // pass 2: tiles in index order, prefix counts carried across tiles
-  int64_t carry_s = 0, carry_t = 0;
-  for (int64_t tile = 0; tile < len; tile += kSelTile) {
-    const int64_t base = tile + int64_t(threadIdx.x) * kSelItems;
-    const bool full = vec_ok && base + kSelItems <= len;
-    float m[kSelItems], sc[kSelItems];
-    if (full) {
-      msg4<EF>(v, ef, base, m);
-      float4 uv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (RANDK) uv = *reinterpret_cast<const float4*>(u + base);
-      sc[0] = score_of<RANDK>(m[0], uv.x);
-      sc[1] = score_of<RANDK>(m[1], uv.y);
-      sc[2] = score_of<RANDK>(m[2], uv.z);
-      sc[3] = score_of<RANDK>(m[3], uv.w);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kSelItems; ++j) {
-        m[j] = 0.0f;
-        sc[j] = 0.0f;
-        if (base + j < len) {
-          m[j] = msg_at<EF>(v, ef, base + j);
-          sc[j] = score_of<RANDK>(m[j], RANDK ? u[base + j] : 0.0f);
-        }
-      }
-    }
-    bool strict[kSelItems], tie[kSelItems];
-    uint32_t cs = 0, ct = 0;
-#pragma unroll
-    for (int j = 0; j < kSelItems; ++j) {
-      const bool in = base + j < len;
-      strict[j] = in && sc[j] > thr;
-      tie[j] = in && sc[j] == thr;
-      cs += strict[j];
-      ct += tie[j];
-    }
-    // a tile holds 4096 values, so each count fits in 16 bits
-    uint32_t tot;
-    const uint32_t ex = block_exclusive_scan((cs << 16) | ct, smem, &tot);
-    int64_t ps = carry_s + (ex >> 16);
-    int64_t pt = carry_t + (ex & 0xffffu);
-    float d[kSelItems], e[kSelItems];
-    int32_t r[kSelItems];
-#pragma unroll
-    for (int j = 0; j < kSelItems; ++j) {
-      ps += strict[j];
-      pt += tie[j];
-      const bool sel = strict[j] || (tie[j] && pt <= cap);
-      const float kept = scaled ? __fmul_rn(m[j], kscale) : m[j];
-      d[j] = sel ? kept : 0.0f;
-      r[j] = sel ? static_cast<int32_t>(ps + (pt < cap ? pt : cap) - 1) : -1;
-      e[j] = EF ? __fsub_rn(m[j], d[j]) : 0.0f;
-    }
-    if (full) {
-      *reinterpret_cast<float4*>(dq + base) = make_float4(d[0], d[1], d[2], d[3]);
-      *reinterpret_cast<int4*>(ranks + base) = make_int4(r[0], r[1], r[2], r[3]);
-      if (EF)
-        *reinterpret_cast<float4*>(ef_out + base) =
-            make_float4(e[0], e[1], e[2], e[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kSelItems; ++j) {
-        if (base + j < len) {
-          dq[base + j] = d[j];
-          ranks[base + j] = r[j];
-          if (EF) ef_out[base + j] = e[j];
-        }
-      }
-    }
-    carry_s += tot >> 16;
-    carry_t += tot & 0xffffu;
   }
 }
 
@@ -491,47 +304,11 @@ int row_grid(int64_t rows_total, int64_t senders, dim3* grid) {
 // ld_* are row strides in elements; segs is the (nseg, 4) int64 segment
 // table (offset, length >= 1, k, first wire row) in row order, the leaves
 // back to back from column 0; cols >= the last leaf's end is the width of
-// the rows, and columns past the last leaf get dq 0 (ranks -1, q 0) and
-// ef' = msg; vec = 1 vouches that every pointer and row start is 16-byte
+// the rows, and columns past the last leaf get dq 0 (q 0) and ef' = msg; vec = 1 vouches that every pointer and row start is 16-byte
 // aligned, so leaves whose offset is a multiple of 4 take 16-byte
 // accesses. ef and ef_out are both given (error feedback: msg = v + ef,
 // ef' written) or both null (msg = v). Each returns cudaGetLastError()
 // after its launch (0 on success).
-
-// randk = 0: top-k on |msg|; randk = 1: rand-k on u. thresh is (senders,
-// nseg), the k-th largest score of each (sender, leaf); scale is (nseg,)
-// factors of the kept values (unbiased rand-k without EF) or null.
-extern "C" int compress_select(int randk, const float* v, const float* ef,
-                               const float* u, float* dq, int32_t* ranks,
-                               float* ef_out, const int64_t* segs,
-                               const float* thresh, const float* scale,
-                               int nseg, int64_t cols, int64_t senders,
-                               int64_t ld_v, int64_t ld_e, int64_t ld_u,
-                               int64_t ld_o, int vec, void* stream) {
-  if (nseg < 1 || senders < 1 || senders > 65535 ||
-      (ef == nullptr) != (ef_out == nullptr) || (ef != nullptr && scale))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(nseg), static_cast<unsigned>(senders));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CS_LAUNCH(R, E)                                                       \
-  select_kernel<R, E><<<grid, kSelThreads, 0, s>>>(v, ef, u, dq, ranks,       \
-                                                   ef_out, segs, thresh,      \
-                                                   scale, nseg, cols, ld_v,   \
-                                                   ld_e, ld_u, ld_o, vec)
-  if (ef != nullptr) {
-    if (randk)
-      CS_LAUNCH(true, true);
-    else
-      CS_LAUNCH(false, true);
-  } else {
-    if (randk)
-      CS_LAUNCH(true, false);
-    else
-      CS_LAUNCH(false, false);
-  }
-#undef CS_LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
 
 // q shares dq's row stride ld_o; scales is (senders, rows_total).
 extern "C" int compress_int8(const float* v, const float* ef,

@@ -32,10 +32,14 @@ Unbiased rand-k multiplies the kept values by each leaf's float32
 f32(p / k), the reference's Python ``p / k`` rounded once.
 
 Which version runs follows the tensors' device
-(:func:`repro_torch.kernels.interface.kernel_mode`): the kernel
-(``csrc/compress.cu``) for CUDA tensors, the plain version (``ref.py``)
-for CPU tensors or an explicit ``mode="torch"``. Each launch adds one to
-``LAUNCHES[name]``.
+(:func:`repro_torch.kernels.interface.kernel_mode`): the kernel for CUDA
+tensors, the plain version (``ref.py``) for CPU tensors or an explicit
+``mode="torch"``. Each op call adds one to ``LAUNCHES[name]``. The
+kernels are ``csrc/compress.cu`` (int8, sign) and, for top-k and rand-k,
+``csrc/select_hopper.cu``: a count of each tile's strict and tie values,
+then the scan, each over every (tile, sender) -- :func:`tiles` says
+where the tiles of :data:`TILE` values lie -- so an op call is two CUDA
+launches.
 
 Each op is a ``torch.autograd.Function`` with the reference's backward
 rules (``repro/kernels/compress/ops.py``): with EF, top-k and rand-k
@@ -60,13 +64,15 @@ from repro_torch.kernels.segments import (Segments, check_rows, given,
                                           leaf_columns, raise_on, segments,
                                           senders_ok, stream)
 
-__all__ = ["KERNELS", "Segments", "ef_int8", "ef_randk", "ef_sign",
+__all__ = ["KERNELS", "Segments", "TILE", "ef_int8", "ef_randk", "ef_sign",
            "ef_topk", "randk", "segment_thresholds", "segments", "sign",
-           "sign_scales", "topk", "unbiased_scales"]
+           "sign_scales", "tiles", "topk", "unbiased_scales"]
 
 # launch-count names of the kernels this module launches
 KERNELS = ("ef_topk", "ef_randk", "ef_int8", "ef_sign", "topk", "randk",
            "sign")
+# values a tile of the select kernel holds (csrc/select_hopper.cu)
+TILE = 4096
 
 
 def segment_thresholds(score: torch.Tensor, segs: Segments) -> torch.Tensor:
@@ -96,16 +102,13 @@ def unbiased_scales(segs: Segments, device) -> torch.Tensor:
     return _unbiased(segs, str(torch.device(device)))
 
 
-def _functions():
-    lib = load("compress")
-    if lib.compress_select.argtypes is None:
+def _sign_fn():
+    fn = load("compress").compress_sign
+    if fn.argtypes is None:
         p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.compress_select.argtypes = [i] + [p] * 9 + [i] + [n] * 6 \
-            + [i, p]
-        lib.compress_sign.argtypes = [p] * 7 + [i] + [n] * 7 + [i, p]
-        for fn in (lib.compress_select, lib.compress_sign):
-            fn.restype = ctypes.c_int
-    return lib
+        fn.argtypes = [p] * 7 + [i] + [n] * 7 + [i, p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _ptr(t):
@@ -113,6 +116,37 @@ def _ptr(t):
 
 
 # ------------------------------------------------------------ select
+
+def _select_fn():
+    lib = load("select_hopper")
+    fn = lib.select_tiled
+    if fn.argtypes is None:
+        if lib.select_tile_values() != TILE:
+            raise RuntimeError(f"select_hopper.cu tiles "
+                               f"{lib.select_tile_values()} values, "
+                               f"ops.TILE says {TILE}")
+        p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [i] + [p] * 11 + [i, i] + [n] * 6 + [i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=256)
+def tiles(segs: Segments) -> tuple:
+    """Where the select kernel's tiles of :data:`TILE` values lie, none
+    across a leaf's end: each leaf's first tile among all leaves' tiles,
+    then the total (the kernel's grid is that many tiles by the
+    senders)."""
+    starts = [0]
+    for n in segs.lengths:
+        starts.append(starts[-1] + -(-n // TILE))
+    return tuple(starts)
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_table(segs: Segments, device: str) -> torch.Tensor:
+    return torch.tensor(tiles(segs), dtype=torch.int32, device=device)
+
 
 def _select(u, v, ef, segs, thresh, unbiased, mode):
     """Top-k (``u`` None) or rand-k of msg = v (+ ef): (dq, ranks,
@@ -145,15 +179,22 @@ def _select(u, v, ef, segs, thresh, unbiased, mode):
     elif senders_ok(v):
         name = ("ef_" if ef is not None else "") + \
             ("randk" if randk else "topk")
+        if max(segs.lengths) >= 2**31:
+            raise ValueError("the select kernel takes leaves under 2^31 "
+                             "values")
         if ef is not None:
             ef_new = torch.empty_like(dq)
+        ntiles = tiles(segs)[-1]
+        counts = torch.empty((b, ntiles), dtype=torch.int32, device=v.device)
         ops = [t for t in (v, ef, u, dq, ranks, ef_new) if t is not None]
-        fn = _functions().compress_select
+        fn = _select_fn()
         count_launch(name)
         err = fn(int(randk), v.data_ptr(), _ptr(ef), _ptr(u), dq.data_ptr(),
                  ranks.data_ptr(), _ptr(ef_new),
-                 segs.table(v.device).data_ptr(), thresh.data_ptr(),
-                 _ptr(scale), len(segs.lengths), v.shape[1], b, v.stride(0),
+                 segs.table(v.device).data_ptr(),
+                 _tile_table(segs, str(v.device)).data_ptr(),
+                 thresh.data_ptr(), _ptr(scale), counts.data_ptr(),
+                 len(segs.lengths), ntiles, v.shape[1], b, v.stride(0),
                  0 if ef is None else ef.stride(0),
                  u.stride(0) if randk else 0, dq.stride(0),
                  int(vec_aligned(*ops)), stream(v))
@@ -292,7 +333,7 @@ def _sign(v, ef, segs, scales, mode):
         if ef is not None:
             ef_new = torch.empty_like(dq)
         ops = [t for t in (v, ef, dq, ef_new) if t is not None]
-        fn = _functions().compress_sign
+        fn = _sign_fn()
         count_launch(name)
         err = fn(v.data_ptr(), _ptr(ef), scales.data_ptr(), bits.data_ptr(),
                  dq.data_ptr(), _ptr(ef_new),

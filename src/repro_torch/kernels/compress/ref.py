@@ -39,13 +39,17 @@ from repro_torch.kernels.segments import LANES
 
 __all__ = ["INV127", "LANES", "ef_quantize_int8_ref", "ef_randk_select_ref",
            "ef_sign_compress_ref", "ef_topk_select_ref", "kth_threshold",
-           "pack_topk", "randk_select_ref", "sign_compress_ref",
-           "sign_unpack", "topk_select_ref", "unpack_topk"]
+           "pack_topk", "randk_select_ref", "select_tiled",
+           "sign_compress_ref", "sign_unpack", "topk_select_ref",
+           "unpack_topk"]
 
 
 def kth_threshold(score: torch.Tensor, k: int) -> torch.Tensor:
-    """k-th largest entry of each row of ``score`` (B, p) -> (B,)."""
-    return torch.topk(score, k, dim=-1, sorted=True).values[..., -1]
+    """k-th largest entry of each row of ``score`` (B, p) -> (B,): the
+    least of an unsorted top-k (the k largest need no order). For
+    finite scores it equals the k-th of a sorted top-k; a row holding a
+    NaN among its k largest reads NaN."""
+    return torch.topk(score, k, dim=-1, sorted=False).values.amin(-1)
 
 
 def _select(score, v, thresh, k: int, scale=None):
@@ -63,6 +67,38 @@ def _select(score, v, thresh, k: int, scale=None):
     dq = torch.where(sel, kept,
                      torch.zeros((), dtype=v.dtype, device=v.device))
     ranks = torch.where(sel, rank, torch.full_like(rank, -1))
+    return dq, ranks
+
+
+def select_tiled(score, v, thresh, k: int, tile: int, scale=None):
+    """:func:`_select` as the tiled kernel computes it
+    (``csrc/select_hopper.cu``), on (B, p) cut into tiles of ``tile``
+    values: (1) each tile's strict and tie counts; (2) for each tile the
+    counts of the tiles before it, the leaf's cap = k - (its strict
+    count), and the inclusive counts inside the tile on top. Returns
+    (dq, ranks int32), equal to :func:`_select`'s."""
+    b, p = score.shape
+    nt = -(-p // tile)
+    t = thresh[..., None]
+
+    def tiles(mask):
+        return torch.nn.functional.pad(mask.to(torch.int64),
+                                       (0, nt * tile - p)).view(b, nt, tile)
+
+    strict, tie = tiles(score > t), tiles(score == t)
+    n_s, n_t = strict.sum(-1), tie.sum(-1)                # (B, tiles)
+    cap = k - n_s.sum(-1)[:, None, None]
+    inc_s = (n_s.cumsum(-1) - n_s)[..., None] + strict.cumsum(-1)
+    inc_t = (n_t.cumsum(-1) - n_t)[..., None] + tie.cumsum(-1)
+    sel = (strict == 1) | ((tie == 1) & (inc_t <= cap))
+    rank = inc_s + torch.minimum(inc_t, cap) - 1
+    sel = sel.view(b, -1)[:, :p]
+    kept = v if scale is None else v * scale
+    dq = torch.where(sel, kept,
+                     torch.zeros((), dtype=v.dtype, device=v.device))
+    ranks = torch.where(sel, rank.view(b, -1)[:, :p].to(torch.int32),
+                        torch.full((), -1, dtype=torch.int32,
+                                   device=v.device))
     return dq, ranks
 
 

@@ -378,6 +378,76 @@ def test_round_without_ef_kernel_path_matches_plain_path(cuda, compressor):
                                    atol=1e-4)
 
 
+# ------------------------------------------------ select kernel: tiles
+
+SELECT_OPS = ["topk", "randk", "randk_unbiased", "ef_topk", "ef_randk"]
+# case -> (leaf sizes, senders, exact zeros in the largest leaf, the
+# fraction of each leaf kept); tiles hold compress.TILE = 4096 values
+SELECT_CASES = {
+    # 9,000 zeros across two tile ends, 3,388 nonzero, k 6,194: top-k's
+    # threshold is 0 and its tie-fill ends mid-tile
+    "3+ tiles, zeros across tiles": ((10, 3 * 4096 + 100), 3, (3000, 12000),
+                                     0.5),
+    "one tile": ((4096,), 5, (1000, 3000), 0.1),
+    "unaligned offset": ((3, 9000, 4096), 3, (3000, 9000), 0.1),
+    "cnn WAN": (None, 4, (3000, 9000), 0.1),
+}
+
+
+def _select_rows(rng, case, cuda):
+    """(delta, ef, u, segs): the case's rows, 16-byte aligned, with the
+    case's zero run in the largest leaf and its uniforms tied in
+    eighths."""
+    from repro_torch.kernels import compress as K
+
+    leaves, b, (z0, z1), frac = SELECT_CASES[case]
+    if leaves is None:
+        leaves, ld = _cnn_leaves()
+    else:
+        ld = -(-sum(leaves) // 4) * 4
+    delta, ef, u = _compress_rows(rng, b, leaves, ld, cuda, zero_run=False,
+                                  tie_run=False)
+    big = int(np.argmax(leaves))
+    o, n = sum(leaves[:big]), leaves[big]
+    delta[:, o + z0:o + z1] = 0.0
+    ef[:, o + z0:o + z1] = 0.0
+    u[:, o:o + n] = torch.floor(u[:, o:o + n] * 8) / 8
+    return delta, ef, u, K.segments(
+        leaves, tuple(max(1, round(frac * p)) for p in leaves))
+
+
+def _select_op(op, delta, ef, u, segs, mode=None):
+    from repro_torch.kernels import compress as K
+
+    if op == "ef_topk":
+        return K.ef_topk(delta, ef, segs, mode=mode)
+    if op == "ef_randk":
+        return K.ef_randk(u, delta, ef, segs, mode=mode)
+    return _run_plain(op, delta, u, segs, mode=mode)
+
+
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+@pytest.mark.parametrize("op", SELECT_OPS)
+def test_select_kernel_tiles_match_plain(cuda, op, case):
+    """Each select op (one call: the count and the scan) bit-equal to the
+    plain version (dq, ranks, ef') where a leaf spans 3+ tiles with a zero
+    run across tile ends, a leaf is exactly one tile, a leaf's offset is
+    not a multiple of 4, and at the CNN WAN uplink (4 senders)."""
+    from repro_torch.kernels.interface import LAUNCHES
+
+    rng = np.random.default_rng(sum(map(ord, op + case)))
+    delta, ef, u, segs = _select_rows(rng, case, cuda)
+    name = {"randk_unbiased": "randk"}.get(op, op)
+    before = LAUNCHES.get(name, 0)
+    got = _select_op(op, delta, ef, u, segs)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    want = _select_op(op, delta, ef, u, segs, mode="torch")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
 # ---------------------------------------------------------- serving
 
 @pytest.mark.parametrize("encoding", ["delta", "int8", "raw"])
