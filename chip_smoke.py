@@ -59,11 +59,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      Hopper variants (a ragged prefill, head_dim 64, GQA 40:8 and 12:2
      decode, a windowed decode); and, small, in f32 and bf16: GQA 40:8,
      head_dim 96, a 256 window, non-causal, q bf16 over an f32 cache (f32
-     within 1e-5, bf16 within 2e-2); moe_router at (4096, 64, k=6), (4, 64, k=6)
-     and with tied rows (ids bit-equal, gates and statistics within 1e-6).
-     Times with the L2 cold, the plain versions' times, the bounds, and
-     for attention the library call's time (scaled_dot_product_attention
-     on the same tensors; never the port's path).
+     within 1e-5, bf16 within 2e-2); the moe_router kernel on given logits
+     (route_topk) at (4096, 64, k=6), (4, 64, k=6) and with tied rows (ids
+     bit-equal, gates and statistics within 1e-6); the fused router
+     (route_tokens: router product, top-k, capacity positions,
+     statistics) at deepseek's prefill (4096 x 2048 bf16 tokens, k 6,
+     groups of 1024, cap 120) and decode (4 tokens, one group), and with
+     zero rows and tied experts (exactly equal ids), ragged and f32
+     cases, a group longer than t and one token: ids may differ only at
+     near-ties of the plain run (1e-5), pos equal to positions_ref of the
+     kernel's own ids, gates and mean_prob within 1e-5, each case printing
+     the form plan picks (tile or split, its clusters); its product's
+     accuracy at deepseek's prefill shape in bf16 and f32 (k = E, not
+     renormalised: every probability within 4e-6 of the float64 route's,
+     relative; cuBLAS's f32 product read beside it). Times with the L2
+     cold (the fused kernel also with a clean L2, beside the chain of ops
+     it replaces on the same tensors and the timing floor), the plain
+     versions' times, the bounds (the fused router's by bytes, with the
+     TF32 and CUDA-core floors of its product), and for attention the
+     library call's time (scaled_dot_product_attention on the same
+     tensors; never the port's path).
   9. LLM serving at full width: deepseek-moe-16b (28 layers, its
      published widths) in bf16, drawn on the card from a seeded
      generator; ``ServeEngine(max_len=1040, cache_dtype=bf16).generate``
@@ -71,14 +86,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      set to 0 just before and read just after: flash_attention and
      moe_router exactly 28 x 16 = 448 launches each, no other kernel,
      flash_attention's variants exactly 28 wgmma (the prefill) and 420
-     split_kv (the decode steps), (4, 16) tokens in range, finite logits;
+     split_kv (the decode steps), moe_router's exactly 448 fused and 0 on
+     logits, (4, 16) tokens in range, finite logits;
      prefill ms, decode ms per step, tokens/s, peak device memory.
  10. LLM path consistency: the same config cut to 1 layer, in f32, the
      kernel path against the plain path: prefill logits of every position
-     and the first decode step's. Tokens whose routed and kept expert
-     sets agree match within 1e-4; a token routed differently (a flip)
-     must lie within 1e-5 of a tie in the plain run; a token displaced
-     from an expert's capacity by an earlier flip in its group is counted.
+     and the first decode step's, the router recorded at the MoE layer's
+     routing seam (moe.route). The kernel's positions equal positions_ref
+     of its own ids. Tokens whose routed and kept expert sets agree match
+     within 1e-4; a token routed differently (a flip) must lie within 1e-5
+     of a tie in the plain run; a token displaced from an expert's
+     capacity by an earlier flip in its group is counted.
  11. RWKV kernel check: rwkv6_scan against its plain version at the
      rwkv6-7b serving shapes, bf16 r/k/v and f32 w in (0, 1) from a given
      nonzero state: the prefill (4, 1024, 64, 64) on the chunked
@@ -107,7 +125,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      kernel), the kernel path against the plain path: prefill logits of
      every position and the first decode step's within 1e-4.
  14. with ``--profile``: each LLM serving path's time by layer part
-     (deepseek: attention, router, the rest of the MoE layer, head;
+     (deepseek: attention, the router (the routing seam: the fused
+     kernel), the rest of the MoE layer, head;
      rwkv6-7b: the time mix's GEMMs and elementwise ops, the decay LoRA,
      the WKV scan, the channel mix, head) for a prefill and 8 decode
      steps, and a profiled decode step and prefill (busy share, time by
@@ -165,6 +184,7 @@ TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
     "quantize": "src/repro/kernels/quantize/quantize.py:23",
     "flash_attention": "src/repro/kernels/flash_attention/"
                        "flash_attention.py:29",
+    # with the XLA ops around it, src/repro/models/moe.py:73-92
     "moe_router": "src/repro/kernels/moe_router/moe_router.py:22",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:25",
 }
@@ -175,7 +195,9 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     # the serving path's variants (wgmma, split_kv); the simt kernel of
     # the other cases is flash_attention/csrc/flash_attention.cu
     "flash_attention": "flash_attention/csrc/flash_attention_hopper.cu",
-    "moe_router": "moe_router/csrc/moe_router.cu",
+    # the fused router of the serving path; the kernel on given logits (the
+    # JAX package's route) is moe_router/csrc/moe_router.cu
+    "moe_router": "moe_router/csrc/moe_router_hopper.cu",
     # the served prefill's variant (chunked); the sequential simt kernel of
     # the decode and the f32 path is rwkv6_scan/csrc/rwkv6_scan.cu
     "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan_hopper.cu",
@@ -200,6 +222,22 @@ SERVE_BATCH = 64
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+TF32_OPS_PER_S = 495e12            # H100 SXM data sheet, dense tensor core
+# the fused router: gates and mean_prob within this of the plain version's
+# (its logits come from another f32 product: ~1e-6); a token's choices may
+# differ only where the plain run's k-th and (k+1)-th probabilities lie
+# within FLIP_GAP of each other
+ROUTER_TOL = 1e-5
+FLIP_GAP = 1e-5
+# the fused router's product at f32 accuracy: run with k = E and no
+# renormalisation, its gates are the softmax probabilities, each within
+# PROB_REL_TOL (relative) of the float64 route's on the same x and w.
+# Relative, so that the check reads the logits' error (a probability's
+# relative error is its logit's error less their weighted mean). An f32
+# product's rounding reads ~2e-6 there, w in two bf16 pieces (16 bits in
+# place of 24) ~1e-5 (scripts/router_variants.py; PERF.md, PR 19)
+PROB_REL_TOL = 4e-6
+LLM_GROUP = 1024                   # moe.DEFAULT_GROUP
 TIMED_LAUNCHES = 200
 ROUND_REPS = 8                   # unprofiled CNN rounds per variant
 SLEEP_CYCLES = 100_000_000       # ~50 ms at the H100's 1.98 GHz boost
@@ -1085,9 +1123,10 @@ def router_logits(t, e, gen, tied):
 
 
 def phase_router_check():
-    """moe_router against its plain version: ids bit-equal, gates and
-    statistics within 1e-6, at the prefill and decode shapes of the
-    serving path (timed) and with tied rows. Returns {label: numbers}."""
+    """The moe_router kernel on given logits (route_topk, the JAX package's
+    route) against its plain version: ids bit-equal, gates and statistics
+    within 1e-6, at the logits of the serving path's prefill and decode
+    (timed) and with tied rows. Returns {label: numbers}."""
     import torch
 
     from repro_torch.kernels.moe_router import route_topk
@@ -1111,8 +1150,8 @@ def phase_router_check():
             raise AssertionError(f"moe_router {label}: ids equal "
                                  f"{torch.equal(i, i_p)}, max err {err}")
         if label not in ("prefill", "decode"):
-            say("kernel", f"moe_router {label} ({t}x{e}, k={k}): ids "
-                f"bit-equal, gates and stats max abs err {err:.3g}")
+            say("kernel", f"moe_router on logits {label} ({t}x{e}, k={k}): "
+                f"ids bit-equal, gates and stats max abs err {err:.3g}")
             continue
         blocks = -(-t // BLOCK_TOKENS)
         outs = (torch.empty_like(g), torch.empty_like(i),
@@ -1129,7 +1168,8 @@ def phase_router_check():
         t_b, t_o = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         by = "bytes" if t_b >= t_o else "operations"
         bound_ms = max(t_b, t_o) * 1e3
-        say("kernel", f"moe_router {label} ({t}x{e}, k={k}): ids bit-equal, "
+        say("kernel", f"moe_router on logits {label} ({t}x{e}, k={k}): ids "
+            f"bit-equal, "
             f"gates and stats max abs err {err:.3g}; kernel {ms * 1e3:.1f} "
             f"us (the op, with the blocks' statistics summed, "
             f"{op_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
@@ -1138,6 +1178,204 @@ def phase_router_check():
             f"bound")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return out
+
+
+def router_inputs(t, d, e, dtype, gen, zero_rows=False, tied=False):
+    """Tokens x (t, d) in ``dtype`` and a float32 router weight w (d, e)
+    at the model's scale (1 / sqrt(d)). With ``zero_rows`` every 7th row
+    of x is 0 (all its logits exactly 0); with ``tied`` experts e - 2 and
+    e - 1 copy experts 1 and 0 (exactly tied logits)."""
+    import torch
+
+    x = torch.randn(t, d, device=DEVICE, generator=gen).to(dtype)
+    w = torch.randn(d, e, device=DEVICE, generator=gen) / math.sqrt(d)
+    if zero_rows:
+        x[::7] = 0
+    if tied:
+        w[:, e - 2] = w[:, 1]
+        w[:, e - 1] = w[:, 0]
+    return x, w
+
+
+def fused_errors(x, w, k, gs, got, want):
+    """Hold the fused router's outputs ``got`` (gates, idx, pos, aux)
+    against the plain version's ``want`` on the same x, w. A token's ids
+    equal the plain ones but where the plain run's probabilities nearly
+    tie: a changed set only where its k-th and (k+1)-th lie within
+    FLIP_GAP, a changed order only where two of its top k do; zero rows
+    take ids 0..k-1 exactly; pos equals positions_ref of the kernel's own
+    ids; gates of agreeing tokens and mean_prob within ROUTER_TOL;
+    frac_tokens is the count of the kernel's own ids. Returns (max abs
+    error, tokens whose ids differ); raises on a failure."""
+    import torch
+
+    from repro_torch.kernels.moe_router import positions_ref
+
+    g, i, p, aux = got
+    g_p, i_p, _, aux_p = want
+    t, e = x.shape[0], w.shape[1]
+    zero = (x == 0).all(1)
+    first = torch.arange(k, device=x.device, dtype=i.dtype)
+    if not (bool((i[zero] == first).all()) and bool((i_p[zero] == first)
+                                                    .all())):
+        raise AssertionError("a zero row's ids are not 0..k-1")
+    same = (i == i_p).all(1)
+    new_set = (i.sort(1).values != i_p.sort(1).values).any(1)
+    top = torch.softmax(x.float() @ w, dim=-1).sort(1, descending=True) \
+        .values
+    inf = torch.full((t,), math.inf, device=x.device)
+    k_gap = top[:, k - 1] - top[:, k] if k < e else inf
+    in_gap = (top[:, :k - 1] - top[:, 1:k]).amin(1) if k > 1 else inf
+    off_tie = (new_set & (k_gap > FLIP_GAP)) \
+        | (~same & ~new_set & (in_gap > FLIP_GAP))
+    if bool(off_tie.any()):
+        raise AssertionError(f"ids differ off a tie at tokens "
+                             f"{off_tie.nonzero()[:8, 0].tolist()}")
+    if not torch.equal(p, positions_ref(i, gs, e)):
+        raise AssertionError("pos is not positions_ref of the kernel's ids")
+    counts = torch.nn.functional.one_hot(i.long(), e).sum((0, 1)).float()
+    errs = [float((aux["mean_prob"] - aux_p["mean_prob"]).abs().max()),
+            float((aux["frac_tokens"] - counts / (t * k)).abs().max())]
+    if bool(same.any()):
+        errs.append(float((g - g_p)[same].abs().max()))
+    if not max(errs) <= ROUTER_TOL:
+        raise AssertionError(f"gates or statistics off by {max(errs)}")
+    return max(errs), int((~same).sum())
+
+
+def f64_error(x, w, gates, idx):
+    """Largest relative error of ``gates`` (k = E, not renormalised: each
+    the probability of its own id) against the float64 route's
+    probabilities of the same ids on the same x and w."""
+    import torch
+
+    want = torch.softmax(x.double() @ w.double(), -1).gather(1, idx.long())
+    return float(((gates.double() - want).abs() / want).max())
+
+
+def router_chain(x, w, k, gs):
+    """The ops the fused router replaces, as models/moe.py ran them on the
+    card: the f32 router product (cuBLAS), the moe_router kernel on its
+    logits with the blocks' statistics summed, and the positions' one-hot
+    cumsum over the (groups, group * k, E) selection."""
+    from repro_torch.kernels.moe_router import positions_ref, route_topk
+
+    logits = x.float() @ w
+    g, i, aux = route_topk(logits, top_k=k)
+    return g, i, positions_ref(i, gs, w.shape[1]), aux
+
+
+def fused_bound(t, d, e, k, x_bytes):
+    """(bound ms, bound by, MB moved, TF32 floor ms, CUDA-core floor ms)
+    of the fused router: x and w read once, gates, ids, positions and the
+    two (E,) statistics written once; the f32 product as two TF32
+    products on the tensor cores, or on CUDA cores."""
+    moved = t * d * x_bytes + d * e * 4 + 3 * t * k * 4 + 2 * e * 4
+    flops = 2 * t * d * e
+    t_b = moved / HBM_BYTES_PER_S * 1e3
+    t_tc = 2 * flops / TF32_OPS_PER_S * 1e3
+    return (max(t_b, t_tc), "bytes" if t_b >= t_tc else "operations",
+            moved / 1e6, t_tc, flops / F32_OPS_PER_S * 1e3)
+
+
+# (label, t, d, E, k, group, x type, zero rows, tied experts, timed)
+FUSED_CASES = (
+    ("prefill", LLM_BATCH * LLM_PROMPT, 2048, 64, 6, LLM_GROUP, "bfloat16",
+     False, False, True),
+    ("decode", LLM_BATCH, 2048, 64, 6, LLM_BATCH, "bfloat16", False, False,
+     True),
+    ("zero rows, tied experts", 512, 2048, 64, 6, 128, "bfloat16", True,
+     True, False),
+    ("k=1, tied", LLM_BATCH * LLM_PROMPT, 2048, 64, 1, LLM_GROUP,
+     "bfloat16", True, True, False),
+    ("ragged, groups of 16", 70, 256, 16, 2, 16, "float32", True, True,
+     False),
+    ("a padded group", 1000, 2048, 4, 1, LLM_GROUP, "float32", True, False,
+     False),
+    ("one token", 1, 2048, 64, 6, 1, "float32", False, False, False),
+)
+
+
+def phase_fused_router_check():
+    """The fused router op (route_tokens) against its plain version under
+    :func:`fused_errors`, at deepseek's prefill and decode (timed) and at
+    ragged, padded, tied and f32 cases; then its product's accuracy at the
+    prefill's shape in bf16 and f32 against a float64 route
+    (:func:`f64_error`, within PROB_REL_TOL). Returns {label: numbers}."""
+    import torch
+
+    from repro_torch.kernels.moe_router import plan, route_tokens
+    from repro_torch.kernels.moe_router.ops import launch_fused
+    from repro_torch.models.moe import _capacity
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    floor, floor_clean = timing_floor()
+    say("kernel", f"timing floor (one add on 16 bytes): {floor * 1e3:.1f} "
+        f"us, clean {floor_clean * 1e3:.1f} us")
+    out = {}
+    for label, t, d, e, k, gs, dt, zero, tied, timed in FUSED_CASES:
+        dtype = getattr(torch, dt)
+        x, w = router_inputs(t, d, e, dtype, gen, zero, tied)
+        form = plan(x, w, top_k=k, group_size=gs)
+        got = route_tokens(x, w, top_k=k, group_size=gs)
+        want = route_tokens(x, w, top_k=k, group_size=gs, mode="torch")
+        torch.cuda.synchronize()
+        err, flips = fused_errors(x, w, k, gs, got, want)
+        cap = _capacity(gs, e, k, 1.25)
+        kept = float((got[2] < cap).float().mean())
+        tag = (f"moe_router fused {label} ({t}x{d} {dt}, E {e}, k {k}, "
+               f"group {gs}): {form['form']}, {form['clusters']} cluster(s) "
+               f"of {form['cluster']} CTAs over {form['block_tokens']}-token "
+               f"tiles; ids agree but {flips} at ties, pos == positions_ref "
+               f"of its ids ({kept:.1%} under cap {cap}), gates and stats "
+               f"max abs err {err:.3g}")
+        if not timed:
+            say("kernel", tag)
+            continue
+        outs = (torch.empty_like(got[0]), torch.empty_like(got[1]),
+                torch.empty_like(got[2]),
+                torch.empty((2, e), device=DEVICE))
+        fn = (lambda: launch_fused(x, w, *outs, top_k=k, renormalize=True,
+                                   group_size=gs, form=form))
+        ms = cuda_time_ms(fn, TIMED_LAUNCHES)
+        clean = cuda_time_ms(fn, TIMED_LAUNCHES, clean=True)
+        op_ms = cuda_time_ms(lambda: route_tokens(x, w, top_k=k,
+                                                  group_size=gs),
+                             TIMED_LAUNCHES)
+        chain_ms = cuda_time_ms(lambda: router_chain(x, w, k, gs),
+                                TIMED_LAUNCHES)
+        plain_ms = cuda_time_ms(lambda: route_tokens(
+            x, w, top_k=k, group_size=gs, mode="torch"), 20)
+        bound_ms, by, mb, tc_ms, f32_ms = fused_bound(t, d, e, k,
+                                                      dtype.itemsize)
+        say("kernel", tag)
+        say("kernel", f"moe_router fused {label}: kernel {ms * 1e3:.1f} us "
+            f"L2-cold, {clean * 1e3:.1f} us clean (the op with its "
+            f"allocations {op_ms * 1e3:.1f} us); the chain it replaces "
+            f"(f32 product, the logits kernel + sum, the positions' cumsum) "
+            f"{chain_ms * 1e3:.1f} us; plain {plain_ms * 1e3:.1f} us; bound "
+            f"{bound_ms * 1e3:.2f} us ({mb:.2f} MB by {by}; TF32 floor "
+            f"{tc_ms * 1e3:.2f} us, CUDA-core floor {f32_ms * 1e3:.2f} us), "
+            f"{bound_ms / ms:.1%} of bound")
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None,
+                          clean_ms=clean, chain_ms=chain_ms)
+    t, d, e = LLM_BATCH * LLM_PROMPT, 2048, 64
+    for dt in ("bfloat16", "float32"):
+        x, w = router_inputs(t, d, e, getattr(torch, dt), gen)
+        errs = [f64_error(x, w, *route_tokens(
+            x, w, top_k=e, renormalize=False, group_size=LLM_GROUP,
+            mode=m)[:2]) for m in (None, "torch")]
+        if not errs[0] <= PROB_REL_TOL:
+            raise AssertionError(f"moe_router fused {dt}: probabilities "
+                                 f"off the float64 route by {errs[0]:.3g}, "
+                                 f"relative (limit {PROB_REL_TOL})")
+        say("kernel", f"moe_router fused product accuracy ({t}x{d} {dt}, "
+            f"k = E = {e}, not renormalised): probabilities within "
+            f"{errs[0]:.3g} of the float64 route's, relative (limit "
+            f"{PROB_REL_TOL}); cuBLAS's f32 product {errs[1]:.3g}")
+        out["prefill"][f"f64_rel_err_{dt}"] = errs[0]
     return out
 
 
@@ -1350,7 +1588,7 @@ def counted_generate(cfg, params):
     Returns the launches."""
     import torch
 
-    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.kernels import moe_router, rwkv6_scan
     from repro_torch.kernels.flash_attention import VARIANTS, reset_variants
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
     from repro_torch.serve import ServeEngine
@@ -1389,6 +1627,7 @@ def counted_generate(cfg, params):
         reset_launches()
         reset_variants()
         rwkv6_scan.reset_variants()
+        moe_router.reset_variants()
         t0 = time.perf_counter()
         out = engine.generate(prompts, max_new_tokens=LLM_NEW)
         torch.cuda.synchronize()
@@ -1410,7 +1649,9 @@ def counted_generate(cfg, params):
     say("llm", f"{tag} generate: {LLM_BATCH} prompts x {LLM_PROMPT} tokens, "
         f"{LLM_NEW} new (greedy), cache bf16 x {LLM_MAX_LEN}; launches "
         f"{launches}; flash_attention variants "
-        f"{ {k: c for k, c in VARIANTS.items() if c} }; rwkv6_scan variants "
+        f"{ {k: c for k, c in VARIANTS.items() if c} }; moe_router variants "
+        f"{ {k: c for k, c in moe_router.VARIANTS.items() if c} }; "
+        f"rwkv6_scan variants "
         f"{ {k: c for k, c in rwkv6_scan.VARIANTS.items() if c} }; tokens "
         f"{out[0].tolist()}...")
     say("llm", f"{tag} prefill {steps['prefill'][0] * 1e3:.1f} ms; decode "
@@ -1440,6 +1681,7 @@ def phase_llm_serving():
     import torch
 
     from repro_torch.configs import get_config, param_count
+    from repro_torch.kernels import moe_router
     from repro_torch.models import model as M
 
     cfg = get_config(LLM_ARCH)
@@ -1475,6 +1717,10 @@ def phase_llm_serving():
     if ran != want:
         raise AssertionError(f"{LLM_ARCH} generate: flash_attention variants "
                              f"{ran}, expected {want}")
+    # every MoE layer routes through the fused kernel, never the logits one
+    if moe_router.VARIANTS != {"fused": per, "logits": 0}:
+        raise AssertionError(f"{LLM_ARCH} generate: moe_router variants "
+                             f"{moe_router.VARIANTS}, expected fused {per}")
     del params
     release()
     return launches
@@ -1547,17 +1793,14 @@ def _leaves(tree):
         yield tree
 
 
-def kept_sets(idx, t, top_k, num_experts, cap, group):
+def kept_sets(idx, pos, t, num_experts, cap):
     """Per token (first ``t`` rows of the router's padded rows): the set of
-    experts it is routed to and the set it is kept by after capacity
-    (the reference's cumsum priority)."""
+    experts it is routed to and the set it is kept by, its positions
+    ``pos`` under capacity ``cap``."""
     import torch
 
-    g = idx.shape[0] // group
     sel = torch.nn.functional.one_hot(idx.long(), num_experts).float()
-    flat = sel.reshape(g, group * top_k, num_experts)
-    pos = (flat.cumsum(1) - flat).reshape(g * group, top_k, num_experts)
-    kept = (sel * (pos < cap)).sum(1)[:t] > 0
+    kept = (sel * (pos < cap)[..., None]).sum(1)[:t] > 0
     routed = sel.sum(1)[:t] > 0
     return routed, kept
 
@@ -1569,6 +1812,7 @@ def phase_llm_consistency():
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_router import positions_ref
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
 
@@ -1580,17 +1824,17 @@ def phase_llm_consistency():
     tok = torch.randint(0, cfg.vocab_size, (LLM_BATCH, 1), device=DEVICE,
                         generator=torch.Generator(DEVICE).manual_seed(2),
                         dtype=torch.int32)
-    route = moe_mod.route_topk
+    route = moe_mod.route
     runs = {}
     for mode in (None, "torch"):
         calls = []
 
-        def recording(logits, **kw):
-            res = route(logits, **kw)
-            calls.append((logits, res[1]))
+        def recording(xp, w, **kw):
+            res = route(xp, w, **kw)
+            calls.append((xp, w, res[1], res[2]))
             return res
 
-        moe_mod.route_topk = recording
+        moe_mod.route = recording
         try:
             with torch.inference_mode():
                 cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN,
@@ -1600,7 +1844,7 @@ def phase_llm_consistency():
                 dec, _ = M.decode_step(params, cfg, cache, {"tokens": tok},
                                        LLM_PROMPT, mode=mode)
         finally:
-            moe_mod.route_topk = route
+            moe_mod.route = route
         runs[mode] = (pre, dec, calls)
         del cache
     torch.cuda.synchronize()
@@ -1609,17 +1853,20 @@ def phase_llm_consistency():
                                ("decode", 1, LLM_BATCH, LLM_BATCH)):
         got, want = runs[None][which], runs["torch"][which]
         got, want = got.reshape(t, -1), want.reshape(t, -1)
-        _, idx_k = runs[None][2][which]
-        lg_p, idx_p = runs["torch"][2][which]
+        _, _, idx_k, pos_k = runs[None][2][which]
+        xp, w, idx_p, pos_p = runs["torch"][2][which]
+        if not torch.equal(pos_k, positions_ref(idx_k, gs, m.num_experts)):
+            raise AssertionError(f"{step}: the kernel's pos is not "
+                                 "positions_ref of its own ids")
         cap = moe_mod._capacity(gs, m.num_experts, m.top_k,
                                 m.capacity_factor)
-        r_k, kept_k = kept_sets(idx_k, t, m.top_k, m.num_experts, cap, gs)
-        r_p, kept_p = kept_sets(idx_p, t, m.top_k, m.num_experts, cap, gs)
+        r_k, kept_k = kept_sets(idx_k, pos_k, t, m.num_experts, cap)
+        r_p, kept_p = kept_sets(idx_p, pos_p, t, m.num_experts, cap)
         flipped = (r_k != r_p).any(1)
         displaced = (kept_k != kept_p).any(1) & ~flipped
         agree = ~flipped & ~displaced
         err = (got[agree] - want[agree]).abs().max()
-        probs = torch.softmax(lg_p[:t].float(), dim=-1)
+        probs = torch.softmax((xp.float() @ w)[:t], dim=-1)
         top = probs.topk(m.top_k + 1, dim=-1).values
         gaps = (top[:, m.top_k - 1] - top[:, m.top_k])[flipped]
         flips = flipped.nonzero()[:, 0]
@@ -1790,8 +2037,8 @@ def profile_serving(arch, patched, nested, keys, decode_steps):
 
 def phase_llm_profile(decode_steps=8):
     """``--profile`` of deepseek-moe-16b serving: the attention layer with
-    its projections, the router op, the rest of the MoE layer, the head
-    (:func:`profile_serving`)."""
+    its projections, the routing seam (``moe.route``: the fused router
+    kernel), the rest of the MoE layer, the head (:func:`profile_serving`)."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
@@ -1800,7 +2047,7 @@ def phase_llm_profile(decode_steps=8):
         LLM_ARCH, [(attn_mod, "attn_prefill", "attention"),
                    (attn_mod, "attn_decode", "attention"),
                    (moe_mod, "moe_apply", "moe"),
-                   (moe_mod, "route_topk", "router"),
+                   (moe_mod, "route", "router"),
                    (M, "_logits_out", "head")],
         {"moe": ("router",)}, ("attention", "router", "moe", "head", "rest"),
         decode_steps)
@@ -1975,7 +2222,8 @@ def main(argv) -> int:
     phase_consistency()
     launches["quantize"] += phase_serving(res)
     attn = phase_attention_check()
-    router = phase_router_check()
+    phase_router_check()
+    router = phase_fused_router_check()
     scan = phase_rwkv_check()
     launches.update(phase_llm_serving())
     phase_llm_consistency()
@@ -1991,7 +2239,7 @@ def main(argv) -> int:
     # the JSON line carries each LLM kernel at the serving path's prefill
     # shape; the decode shape's numbers are on the lines above
     checks["flash_attention"] = attn["deepseek prefill"]
-    checks["moe_router"] = router["prefill"]
+    checks["moe_router"] = router["prefill"]         # the fused kernel
     checks["rwkv6_scan"] = scan["prefill"]
     say("done", f"{time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/"

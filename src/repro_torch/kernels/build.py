@@ -40,6 +40,8 @@ KERNEL_SOURCES = {
     "flash_attention_hopper": (_KERNELS_DIR / "flash_attention" / "csrc"
                                / "flash_attention_hopper.cu"),
     "moe_router": _KERNELS_DIR / "moe_router" / "csrc" / "moe_router.cu",
+    "moe_router_hopper": (_KERNELS_DIR / "moe_router" / "csrc"
+                          / "moe_router_hopper.cu"),
     "rwkv6_scan": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
     "rwkv6_scan_hopper": (_KERNELS_DIR / "rwkv6_scan" / "csrc"
                           / "rwkv6_scan_hopper.cu"),

@@ -1,6 +1,8 @@
-"""Plain PyTorch version of fused MoE routing, the function the Pallas
-kernel ``repro/kernels/moe_router/moe_router.py::_router_kernel``
-computes and the CUDA kernel beside it (``csrc/moe_router.cu``) computes:
+"""Plain PyTorch versions of MoE routing.
+
+:func:`route_ref` is the function the Pallas kernel
+``repro/kernels/moe_router/moe_router.py::_router_kernel`` computes and
+the CUDA kernel beside it (``csrc/moe_router.cu``) computes:
 
     p      = softmax(f32(logits))                      over experts
     top-k  by k rounds of max / argmax / mask          (ties: lower index)
@@ -12,12 +14,21 @@ softmax sums each row in the order the kernel's warp does (lane i holds
 experts i, i+32, ...; then an xor butterfly over the 32 lanes), so on
 the card the two give the same probabilities, bit for bit, and the same
 choices. The CPU path runs this version.
+
+:func:`route_tokens_ref` is the whole routing of the MoE layer, which
+``csrc/moe_router_hopper.cu`` computes in one kernel: the float32 router
+product, :func:`route_ref` on its logits, and :func:`positions_ref`, the
+reference's ``cumsum`` over the (groups, group * k, E) one-hot selection
+(``repro/models/moe.py``) that gives each choice its place in its
+expert's capacity buffer, before capacity is applied.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "load_balance_loss", "route_ref", "softmax_rows"]
+__all__ = ["NEG_INF", "load_balance_loss", "positions_blocked",
+           "positions_ref", "route_ref", "route_tokens_ref", "softmax_rows"]
 
 NEG_INF = -1e30
 _LANES = 32
@@ -73,3 +84,64 @@ def route_ref(logits, *, top_k: int, renormalize: bool = True):
 def load_balance_loss(aux, num_experts: int):
     """Switch-transformer aux loss: E * sum(frac_tokens * mean_prob)."""
     return num_experts * torch.sum(aux["frac_tokens"] * aux["mean_prob"])
+
+
+def positions_ref(idx, group_size: int, num_experts: int):
+    """idx (t, k) expert ids -> (t, k) int32: for choice j of token i,
+    the number of earlier (token, choice) pairs of its group (rows
+    [G * group_size, (G + 1) * group_size), the last group possibly
+    shorter) that chose the same expert -- the reference's
+    ``cumsum(sel) - sel`` over the (groups, group * k, E) selection, read
+    at the chosen expert."""
+    t, k = idx.shape
+    n_groups = -(-t // group_size)
+    sel = F.one_hot(idx.long(), num_experts).float()              # (t,k,E)
+    pad = n_groups * group_size - t
+    if pad:             # rows that choose nothing move no earlier position
+        sel = F.pad(sel, (0, 0, 0, 0, 0, pad))
+    flat = sel.reshape(n_groups, group_size * k, num_experts)
+    pos = (flat.cumsum(dim=1) - flat).reshape(n_groups * group_size, k,
+                                              num_experts)[:t]
+    return (pos * sel[:t]).sum(dim=-1).to(torch.int32)
+
+
+def positions_blocked(idx, group_size: int, num_experts: int, rows: int):
+    """:func:`positions_ref` computed as the fused kernel does, over blocks
+    of ``rows`` tokens (a CTA's, at most 32): each block counts, per
+    expert, its rows of its last row's group (its "tail"); a row's
+    position is the count of the earlier rows of its group in its block,
+    plus, when its group began at or before the block's first row, the
+    tails of the earlier blocks of that group."""
+    t, k = idx.shape
+    sel = torch.zeros(t, num_experts, dtype=torch.int64)
+    sel.scatter_(1, idx.long().cpu(), 1)
+    starts = range(0, t, rows)
+    tails = []
+    for lo in starts:
+        hi = min(t, lo + rows)
+        g_last = (hi - 1) // group_size * group_size
+        tails.append(sel[max(g_last, lo):hi].sum(0))
+    out = torch.empty(t, k, dtype=torch.int32)
+    for b, lo in enumerate(starts):
+        g_first = lo // group_size * group_size
+        before = sum(tails[g_first // rows:b], torch.zeros(num_experts,
+                                                          dtype=torch.int64))
+        for r in range(lo, min(t, lo + rows)):
+            g_r = r // group_size * group_size
+            count = sel[max(g_r, lo):r].sum(0)
+            if g_r <= lo:
+                count = count + before
+            out[r] = count[idx[r].long().cpu()].to(torch.int32)
+    return out.to(idx.device)
+
+
+def route_tokens_ref(x, w, *, top_k: int, renormalize: bool = True,
+                     group_size: int):
+    """x (t, d) float32 or bfloat16, w (d, E) float32 -> (gates (t, k)
+    float32, idx (t, k) int32, pos (t, k) int32, aux {"mean_prob",
+    "frac_tokens"} (E,) float32): :func:`route_ref` on ``f32(x) @ w``
+    and :func:`positions_ref` of its ids."""
+    logits = x.float() @ w
+    gates, idx, _, aux = route_ref(logits, top_k=top_k,
+                                   renormalize=renormalize)
+    return gates, idx, positions_ref(idx, group_size, w.shape[1]), aux

@@ -5,22 +5,27 @@ Shared experts (always on) plus routed experts with top-k gating and
 capacity-based dispatch, with the reference's GShard semantics: tokens in
 groups of ``DEFAULT_GROUP``, capacity ``int(gs * k / E * factor)`` (at
 least k) per expert and group, earlier tokens and earlier choices win
-capacity (cumsum priority), padded tokens' gates zeroed. Routing is the
-``moe_router`` kernel (``repro_torch.kernels.moe_router.route_topk``);
-dispatch and combine are one-hot einsums, the expert products batched
-einsums, as the reference leaves them to XLA. The router weight is
-float32 even in a bfloat16 model, and the router logits are computed in
-float32.
+capacity (cumsum priority), padded tokens' gates zeroed. Routing goes
+through one seam, :func:`route`: on a CUDA tensor the fused ``moe_router``
+kernel (``repro_torch.kernels.moe_router.route_tokens``: router product,
+top-k, each choice's place in capacity, statistics), on the CPU or with
+``mode="torch"`` the reference's own steps (float32 logits,
+``route_topk``, the cumsum over the one-hot selection). Dispatch and
+combine are one-hot einsums, the expert products batched einsums, as the
+reference leaves them to XLA. The router weight is float32 even in a
+bfloat16 model, and the router logits are computed in float32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.moe_router import route_topk
+from repro_torch.kernels.interface import KernelType, kernel_mode
+from repro_torch.kernels.moe_router import positions_ref, route_tokens, \
+    route_topk
 from repro_torch.models import layers
 
-__all__ = ["DEFAULT_GROUP", "moe_apply", "moe_init"]
+__all__ = ["DEFAULT_GROUP", "moe_apply", "moe_init", "route"]
 
 DEFAULT_GROUP = 1024
 
@@ -54,13 +59,30 @@ def _capacity(group_size: int, num_experts: int, top_k: int,
     return max(cap, top_k)
 
 
+def route(xp, w, *, top_k: int, group_size: int, mode=None):
+    """Route the group-padded tokens xp (T, d) with the router weight w
+    (d, E): (gates (T, k) float32, idx (T, k) int32, pos (T, k) int32,
+    aux), pos each choice's position in its expert's capacity buffer
+    within its group of ``group_size`` tokens, before capacity. A CUDA
+    tensor (``mode`` None or "cuda") takes the fused kernel, which
+    launches or raises; the CPU or ``mode="torch"`` runs the reference's
+    steps: float32 logits, ``route_topk``, and the cumsum over the
+    one-hot selection (``positions_ref``)."""
+    if kernel_mode(xp, mode) is KernelType.CUDA:
+        return route_tokens(xp, w, top_k=top_k, group_size=group_size)
+    logits = xp.float() @ w                                       # (T, E)
+    gates, idx, aux = route_topk(logits, top_k=top_k, mode=mode)
+    # earlier tokens (and earlier choices) win capacity
+    return gates, idx, positions_ref(idx, group_size, w.shape[1]), aux
+
+
 def moe_apply(params, cfg, x, *, group_size: int = DEFAULT_GROUP,
               mode=None):
     """x: (b, s, d) -> (y (b, s, d), aux_loss scalar float32).
 
     Tokens over capacity are dropped: their output is the shared experts'
     alone (the residual is added by the caller). ``mode`` picks the
-    router's implementation (see ``route_topk``)."""
+    router's implementation (see :func:`route`)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -70,8 +92,8 @@ def moe_apply(params, cfg, x, *, group_size: int = DEFAULT_GROUP,
     pad = n_groups * gs - t
     xp = F.pad(xt, (0, 0, 0, pad)) if pad else xt
 
-    logits = xp.float() @ params["router"]                        # (T, E)
-    gates, idx, aux = route_topk(logits, top_k=m.top_k, mode=mode)
+    gates, idx, pos, aux = route(xp, params["router"], top_k=m.top_k,
+                                 group_size=gs, mode=mode)
     if pad:
         valid = torch.arange(n_groups * gs, device=x.device) < t
         gates = torch.where(valid[:, None], gates, 0.0)
@@ -80,16 +102,10 @@ def moe_apply(params, cfg, x, *, group_size: int = DEFAULT_GROUP,
     cap = _capacity(gs, e, k, m.capacity_factor)
     gates_g = gates.reshape(n_groups, gs, k).float()
     idx_g = idx.reshape(n_groups, gs, k).long()
-
-    # position of each (token, choice) in its expert's capacity buffer;
-    # earlier tokens (and earlier choices) win capacity
-    sel = F.one_hot(idx_g, e).float()                             # (g,s,k,E)
-    sel_flat = sel.reshape(n_groups, gs * k, e)
-    pos_in_expert = (sel_flat.cumsum(dim=1) - sel_flat) \
-        .reshape(n_groups, gs, k, e)
-    sel = sel * (pos_in_expert < cap)
-    pos_idx = (pos_in_expert * sel).sum(dim=-1).long()            # (g,s,k)
-    cap_onehot = F.one_hot(pos_idx, cap).float()                  # (g,s,k,C)
+    pos_g = pos.reshape(n_groups, gs, k).long()
+    keep = pos_g < cap                        # earlier choices win capacity
+    sel = F.one_hot(idx_g, e).float() * keep[..., None]           # (g,s,k,E)
+    cap_onehot = F.one_hot(torch.where(keep, pos_g, 0), cap).float()
     dispatch = torch.einsum("gske,gskc->gsec", sel, cap_onehot)
     # each (token, expert) has at most one choice, so folding the gate
     # into sel first is the reference's three-operand einsum exactly

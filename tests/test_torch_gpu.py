@@ -640,12 +640,152 @@ def test_moe_router_kernel_matches_plain(cuda, t, e, k, dtype):
     assert i[0].tolist() == list(range(k))
 
 
+def _fused_router_inputs(rng, t, d, e, dtype, cuda):
+    """x (t, d) with every 7th row zero (all logits exactly 0), w (d, e)
+    float32 at the model's scale with experts e - 2 and e - 1 copies of 1
+    and 0 (exactly tied logits)."""
+    x = _randn(rng, (t, d), dtype, cuda)
+    x[::7] = 0
+    w = _randn(rng, (d, e), torch.float32, cuda) / d ** 0.5
+    w[:, e - 2] = w[:, 1]
+    w[:, e - 1] = w[:, 0]
+    return x, w
+
+
+# (t, d, E, k, group): the decode, a ragged tile, a group longer than t,
+# deepseek's prefill, small widths, and twice the prefill (256 CTAs, more
+# than an H100 holds at once: tiles by start ticket, in two waves)
+FUSED_CASES = [(1, 2048, 64, 6, 1), (4, 2048, 64, 6, 4), (4, 256, 4, 2, 4),
+               (70, 256, 16, 2, 16), (70, 2048, 64, 1, 70),
+               (1000, 2048, 4, 1, 1024), (1000, 256, 16, 6, 128),
+               (4096, 2048, 64, 6, 1024), (4096, 2048, 16, 2, 1024),
+               (8192, 2048, 64, 6, 1024)]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES, ids=lambda c: "-".join(
+    map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_route_tokens_matches_plain(cuda, case, dtype):
+    """The fused router against route_tokens_ref on the card: zero rows
+    take ids 0..k-1 and tied experts the lower index, exactly; other ids
+    equal but where the plain run's probabilities lie within 1e-5 (its
+    k-th and (k+1)-th for a changed set, two of its top k for a changed
+    order: the logits come from another f32 product, ~1e-6 apart); pos
+    equal to positions_ref of the kernel's own ids; gates of agreeing
+    tokens and mean_prob within 1e-5, frac_tokens the kernel's own
+    count."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.moe_router import (VARIANTS, positions_ref,
+                                                route_tokens)
+
+    t, d, e, k, gs = case
+    rng = np.random.default_rng(t + d + e + k)
+    x, w = _fused_router_inputs(rng, t, d, e, getattr(torch, dtype), cuda)
+    before, fused = LAUNCHES.get("moe_router", 0), VARIANTS["fused"]
+    g, i, p, aux = route_tokens(x, w, top_k=k, group_size=gs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["moe_router"] == before + 1
+    assert VARIANTS["fused"] == fused + 1
+    g_p, i_p, _, aux_p = route_tokens(x, w, top_k=k, group_size=gs,
+                                      mode="torch")
+    zero = (x == 0).all(1)
+    assert bool((i[zero] == torch.arange(k, device=cuda)).all())
+    assert torch.equal(i[zero], i_p[zero])
+    top = torch.softmax(x.float() @ w, -1).sort(1, descending=True).values
+    same = (i == i_p).all(1)
+    new_set = (i.sort(1).values != i_p.sort(1).values).any(1)
+    for row in (~same).nonzero()[:, 0].tolist():
+        gaps = top[row, :k] - top[row, 1:k + 1] if new_set[row] else \
+            top[row, :k - 1] - top[row, 1:k]
+        gap = gaps[-1] if new_set[row] else gaps.min()
+        assert float(gap) <= 1e-5, (row, float(gap))
+    assert torch.equal(p, positions_ref(i, gs, e))
+    assert float((g - g_p)[same].abs().max()) <= 1e-5
+    assert float((aux["mean_prob"] - aux_p["mean_prob"]).abs().max()) <= 1e-5
+    counts = torch.nn.functional.one_hot(i.long(), e).sum((0, 1)).float()
+    torch.testing.assert_close(aux["frac_tokens"], counts / (t * k),
+                               atol=1e-7, rtol=0)
+    assert g.dtype == torch.float32 and i.dtype == p.dtype == torch.int32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_route_tokens_f32_accuracy(cuda, dtype):
+    """The fused router's product at f32 accuracy, at deepseek's prefill
+    shape: with k = E and no renormalisation its gates are the softmax
+    probabilities, each within 4e-6 of the float64 route's, relative
+    (chip_smoke.py's PROB_REL_TOL: an f32 product's rounding reads ~2e-6,
+    w in two bf16 pieces ~1e-5)."""
+    from repro_torch.kernels.moe_router import route_tokens
+
+    rng = np.random.default_rng(19)
+    x, w = _fused_router_inputs(rng, 4096, 2048, 64, getattr(torch, dtype),
+                                cuda)
+    g, i = route_tokens(x, w, top_k=64, renormalize=False,
+                        group_size=1024)[:2]
+    want = torch.softmax(x.double() @ w.double(), -1).gather(1, i.long())
+    assert float(((g.double() - want).abs() / want).max()) <= 4e-6
+
+
+def _same_route(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got[:3], want[:3])) and \
+        all(torch.equal(got[3][n], want[3][n]) for n in want[3])
+
+
+def test_moe_route_tokens_two_streams(cuda):
+    """Launches of the fused router interleaved on two streams, each
+    stream with its own scratch (tails, statistics, tickets): every
+    result equals the same call's on the default stream, bit for bit
+    (the kernel's results do not depend on scheduling)."""
+    from repro_torch.kernels.moe_router import route_tokens
+
+    rng = np.random.default_rng(20)
+    cases = [_fused_router_inputs(rng, t, 2048, 64, torch.bfloat16, cuda)
+             for t in (8192, 4096)]
+    wants = [route_tokens(x, w, top_k=6, group_size=1024) for x, w in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(20):
+        for stream, (x, w), out in zip(streams, cases, outs):
+            with torch.cuda.stream(stream):
+                out.append(route_tokens(x, w, top_k=6, group_size=1024))
+    torch.cuda.synchronize()
+    for want, out in zip(wants, outs):
+        assert all(_same_route(got, want) for got in out)
+
+
+def test_moe_route_tokens_graph_replay(cuda):
+    """The fused router captured in a CUDA graph (its stream's scratch
+    made by a run before the capture) and replayed: each replay takes a
+    new epoch on the card, so every replay, and an eager call after
+    them, equals the eager result bit for bit."""
+    from repro_torch.kernels.moe_router import route_tokens
+
+    rng = np.random.default_rng(21)
+    x, w = _fused_router_inputs(rng, 4096, 2048, 64, torch.bfloat16, cuda)
+    want = route_tokens(x, w, top_k=6, group_size=1024)
+    stream, graph = torch.cuda.Stream(cuda), torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        route_tokens(x, w, top_k=6, group_size=1024)
+    stream.synchronize()
+    with torch.cuda.graph(graph, stream=stream):
+        got = route_tokens(x, w, top_k=6, group_size=1024)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_route(got, want)
+    assert _same_route(route_tokens(x, w, top_k=6, group_size=1024), want)
+
+
 def test_llm_generate_launch_counts(cuda):
     """Reduced deepseek-moe-16b (2 layers, MoE in each): one prefill and
     3 decode steps launch flash_attention and moe_router once per layer
-    each, and no other kernel; greedy tokens equal to the plain path's."""
+    each (the router always the fused kernel), and no other kernel;
+    greedy tokens equal to the plain path's."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.kernels.moe_router import VARIANTS, reset_variants
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
 
@@ -656,11 +796,13 @@ def test_llm_generate_launch_counts(cuda):
     kernel = ServeEngine(cfg=cfg, params=params, max_len=32)
     plain = ServeEngine(cfg=cfg, params=params, max_len=32, mode="torch")
     reset_launches()
+    reset_variants()
     out = kernel.generate({"tokens": prompt}, max_new_tokens=4)
     torch.cuda.synchronize()
     launches = {n: c for n, c in LAUNCHES.items() if c}
     assert launches == {"flash_attention": 4 * cfg.num_layers,
                         "moe_router": 4 * cfg.num_layers}, launches
+    assert VARIANTS == {"fused": 4 * cfg.num_layers, "logits": 0}
     assert torch.equal(out, plain.generate({"tokens": prompt},
                                            max_new_tokens=4))
     assert out.shape == (3, 4) and out.dtype == torch.int32
