@@ -51,6 +51,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      under delta and raw), the same tier counts summing to 512; qps,
      latency percentiles, the stage split, the device-tier MB and the
      cache hit rate.
+ 7b. baselines and the other PerMFL families, each path with the counts
+     set to 0 just before it and read just after: 2 rounds of each
+     baseline's CNN cell at its registered size and hyperparameters
+     (``table1/mnist/cnn/{fedavg,perfedavg,pfedme,ditto}``,
+     ``fig2/fmnist/cnn/{hsgd,l2gd}``; 4 x 10 devices, S = 48, P =
+     206,922), each round's accuracies and host-clock seconds, peak
+     memory: only the algorithm's metrics, finite, in [0, 1]; the served
+     global model's train loss below the untrained model's (Per-FedAvg:
+     that of its one-step adaptation, the model its meta-objective
+     trains; its served loss is printed beside it); prox_update exactly
+     (local_rounds + 1) * inner_steps (pFedMe: 60), local_steps (Ditto:
+     20) and K * L (L2GD: 50) times a round, no kernel for FedAvg,
+     Per-FedAvg and h-SGD, no other kernel. One round of pFedMe, Ditto
+     and L2GD from the same state through the kernel and through the
+     plain version (max |diff| over x and the personal tier within
+     1e-4). A ModelStore exported from the Ditto run (no kernel): device
+     rows equal ``serving_params`` (v) and team and global rows x, bit
+     for bit; 512 Zipf requests replayed through it. Then one round of
+     one cell of each PerMFL family beyond Table 1 and Fig 2 at its
+     registered size (``table2/mnist/worst``, ``fig3/mnist/mclr``,
+     ``fig4/mnist/mclr/both_25`` with sampled masks,
+     ``dirichlet/mnist/a0.1``, ``quantity/mnist/q25``,
+     ``featshift/dnn/s2``, ``teams/worst/m8n20``): prox_update exactly
+     K * L times, finite metrics in [0, 1].
   8. LLM kernel check: flash_attention against its plain version at the
      serving path's shapes in bf16 (deepseek-moe-16b prefill (4, 1024,
      16, 128) causal; decode (4, 1, 16, 128) against a 1,040-slot cache
@@ -133,7 +157,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      kernel); then the CNN round's host-clock time, uncompressed and with
      each lossy compressor, over several unprofiled rounds in alternating
      order (medians and ranges, and the host time spent issuing the
-     compression), then one profiled round of each.
+     compression), then one profiled round of each; then one profiled
+     round of each baseline's CNN cell (busy share, launches).
  15. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -218,6 +243,18 @@ ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # absolute
 BF16_OPS_PER_S = 989e12            # H100 SXM data sheet, dense tensor core
 SERVE_REQUESTS = 512
 SERVE_BATCH = 64
+# the six baselines' CNN cells (Table 1 and Fig 2) and the rounds each
+# runs; then one cell of each PerMFL family beyond Table 1 and Fig 2, one
+# round each
+BASELINE_CELLS = ("table1/mnist/cnn/fedavg", "table1/mnist/cnn/perfedavg",
+                  "table1/mnist/cnn/pfedme", "table1/mnist/cnn/ditto",
+                  "fig2/fmnist/cnn/hsgd", "fig2/fmnist/cnn/l2gd")
+BASELINE_ROUNDS = 2
+FAMILY_CELLS = ("table2/mnist/worst", "fig3/mnist/mclr",
+                "fig4/mnist/mclr/both_25", "dirichlet/mnist/a0.1",
+                "quantity/mnist/q25", "featshift/dnn/s2",
+                "teams/worst/m8n20")
+CNN_PARAMS = 206_922
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -745,7 +782,7 @@ def phase_main_path():
                              f"{loss0} -> {res.train_loss}")
     st = res.state
     if st.theta.shape != (d.m_teams, d.n_devices, st.layout.stride) or \
-            st.layout.size != 206_922:
+            st.layout.size != CNN_PARAMS:
         raise AssertionError(f"unexpected state shape {st.theta.shape}")
     return res, launches
 
@@ -979,6 +1016,262 @@ def phase_serving(res):
                 + (f", cache hit rate {stats['cache_hit_rate']:.2%}"
                    if cached else ""))
     return export_launches
+
+
+def prox_launches_per_round(spec):
+    """prox_update launches one round of ``spec``'s algorithm makes at its
+    registered loop counts: eq. 4's step with momentum and weight decay
+    0 is the kernel (PerMFL's device steps; pFedMe's inner prox steps,
+    Ditto's personal steps, L2GD's local steps); plain SGD is a torch op."""
+    kw, name = spec.algo.resolved(), spec.algo.name
+    if name in ("permfl", "l2gd"):
+        return kw["k_team"] * kw["l_local"]
+    if name == "pfedme":
+        return (kw["local_rounds"] + 1) * kw["inner_steps"]
+    return kw["local_steps"] if name == "ditto" else 0
+
+
+def served_loss(b, state, adapted=False):
+    """Mean train loss, over every device's train data, of the global
+    model ``b.algo`` serves from ``state`` (``serving_params(state)``);
+    with ``adapted``, of Per-FedAvg's one-step adaptation of it on each
+    device (the model its meta-objective trains)."""
+    import torch
+
+    from repro_torch.core.baselines import perfedavg_personalize
+
+    d = b.m * b.n
+    batch = {k: v.reshape((d,) + tuple(v.shape[2:]))
+             for k, v in b.train.items()}
+    x = b.algo.serving_params(state)
+    rows = x.expand(d, x.shape[-1])
+    if adapted:
+        rows = perfedavg_personalize(x, b.train, state.layout,
+                                     loss_fn=b.loss_fn,
+                                     inner_lr=b.algo.inner_lr, m=b.m,
+                                     n=b.n).reshape(d, -1)
+    with torch.no_grad():
+        return float(b.loss_fn(state.layout.unflatten(rows), batch).mean())
+
+
+def phase_baselines():
+    """Each baseline's CNN cell for BASELINE_ROUNDS rounds at its
+    registered size and hyperparameters, each with the launch counts set
+    to 0 just before and read just after: metrics finite, in [0, 1] and
+    only the algorithm's; the served global model's train loss below the
+    untrained model's (Per-FedAvg: the loss of its one-step adaptation,
+    the model it trains; its served loss is printed); prox_update exactly
+    ``prox_launches_per_round`` a round, no other kernel. Returns
+    {name: (build, FLResult)}."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import build_scenario, get_scenario, \
+        run_scenario
+    from repro_torch.scenarios.spec import ALGO_METRICS
+
+    out = {}
+    for name in BASELINE_CELLS:
+        s = get_scenario(name)
+        algo = s.algo.name
+        b = build_scenario(s, seed=0, device=DEVICE)
+        init = b.algo.init_state(b.params0, b.m, b.n)
+        adapted = algo == "perfedavg"
+        loss0 = served_loss(b, init)
+        loss0_adapted = served_loss(b, init, adapted=True) if adapted \
+            else None
+        del init
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = run_scenario(s, rounds=BASELINE_ROUNDS, device=DEVICE)
+        launches = {k: c for k, c in LAUNCHES.items() if c}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        d = s.data
+        say("baselines", f"{s.name}: {d.m_teams} teams x {d.n_devices} "
+            f"devices, S={d.samples_per_device}, {algo} "
+            f"{s.algo.resolved()}, {BASELINE_ROUNDS} rounds on "
+            f"{res.device}")
+        hists = {m: getattr(res, f"{m}_acc") for m in ("pm", "tm", "gm")}
+        reported = tuple(m for m, h in hists.items() if h)
+        if reported != ALGO_METRICS[algo] or res.train_loss:
+            raise AssertionError(f"{name}: reported {reported}, train_loss "
+                                 f"{res.train_loss}")
+        for t in range(BASELINE_ROUNDS):
+            say("baselines", f"{algo} round {t + 1}: " + " ".join(
+                f"{m.upper()} {hists[m][t]:.4f}" for m in reported)
+                + f"; {res.round_seconds[t]:.3f} s (host clock to "
+                f"synchronize, eval included)")
+        accs = [a for m in reported for a in hists[m]]
+        if any(len(hists[m]) != BASELINE_ROUNDS for m in reported) or \
+                not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+            raise AssertionError(f"{name}: bad metric history {hists}")
+        if res.state.layout.size != CNN_PARAMS:
+            raise AssertionError(f"{name}: {res.state.layout.size} params")
+        loss1 = served_loss(b, res.state)
+        line = (f"{algo}: served global model's train loss {loss0:.4f} -> "
+                f"{loss1:.4f}")
+        if adapted:
+            loss1_adapted = served_loss(b, res.state, adapted=True)
+            line += (f"; after one adaptation step (the model Per-FedAvg "
+                     f"trains) {loss0_adapted:.4f} -> {loss1_adapted:.4f}")
+            if not loss1_adapted < loss0_adapted:
+                raise AssertionError(f"{name}: training did not lower the "
+                                     "adapted loss")
+        elif not loss1 < loss0:
+            raise AssertionError(f"{name}: training did not lower the "
+                                 f"served model's loss {loss0} -> {loss1}")
+        say("baselines", line)
+        per_round = prox_launches_per_round(s)
+        check_launches(launches, {"prox_update": BASELINE_ROUNDS * per_round}
+                       if per_round else {}, name)
+        say("baselines", f"{algo}: peak device memory {peak:.1f} MiB; "
+            f"launches {launches} ({per_round} prox_update a round)")
+        out[s.name] = (b, res)
+    return out
+
+
+def phase_baseline_consistency():
+    """One round of pFedMe, Ditto and L2GD from the same state through the
+    prox kernel and through its plain version, on the card."""
+    import torch
+
+    from repro_torch.scenarios import build_scenario
+
+    for name in BASELINE_CELLS:
+        b = build_scenario(name, seed=1, device=DEVICE)
+        if prox_launches_per_round(b.scenario) == 0:
+            continue
+        state = b.algo.init_state(b.params0, b.m, b.n)
+        masks = dict(team_mask=torch.ones(b.m, device=DEVICE),
+                     device_mask=torch.ones(b.m, b.n, device=DEVICE))
+        out = {mode: b.algo.round(state, b.train, mode=mode, **masks)
+               for mode in (None, "torch")}
+        torch.cuda.synchronize()
+        worst = max(float((getattr(out[None], t) - getattr(out["torch"], t))
+                          .abs().max()) for t in ("x", "personal"))
+        say("consistency", f"one round [{b.algo.name}] kernel vs plain "
+            f"path: max |diff| over x, personal = {worst:.3g} (tol 1e-4)")
+        if not worst <= 1e-4:
+            raise AssertionError(f"{name}: kernel and plain paths disagree")
+
+
+def phase_baseline_serving(b, res):
+    """A ModelStore exported from a baseline's trained state (Ditto's):
+    its device rows equal ``serving_params`` bit for bit, its team and
+    global rows are x; then 512 Zipf requests replayed through it."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.models import paper_models as pm
+    from repro_torch.serve import (ModelStore, PersonalizedServer,
+                                   replay_traffic)
+
+    st, m, n = res.state, b.m, b.n
+    torch.cuda.synchronize()
+    reset_launches()
+    store = ModelStore.from_result(b.algo, res, m=m, n=n)
+    check_launches({k: c for k, c in LAUNCHES.items() if c}, {},
+                   f"store export [{b.algo.name}]")
+    ts = torch.arange(m, device=DEVICE)
+    ds = torch.arange(n, device=DEVICE)
+    rows = store.gather(ts.repeat_interleave(n), ds.repeat(m)).view(m, n, -1)
+    if not (torch.equal(rows, b.algo.serving_params(st, ts[:, None],
+                                                    ds[None]))
+            and torch.equal(rows, st.personal)
+            and torch.equal(store.team_rows, st.x.expand(m, -1))
+            and torch.equal(store.global_row, st.x)):
+        raise AssertionError(f"{b.algo.name} store rows differ from "
+                             "serving_params")
+    cfg = b.config
+    pool = b.val["x"].reshape((-1,) + tuple(b.val["x"].shape[3:]))
+    server = PersonalizedServer(
+        store, lambda p, x: pm.apply(p, cfg, x[:, None])[:, 0])
+    stats = replay_traffic(server, pool, requests=SERVE_REQUESTS,
+                           batch=SERVE_BATCH, alpha=1.2, unknown_frac=0.1,
+                           seed=0)
+    if sum(stats["tier_counts"].values()) != SERVE_REQUESTS:
+        raise AssertionError(f"replay tiers {stats['tier_counts']}")
+    say("serve", f"[{b.algo.name}] store rows equal serving_params (device "
+        f"rows = v, team and global rows = x) bit for bit; replay: qps "
+        f"{stats['qps']:.1f}, p50 {stats['p50_ms']:.3f} ms, p99 "
+        f"{stats['p99_ms']:.3f} ms (host clock, batch {SERVE_BATCH}); "
+        f"tiers {stats['tier_counts']}")
+
+
+def phase_families():
+    """One round of one cell of each PerMFL family beyond Table 1 and
+    Fig 2 at its registered size, with the launch counts set to 0 just
+    before and read just after: prox_update exactly K*L times, no other
+    kernel; finite metrics in [0, 1]."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import get_scenario, run_scenario
+
+    for name in FAMILY_CELLS:
+        s = get_scenario(name)
+        torch.cuda.synchronize()
+        reset_launches()
+        res = run_scenario(s, rounds=1, device=DEVICE)
+        launches = {k: c for k, c in LAUNCHES.items() if c}
+        check_launches(launches, {"prox_update": prox_launches_per_round(s)},
+                       name)
+        accs = res.pm_acc + res.tm_acc + res.gm_acc
+        if len(accs) != 3 or not all(0.0 <= a <= 1.0 for a in accs) or \
+                not all(map(math.isfinite, accs + res.train_loss)):
+            raise AssertionError(f"{name}: bad metrics {accs} "
+                                 f"{res.train_loss}")
+        d = s.data
+        say("families", f"{s.name}: {d.m_teams}x{d.n_devices} devices, "
+            f"{d.partitioner}/{d.strategy}, {s.model.kind} (P = "
+            f"{res.state.layout.size}); participation "
+            f"{res.participation[0]}; PM {res.pm_acc[0]:.4f} TM "
+            f"{res.tm_acc[0]:.4f} GM {res.gm_acc[0]:.4f} train_loss "
+            f"{res.train_loss[0]:.4f}; {res.round_seconds[0]:.3f} s; "
+            f"launches {launches}")
+
+
+def phase_baseline_profile():
+    """One round of each baseline's CNN cell under torch.profiler, after
+    a warm-up round and an unprofiled one: host-clock seconds, device
+    busy share and kernel launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.scenarios import build_scenario
+
+    for name in BASELINE_CELLS:
+        b = build_scenario(name, seed=2, device=DEVICE)
+        state = b.algo.init_state(b.params0, b.m, b.n)
+        masks = dict(team_mask=torch.ones(b.m, device=DEVICE),
+                     device_mask=torch.ones(b.m, b.n, device=DEVICE))
+        state = b.algo.round(state, b.train, **masks)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.algo.round(state, b.train, **masks)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            b.algo.round(state, b.train, **masks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        say("profile", f"one round [{b.algo.name}]: {plain_wall:.3f} s host "
+            f"clock unprofiled, {wall:.3f} s profiled; kernels {busy:.3f} s "
+            f"of device time, busy {busy / plain_wall:.1%} of the "
+            f"unprofiled round; {sum(e.count for e in rows)} kernel "
+            f"launches")
+        for e in rows[:5]:
+            say("profile", f"[{b.algo.name}] "
+                f"{e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
+                f"{e.key[:90]}")
 
 
 def attention_cases():
@@ -2221,6 +2514,11 @@ def main(argv) -> int:
     launches.update(phase_comm_paths())
     phase_consistency()
     launches["quantize"] += phase_serving(res)
+    baselines = phase_baselines()
+    phase_baseline_consistency()
+    phase_baseline_serving(*baselines["table1/mnist/cnn/ditto"])
+    del baselines
+    phase_families()
     attn = phase_attention_check()
     phase_router_check()
     router = phase_fused_router_check()
@@ -2235,6 +2533,7 @@ def main(argv) -> int:
         phase_round_times(ROUND_REPS)
         for comp in (None,) + tuple(COMPRESS_KERNEL):
             phase_profile(comp)
+        phase_baseline_profile()
     checks["prox_update"] = checks["f32"]
     # the JSON line carries each LLM kernel at the serving path's prefill
     # shape; the decode shape's numbers are on the lines above

@@ -11,7 +11,10 @@ zoo's trees cross with :func:`params_from_numpy` as they are: a
 ``repro.models.model.init_params`` tree (blocks stacked ``(n_blocks,
 ...)``) and an ``init_cache`` tree have the port's leaf names and
 shapes; bfloat16 leaves (``ml_dtypes``' numpy type) arrive as
-``torch.bfloat16`` bit for bit.
+``torch.bfloat16`` bit for bit. A baseline's state crosses as the
+reference holds it: the global model tree ``x`` (FedAvg, Per-FedAvg,
+h-SGD) or the pair ``(x, personal)`` (pFedMe and L2GD's theta, Ditto's
+v).
 """
 from __future__ import annotations
 
@@ -19,11 +22,12 @@ import numpy as np
 import torch
 
 from repro_torch.comm import CommState
+from repro_torch.core.baselines import BaselineState
 from repro_torch.core.permfl import PerMFLState
 from repro_torch.flat import Layout
 
-__all__ = ["comm_state_from_numpy", "params_from_numpy", "state_from_numpy",
-           "to_numpy"]
+__all__ = ["baseline_state_from_numpy", "comm_state_from_numpy",
+           "params_from_numpy", "state_from_numpy", "to_numpy"]
 
 
 def params_from_numpy(tree, device="cpu", dtype=None) -> dict:
@@ -80,10 +84,36 @@ def state_from_numpy(state, device="cpu") -> PerMFLState:
             comm, layout, device))
 
 
+def baseline_state_from_numpy(state, device="cpu",
+                              round: int = 0) -> BaselineState:
+    """A baseline's state as the reference holds it -- the global model
+    tree ``x``, or the pair ``(x, personal)`` with the personal tree's
+    leaves leading (M, N) -- as the port's flat ``BaselineState`` on
+    ``device``; ``round``: the rounds done (the reference's state does
+    not count them)."""
+    x_tree, personal = (state if isinstance(state, (tuple, list))
+                        else (state, None))
+    x = params_from_numpy(x_tree, device)
+    layout = Layout.of(x)
+    if personal is not None:
+        personal = params_from_numpy(personal, device)
+        lead = next(iter(_leaves(personal))).shape[:2]
+        personal = layout.flatten(personal, lead=lead)
+    return BaselineState(x=layout.flatten(x), layout=layout,
+                         personal=personal, round=int(round))
+
+
 def to_numpy(obj):
-    """Tensors, nested dicts of tensors, or a ``PerMFLState`` (as
-    ``{"x", "w", "theta", "round"}`` of nested numpy dicts, plus
-    ``"comm": {"ef_dev", "ef_team"}`` for a compressed run) -> numpy."""
+    """Tensors, nested dicts of tensors, a ``PerMFLState`` (as ``{"x",
+    "w", "theta", "round"}`` of nested numpy dicts, plus ``"comm":
+    {"ef_dev", "ef_team"}`` for a compressed run), or a ``BaselineState``
+    (as the reference's state: the tree ``x``, or ``(x, personal)``) ->
+    numpy."""
+    if isinstance(obj, BaselineState):
+        x = to_numpy(obj.params("x"))
+        if obj.personal is None:
+            return x
+        return x, to_numpy(obj.params("personal"))
     if isinstance(obj, PerMFLState):
         out = {"x": to_numpy(obj.params("x")),
                "w": to_numpy(obj.params("w")),

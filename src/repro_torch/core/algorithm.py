@@ -14,8 +14,9 @@ Algorithms that move compressed bytes implement ``make_ledger`` /
 participation counts. ``serving_params`` is the export hook of the
 personalized serving store (``repro_torch.serve.store``).
 
-Only PerMFL is ported so far; the baselines, probes and health detectors
-are later items of ROADMAP.md.
+PerMFL lives here; the six Table-1 baselines in
+``repro_torch.core.baselines``. Probes and health detectors are later
+items of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ import torch
 from repro_torch.comm import CommConfig, CommLedger
 from repro_torch.core import permfl as P
 
-__all__ = ["FLAlgorithm", "FLAlgorithmBase", "PerMFL"]
+__all__ = ["FLAlgorithm", "FLAlgorithmBase", "PerMFL", "eval_global",
+           "eval_personal"]
 
 
 @runtime_checkable
@@ -84,6 +86,33 @@ class FLAlgorithmBase:
             shape = torch.broadcast_shapes(shape,
                                            torch.as_tensor(device).shape)
         return state.expand(tuple(shape) + tuple(state.shape))
+
+
+# ---------------------------------------------------------------------------
+# metric helpers shared by the implementations
+# ---------------------------------------------------------------------------
+
+def _stacked(data, d):
+    """Leaves with leading (M, N, ...) as (M*N, ...)."""
+    return {k: v.reshape((d,) + tuple(v.shape[2:])) for k, v in data.items()}
+
+
+def eval_global(x, layout, val_data, metric_fn) -> torch.Tensor:
+    """One flat model row ``x`` (S,) evaluated on every device's data
+    (leading (M, N, ...)): the row expanded over the M*N devices, one
+    ``metric_fn`` call, then the mean (a 0-d tensor)."""
+    m, n = next(iter(val_data.values())).shape[:2]
+    models = x.expand(m * n, x.shape[-1])
+    return metric_fn(layout.unflatten(models),
+                     _stacked(val_data, m * n)).mean()
+
+
+def eval_personal(theta, layout, val_data, metric_fn) -> torch.Tensor:
+    """A tier of flat rows ``theta`` (M, N, S), each on its own device's
+    data; the mean (a 0-d tensor)."""
+    m, n, stride = theta.shape
+    return metric_fn(layout.unflatten(theta.reshape(m * n, stride)),
+                     _stacked(val_data, m * n)).mean()
 
 
 @dataclass(frozen=True)

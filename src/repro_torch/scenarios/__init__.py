@@ -1,4 +1,5 @@
-"""Scenario registry and runner of the port (the PerMFL paper cells)."""
+"""Scenario registry and runner of the port: PerMFL and the six Table-1
+baselines on 91 of the reference's 95 cells (all but ``cohort/*``)."""
 from repro_torch.scenarios.registry import (SCENARIOS, families,
                                             get_scenario, register)
 from repro_torch.scenarios.runner import (ScenarioBuild, build_scenario,

@@ -1,8 +1,11 @@
 """CLI for the port's scenario registry.
 
     PYTHONPATH=src python -m repro_torch.scenarios list [--family F]
+    PYTHONPATH=src python -m repro_torch.scenarios describe NAME
+    PYTHONPATH=src python -m repro_torch.scenarios dump NAME
     PYTHONPATH=src python -m repro_torch.scenarios run NAME [--rounds R]
-        [--eval-every E] [--seed S] [--device cuda|cpu] [--json]
+        [--eval-every E] [--seed S] [--smoke] [--hparam NAME=VALUE]
+        [--device cuda|cpu] [--json]
     PYTHONPATH=src python -m repro_torch.scenarios serve NAME [--rounds R]
         [--seed S] [--smoke] [--encoding delta|int8|raw] [--store PATH]
         [--requests Q] [--batch B] [--alpha A] [--unknown-frac F]
@@ -10,23 +13,34 @@
 
 ``list`` prints one line per registered scenario (name, topology,
 partitioner, model, algorithm, default rounds, spec hash -- the same
-hash as the reference's). ``run`` trains it through the engine on the
-card (``--device cpu`` for the CPU) and prints the final metrics, and
-for a compressed scenario the megabytes its links carried; ``--json``
-prints them as one JSON object on stdout instead. ``serve`` closes the
-train -> deploy -> measure loop: it trains the scenario, exports the
-personalized (team, device) ``ModelStore`` (``--encoding`` picks the
-device-tier encoding; ``--store PATH`` saves it and reloads it from
-disk), then replays Zipf-popularity traffic through the tier-fallback
-batched server (``--cached``: through the LRU) and prints the latency
-percentiles and queries per second. ``--smoke`` shrinks the scenario to
-2 teams x 3 devices x 16 samples for 2 rounds.
+hash as the reference's); ``describe`` shows one scenario's full spec,
+its paper references and a reproduce line; ``dump`` prints the spec as
+JSON (``FLScenario.from_dict`` reads it back, in either package).
+``run`` trains it through the engine on the card (``--device cpu`` for
+the CPU) and prints the final value of each metric the algorithm
+reports (PerMFL: pm, tm, gm and train_loss; FedAvg and h-SGD: gm; the
+personalized baselines: pm and gm), and for a compressed scenario the
+megabytes its links carried; ``--json`` prints them as one JSON object
+on stdout instead. ``--hparam NAME=VALUE`` (repeatable) overrides one of
+the algorithm's float hyperparameters, parsed as a float as the
+reference parses it (an integer loop bound is refused). ``serve``
+closes the train -> deploy -> measure loop: it trains the scenario,
+exports the personalized (team, device) ``ModelStore`` (``--encoding``
+picks the device-tier encoding; ``--store PATH`` saves it and reloads it
+from disk), then replays Zipf-popularity traffic through the
+tier-fallback batched server (``--cached``: through the LRU) and prints
+the latency percentiles and queries per second. ``--smoke`` shrinks the
+scenario to 2 teams x 3 devices x 16 samples for 2 rounds.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+
+# the --smoke topology and rounds
+_SMOKE = dict(m_teams=2, n_devices=3, samples_per_device=16, rounds=2)
 
 
 def _cmd_list(args) -> int:
@@ -49,18 +63,84 @@ def _cmd_list(args) -> int:
     return 0
 
 
+def _cmd_describe(args) -> int:
+    from repro_torch.scenarios import get_scenario
+
+    s = get_scenario(args.name)
+    print(f"{s.name}  [{s.family}]  hash={s.spec_hash()}")
+    if s.notes:
+        print(f"  {s.notes}")
+    print(f"  data:  {s.data}")
+    print(f"  model: {s.model.kind} -> {s.model_config().name}")
+    print(f"  algo:  {s.algo.name} "
+          f"{dict(s.algo.overrides) or '(paper defaults)'}")
+    print(f"  rounds={s.rounds} team_frac={s.team_frac} "
+          f"device_frac={s.device_frac} data_seed={s.data_seed}")
+    if s.comm is not None:
+        print(f"  comm:  {s.comm}")
+    for metric, acc in s.paper_ref:
+        print(f"  paper: {metric} = {acc}%")
+    print(f"\n  reproduce: PYTHONPATH=src python -m repro_torch.scenarios "
+          f"run {s.name}")
+    return 0
+
+
+def _cmd_dump(args) -> int:
+    from repro_torch.scenarios import get_scenario
+
+    print(json.dumps(get_scenario(args.name).to_dict(), indent=2))
+    return 0
+
+
+def _with_hparams(s, items):
+    """``s`` with each ``NAME=VALUE`` of ``items`` as an algorithm
+    override, the value parsed as a float; (scenario, None) or (None,
+    error message)."""
+    from repro_torch.scenarios.spec import AlgoSpec
+
+    overrides = dict(s.algo.overrides)
+    for item in items:
+        name, sep, val = item.partition("=")
+        if not sep:
+            return None, f"--hparam wants NAME=VALUE, got {item!r}"
+        try:
+            overrides[name] = float(val)
+        except ValueError:
+            return None, f"--hparam value {val!r} is not a number"
+        default = s.algo.resolved().get(name)
+        if isinstance(default, int) and not isinstance(default, bool):
+            return None, (f"--hparam {name} is a loop bound ({default}), "
+                          "not a float hyperparameter")
+    try:
+        algo = AlgoSpec(s.algo.name, tuple(overrides.items()))
+    except ValueError as e:
+        return None, str(e)
+    return dataclasses.replace(s, algo=algo), None
+
+
 def _cmd_run(args) -> int:
     from repro_torch.scenarios import get_scenario, run_scenario
 
     s = get_scenario(args.name)
+    if args.smoke:
+        s = s.scaled(**_SMOKE)
+    if args.hparam:
+        s, err = _with_hparams(s, args.hparam)
+        if err:
+            print(f"error: {err}")
+            return 2
     rounds = args.rounds or s.rounds
     res = run_scenario(s, rounds=rounds, seed=args.seed,
                        eval_every=args.eval_every, device=args.device)
-    finals = {m: getattr(res, f"{m}_acc")[-1] for m in ("pm", "tm", "gm")}
+    # only the metrics the algorithm reported (the baselines report no
+    # team model and no train loss)
+    hists = {"pm": res.pm_acc, "tm": res.tm_acc, "gm": res.gm_acc,
+             "train_loss": res.train_loss}
+    finals = {m: hist[-1] for m, hist in hists.items() if hist}
     if args.json:
         rec = {"scenario": s.name, "spec_hash": s.spec_hash(),
                "rounds": rounds, "device": res.device, **finals,
-               "train_loss": res.train_loss[-1], "seconds": res.seconds,
+               "seconds": res.seconds,
                "participation": res.participation[-1]}
         if res.comm is not None:
             rec["comm"] = res.comm.summary()
@@ -68,8 +148,7 @@ def _cmd_run(args) -> int:
         return 0
     print(f"{s.name}: rounds={rounds} "
           + " ".join(f"{m}={v:.4f}" for m, v in finals.items())
-          + f" train_loss={res.train_loss[-1]:.4f} ({res.seconds:.1f}s on "
-          f"{res.device})")
+          + f" ({res.seconds:.1f}s on {res.device})")
     if res.comm is not None:
         t = res.comm.totals()
         print(f"  comm: {t.total / 1e6:.2f} MB total "
@@ -89,8 +168,7 @@ def _cmd_serve(args) -> int:
 
     s = get_scenario(args.name)
     if args.smoke:
-        s = s.scaled(m_teams=2, n_devices=3, samples_per_device=16,
-                     rounds=2)
+        s = s.scaled(**_SMOKE)
     res = run_scenario(s, rounds=args.rounds, seed=args.seed,
                        device=args.device)
     b = build_scenario(s, seed=args.seed, device=args.device)
@@ -138,7 +216,7 @@ def _cmd_serve(args) -> int:
 
 
 def main(argv=None) -> int:
-    """Entry point: dispatch list / run / serve."""
+    """Entry point: dispatch list / describe / dump / run / serve."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.scenarios",
         description="Browse and run the port's scenario registry.")
@@ -146,11 +224,22 @@ def main(argv=None) -> int:
     p = sub.add_parser("list", help="list registered scenarios")
     p.add_argument("--family", default=None)
     p.set_defaults(fn=_cmd_list)
+    p = sub.add_parser("describe", help="show one scenario's full spec")
+    p.add_argument("name")
+    p.set_defaults(fn=_cmd_describe)
+    p = sub.add_parser("dump", help="print one scenario as JSON")
+    p.add_argument("name")
+    p.set_defaults(fn=_cmd_dump)
     p = sub.add_parser("run", help="run a scenario through the engine")
     p.add_argument("name")
     p.add_argument("--rounds", type=int, default=None)
     p.add_argument("--eval-every", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--smoke", action="store_true",
+                   help="2x3x16 topology, 2 rounds")
+    p.add_argument("--hparam", action="append", default=None,
+                   metavar="NAME=VALUE",
+                   help="override one float hyperparameter (repeatable)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--json", action="store_true",
                    help="print the final metrics as JSON on stdout")

@@ -1,12 +1,12 @@
 """The declarative `FLScenario` spec: data x topology x model x algorithm
 x participation x comm as one frozen, serializable value.
 
-The port's copy of the reference's spec for the PerMFL cells it runs.
-``to_dict()`` and ``spec_hash()`` equal the reference's for every ported
-scenario, so a scenario names the same experiment in both packages.
-What the port does not run yet -- the system simulator (``system``),
-cohort sampling (``cohort_size``) and the baseline algorithms -- is
-refused where a spec would ask for it.
+The port's copy of the reference's spec, for PerMFL and the six Table-1
+baselines. ``to_dict()`` and ``spec_hash()`` equal the reference's for
+every ported scenario, so a scenario names the same experiment in both
+packages. What the port does not run yet -- the system simulator
+(``system``) and cohort sampling (``cohort_size``) -- is refused where a
+spec would ask for it.
 
     FLScenario
       ├── DataSpec   dataset + partitioner + (M, N) topology + team
@@ -31,6 +31,7 @@ import torch
 from repro_torch.comm import CommConfig
 from repro_torch.configs.base import PaperModelConfig
 from repro_torch.core import PerMFL
+from repro_torch.core import baselines as B
 from repro_torch.core.permfl import PerMFLHParams
 from repro_torch.data.federated import (FederatedData, partition_dirichlet,
                                         partition_label_skew,
@@ -43,8 +44,18 @@ from repro_torch.models import paper_models as PM
 __all__ = ["ALGO_METRICS", "AlgoSpec", "DataSpec", "FLScenario",
            "ModelSpec", "fns_for", "init_model", "to_torch"]
 
-# metrics each ported algorithm reports (keys of FLAlgorithm.eval)
-ALGO_METRICS = {"permfl": ("pm", "tm", "gm")}
+# metrics each algorithm reports (keys of FLAlgorithm.eval): the Table-1
+# columns -- personalized/team/global for PerMFL, GM-only for the purely
+# global baselines, PM+GM for the personalized ones
+ALGO_METRICS = {
+    "permfl": ("pm", "tm", "gm"),
+    "fedavg": ("gm",),
+    "perfedavg": ("pm", "gm"),
+    "pfedme": ("pm", "gm"),
+    "ditto": ("pm", "gm"),
+    "hsgd": ("gm",),
+    "l2gd": ("pm", "gm"),
+}
 
 _TABULAR_DATASETS = ("synthetic", "featshift", "virtual")
 _PARTITIONERS = ("label_skew", "dirichlet", "quantity", "tabular")
@@ -188,27 +199,41 @@ class ModelSpec:
 # AlgoSpec
 # ---------------------------------------------------------------------------
 
-# paper §4.1.4 hyperparameters, the defaults every PerMFL scenario starts
-# from; AlgoSpec overrides replace individual entries
+# paper-default constructor arguments per algorithm (Table-1 settings);
+# AlgoSpec.overrides replaces individual entries
 _ALGO_DEFAULTS = {
     "permfl": dict(alpha=0.01, eta=0.03, beta=0.6, lam=0.5, gamma=1.5,
                    k_team=5, l_local=10, momentum=0.0, weight_decay=0.0),
+    "fedavg": dict(lr=0.03, local_steps=50),
+    "perfedavg": dict(lr=0.03, inner_lr=0.03, local_steps=20),
+    "pfedme": dict(lr=1.0, inner_lr=0.03, lam=15.0, inner_steps=10,
+                   local_rounds=5),
+    "ditto": dict(lr=0.03, lam=0.5, local_steps=20),
+    "hsgd": dict(lr=0.03, k_team=5, l_local=10),
+    "l2gd": dict(lr=0.03, lam_c=0.5, lam_g=0.5, k_team=5, l_local=10),
 }
+
+_BASELINES = {"fedavg": B.FedAvg, "perfedavg": B.PerFedAvg,
+              "pfedme": B.PFedMe, "ditto": B.Ditto, "hsgd": B.HSGD,
+              "l2gd": B.L2GD}
 
 
 @dataclass(frozen=True)
 class AlgoSpec:
     """Algorithm name + hyperparameter overrides on the paper defaults.
-    Only "permfl" is ported; the baselines are ROADMAP.md queue 1,
-    item 7."""
+
+    overrides: sorted tuple of (field, value) pairs replacing entries of
+    the algorithm's paper-default constructor arguments (PerMFLHParams
+    fields for "permfl", constructor kwargs for the baselines) -- a tuple
+    so the spec stays hashable and JSON-round-trippable.
+    """
     name: str = "permfl"
     overrides: Tuple[Tuple[str, Any], ...] = ()
 
     def __post_init__(self):
         if self.name not in _ALGO_DEFAULTS:
-            raise ValueError(
-                f"algorithm {self.name!r} is not ported yet (ROADMAP.md "
-                f"queue 1, item 7); ported: {sorted(_ALGO_DEFAULTS)}")
+            raise ValueError(f"unknown algorithm {self.name!r}; expected "
+                             f"one of {sorted(_ALGO_DEFAULTS)}")
         unknown = set(dict(self.overrides)) - set(_ALGO_DEFAULTS[self.name])
         if unknown:
             raise ValueError(
@@ -224,13 +249,26 @@ class AlgoSpec:
         return kw
 
     def hparams(self) -> PerMFLHParams:
-        """The resolved PerMFLHParams."""
+        """The resolved PerMFLHParams ("permfl" only)."""
+        if self.name != "permfl":
+            raise ValueError(f"{self.name} has no PerMFLHParams")
         return PerMFLHParams(**self.resolved())
 
     def build(self, loss_fn: Callable, comm: Optional[CommConfig] = None):
         """The frozen FLAlgorithm instance for the engine; ``comm``
-        compresses PerMFL's uplinks."""
-        return PerMFL(loss_fn, self.hparams(), comm=comm)
+        compresses PerMFL's uplinks (the baselines refuse it)."""
+        kw = self.resolved()
+        if self.name == "permfl":
+            return PerMFL(loss_fn, PerMFLHParams(**kw), comm=comm)
+        if comm is not None:
+            raise ValueError(f"comm compression is a PerMFL feature; "
+                             f"{self.name} does not route tiered uplinks")
+        return _BASELINES[self.name](loss_fn, **kw)
+
+    @property
+    def metrics(self) -> tuple:
+        """Eval metrics this algorithm reports (Table-1 columns)."""
+        return ALGO_METRICS[self.name]
 
 
 # ---------------------------------------------------------------------------

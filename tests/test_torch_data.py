@@ -72,17 +72,17 @@ def test_ported_scenarios_equal_the_reference():
     from repro.scenarios import SCENARIOS as J_SCENARIOS
     from repro_torch.scenarios import SCENARIOS, FLScenario
 
-    assert len(SCENARIOS) == 17
-    expect = {n for n in J_SCENARIOS if (n.endswith("/permfl")
-              and n.split("/")[0] in ("table1", "fig2"))
-              or n.startswith("comm/mnist/mclr/")}
+    assert len(SCENARIOS) == 91
+    expect = {n for n in J_SCENARIOS if not n.startswith("cohort/")}
     assert set(SCENARIOS) == expect
     for name, s in SCENARIOS.items():
         assert s.to_dict() == J_SCENARIOS[name].to_dict(), name
         assert s.spec_hash() == J_SCENARIOS[name].spec_hash(), name
         assert FLScenario.from_dict(s.to_dict()) == s
-        assert s.algo.hparams() == _as_port_hp(J_SCENARIOS[name].algo
-                                               .hparams())
+        assert s.algo.resolved() == J_SCENARIOS[name].algo.resolved()
+        if s.algo.name == "permfl":
+            assert s.algo.hparams() == _as_port_hp(J_SCENARIOS[name].algo
+                                                   .hparams())
     s = SCENARIOS["fig2/fmnist/cnn/permfl"]
     assert (s.data.m_teams, s.data.n_devices,
             s.data.samples_per_device) == (4, 10, 48)
@@ -95,9 +95,9 @@ def test_unported_scenarios_and_fields_are_refused():
     from repro_torch.scenarios import AlgoSpec, FLScenario, get_scenario
 
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_scenario("fig4/mnist/mclr/full")
-    with pytest.raises(ValueError, match="not ported yet"):
-        AlgoSpec("fedavg")
+        get_scenario("cohort/virtual/n1000")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        AlgoSpec("fedprox")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         FLScenario.from_dict(J_SCENARIOS["cohort/virtual/n1000"].to_dict())
 

@@ -24,8 +24,10 @@ PUBLIC_MODULES = (
     "repro_torch.convert",
     "repro_torch.core",
     "repro_torch.core.algorithm",
+    "repro_torch.core.baselines",
     "repro_torch.core.participation",
     "repro_torch.core.permfl",
+    "repro_torch.core.theory",
     "repro_torch.device",
     "repro_torch.flat",
     "repro_torch.kernels.build",

@@ -131,6 +131,65 @@ def test_round_kernel_path_matches_plain_path(cuda):
                                    rtol=0, atol=1e-4)
 
 
+# the baselines whose steps run the prox kernel: (scenario, loop counts
+# cut for a short test, prox_update launches a round at those counts)
+BASELINE_ROUNDS = {
+    "pfedme": ("table1/mnist/cnn/pfedme",
+               {"inner_steps": 3, "local_rounds": 2}, 2 * 3 + 3),
+    "ditto": ("table1/mnist/cnn/ditto", {"local_steps": 4}, 4),
+    "l2gd": ("fig2/fmnist/cnn/l2gd", {"k_team": 2, "l_local": 3}, 2 * 3),
+}
+
+
+@pytest.mark.parametrize("algo", list(BASELINE_ROUNDS))
+def test_baseline_round_kernel_path_matches_plain_path(cuda, algo):
+    """One round of pFedMe, Ditto or L2GD on a small CNN scenario on the
+    card, through the prox kernel (anchors of M*N, 1 and M rows) and
+    through the plain version: the same x and personal tier, and the
+    round's exact number of kernel launches."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.scenarios import build_scenario, get_scenario
+
+    name, cut, launches = BASELINE_ROUNDS[algo]
+    s = get_scenario(name).scaled(m_teams=2, n_devices=3,
+                                  samples_per_device=16, algo_overrides=cut)
+    b = build_scenario(s, seed=0, device=cuda)
+    state = b.algo.init_state(b.params0, b.m, b.n)
+    masks = dict(team_mask=torch.ones(b.m, device=cuda),
+                 device_mask=torch.ones(b.m, b.n, device=cuda))
+    before = LAUNCHES.get("prox_update", 0)
+    s_k = b.algo.round(state, b.train, **masks)
+    torch.cuda.synchronize()
+    assert LAUNCHES["prox_update"] == before + launches
+    s_t = b.algo.round(state, b.train, mode="torch", **masks)
+    assert LAUNCHES["prox_update"] == before + launches
+    for tier in ("x", "personal"):
+        torch.testing.assert_close(getattr(s_k, tier), getattr(s_t, tier),
+                                   rtol=0, atol=1e-4)
+
+
+def test_perfedavg_meta_grads_on_the_card_equal_the_cpu(cuda):
+    """Per-FedAvg's second-order meta-gradient of the paper CNN (2 x 3
+    devices x 16 samples) on the card against the same on the CPU."""
+    from repro_torch.core.baselines import meta_grads
+    from repro_torch.scenarios import build_scenario, get_scenario
+
+    s = get_scenario("table1/mnist/cnn/perfedavg").scaled(
+        m_teams=2, n_devices=3, samples_per_device=16)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        b = build_scenario(s, seed=0, device=dev)
+        state = b.algo.init_state(b.params0, b.m, b.n)
+        d = b.m * b.n
+        theta = state.x.expand(d, -1).clone()
+        batch = {k: v.reshape((d,) + tuple(v.shape[2:]))
+                 for k, v in b.train.items()}
+        out[dev.type] = meta_grads(b.loss_fn, state.layout, theta, batch,
+                                   b.algo.inner_lr)
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
 # -------------------------------------------------- compress kernels
 
 # leaf sizes of one flat row: ragged int8/sign rows, a 4097-value leaf, and
