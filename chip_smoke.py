@@ -12,7 +12,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   2. build: nvcc for every kernel source, all at once; the -Xptxas -v
      report (registers, spills).
   3. kernel check at the main paths' shapes: each kernel against its plain
-     version on the card (prox_update within the stated tolerance; the
+     version on the card (prox_update within the stated tolerance, and a
+     sweep's per-config case -- 3 configs of the CNN's device tier, each
+     with its own alpha and lam read from device memory -- bit for bit; the
      compress kernels -- with error feedback: ef_topk, ef_randk, ef_int8,
      ef_sign; without: topk, randk, sign, and quantize -- bit for bit on
      every output, at the CNN LAN (40 senders) and WAN (4 senders) and the
@@ -75,6 +77,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      ``dirichlet/mnist/a0.1``, ``quantity/mnist/q25``,
      ``featshift/dnn/s2``, ``teams/worst/m8n20``): prox_update exactly
      K * L times, finite metrics in [0, 1].
+ 7c. sweeps at full width (``sweep_scenario``), each with the counts set
+     to 0 just before it and read just after, against each config's
+     looped ``run_experiment`` and against ``run_sweep(mode="torch")``:
+     Fig 3's nine grid points on ``fig3/mnist/mclr`` (seed 0, 6 rounds,
+     the final PM / GM per point and the monotone checks of
+     benchmarks/fig3_hparams.py as findings); the seven
+     ``table1/mnist/cnn/*`` cells over three seeds, 2 rounds (the
+     seed-mean best PM / GM and benchmarks/table1.py's two checks as
+     findings; peak memory); ``comm/mnist/mclr/{int8,topk_10}`` over
+     three seeds, 2 rounds (ledger bytes equal to the looped runs'). A
+     sweep launches each kernel once for all its configs (prox_update
+     K * L a PerMFL round, the looped count over the configs); a
+     one-config sweep equals its looped run to the bit, and config 0
+     each row of a sweep of copies of it; the kernel sweep the plain one
+     within 1e-4; Fig 3's and the compressed cells' configs their looped
+     runs within 1e-4 (the CNN cells' differences, which the batch size's
+     summation order seeds and training amplifies, printed); configs per
+     second, swept against looped (host clock).
   8. LLM kernel check: flash_attention against its plain version at the
      serving path's shapes in bf16 (deepseek-moe-16b prefill (4, 1024,
      16, 128) causal; decode (4, 1, 16, 128) against a 1,040-slot cache
@@ -158,7 +178,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      each lossy compressor, over several unprofiled rounds in alternating
      order (medians and ranges, and the host time spent issuing the
      compression), then one profiled round of each; then one profiled
-     round of each baseline's CNN cell (busy share, launches).
+     round of each baseline's CNN cell (busy share, launches); then one
+     round of the Fig-3 sweep and of the PerMFL CNN 3-seed sweep beside
+     one looped round (busy share, launches).
  15. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -255,6 +277,21 @@ FAMILY_CELLS = ("table2/mnist/worst", "fig3/mnist/mclr",
                 "quantity/mnist/q25", "featshift/dnn/s2",
                 "teams/worst/m8n20")
 CNN_PARAMS = 206_922
+SWEEP_KERNEL_CONFIGS = 3           # the prox kernel's per-config case
+# the sweep phase: Fig 3's nine grid points (benchmarks/fig3_hparams.py's
+# SWEEPS, copied: hyperparameter -> (values, the others held fixed)) on
+# fig3/mnist/mclr; the Table-1 CNN cells over three seeds; compressed
+# MCLR cells over three seeds
+FIG3_SWEEPS = {"beta": ([0.05, 0.2, 0.6], dict(gamma=3.0, lam=0.5)),
+               "gamma": ([0.5, 1.5, 3.0], dict(lam=1.5, beta=0.1)),
+               "lam": ([0.1, 0.5, 2.0], dict(beta=0.3, gamma=3.0))}
+FIG3_ROUNDS = 6
+TABLE1_ALGOS = ("permfl", "fedavg", "perfedavg", "pfedme", "ditto", "hsgd",
+                "l2gd")
+SWEEP_SEEDS = (0, 1, 2)
+SWEEP_ROUNDS = 2
+SWEEP_COMM_CELLS = ("comm/mnist/mclr/int8", "comm/mnist/mclr/topk_10")
+SWEEP_TOL = 1e-4                   # states and losses: the round tolerance
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -450,7 +487,54 @@ def phase_kernel_check(layout, m, n):
             f"({moved / 1e6:.1f} MB by {by}), {bound_ms / ms:.1%} of bound")
         out[label] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=by)
+    out["per-config"] = prox_per_config_check(buf, rows, m, p)
     return out
+
+
+def prox_per_config_check(buf, rows, m, p):
+    """The sweep's step: SWEEP_KERNEL_CONFIGS configs of the device tier
+    stacked on the rows, anchors their team tiers, each config's (alpha,
+    lam) read by the kernel from device memory; bit-equal to the plain
+    version, timed beside its bound."""
+    import torch
+
+    from repro_torch.kernels.prox_update import prox_step_
+
+    c = SWEEP_KERNEL_CONFIGS
+    theta, grad, w = (buf(c * rows, torch.float32),
+                      buf(c * rows, torch.float32),
+                      buf(c * m, torch.float32))
+    alpha = torch.tensor([0.01, 0.03, 0.005][:c], device=DEVICE)
+    lam = torch.tensor([0.5, 1.5, 0.1][:c], device=DEVICE)
+    t_k, t_p = buf(c * rows, torch.float32), buf(c * rows, torch.float32)
+    t_k.copy_(theta)
+    t_p.copy_(theta)
+    prox_step_(t_k, grad, w, alpha=alpha, lam=lam)
+    prox_step_(t_p, grad, w, alpha=alpha, lam=lam, mode="torch")
+    torch.cuda.synchronize()
+    abs_err, _ = max_errors(t_k, t_p)
+    if not torch.equal(t_k, t_p):
+        raise AssertionError(f"prox_update per-config: kernel and plain "
+                             f"version differ (max abs {abs_err})")
+    ms = cuda_time_ms(lambda: prox_step_(t_k, grad, w, alpha=alpha,
+                                         lam=lam), TIMED_LAUNCHES)
+    plain_ms = cuda_time_ms(lambda: prox_step_(
+        t_p, grad, w, alpha=alpha, lam=lam, mode="torch"), 50)
+    # theta, grad read and theta' written per row; the anchors once; the
+    # per-config alpha and lam once
+    moved = (3 * c * rows + c * m) * p * 4 + 2 * c * 4
+    ops = c * rows * p * 7
+    bound_ms = max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    say("kernel", f"prox_update per-config ({c} configs x {rows}x{p}, "
+        f"anchors {c * m}x{p}, alpha {alpha.tolist()}, lam {lam.tolist()} "
+        f"from device memory): bit-equal to the plain version; kernel "
+        f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+        f"{bound_ms * 1e3:.1f} us ({moved / 1e6:.1f} MB), "
+        f"{bound_ms / ms:.1%} of bound")
+    by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S \
+        else "operations"
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by)
 
 
 def compress_inputs(layout, senders, seed):
@@ -1197,6 +1281,273 @@ def phase_baseline_serving(b, res):
         f"{stats['qps']:.1f}, p50 {stats['p50_ms']:.3f} ms, p99 "
         f"{stats['p99_ms']:.3f} ms (host clock, batch {SERVE_BATCH}); "
         f"tiers {stats['tier_counts']}")
+
+
+def fig3_grid():
+    """The nine Fig-3 grid points, in FIG3_SWEEPS order."""
+    return [dict(alpha=0.01, eta=0.03, **fixed, **{name: v})
+            for name, (values, fixed) in FIG3_SWEEPS.items()
+            for v in values]
+
+
+def state_diff(a, b):
+    """Max |a - b| over every tensor of two states (nested states
+    included)."""
+    import torch
+
+    worst = 0.0
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, torch.Tensor):
+            worst = max(worst, float((va - vb).abs().max()))
+        elif dataclasses.is_dataclass(va):
+            worst = max(worst, state_diff(va, vb))
+    return worst
+
+
+def run_diffs(a, b):
+    """(state, train loss, accuracy): max |a - b| of two runs of one
+    config."""
+    worst = {}
+    for f in ("pm_acc", "tm_acc", "gm_acc", "train_loss"):
+        x, y = getattr(a, f), getattr(b, f)
+        if len(x) != len(y):
+            raise AssertionError(f"{f}: {len(x)} evals against {len(y)}")
+        worst[f] = max([0.0] + [abs(p - q) for p, q in zip(x, y)])
+    return (state_diff(a.state, b.state), worst.pop("train_loss"),
+            max(worst.values()))
+
+
+def expected_launches(spec, rounds, runs):
+    """{kernel: launches} of ``runs`` looped runs (or one sweep, runs=1)
+    of ``spec`` for ``rounds`` rounds: prox_update per round, and a
+    compressed PerMFL cell's kernel once per uplink (K + 1 a round)."""
+    per_round = prox_launches_per_round(spec)
+    out = {"prox_update": runs * rounds * per_round} if per_round else {}
+    if spec.comm is not None:
+        kernel = (COMPRESS_KERNEL if spec.comm.error_feedback
+                  else PLAIN_KERNEL)[spec.comm.compressor]
+        out[kernel] = runs * rounds * (spec.algo.resolved()["k_team"] + 1)
+    return out
+
+
+def sweep_against_loops(spec, grid, seeds, rounds, failures, loop_tol):
+    """``spec`` over grid x seeds (C configs), each run with the launch
+    counts set to 0 just before it and read just after:
+
+      * ``sweep_scenario`` (the kernels): each kernel launched once for
+        all C configs, the looped runs' count over C;
+      * ``run_sweep(mode="torch")`` (the plain versions, no kernel): each
+        config within SWEEP_TOL of the kernel sweep's (states, losses;
+        accuracies within one validation sample);
+      * each config's looped ``run_experiment``: a one-config sweep
+        equal to it to the bit (the same round body on the same batches);
+        config 0 of the sweep equal to the bit to each row of a sweep of
+        C copies of it (configs do not interact: a config's numbers
+        depend on the sweep's size, never on the other configs); and,
+        with ``loop_tol``, each swept config within ``loop_tol`` of its
+        looped run, else that difference is printed only.
+
+    Why a swept config may round apart from its looped run: with C > 1
+    the batched products and PyTorch's reductions run over C*M*N rows,
+    and cuBLAS and the reductions choose their summation order by that
+    size; training amplifies the last-bit differences, pFedMe's the most
+    (w <- w - 15 (w - theta): a rounding difference in theta enters w
+    15-fold each local round; the numbers are in PERF.md). A failed
+    check is appended to ``failures``, so that one run reads every
+    cell's numbers. Returns (the sweep, its peak MiB)."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import build_scenario, sweep_scenario
+    from repro_torch.scenarios.spec import init_model
+    from repro_torch.train.engine import run_experiment
+    from repro_torch.train.sweep import run_sweep
+
+    b = build_scenario(spec, seeds[0], device=DEVICE)
+    _, rebuild = b.algo.tree_hparams()
+    kw = dict(rounds=rounds, m=b.m, n=b.n, team_frac=spec.team_frac,
+              device_frac=spec.device_frac)
+    torch.cuda.synchronize()
+    reset_launches()
+    looped = [run_experiment(rebuild(g), init_model(b.config, s), b.train,
+                             b.val, metric_fn=b.metric_fn, seed=s,
+                             device=DEVICE, **kw)
+              for g in grid for s in seeds]
+    loop_launches = {k: c for k, c in LAUNCHES.items() if c}
+    runs = len(looped)
+    check_launches(loop_launches, expected_launches(spec, rounds, runs),
+                   f"{spec.name} looped")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sw = sweep_scenario(spec, grid, seeds, rounds=rounds, device=DEVICE)
+    sweep_launches = {k: c for k, c in LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check_launches(sweep_launches, expected_launches(spec, rounds, 1),
+                   f"{spec.name} sweep")
+    if any(sweep_launches[k] * runs != c for k, c in loop_launches.items()):
+        raise AssertionError(f"{spec.name}: sweep {sweep_launches}, looped "
+                             f"{loop_launches} over {runs} configs")
+    reset_launches()
+    plain = run_sweep(b.algo, grid, seeds, lambda sd: init_model(
+        b.config, sd), b.train, b.val, metric_fn=b.metric_fn, mode="torch",
+        device=DEVICE, **kw)
+    check_launches({k: c for k, c in LAUNCHES.items() if c}, {},
+                   f"{spec.name} plain sweep")
+    one = sweep_scenario(spec, grid[:1], seeds[:1], rounds=rounds,
+                         device=DEVICE)
+    copies = sweep_scenario(spec, grid[:1] * len(grid),
+                            seeds[:1] * len(seeds), rounds=rounds,
+                            device=DEVICE)
+    bitwise = [("a one-config sweep and its looped run", one[0], looped[0])]
+    bitwise += [(f"config 0 and copy {j} of it in a sweep of {runs}",
+                 sw[0], c) for j, c in enumerate(copies)]
+    for what, x, y in bitwise:
+        if any(run_diffs(x, y)) or x.participation != y.participation:
+            failures.append(f"{spec.name}: {what} differ: "
+                            f"{run_diffs(x, y)}")
+    n_val = b.val["y"].shape[-1]
+    tols = {"loop": loop_tol, "plain": SWEEP_TOL}
+    worst = {"loop": [0.0, 0.0, 0.0], "plain": [0.0, 0.0, 0.0]}
+    for res, ref, pl in zip(sw, looped, plain):
+        for what, other in (("loop", ref), ("plain", pl)):
+            diffs = run_diffs(res, other)
+            worst[what] = [max(w, d) for w, d in zip(worst[what], diffs)]
+            d, loss, acc = diffs
+            if tols[what] is not None and not (
+                    d <= tols[what] and loss <= tols[what]
+                    and acc <= 1.0 / n_val + 1e-6):
+                failures.append(
+                    f"{spec.name}: a swept config and its {what} run "
+                    f"differ: state {d:.3g}, loss {loss:.3g}, accuracy "
+                    f"{acc:.3g}")
+        if res.participation != ref.participation:
+            raise AssertionError(f"{spec.name}: participation differs")
+        if ref.comm is not None and \
+                res.comm.total_bytes() != ref.comm.total_bytes():
+            raise AssertionError(f"{spec.name}: ledger bytes differ")
+    loop_s = sum(r.seconds for r in looped)
+    held = ("printed, not held" if loop_tol is None
+            else f"tol {loop_tol:g}")
+    say("sweep", f"{spec.name}: {runs} configs x {rounds} rounds; sweep "
+        f"{sw.seconds:.3f} s ({runs / sw.seconds:.2f} configs/s), looped "
+        f"{loop_s:.3f} s ({runs / loop_s:.2f} configs/s): "
+        f"{loop_s / sw.seconds:.2f}x (host clock, eval included); "
+        f"launches sweep {sweep_launches}, looped {loop_launches}; a "
+        f"one-config sweep = its looped run, config 0 = its {runs} copies "
+        f"(bit for bit); max |diff| state / loss / accuracy: swept vs "
+        f"looped {worst['loop'][0]:.3g} / {worst['loop'][1]:.3g} / "
+        f"{worst['loop'][2]:.3g} ({held}), kernels vs plain "
+        f"{worst['plain'][0]:.3g} / {worst['plain'][1]:.3g} / "
+        f"{worst['plain'][2]:.3g} (tol {SWEEP_TOL:g}); peak {peak:.1f} MiB")
+    return sw, peak
+
+
+def phase_sweeps():
+    """Batched sweeps at full width (``sweep_scenario``), each held against
+    its looped runs and its plain path (``sweep_against_loops``; the CNN
+    cells' drift from their looped runs printed, not held): Fig 3's
+    nine grid points on fig3/mnist/mclr (seed 0, FIG3_ROUNDS rounds; the
+    final PM / GM per point and the monotone checks of
+    benchmarks/fig3_hparams.py, as findings), the seven Table-1 CNN cells
+    over three seeds (the seed-mean best PM / GM and
+    benchmarks/table1.py's two checks, as findings), and compressed MCLR
+    cells over three seeds."""
+    import numpy as np
+
+    from repro_torch.scenarios import get_scenario
+
+    spec = get_scenario("fig3/mnist/mclr")
+    hp = spec.algo.hparams()
+    grid = fig3_grid()
+    failures = []
+    sw = sweep_against_loops(spec, grid, (0,), FIG3_ROUNDS, failures,
+                             SWEEP_TOL)[0]
+    say("sweep", f"fig3: prox_update {hp.k_team * hp.l_local} launches a "
+        f"swept round for {len(grid)} configs (K*L = "
+        f"{hp.k_team * hp.l_local})")
+    i = 0
+    for name, (values, fixed) in FIG3_SWEEPS.items():
+        pm, gm = [], []
+        for v in values:
+            pm.append(sw[i].pm_acc[-1])
+            gm.append(sw[i].gm_acc[-1])
+            i += 1
+        say("sweep", f"fig3 {name} {values} ({fixed}): final PM "
+            + " ".join(f"{a:.4f}" for a in pm) + ", GM "
+            + " ".join(f"{a:.4f}" for a in gm))
+        metric = gm if name in ("beta", "gamma") else pm
+        holds = all(b >= a - 0.03 for a, b in zip(metric, metric[1:]))
+        say("sweep", f"fig3 check: {'GM' if metric is gm else 'PM'} "
+            f"monotone in {name} (within 0.03) after {FIG3_ROUNDS} rounds: "
+            f"{'holds' if holds else 'does not hold'}")
+    best = {}
+    for algo in TABLE1_ALGOS:
+        spec = get_scenario(f"table1/mnist/cnn/{algo}")
+        sw, peak = sweep_against_loops(spec, [{}], SWEEP_SEEDS,
+                                       SWEEP_ROUNDS, failures, None)
+        for f in spec.algo.metrics:
+            best[f"{algo}_{f}"] = float(np.mean(sw.best(f)))
+        say("sweep", f"table1/mnist/cnn/{algo}: seed-mean best "
+            + ", ".join(f"{f.upper()} {best[f'{algo}_{f}']:.4f}"
+                        for f in spec.algo.metrics)
+            + f" ({len(SWEEP_SEEDS)} seeds, {SWEEP_ROUNDS} rounds); sweep "
+            f"peak {peak:.1f} MiB")
+    for label, holds in (
+            ("PerMFL PM >= PerMFL GM",
+             best["permfl_pm"] >= best["permfl_gm"]),
+            ("PerMFL PM >= FedAvg GM - 0.02",
+             best["permfl_pm"] >= best["fedavg_gm"] - 0.02)):
+        say("sweep", f"table1 check after {SWEEP_ROUNDS} rounds: {label}: "
+            f"{'holds' if holds else 'does not hold'}")
+    for name in SWEEP_COMM_CELLS:
+        spec = get_scenario(name)
+        sw = sweep_against_loops(spec, [{}], SWEEP_SEEDS, SWEEP_ROUNDS,
+                                 failures, SWEEP_TOL)[0]
+        say("sweep", f"{name}: ledger bytes per config "
+            f"{sw[0].comm.total_bytes() / 1e6:.3f} MB, equal to each looped "
+            f"run's")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_sweep_profile():
+    """One round of the Fig-3 sweep (9 configs) and of the PerMFL Table-1
+    CNN sweep (3 seeds) under torch.profiler, beside one looped round of
+    one of their configs: host clock, device busy share, launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.scenarios import get_scenario, run_scenario, \
+        sweep_scenario
+
+    for name, grid, seeds in (("fig3/mnist/mclr", fig3_grid(), (0,)),
+                              ("table1/mnist/cnn/permfl", [{}],
+                               SWEEP_SEEDS)):
+        spec = get_scenario(name)
+        runs = {"sweep": lambda: sweep_scenario(spec, grid, seeds,
+                                                rounds=1, device=DEVICE),
+                "looped": lambda: run_scenario(spec, rounds=1,
+                                               device=DEVICE)}
+        for label, fn in runs.items():
+            fn()                                         # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res = fn()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in rows) / 1e6
+            wall = res.seconds
+            configs = len(res) if label == "sweep" else 1
+            say("profile", f"{name} {label} ({configs} config(s)), one "
+                f"round with its eval: {wall:.3f} s host clock (profiled); "
+                f"kernels {busy:.3f} s of device time, busy "
+                f"{busy / wall:.1%}; {sum(e.count for e in rows)} kernel "
+                f"launches")
 
 
 def phase_families():
@@ -2519,6 +2870,7 @@ def main(argv) -> int:
     phase_baseline_serving(*baselines["table1/mnist/cnn/ditto"])
     del baselines
     phase_families()
+    phase_sweeps()
     attn = phase_attention_check()
     phase_router_check()
     router = phase_fused_router_check()
@@ -2534,6 +2886,7 @@ def main(argv) -> int:
         for comp in (None,) + tuple(COMPRESS_KERNEL):
             phase_profile(comp)
         phase_baseline_profile()
+        phase_sweep_profile()
     checks["prox_update"] = checks["f32"]
     # the JSON line carries each LLM kernel at the serving path's prefill
     # shape; the decode shape's numbers are on the lines above

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.flat import Layout, tree_leaves
 
-__all__ = ["COMPRESSORS", "CommConfig", "CommState", "init_comm_state"]
+__all__ = ["COMPRESSORS", "CommConfig", "CommState", "copy_generator",
+           "init_comm_state"]
 
 COMPRESSORS = ("identity", "topk", "randk", "int8", "sign")
 
@@ -58,16 +59,26 @@ class CommState:
     """ef_dev (M, N, S): device-uplink residuals; ef_team (M, S):
     team-uplink residuals; gen: the generator of the rand-k / int8
     uniforms, on the residuals' device. A round never advances ``gen``
-    in place: it draws from a copy, which the new state carries."""
+    in place: it draws from a copy, which the new state carries. A
+    sweep's stacked state holds ef_dev (C, M, N, S), ef_team (C, M, S)
+    and a tuple of C generators, one per config."""
     ef_dev: torch.Tensor
     ef_team: torch.Tensor
-    gen: torch.Generator
+    gen: object             # torch.Generator, or a tuple of them
 
-    def generator_copy(self) -> torch.Generator:
-        """A new generator in the same state as ``gen``."""
-        g = torch.Generator(device=self.gen.device)
-        g.set_state(self.gen.get_state())
-        return g
+    def generator_copy(self):
+        """A new generator in the same state as ``gen`` (a tuple of copies
+        for a tuple)."""
+        if isinstance(self.gen, tuple):
+            return tuple(copy_generator(g) for g in self.gen)
+        return copy_generator(self.gen)
+
+
+def copy_generator(gen: torch.Generator) -> torch.Generator:
+    """A new generator on ``gen``'s device, in the same state."""
+    g = torch.Generator(device=gen.device)
+    g.set_state(gen.get_state())
+    return g
 
 
 def init_comm_state(params, m_teams: int, n_devices: int,

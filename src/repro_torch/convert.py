@@ -14,7 +14,8 @@ shapes; bfloat16 leaves (``ml_dtypes``' numpy type) arrive as
 ``torch.bfloat16`` bit for bit. A baseline's state crosses as the
 reference holds it: the global model tree ``x`` (FedAvg, Per-FedAvg,
 h-SGD) or the pair ``(x, personal)`` (pFedMe and L2GD's theta, Ditto's
-v).
+v). A sweep's stacked state (``FLSweepResult.state_stacked``, every leaf
+leading (C,)) crosses with :func:`sweep_state_from_numpy`.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.core.permfl import PerMFLState
 from repro_torch.flat import Layout
 
 __all__ = ["baseline_state_from_numpy", "comm_state_from_numpy",
-           "params_from_numpy", "state_from_numpy", "to_numpy"]
+           "params_from_numpy", "state_from_numpy", "sweep_state_from_numpy",
+           "to_numpy"]
 
 
 def params_from_numpy(tree, device="cpu", dtype=None) -> dict:
@@ -101,6 +103,36 @@ def baseline_state_from_numpy(state, device="cpu",
         personal = layout.flatten(personal, lead=lead)
     return BaselineState(x=layout.flatten(x), layout=layout,
                          personal=personal, round=int(round))
+
+
+def sweep_state_from_numpy(state, device="cpu", round: int = 0):
+    """The reference's stacked sweep state (its ``FLSweepResult.
+    state_stacked`` as numpy: a PerMFL state dict as
+    :func:`state_from_numpy` takes, or a baseline's ``x`` / ``(x,
+    personal)``, every leaf with a leading (C,) config axis) -> the
+    port's stacked state (``train.sweep.stack_states`` of the C configs'
+    states). ``round`` as in :func:`baseline_state_from_numpy`."""
+    from repro_torch.train.sweep import stack_states
+
+    def take(tree, i):
+        if isinstance(tree, dict):
+            return {k: take(v, i) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(take(v, i) for v in tree)
+        return np.asarray(tree)[i]
+
+    if isinstance(state, dict) and "theta" in state:
+        tiers = {k: v for k, v in state.items() if k != "round"}
+        c = next(iter(_leaves(tiers["x"]))).shape[0]
+        done = int(np.asarray(state.get("round", 0)).reshape(-1)[0])
+        return stack_states([state_from_numpy(dict(take(tiers, i),
+                                                   round=done), device)
+                             for i in range(c)])
+    x = state[0] if isinstance(state, (tuple, list)) else state
+    c = next(iter(_leaves(x))).shape[0]
+    return stack_states([baseline_state_from_numpy(take(state, i), device,
+                                                   round)
+                         for i in range(c)])
 
 
 def to_numpy(obj):

@@ -9,6 +9,11 @@ Masks are (M,) / (M, N) float32 tensors; algorithms without a
 participation notion ignore them. ``eval`` returns scalar metrics (keys
 among "pm" / "tm" / "gm" / "train_loss"). Implementations are frozen
 dataclasses: change a hyperparameter by building a new instance.
+``tree_hparams`` splits one into its sweepable floats and a ``rebuild``;
+a sweep (``repro_torch.train.sweep``) rebuilds it with C values per
+float (float64 arrays) and drives the same ``round`` / ``eval`` on a
+stacked state, whose tiers, masks and data lead with a config axis (C,);
+``eval`` then returns a list of C values per metric.
 Algorithms that move compressed bytes implement ``make_ledger`` /
 ``log_comm_round``, and the engine feeds them the realized (team-gated)
 participation counts. ``serving_params`` is the export hook of the
@@ -30,7 +35,7 @@ from repro_torch.comm import CommConfig, CommLedger
 from repro_torch.core import permfl as P
 
 __all__ = ["FLAlgorithm", "FLAlgorithmBase", "PerMFL", "eval_global",
-           "eval_personal"]
+           "eval_personal", "metric_values"]
 
 
 @runtime_checkable
@@ -87,32 +92,58 @@ class FLAlgorithmBase:
                                            torch.as_tensor(device).shape)
         return state.expand(tuple(shape) + tuple(state.shape))
 
+    def tree_hparams(self):
+        """``(leaves, rebuild)``: every float-annotated field by name (a
+        float field given an int sweeps too), and a function returning an
+        equal instance with some of them replaced. Ints (loop bounds) and
+        callables stay fixed."""
+        leaves = {f.name: float(getattr(self, f.name))
+                  for f in dataclasses.fields(self)
+                  if f.type in (float, "float")}
+
+        def rebuild(values):
+            return dataclasses.replace(self, **values)
+
+        return leaves, rebuild
+
 
 # ---------------------------------------------------------------------------
 # metric helpers shared by the implementations
 # ---------------------------------------------------------------------------
 
-def _stacked(data, d):
-    """Leaves with leading (M, N, ...) as (M*N, ...)."""
-    return {k: v.reshape((d,) + tuple(v.shape[2:])) for k, v in data.items()}
+def _stacked(data, lead=()):
+    """Leaves with leading lead + (M, N, ...) as (prod(lead)*M*N, ...)."""
+    return {k: v.flatten(0, len(lead) + 1) for k, v in data.items()}
+
+
+def metric_values(t: torch.Tensor):
+    """A metric as ``eval`` returns it: a float for a 0-d tensor, a list
+    of floats (one per config) for a stacked state's (C,)."""
+    return float(t) if t.dim() == 0 else t.tolist()
 
 
 def eval_global(x, layout, val_data, metric_fn) -> torch.Tensor:
     """One flat model row ``x`` (S,) evaluated on every device's data
     (leading (M, N, ...)): the row expanded over the M*N devices, one
-    ``metric_fn`` call, then the mean (a 0-d tensor)."""
-    m, n = next(iter(val_data.values())).shape[:2]
-    models = x.expand(m * n, x.shape[-1])
-    return metric_fn(layout.unflatten(models),
-                     _stacked(val_data, m * n)).mean()
+    ``metric_fn`` call, then the mean (a 0-d tensor). A stacked x (C, S)
+    with data leading (C, M, N) gives each config's mean, (C,)."""
+    lead = tuple(x.shape[:-1])
+    m, n = next(iter(val_data.values())).shape[len(lead):len(lead) + 2]
+    models = x.unsqueeze(-2).expand(lead + (m * n, x.shape[-1]))
+    return metric_fn(layout.unflatten(models.reshape(-1, x.shape[-1])),
+                     _stacked(val_data, lead)).reshape(
+                         lead + (m * n,)).mean(-1)
 
 
 def eval_personal(theta, layout, val_data, metric_fn) -> torch.Tensor:
     """A tier of flat rows ``theta`` (M, N, S), each on its own device's
-    data; the mean (a 0-d tensor)."""
-    m, n, stride = theta.shape
-    return metric_fn(layout.unflatten(theta.reshape(m * n, stride)),
-                     _stacked(val_data, m * n)).mean()
+    data; the mean (a 0-d tensor), or each config's, (C,), for (C, M, N,
+    S)."""
+    lead, stride = tuple(theta.shape[:-3]), theta.shape[-1]
+    d = theta.shape[-3] * theta.shape[-2]
+    return metric_fn(layout.unflatten(theta.reshape(-1, stride)),
+                     _stacked(val_data, lead)).reshape(
+                         lead + (d,)).mean(-1)
 
 
 @dataclass(frozen=True)
@@ -136,15 +167,16 @@ class PerMFL(FLAlgorithmBase):
         residuals zeroed when comm is configured."""
         return P.init_state(params, m, n, comm=self.comm)
 
-    def round(self, state, data, *, team_mask, device_mask, uniforms=None):
+    def round(self, state, data, *, team_mask, device_mask, uniforms=None,
+              mode=None):
         """One Algorithm-1 global round (K team iters x L device steps);
-        ``uniforms`` injects the compressors' uniforms (see
-        ``permfl_round``)."""
-        m, n = device_mask.shape
+        ``uniforms`` injects the compressors' uniforms, ``mode`` picks the
+        kernels' implementation (see ``permfl_round``)."""
+        m, n = device_mask.shape[-2:]
         return P.permfl_round(state, data, self.hp, self.loss_fn,
                               m_teams=m, n_devices=n, team_mask=team_mask,
                               device_mask=device_mask, comm=self.comm,
-                              uniforms=uniforms)
+                              uniforms=uniforms, mode=mode)
 
     def tree_hparams(self):
         """``(leaves, rebuild)``: the SWEEPABLE_HPARAMS floats of ``hp`` by
@@ -162,16 +194,16 @@ class PerMFL(FLAlgorithmBase):
 
     @torch.no_grad()
     def eval(self, state, train_data, val_data, metric_fn):
-        """PM/TM/GM mean accuracy over all devices + mean train loss."""
-        m, n, _ = state.theta.shape
-        train = {k: v.reshape((m * n,) + tuple(v.shape[2:]))
-                 for k, v in train_data.items()}
-        out = {w: float(P.eval_stacked(state, val_data, metric_fn,
-                                       which=w).mean())
-               for w in ("pm", "tm", "gm")}
-        theta = state.theta.reshape(m * n, -1)
-        out["train_loss"] = float(
-            self.loss_fn(state.layout.unflatten(theta), train).mean())
+        """PM/TM/GM mean accuracy over all devices + mean train loss (per
+        config for a stacked state)."""
+        lead = tuple(state.theta.shape[:-3])
+        out = {w: metric_values(P.eval_stacked(
+            state, val_data, metric_fn, which=w).flatten(-2).mean(-1))
+            for w in ("pm", "tm", "gm")}
+        theta = state.theta.reshape(-1, state.theta.shape[-1])
+        loss = self.loss_fn(state.layout.unflatten(theta),
+                            _stacked(train_data, lead))
+        out["train_loss"] = metric_values(loss.reshape(lead + (-1,)).mean(-1))
         return out
 
     def serving_params(self, state, team=None, device=None):

@@ -27,6 +27,15 @@ L2GD's local steps (the team means, M rows). Plain SGD steps are one
 torch op. Every round function takes ``mode``: None runs the kernel on
 CUDA tensors, ``"torch"`` its plain version (for comparisons on the card).
 The reference's ``fori_loop``s become host loops.
+
+A sweep's stacked state (``repro_torch.train.sweep``) runs through the
+same functions: x (C, S), the personal tier (C, M, N, S), the data
+(C, M, N, ...), each float hyperparameter C float64 values; coefficients
+are formed as in ``core.permfl`` (:func:`~repro_torch.core.permfl.coef`).
+An SGD step is ``theta - lr * g``, a multiply and a subtract, in one form
+for a float and a per-config ``lr`` (``add_(g, alpha=-lr)`` may fuse the
+two into one rounding on some devices, which a per-config tensor
+cannot).
 """
 from __future__ import annotations
 
@@ -36,8 +45,9 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.algorithm import (FLAlgorithmBase, _stacked,
-                                        eval_global, eval_personal)
-from repro_torch.core.permfl import device_grads
+                                        eval_global, eval_personal,
+                                        metric_values)
+from repro_torch.core.permfl import coef, device_grads, per_config
 from repro_torch.flat import Layout
 from repro_torch.kernels.prox_update import prox_step_
 
@@ -51,7 +61,8 @@ __all__ = ["BaselineState", "Ditto", "FedAvg", "HSGD", "L2GD", "PFedMe",
 class BaselineState:
     """x (S,): the global model; personal (M, N, S): the per-device models
     of pFedMe, Ditto and L2GD (None for FedAvg, Per-FedAvg and h-SGD) --
-    flat rows laid out by ``layout``; round: rounds done so far."""
+    flat rows laid out by ``layout``, with a leading config axis (C,) in
+    a sweep's stacked state; round: rounds done so far."""
     x: torch.Tensor
     layout: Layout
     personal: Optional[torch.Tensor] = None
@@ -75,29 +86,46 @@ def init_baseline_state(params, m: int, n: int,
 
 
 def _bcast(row, d):
-    """A new (d, S) buffer of copies of ``row`` (S,)."""
-    return row.expand(d, row.shape[-1]).clone()
+    """A new lead + (d, S) buffer of copies of ``row`` (lead + (S,))."""
+    return row.unsqueeze(-2).expand(
+        tuple(row.shape[:-1]) + (d, row.shape[-1])).clone()
+
+
+def _grads(loss_fn, layout, theta, batch):
+    """``device_grads`` of every row of ``theta`` (lead + (D, S)), shaped
+    as ``theta``."""
+    return device_grads(loss_fn, layout, theta.view(-1, theta.shape[-1]),
+                        batch).view(theta.shape)
 
 
 def _sgd_steps_(theta, batch, layout, loss_fn, lr, steps):
-    """``steps`` plain SGD steps of every device row of ``theta`` (D, S),
-    in place."""
+    """``steps`` plain SGD steps of every device row of ``theta``
+    (lead + (D, S)), in place."""
+    lr = coef(lr, theta)
     for _ in range(steps):
-        theta.add_(device_grads(loss_fn, layout, theta, batch), alpha=-lr)
+        theta.sub_(lr * _grads(loss_fn, layout, theta, batch))
     return theta
 
 
 def _prox_steps_(theta, anchor, batch, layout, loss_fn, lr, lam, steps,
                  mode):
     """``steps`` prox steps ``t - lr * (g + lam * (t - a))`` of ``theta``
-    (D, S) in place, device row r anchored to ``anchor`` row r // (D /
-    anchor rows): one ``prox_update`` launch per step."""
+    (lead + (D, S)) in place, device row r anchored to ``anchor`` (lead +
+    (A, S)) row r // (D / A): one ``prox_update`` launch per step."""
     cols = layout.columns
+    stride = theta.shape[-1]
+    rows, anchors = theta.view(-1, stride), anchor.reshape(-1, stride)
+    lr, lam = per_config(lr, theta.device), per_config(lam, theta.device)
     for _ in range(steps):
-        g = device_grads(loss_fn, layout, theta, batch)
-        prox_step_(cols(theta), cols(g), cols(anchor), alpha=lr, lam=lam,
+        g = device_grads(loss_fn, layout, rows, batch)
+        prox_step_(cols(rows), cols(g), cols(anchors), alpha=lr, lam=lam,
                    mode=mode)
     return theta
+
+
+def _lead(x):
+    """The config axes of a global-model row: () or a sweep's (C,)."""
+    return tuple(x.shape[:-1])
 
 
 # ---------------------------------------------------------------------------
@@ -109,9 +137,9 @@ def fedavg_round(x, data, layout: Layout, *, loss_fn: Callable, lr: float,
     """Every device starts from x (S,), takes ``local_steps`` SGD steps on
     its own batch; the new x is their mean. ``mode`` is accepted for a
     uniform signature (no kernel runs)."""
-    theta = _sgd_steps_(_bcast(x, m * n), _stacked(data, m * n), layout,
+    theta = _sgd_steps_(_bcast(x, m * n), _stacked(data, _lead(x)), layout,
                         loss_fn, lr, local_steps)
-    return theta.mean(dim=0)
+    return theta.mean(dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -124,12 +152,15 @@ def meta_grads(loss_fn: Callable, layout: Layout, theta: torch.Tensor,
     ``loss(t - inner_lr * grad loss(t))`` at each row of ``theta`` (D, S),
     second order (through the inner gradient), as the reference's
     ``jax.grad(meta_loss)`` is. Devices do not interact, so the gradient
-    of the SUM of the D meta-losses gives each row its own."""
+    of the SUM of the D meta-losses gives each row its own. A stacked
+    ``theta`` (C, D, S) takes C values of ``inner_lr``."""
+    stride = theta.shape[-1]
     with torch.enable_grad():
         t = theta.detach().requires_grad_(True)
-        loss = loss_fn(layout.unflatten(t), batch).sum()
+        loss = loss_fn(layout.unflatten(t.view(-1, stride)), batch).sum()
         (g,) = torch.autograd.grad(loss, t, create_graph=True)
-        meta = loss_fn(layout.unflatten(t - inner_lr * g), batch).sum()
+        inner = t - coef(inner_lr, t) * g
+        meta = loss_fn(layout.unflatten(inner.view(-1, stride)), batch).sum()
         (mg,) = torch.autograd.grad(meta, t)
     return mg
 
@@ -139,12 +170,13 @@ def perfedavg_round(x, data, layout: Layout, *, loss_fn: Callable,
                     n: int, mode=None):
     """``local_steps`` meta-gradient steps per device from x; the new x is
     their mean. ``mode`` is accepted for a uniform signature."""
-    batch = _stacked(data, m * n)
+    batch = _stacked(data, _lead(x))
     theta = _bcast(x, m * n)
+    lr_t = coef(lr, theta)
     for _ in range(local_steps):
-        theta.add_(meta_grads(loss_fn, layout, theta, batch, inner_lr),
-                   alpha=-lr)
-    return theta.mean(dim=0)
+        theta.sub_(lr_t * meta_grads(loss_fn, layout, theta, batch,
+                                     inner_lr))
+    return theta.mean(dim=-2)
 
 
 def perfedavg_personalize(x, data, layout: Layout, *, loss_fn, inner_lr,
@@ -152,9 +184,9 @@ def perfedavg_personalize(x, data, layout: Layout, *, loss_fn, inner_lr,
     """PM = one adaptation step of the global model on each device's
     data: (M, N, S)."""
     theta = _bcast(x, m * n)
-    theta.add_(device_grads(loss_fn, layout, theta, _stacked(data, m * n)),
-               alpha=-inner_lr)
-    return theta.view(m, n, -1)
+    g = _grads(loss_fn, layout, theta, _stacked(data, _lead(x)))
+    theta.sub_(coef(inner_lr, theta) * g)
+    return theta.view(_lead(x) + (m, n, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -169,16 +201,17 @@ def pfedme_round(x, data, layout: Layout, *, loss_fn: Callable, lr: float,
     Moreau subproblem from w by ``inner_steps`` prox steps (anchor: each
     device's own w), then moves w toward them; the personal models are
     ``inner_steps`` prox steps anchored on the final w."""
-    batch = _stacked(data, m * n)
+    batch = _stacked(data, _lead(x))
     w = _bcast(x, m * n)
+    step = coef(lr * lam, w)
     for _ in range(local_rounds):
         theta = _prox_steps_(w.clone(), w, batch, layout, loss_fn, inner_lr,
                              lam, inner_steps, mode)
-        w = w - lr * lam * (w - theta)
-    new_x = w.mean(dim=0)
+        w = w - step * (w - theta)
+    new_x = w.mean(dim=-2)
     theta = _prox_steps_(w.clone(), w, batch, layout, loss_fn, inner_lr,
                          lam, inner_steps, mode)
-    return new_x, theta.view(m, n, -1)
+    return new_x, theta.view(_lead(x) + (m, n, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -190,13 +223,15 @@ def ditto_round(x, v, data, layout: Layout, *, loss_fn: Callable,
                 mode=None):
     """Returns (new x (S,), new v (M, N, S)). x: FedAvg's SGD steps from
     x, then the mean; v: the personal models, ``local_steps`` prox steps
-    anchored on the round's incoming x (one anchor row)."""
-    batch = _stacked(data, m * n)
+    anchored on the round's incoming x (one anchor row a config)."""
+    lead = _lead(x)
+    batch = _stacked(data, lead)
     theta = _sgd_steps_(_bcast(x, m * n), batch, layout, loss_fn, lr,
                         local_steps)
-    new_v = _prox_steps_(v.reshape(m * n, -1).clone(), x[None], batch,
-                         layout, loss_fn, lr, lam, local_steps, mode)
-    return theta.mean(dim=0), new_v.view(m, n, -1)
+    new_v = _prox_steps_(v.reshape(lead + (m * n, -1)).clone(),
+                         x.unsqueeze(-2), batch, layout, loss_fn, lr, lam,
+                         local_steps, mode)
+    return theta.mean(dim=-2), new_v.view(lead + (m, n, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -209,13 +244,14 @@ def hsgd_round(x, data, layout: Layout, *, loss_fn: Callable, lr: float,
     takes ``l_local`` SGD steps, each team averages its devices; the new x
     is the mean over teams. ``mode`` is accepted for a uniform
     signature."""
-    batch = _stacked(data, m * n)
+    lead = _lead(x)
+    batch = _stacked(data, lead)
     w = _bcast(x, m)
     for _ in range(k_team):
-        theta = _sgd_steps_(w.repeat_interleave(n, dim=0), batch, layout,
+        theta = _sgd_steps_(w.repeat_interleave(n, dim=-2), batch, layout,
                             loss_fn, lr, l_local)
-        w = theta.view(m, n, -1).mean(dim=1)
-    return w.mean(dim=0)
+        w = theta.view(lead + (m, n, -1)).mean(dim=-2)
+    return w.mean(dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -231,15 +267,20 @@ def l2gd_round(x, theta, data, layout: Layout, *, loss_fn: Callable,
     rows), then pulls every device by ``lr * lam_g`` times its team mean
     (recomputed) minus x, which stays fixed for the round.
     Returns (new x (S,), new theta (M, N, S))."""
-    batch = _stacked(data, m * n)
-    th = theta.reshape(m * n, -1).clone()
+    lead = _lead(x)
+    batch = _stacked(data, lead)
+    th = theta.reshape(lead + (m * n, -1)).clone()
+    teams = lead + (m, n, -1)
+    pull = coef(lr * lam_g, th.view(teams))
+    x_rows = x[..., None, None, :]
     for _ in range(k_team):
-        cluster = th.view(m, n, -1).mean(dim=1)
+        cluster = th.view(teams).mean(dim=-2)
         th = _prox_steps_(th, cluster, batch, layout, loss_fn, lr, lam_c,
                           l_local, mode)
-        cl = th.view(m, n, -1).mean(dim=1, keepdim=True)
-        th = (th.view(m, n, -1) - lr * lam_g * (cl - x)).reshape(m * n, -1)
-    return th.mean(dim=0), th.view(m, n, -1)
+        cl = th.view(teams).mean(dim=-2, keepdim=True)
+        th = (th.view(teams) - pull * (cl - x_rows)).reshape(
+            lead + (m * n, -1))
+    return th.mean(dim=-2), th.view(teams)
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +300,8 @@ class _Global(FLAlgorithmBase):
     @torch.no_grad()
     def eval(self, state, train_data, val_data, metric_fn):
         """{"gm": mean accuracy of x over all devices}."""
-        return {"gm": float(eval_global(state.x, state.layout, val_data,
-                                        metric_fn))}
+        return {"gm": metric_values(eval_global(state.x, state.layout,
+                                                val_data, metric_fn))}
 
     def serving_params(self, state, team=None, device=None):
         """x to every principal."""
@@ -278,10 +319,10 @@ class _Personal(FLAlgorithmBase):
     @torch.no_grad()
     def eval(self, state, train_data, val_data, metric_fn):
         """PM (the personal tier) and GM (x) mean accuracy."""
-        return {"pm": float(eval_personal(state.personal, state.layout,
-                                          val_data, metric_fn)),
-                "gm": float(eval_global(state.x, state.layout, val_data,
-                                        metric_fn))}
+        return {"pm": metric_values(eval_personal(
+                    state.personal, state.layout, val_data, metric_fn)),
+                "gm": metric_values(eval_global(
+                    state.x, state.layout, val_data, metric_fn))}
 
     def serving_params(self, state, team=None, device=None):
         """Device (t, d) gets its personal row; team and global requests
@@ -303,7 +344,7 @@ class FedAvg(_Global):
 
     def round(self, state, data, *, team_mask, device_mask, mode=None):
         """One round; the masks are ignored."""
-        m, n = device_mask.shape
+        m, n = device_mask.shape[-2:]
         x = fedavg_round(state.x, data, state.layout, loss_fn=self.loss_fn,
                          lr=self.lr, local_steps=self.local_steps, m=m, n=n)
         return BaselineState(x, state.layout, None, state.round + 1)
@@ -323,7 +364,7 @@ class PerFedAvg(_Global):
 
     def round(self, state, data, *, team_mask, device_mask, mode=None):
         """One round of meta-gradient steps; the masks are ignored."""
-        m, n = device_mask.shape
+        m, n = device_mask.shape[-2:]
         x = perfedavg_round(state.x, data, state.layout,
                             loss_fn=self.loss_fn, lr=self.lr,
                             inner_lr=self.inner_lr,
@@ -333,15 +374,16 @@ class PerFedAvg(_Global):
     def eval(self, state, train_data, val_data, metric_fn):
         """PM and GM mean accuracy. Not under ``torch.no_grad``: the PM is
         a gradient step on the train data."""
-        m, n = next(iter(train_data.values())).shape[:2]
+        nl = state.x.dim() - 1
+        m, n = next(iter(train_data.values())).shape[nl:nl + 2]
         theta = perfedavg_personalize(state.x, train_data, state.layout,
                                       loss_fn=self.loss_fn,
                                       inner_lr=self.inner_lr, m=m, n=n)
         with torch.no_grad():
-            return {"pm": float(eval_personal(theta, state.layout, val_data,
-                                              metric_fn)),
-                    "gm": float(eval_global(state.x, state.layout, val_data,
-                                            metric_fn))}
+            return {"pm": metric_values(eval_personal(
+                        theta, state.layout, val_data, metric_fn)),
+                    "gm": metric_values(eval_global(
+                        state.x, state.layout, val_data, metric_fn))}
 
 
 @dataclass(frozen=True)
@@ -360,7 +402,7 @@ class PFedMe(_Personal):
     def round(self, state, data, *, team_mask, device_mask, mode=None):
         """One round: ``local_rounds * inner_steps + inner_steps`` prox
         kernel launches; the masks are ignored."""
-        m, n = device_mask.shape
+        m, n = device_mask.shape[-2:]
         x, theta = pfedme_round(
             state.x, data, state.layout, loss_fn=self.loss_fn, lr=self.lr,
             inner_lr=self.inner_lr, lam=self.lam,
@@ -383,7 +425,7 @@ class Ditto(_Personal):
     def round(self, state, data, *, team_mask, device_mask, mode=None):
         """One round: ``local_steps`` prox kernel launches (v); the masks
         are ignored."""
-        m, n = device_mask.shape
+        m, n = device_mask.shape[-2:]
         x, v = ditto_round(state.x, state.personal, data, state.layout,
                            loss_fn=self.loss_fn, lr=self.lr, lam=self.lam,
                            local_steps=self.local_steps, m=m, n=n,
@@ -403,7 +445,7 @@ class HSGD(_Global):
 
     def round(self, state, data, *, team_mask, device_mask, mode=None):
         """One round; the masks are ignored."""
-        m, n = device_mask.shape
+        m, n = device_mask.shape[-2:]
         x = hsgd_round(state.x, data, state.layout, loss_fn=self.loss_fn,
                        lr=self.lr, k_team=self.k_team, l_local=self.l_local,
                        m=m, n=n)
@@ -425,7 +467,7 @@ class L2GD(_Personal):
     def round(self, state, data, *, team_mask, device_mask, mode=None):
         """One round: ``k_team * l_local`` prox kernel launches; the masks
         are ignored."""
-        m, n = device_mask.shape
+        m, n = device_mask.shape[-2:]
         x, theta = l2gd_round(
             state.x, state.personal, data, state.layout,
             loss_fn=self.loss_fn, lr=self.lr, lam_c=self.lam_c,

@@ -37,7 +37,8 @@ def _library():
     fn = lib.prox_update
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int64] * 7 + [ctypes.c_float] * 4
+                       + [ctypes.c_int64] * 7 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int64] + [ctypes.c_float] * 4
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -46,11 +47,14 @@ def _library():
 def _launch(out, theta, grad, anchor, m_out, mom, *, alpha, lam, momentum,
             weight_decay):
     """Launch the kernel on 2-D CUDA operands whose columns are unit
-    stride; ``out``/``m_out`` may be ``theta``/``mom`` themselves."""
+    stride; ``out``/``m_out`` may be ``theta``/``mom`` themselves.
+    ``alpha`` / ``lam``: floats (passed by value) or (G,) float32 tensors
+    on the card (read by the kernel, row r from entry r // (rows // G))."""
     rows, cols = theta.shape
     use_mom = momentum > 0.0
     moms = (m_out, mom) if use_mom else ()
     vec = vec_aligned(out, theta, grad, anchor, *moms)
+    per_group = isinstance(alpha, torch.Tensor)
     fn = _library()
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     count_launch(_NAME)
@@ -60,11 +64,38 @@ def _launch(out, theta, grad, anchor, m_out, mom, *, alpha, lam, momentum,
              mom.data_ptr() if use_mom else None,
              rows, cols, theta.stride(0), grad.stride(0), anchor.stride(0),
              mom.stride(0) if use_mom else 0, rows // anchor.shape[0],
-             float(alpha), float(lam), float(momentum), float(weight_decay),
-             int(vec), stream)
+             alpha.data_ptr() if per_group else None,
+             lam.data_ptr() if per_group else None,
+             rows // alpha.shape[0] if per_group else 0,
+             0.0 if per_group else float(alpha),
+             0.0 if per_group else float(lam), float(momentum),
+             float(weight_decay), int(vec), stream)
     if err:
         raise RuntimeError(f"prox_update kernel launch failed: CUDA error "
                            f"{err} (rows={rows}, cols={cols})")
+
+
+def _check_groups(alpha, lam, rows, anchor_rows, device):
+    """Both floats, or both contiguous (G,) float32 tensors on ``device``
+    with G dividing the anchor rows (so each anchor row, and each row,
+    lies in one group)."""
+    tensors = [isinstance(v, torch.Tensor) for v in (alpha, lam)]
+    if not any(tensors):
+        return
+    if not all(tensors):
+        raise TypeError("alpha and lam must both be floats or both tensors")
+    if alpha.shape != lam.shape or alpha.dim() != 1:
+        raise ValueError(f"per-group alpha {tuple(alpha.shape)} and lam "
+                         f"{tuple(lam.shape)} must be (G,)")
+    for name, v in (("alpha", alpha), ("lam", lam)):
+        if v.dtype != torch.float32 or v.device != device or \
+                not v.is_contiguous():
+            raise ValueError(f"per-group {name} must be a contiguous "
+                             f"float32 tensor on {device}")
+    g = alpha.shape[0]
+    if g < 1 or anchor_rows % g or rows % g:
+        raise ValueError(f"{g} hyperparameter groups do not tile {rows} "
+                         f"rows and {anchor_rows} anchor rows")
 
 
 def _check(theta, grad, anchor, mom, momentum):
@@ -91,10 +122,12 @@ def _check(theta, grad, anchor, mom, momentum):
 
 def prox_sgd(theta, grad, anchor, mom_buf=None, *, alpha, lam,
              momentum=0.0, weight_decay=0.0, mode=None):
-    """One tensor of any shape; theta/grad/anchor share shape and dtype.
+    """One tensor of any shape; theta/grad/anchor share shape and dtype;
+    alpha, lam: floats (per-group values are :func:`prox_step_`'s).
     Returns new (theta, mom) and leaves the inputs as they are; with
     ``momentum == 0`` the returned buffer is ``mom_buf`` itself (zeros if
     None). On CUDA the operands must be contiguous."""
+    alpha, lam = float(alpha), float(lam)
     if mom_buf is None:
         mom_buf = torch.zeros(theta.shape, dtype=torch.float32,
                               device=theta.device)
@@ -128,7 +161,9 @@ def prox_step_(theta, grad, anchor, mom=None, *, alpha, lam, momentum=0.0,
     theta, grad: (rows, cols); anchor: (anchor_rows, cols) with
     ``rows % anchor_rows == 0``, device row r anchored to anchor row
     ``r // (rows // anchor_rows)`` -- the team tier w (M, P) for the
-    device tier theta (M*N, P). mom: (rows, cols) float32, needed when
+    device tier theta (M*N, P). alpha, lam: floats, or (G,) float32
+    tensors on theta's device with G dividing ``anchor_rows``, row r
+    taking entry ``r // (rows // G)``. mom: (rows, cols) float32, needed when
     ``momentum > 0``. Rows may be strided (a padded row length); columns
     must be unit stride.
 
@@ -145,23 +180,25 @@ def prox_step_(theta, grad, anchor, mom=None, *, alpha, lam, momentum=0.0,
             or rows % anchor.shape[0]:
         raise ValueError(f"anchor {tuple(anchor.shape)} does not tile "
                          f"theta {tuple(theta.shape)} by rows")
+    _check_groups(alpha, lam, rows, anchor.shape[0], theta.device)
     ops = (theta, grad, anchor) + ((mom,) if momentum > 0.0 else ())
     if any(t.stride(1) != 1 for t in ops):
         raise ValueError("prox_step_ needs unit-stride columns")
     if kernel_mode(theta, mode) is KernelType.TORCH:
         q = rows // anchor.shape[0]
+        # per-group values, one per anchor row
+        a, lm = ((v.repeat_interleave(anchor.shape[0] // v.shape[0])
+                  if isinstance(v, torch.Tensor) else v)
+                 for v in (alpha, lam))
         new, mb = prox_sgd_ref(
             theta.unflatten(0, (-1, q)), grad.unflatten(0, (-1, q)),
-            anchor[:, None], alpha=alpha, lam=lam, momentum=momentum,
+            anchor[:, None], alpha=a, lam=lm, momentum=momentum,
             mom_buf=None if mom is None else mom.unflatten(0, (-1, q)),
             weight_decay=weight_decay)
         theta.copy_(new.flatten(0, 1))
         if momentum > 0.0:
             mom.copy_(mb.flatten(0, 1))
         return theta, mom
-    if rows > 65535:
-        raise ValueError(f"prox_step_ kernel takes at most 65535 rows, "
-                         f"got {rows}")
     if rows and cols:
         _launch(theta, theta, grad, anchor, mom, mom, alpha=alpha, lam=lam,
                 momentum=momentum, weight_decay=weight_decay)

@@ -1,12 +1,13 @@
 """Scenario registry and runner of the port: PerMFL and the six Table-1
-baselines on 91 of the reference's 95 cells (all but ``cohort/*``)."""
+baselines on 91 of the reference's 95 cells (all but ``cohort/*``), run
+one at a time or swept over a grid and seeds."""
 from repro_torch.scenarios.registry import (SCENARIOS, families,
                                             get_scenario, register)
 from repro_torch.scenarios.runner import (ScenarioBuild, build_scenario,
-                                          run_scenario)
+                                          run_scenario, sweep_scenario)
 from repro_torch.scenarios.spec import (AlgoSpec, DataSpec, FLScenario,
                                         ModelSpec)
 
 __all__ = ["AlgoSpec", "DataSpec", "FLScenario", "ModelSpec", "SCENARIOS",
            "ScenarioBuild", "build_scenario", "families", "get_scenario",
-           "register", "run_scenario"]
+           "register", "run_scenario", "sweep_scenario"]

@@ -1,8 +1,9 @@
-"""Scenario execution: build a scenario and run it through the engine."""
+"""Scenario execution: build a scenario and run it through the engine,
+or sweep a grid of its hyperparameters and seeds (``train.sweep``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -12,8 +13,10 @@ from repro_torch.scenarios.registry import get_scenario
 from repro_torch.scenarios.spec import (FLScenario, fns_for, init_model,
                                         to_torch)
 from repro_torch.train.engine import FLResult, run_experiment
+from repro_torch.train.sweep import FLSweepResult, run_sweep
 
-__all__ = ["ScenarioBuild", "build_scenario", "run_scenario"]
+__all__ = ["ScenarioBuild", "build_scenario", "run_scenario",
+           "sweep_scenario"]
 
 
 @dataclass
@@ -86,3 +89,30 @@ def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
         eval_every=eval_every, masks=masks, uniforms=uniforms,
         device=b.device)
 
+
+
+def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
+                   rounds: Optional[int] = None, eval_every: int = 1,
+                   device=DEFAULT_DEVICE) -> FLSweepResult:
+    """Run a hyperparameter grid x seeds over one scenario as one stacked
+    run (``train.sweep.run_sweep``) on ``device`` (default the card;
+    raises without one).
+
+    grid: list of {hparam: value} overrides on the scenario algorithm's
+        sweepable floats (or a {name: [values...]} product dict); ``[{}]``
+        for a seeds-only sweep.
+    seeds: each seed gets its own model init (the tables' multi-seed
+        protocol) and participation sampling; the shared data comes from
+        the spec's ``data_seed``.
+    """
+    s = get_scenario(name_or_spec)
+    if isinstance(seeds, int):
+        seeds = (seeds,)
+    seeds = tuple(int(x) for x in seeds)
+    b = build_scenario(s, seeds[0] if seeds else 0, device=device)
+    return run_sweep(
+        b.algo, grid, seeds, lambda sd: init_model(b.config, sd), b.train,
+        b.val, metric_fn=b.metric_fn,
+        rounds=s.rounds if rounds is None else rounds, m=b.m, n=b.n,
+        team_frac=s.team_frac, device_frac=s.device_frac,
+        eval_every=eval_every, device=b.device)

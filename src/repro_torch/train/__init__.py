@@ -1,1 +1,8 @@
-"""Experiment runners of the port: the round-loop engine and run_permfl."""
+"""Experiment runners of the port: the round-loop engine, run_permfl and
+the other trainers, the stacked sweep, and checkpoints."""
+from repro_torch.train import checkpoint, engine, fl_trainer, sweep
+from repro_torch.train.engine import FLResult, run_experiment
+from repro_torch.train.sweep import FLSweepResult, grid_product, run_sweep
+
+__all__ = ["checkpoint", "engine", "fl_trainer", "sweep", "FLResult",
+           "run_experiment", "FLSweepResult", "grid_product", "run_sweep"]

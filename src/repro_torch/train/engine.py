@@ -19,8 +19,10 @@ Sampled participation draws from a ``torch.Generator`` seeded with
 parity run injects the reference's masks through ``masks=``, and the
 reference's compressor uniforms through ``uniforms=``.
 
-Cohort sampling, the system simulator and run telemetry are not ported
-yet (ROADMAP.md queue 1).
+The host loop over rounds (:func:`drive`) is shared with
+``repro_torch.train.sweep``, which runs C configurations through it at
+once on a stacked state. Cohort sampling, the system simulator and run
+telemetry are not ported yet (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -35,8 +37,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.participation import sample_masks
 from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
 
-__all__ = ["FLResult", "check_participation", "eval_points",
-           "run_experiment"]
+__all__ = ["FLResult", "bill_comm", "check_participation", "drive",
+           "eval_points", "hparam_skeleton", "mask_source", "run_experiment"]
 
 
 @dataclass
@@ -67,6 +69,12 @@ class FLResult:
         hist = {"pm": self.pm_acc, "tm": self.tm_acc, "gm": self.gm_acc}[which]
         return hist[-1] if hist else float("nan")
 
+    def best(self, which="pm"):
+        """Best eval value of metric `which` over the whole run; NaN if the
+        algorithm never reported it."""
+        hist = {"pm": self.pm_acc, "tm": self.tm_acc, "gm": self.gm_acc}[which]
+        return max(hist) if hist else float("nan")
+
 
 _METRIC_FIELDS = {"pm": "pm_acc", "tm": "tm_acc", "gm": "gm_acc",
                   "train_loss": "train_loss"}
@@ -89,6 +97,15 @@ def check_participation(algo, team_frac: float, device_frac: float):
             "masks that never gate anything")
 
 
+def hparam_skeleton(algo):
+    """``(skeleton, leaves)``: the instance with every sweepable float
+    zeroed (what all hyperparameter values share) and its float leaves
+    by name (``algo.tree_hparams()``). A sweep rebuilds the skeleton with
+    its per-config values."""
+    leaves, rebuild = algo.tree_hparams()
+    return rebuild({k: 0.0 for k in leaves}), leaves
+
+
 def _mask(a) -> torch.Tensor:
     """A participation mask as a new float32 CPU tensor."""
     if isinstance(a, torch.Tensor):
@@ -96,8 +113,72 @@ def _mask(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
 
 
+def mask_source(m: int, n: int, *, team_frac: float, device_frac: float,
+                seed: int, masks: Optional[Callable] = None) -> Callable:
+    """One run's participation, round t -> (team_mask, device_mask): the
+    injected ``masks``; else, for partial participation, draws from a
+    ``torch.Generator`` seeded with ``seed`` (call it once a round, in
+    order); else all ones."""
+    if masks is not None:
+        return masks
+    if team_frac < 1.0 or device_frac < 1.0:
+        gen = torch.Generator().manual_seed(seed)
+        return lambda t: sample_masks(gen, m, n, team_frac=team_frac,
+                                      device_frac=device_frac)
+    return lambda t: (torch.ones(m), torch.ones(m, n))
+
+
 def _to_device(data, device):
     return {k: torch.as_tensor(v).to(device) for k, v in data.items()}
+
+
+def drive(algo, state, train, val, *, metric_fn, rounds: int,
+          eval_every: int, draw_masks: Callable, results: list,
+          stacked: bool, device: torch.device, round_kw: dict):
+    """The host loop over rounds, shared by ``run_experiment`` and the
+    sweep (``repro_torch.train.sweep``).
+
+    state: one run's state, or (``stacked``) a sweep's, whose configs
+        lead every tier, and ``train`` / ``val`` with them.
+    draw_masks(t): one (team_mask, device_mask) pair per config for round
+        t (0-based); a stacked round takes them stacked.
+    results: one FLResult per config: each round's realized (team-gated)
+        participation and each eval's metrics are appended to its own.
+    round_kw: extra keywords of ``algo.round`` (``uniforms``, ``mode``).
+    Returns (final state, host-clock seconds of each round, eval
+    included, to a synchronized device).
+    """
+    evals = set(eval_points(rounds, eval_every))
+    seconds = []
+    for t in range(rounds):
+        t0 = time.perf_counter()
+        pairs = [(_mask(tm), _mask(dm)) for tm, dm in draw_masks(t)]
+        for res, (tm, dm) in zip(results, pairs):
+            gated = dm * tm[:, None]
+            res.participation.append((int(tm.sum()), int(gated.sum())))
+        if stacked:
+            tm, dm = (torch.stack(ms) for ms in zip(*pairs))
+        else:
+            (tm, dm), = pairs
+        state = algo.round(state, train, team_mask=tm.to(device),
+                           device_mask=dm.to(device), **round_kw)
+        if t + 1 in evals:
+            for k, v in algo.eval(state, train, val, metric_fn).items():
+                for res, x in zip(results, v if stacked else [v]):
+                    getattr(res, _METRIC_FIELDS[k]).append(float(x))
+        synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+    return state, seconds
+
+
+def bill_comm(algo, params, res: FLResult) -> None:
+    """``res.comm``: the byte ledger of ``res``'s realized participation,
+    for an algorithm that moves compressed bytes (else left None)."""
+    ledger = algo.make_ledger(params)
+    if ledger is not None:
+        for n_teams, n_devices in res.participation:
+            algo.log_comm_round(ledger, n_teams=n_teams, n_devices=n_devices)
+        res.comm = ledger
 
 
 def run_experiment(algo, params0, train_data, val_data, *,
@@ -134,39 +215,16 @@ def run_experiment(algo, params0, train_data, val_data, *,
     params0 = params_from_numpy(params0, dev)
     train, val = _to_device(train_data, dev), _to_device(val_data, dev)
 
-    sampled = team_frac < 1.0 or device_frac < 1.0
-    gen = torch.Generator().manual_seed(seed) \
-        if sampled and masks is None else None
+    src = mask_source(m, n, team_frac=team_frac, device_frac=device_frac,
+                      seed=seed, masks=masks)
     res = FLResult(rounds=rounds, eval_every=eval_every, device=str(dev))
-    evals = set(eval_points(rounds, eval_every))
-    state = algo.init_state(params0, m, n)
-    ledger = algo.make_ledger(params0)
-    extra = {} if uniforms is None else {"uniforms": uniforms}
-    for t in range(rounds):
-        t0 = time.perf_counter()
-        if masks is not None:
-            tm, dm = masks(t)
-        elif sampled:
-            tm, dm = sample_masks(gen, m, n, team_frac=team_frac,
-                                  device_frac=device_frac)
-        else:
-            tm, dm = torch.ones(m), torch.ones(m, n)
-        tm, dm = _mask(tm), _mask(dm)
-        gated = dm * tm[:, None]
-        res.participation.append((int(tm.sum()), int(gated.sum())))
-        state = algo.round(state, train, team_mask=tm.to(dev),
-                           device_mask=dm.to(dev), **extra)
-        if t + 1 in evals:
-            metrics = algo.eval(state, train, val, metric_fn)
-            for k, v in metrics.items():
-                getattr(res, _METRIC_FIELDS[k]).append(float(v))
-        synchronize(dev)
-        res.round_seconds.append(time.perf_counter() - t0)
+    state, res.round_seconds = drive(
+        algo, algo.init_state(params0, m, n), train, val,
+        metric_fn=metric_fn, rounds=rounds, eval_every=eval_every,
+        draw_masks=lambda t: [src(t)], results=[res], stacked=False,
+        device=dev,
+        round_kw={} if uniforms is None else {"uniforms": uniforms})
     res.seconds = sum(res.round_seconds)
     res.state = state
-    if ledger is not None:
-        for n_teams, n_devices in res.participation:
-            algo.log_comm_round(ledger, n_teams=n_teams, n_devices=n_devices)
-        res.comm = ledger
+    bill_comm(algo, params0, res)
     return res
-

@@ -1,0 +1,298 @@
+"""Hyperparameter and seed sweeps: a whole grid as one stacked run.
+
+The paper's results are sweeps: Fig 3 varies beta / gamma / lambda, the
+tables average over seeds. Looped, each configuration pays every round's
+launches again: a CNN round is ~105 launches a device step, whatever
+the work in them. This module runs ``len(grid) * len(seeds)``
+configurations of one algorithm at once, so that each round launches
+each kernel once for all of them:
+
+    the algorithm rebuilt with C values per float hyperparameter
+        (``tree_hparams``: float64 arrays, one value per config);
+    one init state per seed, stacked on a leading config axis (C, ...);
+    the data expanded over C once (the models' batched products take
+        one data row per model, so this is one copy per sweep);
+    the engine's round loop (``train.engine.drive``) on the stacked
+        state: per-config participation masks (each config's own
+        generator, seeded with its seed, or injected), one round, one
+        eval -- the same round body as a single run;
+    one FLResult per config, with its own byte ledger from its realized
+        participation.
+
+Configurations never interact, and each config's coefficients are cast
+to float32 from the float64 expression its single run evaluates
+(``core.permfl.coef``), so config i follows ``run_experiment`` of the
+same hyperparameters and seed (``tests/test_torch_sweep.py`` pins it).
+The reference compiles the grid into one vmapped program
+(``src/repro/train/sweep.py``); PyTorch runs eagerly, so here the stacked
+round is the batching. The sweep mesh, the system simulator, run
+telemetry and the cohort engine are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.comm.config import copy_generator
+from repro_torch.convert import params_from_numpy
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.train.engine import (FLResult, _to_device, bill_comm,
+                                      check_participation, drive,
+                                      hparam_skeleton, mask_source)
+
+__all__ = ["FLSweepResult", "grid_product", "run_multi_sweep", "run_sweep",
+           "stack_states"]
+
+
+def grid_product(**axes) -> list:
+    """Cartesian product of named value lists as a list of config dicts.
+
+    ``grid_product(beta=[0.1, 0.5], lam=[1.0])`` ->
+    ``[{"beta": 0.1, "lam": 1.0}, {"beta": 0.5, "lam": 1.0}]``.
+    """
+    names = list(axes)
+    return [dict(zip(names, vals))
+            for vals in itertools.product(*axes.values())]
+
+
+@dataclass
+class FLSweepResult:
+    """One stacked sweep: C = len(grid) * len(seeds) configurations.
+
+    configs: per-config dicts -- every sweepable hyperparameter and the
+        config's ``seed`` -- in grid-major order (all seeds of grid[0],
+        then grid[1], ...).
+    results: one FLResult per config (histories, participation, final
+        state slice, byte ledger). Its ``seconds`` and ``round_seconds``
+        are the sweep's divided by C.
+    state_stacked: the final state with the leading (C,) config axis.
+    seconds / round_seconds: host clock of the whole sweep, each round
+        (eval included) to a synchronized device.
+
+    The reference's ``dispatches`` and its compile / run split have no
+    meaning in an eager run and are left out.
+    """
+    configs: list = field(default_factory=list)
+    results: list = field(default_factory=list)
+    state_stacked: Any = None
+    seconds: float = 0.0
+    round_seconds: list = field(default_factory=list)
+
+    def __len__(self):
+        return len(self.results)
+
+    def __getitem__(self, i) -> FLResult:
+        return self.results[i]
+
+    def __iter__(self):
+        return iter(self.results)
+
+    def best(self, which="pm") -> list:
+        """Per-config best metric (see FLResult.best)."""
+        return [r.best(which) for r in self.results]
+
+    def final(self, which="pm") -> list:
+        """Per-config final-eval metric."""
+        return [r.last(which) for r in self.results]
+
+
+def stack_states(states: Sequence):
+    """Single-run states of one algorithm -> one state with a leading
+    config axis: tensors stacked, generators copied into a tuple, nested
+    state dataclasses stacked field by field; other fields (layout,
+    round) must agree and are kept."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(states))
+    if isinstance(first, torch.Generator):
+        return tuple(copy_generator(g) for g in states)
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return dataclasses.replace(first, **{
+            f.name: stack_states([getattr(s, f.name) for s in states])
+            for f in dataclasses.fields(first)})
+    if any(s != first for s in states[1:]):
+        raise ValueError(f"states differ in a field that does not stack: "
+                         f"{first!r}")
+    return first
+
+
+def _config_state(state, i: int):
+    """Config ``i``'s single-run state out of a stacked one (tensors are
+    views of the stacked buffers)."""
+    if isinstance(state, torch.Tensor):
+        return state[i]
+    if isinstance(state, tuple) and state and \
+            isinstance(state[0], torch.Generator):
+        return state[i]
+    if dataclasses.is_dataclass(state) and not isinstance(state, type):
+        return dataclasses.replace(state, **{
+            f.name: _config_state(getattr(state, f.name), i)
+            for f in dataclasses.fields(state)})
+    return state
+
+
+@dataclass
+class _Prepared:
+    """One sweep's validated, stacked operands."""
+    algo: Any              # rebuilt with C values per float hyperparameter
+    state: Any             # stacked init states
+    configs: list
+    seeds: tuple           # each config's seed
+    ledger_params: Any
+
+
+def _prepare(algo, grid, seeds, params0, m, n, team_frac, device_frac,
+             dev) -> _Prepared:
+    """Validate one sweep and stack its operands."""
+    if isinstance(grid, dict):
+        grid = grid_product(**grid)
+    grid = [dict(g) for g in grid]
+    if not grid:
+        raise ValueError("empty grid: pass [{}] for a seeds-only sweep")
+    if isinstance(seeds, int):
+        seeds = (seeds,)
+    seeds = tuple(int(s) for s in seeds)
+    if not seeds:
+        raise ValueError("empty seeds: pass at least one seed")
+    check_participation(algo, team_frac, device_frac)
+
+    leaves0, _ = algo.tree_hparams()
+    for g in grid:
+        unknown = set(g) - set(leaves0)
+        if unknown:
+            raise ValueError(
+                f"unknown sweepable hyperparameter(s) {sorted(unknown)}; "
+                f"{type(algo).__name__} sweeps over {sorted(leaves0)}")
+
+    combos = [(g, s) for g in grid for s in seeds]
+    configs = [dict(leaves0, **g, seed=s) for g, s in combos]
+    values = {k: np.asarray([float(dict(leaves0, **g)[k])
+                             for g, _ in combos], np.float64)
+              for k in leaves0}
+    skel, _ = hparam_skeleton(algo)
+    stacked_algo = skel.tree_hparams()[1](values)
+
+    # one init per seed, however many grid points share it
+    if callable(params0):
+        p_by_seed = {s: params_from_numpy(params0(s), dev) for s in seeds}
+    else:
+        shared = params_from_numpy(params0, dev)
+        p_by_seed = {s: shared for s in seeds}
+    st_by_seed = {s: algo.init_state(p_by_seed[s], m, n) for s in seeds}
+    return _Prepared(
+        algo=stacked_algo,
+        state=stack_states([st_by_seed[s] for _, s in combos]),
+        configs=configs, seeds=tuple(s for _, s in combos),
+        ledger_params=p_by_seed[seeds[0]])
+
+
+def _per_config(hook, name, c):
+    """An injection hook given per config: None, or a sequence of C."""
+    if hook is None:
+        return None
+    hook = list(hook)
+    if len(hook) != c:
+        raise ValueError(f"{name}: {len(hook)} sources for {c} configs")
+    return hook
+
+
+def _expand(data, c, dev):
+    """Data leading (M, N, ...) as (C, M, N, ...) on ``dev``, one copy."""
+    return {k: v.expand((c,) + tuple(v.shape)).contiguous()
+            for k, v in _to_device(data, dev).items()}
+
+
+def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
+              metric_fn: Callable, rounds: int, m: int, n: int,
+              team_frac: float = 1.0, device_frac: float = 1.0,
+              eval_every: int = 1, masks: Optional[Sequence] = None,
+              uniforms: Optional[Sequence] = None, mode=None,
+              device=DEFAULT_DEVICE, mesh=None, system=None, trace=None,
+              trace_dir=None, cohort=None) -> FLSweepResult:
+    """Run ``len(grid) * len(seeds)`` experiments of ``algo`` as one
+    stacked run on ``device`` (default the card; raises without one).
+
+    algo: the template FLAlgorithm -- its float hyperparameters
+        (``algo.tree_hparams()``) are the sweepable names; loop bounds,
+        the loss and ``comm`` are shared by every configuration.
+    grid: list of {hparam: value} overrides, one per grid point (unset
+        names keep the template's value), or a {name: [values...]} dict
+        taken as the full cartesian product.
+    seeds: int or sequence of ints; every grid point runs once per seed.
+        The seed seeds the config's participation sampling exactly as
+        ``run_experiment(seed=...)`` does.
+    params0: one model shared by all configs (a nested dict of tensors or
+        numpy arrays), or a callable ``seed -> params`` (one init per
+        seed).
+    masks: optional sequence of C ``masks(t)`` hooks, one per config, as
+        ``run_experiment`` takes one; uniforms: likewise C ``uniforms(t,
+        k, b)`` sources of the compressors' uniforms.
+    mode: kernel mode of the rounds (None: by device; "torch": the plain
+        versions, for comparisons on the card).
+    mesh, system, trace, trace_dir, cohort: not ported yet (raise).
+    Remaining arguments match ``run_experiment``.
+    """
+    for name, val in (("mesh", mesh), ("system", system), ("trace", trace),
+                      ("trace_dir", trace_dir), ("cohort", cohort)):
+        if val is not None:
+            raise NotImplementedError(
+                f"run_sweep({name}=...) is not ported yet (ROADMAP.md "
+                "queue 1; the sweep mesh is item 14)")
+    if eval_every < 1:
+        raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    dev = resolve_device(device)
+    prep = _prepare(algo, grid, seeds, params0, m, n, team_frac,
+                    device_frac, dev)
+    c = len(prep.configs)
+    masks = _per_config(masks, "masks", c)
+    uniforms = _per_config(uniforms, "uniforms", c)
+    srcs = [mask_source(m, n, team_frac=team_frac, device_frac=device_frac,
+                        seed=s, masks=None if masks is None else masks[i])
+            for i, s in enumerate(prep.seeds)]
+    results = [FLResult(rounds=rounds, eval_every=eval_every,
+                        device=str(dev)) for _ in prep.configs]
+    round_kw = {} if mode is None else {"mode": mode}
+    if uniforms is not None:
+        round_kw["uniforms"] = uniforms
+    state, seconds = drive(
+        prep.algo, prep.state, _expand(train_data, c, dev),
+        _expand(val_data, c, dev), metric_fn=metric_fn, rounds=rounds,
+        eval_every=eval_every, draw_masks=lambda t: [src(t) for src in srcs],
+        results=results, stacked=True, device=dev, round_kw=round_kw)
+    for i, res in enumerate(results):
+        res.round_seconds = [x / c for x in seconds]
+        res.seconds = sum(seconds) / c
+        res.state = _config_state(state, i)
+        bill_comm(algo, prep.ledger_params, res)
+    return FLSweepResult(configs=prep.configs, results=results,
+                         state_stacked=state, seconds=sum(seconds),
+                         round_seconds=seconds)
+
+
+def run_multi_sweep(variants, train_data, val_data, *,
+                    metric_fn: Callable, rounds: int, m: int, n: int,
+                    eval_every: int = 1, device=DEFAULT_DEVICE) -> list:
+    """Several sweeps whose round differs in structure (another
+    compressor, another algorithm) over one experiment's data.
+
+    variants: dicts with keys ``algo`` and ``params0`` and optional
+        ``grid`` (default ``[{}]``), ``seeds`` (default ``(0,)``),
+        ``team_frac`` / ``device_frac`` (default 1.0); ``system``,
+        ``trace`` and ``cohort`` raise, as in ``run_sweep``.
+
+    Returns one FLSweepResult per variant, in order. The reference fuses
+    the variants into one compiled program; eagerly they run one after
+    another, each a stacked ``run_sweep``.
+    """
+    return [run_sweep(
+        v["algo"], v.get("grid", [{}]), v.get("seeds", (0,)), v["params0"],
+        train_data, val_data, metric_fn=metric_fn, rounds=rounds, m=m, n=n,
+        team_frac=v.get("team_frac", 1.0),
+        device_frac=v.get("device_frac", 1.0), eval_every=eval_every,
+        device=device, system=v.get("system"), trace=v.get("trace"),
+        cohort=v.get("cohort")) for v in variants]

@@ -67,9 +67,11 @@ PUBLIC_MODULES = (
     "repro_torch.serve.personalized",
     "repro_torch.serve.sampler",
     "repro_torch.serve.store",
+    "repro_torch.train",
     "repro_torch.train.checkpoint",
     "repro_torch.train.engine",
     "repro_torch.train.fl_trainer",
+    "repro_torch.train.sweep",
 )
 
 

@@ -131,6 +131,77 @@ def test_round_kernel_path_matches_plain_path(cuda):
                                    rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("case", ["team", "device", "config", "rows"])
+def test_prox_step_per_config_kernel_bit_equal(cuda, case):
+    """The sweep's step: (G,) alpha / lam read by the kernel from device
+    memory, row r taking group r // (rows // G), bit-equal to the plain
+    version; anchors per team (PerMFL, L2GD), per device (pFedMe) and
+    per config (Ditto); and 70,000 rows, past the grid's 65,535, in one
+    launch."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.prox_update import prox_step_
+
+    g, m, n, p, ld = 3, 4, 10, 1000, 1024
+    if case == "rows":
+        g, m, n, p, ld = 7, 1000, 10, 60, 64
+    rows = g * m * n
+    a_rows = {"team": g * m, "device": rows, "config": g,
+              "rows": g * m}[case]
+    rng = np.random.default_rng(3)
+    theta = torch.zeros(rows, ld, device=cuda)
+    theta[:, :p] = _randn(rng, (rows, p), torch.float32, cuda)
+    grad = _randn(rng, (rows, p), torch.float32, cuda)
+    anchor = _randn(rng, (a_rows, p), torch.float32, cuda)
+    alpha = torch.from_numpy(rng.uniform(0.01, 0.5, g).astype(np.float32))
+    lam = torch.from_numpy(rng.uniform(0.1, 2.0, g).astype(np.float32))
+    alpha, lam = alpha.to(cuda), lam.to(cuda)
+    t_k, t_p = theta[:, :p].clone(), theta[:, :p].clone()
+    before = LAUNCHES.get("prox_update", 0)
+    prox_step_(t_k, grad, anchor, alpha=alpha, lam=lam)
+    torch.cuda.synchronize()
+    assert LAUNCHES["prox_update"] == before + 1
+    prox_step_(t_p, grad, anchor, alpha=alpha, lam=lam, mode="torch")
+    assert torch.equal(t_k, t_p)
+    # the by-value path of one group is unchanged
+    r = rows // g
+    one = theta[:r, :p].clone()
+    prox_step_(one, grad[:r], anchor[:a_rows // g], alpha=float(alpha[0]),
+               lam=float(lam[0]))
+    assert torch.equal(one, t_k[:r])
+
+
+@pytest.mark.parametrize("configs", [1, 3])
+def test_swept_round_launches_prox_update_once_a_step(cuda, configs):
+    """One swept PerMFL round of ``configs`` grid points on the card:
+    LAUNCHES["prox_update"] is K*L whatever the number of configs, and
+    each config equals its looped run on the card (f32, within 1e-5:
+    the products of C*M*N models sum in another order than those of
+    M*N)."""
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import build_scenario, get_scenario, \
+        sweep_scenario
+    from repro_torch.scenarios.spec import init_model
+    from repro_torch.train.engine import run_experiment
+
+    s = get_scenario("fig3/mnist/mclr").scaled(
+        m_teams=2, n_devices=3, samples_per_device=16,
+        algo_overrides={"k_team": 2, "l_local": 3})
+    grid = [dict(lam=0.1 * (i + 1)) for i in range(configs)]
+    reset_launches()
+    sw = sweep_scenario(s, grid, (0,), rounds=1, device=cuda)
+    assert LAUNCHES["prox_update"] == 2 * 3
+    b = build_scenario(s, 0, device=cuda)
+    _, rebuild = b.algo.tree_hparams()
+    for res, g in zip(sw, grid):
+        ref = run_experiment(rebuild(g), init_model(b.config, 0), b.train,
+                             b.val, metric_fn=b.metric_fn, rounds=1, m=2,
+                             n=3, device=cuda)
+        for tier in ("x", "w", "theta"):
+            torch.testing.assert_close(getattr(res.state, tier),
+                                       getattr(ref.state, tier), rtol=0,
+                                       atol=1e-5)
+
+
 # the baselines whose steps run the prox kernel: (scenario, loop counts
 # cut for a short test, prox_update launches a round at those counts)
 BASELINE_ROUNDS = {
