@@ -94,7 +94,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      within 1e-4; Fig 3's and the compressed cells' configs their looped
      runs within 1e-4 (the CNN cells' differences, which the batch size's
      summation order seeds and training amplifies, printed); configs per
-     second, swept against looped (host clock).
+     second, swept against looped (host clock). Then
+     ``table1/mnist/mclr/permfl`` swept over three system profiles
+     (lan-campus, wan-cellular, edge-iot): each lane's timeline and
+     trajectory equal to its solo run.
+ 7d. the cohort engine: prox_update at the cohort path's shape (2 x 256
+     rows of the MCLR, P = 610) against its plain version, timed beside
+     its bound; then the four ``cohort/virtual/n{1000,10000,100000,
+     1000000}`` cells at their registered sizes and rounds (2 teams x
+     10^3..10^6 devices, cohorts of 64..256, MCLR, K = L = 2) through
+     ``run_scenario``, each with the counts set to 0 just before and
+     read just after: prox_update exactly 4 a round and no other kernel;
+     every round's index map sorted, distinct and in range; of a fixed
+     sample of 4,096 theta rows, those never sampled bit-unchanged and
+     those sampled moved; metrics finite in [0, 1]; the median round
+     seconds, the synchronized parts (sample, gather, round, scatter,
+     eval), the data's build and copy, the peak memory and the resident
+     bytes. Then ``cohort/virtual/n1000`` at cohort = n bit-equal to its
+     stacked run, and ``cohort/virtual/n10000`` with top-k 10% uplinks:
+     ef_topk exactly K + 1 a round, never-sampled devices' EF residuals
+     zero.
+ 7e. the system simulator: the seven ``comm/mnist/mclr/*`` cells on
+     wan-cellular, 3 rounds (simulated seconds and accuracy at each
+     eval; every lossy uplink priced below uncompressed); one seed run
+     twice (equal timelines); uniform without a deadline (the trajectory
+     bit-equal to the system-free run); ``fig2/fmnist/cnn/permfl`` at
+     full width on edge-iot with a 16 s deadline, 2 rounds: stragglers
+     dropped, and the system-free run fed the thinned masks bit-equal.
   8. LLM kernel check: flash_attention against its plain version at the
      serving path's shapes in bf16 (deepseek-moe-16b prefill (4, 1024,
      16, 128) causal; decode (4, 1, 16, 128) against a 1,040-slot cache
@@ -292,6 +318,25 @@ SWEEP_SEEDS = (0, 1, 2)
 SWEEP_ROUNDS = 2
 SWEEP_COMM_CELLS = ("comm/mnist/mclr/int8", "comm/mnist/mclr/topk_10")
 SWEEP_TOL = 1e-4                   # states and losses: the round tolerance
+# the sweep phase's system case: one cell over three profiles
+SWEEP_SYSTEM_CELL = "table1/mnist/mclr/permfl"
+SWEEP_PROFILES = ("lan-campus", "wan-cellular", "edge-iot")
+# the cohort phase: the four cohort cells at their registered sizes, a
+# fixed sample of theta's rows, and the cell whose CommConfig the
+# compressed cohort run takes
+COHORT_CELLS = tuple(f"cohort/virtual/n{n}" for n in (
+    1_000, 10_000, 100_000, 1_000_000))
+THETA_SAMPLE = 4096
+COHORT_COMM = "comm/mnist/mclr/topk_10"
+# the system phase: the comm cells on one profile; the CNN cell with a
+# deadline (edge-iot's CNN chain, its bytes over thin links: ~16.6 s
+# median, so about half the devices miss 16 s)
+SYSTEM_PROFILE = "wan-cellular"
+SYSTEM_ROUNDS = 3
+DEADLINE_CELL = "fig2/fmnist/cnn/permfl"
+DEADLINE_PROFILE = "edge-iot"
+DEADLINE_S = 16.0
+DEADLINE_ROUNDS = 2
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -1326,8 +1371,10 @@ def expected_launches(spec, rounds, runs):
     out = {"prox_update": runs * rounds * per_round} if per_round else {}
     if spec.comm is not None:
         kernel = (COMPRESS_KERNEL if spec.comm.error_feedback
-                  else PLAIN_KERNEL)[spec.comm.compressor]
-        out[kernel] = runs * rounds * (spec.algo.resolved()["k_team"] + 1)
+                  else PLAIN_KERNEL).get(spec.comm.compressor)
+        if kernel:                        # identity launches no kernel
+            out[kernel] = runs * rounds * (spec.algo.resolved()["k_team"]
+                                           + 1)
     return out
 
 
@@ -1508,6 +1555,7 @@ def phase_sweeps():
         say("sweep", f"{name}: ledger bytes per config "
             f"{sw[0].comm.total_bytes() / 1e6:.3f} MB, equal to each looped "
             f"run's")
+    sweep_profiles_check()
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -1581,6 +1629,300 @@ def phase_families():
             f"{res.tm_acc[0]:.4f} GM {res.gm_acc[0]:.4f} train_loss "
             f"{res.train_loss[0]:.4f}; {res.round_seconds[0]:.3f} s; "
             f"launches {launches}")
+
+
+def theta_sample(spec):
+    """THETA_SAMPLE fixed (team, device) rows of ``spec``'s population
+    (all of them when fewer) and their values before the run: the model
+    ``run_scenario`` starts from (seed 0), which ``init_state`` copies
+    into every device row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.flat import Layout
+    from repro_torch.scenarios.spec import init_model
+
+    m, n = spec.data.m_teams, spec.data.n_devices
+    flat = np.random.default_rng(0).permutation(m * n)[:THETA_SAMPLE]
+    flat.sort()
+    p0 = params_from_numpy(init_model(spec.model_config(), 0), DEVICE)
+    x0 = Layout.of(p0).flatten(p0)
+    rows = (torch.as_tensor(flat // n, device=DEVICE),
+            torch.as_tensor(flat % n, device=DEVICE))
+    return rows, x0.expand(len(flat), -1).clone()
+
+
+def cohort_parts(res):
+    """'part median' of each synchronized part of ``res``'s rounds."""
+    import statistics
+
+    return ", ".join(f"{k} {statistics.median(v) * 1e3:.2f}"
+                     for k, v in res.part_seconds.items()) + " ms"
+
+
+def phase_cohort():
+    """The four cohort/virtual/* cells at their registered sizes and
+    rounds through ``run_scenario`` on the card, each with the launch
+    counts set to 0 just before and read just after: prox_update exactly
+    K*L a round (at 2 x c rows) and no other kernel; every round's index
+    map sorted, distinct and in range; a fixed sample of THETA_SAMPLE
+    rows of theta: rows of devices never sampled bit-unchanged, rows
+    sampled moved; metrics finite in [0, 1]. Prints the median round
+    seconds, the synchronized parts, the data's build and copy, the peak
+    device memory and the resident bytes. Then cohort/virtual/n1000 at
+    cohort = n against its stacked run (bit-equal), and
+    cohort/virtual/n10000 with top-k 10% uplinks: the EF residuals of
+    devices never sampled stay zero. Returns the launches of prox_update
+    (and ef_topk) over these runs."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import get_scenario, run_scenario
+
+    total = {}
+    for name in COHORT_CELLS:
+        spec = get_scenario(name)
+        hp = spec.algo.hparams()
+        d, c = spec.data, spec.cohort_size
+        rows, before = theta_sample(spec)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = run_scenario(name, device=DEVICE, time_parts=True)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        expect = spec.rounds * hp.k_team * hp.l_local
+        check_launches(launches, {"prox_update": expect}, name)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        idx = np.asarray(res.cohort_indices)
+        if idx.shape != (spec.rounds, d.m_teams, c) or \
+                not (np.diff(idx, axis=-1) > 0).all() or idx.min() < 0 \
+                or idx.max() >= d.n_devices:
+            raise AssertionError(f"{name}: bad index maps {idx.shape}")
+        sampled = np.zeros((d.m_teams, d.n_devices), bool)
+        for t in range(d.m_teams):
+            sampled[t, np.unique(idx[:, t])] = True
+        after = res.state.theta[rows]
+        was = torch.as_tensor(sampled, device=DEVICE)[rows]
+        same = (after == before).all(dim=-1)
+        if not bool(same[~was].all()):
+            raise AssertionError(f"{name}: a never-sampled row of theta "
+                                 "changed")
+        if bool(same[was].any()):
+            raise AssertionError(f"{name}: a sampled row of theta did not "
+                                 "move")
+        accs = res.pm_acc + res.tm_acc + res.gm_acc
+        if not all(0.0 <= a <= 1.0 for a in accs) or \
+                not all(map(math.isfinite, accs + res.train_loss)):
+            raise AssertionError(f"{name}: bad metrics {accs}")
+        st = res.state
+        resident = st.theta.numel() * st.theta.element_size() \
+            + d.m_teams * d.n_devices * d.samples_per_device * (60 + 1) * 4
+        say("cohort", f"{name}: {d.m_teams} x {d.n_devices:,} devices, "
+            f"cohort {c} ({c * d.m_teams} rows a step), {spec.rounds} rounds"
+            f"; PM {res.pm_acc[-1]:.4f} TM {res.tm_acc[-1]:.4f} GM "
+            f"{res.gm_acc[-1]:.4f} train_loss {res.train_loss[-1]:.4f}; "
+            f"launches {launches}")
+        say("cohort", f"{name}: round median "
+            f"{statistics.median(res.round_seconds):.4f} s (host clock, "
+            f"eval included, synchronized parts); parts: "
+            f"{cohort_parts(res)}; data build "
+            f"{res.setup_seconds['data']:.2f} s, copy to the card "
+            f"{res.setup_seconds['to_device']:.2f} s; peak "
+            f"{peak / 2**30:.3f} GiB; resident theta + data "
+            f"{resident / 1e9:.3f} GB; theta sample: "
+            f"{int(was.sum())} of {len(was)} rows sampled (moved), the "
+            f"rest bit-unchanged")
+        del res, st, after
+    # cohort = n is the stacked run
+    name = COHORT_CELLS[0]
+    n = get_scenario(name).data.n_devices
+    runs = {}
+    for cohort in (None, n):
+        reset_launches()
+        runs[cohort] = run_scenario(name, cohort=cohort, device=DEVICE)
+        torch.cuda.synchronize()
+        for k, v in LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+    a, b = runs[None], runs[n]
+    for f in ("pm_acc", "tm_acc", "gm_acc", "train_loss", "participation"):
+        if getattr(a, f) != getattr(b, f):
+            raise AssertionError(f"{name}: cohort = n differs from the "
+                                 f"stacked run in {f}")
+    for tier in ("x", "w", "theta"):
+        if not torch.equal(getattr(a.state, tier), getattr(b.state, tier)):
+            raise AssertionError(f"{name}: cohort = n differs from the "
+                                 f"stacked run in {tier}")
+    say("cohort", f"{name} with cohort = {n}: bit-equal to the stacked run "
+        f"({len(a.pm_acc)} evals, states x, w, theta)")
+    # compressed uplinks: ef_dev rides the gather
+    spec = dataclasses.replace(get_scenario(COHORT_CELLS[1]),
+                               comm=get_scenario(COHORT_COMM).comm)
+    reset_launches()
+    res = run_scenario(spec, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    check_launches(launches, expected_launches(spec, spec.rounds, 1), spec.name)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    idx = np.asarray(res.cohort_indices)
+    sampled = torch.zeros(spec.data.m_teams, spec.data.n_devices,
+                          dtype=torch.bool, device=DEVICE)
+    for t in range(spec.data.m_teams):
+        sampled[t, torch.as_tensor(np.unique(idx[:, t]), device=DEVICE)] = 1
+    ef = res.state.comm.ef_dev
+    if bool(ef[~sampled].any()) or not bool(ef[sampled].any()):
+        raise AssertionError(f"{spec.name} [{spec.comm.compressor}]: EF "
+                             "residuals of never-sampled devices moved, or "
+                             "none of the sampled did")
+    say("cohort", f"{spec.name} with {COHORT_COMM}'s uplinks "
+        f"({spec.comm}): {int(sampled.sum())} of {sampled.numel()} devices "
+        f"sampled in {spec.rounds} rounds; every never-sampled device's "
+        f"ef_dev row zero; {res.comm.total_bytes() / 1e6:.3f} MB on the "
+        f"links; launches {launches}")
+    return total
+
+
+def phase_system():
+    """The wall-clock simulator on the card: the seven comm/mnist/mclr/*
+    cells on SYSTEM_PROFILE for SYSTEM_ROUNDS rounds (simulated seconds
+    and accuracy at each eval; every lossy uplink priced below the
+    uncompressed one), a repeat with the same seed (equal timelines),
+    ``uniform`` without a deadline (the trajectory bit-equal to the
+    system-free run), and DEADLINE_CELL at full width on
+    DEADLINE_PROFILE with a DEADLINE_S deadline for DEADLINE_ROUNDS
+    rounds: stragglers dropped, and the system-free run fed the thinned
+    masks (its links drawn here and given to both) bit-equal to it. Each
+    run with the launch counts set to 0 just before and read just
+    after."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import get_scenario, run_scenario
+    from repro_torch.system import get_profile, simulate_round, \
+        workload_for
+    from repro_torch.system.simulate import sample_links
+
+    def run(spec, rounds, **kw):
+        reset_launches()
+        res = run_scenario(spec, rounds=rounds, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        check_launches({k: v for k, v in LAUNCHES.items() if v},
+                       expected_launches(spec, rounds, 1), spec.name)
+        return res
+
+    priced = {}
+    for name in COMM_CELLS:
+        spec = get_scenario(name)
+        res = run(spec, SYSTEM_ROUNDS, system=SYSTEM_PROFILE)
+        tl = res.timeline
+        if len(tl) != SYSTEM_ROUNDS or not all(t > 0 for t in
+                                               tl.round_seconds):
+            raise AssertionError(f"{name}: bad timeline {tl}")
+        priced[name.split("/")[-1]] = tl.total_seconds()
+        say("system", f"{name} on {SYSTEM_PROFILE}: simulated s at each "
+            "eval " + ", ".join(f"{s:.3f}" for s in res.sim_seconds)
+            + "; PM " + ", ".join(f"{a:.4f}" for a in res.pm_acc)
+            + "; GM " + ", ".join(f"{a:.4f}" for a in res.gm_acc)
+            + f"; {tl.stragglers()} drops")
+    base = priced["uncompressed"]
+    for comp in ("topk_10", "topk_25", "randk_10", "int8", "sign"):
+        if not priced[comp] < base:
+            raise AssertionError(f"{comp} priced {priced[comp]} s, not "
+                                 f"below uncompressed {base} s")
+    say("system", "every lossy uplink priced below uncompressed "
+        f"({base:.3f} s): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         priced.items()))
+    spec = get_scenario(COMM_CELLS[0])
+    a = run(spec, SYSTEM_ROUNDS, system=SYSTEM_PROFILE)
+    b = run(spec, SYSTEM_ROUNDS, system=SYSTEM_PROFILE)
+    if a.timeline != b.timeline or a.pm_acc != b.pm_acc:
+        raise AssertionError("one seed, two timelines")
+    plain = run(spec, SYSTEM_ROUNDS, system=None)
+    timed = run(spec, SYSTEM_ROUNDS, system="uniform")
+    for f in ("pm_acc", "tm_acc", "gm_acc", "train_loss", "participation"):
+        if getattr(plain, f) != getattr(timed, f):
+            raise AssertionError(f"uniform without a deadline moved {f}")
+    if not torch.equal(plain.state.theta, timed.state.theta):
+        raise AssertionError("uniform without a deadline moved theta")
+    sim = timed.timeline.total_seconds()
+    say("system", f"{spec.name}: two runs of one seed, equal timelines "
+        f"({a.timeline.total_seconds():.4f} s); uniform without a deadline"
+        f" bit-equal to the system-free run ({sim:.4f} simulated s)")
+    spec = get_scenario(DEADLINE_CELL)
+    sys_spec = get_profile(DEADLINE_PROFILE).with_deadline(DEADLINE_S)
+    leaves = sys_spec.tree_floats()[0]
+    d = spec.data
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    links = [sample_links(leaves, gen, d.m_teams, d.n_devices)
+             for _ in range(DEADLINE_ROUNDS)]
+    res = run(spec, DEADLINE_ROUNDS, system=sys_spec,
+              links=links.__getitem__)
+    b = None
+    from repro_torch.scenarios import build_scenario
+    b = build_scenario(spec, device=DEVICE)
+    wl = workload_for(b.algo, b.params0)
+    ones = (torch.ones(d.m_teams, device=DEVICE),
+            torch.ones(d.m_teams, d.n_devices, device=DEVICE))
+    fed = [simulate_round(leaves, wl, links[t], *ones)[:2]
+           for t in range(DEADLINE_ROUNDS)]
+    del b
+    plain = run(spec, DEADLINE_ROUNDS, system=None, masks=fed.__getitem__)
+    if res.timeline.stragglers() == 0:
+        raise AssertionError(f"{DEADLINE_CELL} on {DEADLINE_PROFILE}: no "
+                             "straggler dropped")
+    for f in ("pm_acc", "tm_acc", "gm_acc", "train_loss", "participation"):
+        if getattr(plain, f) != getattr(res, f):
+            raise AssertionError(f"deadline run and thinned masks differ in "
+                                 f"{f}")
+    for tier in ("x", "w", "theta"):
+        if not torch.equal(getattr(plain.state, tier),
+                           getattr(res.state, tier)):
+            raise AssertionError(f"deadline run and thinned masks differ in "
+                                 f"{tier}")
+    say("system", f"{DEADLINE_CELL} on {DEADLINE_PROFILE}, deadline "
+        f"{DEADLINE_S:g} s: participation {res.participation}, drops "
+        f"{res.timeline.dropped_devices} devices / "
+        f"{res.timeline.dropped_teams} teams, round s "
+        + ", ".join(f"{t:.1f}" for t in res.timeline.round_seconds)
+        + "; bit-equal to the system-free run fed the thinned masks")
+
+
+def sweep_profiles_check():
+    """table1/mnist/mclr/permfl swept over the three non-uniform
+    profiles, with the launch counts set to 0 just before and read just
+    after: each lane's timeline and trajectory equal to its solo run."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import get_scenario, run_scenario, \
+        sweep_scenario
+
+    spec = get_scenario(SWEEP_SYSTEM_CELL)
+    reset_launches()
+    sw = sweep_scenario(spec, rounds=SWEEP_ROUNDS,
+                        system=list(SWEEP_PROFILES), device=DEVICE)
+    torch.cuda.synchronize()
+    check_launches({k: v for k, v in LAUNCHES.items() if v},
+                   expected_launches(spec, SWEEP_ROUNDS, 1), spec.name + " sweep")
+    for res, prof in zip(sw, SWEEP_PROFILES):
+        solo = run_scenario(spec, rounds=SWEEP_ROUNDS, system=prof,
+                            device=DEVICE)
+        if res.timeline != solo.timeline or any(
+                getattr(res, f) != getattr(solo, f)
+                for f in ("pm_acc", "tm_acc", "gm_acc", "train_loss")) or \
+                not torch.equal(res.state.theta, solo.state.theta):
+            raise AssertionError(f"{spec.name} sweep lane {prof} differs "
+                                 "from its solo run")
+    say("sweep", f"{spec.name} over {list(SWEEP_PROFILES)}: each lane's "
+        "timeline and trajectory equal to its solo run; simulated s "
+        + ", ".join(f"{r.timeline.total_seconds():.3f}" for r in sw))
 
 
 def phase_baseline_profile():
@@ -2871,6 +3213,13 @@ def main(argv) -> int:
     del baselines
     phase_families()
     phase_sweeps()
+    c = get_scenario(COHORT_CELLS[-1])
+    checks["cohort"] = phase_kernel_check(
+        Layout.of(init_params(c.model_config(), gen)), c.data.m_teams,
+        c.cohort_size)["f32"]
+    for k, v in phase_cohort().items():
+        launches[k] = launches.get(k, 0) + v
+    phase_system()
     attn = phase_attention_check()
     phase_router_check()
     router = phase_fused_router_check()

@@ -37,7 +37,7 @@ from repro_torch.comm.config import CommConfig
 from repro_torch.flat import Layout
 
 __all__ = ["CommLedger", "RoundBytes", "compressed_leaf_bytes",
-           "full_leaf_bytes", "model_bytes"]
+           "downlink_uplink_bytes", "full_leaf_bytes", "model_bytes"]
 
 
 def full_leaf_bytes(p: int) -> int:
@@ -67,6 +67,14 @@ def model_bytes(leaf_sizes, cfg: Optional[CommConfig] = None) -> int:
     if cfg is None:
         return sum(full_leaf_bytes(p) for p in leaf_sizes)
     return sum(compressed_leaf_bytes(cfg, p) for p in leaf_sizes)
+
+
+def downlink_uplink_bytes(leaf_sizes, cfg: Optional[CommConfig] = None):
+    """(downlink, uplink) wire bytes of one model or delta: downlinks
+    always carry fp32 anchors, uplinks the compressed delta (cfg=None:
+    uncompressed both ways). The pair the system simulator
+    (``repro_torch.system``) prices the links with."""
+    return model_bytes(leaf_sizes), model_bytes(leaf_sizes, cfg)
 
 
 @dataclass

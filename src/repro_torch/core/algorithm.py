@@ -18,6 +18,14 @@ Algorithms that move compressed bytes implement ``make_ledger`` /
 ``log_comm_round``, and the engine feeds them the realized (team-gated)
 participation counts. ``serving_params`` is the export hook of the
 personalized serving store (``repro_torch.serve.store``).
+``device_axes`` names the state fields that are device-tier, the ones
+the cohort engine (``repro_torch.train.store``) keeps resident for the
+whole population and gathers to cohort width each round.
+
+Evaluation runs in chunks of at most ``EVAL_CHUNK`` devices, so that no
+model tier is ever copied at population size: each device's arithmetic
+is that of one call over all devices, and the mean is taken over the
+concatenated per-device values.
 
 PerMFL lives here; the six Table-1 baselines in
 ``repro_torch.core.baselines``. Probes and health detectors are later
@@ -34,8 +42,13 @@ import torch
 from repro_torch.comm import CommConfig, CommLedger
 from repro_torch.core import permfl as P
 
-__all__ = ["FLAlgorithm", "FLAlgorithmBase", "PerMFL", "eval_global",
-           "eval_personal", "metric_values"]
+__all__ = ["EVAL_CHUNK", "FLAlgorithm", "FLAlgorithmBase", "PerMFL",
+           "broadcast_rows", "device_rows", "eval_global", "eval_personal",
+           "metric_values"]
+
+# devices per metric call of an eval: the models of a chunk are at most
+# EVAL_CHUNK rows (167 MB of MCLR rows), however large the population
+EVAL_CHUNK = 1 << 16
 
 
 @runtime_checkable
@@ -92,6 +105,21 @@ class FLAlgorithmBase:
                                            torch.as_tensor(device).shape)
         return state.expand(tuple(shape) + tuple(state.shape))
 
+    def device_axes(self, state, m: int, n: int) -> tuple:
+        """The dotted paths of the state's device-tier fields, stacked
+        (M, N, ...) per (team, device): what the cohort engine keeps in
+        its store and gathers to cohort width each round; every other
+        field (team and global tiers, counters, generators) stays
+        resident at full shape. Default: the reference's shape rule, a
+        tensor field whose leading axes are exactly (m, n). Algorithms
+        whose tier split that rule could misread (a model dimension equal
+        to n) name their fields themselves."""
+        from repro_torch.train.store import state_fields
+
+        return tuple(path for path, v in state_fields(state)
+                     if isinstance(v, torch.Tensor) and v.dim() >= 2
+                     and tuple(v.shape[:2]) == (m, n))
+
     def tree_hparams(self):
         """``(leaves, rebuild)``: every float-annotated field by name (a
         float field given an int sweeps too), and a function returning an
@@ -122,28 +150,57 @@ def metric_values(t: torch.Tensor):
     return float(t) if t.dim() == 0 else t.tolist()
 
 
-def eval_global(x, layout, val_data, metric_fn) -> torch.Tensor:
+def device_rows(metric_fn, layout, rows, batch, d: int, chunk=None):
+    """``metric_fn`` of d devices, ``chunk`` (default ``EVAL_CHUNK``) at a
+    time: ``rows(a, b)`` gives the flat models of devices a..b-1 (b - a,
+    S), ``batch`` leaves lead with the d devices. Returns the (d,)
+    per-device values, each computed as one call over all d would."""
+    chunk = EVAL_CHUNK if chunk is None else int(chunk)
+    out = [metric_fn(layout.unflatten(rows(a, min(d, a + chunk))),
+                     {k: v[a:a + chunk] for k, v in batch.items()})
+           for a in range(0, d, chunk)]
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def broadcast_rows(tier: torch.Tensor, per: int):
+    """``rows(a, b)`` for :func:`device_rows` where every ``per``
+    consecutive devices share one row of ``tier`` (lead + (S,) flattened
+    to rows): a new contiguous (b - a, S) buffer, never the whole tier's
+    broadcast."""
+    flat = tier.reshape(-1, tier.shape[-1])
+
+    def rows(a, b):
+        i = torch.arange(a, b, device=flat.device) // per
+        return flat[i]
+
+    return rows
+
+
+def eval_global(x, layout, val_data, metric_fn, chunk=None) -> torch.Tensor:
     """One flat model row ``x`` (S,) evaluated on every device's data
-    (leading (M, N, ...)): the row expanded over the M*N devices, one
-    ``metric_fn`` call, then the mean (a 0-d tensor). A stacked x (C, S)
-    with data leading (C, M, N) gives each config's mean, (C,)."""
+    (leading (M, N, ...)), the mean (a 0-d tensor). A stacked x (C, S)
+    with data leading (C, M, N) gives each config's mean, (C,). The row
+    is broadcast to a chunk of devices at a time (``device_rows``)."""
     lead = tuple(x.shape[:-1])
     m, n = next(iter(val_data.values())).shape[len(lead):len(lead) + 2]
-    models = x.unsqueeze(-2).expand(lead + (m * n, x.shape[-1]))
-    return metric_fn(layout.unflatten(models.reshape(-1, x.shape[-1])),
-                     _stacked(val_data, lead)).reshape(
-                         lead + (m * n,)).mean(-1)
+    d = m * n
+    for c in lead:
+        d *= c
+    vals = device_rows(metric_fn, layout, broadcast_rows(x, m * n),
+                       _stacked(val_data, lead), d, chunk)
+    return vals.reshape(lead + (m * n,)).mean(-1)
 
 
-def eval_personal(theta, layout, val_data, metric_fn) -> torch.Tensor:
+def eval_personal(theta, layout, val_data, metric_fn,
+                  chunk=None) -> torch.Tensor:
     """A tier of flat rows ``theta`` (M, N, S), each on its own device's
     data; the mean (a 0-d tensor), or each config's, (C,), for (C, M, N,
     S)."""
     lead, stride = tuple(theta.shape[:-3]), theta.shape[-1]
-    d = theta.shape[-3] * theta.shape[-2]
-    return metric_fn(layout.unflatten(theta.reshape(-1, stride)),
-                     _stacked(val_data, lead)).reshape(
-                         lead + (d,)).mean(-1)
+    flat = theta.reshape(-1, stride)
+    vals = device_rows(metric_fn, layout, lambda a, b: flat[a:b],
+                       _stacked(val_data, lead), flat.shape[0], chunk)
+    return vals.reshape(lead + (-1,)).mean(-1)
 
 
 @dataclass(frozen=True)
@@ -201,8 +258,9 @@ class PerMFL(FLAlgorithmBase):
             state, val_data, metric_fn, which=w).flatten(-2).mean(-1))
             for w in ("pm", "tm", "gm")}
         theta = state.theta.reshape(-1, state.theta.shape[-1])
-        loss = self.loss_fn(state.layout.unflatten(theta),
-                            _stacked(train_data, lead))
+        loss = device_rows(self.loss_fn, state.layout,
+                           lambda a, b: theta[a:b],
+                           _stacked(train_data, lead), theta.shape[0])
         out["train_loss"] = metric_values(loss.reshape(lead + (-1,)).mean(-1))
         return out
 
@@ -229,3 +287,10 @@ class PerMFL(FLAlgorithmBase):
         uplink per participating team (counts pre-gated by the engine)."""
         ledger.log_round(k_team=self.hp.k_team, n_teams=n_teams,
                          n_devices=n_devices)
+
+    def device_axes(self, state, m, n):
+        """The reference's explicit split: the device models ``theta`` and
+        the per-device residuals ``comm.ef_dev`` are device-tier; x, w,
+        the round counter, the team residuals and the generator stay
+        resident."""
+        return ("theta",) if state.comm is None else ("theta", "comm.ef_dev")

@@ -307,6 +307,10 @@ class _Global(FLAlgorithmBase):
         """x to every principal."""
         return super().serving_params(state.x, team, device)
 
+    def device_axes(self, state, m, n):
+        """The global model alone: nothing rides the cohort gather."""
+        return ()
+
 
 class _Personal(FLAlgorithmBase):
     """The state, PM/GM eval and serving of the baselines with a personal
@@ -331,6 +335,11 @@ class _Personal(FLAlgorithmBase):
         if team is None or device is None:
             return super().serving_params(state.x, team, device)
         return state.personal[team, device]
+
+    def device_axes(self, state, m, n):
+        """The personal tier (pFedMe's and L2GD's theta, Ditto's v) is
+        device-tier; x stays resident."""
+        return ("personal",)
 
 
 @dataclass(frozen=True)

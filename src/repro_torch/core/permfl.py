@@ -348,7 +348,8 @@ def tier_norms(state: PerMFLState):
 
 
 @torch.no_grad()
-def eval_stacked(state: PerMFLState, data, metric_fn, *, which: str = "pm"):
+def eval_stacked(state: PerMFLState, data, metric_fn, *, which: str = "pm",
+                 chunk=None):
     """metric_fn(params, batch) -> (D,) for leaves (D, ...); data leading
     (M, N, ...).
 
@@ -356,18 +357,28 @@ def eval_stacked(state: PerMFLState, data, metric_fn, *, which: str = "pm"):
            'tm' -- team models w_i on each device's data
            'gm' -- global model x on each device's data
     Returns the (M, N) matrix of metric values; a stacked state (data
-    leading (C, M, N, ...)) gives (C, M, N).
+    leading (C, M, N, ...)) gives (C, M, N). Devices are evaluated
+    ``chunk`` at a time (``core.algorithm.device_rows``), a team or
+    global row broadcast to one chunk at a time, never to the whole
+    (M, N, S) tier.
     """
+    from repro_torch.core.algorithm import broadcast_rows, device_rows
+
     shape = state.theta.shape
     lead, stride = shape[:-3], shape[-1]
+    n = shape[-2]
     if which == "pm":
-        models = state.theta
+        flat = state.theta.reshape(-1, stride)
+        rows = lambda a, b: flat[a:b]             # noqa: E731
     elif which == "tm":
-        models = state.w.unsqueeze(-2).expand(shape)
+        rows = broadcast_rows(state.w, n)
     elif which == "gm":
-        models = state.x[..., None, None, :].expand(shape)
+        rows = broadcast_rows(state.x, shape[-3] * n)
     else:
         raise ValueError(which)
     batch = {k: v.flatten(0, len(lead) + 1) for k, v in data.items()}
-    params = state.layout.unflatten(models.reshape(-1, stride))
-    return metric_fn(params, batch).reshape(shape[:-1])
+    d = 1
+    for s in shape[:-1]:
+        d *= s
+    return device_rows(metric_fn, state.layout, rows, batch, d,
+                       chunk).reshape(shape[:-1])

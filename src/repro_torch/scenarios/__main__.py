@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.scenarios list [--family F]
     PYTHONPATH=src python -m repro_torch.scenarios describe NAME
     PYTHONPATH=src python -m repro_torch.scenarios dump NAME
+    PYTHONPATH=src python -m repro_torch.scenarios profiles
     PYTHONPATH=src python -m repro_torch.scenarios run NAME [--rounds R]
-        [--eval-every E] [--seed S] [--smoke] [--hparam NAME=VALUE]
+        [--eval-every E] [--seed S] [--system PROFILE]
+        [--deadline SECONDS] [--smoke] [--cohort C] [--hparam NAME=VALUE]
         [--device cuda|cpu] [--json]
     PYTHONPATH=src python -m repro_torch.scenarios serve NAME [--rounds R]
         [--seed S] [--smoke] [--encoding delta|int8|raw] [--store PATH]
@@ -15,13 +17,18 @@
 partitioner, model, algorithm, default rounds, spec hash -- the same
 hash as the reference's); ``describe`` shows one scenario's full spec,
 its paper references and a reproduce line; ``dump`` prints the spec as
-JSON (``FLScenario.from_dict`` reads it back, in either package).
+JSON (``FLScenario.from_dict`` reads it back, in either package);
+``profiles`` lists the wall-clock system profiles (``repro_torch.system``).
 ``run`` trains it through the engine on the card (``--device cpu`` for
 the CPU) and prints the final value of each metric the algorithm
 reports (PerMFL: pm, tm, gm and train_loss; FedAvg and h-SGD: gm; the
-personalized baselines: pm and gm), and for a compressed scenario the
-megabytes its links carried; ``--json`` prints them as one JSON object
-on stdout instead. ``--hparam NAME=VALUE`` (repeatable) overrides one of
+personalized baselines: pm and gm), for a compressed scenario the
+megabytes its links carried, and with a system model its simulated
+seconds; ``--json`` prints them as one JSON object on stdout instead.
+``--system PROFILE`` prices the run on that profile, ``--deadline
+SECONDS`` drops the stragglers of each round (it needs a system model:
+``--system``, or a spec that carries one), ``--cohort C`` runs C devices
+per team a round through the cohort engine (0: the stacked path). ``--hparam NAME=VALUE`` (repeatable) overrides one of
 the algorithm's float hyperparameters, parsed as a float as the
 reference parses it (an integer loop bound is refused). ``serve``
 closes the train -> deploy -> measure loop: it trains the scenario,
@@ -76,8 +83,13 @@ def _cmd_describe(args) -> int:
           f"{dict(s.algo.overrides) or '(paper defaults)'}")
     print(f"  rounds={s.rounds} team_frac={s.team_frac} "
           f"device_frac={s.device_frac} data_seed={s.data_seed}")
+    if s.cohort_size is not None:
+        print(f"  cohort: {s.cohort_size} of {s.data.n_devices} devices "
+              "materialized per team per round")
     if s.comm is not None:
         print(f"  comm:  {s.comm}")
+    if s.system is not None:
+        print(f"  system: {s.system}")
     for metric, acc in s.paper_ref:
         print(f"  paper: {metric} = {acc}%")
     print(f"\n  reproduce: PYTHONPATH=src python -m repro_torch.scenarios "
@@ -89,6 +101,22 @@ def _cmd_dump(args) -> int:
     from repro_torch.scenarios import get_scenario
 
     print(json.dumps(get_scenario(args.name).to_dict(), indent=2))
+    return 0
+
+
+def _cmd_profiles(args) -> int:
+    from repro_torch.system import SYSTEM_PROFILES
+
+    print(f"{'profile':14} {'compute':16} {'LAN':22} {'WAN':22}")
+    for name, p in SYSTEM_PROFILES.items():
+        print(f"{name:14} "
+              f"{p.compute_gflops:g}GF/s s={p.compute_sigma:g}   "
+              f"{p.lan_mbps:g}Mbps {p.lan_latency_ms:g}ms "
+              f"s={p.lan_sigma:<5g} "
+              f"{p.wan_mbps:g}Mbps {p.wan_latency_ms:g}ms "
+              f"s={p.wan_sigma:g}")
+    print("\nattach one with: run NAME --system PROFILE "
+          "[--deadline SECONDS]")
     return 0
 
 
@@ -124,6 +152,16 @@ def _cmd_run(args) -> int:
     s = get_scenario(args.name)
     if args.smoke:
         s = s.scaled(**_SMOKE)
+    if args.cohort is not None:
+        s = dataclasses.replace(s, cohort_size=args.cohort or None)
+    if args.system:
+        s = s.with_system(args.system)
+    if args.deadline:
+        if s.system is None:
+            print("error: --deadline needs a system model (pass --system "
+                  "PROFILE, or run a scenario whose spec carries one)")
+            return 2
+        s = s.with_system(s.system.with_deadline(args.deadline))
     if args.hparam:
         s, err = _with_hparams(s, args.hparam)
         if err:
@@ -144,6 +182,11 @@ def _cmd_run(args) -> int:
                "participation": res.participation[-1]}
         if res.comm is not None:
             rec["comm"] = res.comm.summary()
+        if res.timeline is not None:
+            rec["system"] = res.timeline.summary()
+        if res.cohort is not None:
+            rec["cohort"] = res.cohort
+            rec["population"] = res.population
         print(json.dumps(rec, sort_keys=True))
         return 0
     print(f"{s.name}: rounds={rounds} "
@@ -154,6 +197,15 @@ def _cmd_run(args) -> int:
         print(f"  comm: {t.total / 1e6:.2f} MB total "
               f"(wan_up {t.wan_up / 1e6:.2f} MB, "
               f"lan_up {t.lan_up / 1e6:.2f} MB)")
+    if res.timeline is not None:
+        tl = res.timeline.summary()
+        print(f"  system[{tl['profile']}]: {tl['sim_seconds']:.2f} "
+              f"simulated s over {tl['rounds']} rounds "
+              f"(mean {tl['mean_round_seconds']:.3f}s/round, "
+              f"{tl['dropped_devices']} device straggler drops)")
+    if res.cohort is not None:
+        print(f"  cohort: {res.cohort} of {res.population} devices per "
+              "team a round")
     for metric, acc in s.paper_ref:
         print(f"  paper {metric}: {acc}% (A100, full rounds)")
     return 0
@@ -216,7 +268,8 @@ def _cmd_serve(args) -> int:
 
 
 def main(argv=None) -> int:
-    """Entry point: dispatch list / describe / dump / run / serve."""
+    """Entry point: dispatch list / describe / dump / profiles / run /
+    serve."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.scenarios",
         description="Browse and run the port's scenario registry.")
@@ -230,13 +283,22 @@ def main(argv=None) -> int:
     p = sub.add_parser("dump", help="print one scenario as JSON")
     p.add_argument("name")
     p.set_defaults(fn=_cmd_dump)
+    p = sub.add_parser("profiles", help="list wall-clock system profiles")
+    p.set_defaults(fn=_cmd_profiles)
     p = sub.add_parser("run", help="run a scenario through the engine")
     p.add_argument("name")
     p.add_argument("--rounds", type=int, default=None)
     p.add_argument("--eval-every", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--system", default=None,
+                   help="wall-clock profile (see `profiles`)")
+    p.add_argument("--deadline", type=float, default=None,
+                   help="per-round straggler deadline, simulated seconds")
     p.add_argument("--smoke", action="store_true",
                    help="2x3x16 topology, 2 rounds")
+    p.add_argument("--cohort", type=int, default=None,
+                   help="override cohort_size (devices materialized per "
+                        "team per round); 0 runs the stacked path")
     p.add_argument("--hparam", action="append", default=None,
                    metavar="NAME=VALUE",
                    help="override one float hyperparameter (repeatable)")

@@ -1,21 +1,21 @@
 """`SCENARIOS` -- the registry of the scenarios the port runs.
 
-Every cell of the reference's registry except the four ``cohort/*``
-cells, registered exactly as there (names, specs, seeds, rounds, notes
-and published numbers; equal ``spec_hash``): Table 1 (MCLR and the
-non-convex model on mnist, fmnist, emnist10 and synthetic, PerMFL and
-the six baselines), Table 2's team structures, Figs 2, 3 and 4, the
-compressed-uplink family (``comm/mnist/mclr/*``) and the families beyond
-the paper -- Dirichlet label skew, quantity skew, feature-shift tabular,
-and worst/average team formation at larger (M, N) grids.
+Every cell of the reference's registry, registered exactly as there
+(names, specs, seeds, rounds, notes and published numbers; equal
+``spec_hash``): Table 1 (MCLR and the non-convex model on mnist,
+fmnist, emnist10 and synthetic, PerMFL and the six baselines), Table 2's
+team structures, Figs 2, 3 and 4, the compressed-uplink family
+(``comm/mnist/mclr/*``), the families beyond the paper -- Dirichlet
+label skew, quantity skew, feature-shift tabular, and worst/average team
+formation at larger (M, N) grids -- and the cohort engine's scale-out,
+2 teams of 10^3 to 10^6 devices (``cohort/virtual/n*``).
 
 Naming: ``{family}/{...}`` with the family as the first segment --
 ``table1/{dataset}/{model}/{algo}``, ``table2/{dataset}/{strategy}``,
 ``fig2/{dataset}/{model}/{algo}``, ``fig4/.../{mode}``,
 ``comm/.../{compressor}``, ``dirichlet/{dataset}/a{alpha}``,
 ``quantity/{dataset}/q{min_frac}``, ``featshift/{model}/s{shift}``,
-``teams/{strategy}/m{M}n{N}``. ``cohort/virtual/n{N}`` waits for the
-cohort engine (ROADMAP.md queue 1, item 10).
+``teams/{strategy}/m{M}n{N}``, ``cohort/virtual/n{N}``.
 
 Registered ``rounds`` are the paper-scale budgets; runs override rounds
 (and derive shrunken variants via ``FLScenario.scaled``) at run time.
@@ -48,8 +48,7 @@ def register(scenario: FLScenario) -> FLScenario:
 
 def get_scenario(name_or_spec) -> FLScenario:
     """Resolve a registry name, a spec dict, or an FLScenario instance to
-    the FLScenario itself (KeyError lists near misses for names; the
-    ``cohort/*`` names say what they wait for)."""
+    the FLScenario itself (KeyError lists near misses for names)."""
     if isinstance(name_or_spec, FLScenario):
         return name_or_spec
     if isinstance(name_or_spec, dict):
@@ -57,10 +56,6 @@ def get_scenario(name_or_spec) -> FLScenario:
     name = str(name_or_spec)
     if name in SCENARIOS:
         return SCENARIOS[name]
-    if name.split("/")[0] == "cohort":
-        raise KeyError(
-            f"scenario {name!r} is not ported yet: the cohort/* cells wait "
-            f"for the cohort engine (ROADMAP.md queue 1, item 10)")
     near = [k for k in SCENARIOS
             if name.split("/")[0] == k.split("/")[0]][:8]
     raise KeyError(f"unknown scenario {name!r}; "
@@ -238,6 +233,25 @@ def _register_team_grids():
                       "devices"))
 
 
+def _register_cohort():
+    """The cohort engine's scale-out: populations of 10^3 to 10^6 devices
+    per team, of which a ``cohort_size`` slab is materialized each round,
+    on the vectorized "virtual" dataset; PerMFL with shallow inner loops
+    (the point is the scaling in N, not the paper's accuracy cells)."""
+    algo = AlgoSpec("permfl", (("k_team", 2), ("l_local", 2)))
+    for n, cohort, rounds in ((1_000, 64, 20), (10_000, 64, 10),
+                              (100_000, 128, 10), (1_000_000, 256, 5)):
+        register(FLScenario(
+            name=f"cohort/virtual/n{n}",
+            data=DataSpec(dataset="virtual", partitioner="tabular",
+                          m_teams=2, n_devices=n, samples_per_device=8),
+            algo=algo,
+            cohort_size=cohort,
+            rounds=rounds, data_seed=21, family="cohort",
+            notes=f"sample-then-materialize: {cohort} of {n} devices "
+                  "per team per round"))
+
+
 _register_table1()
 _register_table2()
 _register_fig2()
@@ -247,3 +261,4 @@ _register_dirichlet()
 _register_quantity()
 _register_featshift()
 _register_team_grids()
+_register_cohort()

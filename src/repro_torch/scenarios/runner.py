@@ -1,14 +1,18 @@
 """Scenario execution: build a scenario and run it through the engine,
-or sweep a grid of its hyperparameters and seeds (``train.sweep``)."""
+or sweep a grid of its hyperparameters and seeds (``train.sweep``).
+
+``system=`` and ``cohort=`` default to the spec's own ``system`` and
+``cohort_size``; passing None turns either off for this run."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.convert import params_from_numpy
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
 from repro_torch.scenarios.registry import get_scenario
 from repro_torch.scenarios.spec import (FLScenario, fns_for, init_model,
                                         to_torch)
@@ -17,6 +21,10 @@ from repro_torch.train.sweep import FLSweepResult, run_sweep
 
 __all__ = ["ScenarioBuild", "build_scenario", "run_scenario",
            "sweep_scenario"]
+
+# the run/sweep default for `system` and `cohort`: "not passed -- keep the
+# spec's own". Distinct from None, which turns the spec's off.
+_KEEP_SPEC = object()
 
 
 @dataclass
@@ -34,6 +42,7 @@ class ScenarioBuild:
     algo: Any
     params0: dict      # model init for this seed, on `device`
     device: torch.device
+    seconds: dict = field(default_factory=dict)  # data build, copy
 
     @property
     def m(self) -> int:
@@ -53,22 +62,31 @@ def build_scenario(name_or_spec, seed: int = 0,
     ``data_seed``)."""
     s = get_scenario(name_or_spec)
     dev = resolve_device(device)
+    t0 = time.perf_counter()
     fd = s.data.build(s.data_seed)
+    t1 = time.perf_counter()
     train, val = to_torch(fd, dev)
+    synchronize(dev)
+    seconds = {"data": t1 - t0, "to_device": time.perf_counter() - t1}
     cfg = s.model_config()
     loss, metric = fns_for(cfg)
     params0 = params_from_numpy(init_model(cfg, seed), dev)
     return ScenarioBuild(scenario=s, fd=fd, config=cfg, train=train,
                          val=val, loss_fn=loss, metric_fn=metric,
                          algo=s.algo.build(loss, comm=s.comm),
-                         params0=params0,
-                         device=dev)
+                         params0=params0, device=dev, seconds=seconds)
+
+
+def _keep(value, own):
+    return own if value is _KEEP_SPEC else value
 
 
 def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
                  seed: int = 0, init_seed: Optional[int] = None,
                  eval_every: int = 1, masks: Optional[Callable] = None,
-                 uniforms: Optional[Callable] = None,
+                 uniforms: Optional[Callable] = None, system=_KEEP_SPEC,
+                 cohort=_KEEP_SPEC, links: Optional[Callable] = None,
+                 time_parts: bool = False,
                  device=DEFAULT_DEVICE) -> FLResult:
     """Run one scenario through the engine on ``device`` (default the
     card; raises without one).
@@ -78,21 +96,31 @@ def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
     init_seed: a separate model-init seed.
     masks: injected participation masks (see ``run_experiment``).
     uniforms: injected compressor uniforms (see ``permfl_round``).
+    system: wall-clock model (SystemSpec, profile name or spec dict) in
+        place of the spec's own; None runs without one.
+    cohort: cohort width in place of the spec's ``cohort_size``; None
+        runs the stacked path.
+    links / time_parts: as ``run_experiment``'s.
+    ``FLResult.setup_seconds`` holds the data's build and copy time.
     """
     s = get_scenario(name_or_spec)
     b = build_scenario(s, seed if init_seed is None else init_seed,
                        device=device)
-    return run_experiment(
+    res = run_experiment(
         b.algo, b.params0, b.train, b.val, metric_fn=b.metric_fn,
         rounds=s.rounds if rounds is None else rounds, m=b.m, n=b.n,
         team_frac=s.team_frac, device_frac=s.device_frac, seed=seed,
         eval_every=eval_every, masks=masks, uniforms=uniforms,
+        system=_keep(system, s.system), cohort=_keep(cohort, s.cohort_size),
+        links=links, time_parts=time_parts,
         device=b.device)
-
+    res.setup_seconds = dict(b.seconds)
+    return res
 
 
 def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
                    rounds: Optional[int] = None, eval_every: int = 1,
+                   system=_KEEP_SPEC, cohort=_KEEP_SPEC,
                    device=DEFAULT_DEVICE) -> FLSweepResult:
     """Run a hyperparameter grid x seeds over one scenario as one stacked
     run (``train.sweep.run_sweep``) on ``device`` (default the card;
@@ -104,6 +132,11 @@ def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
     seeds: each seed gets its own model init (the tables' multi-seed
         protocol) and participation sampling; the shared data comes from
         the spec's ``data_seed``.
+    system: wall-clock model(s) -- one profile, or a sequence adding a
+        profile axis to the configs; None runs without one, unpassed the
+        spec's own applies.
+    cohort: cohort width in place of the spec's ``cohort_size``; None
+        runs the stacked path.
     """
     s = get_scenario(name_or_spec)
     if isinstance(seeds, int):
@@ -115,4 +148,5 @@ def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
         b.val, metric_fn=b.metric_fn,
         rounds=s.rounds if rounds is None else rounds, m=b.m, n=b.n,
         team_frac=s.team_frac, device_frac=s.device_frac,
-        eval_every=eval_every, device=b.device)
+        eval_every=eval_every, system=_keep(system, s.system),
+        cohort=_keep(cohort, s.cohort_size), device=b.device)

@@ -3,10 +3,9 @@ x participation x comm as one frozen, serializable value.
 
 The port's copy of the reference's spec, for PerMFL and the six Table-1
 baselines. ``to_dict()`` and ``spec_hash()`` equal the reference's for
-every ported scenario, so a scenario names the same experiment in both
-packages. What the port does not run yet -- the system simulator
-(``system``) and cohort sampling (``cohort_size``) -- is refused where a
-spec would ask for it.
+every scenario, so a scenario names the same experiment in both
+packages; the ``system`` and ``cohort_size`` keys appear only when set,
+so a spec without them hashes as before.
 
     FLScenario
       ├── DataSpec   dataset + partitioner + (M, N) topology + team
@@ -14,8 +13,10 @@ spec would ask for it.
       ├── ModelSpec  which paper model (mclr | cnn | dnn)
       └── AlgoSpec   algorithm name + hyperparameter overrides
       plus rounds, team/device participation fractions, an optional
-      CommConfig (compressed uplinks + byte accounting), the data seed,
-      and presentation metadata (family, paper reference numbers, notes).
+      CommConfig (compressed uplinks + byte accounting), an optional
+      SystemSpec (the wall-clock model), an optional cohort width, the
+      data seed, and presentation metadata (family, paper reference
+      numbers, notes).
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.data.federated import (FederatedData, partition_dirichlet,
 from repro_torch.data.synthetic import (feature_shift_tabular, make_dataset,
                                         synthetic_tabular, virtual_tabular)
 from repro_torch.models import paper_models as PM
+from repro_torch.system import SystemSpec, get_profile
 
 __all__ = ["ALGO_METRICS", "AlgoSpec", "DataSpec", "FLScenario",
            "ModelSpec", "fns_for", "init_model", "to_torch"]
@@ -275,9 +277,6 @@ class AlgoSpec:
 # FLScenario
 # ---------------------------------------------------------------------------
 
-_UNPORTED_KEYS = ("system", "cohort_size")
-
-
 @dataclass(frozen=True)
 class FLScenario:
     """One named, reproducible experiment.
@@ -286,6 +285,12 @@ class FLScenario:
     rounds: default global-round budget (overridable at run time).
     team_frac / device_frac: participation fractions (paper §3.1 modes).
     comm: optional CommConfig -- compressed uplinks + byte accounting.
+    system: optional SystemSpec -- the wall-clock model
+        (``repro_torch.system``); results gain a Timeline and
+        sim_seconds, and a deadline_s drops stragglers from the masks.
+    cohort_size: optional per-team cohort width c -- the engine samples c
+        of the N devices each round and materializes only the (M, c)
+        slab (the cohort engine). None keeps the stacked path.
     data_seed: seed the federated partition is built from.
     family / paper_ref / notes: presentation metadata -- excluded from
         ``spec_hash()``. paper_ref holds (metric, paper accuracy %) pairs.
@@ -298,6 +303,8 @@ class FLScenario:
     team_frac: float = 1.0
     device_frac: float = 1.0
     comm: Optional[CommConfig] = None
+    system: Optional[SystemSpec] = None
+    cohort_size: Optional[int] = None
     data_seed: int = 0
     family: str = ""
     paper_ref: Tuple[Tuple[str, float], ...] = ()
@@ -306,11 +313,19 @@ class FLScenario:
     def __post_init__(self):
         object.__setattr__(self, "paper_ref", tuple(
             (str(k), float(v)) for k, v in self.paper_ref))
+        if self.cohort_size is not None and not (
+                1 <= self.cohort_size <= self.data.n_devices):
+            raise ValueError(
+                f"cohort_size must be in [1, n_devices="
+                f"{self.data.n_devices}], got {self.cohort_size}")
 
     def canonical(self) -> "FLScenario":
-        """The physics only: presentation metadata stripped."""
+        """The physics only: presentation metadata stripped, the system
+        profile's label with it (two equal profiles are one world)."""
+        system = (dataclasses.replace(self.system, name="")
+                  if self.system is not None else None)
         return dataclasses.replace(self, name="", family="", paper_ref=(),
-                                   notes="")
+                                   notes="", system=system)
 
     def spec_hash(self) -> str:
         """Stable 16-hex digest of the canonical spec (equal to the
@@ -320,8 +335,9 @@ class FLScenario:
 
     def to_dict(self) -> dict:
         """Plain JSON-able dict, key for key the reference's (an
-        uncompressed scenario carries ``"comm": None``)."""
-        return {
+        uncompressed scenario carries ``"comm": None``; ``system`` and
+        ``cohort_size`` appear only when set)."""
+        d = {
             "name": self.name,
             "data": dataclasses.asdict(self.data),
             "model": dataclasses.asdict(self.model),
@@ -336,16 +352,16 @@ class FLScenario:
             "paper_ref": [[k, v] for k, v in self.paper_ref],
             "notes": self.notes,
         }
+        if self.system is not None:
+            d["system"] = self.system.to_dict()
+        if self.cohort_size is not None:
+            d["cohort_size"] = self.cohort_size
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "FLScenario":
         """Rebuild a spec from ``to_dict()`` output (or the reference's);
-        raises for what the port does not run yet."""
-        unported = [k for k in _UNPORTED_KEYS if d.get(k) is not None]
-        if unported:
-            raise NotImplementedError(
-                f"scenario fields {unported} are not ported yet "
-                "(ROADMAP.md queue 1)")
+        ``from_dict(to_dict(s)) == s``."""
         return cls(
             name=d["name"],
             data=DataSpec(**d["data"]),
@@ -356,6 +372,9 @@ class FLScenario:
             team_frac=d["team_frac"],
             device_frac=d["device_frac"],
             comm=CommConfig(**d["comm"]) if d.get("comm") else None,
+            system=(SystemSpec.from_dict(d["system"])
+                    if d.get("system") else None),
+            cohort_size=d.get("cohort_size"),
             data_seed=d["data_seed"],
             family=d.get("family", ""),
             paper_ref=tuple(tuple(p) for p in d.get("paper_ref", ())),
@@ -366,9 +385,12 @@ class FLScenario:
                n_devices: Optional[int] = None,
                samples_per_device: Optional[int] = None,
                rounds: Optional[int] = None,
+               cohort_size: Optional[int] = None,
                algo_overrides: Optional[dict] = None) -> "FLScenario":
         """A derived scenario at another scale; unset arguments keep the
-        spec's values, ``algo_overrides`` merge over ``algo.overrides``."""
+        spec's values, ``algo_overrides`` merge over ``algo.overrides``.
+        An inherited or given cohort_size is clamped to the (possibly
+        shrunk) population."""
         data = dataclasses.replace(
             self.data,
             m_teams=m_teams if m_teams is not None else self.data.m_teams,
@@ -382,9 +404,19 @@ class FLScenario:
             merged = dict(algo.overrides)
             merged.update(algo_overrides)
             algo = AlgoSpec(algo.name, tuple(merged.items()))
+        cohort = cohort_size if cohort_size is not None else self.cohort_size
+        if cohort is not None:
+            cohort = min(int(cohort), data.n_devices)
         return dataclasses.replace(
-            self, data=data, algo=algo,
+            self, data=data, algo=algo, cohort_size=cohort,
             rounds=rounds if rounds is not None else self.rounds)
+
+    def with_system(self, profile) -> "FLScenario":
+        """This scenario on a wall-clock system model: ``profile`` is a
+        SystemSpec, a profile name ("wan-cellular", ...), a spec dict, or
+        None to detach."""
+        return dataclasses.replace(
+            self, system=None if profile is None else get_profile(profile))
 
     def model_config(self) -> PaperModelConfig:
         """The resolved PaperModelConfig for this scenario's data."""

@@ -25,8 +25,16 @@ to float32 from the float64 expression its single run evaluates
 same hyperparameters and seed (``tests/test_torch_sweep.py`` pins it).
 The reference compiles the grid into one vmapped program
 (``src/repro/train/sweep.py``); PyTorch runs eagerly, so here the stacked
-round is the batching. The sweep mesh, the system simulator, run
-telemetry and the cohort engine are not ported yet (ROADMAP.md).
+round is the batching.
+
+System profiles ride the config axis too: ``system=[...]`` stacks
+several wall-clock worlds (their ``tree_floats`` as (C,) tensors), and
+each config comes back with its own ``Timeline``; its links come from
+its own generator, seeded from its seed as its single run's are. With
+``cohort=c`` every config runs the cohort engine: each round gathers
+per-config index maps (C, M, c) along dim 2 of the stacked store, each
+config's map from its own generator. The sweep mesh (``mesh=``) and run
+telemetry are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -41,9 +49,14 @@ import torch
 from repro_torch.comm.config import copy_generator
 from repro_torch.convert import params_from_numpy
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.train.engine import (FLResult, _to_device, bill_comm,
-                                      check_participation, drive,
-                                      hparam_skeleton, mask_source)
+from repro_torch.system import SystemSpec, Timeline, get_profile, \
+    workload_for
+from repro_torch.train.engine import (FLResult, RoundSystem, _to_device,
+                                      assemble_timeline, bill_comm,
+                                      check_cohort, check_participation,
+                                      cohort_source, drive, hparam_skeleton,
+                                      link_source, mask_source, spec_leaves)
+from repro_torch.train.store import config_state
 
 __all__ = ["FLSweepResult", "grid_product", "run_multi_sweep", "run_sweep",
            "stack_states"]
@@ -64,9 +77,10 @@ def grid_product(**axes) -> list:
 class FLSweepResult:
     """One stacked sweep: C = len(grid) * len(seeds) configurations.
 
-    configs: per-config dicts -- every sweepable hyperparameter and the
-        config's ``seed`` -- in grid-major order (all seeds of grid[0],
-        then grid[1], ...).
+    configs: per-config dicts -- every sweepable hyperparameter, the
+        config's ``seed`` (and its ``system`` profile's name when system
+        models ride the axis) -- in grid-major order (all seeds of
+        grid[0], then grid[1], ...; profiles innermost).
     results: one FLResult per config (histories, participation, final
         state slice, byte ledger). Its ``seconds`` and ``round_seconds``
         are the sweep's divided by C.
@@ -121,21 +135,6 @@ def stack_states(states: Sequence):
     return first
 
 
-def _config_state(state, i: int):
-    """Config ``i``'s single-run state out of a stacked one (tensors are
-    views of the stacked buffers)."""
-    if isinstance(state, torch.Tensor):
-        return state[i]
-    if isinstance(state, tuple) and state and \
-            isinstance(state[0], torch.Generator):
-        return state[i]
-    if dataclasses.is_dataclass(state) and not isinstance(state, type):
-        return dataclasses.replace(state, **{
-            f.name: _config_state(getattr(state, f.name), i)
-            for f in dataclasses.fields(state)})
-    return state
-
-
 @dataclass
 class _Prepared:
     """One sweep's validated, stacked operands."""
@@ -143,11 +142,28 @@ class _Prepared:
     state: Any             # stacked init states
     configs: list
     seeds: tuple           # each config's seed
+    profiles: list         # each config's SystemSpec, or None
     ledger_params: Any
 
 
+def _profiles(system) -> list:
+    """The sweep's system profiles: [None] without a model; one spec, or
+    a sequence of them, as a list of SystemSpecs."""
+    if system is None:
+        return [None]
+    if isinstance(system, (str, dict, SystemSpec)):
+        system = [system]
+    profiles = [get_profile(p) for p in system]
+    if not profiles:
+        raise ValueError("empty system: pass None or at least one profile")
+    if len({p.skeleton() for p in profiles}) != 1:
+        raise ValueError("system profiles on one sweep axis must share a "
+                         "static skeleton")
+    return profiles
+
+
 def _prepare(algo, grid, seeds, params0, m, n, team_frac, device_frac,
-             dev) -> _Prepared:
+             dev, system=None) -> _Prepared:
     """Validate one sweep and stack its operands."""
     if isinstance(grid, dict):
         grid = grid_product(**grid)
@@ -169,10 +185,13 @@ def _prepare(algo, grid, seeds, params0, m, n, team_frac, device_frac,
                 f"unknown sweepable hyperparameter(s) {sorted(unknown)}; "
                 f"{type(algo).__name__} sweeps over {sorted(leaves0)}")
 
-    combos = [(g, s) for g in grid for s in seeds]
-    configs = [dict(leaves0, **g, seed=s) for g, s in combos]
+    profiles = _profiles(system)
+    combos = [(g, s, p) for g in grid for s in seeds for p in profiles]
+    configs = [dict(leaves0, **g, seed=s,
+                    **({"system": p.name} if p is not None else {}))
+               for g, s, p in combos]
     values = {k: np.asarray([float(dict(leaves0, **g)[k])
-                             for g, _ in combos], np.float64)
+                             for g, _, _ in combos], np.float64)
               for k in leaves0}
     skel, _ = hparam_skeleton(algo)
     stacked_algo = skel.tree_hparams()[1](values)
@@ -186,8 +205,9 @@ def _prepare(algo, grid, seeds, params0, m, n, team_frac, device_frac,
     st_by_seed = {s: algo.init_state(p_by_seed[s], m, n) for s in seeds}
     return _Prepared(
         algo=stacked_algo,
-        state=stack_states([st_by_seed[s] for _, s in combos]),
-        configs=configs, seeds=tuple(s for _, s in combos),
+        state=stack_states([st_by_seed[s] for _, s, _ in combos]),
+        configs=configs, seeds=tuple(s for _, s, _ in combos),
+        profiles=[p for _, _, p in combos],
         ledger_params=p_by_seed[seeds[0]])
 
 
@@ -213,9 +233,12 @@ def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
               eval_every: int = 1, masks: Optional[Sequence] = None,
               uniforms: Optional[Sequence] = None, mode=None,
               device=DEFAULT_DEVICE, mesh=None, system=None, trace=None,
-              trace_dir=None, cohort=None) -> FLSweepResult:
-    """Run ``len(grid) * len(seeds)`` experiments of ``algo`` as one
-    stacked run on ``device`` (default the card; raises without one).
+              trace_dir=None, cohort: Optional[int] = None,
+              cohort_indices: Optional[Sequence] = None,
+              links: Optional[Sequence] = None) -> FLSweepResult:
+    """Run ``len(grid) * len(seeds) [* len(system)]`` experiments of
+    ``algo`` as one stacked run on ``device`` (default the card; raises
+    without one).
 
     algo: the template FLAlgorithm -- its float hyperparameters
         (``algo.tree_hparams()``) are the sweepable names; loop bounds,
@@ -224,38 +247,73 @@ def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
         names keep the template's value), or a {name: [values...]} dict
         taken as the full cartesian product.
     seeds: int or sequence of ints; every grid point runs once per seed.
-        The seed seeds the config's participation sampling exactly as
-        ``run_experiment(seed=...)`` does.
+        The seed seeds the config's participation sampling, cohort maps
+        and links exactly as ``run_experiment(seed=...)`` does.
     params0: one model shared by all configs (a nested dict of tensors or
         numpy arrays), or a callable ``seed -> params`` (one init per
         seed).
     masks: optional sequence of C ``masks(t)`` hooks, one per config, as
         ``run_experiment`` takes one; uniforms: likewise C ``uniforms(t,
-        k, b)`` sources of the compressors' uniforms.
+        k, b)`` sources of the compressors' uniforms; cohort_indices and
+        links likewise C hooks of ``run_experiment``'s.
     mode: kernel mode of the rounds (None: by device; "torch": the plain
         versions, for comparisons on the card).
-    mesh, system, trace, trace_dir, cohort: not ported yet (raise).
+    system: optional wall-clock model(s): one SystemSpec, profile name or
+        spec dict, or a sequence of them -- a sequence adds a profile
+        axis (innermost) to the configs, each config priced on its own.
+    cohort: optional cohort width: every config runs the cohort engine.
+    mesh, trace, trace_dir: not ported yet (raise).
     Remaining arguments match ``run_experiment``.
     """
-    for name, val in (("mesh", mesh), ("system", system), ("trace", trace),
-                      ("trace_dir", trace_dir), ("cohort", cohort)):
+    for name, val in (("mesh", mesh), ("trace", trace),
+                      ("trace_dir", trace_dir)):
         if val is not None:
             raise NotImplementedError(
                 f"run_sweep({name}=...) is not ported yet (ROADMAP.md "
                 "queue 1; the sweep mesh is item 14)")
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+    cohort = check_cohort(cohort, n)
+    if cohort_indices is not None and cohort is None:
+        raise ValueError("cohort_indices= needs cohort=")
+    if links is not None and system is None:
+        raise ValueError("links= needs system=")
     dev = resolve_device(device)
     prep = _prepare(algo, grid, seeds, params0, m, n, team_frac,
-                    device_frac, dev)
+                    device_frac, dev, system)
     c = len(prep.configs)
     masks = _per_config(masks, "masks", c)
     uniforms = _per_config(uniforms, "uniforms", c)
-    srcs = [mask_source(m, n, team_frac=team_frac, device_frac=device_frac,
-                        seed=s, masks=None if masks is None else masks[i])
+    cohort_indices = _per_config(cohort_indices, "cohort_indices", c)
+    links = _per_config(links, "links", c)
+    width = n if cohort is None else cohort
+    srcs = [mask_source(m, width, team_frac=team_frac,
+                        device_frac=device_frac, seed=s,
+                        masks=None if masks is None else masks[i])
             for i, s in enumerate(prep.seeds)]
     results = [FLResult(rounds=rounds, eval_every=eval_every,
-                        device=str(dev)) for _ in prep.configs]
+                        device=str(dev), cohort=cohort,
+                        population=None if cohort is None else n)
+               for _ in prep.configs]
+    draw_cohort = sysrun = None
+    if cohort is not None:
+        csrcs = [cohort_source(m, n, cohort, seed=s, device=dev,
+                               cohort_indices=None if cohort_indices is None
+                               else cohort_indices[i])
+                 for i, s in enumerate(prep.seeds)]
+        draw_cohort = lambda t: torch.stack([f(t) for f in csrcs])  # noqa
+    if prep.profiles[0] is not None:
+        for res, p in zip(results, prep.profiles):
+            res.timeline = Timeline(profile=p.name)
+        lsrcs = [link_source(spec_leaves(p, dev), m, width, seed=s,
+                             device=dev,
+                             links=None if links is None else links[i])
+                 for i, (s, p) in enumerate(zip(prep.seeds, prep.profiles))]
+        sysrun = RoundSystem(
+            spec_leaves(prep.profiles, dev),
+            workload_for(algo, prep.ledger_params),
+            lambda t: tuple(torch.stack(ls) for ls in
+                            zip(*[f(t) for f in lsrcs])))
     round_kw = {} if mode is None else {"mode": mode}
     if uniforms is not None:
         round_kw["uniforms"] = uniforms
@@ -263,11 +321,14 @@ def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
         prep.algo, prep.state, _expand(train_data, c, dev),
         _expand(val_data, c, dev), metric_fn=metric_fn, rounds=rounds,
         eval_every=eval_every, draw_masks=lambda t: [src(t) for src in srcs],
-        results=results, stacked=True, device=dev, round_kw=round_kw)
+        results=results, stacked=True, device=dev, round_kw=round_kw, m=m,
+        n=n, draw_cohort=draw_cohort, system=sysrun)
     for i, res in enumerate(results):
         res.round_seconds = [x / c for x in seconds]
         res.seconds = sum(seconds) / c
-        res.state = _config_state(state, i)
+        res.state = config_state(state, i)
+        if res.timeline is not None:
+            assemble_timeline(res)
         bill_comm(algo, prep.ledger_params, res)
     return FLSweepResult(configs=prep.configs, results=results,
                          state_stacked=state, seconds=sum(seconds),
@@ -278,12 +339,14 @@ def run_multi_sweep(variants, train_data, val_data, *,
                     metric_fn: Callable, rounds: int, m: int, n: int,
                     eval_every: int = 1, device=DEFAULT_DEVICE) -> list:
     """Several sweeps whose round differs in structure (another
-    compressor, another algorithm) over one experiment's data.
+    compressor, another algorithm, a cohort engine or not) over one
+    experiment's data.
 
     variants: dicts with keys ``algo`` and ``params0`` and optional
         ``grid`` (default ``[{}]``), ``seeds`` (default ``(0,)``),
-        ``team_frac`` / ``device_frac`` (default 1.0); ``system``,
-        ``trace`` and ``cohort`` raise, as in ``run_sweep``.
+        ``team_frac`` / ``device_frac`` (default 1.0), ``system`` and
+        ``cohort`` (as in ``run_sweep``; members choose each on their
+        own); ``trace`` raises, as in ``run_sweep``.
 
     Returns one FLSweepResult per variant, in order. The reference fuses
     the variants into one compiled program; eagerly they run one after

@@ -72,9 +72,8 @@ def test_ported_scenarios_equal_the_reference():
     from repro.scenarios import SCENARIOS as J_SCENARIOS
     from repro_torch.scenarios import SCENARIOS, FLScenario
 
-    assert len(SCENARIOS) == 91
-    expect = {n for n in J_SCENARIOS if not n.startswith("cohort/")}
-    assert set(SCENARIOS) == expect
+    assert len(SCENARIOS) == 95
+    assert set(SCENARIOS) == set(J_SCENARIOS)
     for name, s in SCENARIOS.items():
         assert s.to_dict() == J_SCENARIOS[name].to_dict(), name
         assert s.spec_hash() == J_SCENARIOS[name].spec_hash(), name
@@ -91,15 +90,21 @@ def test_ported_scenarios_equal_the_reference():
 
 
 def test_unported_scenarios_and_fields_are_refused():
+    """The cohort_size and system fields cross from the reference's dict
+    (both are ported); unknown names and algorithms are still refused."""
     from repro.scenarios import SCENARIOS as J_SCENARIOS
     from repro_torch.scenarios import AlgoSpec, FLScenario, get_scenario
 
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_scenario("cohort/virtual/n1000")
+    j = J_SCENARIOS["cohort/virtual/n1000"].with_system(
+        "edge-iot").scaled(n_devices=50)
+    s = FLScenario.from_dict(j.to_dict())
+    assert s.to_dict() == j.to_dict() and s.spec_hash() == j.spec_hash()
+    assert s.cohort_size == 50 and s.system.name == "edge-iot"
+    assert get_scenario(j.to_dict()) == s
+    with pytest.raises(KeyError, match="unknown scenario"):
+        get_scenario("cohort/virtual/n5")
     with pytest.raises(ValueError, match="unknown algorithm"):
         AlgoSpec("fedprox")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        FLScenario.from_dict(J_SCENARIOS["cohort/virtual/n1000"].to_dict())
 
 
 def _as_port_hp(jhp):

@@ -67,10 +67,15 @@ PUBLIC_MODULES = (
     "repro_torch.serve.personalized",
     "repro_torch.serve.sampler",
     "repro_torch.serve.store",
+    "repro_torch.system",
+    "repro_torch.system.simulate",
+    "repro_torch.system.spec",
+    "repro_torch.system.timeline",
     "repro_torch.train",
     "repro_torch.train.checkpoint",
     "repro_torch.train.engine",
     "repro_torch.train.fl_trainer",
+    "repro_torch.train.store",
     "repro_torch.train.sweep",
 )
 

@@ -156,7 +156,7 @@ def test_eval_points():
     assert eval_points(3, 1) == [1, 2, 3]
 
 
-@pytest.mark.parametrize("arg", ["cohort", "system", "trace", "trace_dir"])
+@pytest.mark.parametrize("arg", ["trace", "trace_dir"])
 def test_unported_engine_options_raise(arg):
     from repro_torch.core import PerMFL, PerMFLHParams
     from repro_torch.train.engine import run_experiment

@@ -1150,3 +1150,55 @@ def test_rwkv_generate_bf16_variants(cuda):
                         "simt": 3 * cfg.num_layers}
     assert out.shape == (3, 4) and out.dtype == torch.int32
     assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+
+
+def test_cohort_scatter_writes_in_place_on_the_card(cuda):
+    """The cohort store's scatter writes the cohort's rows into the
+    resident buffer itself: the buffer keeps its address, a round's peak
+    stays a small fraction of the population's bytes, and a row sampled
+    k times holds k."""
+    from repro_torch.core.participation import sample_cohort
+    from repro_torch.train.store import DeviceStateStore
+
+    m, n, s, c = 2, 200_000, 640, 256
+    tier = torch.zeros(m, n, s, device=cuda)
+    store = DeviceStateStore({"theta": tier}, m, n)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    counts = torch.zeros(m, n, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(4):
+        idx = sample_cohort(gen, m, n, c)
+        assert idx.is_cuda and idx.dtype == torch.int64
+        rows = store.gather(idx)["theta"]
+        store.scatter(idx, {"theta": rows + 1.0})
+        counts.scatter_add_(1, idx, torch.ones(m, c, device=cuda))
+    torch.cuda.synchronize()
+    assert store.tree["theta"].data_ptr() == tier.data_ptr()
+    assert torch.cuda.max_memory_allocated() - base < tier.numel() * 4 // 20
+    assert torch.equal(tier[..., 0], counts)
+    assert torch.equal(tier[..., -1], counts)
+
+
+def test_full_width_cohort_is_the_stacked_run_on_the_card(cuda):
+    """cohort/virtual/n1000 (2 x 1,000 devices, MCLR) for 2 rounds with
+    cohort = n through the kernel path: bit-equal to the stacked run, and
+    prox_update launched K*L = 4 times a round in each."""
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.scenarios import run_scenario
+
+    runs = {}
+    for cohort in (None, 1000):
+        reset_launches()
+        runs[cohort] = run_scenario("cohort/virtual/n1000", rounds=2,
+                                    cohort=cohort, device=cuda)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in LAUNCHES.items() if v} == \
+            {"prox_update": 8}
+    a, b = runs[None], runs[1000]
+    for f in ("pm_acc", "tm_acc", "gm_acc", "train_loss", "participation"):
+        assert getattr(a, f) == getattr(b, f), f
+    for tier in ("x", "w", "theta"):
+        assert torch.equal(getattr(a.state, tier), getattr(b.state, tier))
+    assert b.cohort_indices[0] == [list(range(1000))] * 2

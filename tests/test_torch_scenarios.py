@@ -1,6 +1,6 @@
 """The port's scenario layer against the JAX package's: the registry
-(every name but the four ``cohort/*`` cells, each with the reference's
-``spec_hash``, ``to_dict`` and ``paper_ref``), one scaled cell of each
+(every name, each with the reference's ``spec_hash``, ``to_dict`` and
+``paper_ref``), one scaled cell of each
 PerMFL family beyond Table 1 and Fig 2 run for 2 rounds in both packages
 (fig4's sampled masks injected from the reference's chain), the
 Theorem-1/2 helpers of ``core/theory.py`` on fixed inputs, and the CLI's
@@ -32,10 +32,12 @@ CUT = {"k_team": 2, "l_local": 2}
 
 
 def test_registry_is_the_reference_minus_cohort():
+    """Every name of the reference's registry, the cohort/* cells now
+    included, with its hash, dict, published numbers and metrics."""
     from repro_torch.scenarios import SCENARIOS, families
 
-    want = [k for k in J_SCENARIOS if not k.startswith("cohort/")]
-    assert len(want) == 91 and len(J_SCENARIOS) == 95
+    want = list(J_SCENARIOS)
+    assert len(want) == 95
     assert list(SCENARIOS) == want
     for name, s in SCENARIOS.items():
         j = J_SCENARIOS[name]
@@ -67,10 +69,15 @@ def test_every_algorithm_builds_and_baselines_refuse_comm():
 
 
 def test_cohort_names_wait_for_their_item_and_near_misses_are_listed():
+    """The cohort/* names resolve to their registered cells (the cohort
+    engine they waited for is ported); unknown names list near misses."""
     from repro_torch.scenarios import get_scenario
 
-    with pytest.raises(KeyError, match="item 10"):
-        get_scenario("cohort/virtual/n1000")
+    for n, c in ((1000, 64), (10000, 64), (100000, 128), (1000000, 256)):
+        s = get_scenario(f"cohort/virtual/n{n}")
+        assert s.cohort_size == c and s.data.n_devices == n
+    with pytest.raises(KeyError, match="cohort/virtual/n1000"):
+        get_scenario("cohort/virtual/n7")
     with pytest.raises(KeyError, match="table2/mnist/worst"):
         get_scenario("table2/mnist/best")
     with pytest.raises(KeyError, match="families"):

@@ -427,8 +427,7 @@ def test_refusals(small_fed_data, case):
                   device="cpu", **kw)
 
 
-@pytest.mark.parametrize("arg", ["mesh", "system", "trace", "trace_dir",
-                                 "cohort"])
+@pytest.mark.parametrize("arg", ["mesh", "trace", "trace_dir"])
 def test_unported_sweep_options_raise(arg):
     from repro_torch.core import PerMFL, PerMFLHParams
     from repro_torch.train.sweep import run_sweep
