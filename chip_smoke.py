@@ -121,6 +121,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      bit-equal to the system-free run); ``fig2/fmnist/cnn/permfl`` at
      full width on edge-iot with a 16 s deadline, 2 rounds: stragglers
      dropped, and the system-free run fed the thinned masks bit-equal.
+  7f. run telemetry (``repro_torch.obs``): ``fig2/fmnist/cnn/permfl``
+     for 3 rounds with probes and health on and a trace dir, against the
+     same seed with trace off: histories and state bit-equal,
+     prox_update exactly 150 launches and no other kernel in each, every
+     probe series finite and of length 3, the personalization gap's max
+     above its mean, health ok, the JSONL event log read back and
+     summarized, the span file's compile / dispatch / eval spans; the
+     median round seconds with trace off and on over alternating runs,
+     beside the card's name and power limit; one profiled round each way
+     (``--profile-dir``: the exported trace names prox_update's kernel
+     50 times; kernel launches and kernel time off and on);
+     ``comm/mnist/mclr/topk_10`` traced (EF residual probes > 0, ef_topk
+     exactly rounds * (K + 1)); ``table1/mnist/mclr/permfl`` at eta =
+     1e30 with fail-fast (HealthError naming round 1); the int8 store
+     export of step 4's state and a 512-request replay under an active
+     span log with a metrics registry (one quantize launch inside the
+     store_export span, tier counters summing to 512, one latency
+     observation a batch, the Prometheus text written).
   8. LLM kernel check: flash_attention against its plain version at the
      serving path's shapes in bf16 (deepseek-moe-16b prefill (4, 1024,
      16, 128) causal; decode (4, 1, 16, 128) against a 1,040-slot cache
@@ -338,6 +356,11 @@ DEADLINE_PROFILE = "edge-iot"
 DEADLINE_S = 16.0
 DEADLINE_ROUNDS = 2
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak
+# phase 7f: run telemetry on the main path
+TRACE_ROUNDS = 3
+TRACE_REPS = 6                     # more (off, on) pairs for round times
+TRACE_COMM = "comm/mnist/mclr/topk_10"
+FAIL_CELL = "table1/mnist/mclr/permfl"
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
@@ -1925,6 +1948,229 @@ def sweep_profiles_check():
         + ", ".join(f"{r.timeline.total_seconds():.3f}" for r in sw))
 
 
+def smi_line():
+    """``nvidia-smi --query-gpu=name,power.limit`` of the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def kernel_events(path):
+    """The CUDA kernel events of an exported torch.profiler trace."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def phase_telemetry(main_res):
+    """Run telemetry (``repro_torch.obs``) on the card, each path with the
+    launch counts set to 0 just before and read just after: SCENARIO for
+    TRACE_ROUNDS rounds with probes and health on and a trace dir, against
+    the same seed with trace off (histories and state bit-equal,
+    prox_update exactly rounds * K * L and no other kernel in both, every
+    series finite, the gap's max above its mean, health ok, the event log
+    read back and summarized, the span file's compile / dispatch / eval
+    spans), then TRACE_REPS more (off, on) pairs for the median round
+    seconds; one profiled round of each (``--profile-dir``: the exported
+    trace names prox_update's kernel; kernel launches and device time
+    off and on); TRACE_COMM traced (its EF residual probes > 0, ef_topk
+    exactly rounds * (K + 1)); FAIL_CELL at eta = 1e30 with fail-fast
+    (HealthError at round 1); and the int8 store export and replay of
+    ``main_res``'s state under an active span log with a metrics
+    registry (one quantize launch inside the store_export span, tier
+    counters summing to the requests, one latency observation a batch,
+    the Prometheus text)."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.models import paper_models as pm
+    from repro_torch.obs import (HealthError, MetricsRegistry, SpanLog,
+                                 TraceConfig)
+    from repro_torch.obs.events import read_jsonl, split_runs, summarize_run
+    from repro_torch.obs.report import load_artifacts
+    from repro_torch.scenarios import (AlgoSpec, build_scenario,
+                                       get_scenario, run_scenario)
+    from repro_torch.serve import (ModelStore, PersonalizedServer,
+                                   replay_traffic)
+    from repro_torch.train.engine import run_experiment
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    s = get_scenario(SCENARIO)
+    hp = s.algo.hparams()
+    b = build_scenario(s, seed=0, device=DEVICE)
+    on_cfg = TraceConfig(health=True)
+
+    def run(trace, rounds=TRACE_ROUNDS, **kw):
+        torch.cuda.synchronize()
+        reset_launches()
+        r = run_experiment(b.algo, b.params0, b.train, b.val,
+                           metric_fn=b.metric_fn, rounds=rounds, m=b.m,
+                           n=b.n, team_frac=s.team_frac,
+                           device_frac=s.device_frac, seed=0, trace=trace,
+                           device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        launches = {k: c for k, c in LAUNCHES.items() if c}
+        check_launches(launches,
+                       {"prox_update": rounds * hp.k_team * hp.l_local},
+                       f"{SCENARIO} trace {'on' if trace else 'off'}")
+        return r
+
+    tmp = Path(tempfile.mkdtemp(prefix="obs-"))
+    off = run(None)
+    on = run(on_cfg, trace_dir=str(tmp / "run"))
+    for f in ("pm_acc", "tm_acc", "gm_acc", "train_loss", "participation"):
+        if getattr(on, f) != getattr(off, f):
+            raise AssertionError(f"trace on moved {f}")
+    for tier in ("x", "w", "theta"):
+        if not torch.equal(getattr(on.state, tier), getattr(off.state,
+                                                            tier)):
+            raise AssertionError(f"trace on moved {tier}")
+    series = on.trace.series
+    if sorted(series) != ["grad_norm", "part_loss", "pers_gap_max",
+                          "pers_gap_mean", "tier_drift_max",
+                          "tier_drift_mean", "update_norm"] or any(
+            len(v) != TRACE_ROUNDS or not all(map(math.isfinite, v))
+            for v in list(series.values())
+            + list(on.health.series.values())):
+        raise AssertionError(f"bad probe series {series} / "
+                             f"{on.health.series}")
+    if not all(a >= b_ for a, b_ in zip(series["pers_gap_max"],
+                                        series["pers_gap_mean"])):
+        raise AssertionError("pers_gap_max below pers_gap_mean")
+    if not on.health.ok():
+        raise AssertionError(f"health {on.health.summary()}")
+    runs = split_runs(read_jsonl(tmp / "run"))
+    summ = summarize_run(runs[0])
+    if len(runs) != 1 or summ["evals"] != TRACE_ROUNDS or \
+            "probes" not in summ:
+        raise AssertionError(f"event log read back as {summ}")
+    (chrome,) = load_artifacts(tmp / "run")["spans"]
+    names = [e["name"] for e in chrome["traceEvents"]]
+    if (names.count("compile"), names.count("dispatch"),
+            names.count("eval")) != (1, TRACE_ROUNDS - 1, TRACE_ROUNDS):
+        raise AssertionError(f"spans {names}")
+    say("obs", f"{SCENARIO}: {TRACE_ROUNDS} rounds with probes and health "
+        "on bit-equal to trace off (histories, x, w, theta); prox_update "
+        f"{TRACE_ROUNDS * hp.k_team * hp.l_local} launches in each, no "
+        "other kernel; health ok; events read back "
+        f"({summ['evals']} evals, {summ['dispatches']} dispatches); spans "
+        f"{sorted(set(names))}")
+    for k in sorted(series):
+        say("obs", f"  {k}: " + ", ".join(f"{v:.6g}" for v in series[k]))
+    say("obs", "  health: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(on.health.series.items())))
+
+    # round seconds (host clock, eval included, to a synchronized card),
+    # rounds after the first, (off, on) pairs in alternating order
+    times = {False: off.round_seconds[1:], True: on.round_seconds[1:]}
+    for rep in range(TRACE_REPS):
+        for traced in ((True, False) if rep % 2 == 0 else (False, True)):
+            times[traced] += run(on_cfg if traced else None).round_seconds[1:]
+    t_off, t_on = (statistics.median(times[k]) for k in (False, True))
+    say("obs", f"median round seconds over {len(times[False])} rounds: "
+        f"trace off {t_off:.4f} s, on {t_on:.4f} s "
+        f"({(t_on - t_off) * 1e3:+.2f} ms, {t_on / t_off - 1:+.2%}); "
+        f"ranges off {min(times[False]):.4f}-{max(times[False]):.4f}, on "
+        f"{min(times[True]):.4f}-{max(times[True]):.4f} [{smi}]")
+
+    # --profile-dir: one round, probes off and on
+    prof = {}
+    for traced in (False, True):
+        cfg = on_cfg if traced else TraceConfig(
+            drift=False, grads=False, residuals=False, loss=False,
+            health=False)
+        d = tmp / f"prof-{int(traced)}"
+        run(dataclasses.replace(cfg, profile_dir=str(d)), rounds=1)
+        (path,) = d.glob("torch-*.trace.json")
+        kernels = kernel_events(path)
+        prox = [e for e in kernels if "prox_kernel" in e["name"]]
+        if len(prox) != hp.k_team * hp.l_local:
+            raise AssertionError(f"profile {path}: {len(prox)} prox_kernel "
+                                 "events")
+        prof[traced] = (len(kernels), sum(e["dur"] for e in kernels) / 1e3)
+    say("obs", f"--profile-dir: the exported trace names "
+        f"{prox[0]['name'][:60]!r} {len(prox)} times a round; one profiled "
+        f"round (eval included): {prof[False][0]} kernel launches, "
+        f"{prof[False][1]:.2f} ms of kernel time with probes off; "
+        f"{prof[True][0]} ({prof[True][0] - prof[False][0]:+d}), "
+        f"{prof[True][1]:.2f} ms ({prof[True][1] - prof[False][1]:+.2f}) "
+        f"with probes and health on [{smi}]")
+
+    # the compressed path: EF residual probes
+    spec = get_scenario(TRACE_COMM)
+    chp = spec.algo.hparams()
+    reset_launches()
+    res = run_scenario(spec, rounds=COMM_ROUNDS, trace=on_cfg,
+                       device=DEVICE)
+    torch.cuda.synchronize()
+    check_launches({k: c for k, c in LAUNCHES.items() if c},
+                   {"prox_update": COMM_ROUNDS * chp.k_team * chp.l_local,
+                    "ef_topk": COMM_ROUNDS * (chp.k_team + 1)},
+                   f"{TRACE_COMM} traced")
+    ef = {k: res.trace[k] for k in ("ef_dev_norm", "ef_team_norm")}
+    if not all(v > 0 and math.isfinite(v) for vs in ef.values()
+               for v in vs) or not res.health.ok():
+        raise AssertionError(f"{TRACE_COMM}: residual probes {ef}")
+    say("obs", f"{TRACE_COMM}: ef_topk {COMM_ROUNDS * (chp.k_team + 1)} "
+        "launches; " + "; ".join(f"{k} " + ", ".join(f"{v:.6g}" for v in
+                                                      vs)
+                                 for k, vs in ef.items()))
+
+    # fail-fast at eta = 1e30
+    spec = get_scenario(FAIL_CELL)
+    spec = dataclasses.replace(spec, algo=AlgoSpec(spec.algo.name, tuple(
+        dict(spec.algo.overrides, eta=1e30).items())))
+    try:
+        run_scenario(spec, rounds=3, trace=TraceConfig(fail_fast=True),
+                     device=DEVICE)
+    except HealthError as e:
+        if e.round_index != 1:
+            raise AssertionError(f"fail-fast named round {e.round_index}")
+        say("obs", f"{FAIL_CELL} at eta=1e30: {e}")
+    else:
+        raise AssertionError(f"{FAIL_CELL} at eta=1e30 ran to its end")
+
+    # serving under a span log, into a metrics registry
+    log, metrics = SpanLog(meta={"kind": "serve"}), MetricsRegistry()
+    cfg = b.config
+    pool = b.val["x"].reshape((-1,) + tuple(b.val["x"].shape[3:]))
+    with log.activate():
+        torch.cuda.synchronize()
+        reset_launches()
+        store = ModelStore.from_result(b.algo, main_res, m=b.m, n=b.n,
+                                       encoding="int8")
+        torch.cuda.synchronize()
+        check_launches({k: c for k, c in LAUNCHES.items() if c},
+                       {"quantize": 1}, "traced int8 store export")
+        server = PersonalizedServer(
+            store, lambda p, x: pm.apply(p, cfg, x[:, None])[:, 0])
+        stats = replay_traffic(server, pool, requests=SERVE_REQUESTS,
+                               batch=SERVE_BATCH, alpha=1.2,
+                               unknown_frac=0.1, seed=0, metrics=metrics)
+    spans = [sp.name for sp in log.spans]
+    tiers = sum(metrics.counter(f"serving.tier.{t}").value
+                for t in ("device", "team", "global"))
+    batches = SERVE_REQUESTS // SERVE_BATCH
+    lat = metrics.histogram("serving.replay.latency_ms")
+    prom = metrics.write_prom(tmp / "metrics-serve.prom").read_text()
+    if spans.count("store_export") != 1 or spans.count("replay") != 1 or \
+            spans.count("replay_batch") != batches or \
+            tiers != SERVE_REQUESTS or lat.count() != batches or \
+            f"serving_requests {SERVE_REQUESTS}" not in prom:
+        raise AssertionError(f"serving telemetry: spans {spans}, tiers "
+                             f"{tiers}, latencies {lat.count()}")
+    say("obs", f"int8 store export: 1 quantize launch inside the "
+        f"store_export span; replay of {SERVE_REQUESTS} requests: tier "
+        f"counters sum {tiers:g}, {lat.count()} latency observations, p50 "
+        f"{lat.quantile(50):.3f} ms (qps {stats['qps']:.1f}); "
+        f"{len(prom.splitlines())} lines of Prometheus text")
+    say("obs", f"phase 7f took {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_baseline_profile():
     """One round of each baseline's CNN cell under torch.profiler, after
     a warm-up round and an unprofiled one: host-clock seconds, device
@@ -3220,6 +3466,7 @@ def main(argv) -> int:
     for k, v in phase_cohort().items():
         launches[k] = launches.get(k, 0) + v
     phase_system()
+    phase_telemetry(res)
     attn = phase_attention_check()
     phase_router_check()
     router = phase_fused_router_check()

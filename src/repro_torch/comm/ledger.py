@@ -28,6 +28,7 @@ Wire-format byte model per leaf of p elements:
 """
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Optional
@@ -134,6 +135,12 @@ class CommLedger:
     def total_bytes(self) -> int:
         """Grand total across links, directions, and rounds."""
         return self.totals().total
+
+    def cum_total_bytes(self) -> list:
+        """Cumulative grand total after each logged round: the byte axis
+        the event log (``repro_torch.obs.events``) joins against the
+        metric history at the eval points."""
+        return list(itertools.accumulate(r.total for r in self.rounds))
 
     def uncompressed_total(self) -> int:
         """What the same rounds would have cost shipping fp32 everywhere."""

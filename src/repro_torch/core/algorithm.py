@@ -21,6 +21,10 @@ personalized serving store (``repro_torch.serve.store``).
 ``device_axes`` names the state fields that are device-tier, the ones
 the cohort engine (``repro_torch.train.store``) keeps resident for the
 whole population and gathers to cohort width each round.
+``probe_round`` and ``health_round`` are the run telemetry's
+(``repro_torch.obs``): scalar diagnostics and health detectors of one
+round, read from the states before and after it, never changing them;
+``round`` must therefore leave its input state's tensors as they were.
 
 Evaluation runs in chunks of at most ``EVAL_CHUNK`` devices, so that no
 model tier is ever copied at population size: each device's arithmetic
@@ -28,8 +32,7 @@ is that of one call over all devices, and the mean is taken over the
 concatenated per-device values.
 
 PerMFL lives here; the six Table-1 baselines in
-``repro_torch.core.baselines``. Probes and health detectors are later
-items of ROADMAP.md.
+``repro_torch.core.baselines``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,9 @@ import torch
 
 from repro_torch.comm import CommConfig, CommLedger
 from repro_torch.core import permfl as P
+from repro_torch.obs.health import nonfinite_count
+from repro_torch.obs.probes import (float_tensors, masked_max, masked_mean,
+                                    stacked_sq_norm, tree_diff_norm)
 
 __all__ = ["EVAL_CHUNK", "FLAlgorithm", "FLAlgorithmBase", "PerMFL",
            "broadcast_rows", "device_rows", "eval_global", "eval_personal",
@@ -86,6 +92,44 @@ class FLAlgorithmBase:
                        n_devices: int) -> None:
         """Account one round's bytes from realized (team-gated)
         participation counts. No-op unless the algorithm moves bytes."""
+
+    @torch.no_grad()
+    def probe_round(self, prev_state, state, data, *, team_mask,
+                    device_mask, trace):
+        """Per-round scalar diagnostics (``repro_torch.obs``): called by
+        the engine right after ``round`` when a ``TraceConfig`` is
+        active, returning ``{name: float32 tensor}``, each 0-d, or (C,)
+        for a sweep's stacked state (one value per config). Pure
+        measurement: reads the states, launches none of the port's
+        kernels and draws from no generator.
+
+        Default: the whole-state update norm (``trace.grads``) over the
+        float fields' ``layout.columns``. Algorithms with tiered state
+        override to add drift, residual and loss probes."""
+        out = {}
+        if trace.grads:
+            out["update_norm"] = tree_diff_norm(prev_state, state,
+                                                team_mask.dim() - 1)
+        return out
+
+    @torch.no_grad()
+    def health_round(self, prev_state, state, data, *, team_mask,
+                     device_mask, trace):
+        """Per-round health detectors (``repro_torch.obs.health``):
+        called by the engine when ``trace.health`` is on, returning
+        ``{name: float32 tensor}`` values where > 0 means "this round is
+        bad". Same purity as ``probe_round``.
+
+        Default: counts of non-finite entries in the post-round state and
+        in the round's update (``state - prev_state``): the update catches
+        an inf - inf that cancels back to a finite state. Algorithms with
+        a cheap loss at hand override to add an explosion flag against
+        ``trace.health_loss_max``."""
+        lead = team_mask.dim() - 1
+        delta = [b - a for a, b in zip(float_tensors(prev_state),
+                                       float_tensors(state))]
+        return {"nonfinite_params": nonfinite_count(state, lead),
+                "nonfinite_update": nonfinite_count(delta, lead)}
 
     def serving_params(self, state, team=None, device=None):
         """The flat parameter row this algorithm serves to one principal:
@@ -262,6 +306,76 @@ class PerMFL(FLAlgorithmBase):
                            lambda a, b: theta[a:b],
                            _stacked(train_data, lead), theta.shape[0])
         out["train_loss"] = metric_values(loss.reshape(lead + (-1,)).mean(-1))
+        return out
+
+    def _device_losses(self, state, data, grads: bool):
+        """Every device's train loss at the state's theta, lead + (M, N),
+        and with ``grads`` its gradient, lead + (M, N, S), from one
+        forward and one backward (``permfl.device_grads``' arithmetic)."""
+        theta = state.theta
+        lead = theta.dim() - 3
+        flat = theta.reshape(-1, theta.shape[-1])
+        batch = _stacked(data, theta.shape[:lead])
+        if not grads:
+            return self.loss_fn(state.layout.unflatten(flat),
+                                batch).view(theta.shape[:-1]), None
+        with torch.enable_grad():
+            t = flat.detach().requires_grad_(True)
+            losses = self.loss_fn(state.layout.unflatten(t), batch)
+            (g,) = torch.autograd.grad(losses.sum(), t)
+        return losses.detach().view(theta.shape[:-1]), g.view(theta.shape)
+
+    @torch.no_grad()
+    def probe_round(self, prev_state, state, data, *, team_mask,
+                    device_mask, trace):
+        """PerMFL's probes on top of the update norm: the personalization
+        gap and tier drift Theorems 1-2 bound (mean / max over
+        participants), the post-round device gradient norm, per-tier
+        error-feedback residual norms (compressed runs) and the
+        participation-weighted train loss. The gradient and the loss come
+        from one extra forward and backward of every device."""
+        out = super().probe_round(prev_state, state, data,
+                                  team_mask=team_mask,
+                                  device_mask=device_mask, trace=trace)
+        lead = team_mask.dim() - 1
+        gated = device_mask * team_mask[..., None]
+        cols = state.layout.columns
+        if trace.drift:
+            gap, drift = P.tier_norms(state)
+            out["pers_gap_mean"] = masked_mean(gap, gated, lead)
+            out["pers_gap_max"] = masked_max(gap, gated, lead)
+            out["tier_drift_mean"] = masked_mean(drift, team_mask, lead)
+            out["tier_drift_max"] = masked_max(drift, team_mask, lead)
+        if trace.grads or trace.loss:
+            losses, g = self._device_losses(state, data, trace.grads)
+            if trace.grads:
+                out["grad_norm"] = masked_mean(
+                    stacked_sq_norm(cols(g), lead + 2).sqrt(), gated, lead)
+        if trace.residuals and state.comm is not None:
+            out["ef_dev_norm"] = masked_mean(
+                stacked_sq_norm(cols(state.comm.ef_dev), lead + 2).sqrt(),
+                gated, lead)
+            out["ef_team_norm"] = masked_mean(
+                stacked_sq_norm(cols(state.comm.ef_team), lead + 1).sqrt(),
+                team_mask, lead)
+        if trace.loss:
+            out["part_loss"] = masked_mean(losses, gated, lead)
+        return out
+
+    @torch.no_grad()
+    def health_round(self, prev_state, state, data, *, team_mask,
+                     device_mask, trace):
+        """The nonfinite detectors plus a loss-explosion flag: the
+        participation-weighted personalized train loss trips when it goes
+        non-finite or exceeds ``trace.health_loss_max``."""
+        out = super().health_round(prev_state, state, data,
+                                   team_mask=team_mask,
+                                   device_mask=device_mask, trace=trace)
+        gated = device_mask * team_mask[..., None]
+        losses, _ = self._device_losses(state, data, False)
+        ploss = masked_mean(losses, gated, team_mask.dim() - 1)
+        out["loss_exploded"] = (~torch.isfinite(ploss)
+                                | (ploss > trace.health_loss_max)).float()
         return out
 
     def serving_params(self, state, team=None, device=None):

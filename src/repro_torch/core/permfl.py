@@ -341,9 +341,12 @@ def permfl_round(state: PerMFLState, data, hp: PerMFLHParams,
 def tier_norms(state: PerMFLState):
     """``(pers_gap (M, N), tier_drift (M,))``: the personalization gaps
     ``||theta_ij - w_i||`` and the team-vs-server drifts ``||w_i - x||``
-    the paper's rates are stated in (leading (C,) for a stacked state)."""
-    gap = (state.theta - state.w.unsqueeze(-2)).norm(dim=-1)
-    drift = (state.w - state.x.unsqueeze(-2)).norm(dim=-1)
+    the paper's rates are stated in (leading (C,) for a stacked state),
+    over the layout's columns: the probes of ``repro_torch.obs`` read
+    them after every round."""
+    cols = state.layout.columns
+    gap = cols(state.theta - state.w.unsqueeze(-2)).norm(dim=-1)
+    drift = cols(state.w - state.x.unsqueeze(-2)).norm(dim=-1)
     return gap, drift
 
 

@@ -1,6 +1,6 @@
 """Scenario registry and runner of the port: PerMFL and the six Table-1
-baselines on 91 of the reference's 95 cells (all but ``cohort/*``), run
-one at a time or swept over a grid and seeds."""
+baselines on all 95 of the reference's cells, run one at a time or swept
+over a grid and seeds, with or without run telemetry."""
 from repro_torch.scenarios.registry import (SCENARIOS, families,
                                             get_scenario, register)
 from repro_torch.scenarios.runner import (ScenarioBuild, build_scenario,

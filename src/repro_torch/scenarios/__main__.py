@@ -6,12 +6,13 @@
     PYTHONPATH=src python -m repro_torch.scenarios profiles
     PYTHONPATH=src python -m repro_torch.scenarios run NAME [--rounds R]
         [--eval-every E] [--seed S] [--system PROFILE]
-        [--deadline SECONDS] [--smoke] [--cohort C] [--hparam NAME=VALUE]
+        [--deadline SECONDS] [--smoke] [--cohort C] [--trace-dir DIR]
+        [--profile-dir DIR] [--fail-fast] [--hparam NAME=VALUE]
         [--device cuda|cpu] [--json]
     PYTHONPATH=src python -m repro_torch.scenarios serve NAME [--rounds R]
         [--seed S] [--smoke] [--encoding delta|int8|raw] [--store PATH]
         [--requests Q] [--batch B] [--alpha A] [--unknown-frac F]
-        [--cached] [--device cuda|cpu] [--json]
+        [--cached] [--trace-dir DIR] [--device cuda|cpu] [--json]
 
 ``list`` prints one line per registered scenario (name, topology,
 partitioner, model, algorithm, default rounds, spec hash -- the same
@@ -38,6 +39,16 @@ from disk), then replays Zipf-popularity traffic through the
 tier-fallback batched server (``--cached``: through the LRU) and prints
 the latency percentiles and queries per second. ``--smoke`` shrinks the
 scenario to 2 teams x 3 devices x 16 samples for 2 rounds.
+
+Run telemetry (``repro_torch.obs``): ``run --trace-dir DIR`` turns on
+the probes and health monitors and writes the JSONL event log and a
+Chrome-trace span file there (read them back with ``python -m
+repro_torch.obs report DIR``); ``--profile-dir DIR`` also runs the
+rounds under ``torch.profiler`` and exports its Chrome trace there;
+``--fail-fast`` stops at the first unhealthy round with exit code 3,
+naming the round. ``serve --trace-dir DIR`` records one span log over
+train -> export -> replay, the training events, and the serving metrics
+as ``metrics-serve.jsonl`` and Prometheus text ``metrics-serve.prom``.
 """
 from __future__ import annotations
 
@@ -147,6 +158,7 @@ def _with_hparams(s, items):
 
 
 def _cmd_run(args) -> int:
+    from repro_torch.obs import HealthError, TraceConfig
     from repro_torch.scenarios import get_scenario, run_scenario
 
     s = get_scenario(args.name)
@@ -168,8 +180,20 @@ def _cmd_run(args) -> int:
             print(f"error: {err}")
             return 2
     rounds = args.rounds or s.rounds
-    res = run_scenario(s, rounds=rounds, seed=args.seed,
-                       eval_every=args.eval_every, device=args.device)
+    trace = None
+    if args.trace_dir or args.profile_dir or args.fail_fast:
+        # cost_analysis rides trace_dir, so the saved compile span carries
+        # the first round's FLOP count next to its measured time
+        trace = TraceConfig(cost_analysis=bool(args.trace_dir),
+                            profile_dir=args.profile_dir,
+                            fail_fast=args.fail_fast)
+    try:
+        res = run_scenario(s, rounds=rounds, seed=args.seed,
+                           eval_every=args.eval_every, trace=trace,
+                           trace_dir=args.trace_dir, device=args.device)
+    except HealthError as e:
+        print(f"error: {e}")
+        return 3
     # only the metrics the algorithm reported (the baselines report no
     # team model and no train loss)
     hists = {"pm": res.pm_acc, "tm": res.tm_acc, "gm": res.gm_acc,
@@ -187,6 +211,10 @@ def _cmd_run(args) -> int:
         if res.cohort is not None:
             rec["cohort"] = res.cohort
             rec["population"] = res.population
+        if res.health is not None:
+            rec["health"] = res.health.summary()
+        if res.events_path:
+            rec["events_path"] = res.events_path
         print(json.dumps(rec, sort_keys=True))
         return 0
     print(f"{s.name}: rounds={rounds} "
@@ -206,13 +234,23 @@ def _cmd_run(args) -> int:
     if res.cohort is not None:
         print(f"  cohort: {res.cohort} of {res.population} devices per "
               "team a round")
+    if res.health is not None:
+        h = res.health.summary()
+        print("  health: ok" if h["ok"] else
+              f"  health: FAILED at round {h['first_bad_round']}")
+    if res.events_path:
+        print(f"  events: {res.events_path} "
+              f"(python -m repro_torch.obs report {args.trace_dir})")
     for metric, acc in s.paper_ref:
         print(f"  paper {metric}: {acc}% (A100, full rounds)")
     return 0
 
 
 def _cmd_serve(args) -> int:
+    import contextlib
+
     from repro_torch.models import paper_models as pm
+    from repro_torch.obs import MetricsRegistry, SpanLog
     from repro_torch.scenarios import (build_scenario, get_scenario,
                                        run_scenario)
     from repro_torch.serve import (ModelStore, PersonalizedServer,
@@ -221,27 +259,40 @@ def _cmd_serve(args) -> int:
     s = get_scenario(args.name)
     if args.smoke:
         s = s.scaled(**_SMOKE)
-    res = run_scenario(s, rounds=args.rounds, seed=args.seed,
-                       device=args.device)
-    b = build_scenario(s, seed=args.seed, device=args.device)
-    store = ModelStore.from_result(b.algo, res, m=b.m, n=b.n,
-                                   encoding=args.encoding)
-    if args.store:
-        store.save(args.store)
-        store = ModelStore.load(args.store, device=args.device)
-        print(f"# store: {args.store} ({store.encoding}, "
-              f"{store.m}x{store.n}, device tier "
-              f"{store.device_tier_nbytes() / 1e6:.2f} MB)")
-    cfg = b.config
-    xv = b.val["x"]
-    pool = xv.reshape((-1,) + tuple(xv.shape[3:]))
-    server = PersonalizedServer(
-        store, lambda p, x: pm.apply(p, cfg, x[:, None])[:, 0])
-    stats = replay_traffic(server, pool, requests=args.requests,
-                           batch=args.batch, alpha=args.alpha,
-                           unknown_frac=args.unknown_frac, seed=args.seed,
-                           cached=args.cached)
+    # with --trace-dir the CLI owns one span log over train -> export ->
+    # replay, so training and serving spans land in a single trace
+    log = metrics = None
+    if args.trace_dir:
+        log = SpanLog(meta={"kind": "serve", "scenario": s.name})
+        metrics = MetricsRegistry()
+    with log.activate() if log is not None else contextlib.nullcontext():
+        res = run_scenario(s, rounds=args.rounds, seed=args.seed,
+                           trace=True if args.trace_dir else None,
+                           trace_dir=args.trace_dir, device=args.device)
+        b = build_scenario(s, seed=args.seed, device=args.device)
+        store = ModelStore.from_result(b.algo, res, m=b.m, n=b.n,
+                                       encoding=args.encoding)
+        if args.store:
+            store.save(args.store)
+            store = ModelStore.load(args.store, device=args.device)
+            print(f"# store: {args.store} ({store.encoding}, "
+                  f"{store.m}x{store.n}, device tier "
+                  f"{store.device_tier_nbytes() / 1e6:.2f} MB)")
+        cfg = b.config
+        xv = b.val["x"]
+        pool = xv.reshape((-1,) + tuple(xv.shape[3:]))
+        server = PersonalizedServer(
+            store, lambda p, x: pm.apply(p, cfg, x[:, None])[:, 0])
+        stats = replay_traffic(server, pool, requests=args.requests,
+                               batch=args.batch, alpha=args.alpha,
+                               unknown_frac=args.unknown_frac,
+                               seed=args.seed, cached=args.cached,
+                               metrics=metrics)
     stats["scenario"] = s.name
+    if args.trace_dir:
+        log.save(args.trace_dir, tag=f"serve-{s.name}")
+        metrics.write_jsonl(f"{args.trace_dir}/metrics-serve.jsonl")
+        metrics.write_prom(f"{args.trace_dir}/metrics-serve.prom")
     if args.json:
         print(json.dumps({k: v for k, v in stats.items() if k != "lat_ms"},
                          sort_keys=True))
@@ -264,6 +315,9 @@ def _cmd_serve(args) -> int:
           f"{stats['stage_forward_ms']:.3f}ms")
     print(f"  device tier: {stats['device_tier_bytes'] / 1e6:.2f} MB "
           f"({stats['m']}x{stats['n']} devices)")
+    if args.trace_dir:
+        print(f"  telemetry: {args.trace_dir} "
+              f"(python -m repro_torch.obs report {args.trace_dir})")
     return 0
 
 
@@ -299,6 +353,15 @@ def main(argv=None) -> int:
     p.add_argument("--cohort", type=int, default=None,
                    help="override cohort_size (devices materialized per "
                         "team per round); 0 runs the stacked path")
+    p.add_argument("--trace-dir", default=None,
+                   help="turn on probes + health monitors and write the "
+                        "JSONL event log + Chrome-trace spans here")
+    p.add_argument("--profile-dir", default=None,
+                   help="run the rounds under torch.profiler and export "
+                        "its Chrome trace here")
+    p.add_argument("--fail-fast", action="store_true",
+                   help="stop at the first unhealthy round (nonfinite "
+                        "state / exploded loss); exit code 3")
     p.add_argument("--hparam", action="append", default=None,
                    metavar="NAME=VALUE",
                    help="override one float hyperparameter (repeatable)")
@@ -330,6 +393,9 @@ def main(argv=None) -> int:
                         "principals (exercises tier fallback)")
     p.add_argument("--cached", action="store_true",
                    help="serve through the LRU unique-principal path")
+    p.add_argument("--trace-dir", default=None,
+                   help="write spans + serving metrics (JSONL and "
+                        "Prometheus text) + training events here")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--json", action="store_true",
                    help="print the replay stats as JSON on stdout")

@@ -2,7 +2,13 @@
 or sweep a grid of its hyperparameters and seeds (``train.sweep``).
 
 ``system=`` and ``cohort=`` default to the spec's own ``system`` and
-``cohort_size``; passing None turns either off for this run."""
+``cohort_size``; passing None turns either off for this run.
+
+With a ``trace_dir`` the runner owns the run's span log (unless a caller
+already activated one): the ``scenario_build`` span (with its
+``data_build``) and the engine's spans land in one Chrome-trace file,
+and the JSONL event log's header carries the scenario's identity (name,
+family, spec hash)."""
 from __future__ import annotations
 
 import time
@@ -13,6 +19,7 @@ import torch
 
 from repro_torch.convert import params_from_numpy
 from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
+from repro_torch.obs.spans import owned_log, span
 from repro_torch.scenarios.registry import get_scenario
 from repro_torch.scenarios.spec import (FLScenario, fns_for, init_model,
                                         to_torch)
@@ -62,15 +69,17 @@ def build_scenario(name_or_spec, seed: int = 0,
     ``data_seed``)."""
     s = get_scenario(name_or_spec)
     dev = resolve_device(device)
-    t0 = time.perf_counter()
-    fd = s.data.build(s.data_seed)
-    t1 = time.perf_counter()
-    train, val = to_torch(fd, dev)
-    synchronize(dev)
-    seconds = {"data": t1 - t0, "to_device": time.perf_counter() - t1}
-    cfg = s.model_config()
-    loss, metric = fns_for(cfg)
-    params0 = params_from_numpy(init_model(cfg, seed), dev)
+    with span("scenario_build", scenario=s.name, seed=seed):
+        with span("data_build", seed=s.data_seed):
+            t0 = time.perf_counter()
+            fd = s.data.build(s.data_seed)
+            t1 = time.perf_counter()
+            train, val = to_torch(fd, dev)
+            synchronize(dev)
+        seconds = {"data": t1 - t0, "to_device": time.perf_counter() - t1}
+        cfg = s.model_config()
+        loss, metric = fns_for(cfg)
+        params0 = params_from_numpy(init_model(cfg, seed), dev)
     return ScenarioBuild(scenario=s, fd=fd, config=cfg, train=train,
                          val=val, loss_fn=loss, metric_fn=metric,
                          algo=s.algo.build(loss, comm=s.comm),
@@ -81,12 +90,18 @@ def _keep(value, own):
     return own if value is _KEEP_SPEC else value
 
 
+def _identity(s: FLScenario) -> dict:
+    """The event log header's scenario identity."""
+    return {"scenario": s.name, "family": s.family,
+            "spec_hash": s.spec_hash()}
+
+
 def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
                  seed: int = 0, init_seed: Optional[int] = None,
                  eval_every: int = 1, masks: Optional[Callable] = None,
                  uniforms: Optional[Callable] = None, system=_KEEP_SPEC,
                  cohort=_KEEP_SPEC, links: Optional[Callable] = None,
-                 time_parts: bool = False,
+                 time_parts: bool = False, trace=None, trace_dir=None,
                  device=DEFAULT_DEVICE) -> FLResult:
     """Run one scenario through the engine on ``device`` (default the
     card; raises without one).
@@ -101,26 +116,35 @@ def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
     cohort: cohort width in place of the spec's ``cohort_size``; None
         runs the stacked path.
     links / time_parts: as ``run_experiment``'s.
+    trace / trace_dir: run telemetry (``repro_torch.obs``), as
+        ``run_experiment``'s: probe and detector streams on
+        ``FLResult.trace`` / ``.health``, and in ``trace_dir`` the JSONL
+        event log and one span file covering the scenario build and the
+        engine's rounds.
     ``FLResult.setup_seconds`` holds the data's build and copy time.
     """
     s = get_scenario(name_or_spec)
-    b = build_scenario(s, seed if init_seed is None else init_seed,
-                       device=device)
-    res = run_experiment(
-        b.algo, b.params0, b.train, b.val, metric_fn=b.metric_fn,
-        rounds=s.rounds if rounds is None else rounds, m=b.m, n=b.n,
-        team_frac=s.team_frac, device_frac=s.device_frac, seed=seed,
-        eval_every=eval_every, masks=masks, uniforms=uniforms,
-        system=_keep(system, s.system), cohort=_keep(cohort, s.cohort_size),
-        links=links, time_parts=time_parts,
-        device=b.device)
+    with owned_log(trace_dir, {"kind": "scenario", "scenario": s.name},
+                  s.name):
+        b = build_scenario(s, seed if init_seed is None else init_seed,
+                           device=device)
+        res = run_experiment(
+            b.algo, b.params0, b.train, b.val, metric_fn=b.metric_fn,
+            rounds=s.rounds if rounds is None else rounds, m=b.m, n=b.n,
+            team_frac=s.team_frac, device_frac=s.device_frac, seed=seed,
+            eval_every=eval_every, masks=masks, uniforms=uniforms,
+            system=_keep(system, s.system),
+            cohort=_keep(cohort, s.cohort_size), links=links,
+            time_parts=time_parts, trace=trace, trace_dir=trace_dir,
+            event_meta=_identity(s), device=b.device)
     res.setup_seconds = dict(b.seconds)
     return res
 
 
 def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
                    rounds: Optional[int] = None, eval_every: int = 1,
-                   system=_KEEP_SPEC, cohort=_KEEP_SPEC,
+                   system=_KEEP_SPEC, cohort=_KEEP_SPEC, trace=None,
+                   trace_dir=None,
                    device=DEFAULT_DEVICE) -> FLSweepResult:
     """Run a hyperparameter grid x seeds over one scenario as one stacked
     run (``train.sweep.run_sweep``) on ``device`` (default the card;
@@ -137,16 +161,21 @@ def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
         spec's own applies.
     cohort: cohort width in place of the spec's ``cohort_size``; None
         runs the stacked path.
+    trace / trace_dir: run telemetry, as ``run_scenario``'s: per-config
+        probe and detector streams, one sweep event file.
     """
     s = get_scenario(name_or_spec)
     if isinstance(seeds, int):
         seeds = (seeds,)
     seeds = tuple(int(x) for x in seeds)
-    b = build_scenario(s, seeds[0] if seeds else 0, device=device)
-    return run_sweep(
-        b.algo, grid, seeds, lambda sd: init_model(b.config, sd), b.train,
-        b.val, metric_fn=b.metric_fn,
-        rounds=s.rounds if rounds is None else rounds, m=b.m, n=b.n,
-        team_frac=s.team_frac, device_frac=s.device_frac,
-        eval_every=eval_every, system=_keep(system, s.system),
-        cohort=_keep(cohort, s.cohort_size), device=b.device)
+    with owned_log(trace_dir, {"kind": "scenario_sweep", "scenario": s.name},
+                  f"sweep-{s.name}"):
+        b = build_scenario(s, seeds[0] if seeds else 0, device=device)
+        return run_sweep(
+            b.algo, grid, seeds, lambda sd: init_model(b.config, sd),
+            b.train, b.val, metric_fn=b.metric_fn,
+            rounds=s.rounds if rounds is None else rounds, m=b.m, n=b.n,
+            team_frac=s.team_frac, device_frac=s.device_frac,
+            eval_every=eval_every, system=_keep(system, s.system),
+            cohort=_keep(cohort, s.cohort_size), trace=trace,
+            trace_dir=trace_dir, event_meta=_identity(s), device=b.device)

@@ -18,10 +18,10 @@ exact encodings (``"delta"`` / ``"raw"``); under ``"int8"`` too, since
 both decode with the same ops. :func:`replay_traffic` replays
 Zipf-skewed traffic -- real traffic's popularity -- through either and
 measures p50/p95/p99 latency and queries per second on the store's
-device, each timed batch ending in a device synchronize.
-
-The reference (``repro/serve/personalized.py``) also publishes serving
-metrics to a registry; the port's observability is a later item.
+device, each timed batch ending in a device synchronize, and, given a
+``repro_torch.obs.MetricsRegistry``, publishes them under the
+reference's metric names; the replay, its batches and its stage split
+run in spans (``repro_torch.obs.spans``).
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import synchronize
+from repro_torch.obs.spans import span
 from repro_torch.serve.store import ModelStore
 
 __all__ = ["PersonalizedServer", "replay_traffic", "zipf_requests"]
@@ -142,7 +143,8 @@ def _device_name(dev: torch.device) -> str:
 def replay_traffic(server: PersonalizedServer, inputs, *,
                    requests: int = 512, batch: int = 64,
                    alpha: float = 1.2, unknown_frac: float = 0.0,
-                   seed: int = 0, cached: bool = False) -> dict:
+                   seed: int = 0, cached: bool = False,
+                   metrics=None) -> dict:
     """Replay Zipf-popularity traffic and measure serving latency.
 
     Draws ``requests`` tags via :func:`zipf_requests`, pairs each with a
@@ -160,7 +162,11 @@ def replay_traffic(server: PersonalizedServer, inputs, *,
     ``requests``), the stage split (``stage_gather_ms`` /
     ``stage_forward_ms`` means), ``cache_hit_rate`` on cached runs, the
     workload knobs, the encoded device-tier size and the ``device`` it
-    ran on.
+    ran on. When ``metrics`` (a ``repro_torch.obs.MetricsRegistry``) is
+    given, the same telemetry is published into it as the reference
+    publishes it: ``serving.requests``, ``serving.tier.<tier>``, the
+    latency and stage histograms, and on cached runs the LRU counters
+    and the hit-rate gauge.
     """
     store = server.store
     dev = store.device
@@ -173,19 +179,22 @@ def replay_traffic(server: PersonalizedServer, inputs, *,
     xs = pool[torch.as_tensor(pick, device=dev)]
     step = server.serve_cached if cached else server.serve
 
-    step(teams[:batch], devices[:batch], xs[:batch])
-    synchronize(dev)
-    server.reset_tier_counts()
-    store.reset_cache_stats()
-    lat = []
-    t_all = time.perf_counter()
-    for lo in range(0, requests, batch):
-        hi = lo + batch
-        t0 = time.perf_counter()
-        step(teams[lo:hi], devices[lo:hi], xs[lo:hi])
+    with span("replay", requests=requests, batches=requests // batch,
+              cached=bool(cached)):
+        step(teams[:batch], devices[:batch], xs[:batch])
         synchronize(dev)
-        lat.append(time.perf_counter() - t0)
-    total = time.perf_counter() - t_all
+        server.reset_tier_counts()
+        store.reset_cache_stats()
+        lat = []
+        t_all = time.perf_counter()
+        for lo in range(0, requests, batch):
+            hi = lo + batch
+            with span("replay_batch", lo=lo):
+                t0 = time.perf_counter()
+                step(teams[lo:hi], devices[lo:hi], xs[lo:hi])
+                synchronize(dev)
+                lat.append(time.perf_counter() - t0)
+        total = time.perf_counter() - t_all
 
     lat_ms = np.asarray(lat) * 1e3
     lat_sorted = np.sort(lat_ms)
@@ -196,7 +205,7 @@ def replay_traffic(server: PersonalizedServer, inputs, *,
                                     - 1)])
 
     # stage split: gather-decode vs forward, over the same batches
-    with torch.no_grad():
+    with torch.no_grad(), span("replay_stages", batches=requests // batch):
         server.forward(store.gather(teams[:batch], devices[:batch]),
                        xs[:batch])
         synchronize(dev)
@@ -229,4 +238,22 @@ def replay_traffic(server: PersonalizedServer, inputs, *,
     }
     if cached:
         stats["cache_hit_rate"] = store.cache_stats()["hit_rate"]
+
+    if metrics is not None:
+        metrics.counter("serving.requests").inc(requests)
+        for tier, cnt in stats["tier_counts"].items():
+            metrics.counter(f"serving.tier.{tier}").inc(cnt)
+        h = metrics.histogram("serving.replay.latency_ms")
+        for v in lat_ms:
+            h.observe(float(v))
+        hg = metrics.histogram("serving.stage.gather_ms")
+        hf = metrics.histogram("serving.stage.forward_ms")
+        for g, f in zip(g_ms, f_ms):
+            hg.observe(g)
+            hf.observe(f)
+        if cached:
+            cs = store.cache_stats()
+            metrics.counter("serving.lru.hits").inc(cs["hits"])
+            metrics.counter("serving.lru.misses").inc(cs["misses"])
+            metrics.gauge("serving.cache_hit_rate").set(cs["hit_rate"])
     return stats

@@ -41,6 +41,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.flat import Layout
 from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
 from repro_torch.kernels.segments import LANES, segments
+from repro_torch.obs.spans import span
 from repro_torch.train.checkpoint import (load_checkpoint_arrays,
                                           save_checkpoint)
 
@@ -122,15 +123,16 @@ class ModelStore:
         tier is encoded against its team anchors (``mode``: the
         quantize kernel's mode for ``"int8"``)."""
         _check_encoding(encoding)
-        dev = state.x.device
-        ts = torch.arange(m, device=dev)
-        ds = torch.arange(n, device=dev)
-        g = algo.serving_params(state).clone()
-        team = algo.serving_params(state, ts)
-        rows = algo.serving_params(state, ts[:, None], ds[None, :])
-        payload = _encode(rows, team, encoding, state.layout, mode)
-        return cls(state.layout, g, team, payload, encoding=encoding, m=m,
-                   n=n, cache_size=cache_size)
+        with span("store_export", encoding=encoding, m=m, n=n):
+            dev = state.x.device
+            ts = torch.arange(m, device=dev)
+            ds = torch.arange(n, device=dev)
+            g = algo.serving_params(state).clone()
+            team = algo.serving_params(state, ts)
+            rows = algo.serving_params(state, ts[:, None], ds[None, :])
+            payload = _encode(rows, team, encoding, state.layout, mode)
+            return cls(state.layout, g, team, payload, encoding=encoding,
+                       m=m, n=n, cache_size=cache_size)
 
     @classmethod
     def from_result(cls, algo, result, *, m: int, n: int,
@@ -266,9 +268,10 @@ class ModelStore:
     def save(self, path: str):
         """Persist all three tiers and the layout metadata as one
         checkpoint in the reference's format and key paths."""
-        save_checkpoint(path, self.as_tree(), metadata={
-            "kind": "model_store", "encoding": self.encoding,
-            "m": self.m, "n": self.n, "cache_size": self.cache_size})
+        with span("store_save", encoding=self.encoding):
+            save_checkpoint(path, self.as_tree(), metadata={
+                "kind": "model_store", "encoding": self.encoding,
+                "m": self.m, "n": self.n, "cache_size": self.cache_size})
 
     @classmethod
     def load(cls, path: str, *, cache_size: int | None = None,
@@ -276,39 +279,41 @@ class ModelStore:
         """Rebuild a store from :meth:`save` output (or the reference's)
         on ``device``: the layout comes from the global tier's key paths
         and shapes."""
-        dev = resolve_device(device)
-        arrays, meta = load_checkpoint_arrays(path)
-        if meta.get("kind") != "model_store":
-            raise ValueError(f"{path!r} is not a saved ModelStore "
-                             f"(metadata kind={meta.get('kind')!r})")
-        root: dict = {}
-        for key, arr in arrays.items():
-            parts = key.split("/")
-            node = root
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = arr.to(dev)
-        m, n, enc = int(meta["m"]), int(meta["n"]), meta["encoding"]
-        _check_encoding(enc)
-        lay = Layout.of(root["global"])
-        g = lay.flatten(root["global"])
-        team = lay.flatten(root["team"], lead=(m,))
-        if enc != "int8":
-            payload = lay.flatten(root["device"], lead=(m, n))
-        else:
-            segs = segments(lay.leaf_sizes)
-            q = torch.zeros((m, n, lay.stride), dtype=torch.int8, device=dev)
-            scales = torch.empty((m, n, segs.rows), dtype=torch.float32,
-                                 device=dev)
-            for path, o, p, r0 in zip(lay.paths, segs.offsets, segs.lengths,
-                                      segs.row0):
-                node = root["device"]
-                for k in path:
-                    node = node[k]
-                q[..., o:o + p] = node["q"][..., :p]
-                scales[..., r0:r0 + node["scales"].shape[-1]] = \
-                    node["scales"]
-            payload = {"q": q, "scales": scales}
-        return cls(lay, g, team, payload, encoding=enc, m=m, n=n,
-                   cache_size=(meta.get("cache_size", 64)
-                               if cache_size is None else cache_size))
+        with span("store_load"):
+            dev = resolve_device(device)
+            arrays, meta = load_checkpoint_arrays(path)
+            if meta.get("kind") != "model_store":
+                raise ValueError(f"{path!r} is not a saved ModelStore "
+                                 f"(metadata kind={meta.get('kind')!r})")
+            root: dict = {}
+            for key, arr in arrays.items():
+                parts = key.split("/")
+                node = root
+                for p in parts[:-1]:
+                    node = node.setdefault(p, {})
+                node[parts[-1]] = arr.to(dev)
+            m, n, enc = int(meta["m"]), int(meta["n"]), meta["encoding"]
+            _check_encoding(enc)
+            lay = Layout.of(root["global"])
+            g = lay.flatten(root["global"])
+            team = lay.flatten(root["team"], lead=(m,))
+            if enc != "int8":
+                payload = lay.flatten(root["device"], lead=(m, n))
+            else:
+                segs = segments(lay.leaf_sizes)
+                q = torch.zeros((m, n, lay.stride), dtype=torch.int8,
+                                device=dev)
+                scales = torch.empty((m, n, segs.rows), dtype=torch.float32,
+                                     device=dev)
+                for path, o, p, r0 in zip(lay.paths, segs.offsets,
+                                          segs.lengths, segs.row0):
+                    node = root["device"]
+                    for k in path:
+                        node = node[k]
+                    q[..., o:o + p] = node["q"][..., :p]
+                    scales[..., r0:r0 + node["scales"].shape[-1]] = \
+                        node["scales"]
+                payload = {"q": q, "scales": scales}
+            return cls(lay, g, team, payload, encoding=enc, m=m, n=n,
+                       cache_size=(meta.get("cache_size", 64)
+                                   if cache_size is None else cache_size))

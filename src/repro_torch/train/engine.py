@@ -41,8 +41,19 @@ compressor uniforms (``uniforms=``).
 
 The host loop over rounds (:func:`drive`) is shared with
 ``repro_torch.train.sweep``, which runs C configurations through it at
-once on a stacked state. Run telemetry (``trace=``, ``trace_dir=``) is
-not ported yet (ROADMAP.md queue 1).
+once on a stacked state.
+
+Run telemetry (``trace=``, ``trace_dir=``; ``repro_torch.obs``): with a
+``TraceConfig`` the algorithm's ``probe_round`` (and, under
+``trace.health``, ``health_round``) reads the states before and after
+each round, before the cohort's scatter, and their float32 scalars join
+the round's participation counts in the one copy to the host the loop
+makes each round anyway: probes add no synchronize, and fail-fast checks
+every round. Each round runs in a span (``compile`` for the first,
+``dispatch`` after), each eval in an ``eval`` span; with ``trace_dir``
+the run writes the reference's JSONL event log and a Chrome-trace span
+file there. With ``trace=None`` the loop does nothing it did not do
+before: no extra tensor, launch or synchronize.
 """
 from __future__ import annotations
 
@@ -56,6 +67,11 @@ import torch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.participation import sample_cohort, sample_masks
 from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
+from repro_torch.obs.events import write_run
+from repro_torch.obs.health import HealthReport
+from repro_torch.obs.profiling import compiled_cost, profile_ctx
+from repro_torch.obs.spans import owned_log, span
+from repro_torch.obs.trace import RunTrace, TraceConfig, eval_points
 from repro_torch.system import (Timeline, get_profile, sample_links,
                                 simulate_round, workload_for)
 from repro_torch.train.store import (DeviceStateStore, gather_cohort,
@@ -63,8 +79,8 @@ from repro_torch.train.store import (DeviceStateStore, gather_cohort,
 
 __all__ = ["FLResult", "RoundSystem", "assemble_timeline", "bill_comm",
            "check_cohort", "check_participation", "cohort_source", "drive",
-           "eval_points", "hparam_skeleton", "link_source", "mask_source",
-           "run_experiment", "spec_leaves"]
+           "eval_points", "finish_times", "hparam_skeleton", "link_source",
+           "mask_source", "run_experiment", "spec_leaves"]
 
 # salts separating the cohort and the system streams from the mask
 # stream (ASCII "CHRT" and "SYST", the reference's)
@@ -89,7 +105,17 @@ class FLResult:
     A cohort run records ``cohort`` (c), ``population`` (n) and each
     round's (M, c) index map in ``cohort_indices``; a run with a system
     model its ``timeline`` and the cumulative simulated seconds at each
-    eval point, ``sim_seconds``."""
+    eval point, ``sim_seconds``.
+
+    The reference's cost split, in the port's terms: ``compile_seconds``
+    is the first round's ``round_seconds`` (its kernels built and loaded,
+    cuBLAS warmed up; eval included when it has one), ``run_seconds``
+    the rest, so ``seconds = compile_seconds + run_seconds``;
+    ``dispatches`` counts rounds run plus evals, as the reference's
+    per-round dispatch path counts its jitted calls. A traced run
+    (``trace=``) carries its probe streams in ``trace`` and, under
+    ``trace.health``, its detector streams in ``health``; with
+    ``trace_dir`` its JSONL event log's path is ``events_path``."""
     pm_acc: list = field(default_factory=list)   # per-eval personalized acc
     tm_acc: list = field(default_factory=list)
     gm_acc: list = field(default_factory=list)
@@ -109,6 +135,12 @@ class FLResult:
     cohort_indices: list = field(default_factory=list)  # (M, c) idx / rnd
     part_seconds: dict = field(default_factory=dict)
     setup_seconds: dict = field(default_factory=dict)
+    compile_seconds: float = 0.0          # the first round
+    run_seconds: float = 0.0              # every later round
+    dispatches: int = 0                   # rounds run + evals
+    trace: Optional[RunTrace] = None      # per-round probe streams
+    health: Optional[HealthReport] = None  # per-round detector streams
+    events_path: Optional[str] = None     # JSONL event log (trace_dir)
 
     def last(self, which="pm"):
         """Final-eval value of metric `which` ('pm'|'tm'|'gm'); NaN if the
@@ -125,13 +157,6 @@ class FLResult:
 
 _METRIC_FIELDS = {"pm": "pm_acc", "tm": "tm_acc", "gm": "gm_acc",
                   "train_loss": "train_loss"}
-
-
-def eval_points(rounds: int, eval_every: int) -> list:
-    """1-based rounds after which the engine evaluates: every
-    ``eval_every`` rounds and after the final round."""
-    return [t + 1 for t in range(rounds)
-            if (t + 1) % eval_every == 0 or t == rounds - 1]
 
 
 def check_participation(algo, team_frac: float, device_frac: float):
@@ -283,7 +308,8 @@ def drive(algo, state, train, val, *, metric_fn, rounds: int,
           eval_every: int, draw_masks: Callable, results: list,
           stacked: bool, device: torch.device, round_kw: dict, m: int,
           n: int, draw_cohort: Optional[Callable] = None,
-          system: Optional[RoundSystem] = None, parts=None):
+          system: Optional[RoundSystem] = None, parts=None, trace=None,
+          contexts: Optional[list] = None):
     """The host loop over rounds, shared by ``run_experiment`` and the
     sweep (``repro_torch.train.sweep``).
 
@@ -293,9 +319,9 @@ def drive(algo, state, train, val, *, metric_fn, rounds: int,
         t (0-based), at the round's width (n, or the cohort's); a stacked
         round takes them stacked.
     results: one FLResult per config: each round's realized (team-gated)
-        participation, cohort map and simulated time, and each eval's
-        metrics are appended to its own (its ``timeline`` set when a
-        system model runs).
+        participation, cohort map, simulated time and probe and detector
+        values, and each eval's metrics are appended to its own (its
+        ``timeline`` set when a system model runs).
     round_kw: extra keywords of ``algo.round`` (``uniforms``, ``mode``).
     draw_cohort: the cohort engine's round t -> index map (lead + (M, c)
         int64 on ``device``): the device tier lives in a
@@ -303,6 +329,11 @@ def drive(algo, state, train, val, *, metric_fn, rounds: int,
     system: a RoundSystem, priced each round before the algorithm's
         round (its masks thinned under a deadline).
     parts: None, or a dict the rounds' synchronized parts are added to.
+    trace: None, or a ``TraceConfig``: each result gets a ``RunTrace``
+        (and a ``HealthReport`` under ``trace.health``) filled round by
+        round; ``trace.cost_analysis`` counts the first round's FLOPs,
+        ``trace.fail_fast`` raises ``HealthError`` naming the first bad
+        round and ``contexts[i]`` (config i's identity).
     Returns (final state, host-clock seconds of each round, eval
     included, to a synchronized device).
     """
@@ -313,65 +344,112 @@ def drive(algo, state, train, val, *, metric_fn, rounds: int,
                                                stacked=stacked)
         store = DeviceStateStore(tier, m, n)
         state = None
+    if trace is not None:
+        for res in results:
+            res.trace = RunTrace(config=trace)
+            res.health = HealthReport() if trace.health else None
     seconds = []
     for t in range(rounds):
         t0 = time.perf_counter()
-        clock = _Clock(device, parts)
-        pairs = [(_mask(tm), _mask(dm)) for tm, dm in draw_masks(t)]
-        if stacked:
-            tm, dm = (torch.stack(ms) for ms in zip(*pairs))
-        else:
-            (tm, dm), = pairs
-        tm, dm = tm.to(device), dm.to(device)
-        data, cur, idx = train, state, None
-        if cohort:
-            idx = draw_cohort(t)
-        clock.lap("sample")
-        if cohort:
-            data = gather_cohort(train, idx)
-            cur = merge(store.gather(idx), rest)
-            clock.lap("gather")
-        sim = []
-        if system is not None:
-            tm, dm, *sim = simulate_round(system.leaves, system.workload,
-                                          system.links(t), tm, dm)
-            clock.lap("system")
-        cur = algo.round(cur, data, team_mask=tm, device_mask=dm,
-                         **round_kw)
-        clock.lap("round")
-        if not cohort:
-            state = cur
-        else:
-            tier, rest, _ = split_device_state(algo, cur, m, idx.shape[-1],
-                                               stacked=stacked)
-            store.scatter(idx, tier)
-            clock.lap("scatter")
-        # one copy to the host a round: counts, simulated time, drops
-        gated = dm * tm[..., None]
-        rec = torch.stack([v.to(torch.float64) for v in
-                           [tm.sum(dim=-1), gated.sum(dim=(-2, -1))] + sim],
-                          dim=-1).reshape(len(results), -1).tolist()
-        idx_host = None if idx is None else idx.tolist()
-        for i, (res, row) in enumerate(zip(results, rec)):
-            res.participation.append((int(row[0]), int(row[1])))
+        with span("compile" if t == 0 else "dispatch", round=t + 1) as sp:
+            clock = _Clock(device, parts)
+            pairs = [(_mask(tm), _mask(dm)) for tm, dm in draw_masks(t)]
+            if stacked:
+                tm, dm = (torch.stack(ms) for ms in zip(*pairs))
+            else:
+                (tm, dm), = pairs
+            tm, dm = tm.to(device), dm.to(device)
+            data, cur, idx = train, state, None
+            if cohort:
+                idx = draw_cohort(t)
+            clock.lap("sample")
+            if cohort:
+                data = gather_cohort(train, idx)
+                cur = merge(store.gather(idx), rest)
+                clock.lap("gather")
+            sim = []
             if system is not None:
-                res.timeline.round_seconds.append(row[2])
-                res.timeline.dropped_teams.append(int(row[3]))
-                res.timeline.dropped_devices.append(int(row[4]))
-            if idx_host is not None:
-                res.cohort_indices.append(idx_host[i] if stacked
-                                          else idx_host)
+                tm, dm, *sim = simulate_round(system.leaves,
+                                              system.workload,
+                                              system.links(t), tm, dm)
+                clock.lap("system")
+            prev = cur
+            if t == 0 and trace is not None and trace.cost_analysis:
+                cur, cost = compiled_cost(algo.round, cur, data,
+                                          team_mask=tm, device_mask=dm,
+                                          **round_kw)
+                sp.set(**cost)
+                for res in results:
+                    res.trace.cost = dict(cost)
+            else:
+                cur = algo.round(cur, data, team_mask=tm, device_mask=dm,
+                                 **round_kw)
+            clock.lap("round")
+            obs = {}
+            if trace is not None:
+                kw = dict(team_mask=tm, device_mask=dm, trace=trace)
+                obs = {("probe", k): v for k, v in algo.probe_round(
+                    prev, cur, data, **kw).items()}
+                if trace.health:
+                    obs.update({("health", k): v for k, v in
+                                algo.health_round(prev, cur, data,
+                                                  **kw).items()})
+            if not cohort:
+                state = cur
+            else:
+                tier, rest, _ = split_device_state(
+                    algo, cur, m, idx.shape[-1], stacked=stacked)
+                store.scatter(idx, tier)
+                clock.lap("scatter")
+            # one copy to the host a round: counts, simulated time, drops,
+            # probe and detector values
+            gated = dm * tm[..., None]
+            rec = torch.stack(
+                [v.to(torch.float64) for v in
+                 [tm.sum(dim=-1), gated.sum(dim=(-2, -1))] + sim
+                 + list(obs.values())],
+                dim=-1).reshape(len(results), -1).tolist()
+            idx_host = None if idx is None else idx.tolist()
+            for i, (res, row) in enumerate(zip(results, rec)):
+                res.participation.append((int(row[0]), int(row[1])))
+                if system is not None:
+                    res.timeline.round_seconds.append(row[2])
+                    res.timeline.dropped_teams.append(int(row[3]))
+                    res.timeline.dropped_devices.append(int(row[4]))
+                if idx_host is not None:
+                    res.cohort_indices.append(idx_host[i] if stacked
+                                              else idx_host)
+                for (kind, k), v in zip(obs, row[2 + len(sim):]):
+                    out = res.trace if kind == "probe" else res.health
+                    out.series.setdefault(k, []).append(v)
+            if trace is not None and trace.health and trace.fail_fast:
+                for i, res in enumerate(results):
+                    res.health.check(contexts[i] if contexts else "")
         if t + 1 in evals:
-            full = merge(store.tree, rest) if cohort else state
-            for k, v in algo.eval(full, train, val, metric_fn).items():
-                for res, x in zip(results, v if stacked else [v]):
-                    getattr(res, _METRIC_FIELDS[k]).append(float(x))
-            clock.lap("eval")
+            with span("eval", round=t + 1):
+                full = merge(store.tree, rest) if cohort else state
+                for k, v in algo.eval(full, train, val, metric_fn).items():
+                    for res, x in zip(results, v if stacked else [v]):
+                        getattr(res, _METRIC_FIELDS[k]).append(float(x))
+                clock.lap("eval")
         synchronize(device)
         seconds.append(time.perf_counter() - t0)
     if cohort:
         state = merge(store.tree, rest)
     return state, seconds
+
+
+def finish_times(res: FLResult, seconds: list, scale: float = 1.0) -> None:
+    """``res``'s host-clock fields from a run's per-round ``seconds``
+    (each divided by ``scale``, a sweep's config count): the rounds, their
+    sum, the first round as ``compile_seconds`` and the rest as
+    ``run_seconds``; and ``dispatches``, its rounds plus its evals."""
+    res.round_seconds = [x / scale for x in seconds]
+    res.compile_seconds = sum(res.round_seconds[:1])
+    res.run_seconds = sum(res.round_seconds[1:])
+    res.seconds = res.compile_seconds + res.run_seconds
+    res.dispatches = len(seconds) + len(eval_points(res.rounds,
+                                                    res.eval_every))
 
 
 def assemble_timeline(res: FLResult) -> None:
@@ -401,7 +479,8 @@ def run_experiment(algo, params0, train_data, val_data, *,
                    system=None, cohort_indices: Optional[Callable] = None,
                    links: Optional[Callable] = None,
                    time_parts: bool = False, trace=None,
-                   trace_dir=None) -> FLResult:
+                   trace_dir=None,
+                   event_meta: Optional[dict] = None) -> FLResult:
     """Drive ``algo`` for ``rounds`` global rounds on ``device``,
     evaluating every ``eval_every`` rounds and after the final round.
 
@@ -425,51 +504,82 @@ def run_experiment(algo, params0, train_data, val_data, *,
     time_parts: synchronize around each part of a round and record it in
         ``FLResult.part_seconds``.
     device: "cuda" (default; raises without a card) or "cpu".
-    trace, trace_dir: run telemetry, not ported yet (raise).
+    trace: optional ``repro_torch.obs.TraceConfig`` (or True for the
+        default one): per-round probe values on ``FLResult.trace`` and,
+        under ``trace.health``, detector values on ``FLResult.health``;
+        ``trace.fail_fast`` raises ``HealthError`` naming the first bad
+        round; ``trace.profile_dir`` runs the rounds under
+        ``torch.profiler``; ``trace.cost_analysis`` counts the first
+        round's FLOPs. None (default) changes nothing.
+    trace_dir: when set, write the run's JSONL event log
+        (``repro_torch.obs.events``) into this directory, plus a
+        Chrome-trace span file covering build, rounds and evals -- unless
+        a caller already activated a ``SpanLog``, in which case the spans
+        land there and the caller saves; ``event_meta`` is merged into
+        the log's header (scenario identity etc.).
     """
-    for name, val in (("trace", trace), ("trace_dir", trace_dir)):
-        if val is not None:
-            raise NotImplementedError(
-                f"run_experiment({name}=...) is not ported yet "
-                "(ROADMAP.md queue 1)")
-    if eval_every < 1:
-        raise ValueError(f"eval_every must be >= 1, got {eval_every}")
-    check_participation(algo, team_frac, device_frac)
-    cohort = check_cohort(cohort, n)
-    if cohort_indices is not None and cohort is None:
-        raise ValueError("cohort_indices= needs cohort=")
-    if links is not None and system is None:
-        raise ValueError("links= needs system=")
-    dev = resolve_device(device)
-    params0 = params_from_numpy(params0, dev)
-    train, val = _to_device(train_data, dev), _to_device(val_data, dev)
+    # span-log ownership: the outermost layer with a trace_dir creates,
+    # activates and saves one; under a caller's active log (run_scenario,
+    # the scenarios CLI) our spans land there and the caller saves
+    tag = getattr(algo, "name", None) or "run"
+    with owned_log(trace_dir, {"kind": "experiment", "algo": tag}, tag):
+        if eval_every < 1:
+            raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+        check_participation(algo, team_frac, device_frac)
+        cohort = check_cohort(cohort, n)
+        if cohort_indices is not None and cohort is None:
+            raise ValueError("cohort_indices= needs cohort=")
+        if links is not None and system is None:
+            raise ValueError("links= needs system=")
+        if trace is True:
+            trace = TraceConfig()
+        with span("build", algo=getattr(algo, "name", "?"), m=m, n=n,
+                  rounds=rounds):
+            dev = resolve_device(device)
+            params0 = params_from_numpy(params0, dev)
+            train, val = _to_device(train_data, dev), _to_device(val_data, dev)
 
-    width = n if cohort is None else cohort
-    src = mask_source(m, width, team_frac=team_frac,
-                      device_frac=device_frac, seed=seed, masks=masks)
-    res = FLResult(rounds=rounds, eval_every=eval_every, device=str(dev),
-                   cohort=cohort, population=None if cohort is None else n)
-    sysrun = None
-    if system is not None:
-        spec = get_profile(system)
-        res.timeline = Timeline(profile=spec.name)
-        leaves = spec_leaves(spec, dev)
-        sysrun = RoundSystem(leaves, workload_for(algo, params0),
-                             link_source(leaves, m, width, seed=seed,
-                                         device=dev, links=links))
-    draw_cohort = None if cohort is None else cohort_source(
-        m, n, cohort, seed=seed, device=dev, cohort_indices=cohort_indices)
-    state, res.round_seconds = drive(
-        algo, algo.init_state(params0, m, n), train, val,
-        metric_fn=metric_fn, rounds=rounds, eval_every=eval_every,
-        draw_masks=lambda t: [src(t)], results=[res], stacked=False,
-        device=dev,
-        round_kw={} if uniforms is None else {"uniforms": uniforms},
-        m=m, n=n, draw_cohort=draw_cohort, system=sysrun,
-        parts=res.part_seconds if time_parts else None)
-    res.seconds = sum(res.round_seconds)
-    res.state = state
-    if res.timeline is not None:
-        assemble_timeline(res)
-    bill_comm(algo, params0, res)
-    return res
+            width = n if cohort is None else cohort
+            src = mask_source(m, width, team_frac=team_frac,
+                              device_frac=device_frac, seed=seed, masks=masks)
+            res = FLResult(rounds=rounds, eval_every=eval_every,
+                           device=str(dev), cohort=cohort,
+                           population=None if cohort is None else n)
+            sysrun = spec = None
+            if system is not None:
+                spec = get_profile(system)
+                res.timeline = Timeline(profile=spec.name)
+                leaves = spec_leaves(spec, dev)
+                sysrun = RoundSystem(leaves, workload_for(algo, params0),
+                                     link_source(leaves, m, width, seed=seed,
+                                                 device=dev, links=links))
+            draw_cohort = None if cohort is None else cohort_source(
+                m, n, cohort, seed=seed, device=dev,
+                cohort_indices=cohort_indices)
+            state0 = algo.init_state(params0, m, n)
+        fail_ctx = (event_meta or {}).get("scenario") or tag
+        with profile_ctx(trace):
+            state, seconds = drive(
+                algo, state0, train, val, metric_fn=metric_fn, rounds=rounds,
+                eval_every=eval_every, draw_masks=lambda t: [src(t)],
+                results=[res], stacked=False, device=dev,
+                round_kw={} if uniforms is None else {"uniforms": uniforms},
+                m=m, n=n, draw_cohort=draw_cohort, system=sysrun,
+                parts=res.part_seconds if time_parts else None, trace=trace,
+                contexts=[fail_ctx])
+        finish_times(res, seconds)
+        res.state = state
+        if res.timeline is not None:
+            assemble_timeline(res)
+        bill_comm(algo, params0, res)
+        if trace_dir is not None:
+            # "scan": False -- the port's loop is the reference's per-round
+            # dispatch path, and its log says so in the reference's terms
+            res.events_path = str(write_run(
+                trace_dir, res, algo=algo,
+                meta={"m": m, "n": n, "seed": seed, "team_frac": team_frac,
+                      "device_frac": device_frac, "scan": False,
+                      "system": spec.name if spec is not None else None,
+                      **({"cohort": cohort} if cohort is not None else {}),
+                      **(event_meta or {})}))
+        return res

@@ -33,8 +33,17 @@ each config comes back with its own ``Timeline``; its links come from
 its own generator, seeded from its seed as its single run's are. With
 ``cohort=c`` every config runs the cohort engine: each round gathers
 per-config index maps (C, M, c) along dim 2 of the stacked store, each
-config's map from its own generator. The sweep mesh (``mesh=``) and run
-telemetry are not ported yet (ROADMAP.md).
+config's map from its own generator. The sweep mesh (``mesh=``) is not
+ported yet (ROADMAP.md item 14).
+
+Run telemetry (``trace=``) rides the same stacked round: each config's
+probe and detector values come out of the algorithm's ``probe_round`` /
+``health_round`` with the config axis leading, and each config's
+FLResult gets its own ``RunTrace`` and ``HealthReport``, the streams its
+single run would give. ``trace.fail_fast`` checks every round and names
+the first bad config (``config i``); ``trace_dir`` writes the whole
+sweep's JSONL event stream (a ``sweep_header``, then each config's run
+section) and one span file.
 """
 from __future__ import annotations
 
@@ -49,13 +58,17 @@ import torch
 from repro_torch.comm.config import copy_generator
 from repro_torch.convert import params_from_numpy
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.obs.events import write_sweep
+from repro_torch.obs.spans import owned_log, span
+from repro_torch.obs.trace import TraceConfig
 from repro_torch.system import SystemSpec, Timeline, get_profile, \
     workload_for
 from repro_torch.train.engine import (FLResult, RoundSystem, _to_device,
                                       assemble_timeline, bill_comm,
                                       check_cohort, check_participation,
-                                      cohort_source, drive, hparam_skeleton,
-                                      link_source, mask_source, spec_leaves)
+                                      cohort_source, drive, finish_times,
+                                      hparam_skeleton, link_source,
+                                      mask_source, spec_leaves)
 from repro_torch.train.store import config_state
 
 __all__ = ["FLSweepResult", "grid_product", "run_multi_sweep", "run_sweep",
@@ -82,20 +95,25 @@ class FLSweepResult:
         models ride the axis) -- in grid-major order (all seeds of
         grid[0], then grid[1], ...; profiles innermost).
     results: one FLResult per config (histories, participation, final
-        state slice, byte ledger). Its ``seconds`` and ``round_seconds``
-        are the sweep's divided by C.
+        state slice, byte ledger, probe and detector streams). Its
+        ``seconds``, ``round_seconds`` and compile / run split are the
+        sweep's divided by C.
     state_stacked: the final state with the leading (C,) config axis.
     seconds / round_seconds: host clock of the whole sweep, each round
-        (eval included) to a synchronized device.
-
-    The reference's ``dispatches`` and its compile / run split have no
-    meaning in an eager run and are left out.
+        (eval included) to a synchronized device; ``compile_seconds`` is
+        the first round, ``run_seconds`` the rest.
+    dispatches: rounds run plus evals, as ``FLResult.dispatches``.
+    events_path: the JSONL event log of a ``trace_dir`` sweep.
     """
     configs: list = field(default_factory=list)
     results: list = field(default_factory=list)
     state_stacked: Any = None
     seconds: float = 0.0
     round_seconds: list = field(default_factory=list)
+    compile_seconds: float = 0.0
+    run_seconds: float = 0.0
+    dispatches: int = 0
+    events_path: Optional[str] = None
 
     def __len__(self):
         return len(self.results)
@@ -233,7 +251,8 @@ def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
               eval_every: int = 1, masks: Optional[Sequence] = None,
               uniforms: Optional[Sequence] = None, mode=None,
               device=DEFAULT_DEVICE, mesh=None, system=None, trace=None,
-              trace_dir=None, cohort: Optional[int] = None,
+              trace_dir=None, event_meta: Optional[dict] = None,
+              cohort: Optional[int] = None,
               cohort_indices: Optional[Sequence] = None,
               links: Optional[Sequence] = None) -> FLSweepResult:
     """Run ``len(grid) * len(seeds) [* len(system)]`` experiments of
@@ -262,77 +281,102 @@ def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
         spec dict, or a sequence of them -- a sequence adds a profile
         axis (innermost) to the configs, each config priced on its own.
     cohort: optional cohort width: every config runs the cohort engine.
-    mesh, trace, trace_dir: not ported yet (raise).
+    trace: optional ``repro_torch.obs.TraceConfig`` (or True): each
+        config's FLResult gets its own ``RunTrace`` (and ``HealthReport``)
+        -- the streams of running the config alone; ``trace.fail_fast``
+        raises ``HealthError`` naming the round and ``config i``.
+    trace_dir / event_meta: when set, write the whole sweep's JSONL
+        event stream (sweep_header + per-config run sections) and a span
+        file into trace_dir (the spans into a caller's active log, if
+        any).
+    mesh: not ported yet (raises; ROADMAP.md item 14).
     Remaining arguments match ``run_experiment``.
     """
-    for name, val in (("mesh", mesh), ("trace", trace),
-                      ("trace_dir", trace_dir)):
-        if val is not None:
-            raise NotImplementedError(
-                f"run_sweep({name}=...) is not ported yet (ROADMAP.md "
-                "queue 1; the sweep mesh is item 14)")
-    if eval_every < 1:
-        raise ValueError(f"eval_every must be >= 1, got {eval_every}")
-    cohort = check_cohort(cohort, n)
-    if cohort_indices is not None and cohort is None:
-        raise ValueError("cohort_indices= needs cohort=")
-    if links is not None and system is None:
-        raise ValueError("links= needs system=")
-    dev = resolve_device(device)
-    prep = _prepare(algo, grid, seeds, params0, m, n, team_frac,
-                    device_frac, dev, system)
-    c = len(prep.configs)
-    masks = _per_config(masks, "masks", c)
-    uniforms = _per_config(uniforms, "uniforms", c)
-    cohort_indices = _per_config(cohort_indices, "cohort_indices", c)
-    links = _per_config(links, "links", c)
-    width = n if cohort is None else cohort
-    srcs = [mask_source(m, width, team_frac=team_frac,
-                        device_frac=device_frac, seed=s,
-                        masks=None if masks is None else masks[i])
-            for i, s in enumerate(prep.seeds)]
-    results = [FLResult(rounds=rounds, eval_every=eval_every,
-                        device=str(dev), cohort=cohort,
-                        population=None if cohort is None else n)
-               for _ in prep.configs]
-    draw_cohort = sysrun = None
-    if cohort is not None:
-        csrcs = [cohort_source(m, n, cohort, seed=s, device=dev,
-                               cohort_indices=None if cohort_indices is None
-                               else cohort_indices[i])
-                 for i, s in enumerate(prep.seeds)]
-        draw_cohort = lambda t: torch.stack([f(t) for f in csrcs])  # noqa
-    if prep.profiles[0] is not None:
-        for res, p in zip(results, prep.profiles):
-            res.timeline = Timeline(profile=p.name)
-        lsrcs = [link_source(spec_leaves(p, dev), m, width, seed=s,
-                             device=dev,
-                             links=None if links is None else links[i])
-                 for i, (s, p) in enumerate(zip(prep.seeds, prep.profiles))]
-        sysrun = RoundSystem(
-            spec_leaves(prep.profiles, dev),
-            workload_for(algo, prep.ledger_params),
-            lambda t: tuple(torch.stack(ls) for ls in
-                            zip(*[f(t) for f in lsrcs])))
-    round_kw = {} if mode is None else {"mode": mode}
-    if uniforms is not None:
-        round_kw["uniforms"] = uniforms
-    state, seconds = drive(
-        prep.algo, prep.state, _expand(train_data, c, dev),
-        _expand(val_data, c, dev), metric_fn=metric_fn, rounds=rounds,
-        eval_every=eval_every, draw_masks=lambda t: [src(t) for src in srcs],
-        results=results, stacked=True, device=dev, round_kw=round_kw, m=m,
-        n=n, draw_cohort=draw_cohort, system=sysrun)
-    for i, res in enumerate(results):
-        res.round_seconds = [x / c for x in seconds]
-        res.seconds = sum(seconds) / c
-        res.state = config_state(state, i)
-        if res.timeline is not None:
-            assemble_timeline(res)
-        bill_comm(algo, prep.ledger_params, res)
-    return FLSweepResult(configs=prep.configs, results=results,
-                         state_stacked=state, seconds=sum(seconds),
-                         round_seconds=seconds)
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_sweep(mesh=...) is not ported yet (ROADMAP.md item 14)")
+    name = getattr(algo, "name", None)
+    with owned_log(trace_dir, {"kind": "sweep", "algo": name},
+                   f"sweep-{name or 'run'}"):
+        if trace is True:
+            trace = TraceConfig()
+        if eval_every < 1:
+            raise ValueError(f"eval_every must be >= 1, got {eval_every}")
+        cohort = check_cohort(cohort, n)
+        if cohort_indices is not None and cohort is None:
+            raise ValueError("cohort_indices= needs cohort=")
+        if links is not None and system is None:
+            raise ValueError("links= needs system=")
+        dev = resolve_device(device)
+        with span("build", algo=getattr(algo, "name", "?"), m=m, n=n,
+                  rounds=rounds):
+            prep = _prepare(algo, grid, seeds, params0, m, n, team_frac,
+                            device_frac, dev, system)
+            train = _expand(train_data, len(prep.configs), dev)
+            val = _expand(val_data, len(prep.configs), dev)
+        c = len(prep.configs)
+        masks = _per_config(masks, "masks", c)
+        uniforms = _per_config(uniforms, "uniforms", c)
+        cohort_indices = _per_config(cohort_indices, "cohort_indices", c)
+        links = _per_config(links, "links", c)
+        width = n if cohort is None else cohort
+        srcs = [mask_source(m, width, team_frac=team_frac,
+                            device_frac=device_frac, seed=s,
+                            masks=None if masks is None else masks[i])
+                for i, s in enumerate(prep.seeds)]
+        results = [FLResult(rounds=rounds, eval_every=eval_every,
+                            device=str(dev), cohort=cohort,
+                            population=None if cohort is None else n)
+                   for _ in prep.configs]
+        draw_cohort = sysrun = None
+        if cohort is not None:
+            csrcs = [cohort_source(
+                m, n, cohort, seed=s, device=dev,
+                cohort_indices=None if cohort_indices is None
+                else cohort_indices[i]) for i, s in enumerate(prep.seeds)]
+            draw_cohort = lambda t: torch.stack([f(t) for f in csrcs])  # noqa
+        if prep.profiles[0] is not None:
+            for res, p in zip(results, prep.profiles):
+                res.timeline = Timeline(profile=p.name)
+            lsrcs = [link_source(spec_leaves(p, dev), m, width, seed=s,
+                                 device=dev,
+                                 links=None if links is None else links[i])
+                     for i, (s, p) in enumerate(zip(prep.seeds,
+                                                    prep.profiles))]
+            sysrun = RoundSystem(
+                spec_leaves(prep.profiles, dev),
+                workload_for(algo, prep.ledger_params),
+                lambda t: tuple(torch.stack(ls) for ls in
+                                zip(*[f(t) for f in lsrcs])))
+        round_kw = {} if mode is None else {"mode": mode}
+        if uniforms is not None:
+            round_kw["uniforms"] = uniforms
+        state, seconds = drive(
+            prep.algo, prep.state, train, val, metric_fn=metric_fn,
+            rounds=rounds, eval_every=eval_every,
+            draw_masks=lambda t: [src(t) for src in srcs], results=results,
+            stacked=True, device=dev, round_kw=round_kw, m=m, n=n,
+            draw_cohort=draw_cohort, system=sysrun, trace=trace,
+            contexts=[f"config {i}" for i in range(c)])
+        with span("collect", configs=c):
+            for i, res in enumerate(results):
+                finish_times(res, seconds, c)
+                res.state = config_state(state, i)
+                if res.timeline is not None:
+                    assemble_timeline(res)
+                bill_comm(algo, prep.ledger_params, res)
+            first, later = sum(seconds[:1]), sum(seconds[1:])
+            out = FLSweepResult(configs=prep.configs, results=results,
+                                state_stacked=state, seconds=first + later,
+                                round_seconds=seconds, compile_seconds=first,
+                                run_seconds=later,
+                                dispatches=results[0].dispatches)
+        if trace_dir is not None:
+            out.events_path = str(write_sweep(
+                trace_dir, out, algo=algo,
+                meta={"m": m, "n": n, "team_frac": team_frac,
+                      "device_frac": device_frac, **(event_meta or {})}))
+        return out
 
 
 def run_multi_sweep(variants, train_data, val_data, *,
@@ -345,8 +389,8 @@ def run_multi_sweep(variants, train_data, val_data, *,
     variants: dicts with keys ``algo`` and ``params0`` and optional
         ``grid`` (default ``[{}]``), ``seeds`` (default ``(0,)``),
         ``team_frac`` / ``device_frac`` (default 1.0), ``system`` and
-        ``cohort`` (as in ``run_sweep``; members choose each on their
-        own); ``trace`` raises, as in ``run_sweep``.
+        ``cohort`` and ``trace`` (as in ``run_sweep``; members choose
+        each on their own).
 
     Returns one FLSweepResult per variant, in order. The reference fuses
     the variants into one compiled program; eagerly they run one after

@@ -57,6 +57,16 @@ PUBLIC_MODULES = (
     "repro_torch.models.paper_models",
     "repro_torch.models.rwkv",
     "repro_torch.models.transformer",
+    "repro_torch.obs",
+    "repro_torch.obs.events",
+    "repro_torch.obs.health",
+    "repro_torch.obs.metrics",
+    "repro_torch.obs.probes",
+    "repro_torch.obs.profiling",
+    "repro_torch.obs.regress",
+    "repro_torch.obs.report",
+    "repro_torch.obs.spans",
+    "repro_torch.obs.trace",
     "repro_torch.scenarios",
     "repro_torch.scenarios.registry",
     "repro_torch.scenarios.runner",

@@ -157,14 +157,21 @@ def test_eval_points():
 
 
 @pytest.mark.parametrize("arg", ["trace", "trace_dir"])
-def test_unported_engine_options_raise(arg):
-    from repro_torch.core import PerMFL, PerMFLHParams
-    from repro_torch.train.engine import run_experiment
+def test_unported_engine_options_raise(arg, tmp_path):
+    """Run telemetry is ported: ``trace=`` and ``trace_dir=`` no longer
+    raise, and each gives its product."""
+    from repro_torch.scenarios import run_scenario
+    from repro_torch.scenarios.spec import DataSpec, FLScenario
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_experiment(PerMFL(None, PerMFLHParams()), {}, {}, {},
-                       metric_fn=None, rounds=1, m=1, n=1, device="cpu",
-                       **{arg: 1})
+    s = FLScenario("t", data=DataSpec(m_teams=2, n_devices=3,
+                                      samples_per_device=16), rounds=1)
+    res = run_scenario(s, device="cpu",
+                       **{arg: True if arg == "trace" else str(tmp_path)})
+    if arg == "trace":
+        assert len(res.trace) == 1 and res.health.ok()
+    else:
+        assert res.trace is None and res.events_path
+        assert list(tmp_path.glob("spans-*.trace.json"))
 
 
 def test_cli_run_on_cpu():

@@ -428,14 +428,25 @@ def test_refusals(small_fed_data, case):
 
 
 @pytest.mark.parametrize("arg", ["mesh", "trace", "trace_dir"])
-def test_unported_sweep_options_raise(arg):
+def test_unported_sweep_options_raise(arg, small_fed_data, tmp_path):
+    """The sweep mesh is still refused; run telemetry is ported, so
+    ``trace=`` and ``trace_dir=`` run and give their products."""
     from repro_torch.core import PerMFL, PerMFLHParams
     from repro_torch.train.sweep import run_sweep
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_sweep(PerMFL(None, PerMFLHParams()), [{}], 0, {}, {}, {},
-                  metric_fn=None, rounds=1, m=1, n=1, device="cpu",
-                  **{arg: 1})
+    if arg == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            run_sweep(PerMFL(None, PerMFLHParams()), [{}], 0, {}, {}, {},
+                      metric_fn=None, rounds=1, m=1, n=1, device="cpu",
+                      mesh=1)
+        return
+    sw = port_sweep(PerMFL(port_fns()[0], PerMFLHParams(**HP)),
+                    [dict(lam=0.3)], small_fed_data, 1,
+                    **{arg: True if arg == "trace" else str(tmp_path)})
+    if arg == "trace":
+        assert all(len(r.trace) == 1 and r.health.ok() for r in sw)
+    else:
+        assert sw.events_path and list(tmp_path.glob("spans-*.trace.json"))
 
 
 def test_run_multi_sweep_runs_each_variant(small_fed_data):
