@@ -147,7 +147,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      Hopper variants (a ragged prefill, head_dim 64, GQA 40:8 and 12:2
      decode, a windowed decode); and, small, in f32 and bf16: GQA 40:8,
      head_dim 96, a 256 window, non-causal, q bf16 over an f32 cache (f32
-     within 1e-5, bf16 within 2e-2); the moe_router kernel on given logits
+     within 1e-5, bf16 within 2e-2); the Whisper and Qwen2-VL serving
+     shapes in bf16: the encoder (4, 1,500, 12, 64) non-causal with 28-row
+     q and kv tails, the cross-attention's prefill (64 queries on 1,500
+     keys) and decode (one query on 1,500 cached keys, non-causal, q_offset
+     0, split_kv over 11 chunks), Qwen2-VL's 12:2 prefill (4, 1,024, 12,
+     128) and decode; the moe_router kernel on given logits
      (route_topk) at (4096, 64, k=6), (4, 64, k=6) and with tied rows (ids
      bit-equal, gates and statistics within 1e-6); the fused router
      (route_tokens: router product, top-k, capacity positions,
@@ -212,11 +217,36 @@ Phases, each printing its lines; any failure raises and exits non-zero:
  13. RWKV path consistency: rwkv6-7b cut to 1 layer, in f32 (the simt
      kernel), the kernel path against the plain path: prefill logits of
      every position and the first decode step's within 1e-4.
+ 13b. Whisper serving at full width: whisper-small (12 decoder and 12
+     encoder layers, d_model 768, 12 heads of 64, vocab 51,865 padded to
+     51,968; 306,456,576 bf16 parameters as the reference's tree counts
+     them) drawn on the card; ``generate`` of 4 prompts of 64 tokens over
+     4 x 1,500 frame embeddings (the frontend stub's output), a bf16
+     cache of 80 slots, 16 new tokens greedy, the counts set to 0 just
+     before and read just after: flash_attention exactly 396 launches,
+     36 wgmma (12 encoder, 12 causal self, 12 non-causal cross) and 360
+     split_kv (15 decode steps x 12 self + 12 cross over the cached cross
+     K/V), no other kernel; (4, 16) tokens in range, finite logits;
+     prefill ms, decode ms per step, tokens/s, peak memory.
+ 13c. Qwen2-VL serving at full width: qwen2-vl-2b (28 layers, d_model
+     1,536, GQA 12:2 of 128, vocab 151,936; 1,777,088,000 bf16
+     parameters) through ``generate`` of 4 x 1,024 patch and text
+     embeddings at an image prompt's M-RoPE positions (64 text rows, a
+     28 x 32 grid at (64, 64 + row, 64 + col), 64 text rows from 96), a
+     cache of 1,040 slots, each decode step at position prompt_len + i in
+     all three components: flash_attention exactly 448 launches, 28 wgmma
+     and 420 split_kv; the same checks and numbers.
+ 13d. Their path consistency: each cut to 1 layer (Whisper's encoder to 1
+     layer too), in f32 (simt), kernel path against plain path on the
+     serving prompts: prefill logits of every position and the first
+     decode step's within 1e-4.
  14. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, the router (the routing seam: the fused
      kernel), the rest of the MoE layer, head;
      rwkv6-7b: the time mix's GEMMs and elementwise ops, the decay LoRA,
-     the WKV scan, the channel mix, head) for a prefill and 8 decode
+     the WKV scan, the channel mix, head; whisper-small: the encoder,
+     self-attention, cross-attention, MLP, head; qwen2-vl-2b: attention,
+     MLP, head) for a prefill and 8 decode
      steps, and a profiled decode step and prefill (busy share, time by
      kernel); then the CNN round's host-clock time, uncompressed and with
      each lossy compressor, over several unprofiled rounds in alternating
@@ -225,7 +255,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      round of each baseline's CNN cell (busy share, launches); then one
      round of the Fig-3 sweep and of the PerMFL CNN 3-seed sweep beside
      one looped round (busy share, launches).
- 15. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+ 15. the ``kernels`` JSON line (flash_attention's launches: those of
+     deepseek's, Whisper's and Qwen2-VL's counted generates), then the
+     ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -303,6 +335,19 @@ RWKV_PARAMS = 7_534_546_944
 # folds into one dot product a step, out_t = r_t.S + (sum_i r_i u_i k_i) v_t,
 # so r.S is one FMA and S <- w*S + k v^T one multiply and one FMA
 RWKV_OPS_PER_ELEMENT = 5
+# Whisper-small (encoder-decoder) and Qwen2-VL-2B (embeds prefill, M-RoPE
+# decode): the parameters of the reference's trees (jax.eval_shape of
+# repro.models.model.init_params; the CPU tests hold the port's trees to
+# them). param_count gives 306,203,136 and 1,777,086,464: it leaves out the
+# LayerNorm and GELU biases, the final norm and the vocabulary's padding.
+WHISPER_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-2b"
+WHISPER_PARAMS, VLM_PARAMS = 306_456_576, 1_777_088_000
+# Whisper's decoder prompt and cache, within its 448-token context; the
+# encoder reads 1,500 frames (30 s of audio)
+WHISPER_PROMPT, WHISPER_MAX_LEN = 64, 80
+# Qwen2-VL's prompt, as it lays out an image prompt: 64 text rows, a 28 x
+# 32 patch grid, 64 text rows (1,024 in all, the cache 1,040)
+VLM_TEXT, VLM_GRID = 64, (28, 32)
 LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_MAX_LEN = 4, 1024, 16, 1040
 LLM_DECODE_OFFSET = 1030           # the timed decode's cache position
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # absolute
@@ -2215,16 +2260,29 @@ def phase_baseline_profile():
 
 def attention_cases():
     """(label, b, sq, skv, hq, hkv, d, causal, window, q_offset, q dtype,
-    kv dtype, timed): the serving path's two shapes in bf16 first (timed),
-    then the small shapes in f32 and bf16."""
+    kv dtype, timed): the serving paths' shapes in bf16 first (deepseek's
+    prefill and decode, Whisper's encoder and cross decode and Qwen2-VL's
+    12:2 prefill timed; Whisper's cross prefill and Qwen2-VL's decode
+    checked), then the small shapes in f32 and bf16."""
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
     b, p, n = LLM_BATCH, LLM_PROMPT, LLM_MAX_LEN
+    enc = 1500                      # whisper-small's encoder_seq_len
     cases = [("deepseek prefill", b, p, p, 16, 16, 128, True, 0, 0, bf16,
               bf16, True),
              ("deepseek decode", b, 1, n, 16, 16, 128, True, 0,
               LLM_DECODE_OFFSET, bf16, bf16, True),
+             ("whisper encoder", b, enc, enc, 12, 12, 64, False, 0, 0, bf16,
+              bf16, True),
+             ("whisper cross decode", b, 1, enc, 12, 12, 64, False, 0, 0,
+              bf16, bf16, True),
+             ("qwen2-vl prefill", b, p, p, 12, 2, 128, True, 0, 0, bf16,
+              bf16, True),
+             ("whisper cross prefill", b, WHISPER_PROMPT, enc, 12, 12, 64,
+              False, 0, 0, bf16, bf16, False),
+             ("qwen2-vl decode", b, 1, n, 12, 2, 128, True, 0, p + 14, bf16,
+              bf16, False),
              ("ragged prefill", 1, 300, 300, 2, 2, 128, True, 0, 0, bf16,
               bf16, False),
              ("head_dim 64 prefill", 2, 256, 256, 12, 12, 64, True, 0, 0,
@@ -2802,22 +2860,73 @@ def phase_rwkv_check():
     return out
 
 
-def llm_prompts(vocab):
-    """The serving path's prompts: (4, 1024) int32 from seed 1."""
+def llm_prompts(vocab, prompt_len=LLM_PROMPT):
+    """The serving path's token prompts: (4, prompt_len) int32 from seed
+    1."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    return torch.randint(0, vocab, (LLM_BATCH, LLM_PROMPT), device=DEVICE,
+    return torch.randint(0, vocab, (LLM_BATCH, prompt_len), device=DEVICE,
                          generator=gen, dtype=torch.int32)
 
 
-def counted_generate(cfg, params):
-    """``ServeEngine(max_len=LLM_MAX_LEN, cache_dtype=bf16).generate`` of
-    the serving prompts: a warm-up generate of 2 tokens, then the counted
-    one of ``LLM_NEW`` with every launch count set to 0 just before and
-    read just after. Checks the tokens ((b, new) int32 in the vocabulary)
-    and that every step's logits are finite; prints the step times.
-    Returns the launches."""
+def whisper_prompts(cfg, dtype):
+    """Whisper's serving prompts: (4, 64) decoder tokens from seed 1 and
+    (4, 1500, d) frame embeddings * 0.2 in ``dtype`` from seed 3 (the
+    frontend stub's output)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    frames = torch.randn(LLM_BATCH, cfg.encoder_seq_len, cfg.d_model,
+                         device=DEVICE, generator=gen) * 0.2
+    return {"tokens": llm_prompts(cfg.vocab_size, WHISPER_PROMPT),
+            "enc_frames": frames.to(dtype)}
+
+
+def vlm_positions():
+    """Qwen2-VL's M-RoPE positions of an image prompt, (1024, 3) int32: 64
+    text rows at (i, i, i), a 28 x 32 patch grid at (64, 64 + row, 64 +
+    col), 64 text rows resuming at the grid's largest position + 1."""
+    import torch
+
+    rows, cols = VLM_GRID
+    text = torch.arange(VLM_TEXT, device=DEVICE)
+    r, c = torch.meshgrid(torch.arange(rows, device=DEVICE),
+                          torch.arange(cols, device=DEVICE), indexing="ij")
+    grid = torch.stack([torch.zeros_like(r), r, c], -1).reshape(-1, 3) \
+        + VLM_TEXT
+    after = text + int(grid.max()) + 1
+    return torch.cat([text[:, None].expand(-1, 3), grid,
+                      after[:, None].expand(-1, 3)]).to(torch.int32)
+
+
+def prompt_len(batch):
+    """The prompt's length: that of its tokens, else of its embeddings
+    (as ``ServeEngine.generate`` takes it)."""
+    return (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
+
+
+def vlm_prompts(cfg, dtype):
+    """Qwen2-VL's serving prompts: (4, 1024, d) patch and text embeddings
+    * 0.2 in ``dtype`` from seed 1 (the vision frontend stub's output),
+    with :func:`vlm_positions`."""
+    import torch
+
+    pos = vlm_positions()
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    embeds = torch.randn(LLM_BATCH, len(pos), cfg.d_model, device=DEVICE,
+                         generator=gen) * 0.2
+    return {"embeds": embeds.to(dtype),
+            "mrope_positions": pos[None].expand(LLM_BATCH, -1, -1)}
+
+
+def counted_generate(cfg, params, prompts, max_len=LLM_MAX_LEN):
+    """``ServeEngine(max_len, cache_dtype=bf16).generate`` of the batch
+    ``prompts``: a warm-up generate of 2 tokens, then the counted one of
+    ``LLM_NEW`` with every launch count set to 0 just before and read just
+    after. Checks the tokens ((b, new) int32 in the vocabulary) and that
+    every step's logits are finite; prints the step times. Returns the
+    launches."""
     import torch
 
     from repro_torch.kernels import moe_router, rwkv6_scan
@@ -2826,9 +2935,8 @@ def counted_generate(cfg, params):
     from repro_torch.serve import ServeEngine
     from repro_torch.serve import engine as engine_mod
 
-    engine = ServeEngine(cfg=cfg, params=params, max_len=LLM_MAX_LEN,
+    engine = ServeEngine(cfg=cfg, params=params, max_len=max_len,
                          cache_dtype=torch.bfloat16, device=DEVICE)
-    prompts = {"tokens": llm_prompts(cfg.vocab_size)}
     steps = {"prefill": [], "decode": []}
     finite = []
 
@@ -2878,8 +2986,10 @@ def counted_generate(cfg, params):
                                            math.ceil(0.95 * len(dec)) - 1)]
     peak = torch.cuda.max_memory_allocated() / 2**30
     tag = cfg.name
-    say("llm", f"{tag} generate: {LLM_BATCH} prompts x {LLM_PROMPT} tokens, "
-        f"{LLM_NEW} new (greedy), cache bf16 x {LLM_MAX_LEN}; launches "
+    what = ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype).split('.')[-1]}"
+                     for k, v in prompts.items())
+    say("llm", f"{tag} generate: {what}; {LLM_NEW} new (greedy), cache bf16 "
+        f"x {max_len}; launches "
         f"{launches}; flash_attention variants "
         f"{ {k: c for k, c in VARIANTS.items() if c} }; moe_router variants "
         f"{ {k: c for k, c in moe_router.VARIANTS.items() if c} }; "
@@ -2938,7 +3048,8 @@ def phase_llm_serving():
         raise AssertionError(f"{n} parameters, param_count {param_count(cfg)}")
     from repro_torch.kernels.flash_attention import VARIANTS
 
-    launches = counted_generate(cfg, params)
+    launches = counted_generate(cfg, params,
+                                {"tokens": llm_prompts(cfg.vocab_size)})
     per = LLM_NEW * cfg.num_layers
     check_launches(launches, {"flash_attention": per, "moe_router": per},
                    f"{LLM_ARCH} generate")
@@ -3002,7 +3113,8 @@ def phase_rwkv_serving():
     del cache
     from repro_torch.kernels.rwkv6_scan import VARIANTS
 
-    launches = counted_generate(cfg, params)
+    launches = counted_generate(cfg, params,
+                                {"tokens": llm_prompts(cfg.vocab_size)})
     check_launches(launches, {"rwkv6_scan": LLM_NEW * cfg.num_layers},
                    f"{RWKV_ARCH} generate")
     # bf16 activations: the 1,024-token prefill on the chunked tensor-core
@@ -3015,6 +3127,160 @@ def phase_rwkv_serving():
     del params, tm, leaves
     release()
     return launches
+
+
+def draw_full_width(arch, want):
+    """``arch`` at its published widths in bf16, drawn on the card from seed
+    0, its parameter count checked against the reference's tree's
+    (``want``). Returns (cfg, params)."""
+    import torch
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = M.init_params(gen, cfg, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    enc = (f"; encoder {cfg.encoder_layers} layers over "
+           f"{cfg.encoder_seq_len} frames, "
+           f"{sum(t.numel() for t in _leaves(params['encoder'])):,} "
+           f"parameters" if cfg.is_encoder_decoder else "")
+    say("llm", f"{arch}: {cfg.num_layers} decoder layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} q-heads on {cfg.num_kv_heads} "
+        f"kv-heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (padded {M.padded_vocab(cfg)}){enc}: {n:,} "
+        f"parameters in bf16 (param_count {param_count(cfg):,}), drawn on "
+        f"the card in {time.perf_counter() - t0:.3f} s")
+    if n != want:
+        raise AssertionError(f"{arch}: {n} parameters, the reference's tree "
+                             f"has {want}")
+    return cfg, params
+
+
+def check_attention_variants(arch, launches, wgmma, split_kv):
+    """flash_attention launched exactly ``wgmma`` + ``split_kv`` times in
+    the counted generate, with exactly those variants, and no other
+    kernel."""
+    from repro_torch.kernels.flash_attention import VARIANTS
+
+    check_launches(launches, {"flash_attention": wgmma + split_kv},
+                   f"{arch} generate")
+    ran = {k: c for k, c in VARIANTS.items() if c}
+    if ran != {"wgmma": wgmma, "split_kv": split_kv}:
+        raise AssertionError(f"{arch} generate: flash_attention variants "
+                             f"{ran}, expected wgmma {wgmma}, split_kv "
+                             f"{split_kv}")
+
+
+def phase_whisper_serving():
+    """whisper-small at its published widths, bf16, through
+    ``ServeEngine.generate`` (:func:`counted_generate`) of 4 prompts of 64
+    tokens over 1,500 frame embeddings, a cache of 80 slots: the prefill
+    runs the encoder (non-causal) and each decoder layer's causal self-
+    and non-causal cross-attention on wgmma; each decode step each
+    layer's self-attention and its cross-attention over the cached cross
+    K/V on split_kv. Returns its launches."""
+    import torch
+
+    cfg, params = draw_full_width(WHISPER_ARCH, WHISPER_PARAMS)
+    launches = counted_generate(cfg, params,
+                                whisper_prompts(cfg, torch.bfloat16),
+                                WHISPER_MAX_LEN)
+    n = cfg.num_layers
+    check_attention_variants(WHISPER_ARCH, launches,
+                             cfg.encoder_layers + 2 * n,
+                             (LLM_NEW - 1) * 2 * n)
+    del params
+    release()
+    return launches
+
+
+def phase_vlm_serving():
+    """qwen2-vl-2b at its published widths, bf16, through
+    ``ServeEngine.generate`` (:func:`counted_generate`) of 4 prompts of
+    1,024 embeddings at an image prompt's M-RoPE positions
+    (:func:`vlm_positions`), a cache of 1,040 slots: GQA 12:2 at head_dim
+    128, the prefill on wgmma and every decode step (the token at M-RoPE
+    position prompt_len + i in all three components) on split_kv. Returns
+    its launches."""
+    import torch
+
+    cfg, params = draw_full_width(VLM_ARCH, VLM_PARAMS)
+    launches = counted_generate(cfg, params, vlm_prompts(cfg, torch.bfloat16))
+    n = cfg.num_layers
+    check_attention_variants(VLM_ARCH, launches, n, (LLM_NEW - 1) * n)
+    del params
+    release()
+    return launches
+
+
+def phase_encdec_vlm_consistency():
+    """whisper-small (1 decoder and 1 encoder layer) and qwen2-vl-2b (1
+    layer) in f32 at full width, through the kernels and through the plain
+    versions on the serving prompts: prefill logits of every position and
+    the first decode step's (Whisper's reading the cross K/V its prefill
+    cached; Qwen2-VL's at M-RoPE position prompt_len) within 1e-4."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import VARIANTS, reset_variants
+    from repro_torch.models import model as M
+
+    for arch, cut, prompts, max_len in (
+            (WHISPER_ARCH, dict(num_layers=1, encoder_layers=1),
+             whisper_prompts, WHISPER_MAX_LEN),
+            (VLM_ARCH, dict(num_layers=1), vlm_prompts, LLM_MAX_LEN)):
+        cfg = get_config(arch).replace(**cut)
+        params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                               cfg, dtype=torch.float32, device=DEVICE)
+        batch = prompts(cfg, torch.float32)
+        s = prompt_len(batch)
+        tok = torch.randint(0, cfg.vocab_size, (LLM_BATCH, 1), device=DEVICE,
+                            generator=torch.Generator(DEVICE).manual_seed(2),
+                            dtype=torch.int32)
+        dec_batch = {"tokens": tok}
+        if cfg.family == "vlm":
+            dec_batch["mrope_positions"] = torch.full(
+                (LLM_BATCH, 1, 3), s, dtype=torch.int32, device=DEVICE)
+        runs = {}
+        reset_variants()
+        for mode in (None, "torch"):
+            with torch.inference_mode():
+                cache = M.init_cache(cfg, LLM_BATCH, max_len,
+                                     dtype=torch.float32, device=DEVICE)
+                pre, cache = M.prefill(params, cfg, batch, cache, mode=mode)
+                dec, _ = M.decode_step(params, cfg, cache, dec_batch, s,
+                                       mode=mode)
+            runs[mode] = (pre, dec)
+            del cache
+        torch.cuda.synchronize()
+        # f32: every call on the simt kernel (Whisper: the encoder's, then
+        # each layer's self and cross in the prefill and in the decode step)
+        n = cfg.num_layers
+        calls = (cfg.encoder_layers + 4 * n if cfg.is_encoder_decoder
+                 else 2 * n)
+        if VARIANTS != {"wgmma": 0, "split_kv": 0, "simt": calls}:
+            raise AssertionError(f"{arch} f32 consistency: flash_attention "
+                                 f"variants {VARIANTS}")
+        for step, i in (("prefill", 0), ("decode", 1)):
+            # the vocabulary's padding columns are -1e30 in both
+            got, want = (runs[m][i][..., :cfg.vocab_size]
+                         for m in (None, "torch"))
+            err = float((got - want).abs().max())
+            say("consistency", f"{arch} x 1 layer f32, {step} "
+                f"({got.shape[0] * got.shape[1]} positions): kernel vs plain "
+                f"path, max |logit diff| {err:.3g} (tol 1e-4; logits up to "
+                f"{float(want.abs().max()):.3g})")
+            if not err <= 1e-4:
+                raise AssertionError(f"{arch} {step}: kernel and plain paths "
+                                     "disagree")
+        del runs, params
+        release()
 
 
 def _leaves(tree):
@@ -3168,9 +3434,12 @@ def phase_rwkv_consistency():
     release()
 
 
-def profile_serving(arch, patched, nested, keys, decode_steps):
+def profile_serving(arch, patched, nested, keys, decode_steps,
+                    make_prompts=None, max_len=LLM_MAX_LEN):
     """Where a serving path's time goes, ``arch`` at full width in bf16
-    (drawn anew). One prefill and ``decode_steps`` decode steps with the
+    (drawn anew), on the batch ``make_prompts(cfg)`` (default the token
+    prompts) in a cache of ``max_len``. One prefill and ``decode_steps``
+    decode steps (at position prompt_len) with the
     functions ``patched`` [(module, name, part)] each timed on the host
     clock between synchronizes (a part ``nested`` {outer: inner parts}
     has its inner parts' time taken out; "rest" is what no part covers:
@@ -3187,7 +3456,15 @@ def profile_serving(arch, patched, nested, keys, decode_steps):
     cfg = get_config(arch)
     params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
                            dtype=torch.bfloat16, device=DEVICE)
-    prompts = {"tokens": llm_prompts(cfg.vocab_size)}
+    prompts = (make_prompts(cfg) if make_prompts
+               else {"tokens": llm_prompts(cfg.vocab_size)})
+    s = prompt_len(prompts)
+    dec_batch = {"tokens": prompts["tokens"][:, -1:] if "tokens" in prompts
+                 else torch.zeros(LLM_BATCH, 1, dtype=torch.int32,
+                                  device=DEVICE)}
+    if cfg.family == "vlm":
+        dec_batch["mrope_positions"] = torch.full(
+            (LLM_BATCH, 1, 3), s, dtype=torch.int32, device=DEVICE)
     spent = {}
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
 
@@ -3215,13 +3492,11 @@ def profile_serving(arch, patched, nested, keys, decode_steps):
         return wall, parts
 
     with torch.inference_mode():
-        cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN,
+        cache = M.init_cache(cfg, LLM_BATCH, max_len,
                              dtype=torch.bfloat16, device=DEVICE)
-        tok = prompts["tokens"][:, -1:]
         prefill = lambda: M.prefill(params, cfg, prompts, cache,
                                     last_only=True)
-        decode = lambda: M.decode_step(params, cfg, cache, {"tokens": tok},
-                                       LLM_PROMPT)
+        decode = lambda: M.decode_step(params, cfg, cache, dec_batch, s)
         prefill()
         decode()                                        # warm-up
         for mod, name, key in patched:
@@ -3302,6 +3577,48 @@ def phase_rwkv_profile(decode_steps=8):
         {"time mix": ("decay LoRA", "WKV")},
         ("time mix", "decay LoRA", "WKV", "channel mix", "head", "rest"),
         decode_steps)
+
+
+def phase_whisper_profile(decode_steps=8):
+    """``--profile`` of whisper-small serving: the encoder, the decoder's
+    self-attention layer and its cross-attention (each with its
+    projections), the SwiGLU MLP, the head (:func:`profile_serving`)."""
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tr_mod
+
+    profile_serving(
+        WHISPER_ARCH, [(tr_mod, "encoder_apply", "encoder"),
+                       (attn_mod, "attn_prefill", "self-attention"),
+                       (attn_mod, "attn_decode", "self-attention"),
+                       (tr_mod, "_cross_attention", "cross-attention"),
+                       (layers_mod, "swiglu_apply", "mlp"),
+                       (M, "_logits_out", "head")],
+        {}, ("encoder", "self-attention", "cross-attention", "mlp", "head",
+             "rest"), decode_steps,
+        lambda cfg: whisper_prompts(cfg, torch.bfloat16), WHISPER_MAX_LEN)
+
+
+def phase_vlm_profile(decode_steps=8):
+    """``--profile`` of qwen2-vl-2b serving: the attention layer with its
+    projections and M-RoPE, the SwiGLU MLP, the head
+    (:func:`profile_serving`)."""
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import model as M
+
+    profile_serving(
+        VLM_ARCH, [(attn_mod, "attn_prefill", "attention"),
+                   (attn_mod, "attn_decode", "attention"),
+                   (layers_mod, "swiglu_apply", "mlp"),
+                   (M, "_logits_out", "head")],
+        {}, ("attention", "mlp", "head", "rest"), decode_steps,
+        lambda cfg: vlm_prompts(cfg, torch.bfloat16))
 
 
 def phase_round_times(reps):
@@ -3475,9 +3792,19 @@ def main(argv) -> int:
     phase_llm_consistency()
     launches.update(phase_rwkv_serving())
     phase_rwkv_consistency()
+    t_ev = time.perf_counter()
+    for counts in (phase_whisper_serving(), phase_vlm_serving()):
+        launches["flash_attention"] += counts["flash_attention"]
+    t_cons = time.perf_counter()
+    phase_encdec_vlm_consistency()
+    say("llm", f"whisper-small and qwen2-vl-2b: serving phases "
+        f"{t_cons - t_ev:.1f} s, consistency {time.perf_counter() - t_cons:.1f}"
+        f" s")
     if "--profile" in argv:
         phase_llm_profile()
         phase_rwkv_profile()
+        phase_whisper_profile()
+        phase_vlm_profile()
         phase_round_times(ROUND_REPS)
         for comp in (None,) + tuple(COMPRESS_KERNEL):
             phase_profile(comp)

@@ -7,7 +7,9 @@ CPU or with ``mode="torch"``. The KV cache is one preallocated
 (b, max_len, hkv, hd) tensor per layer, written in place: prefill writes
 slots [0, s), a decode step slot ``pos`` (the reference's
 ``dynamic_update_slice`` returns a new array; here the cache given is
-updated and returned).
+updated and returned). An encoder-decoder's cross-attention
+(:func:`cross_kv`, :func:`cross_apply`) projects the encoder's output to
+K/V once and attends to it without a mask, a rotation or a bias.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from repro_torch.kernels.flash_attention import attention
 from repro_torch.models import layers
 
 __all__ = ["attn_apply", "attn_decode", "attn_init", "attn_prefill",
-           "init_kv_cache"]
+           "cross_apply", "cross_kv", "init_kv_cache"]
 
 
 def attn_init(gen, cfg, dtype=torch.float32, lead=()):
@@ -137,3 +139,23 @@ def attn_decode(params, cfg, x, cache, pos, *, mrope_positions=None,
     out = attention(q, cache["k"], cache["v"], causal=True, window=w,
                     q_offset=pos, mode=mode)
     return out.reshape(b, 1, -1) @ params["wo"], cache
+
+
+def cross_kv(params, cfg, enc_out):
+    """The cross-attention's K and V of the encoder's output (b, se, d):
+    ``enc_out @ wk`` and ``enc_out @ wv``, each (b, se, hkv, hd)."""
+    b, se, _ = enc_out.shape
+    shape = (b, se, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return ((enc_out @ params["wk"]).reshape(shape),
+            (enc_out @ params["wv"]).reshape(shape))
+
+
+def cross_apply(params, cfg, x, k, v, *, mode=None):
+    """Cross-attention of x (b, s, d) to given k, v (b, se, hkv, hd):
+    q = ``x @ wq`` (no rotation), non-causal from q_offset 0, then ``@
+    wo``. Writes nothing. Returns (b, s, d)."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads,
+                                   cfg.resolved_head_dim)
+    out = attention(q, k, v, causal=False, q_offset=0, mode=mode)
+    return out.reshape(b, s, -1) @ params["wo"]

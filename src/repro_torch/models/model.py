@@ -1,10 +1,19 @@
 """Public LLM model API of the port: init / forward / loss / prefill /
 decode (the port of ``repro/models/model.py``).
 
-Batch conventions, as the reference's (plain LM):
-  * forward / prefill: {"tokens": (b, s) int}, or {"embeds": (b, s, d)}
-    with "mrope_positions" (b, s, 3) for a VLM;
-  * decode:            {"tokens": (b, 1) int}.
+Batch conventions, as the reference's:
+  * plain LM (dense / moe / ssm):
+      forward / prefill: {"tokens": (b, s) int}
+      decode:            {"tokens": (b, 1) int}
+  * VLM (qwen2-vl; the vision frontend is a stub):
+      forward / prefill: {"embeds": (b, s, d), "mrope_positions": (b, s, 3)
+                          int}
+      decode:            {"tokens": (b, 1) int, "mrope_positions": (b, 1, 3)
+                          int}
+  * audio encoder-decoder (whisper; the conv/mel frontend is a stub):
+      forward / prefill: {"enc_frames": (b, encoder_seq_len, d),
+                          "tokens": (b, s) int}
+      decode:            {"tokens": (b, 1) int} (the cross K/V are cached)
 
 Every function takes ``mode``, the kernels' dispatch mode: None runs the
 hand-written kernels for CUDA tensors and their plain versions for CPU
@@ -35,7 +44,8 @@ def padded_vocab(cfg) -> int:
 
 def init_params(gen, cfg, dtype=torch.float32, device=DEFAULT_DEVICE):
     """Random parameters under the reference's tree ({"embed", "blocks",
-    "final_norm", "lm_head"}), drawn on ``device`` (default the card;
+    "final_norm", "lm_head"}, and "encoder" for an encoder-decoder), drawn
+    on ``device`` (default the card;
     raises without one) from ``gen``: a ``torch.Generator`` on that
     device, or an int seed for one."""
     dev = resolve_device(device)
@@ -52,6 +62,8 @@ def init_params(gen, cfg, dtype=torch.float32, device=DEFAULT_DEVICE):
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.dense_init(gen, cfg.d_model, pv, dtype)
+    if cfg.is_encoder_decoder:
+        p["encoder"] = transformer.encoder_init(gen, cfg, dtype)
     return p
 
 
@@ -72,6 +84,15 @@ def _embed_in(params, cfg, batch):
     return params["embed"][batch["tokens"].long()]
 
 
+def _encode(params, cfg, batch, mode):
+    """The encoder's output for an encoder-decoder's ``enc_frames``, else
+    None."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return transformer.encoder_apply(params["encoder"], cfg,
+                                     batch["enc_frames"], kmode=mode)
+
+
 def _logits_out(params, cfg, x):
     x = layers.norm_apply(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -88,7 +109,8 @@ def forward(params, cfg, batch, *, mode=None):
     x = _embed_in(params, cfg, batch)
     x, _, aux = transformer.stack_apply(
         params["blocks"], cfg, x, mode="full",
-        mrope_positions=batch.get("mrope_positions"), kmode=mode)
+        mrope_positions=batch.get("mrope_positions"),
+        enc_out=_encode(params, cfg, batch, mode), kmode=mode)
     return _logits_out(params, cfg, x), aux
 
 
@@ -106,14 +128,15 @@ def loss_fn(params, cfg, batch, *, mode=None):
 
 def prefill(params, cfg, batch, cache, *, last_only=False, mode=None):
     """Forward that also fills the cache in place: the KV cache's slots
-    [0, s), or the recurrent state after the prompt (continued from the
+    [0, s) (and an encoder-decoder's cross K/V), or the recurrent state after the prompt (continued from the
     state the cache holds). Returns
     (logits, cache); ``last_only`` computes the final position's logits
     only (b, 1, V), as serving does."""
     x = _embed_in(params, cfg, batch)
     x, layers_cache, _ = transformer.stack_apply(
         params["blocks"], cfg, x, mode="full", cache=cache["layers"],
-        mrope_positions=batch.get("mrope_positions"), kmode=mode)
+        mrope_positions=batch.get("mrope_positions"),
+        enc_out=_encode(params, cfg, batch, mode), kmode=mode)
     if last_only:
         x = x[:, -1:, :]
     return _logits_out(params, cfg, x), {"layers": layers_cache}
@@ -121,7 +144,7 @@ def prefill(params, cfg, batch, cache, *, last_only=False, mode=None):
 
 def decode_step(params, cfg, cache, batch, pos, *, mode=None):
     """One-token decode at cache position ``pos`` (a host int). batch:
-    {"tokens": (b, 1)}. Writes slot ``pos`` of a KV cache, or the whole
+    {"tokens": (b, 1)}, and "mrope_positions" (b, 1, 3) for a VLM. Writes slot ``pos`` of a KV cache, or the whole
     recurrent state (which ignores ``pos``), in place.
     Returns (logits (b, 1, V) float32, cache)."""
     x = _embed_in(params, cfg, batch)

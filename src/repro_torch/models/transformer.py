@@ -13,8 +13,16 @@ Two mixer kinds are ported: attention, with the SwiGLU or MoE FFN, and
 RWKV-6 (``"rwkv"``: time mix, then channel mix, ``models/rwkv.py``),
 whose cache is the recurrent state (``tm_last``, ``cm_last`` in the cache
 dtype and the float32 ``wkv`` state), also written in place. The Mamba
-mixer and the encoder-decoder (Whisper) branches raise
-``NotImplementedError``; they come in later slices (ROADMAP.md).
+mixer raises ``NotImplementedError`` (ROADMAP.md queue 1 item 17).
+
+An encoder-decoder config (Whisper) adds, after each decoder layer's
+self-attention, a cross-attention (``norm_x``, ``cross``) over the
+encoder's output: the prefill computes its K/V from ``enc_out`` and
+writes them into the cache's ``cross_k`` / ``cross_v``, a decode step
+reads them from there. The encoder (:func:`encoder_init`,
+:func:`encoder_apply`) is a stack of pre-norm layers over frame
+embeddings (the audio frontend is a stub, as in the reference): sinusoidal
+positions, non-causal self-attention, the GELU MLP, a final LayerNorm.
 """
 from __future__ import annotations
 
@@ -24,21 +32,15 @@ import torch
 
 from repro_torch.models import attention, layers, moe, rwkv
 
-__all__ = ["block_pattern", "stack_apply", "stack_cache", "stack_init"]
-
-_NOT_YET = {
-    "mamba": "the Mamba mixer (models/mamba.py, Jamba) is not ported yet: "
-             "ROADMAP.md queue 1 item 17",
-    "encdec": "the encoder-decoder branches (Whisper) are not ported yet: "
-              "ROADMAP.md queue 1 item 16",
-}
+__all__ = ["block_pattern", "encoder_apply", "encoder_init", "stack_apply",
+           "stack_cache", "stack_init"]
 
 
-def _refuse(cfg, kind):
+def _refuse(kind):
     if kind == "mamba":
-        raise NotImplementedError(_NOT_YET[kind])
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(_NOT_YET["encdec"])
+        raise NotImplementedError(
+            "the Mamba mixer (models/mamba.py, Jamba) is not ported yet: "
+            "ROADMAP.md queue 1 item 17")
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +70,7 @@ def block_pattern(cfg):
 # ---------------------------------------------------------------------------
 
 def _position_init(gen, cfg, kind, is_moe, dtype, lead):
-    _refuse(cfg, kind)
+    _refuse(kind)
     dev = gen.device
     p = {"norm1": layers.norm_init(cfg, dtype=dtype, device=dev, lead=lead),
          "norm2": layers.norm_init(cfg, dtype=dtype, device=dev, lead=lead)}
@@ -82,15 +84,19 @@ def _position_init(gen, cfg, kind, is_moe, dtype, lead):
     else:
         p["mlp"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype,
                                       lead=lead)
+    if cfg.is_encoder_decoder:
+        p["norm_x"] = layers.norm_init(cfg, dtype=dtype, device=dev,
+                                       lead=lead)
+        p["cross"] = attention.attn_init(gen, cfg, dtype, lead)
     return p
 
 
 def _apply_position(p, cfg, kind, is_moe, x, *, mode, cache=None, pos=None,
-                    mrope_positions=None, kmode=None):
+                    mrope_positions=None, enc_out=None, kmode=None):
     """One layer. mode: 'full' | 'decode'; ``kmode`` is the kernels'
     dispatch mode (None, or "torch" for the plain versions). Returns (x,
     cache (updated in place), aux)."""
-    _refuse(cfg, kind)
+    _refuse(kind)
     if kind == "rwkv":
         return _apply_rwkv(p, cfg, x, cache=cache, kmode=kmode)
     aux = 0.0
@@ -109,12 +115,32 @@ def _apply_position(p, cfg, kind, is_moe, x, *, mode, cache=None, pos=None,
                                      mrope_positions=mrope_positions,
                                      mode=kmode)
     x = x + y
+    if cfg.is_encoder_decoder:
+        x = x + _cross_attention(p, cfg, x, mode=mode, cache=cache,
+                                 enc_out=enc_out, kmode=kmode)
     h2 = layers.norm_apply(cfg, p["norm2"], x)
     if is_moe:
         y2, aux = moe.moe_apply(p["moe"], cfg, h2, mode=kmode)
     else:
         y2 = layers.swiglu_apply(p["mlp"], h2)
     return x + y2, cache, aux
+
+
+def _cross_attention(p, cfg, x, *, mode, cache, enc_out, kmode):
+    """The decoder's cross-attention (reference ``transformer.py:140-159``).
+    In 'full' mode its K/V come from ``enc_out`` and, with a cache, are
+    written cast into ``cross_k`` / ``cross_v`` in place (the prefill itself
+    attends to the uncast ones, as the reference does); a decode step reads
+    them from the cache."""
+    hx = layers.norm_apply(cfg, p["norm_x"], x)
+    if mode == "full":
+        ck, cv = attention.cross_kv(p["cross"], cfg, enc_out)
+        if cache is not None:
+            cache["cross_k"].copy_(ck)
+            cache["cross_v"].copy_(cv)
+    else:
+        ck, cv = cache["cross_k"], cache["cross_v"]
+    return attention.cross_apply(p["cross"], cfg, hx, ck, cv, mode=kmode)
 
 
 def _apply_rwkv(p, cfg, x, *, cache=None, kmode=None):
@@ -155,20 +181,27 @@ def stack_init(gen, cfg, dtype=torch.float32):
 
 def stack_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
     """{"pos{i}": cache} with leaves stacked (n_blocks, ...): {"k", "v"}
-    zeros (n_blocks, batch, max_len, hkv, hd) per attention position;
+    zeros (n_blocks, batch, max_len, hkv, hd) per attention position, and
+    for an encoder-decoder {"cross_k", "cross_v"} zeros (n_blocks, batch,
+    encoder_seq_len, hkv, hd);
     {"tm_last", "cm_last"} zeros (n_blocks, batch, d) in ``dtype`` and
     {"wkv"} zeros (n_blocks, batch, h, n, n) float32 per RWKV position
     (``max_len`` does not bound a recurrent state)."""
     n_blocks, pattern = block_pattern(cfg)
     out = {}
     for i, (kind, _) in enumerate(pattern):
-        _refuse(cfg, kind)
+        _refuse(kind)
         if kind == "rwkv":
             out[f"pos{i}"] = rwkv.init_rwkv_cache(cfg, batch, dtype, device,
                                                   lead=(n_blocks,))
-        else:
-            out[f"pos{i}"] = attention.init_kv_cache(
-                cfg, batch, max_len, dtype, device, lead=(n_blocks,))
+            continue
+        c = attention.init_kv_cache(cfg, batch, max_len, dtype, device,
+                                    lead=(n_blocks,))
+        if cfg.is_encoder_decoder:
+            cross = attention.init_kv_cache(cfg, batch, cfg.encoder_seq_len,
+                                            dtype, device, lead=(n_blocks,))
+            c["cross_k"], c["cross_v"] = cross["k"], cross["v"]
+        out[f"pos{i}"] = c
     return out
 
 
@@ -180,10 +213,12 @@ def _block(tree, i):
 
 
 def stack_apply(params, cfg, x, *, mode="full", cache=None, pos=None,
-                mrope_positions=None, kmode=None):
+                mrope_positions=None, enc_out=None, kmode=None):
     """Run the block stack. mode 'full' (forward; with a cache, prefill)
-    or 'decode' (one token at cache position ``pos``). The cache, if
-    given, is written in place. Returns (x, cache, total aux loss)."""
+    or 'decode' (one token at cache position ``pos``). ``enc_out`` (b,
+    encoder_seq_len, d) is the encoder's output, which an encoder-decoder
+    needs in 'full' mode. The cache, if given, is written in place.
+    Returns (x, cache, total aux loss)."""
     n_blocks, pattern = block_pattern(cfg)
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for b in range(n_blocks):
@@ -193,6 +228,48 @@ def stack_apply(params, cfg, x, *, mode="full", cache=None, pos=None,
             c = blk_cache[f"pos{i}"] if blk_cache is not None else None
             x, _, aux = _apply_position(
                 blk[f"pos{i}"], cfg, kind, is_moe, x, mode=mode, cache=c,
-                pos=pos, mrope_positions=mrope_positions, kmode=kmode)
+                pos=pos, mrope_positions=mrope_positions, enc_out=enc_out,
+                kmode=kmode)
             aux_tot = aux_tot + aux
     return x, cache, aux_tot
+
+
+# ---------------------------------------------------------------------------
+# whisper encoder
+# ---------------------------------------------------------------------------
+
+def encoder_init(gen, cfg, dtype=torch.float32):
+    """{"layers": {norm1, attn, norm2, mlp} with leaves stacked
+    (encoder_layers, ...), "final_norm"}, drawn on ``gen.device``."""
+    dev, lead = gen.device, (cfg.encoder_layers,)
+    return {
+        "layers": {
+            "norm1": layers.norm_init(cfg, dtype=dtype, device=dev,
+                                      lead=lead),
+            "attn": attention.attn_init(gen, cfg, dtype, lead),
+            "norm2": layers.norm_init(cfg, dtype=dtype, device=dev,
+                                      lead=lead),
+            "mlp": layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                        lead=lead),
+        },
+        "final_norm": layers.norm_init(cfg, dtype=dtype, device=dev),
+    }
+
+
+def encoder_apply(params, cfg, frames, *, kmode=None):
+    """frames: (b, encoder_seq_len, d) precomputed embeddings (the
+    frontend stub) -> (b, encoder_seq_len, d). Each layer: norm,
+    non-causal self-attention (``attn_apply(causal=False, positions=
+    None)``, as the reference calls it), norm, GELU MLP; a final norm."""
+    _, s, d = frames.shape
+    pos = layers.sinusoidal_positions(s, d, device=frames.device)
+    x = frames + pos.to(frames.dtype)[None]
+    stacked = params["layers"]
+    for i in range(cfg.encoder_layers):
+        p = _block(stacked, i)
+        h = layers.norm_apply(cfg, p["norm1"], x)
+        x = x + attention.attn_apply(p["attn"], cfg, h, causal=False,
+                                     positions=None, mode=kmode)
+        h2 = layers.norm_apply(cfg, p["norm2"], x)
+        x = x + layers.gelu_mlp_apply(p["mlp"], h2)
+    return layers.norm_apply(cfg, params["final_norm"], x)

@@ -1,15 +1,19 @@
 """Batched LLM serving engine: prefill once, then one-token decode steps
 against a preallocated cache (the port of ``repro/serve/engine.py``): a
-KV cache of ``max_len`` slots for attention layers, the recurrent state
-(token shifts and the float32 WKV state) for RWKV-6 layers.
+KV cache of ``max_len`` slots for attention layers (and an
+encoder-decoder's cross K/V, which the prefill fills and every decode step
+reads), the recurrent state (token shifts and the float32 WKV state) for
+RWKV-6 layers.
 
 ``make_prefill_step`` / ``make_decode_step`` return the step functions;
 ``ServeEngine`` drives them. Everything runs eagerly under
 ``torch.inference_mode()``; the decode position is a host int and the
 cache is written in place. On the card, at every step (the prefill and
-each decode step), every attention layer launches the ``flash_attention``
-kernel once, every MoE layer the ``moe_router`` kernel once and every
-RWKV layer the ``rwkv6_scan`` kernel once.
+each decode step), every attention launches the ``flash_attention``
+kernel once (an encoder-decoder's: each decoder layer's self- and
+cross-attention, and in the prefill each encoder layer's), every MoE
+layer the ``moe_router`` kernel once and every RWKV layer the
+``rwkv6_scan`` kernel once.
 """
 from __future__ import annotations
 
@@ -37,17 +41,19 @@ def make_decode_step(cfg, *, sample: str = "greedy", temp: float = 1.0,
                      mode=None):
     """``(params, cache, tokens (b, 1), pos, gen) -> (next tokens (b, 1)
     int32, cache)``: one new token against the cache at host position
-    ``pos``, sampled greedily or by temperature from ``gen``."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "decoding a VLM (M-RoPE decode positions, embeds prefill) is "
-            "not ported yet: ROADMAP.md queue 1 item 16")
+    ``pos``, sampled greedily or by temperature from ``gen``. A VLM's
+    token sits at M-RoPE position ``pos`` in all three components."""
     if sample not in ("greedy", "temp"):
         raise ValueError(f"unknown sampler {sample!r}")
 
     def decode_step(params, cache, tokens, pos, gen):
-        logits, cache = model_lib.decode_step(
-            params, cfg, cache, {"tokens": tokens}, pos, mode=mode)
+        batch = {"tokens": tokens}
+        if cfg.family == "vlm":
+            batch["mrope_positions"] = torch.full(
+                (tokens.shape[0], 1, 3), int(pos), dtype=torch.int32,
+                device=tokens.device)
+        logits, cache = model_lib.decode_step(params, cfg, cache, batch, pos,
+                                              mode=mode)
         if sample == "greedy":
             return sampler_lib.greedy(logits), cache
         return sampler_lib.temperature(logits, gen, temp), cache
@@ -79,8 +85,10 @@ class ServeEngine:
                                         temp=self.temp, mode=self.mode)
 
     def generate(self, batch, *, max_new_tokens: int, seed: int = 0):
-        """batch: prefill inputs ({"tokens": (b, s)}, tensors or arrays).
-        Returns the new tokens (b, max_new_tokens) int32 on the engine's
+        """batch: prefill inputs (tensors or arrays): {"tokens": (b, s)},
+        a VLM's {"embeds", "mrope_positions"}, an encoder-decoder's
+        {"enc_frames", "tokens"}; the prompt's length is that of "tokens",
+        else of "embeds". Returns the new tokens (b, max_new_tokens) int32 on the engine's
         device; temperature sampling draws from a generator seeded with
         ``seed``."""
         with torch.inference_mode():

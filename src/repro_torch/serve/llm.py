@@ -5,16 +5,19 @@ port of ``examples/serve_model.py``'s LLM path).
     python -m repro_torch.serve.llm --arch deepseek-moe-16b
     python -m repro_torch.serve.llm --arch phi3-mini-3.8b --device cpu
     python -m repro_torch.serve.llm --arch rwkv6-7b --device cpu
+    python -m repro_torch.serve.llm --arch whisper-small --device cpu
+    python -m repro_torch.serve.llm --arch qwen2-vl-2b --device cpu
 
 Options: ``--batch 4 --prompt-len 32 --new 16 --sample greedy|temp``,
 as the reference's. Random weights (seed 0) and prompts (seed 1), vocab
 512; it generates twice (the first warms up) and prints the tokens and
 tokens/s of the second, with the cache kind as the reference names it
 (``recurrent-state`` for the attention-free ``ssm`` family, rwkv6-7b;
-``hybrid`` for hybrid; ``kv`` otherwise). Without ``--device cpu`` it
-runs on the card and raises without one. The hybrid, audio and vision
-families (jamba, whisper, qwen2-vl) raise ``NotImplementedError`` from
-the model or the engine: they come in later slices (ROADMAP.md).
+``hybrid`` for hybrid; ``kv`` otherwise). The prompts are the
+reference's (:func:`prompts`): a VLM's are patch embeddings with M-RoPE
+positions, an encoder-decoder's tokens come with frame embeddings for its
+encoder. Without ``--device cpu`` it runs on the card and raises without
+one.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeEngine
 
-__all__ = ["cache_kind", "main", "run"]
+__all__ = ["cache_kind", "main", "prompts", "run"]
 
 VOCAB = 512
 
@@ -41,6 +44,29 @@ def cache_kind(cfg) -> str:
     return "hybrid" if cfg.family == "hybrid" else "kv"
 
 
+def prompts(cfg, batch, prompt_len, gen):
+    """The prompts of ``examples/serve_model.py``, drawn from ``gen`` on
+    its device: tokens (batch, prompt_len) int32 in the vocabulary; for a
+    VLM in their place embeds (batch, prompt_len, d) * 0.2 with M-RoPE
+    positions ``arange(prompt_len)`` in all three components; for an
+    encoder-decoder also enc_frames (batch, encoder_seq_len, d) * 0.2."""
+    dev = gen.device
+    if cfg.family == "vlm":
+        pos = torch.arange(prompt_len, dtype=torch.int32, device=dev)
+        out = {"embeds": torch.randn(batch, prompt_len, cfg.d_model,
+                                     generator=gen, device=dev) * 0.2,
+               "mrope_positions": pos[None, :, None].repeat(batch, 1, 3)}
+    else:
+        out = {"tokens": torch.randint(0, cfg.vocab_size,
+                                       (batch, prompt_len), generator=gen,
+                                       device=dev, dtype=torch.int32)}
+    if cfg.is_encoder_decoder:
+        out["enc_frames"] = torch.randn(batch, cfg.encoder_seq_len,
+                                        cfg.d_model, generator=gen,
+                                        device=dev) * 0.2
+    return out
+
+
 def run(arch, *, batch=4, prompt_len=32, new=16, sample="greedy",
         device=DEFAULT_DEVICE):
     """Serve the reduced ``arch``: returns (tokens (batch, new) int32,
@@ -50,10 +76,8 @@ def run(arch, *, batch=4, prompt_len=32, new=16, sample="greedy",
     params = M.init_params(0, cfg, device=dev)
     engine = ServeEngine(cfg=cfg, params=params, max_len=prompt_len + new,
                          sample=sample, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    prompt = {"tokens": torch.randint(0, VOCAB, (batch, prompt_len),
-                                      generator=gen, device=dev,
-                                      dtype=torch.int32)}
+    prompt = prompts(cfg, batch, prompt_len,
+                     torch.Generator(device=dev).manual_seed(1))
     engine.generate(prompt, max_new_tokens=2)                 # warm-up
     synchronize(dev)
     t0 = time.perf_counter()

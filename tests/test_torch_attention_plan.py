@@ -76,6 +76,65 @@ def test_plan_picks_variant(case):
                 q_offset=q_offset) == want
 
 
+# Whisper-small and Qwen2-VL-2B served at full width (chip_smoke.py): (label,
+# q shape, kv shape, causal, q_offset, expected). The encoder's and the
+# prefill cross-attention's k/v are fresh projections; the decode steps
+# read slices of the stacked cache (:func:`test_serving_cache_slices_plan`).
+SERVE_CASES = [
+    ("whisper encoder", (4, 1500, 12, 64), (4, 1500, 12, 64), False, 0,
+     ("wgmma", 1)),
+    ("whisper cross prefill", (4, 64, 12, 64), (4, 1500, 12, 64), False, 0,
+     ("wgmma", 1)),
+    ("whisper self prefill", (4, 64, 12, 64), (4, 64, 12, 64), True, 0,
+     ("wgmma", 1)),
+    ("qwen2-vl 12:2 prefill", (4, 1024, 12, 128), (4, 1024, 2, 128), True,
+     0, ("wgmma", 1)),
+]
+
+
+@pytest.mark.parametrize("case", SERVE_CASES, ids=lambda c: c[0])
+def test_plan_serving_prefill_shapes(case):
+    _, qs, kvs, causal, q_offset, want = case
+    assert plan(_t(qs), _t(kvs), _t(kvs), causal=causal,
+                q_offset=q_offset) == want
+
+
+@pytest.mark.parametrize("arch,max_len,cross,q_offset,want", [
+    ("whisper-small", 80, True, 0, ("split_kv", 11)),
+    ("whisper-small", 80, True, 78, ("split_kv", 11)),
+    ("whisper-small", 80, False, 64, ("split_kv", 1)),
+    ("whisper-small", 80, False, 78, ("split_kv", 1)),
+    ("qwen2-vl-2b", 1040, False, 1024, ("split_kv", 16)),
+    ("qwen2-vl-2b", 1040, False, 1038, ("split_kv", 16)),
+])
+def test_serving_cache_slices_plan(arch, max_len, cross, q_offset, want):
+    """Every block's slice of the full-width stacked bf16 cache (the meta
+    device: shapes, strides and offsets only) keeps 16-byte aligned rows,
+    so a decode step's attention is split_kv, never simt: Whisper's cross
+    K/V over its 1,500 frames (non-causal, q_offset 0: 11 chunks at b = 4,
+    12 kv-heads) and its self K/V, Qwen2-VL's 12:2 cache. A float32 cache
+    under a bf16 q takes simt."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import _aligned
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch)
+    q = torch.empty(4, 1, cfg.num_heads, cfg.resolved_head_dim, dtype=BF16,
+                    device="meta")
+    k_name, v_name = ("cross_k", "cross_v") if cross else ("k", "v")
+    causal = not cross
+    n_blocks = transformer.block_pattern(cfg)[0]
+    for dt, expect in ((BF16, want), (F32, ("simt", 1))):
+        cache = transformer.stack_cache(cfg, 4, max_len, dt, device="meta")
+        for i in range(n_blocks):
+            blk = cache["pos0"]
+            k, v = blk[k_name][i], blk[v_name][i]
+            assert k.shape == (4, cfg.encoder_seq_len if cross else max_len,
+                               cfg.num_kv_heads, cfg.resolved_head_dim)
+            assert _aligned(k) and _aligned(v)
+            assert plan(q, k, v, causal=causal, q_offset=q_offset) == expect
+
+
 def test_plan_deepseek_decode_chunks():
     """deepseek's decode (64 (b, h) pairs, 1,031 visible keys) gets 8-16
     chunks of 64-128 rows: a grid of several waves on 132 SMs."""

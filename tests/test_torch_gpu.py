@@ -653,6 +653,14 @@ LLM_ATTN_CASES = [
     (1, 1, 1040, 4, 4, 128, True, 256, 1000, "split_kv"),  # windowed decode
     (2, 256, 256, 12, 12, 64, True, 0, None, "wgmma"),  # d 64 (whisper)
     (2, 1, 96, 4, 2, 64, True, 0, -1, "split_kv"),     # no key seen: 0
+    # Whisper-small and Qwen2-VL-2B at their serving shapes: the encoder
+    # (non-causal, q and kv tails of 28 rows), the cross-attention's
+    # prefill (64 queries on 1,500 keys) and decode, GQA 12:2 at d 128
+    (4, 1500, 1500, 12, 12, 64, False, 0, 0, "wgmma"),
+    (4, 64, 1500, 12, 12, 64, False, 0, 0, "wgmma"),
+    (4, 1, 1500, 12, 12, 64, False, 0, 0, "split_kv"),
+    (4, 1024, 1024, 12, 2, 128, True, 0, None, "wgmma"),
+    (2, 12, 75, 4, 4, 64, False, 0, 0, "wgmma"),       # ragged, sq != skv
 ]
 # f32: the kernel's online softmax against one softmax over the row;
 # bf16: one rounding of the output (the chip_smoke tolerances)
@@ -936,6 +944,50 @@ def test_llm_generate_launch_counts(cuda):
     assert torch.equal(out, plain.generate({"tokens": prompt},
                                            max_new_tokens=4))
     assert out.shape == (3, 4) and out.dtype == torch.int32
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-2b"])
+def test_encdec_vlm_generate_launch_counts(cuda, arch):
+    """Reduced whisper-small and qwen2-vl-2b (2 layers each; Whisper's
+    encoder 2 layers over 64 frames): a prefill and 3 decode steps launch
+    flash_attention once per attention (Whisper: encoder, self and cross;
+    decode reads the cached cross K/V) and no other kernel. In float32
+    (simt) the greedy tokens equal the plain path's; in bfloat16 the
+    prefill runs wgmma and the decode steps split_kv."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.flash_attention import VARIANTS, reset_variants
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.llm import prompts
+
+    cfg = get_reduced_config(arch)
+    n = cfg.num_layers
+    prefill = n + (2 * n if cfg.is_encoder_decoder else 0)
+    step = 2 * n if cfg.is_encoder_decoder else n
+    for dt in (torch.float32, torch.bfloat16):
+        params = M.init_params(0, cfg, dtype=dt, device=cuda)
+        batch = {k: v.to(dt) if v.is_floating_point() else v
+                 for k, v in prompts(cfg, 3, 24, torch.Generator(cuda)
+                                     .manual_seed(1)).items()}
+        kernel = ServeEngine(cfg=cfg, params=params, max_len=32,
+                             cache_dtype=dt)
+        reset_launches()
+        reset_variants()
+        out = kernel.generate(batch, max_new_tokens=4)
+        torch.cuda.synchronize()
+        launches = {k: c for k, c in LAUNCHES.items() if c}
+        assert launches == {"flash_attention": prefill + 3 * step}, launches
+        assert out.shape == (3, 4) and out.dtype == torch.int32
+        assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+        if dt == torch.float32:
+            assert VARIANTS["simt"] == prefill + 3 * step
+            plain = ServeEngine(cfg=cfg, params=params, max_len=32,
+                                cache_dtype=dt, mode="torch")
+            assert torch.equal(out, plain.generate(batch, max_new_tokens=4))
+        else:
+            assert VARIANTS == {"wgmma": prefill, "split_kv": 3 * step,
+                                "simt": 0}, VARIANTS
 
 
 # --- RWKV-6: rwkv6_scan ---------------------------------------------------

@@ -113,7 +113,7 @@ def test_engine_greedy_matches_stepwise_forward():
         seq = torch.cat([seq, nxt.view(1, 1)], dim=1)
 
 
-def test_engine_checks():
+def test_engine_checks(monkeypatch):
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine, make_decode_step
 
@@ -123,8 +123,25 @@ def test_engine_checks():
     with pytest.raises(ValueError, match="max_len"):
         eng.generate({"tokens": torch.zeros(1, 6, dtype=torch.int32)},
                      max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decode_step(_port("qwen2-vl-2b", 32))
+    # a VLM's decode step puts the token at M-RoPE position (pos, pos,
+    # pos): (b, 1, 3) int32 on the tokens' device
+    seen = []
+    real = M.decode_step
+
+    def spy(params, cfg_, cache, batch, pos, **kw):
+        seen.append((batch["mrope_positions"], pos))
+        return real(params, cfg_, cache, batch, pos, **kw)
+
+    vlm = _port("qwen2-vl-2b", 32)
+    vparams = M.init_params(0, vlm, device="cpu")
+    cache = M.init_cache(vlm, 3, 8, dtype=torch.float32, device="cpu")
+    monkeypatch.setattr(M, "decode_step", spy)
+    tok, _ = make_decode_step(vlm)(
+        vparams, cache, torch.zeros(3, 1, dtype=torch.int32), 5, None)
+    (mp, pos), = seen
+    assert pos == 5 and tok.shape == (3, 1)
+    assert mp.shape == (3, 1, 3) and mp.dtype == torch.int32
+    assert bool((mp == 5).all()) and mp.device == tok.device
 
 
 def test_entry_points_ask_for_the_card():
@@ -149,7 +166,8 @@ def test_entry_points_ask_for_the_card():
               "2", "--new", "2"])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-14b",
+                                  "whisper-small", "qwen2-vl-2b"])
 def test_cli_serves_on_the_cpu(arch, capsys):
     from repro_torch.serve.llm import main
 
@@ -160,8 +178,7 @@ def test_cli_serves_on_the_cpu(arch, capsys):
     assert "8 tokens in" in out and "(reduced model, CPU)" in out
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-small",
-                                  "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
 def test_cli_refuses_families_of_later_slices(arch):
     from repro_torch.serve.llm import run
 
