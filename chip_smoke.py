@@ -172,6 +172,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      TF32 and CUDA-core floors of its product), and for attention the
      library call's time (scaled_dot_product_attention on the same
      tensors; never the port's path).
+     Jamba's attention (4, 1,024, 64:8 of 128) as its prefill (wgmma, the
+     first group of 8 q-heads per kv-head) and as its decode (4 x 1 on
+     1,040 slots, split_kv), timed; the fused router at Jamba's MoE (d
+     8,192, E 16, k 2): its prefill (4,096 tokens, the tile form) and its
+     decode (4 tokens, the split form: a cluster of 16 CTAs, each 8 chunks
+     of 64 values of d), timed.
   9. LLM serving at full width: deepseek-moe-16b (28 layers, its
      published widths) in bf16, drawn on the card from a seeded
      generator; ``ServeEngine(max_len=1040, cache_dtype=bf16).generate``
@@ -240,13 +246,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      layer too), in f32 (simt), kernel path against plain path on the
      serving prompts: prefill logits of every position and the first
      decode step's within 1e-4.
+ 13e. Jamba serving: jamba-1.5-large-398b cut to its first 5 layers at
+     every published width (d_model 8,192, 64 q-heads on 8 kv-heads of
+     128, d_ff 24,576, 16 experts top-2, Mamba d_in 16,384, d_state 16,
+     d_conv 4, vocab 65,536): [(mamba, dense), (mamba, MoE), (mamba,
+     dense), (mamba, MoE), (attn, dense)], exactly 24,045,707,264 bf16
+     parameters as the reference's tree counts them (A_log, D, dt_bias and
+     the router float32), 48.09 GB; the same generate as step 9:
+     flash_attention exactly 16 (1 wgmma + 15 split_kv), moe_router
+     exactly 32, all fused (2 tile + 30 split), no other kernel (the Mamba
+     mixers' selective scan is torch ops); prefill ms, decode ms per step,
+     tokens/s, peak memory; then every kernel one prefill and one decode
+     step launch (torch.profiler).
+ 13f. Jamba consistency: the same path cut to 2 layers with attn_period 2,
+     [(mamba, dense), (attn, MoE)] (11,912,896,512 parameters, 47.65 GB in
+     f32), kernels against plain versions, under step 10's rule.
  14. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, the router (the routing seam: the fused
      kernel), the rest of the MoE layer, head;
      rwkv6-7b: the time mix's GEMMs and elementwise ops, the decay LoRA,
      the WKV scan, the channel mix, head; whisper-small: the encoder,
      self-attention, cross-attention, MLP, head; qwen2-vl-2b: attention,
-     MLP, head) for a prefill and 8 decode
+     MLP, head; the Jamba cut: the Mamba mixer's in_proj, conv, SSM
+     parameters, scan and out_proj, the rest of the mixer, attention,
+     router, the rest of the MoE, the MLP, head) for a prefill and 8 decode
      steps, and a profiled decode step and prefill (busy share, time by
      kernel); then the CNN round's host-clock time, uncompressed and with
      each lossy compressor, over several unprofiled rounds in alternating
@@ -256,8 +279,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      round of the Fig-3 sweep and of the PerMFL CNN 3-seed sweep beside
      one looped round (busy share, launches).
  15. the ``kernels`` JSON line (flash_attention's launches: those of
-     deepseek's, Whisper's and Qwen2-VL's counted generates), then the
-     ``ok`` JSON line last.
+     deepseek's, Whisper's, Qwen2-VL's and Jamba's counted generates;
+     moe_router's: deepseek's and Jamba's), then the ``ok`` JSON line
+     last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -342,6 +366,18 @@ RWKV_OPS_PER_ELEMENT = 5
 # LayerNorm and GELU biases, the final norm and the vocabulary's padding.
 WHISPER_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-2b"
 WHISPER_PARAMS, VLM_PARAMS = 306_456_576, 1_777_088_000
+# jamba-1.5-large-398b (398.5 B parameters) cut to its first 5 layers at
+# every published width: 4 Mamba mixers, the attention layer, 2 MoE FFNs
+# (16 experts of 3 x 8,192 x 24,576), 3 SwiGLU FFNs. The parameters of the
+# reference's tree (jax.eval_shape of repro.models.model.init_params; the
+# CPU tests hold the port's tree to it): param_count gives 24,044,519,424,
+# its Mamba term counting dt_rank as d_in / 16 and leaving out dt_proj,
+# dt_bias, A_log and D. Its consistency cut: 2 layers, attn_period 2,
+# [(mamba, dense), (attn, MoE)], 47.65 GB in f32
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_CUT, JAMBA_PARAMS = dict(num_layers=5), 24_045_707_264
+JAMBA_CONSISTENCY_CUT = dict(num_layers=2, attn_period=2)
+JAMBA_CONSISTENCY_PARAMS = 11_912_896_512
 # Whisper's decoder prompt and cache, within its 448-token context; the
 # encoder reads 1,500 frames (30 s of audio)
 WHISPER_PROMPT, WHISPER_MAX_LEN = 64, 80
@@ -465,6 +501,28 @@ def cuda_time_ms(fn, iters, clean=False):
     torch.cuda.synchronize()
     times = sorted(start.elapsed_time(end) for start, end in events)
     return times[iters // 2]
+
+
+def profiled(fn):
+    """``fn()`` once under torch.profiler, the device synchronized before
+    and after: (its result, the call's host-clock seconds, the CUDA
+    kernels' rows of ``key_averages()``, most device time first). Only
+    device-side rows: an operator's own row repeats the time of the
+    kernels it launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return out, wall, rows
 
 
 def max_errors(got, want):
@@ -1632,10 +1690,6 @@ def phase_sweep_profile():
     """One round of the Fig-3 sweep (9 configs) and of the PerMFL Table-1
     CNN sweep (3 seeds) under torch.profiler, beside one looped round of
     one of their configs: host clock, device busy share, launches."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.scenarios import get_scenario, run_scenario, \
         sweep_scenario
 
@@ -1649,13 +1703,7 @@ def phase_sweep_profile():
                                                device=DEVICE)}
         for label, fn in runs.items():
             fn()                                         # warm-up
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                res = fn()
-                torch.cuda.synchronize()
-            rows = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
+            res, _, rows = profiled(fn)
             busy = sum(e.self_device_time_total for e in rows) / 1e6
             wall = res.seconds
             configs = len(res) if label == "sweep" else 1
@@ -2221,8 +2269,6 @@ def phase_baseline_profile():
     a warm-up round and an unprofiled one: host-clock seconds, device
     busy share and kernel launches."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.scenarios import build_scenario
 
@@ -2237,15 +2283,8 @@ def phase_baseline_profile():
         b.algo.round(state, b.train, **masks)
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            b.algo.round(state, b.train, **masks)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        _, wall, rows = profiled(lambda: b.algo.round(state, b.train,
+                                                      **masks))
         busy = sum(e.self_device_time_total for e in rows) / 1e6
         say("profile", f"one round [{b.algo.name}]: {plain_wall:.3f} s host "
             f"clock unprofiled, {wall:.3f} s profiled; kernels {busy:.3f} s "
@@ -2261,9 +2300,10 @@ def phase_baseline_profile():
 def attention_cases():
     """(label, b, sq, skv, hq, hkv, d, causal, window, q_offset, q dtype,
     kv dtype, timed): the serving paths' shapes in bf16 first (deepseek's
-    prefill and decode, Whisper's encoder and cross decode and Qwen2-VL's
-    12:2 prefill timed; Whisper's cross prefill and Qwen2-VL's decode
-    checked), then the small shapes in f32 and bf16."""
+    prefill and decode, Whisper's encoder and cross decode, Qwen2-VL's
+    12:2 prefill and Jamba's 64:8 prefill and decode timed; Whisper's
+    cross prefill and Qwen2-VL's decode checked), then the small shapes in
+    f32 and bf16."""
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2279,6 +2319,10 @@ def attention_cases():
               bf16, bf16, True),
              ("qwen2-vl prefill", b, p, p, 12, 2, 128, True, 0, 0, bf16,
               bf16, True),
+             ("jamba prefill", b, p, p, 64, 8, 128, True, 0, 0, bf16, bf16,
+              True),
+             ("jamba decode", b, 1, n, 64, 8, 128, True, 0,
+              LLM_DECODE_OFFSET, bf16, bf16, True),
              ("whisper cross prefill", b, WHISPER_PROMPT, enc, 12, 12, 64,
               False, 0, 0, bf16, bf16, False),
              ("qwen2-vl decode", b, 1, n, 12, 2, 128, True, 0, p + 14, bf16,
@@ -2575,6 +2619,12 @@ FUSED_CASES = (
      False, False, True),
     ("decode", LLM_BATCH, 2048, 64, 6, LLM_BATCH, "bfloat16", False, False,
      True),
+    # Jamba's MoE: d 8,192, 16 experts, top-2; the split form's cluster of
+    # 16 CTAs spans 8 chunks of 64 values of d each
+    ("jamba prefill", LLM_BATCH * LLM_PROMPT, 8192, 16, 2, LLM_GROUP,
+     "bfloat16", False, False, True),
+    ("jamba decode", LLM_BATCH, 8192, 16, 2, LLM_BATCH, "bfloat16", False,
+     False, True),
     ("zero rows, tied experts", 512, 2048, 64, 6, 128, "bfloat16", True,
      True, False),
     ("k=1, tied", LLM_BATCH * LLM_PROMPT, 2048, 64, 1, LLM_GROUP,
@@ -2589,10 +2639,11 @@ FUSED_CASES = (
 
 def phase_fused_router_check():
     """The fused router op (route_tokens) against its plain version under
-    :func:`fused_errors`, at deepseek's prefill and decode (timed) and at
-    ragged, padded, tied and f32 cases; then its product's accuracy at the
-    prefill's shape in bf16 and f32 against a float64 route
-    (:func:`f64_error`, within PROB_REL_TOL). Returns {label: numbers}."""
+    :func:`fused_errors`, at deepseek's and Jamba's prefill and decode
+    (timed) and at ragged, padded, tied and f32 cases; then its product's
+    accuracy at deepseek's prefill shape in bf16 and f32 against a float64
+    route (:func:`f64_error`, within PROB_REL_TOL). Returns {label:
+    numbers}."""
     import torch
 
     from repro_torch.kernels.moe_router import plan, route_tokens
@@ -3129,16 +3180,17 @@ def phase_rwkv_serving():
     return launches
 
 
-def draw_full_width(arch, want):
-    """``arch`` at its published widths in bf16, drawn on the card from seed
-    0, its parameter count checked against the reference's tree's
-    (``want``). Returns (cfg, params)."""
+def draw_full_width(arch, want, **cut):
+    """``arch`` at its published widths in bf16 (its config with ``cut``
+    replaced, e.g. fewer layers), drawn on the card from seed 0, its
+    parameter count checked against the reference's tree's (``want``).
+    Returns (cfg, params)."""
     import torch
 
     from repro_torch.configs import get_config, param_count
     from repro_torch.models import model as M
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**cut)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3215,6 +3267,79 @@ def phase_vlm_serving():
     n = cfg.num_layers
     check_attention_variants(VLM_ARCH, launches, n, (LLM_NEW - 1) * n)
     del params
+    release()
+    return launches
+
+
+def phase_jamba_serving():
+    """jamba-1.5-large-398b cut to its first 5 layers at every published
+    width, bf16 (A_log, D, dt_bias and the router float32), through
+    ``ServeEngine.generate`` (:func:`counted_generate`) of 4 prompts of
+    1,024 tokens, a cache of 1,040 slots: the attention layer on
+    flash_attention (GQA 64:8 at head_dim 128; the prefill on wgmma, each
+    decode step on split_kv), each of the 2 MoE layers on the fused router
+    (the prefill's 4,096 tokens in the tile form, each decode step's 4 in
+    the split form), the 4 Mamba mixers on torch ops. Then the kernels
+    launched by one prefill and by one decode step. Returns its
+    launches."""
+    import torch
+
+    from repro_torch.kernels import moe_router
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import block_pattern
+
+    cfg, params = draw_full_width(JAMBA_ARCH, JAMBA_PARAMS, **JAMBA_CUT)
+    tree = params["blocks"]
+    f32 = sorted({k for pos in tree.values() for sub in pos.values()
+                  if isinstance(sub, dict) for k, t in sub.items()
+                  if isinstance(t, torch.Tensor) and t.dtype == torch.float32})
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    say("llm", f"{JAMBA_ARCH} cut to {cfg.num_layers} of 72 layers, block "
+        f"pattern {block_pattern(cfg)[1]}: {nbytes / 1e9:.2f} "
+        f"GB; float32 leaves {f32}, the rest bf16")
+    if f32 != ["A_log", "D", "dt_bias", "router"]:
+        raise AssertionError(f"{JAMBA_ARCH}: float32 leaves {f32}")
+    prompts = {"tokens": llm_prompts(cfg.vocab_size)}
+    launches = counted_generate(cfg, params, prompts)
+    n_attn = cfg.layer_kinds().count("attn")
+    n_moe = sum(cfg.moe_layer_mask())
+    check_launches(launches, {"flash_attention": LLM_NEW * n_attn,
+                              "moe_router": LLM_NEW * n_moe},
+                   f"{JAMBA_ARCH} generate")
+    from repro_torch.kernels.flash_attention import VARIANTS
+
+    want = {"wgmma": n_attn, "split_kv": (LLM_NEW - 1) * n_attn}
+    if {k: c for k, c in VARIANTS.items() if c} != want:
+        raise AssertionError(f"{JAMBA_ARCH} generate: flash_attention "
+                             f"variants {VARIANTS}, expected {want}")
+    if moe_router.VARIANTS != {"fused": LLM_NEW * n_moe, "logits": 0} or \
+            moe_router.FORMS != {"tile": n_moe,
+                                 "split": (LLM_NEW - 1) * n_moe}:
+        raise AssertionError(f"{JAMBA_ARCH} generate: moe_router variants "
+                             f"{moe_router.VARIANTS}, forms "
+                             f"{moe_router.FORMS}")
+    say("llm", f"{JAMBA_ARCH} moe_router forms {moe_router.FORMS}")
+    with torch.inference_mode():
+        cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN,
+                             dtype=torch.bfloat16, device=DEVICE)
+        state = cache["layers"]["pos0"]
+        kv = cache["layers"][f"pos{cfg.layer_kinds().index('attn')}"]["k"]
+        say("llm", f"{JAMBA_ARCH} cache per generate: each Mamba layer's "
+            f"conv window {state['conv'].numel() * 2 / 1e6:.2f} MB bf16 and "
+            f"SSM state {state['ssm'].numel() * 4 / 1e6:.2f} MB float32; "
+            f"the attention layer's KV {2 * kv.numel() * 2 / 1e6:.1f} MB")
+        tok = {"tokens": prompts["tokens"][:, -1:]}
+        steps = {"a prefill": lambda: M.prefill(params, cfg, prompts, cache,
+                                                last_only=True),
+                 "a decode step": lambda: M.decode_step(params, cfg, cache,
+                                                        tok, LLM_PROMPT)}
+        counted = {k: profiled(fn)[2] for k, fn in steps.items()}
+    say("llm", f"{JAMBA_ARCH} kernels launched (torch.profiler, every "
+        f"kernel): " + ", ".join(
+            f"{k} {sum(e.count for e in ev)} ("
+            f"{sum(e.self_device_time_total for e in ev) / 1e3:.2f} ms of "
+            f"device time)" for k, ev in counted.items()))
+    del params, tree, cache, state, kv
     release()
     return launches
 
@@ -3303,21 +3428,34 @@ def kept_sets(idx, pos, t, num_experts, cap):
     return routed, kept
 
 
-def phase_llm_consistency():
-    """The serving path cut to 1 layer in f32, through the kernels and
-    through the plain versions: prefill logits of every position and the
-    first decode step's, under the flip rule of the module docstring."""
+def phase_llm_consistency(arch=LLM_ARCH, cut=None, n_params=None):
+    """The serving path cut to 1 layer (``arch`` with ``cut`` replaced; a
+    single MoE layer) in f32, through the kernels and through the plain
+    versions: prefill logits of every position and the first decode
+    step's, under the flip rule of the module docstring. ``n_params``:
+    the cut's parameters in the reference's tree, checked if given."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_router import positions_ref
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import block_pattern
 
-    cfg = get_config(LLM_ARCH).replace(num_layers=1)
+    cfg = get_config(arch).replace(**(cut or dict(num_layers=1)))
     m = cfg.moe
+    if sum(cfg.moe_layer_mask()) != 1:
+        raise ValueError(f"{arch} {cut}: one MoE layer, not "
+                         f"{sum(cfg.moe_layer_mask())}")
     params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
                            dtype=torch.float32, device=DEVICE)
+    n = sum(t.numel() for t in _leaves(params))
+    if n_params is not None and n != n_params:
+        raise AssertionError(f"{arch} {cut}: {n} parameters, the "
+                             f"reference's tree has {n_params}")
+    layers = f"{cfg.num_layers} layer" + "s" * (cfg.num_layers > 1)
+    if cfg.family == "hybrid":
+        layers += f" {block_pattern(cfg)[1]}, {n:,} parameters"
     prompts = llm_prompts(cfg.vocab_size)
     tok = torch.randint(0, cfg.vocab_size, (LLM_BATCH, 1), device=DEVICE,
                         generator=torch.Generator(DEVICE).manual_seed(2),
@@ -3370,18 +3508,19 @@ def phase_llm_consistency():
         flips = flipped.nonzero()[:, 0]
         lone = [i for i in displaced.nonzero()[:, 0].tolist()
                 if not bool(((flips < i) & (flips // gs == i // gs)).any())]
-        say("consistency", f"{LLM_ARCH} x 1 layer f32, {step} ({t} tokens): "
+        say("consistency", f"{arch} x {layers} f32, {step} ({t} tokens): "
             f"kernel vs plain path, max |logit diff| over the {int(agree.sum())}"
             f" agreeing tokens {float(err):.3g} (tol 1e-4); flipped "
             f"{int(flipped.sum())} (tie gaps in the plain run "
             f"{[float(x) for x in gaps]}), displaced {int(displaced.sum())}")
         if not float(err) <= 1e-4:
-            raise AssertionError(f"{step}: kernel and plain paths disagree")
+            raise AssertionError(f"{arch} {step}: kernel and plain paths "
+                                 "disagree")
         if len(gaps) and not float(gaps.max()) <= 1e-5:
-            raise AssertionError(f"{step}: a flip off a tie ({gaps})")
+            raise AssertionError(f"{arch} {step}: a flip off a tie ({gaps})")
         if lone:
-            raise AssertionError(f"{step}: tokens {lone} displaced without "
-                                 "an earlier flip in their group")
+            raise AssertionError(f"{arch} {step}: tokens {lone} displaced "
+                                 "without an earlier flip in their group")
     del runs, params
     release()
 
@@ -3435,25 +3574,25 @@ def phase_rwkv_consistency():
 
 
 def profile_serving(arch, patched, nested, keys, decode_steps,
-                    make_prompts=None, max_len=LLM_MAX_LEN):
+                    make_prompts=None, max_len=LLM_MAX_LEN, cut=None):
     """Where a serving path's time goes, ``arch`` at full width in bf16
-    (drawn anew), on the batch ``make_prompts(cfg)`` (default the token
-    prompts) in a cache of ``max_len``. One prefill and ``decode_steps``
-    decode steps (at position prompt_len) with the
-    functions ``patched`` [(module, name, part)] each timed on the host
-    clock between synchronizes (a part ``nested`` {outer: inner parts}
+    (its config with ``cut`` replaced; drawn anew), on the batch
+    ``make_prompts(cfg)`` (default the token prompts) in a cache of
+    ``max_len``. One prefill and ``decode_steps`` decode steps (at
+    position prompt_len) with the functions ``patched`` [(module, name,
+    part)] each timed on the host clock between synchronizes (a part may
+    be a function of the call's arguments that names it, or None for a
+    call left untimed; a part ``nested`` {outer: inner parts}
     has its inner parts' time taken out; "rest" is what no part covers:
     norms, residuals, embedding), printing the medians over ``keys``;
     then one decode step and one prefill under torch.profiler: the
     device's busy share and time by kernel."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**(cut or {}))
     params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
                            dtype=torch.bfloat16, device=DEVICE)
     prompts = (make_prompts(cfg) if make_prompts
@@ -3470,11 +3609,14 @@ def profile_serving(arch, patched, nested, keys, decode_steps,
 
     def timed(fn, key):
         def run(*args, **kw):
+            part = key(*args) if callable(key) else key
+            if part is None:
+                return fn(*args, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
-            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            spent[part] = spent.get(part, 0.0) + time.perf_counter() - t0
             return out
         return run
 
@@ -3519,16 +3661,7 @@ def profile_serving(arch, patched, nested, keys, decode_steps,
                             for k in keys))
         for step, fn in (("decode", decode), ("prefill", prefill)):
             fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-            ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+            _, wall, ev = profiled(fn)
             busy = sum(e.self_device_time_total for e in ev) / 1e6
             say("profile", f"{arch} {step} under torch.profiler: "
                 f"{wall * 1e3:.2f} ms host clock, kernels {busy * 1e3:.2f} ms "
@@ -3621,6 +3754,51 @@ def phase_vlm_profile(decode_steps=8):
         lambda cfg: vlm_prompts(cfg, torch.bfloat16))
 
 
+def phase_jamba_profile(decode_steps=8):
+    """``--profile`` of the Jamba cut's serving: each Mamba mixer's parts
+    (its in_proj and out_proj products, the conv, the SSM parameters'
+    products and softplus, the scan (a decode step's recurrence step),
+    the rest of the mixer: the chunk, the gate, the cache writes), the
+    attention layer with its projections, the routing seam (the fused
+    router kernel), the rest of the MoE layer, the SwiGLU MLP, the head
+    (:func:`profile_serving`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config(JAMBA_ARCH)
+    d_in = cfg.mamba_expand * cfg.d_model
+
+    def projection(a, w):
+        if tuple(w.shape) == (cfg.d_model, 2 * d_in):
+            return "in_proj"
+        return "out_proj" if tuple(w.shape) == (d_in, cfg.d_model) else None
+
+    mixer = ("in_proj", "conv", "SSM params", "scan", "out_proj")
+    profile_serving(
+        JAMBA_ARCH, [(mamba_mod, "mamba_apply", "mamba"),
+                     (mamba_mod, "mamba_decode", "mamba"),
+                     (mamba_mod, "_mm", projection),
+                     (mamba_mod, "_conv", "conv"),
+                     (mamba_mod, "_conv_step", "conv"),
+                     (mamba_mod, "_ssm_params", "SSM params"),
+                     (mamba_mod, "_scan", "scan"),
+                     (mamba_mod, "_step", "scan"),
+                     (attn_mod, "attn_prefill", "attention"),
+                     (attn_mod, "attn_decode", "attention"),
+                     (moe_mod, "moe_apply", "moe"),
+                     (moe_mod, "route", "router"),
+                     (layers_mod, "swiglu_apply", "mlp"),
+                     (M, "_logits_out", "head")],
+        {"mamba": mixer, "moe": ("router",)},
+        ("mamba",) + mixer + ("attention", "router", "moe", "mlp", "head",
+                              "rest"),
+        decode_steps, cut=JAMBA_CUT)
+
+
 def phase_round_times(reps):
     """``reps`` unprofiled rounds of the CNN cell per variant (uncompressed
     and each lossy compressor), in one order and then the reverse, each
@@ -3689,8 +3867,6 @@ def phase_profile(comp=None):
     compressor ``comp``): device time by kernel and the device's busy
     share of the round's host-clock time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.comm import CommConfig
     from repro_torch.core import permfl as P
@@ -3711,17 +3887,7 @@ def phase_profile(comp=None):
     one_round()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_round()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only: an operator's own row repeats the time of
-    # the kernels it launched
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    _, wall, rows = profiled(one_round)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     tag = f"[{comp or 'uncompressed'}]"
     say("profile", f"one round {tag}: {plain_wall:.3f} s host clock "
@@ -3800,11 +3966,20 @@ def main(argv) -> int:
     say("llm", f"whisper-small and qwen2-vl-2b: serving phases "
         f"{t_cons - t_ev:.1f} s, consistency {time.perf_counter() - t_cons:.1f}"
         f" s")
+    t_jamba = time.perf_counter()
+    for k, v in phase_jamba_serving().items():
+        launches[k] += v
+    t_cons = time.perf_counter()
+    phase_llm_consistency(JAMBA_ARCH, JAMBA_CONSISTENCY_CUT,
+                          JAMBA_CONSISTENCY_PARAMS)
+    say("llm", f"{JAMBA_ARCH}: serving phase {t_cons - t_jamba:.1f} s, "
+        f"consistency {time.perf_counter() - t_cons:.1f} s")
     if "--profile" in argv:
         phase_llm_profile()
         phase_rwkv_profile()
         phase_whisper_profile()
         phase_vlm_profile()
+        phase_jamba_profile()
         phase_round_times(ROUND_REPS)
         for comp in (None,) + tuple(COMPRESS_KERNEL):
             phase_profile(comp)

@@ -11,7 +11,9 @@ zoo's trees cross with :func:`params_from_numpy` as they are: a
 ``repro.models.model.init_params`` tree (blocks stacked ``(n_blocks,
 ...)``) and an ``init_cache`` tree have the port's leaf names and
 shapes; bfloat16 leaves (``ml_dtypes``' numpy type) arrive as
-``torch.bfloat16`` bit for bit. A baseline's state crosses as the
+``torch.bfloat16`` bit for bit, and every leaf keeps its own type (a
+bfloat16 Jamba tree's float32 ``A_log``, ``D``, ``dt_bias`` and router
+stay float32). A baseline's state crosses as the
 reference holds it: the global model tree ``x`` (FedAvg, Per-FedAvg,
 h-SGD) or the pair ``(x, personal)`` (pFedMe and L2GD's theta, Ditto's
 v). A sweep's stacked state (``FLSweepResult.state_stacked``, every leaf

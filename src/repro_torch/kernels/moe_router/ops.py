@@ -20,7 +20,8 @@ Which implementation runs follows the tensor's device
 tensor, the plain version (``ref.py``) for a CPU tensor or an explicit
 ``mode="torch"``; a CUDA tensor launches its kernel or raises. Each op
 call adds one to ``LAUNCHES["moe_router"]``, and to ``VARIANTS["fused"]``
-or ``VARIANTS["logits"]``.
+or ``VARIANTS["logits"]``; a fused launch also to ``FORMS["tile"]`` or
+``FORMS["split"]``, the form it ran.
 """
 from __future__ import annotations
 
@@ -33,9 +34,9 @@ from repro_torch.kernels.interface import KernelType, count_launch, \
     kernel_mode
 from repro_torch.kernels.moe_router.ref import route_ref, route_tokens_ref
 
-__all__ = ["BLOCK_TOKENS", "KERNELS", "MAX_EXPERTS", "VARIANTS", "launch",
-           "launch_fused", "plan", "reset_variants", "route_tokens",
-           "route_topk"]
+__all__ = ["BLOCK_TOKENS", "FORMS", "KERNELS", "MAX_EXPERTS", "VARIANTS",
+           "launch", "launch_fused", "plan", "reset_variants",
+           "route_tokens", "route_topk"]
 
 _NAME = "moe_router"
 _FUSED = "moe_router_hopper"
@@ -48,12 +49,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variant -> launches that ran it since the last reset_variants()
 VARIANTS = {"fused": 0, "logits": 0}
+# the fused kernel's form (plan's "form") -> launches since the last reset
+FORMS = {"tile": 0, "split": 0}
 
 
 def reset_variants() -> None:
-    """Set every variant's count to 0."""
-    for name in VARIANTS:
-        VARIANTS[name] = 0
+    """Set every variant's and every form's count to 0."""
+    for counts in (VARIANTS, FORMS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _fn(lib, name, argtypes):
@@ -235,6 +239,7 @@ def launch_fused(x, w, gates, idx, pos, aux, *, top_k: int,
              sc["tails"].data_ptr(), sc["stats"].data_ptr(),
              sc["tickets"].data_ptr(), stream.cuda_stream)
     VARIANTS["fused"] += 1
+    FORMS[form["form"]] += 1
     if err:
         raise RuntimeError(f"moe_router_hopper kernel launch failed: CUDA "
                            f"error {err} (x {tuple(x.shape)} {x.dtype}, E "

@@ -2,7 +2,7 @@
 decode (the port of ``repro/models/model.py``).
 
 Batch conventions, as the reference's:
-  * plain LM (dense / moe / ssm):
+  * plain LM (dense / moe / ssm / hybrid):
       forward / prefill: {"tokens": (b, s) int}
       decode:            {"tokens": (b, 1) int}
   * VLM (qwen2-vl; the vision frontend is a stub):
@@ -73,7 +73,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     attention, the KV cache, zeros (n_blocks, batch, max_len, hkv, hd) in
     ``dtype``; RWKV, the recurrent state, ``tm_last`` / ``cm_last`` zeros
     (n_blocks, batch, d) in ``dtype`` and ``wkv`` zeros (n_blocks, batch,
-    h, n, n) float32, whatever ``max_len``."""
+    h, n, n) float32, whatever ``max_len``; Mamba, ``conv`` zeros
+    (n_blocks, batch, d_conv - 1, d_in) in ``dtype`` and ``ssm`` zeros
+    (n_blocks, batch, d_in, d_state) float32."""
     return {"layers": transformer.stack_cache(cfg, batch, max_len, dtype,
                                               resolve_device(device))}
 
@@ -128,8 +130,9 @@ def loss_fn(params, cfg, batch, *, mode=None):
 
 def prefill(params, cfg, batch, cache, *, last_only=False, mode=None):
     """Forward that also fills the cache in place: the KV cache's slots
-    [0, s) (and an encoder-decoder's cross K/V), or the recurrent state after the prompt (continued from the
-    state the cache holds). Returns
+    [0, s) (and an encoder-decoder's cross K/V), or the recurrent state
+    (an RWKV or Mamba layer's) after the prompt, continued from the state
+    the cache holds. Returns
     (logits, cache); ``last_only`` computes the final position's logits
     only (b, 1, V), as serving does."""
     x = _embed_in(params, cfg, batch)
@@ -144,8 +147,9 @@ def prefill(params, cfg, batch, cache, *, last_only=False, mode=None):
 
 def decode_step(params, cfg, cache, batch, pos, *, mode=None):
     """One-token decode at cache position ``pos`` (a host int). batch:
-    {"tokens": (b, 1)}, and "mrope_positions" (b, 1, 3) for a VLM. Writes slot ``pos`` of a KV cache, or the whole
-    recurrent state (which ignores ``pos``), in place.
+    {"tokens": (b, 1)}, and "mrope_positions" (b, 1, 3) for a VLM. Writes
+    slot ``pos`` of a KV cache, and the whole recurrent state of an RWKV
+    or Mamba layer (which ignores ``pos``), in place.
     Returns (logits (b, 1, V) float32, cache)."""
     x = _embed_in(params, cfg, batch)
     x, layers_cache, _ = transformer.stack_apply(

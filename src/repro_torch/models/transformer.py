@@ -9,11 +9,14 @@ JAX ``init_params`` tree carries across as it is
 reads views ``leaf[i]``; the KV cache is stacked the same way and each
 block's slice is written in place.
 
-Two mixer kinds are ported: attention, with the SwiGLU or MoE FFN, and
-RWKV-6 (``"rwkv"``: time mix, then channel mix, ``models/rwkv.py``),
-whose cache is the recurrent state (``tm_last``, ``cm_last`` in the cache
-dtype and the float32 ``wkv`` state), also written in place. The Mamba
-mixer raises ``NotImplementedError`` (ROADMAP.md queue 1 item 17).
+The three mixer kinds are ported: attention and Mamba (``"mamba"``,
+``models/mamba.py``; Jamba's hybrid blocks interleave the two), each
+followed by the SwiGLU or MoE FFN, and RWKV-6 (``"rwkv"``: time mix, then
+channel mix, ``models/rwkv.py``). A Mamba position's cache is its conv
+window (``conv``, in the cache dtype) and its float32 SSM state
+(``ssm``); an RWKV position's the recurrent state (``tm_last``,
+``cm_last`` in the cache dtype and the float32 ``wkv`` state). Both are
+written in place, as the KV cache is.
 
 An encoder-decoder config (Whisper) adds, after each decoder layer's
 self-attention, a cross-attention (``norm_x``, ``cross``) over the
@@ -30,17 +33,10 @@ import math
 
 import torch
 
-from repro_torch.models import attention, layers, moe, rwkv
+from repro_torch.models import attention, layers, mamba, moe, rwkv
 
 __all__ = ["block_pattern", "encoder_apply", "encoder_init", "stack_apply",
            "stack_cache", "stack_init"]
-
-
-def _refuse(kind):
-    if kind == "mamba":
-        raise NotImplementedError(
-            "the Mamba mixer (models/mamba.py, Jamba) is not ported yet: "
-            "ROADMAP.md queue 1 item 17")
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +66,6 @@ def block_pattern(cfg):
 # ---------------------------------------------------------------------------
 
 def _position_init(gen, cfg, kind, is_moe, dtype, lead):
-    _refuse(kind)
     dev = gen.device
     p = {"norm1": layers.norm_init(cfg, dtype=dtype, device=dev, lead=lead),
          "norm2": layers.norm_init(cfg, dtype=dtype, device=dev, lead=lead)}
@@ -78,7 +73,10 @@ def _position_init(gen, cfg, kind, is_moe, dtype, lead):
         p["tm"] = rwkv.timemix_init(gen, cfg, dtype, lead)
         p["cm"] = rwkv.channelmix_init(gen, cfg, dtype, lead)
         return p
-    p["attn"] = attention.attn_init(gen, cfg, dtype, lead)
+    if kind == "mamba":
+        p["mamba"] = mamba.mamba_init(gen, cfg, dtype, lead)
+    else:
+        p["attn"] = attention.attn_init(gen, cfg, dtype, lead)
     if is_moe:
         p["moe"] = moe.moe_init(gen, cfg, dtype, lead)
     else:
@@ -96,12 +94,16 @@ def _apply_position(p, cfg, kind, is_moe, x, *, mode, cache=None, pos=None,
     """One layer. mode: 'full' | 'decode'; ``kmode`` is the kernels'
     dispatch mode (None, or "torch" for the plain versions). Returns (x,
     cache (updated in place), aux)."""
-    _refuse(kind)
     if kind == "rwkv":
         return _apply_rwkv(p, cfg, x, cache=cache, kmode=kmode)
     aux = 0.0
     h = layers.norm_apply(cfg, p["norm1"], x)
-    if mode == "full":
+    if kind == "mamba":
+        if mode == "full":
+            y, _ = mamba.mamba_apply(p["mamba"], cfg, h, cache=cache)
+        else:
+            y, _ = mamba.mamba_decode(p["mamba"], cfg, h, cache)
+    elif mode == "full":
         if cache is not None:
             y, _ = attention.attn_prefill(
                 p["attn"], cfg, h, mrope_positions=mrope_positions,
@@ -185,15 +187,20 @@ def stack_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
     for an encoder-decoder {"cross_k", "cross_v"} zeros (n_blocks, batch,
     encoder_seq_len, hkv, hd);
     {"tm_last", "cm_last"} zeros (n_blocks, batch, d) in ``dtype`` and
-    {"wkv"} zeros (n_blocks, batch, h, n, n) float32 per RWKV position
-    (``max_len`` does not bound a recurrent state)."""
+    {"wkv"} zeros (n_blocks, batch, h, n, n) float32 per RWKV position;
+    {"conv"} zeros (n_blocks, batch, d_conv - 1, d_in) in ``dtype`` and
+    {"ssm"} zeros (n_blocks, batch, d_in, d_state) float32 per Mamba
+    position (``max_len`` does not bound a recurrent state)."""
     n_blocks, pattern = block_pattern(cfg)
     out = {}
     for i, (kind, _) in enumerate(pattern):
-        _refuse(kind)
         if kind == "rwkv":
             out[f"pos{i}"] = rwkv.init_rwkv_cache(cfg, batch, dtype, device,
                                                   lead=(n_blocks,))
+            continue
+        if kind == "mamba":
+            out[f"pos{i}"] = mamba.init_mamba_cache(cfg, batch, dtype, device,
+                                                    lead=(n_blocks,))
             continue
         c = attention.init_kv_cache(cfg, batch, max_len, dtype, device,
                                     lead=(n_blocks,))

@@ -3,7 +3,8 @@ against a preallocated cache (the port of ``repro/serve/engine.py``): a
 KV cache of ``max_len`` slots for attention layers (and an
 encoder-decoder's cross K/V, which the prefill fills and every decode step
 reads), the recurrent state (token shifts and the float32 WKV state) for
-RWKV-6 layers.
+RWKV-6 layers, the conv window and the float32 SSM state for Mamba layers
+(Jamba's hybrid stack holds both kinds).
 
 ``make_prefill_step`` / ``make_decode_step`` return the step functions;
 ``ServeEngine`` drives them. Everything runs eagerly under
@@ -13,7 +14,8 @@ each decode step), every attention launches the ``flash_attention``
 kernel once (an encoder-decoder's: each decoder layer's self- and
 cross-attention, and in the prefill each encoder layer's), every MoE
 layer the ``moe_router`` kernel once and every RWKV layer the
-``rwkv6_scan`` kernel once.
+``rwkv6_scan`` kernel once; a Mamba layer launches none of them (its
+selective scan is torch ops).
 """
 from __future__ import annotations
 

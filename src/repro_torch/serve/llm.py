@@ -7,13 +7,14 @@ port of ``examples/serve_model.py``'s LLM path).
     python -m repro_torch.serve.llm --arch rwkv6-7b --device cpu
     python -m repro_torch.serve.llm --arch whisper-small --device cpu
     python -m repro_torch.serve.llm --arch qwen2-vl-2b --device cpu
+    python -m repro_torch.serve.llm --arch jamba-1.5-large-398b --device cpu
 
 Options: ``--batch 4 --prompt-len 32 --new 16 --sample greedy|temp``,
 as the reference's. Random weights (seed 0) and prompts (seed 1), vocab
 512; it generates twice (the first warms up) and prints the tokens and
 tokens/s of the second, with the cache kind as the reference names it
 (``recurrent-state`` for the attention-free ``ssm`` family, rwkv6-7b;
-``hybrid`` for hybrid; ``kv`` otherwise). The prompts are the
+``hybrid`` for Jamba's attention/Mamba/MoE stack; ``kv`` otherwise). The prompts are the
 reference's (:func:`prompts`): a VLM's are patch embeddings with M-RoPE
 positions, an encoder-decoder's tokens come with frame embeddings for its
 encoder. Without ``--device cpu`` it runs on the card and raises without

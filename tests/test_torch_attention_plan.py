@@ -89,6 +89,8 @@ SERVE_CASES = [
      ("wgmma", 1)),
     ("qwen2-vl 12:2 prefill", (4, 1024, 12, 128), (4, 1024, 2, 128), True,
      0, ("wgmma", 1)),
+    ("jamba 64:8 prefill", (4, 1024, 64, 128), (4, 1024, 8, 128), True, 0,
+     ("wgmma", 1)),
 ]
 
 
@@ -106,13 +108,15 @@ def test_plan_serving_prefill_shapes(case):
     ("whisper-small", 80, False, 78, ("split_kv", 1)),
     ("qwen2-vl-2b", 1040, False, 1024, ("split_kv", 16)),
     ("qwen2-vl-2b", 1040, False, 1038, ("split_kv", 16)),
+    ("jamba-1.5-large-398b", 1040, False, 1030, ("split_kv", 16)),
 ])
 def test_serving_cache_slices_plan(arch, max_len, cross, q_offset, want):
     """Every block's slice of the full-width stacked bf16 cache (the meta
     device: shapes, strides and offsets only) keeps 16-byte aligned rows,
     so a decode step's attention is split_kv, never simt: Whisper's cross
     K/V over its 1,500 frames (non-causal, q_offset 0: 11 chunks at b = 4,
-    12 kv-heads) and its self K/V, Qwen2-VL's 12:2 cache. A float32 cache
+    12 kv-heads) and its self K/V, Qwen2-VL's 12:2 cache, Jamba's 64:8
+    cache (the attention position of each hybrid block). A float32 cache
     under a bf16 q takes simt."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import _aligned
@@ -123,11 +127,12 @@ def test_serving_cache_slices_plan(arch, max_len, cross, q_offset, want):
                     device="meta")
     k_name, v_name = ("cross_k", "cross_v") if cross else ("k", "v")
     causal = not cross
-    n_blocks = transformer.block_pattern(cfg)[0]
+    n_blocks, pattern = transformer.block_pattern(cfg)
+    attn = f"pos{[kind for kind, _ in pattern].index('attn')}"
     for dt, expect in ((BF16, want), (F32, ("simt", 1))):
         cache = transformer.stack_cache(cfg, 4, max_len, dt, device="meta")
         for i in range(n_blocks):
-            blk = cache["pos0"]
+            blk = cache[attn]
             k, v = blk[k_name][i], blk[v_name][i]
             assert k.shape == (4, cfg.encoder_seq_len if cross else max_len,
                                cfg.num_kv_heads, cfg.resolved_head_dim)

@@ -52,6 +52,7 @@ PUBLIC_MODULES = (
     "repro_torch.kernels.segments",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
+    "repro_torch.models.mamba",
     "repro_torch.models.model",
     "repro_torch.models.moe",
     "repro_torch.models.paper_models",

@@ -990,6 +990,54 @@ def test_encdec_vlm_generate_launch_counts(cuda, arch):
                                 "simt": 0}, VARIANTS
 
 
+def test_jamba_generate_launch_counts(cuda):
+    """Reduced jamba-1.5-large-398b ([(mamba, dense), (attn, MoE)] x 4):
+    a prefill and 3 decode steps launch flash_attention and moe_router
+    once per attention and MoE layer each, the Mamba layers no kernel. In
+    float32 the prefill's logits are the plain path's within 1e-4 and the
+    greedy tokens equal; in bfloat16 the attention's prefill runs wgmma
+    and its decode steps split_kv, the router the tile form in the prefill
+    and the split form in the decode steps."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import moe_router
+    from repro_torch.kernels.flash_attention import VARIANTS, reset_variants
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_reduced_config("jamba-1.5-large-398b")
+    n = sum(cfg.moe_layer_mask())               # = the attention layers
+    prompt = torch.randint(0, cfg.vocab_size, (3, 24), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    for dt in (torch.float32, torch.bfloat16):
+        params = M.init_params(0, cfg, dtype=dt, device=cuda)
+        kernel = ServeEngine(cfg=cfg, params=params, max_len=32,
+                             cache_dtype=dt)
+        reset_launches()
+        reset_variants()
+        moe_router.reset_variants()
+        out = kernel.generate({"tokens": prompt}, max_new_tokens=4)
+        torch.cuda.synchronize()
+        launches = {k: c for k, c in LAUNCHES.items() if c}
+        assert launches == {"flash_attention": 4 * n,
+                            "moe_router": 4 * n}, launches
+        assert moe_router.VARIANTS == {"fused": 4 * n, "logits": 0}
+        assert moe_router.FORMS == {"tile": n, "split": 3 * n}
+        assert out.shape == (3, 4) and out.dtype == torch.int32
+        if dt == torch.bfloat16:
+            assert VARIANTS == {"wgmma": n, "split_kv": 3 * n, "simt": 0}
+            continue
+        logits = [M.prefill(params, cfg, {"tokens": prompt},
+                            M.init_cache(cfg, 3, 32, dtype=dt, device=cuda),
+                            mode=mode)[0] for mode in (None, "torch")]
+        torch.testing.assert_close(logits[0], logits[1], rtol=1e-4,
+                                   atol=1e-4)
+        plain = ServeEngine(cfg=cfg, params=params, max_len=32,
+                            cache_dtype=dt, mode="torch")
+        assert torch.equal(out, plain.generate({"tokens": prompt},
+                                               max_new_tokens=4))
+
+
 # --- RWKV-6: rwkv6_scan ---------------------------------------------------
 
 # (b, t, h, n, given state): head sizes 16/32/64, t off the kernel's tile

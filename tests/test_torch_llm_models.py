@@ -12,7 +12,9 @@ configs, on the CPU (the kernels' plain versions).
   and only positions before the first such flip are then compared.
 * The port's version of ``tests/test_decode_consistency.py``: prefill +
   decode reproduce the full forward (MoE dropless, capacity factor E, as
-  there), at that file's tolerance 2e-4.
+  there), at that file's tolerance 2e-4, Jamba's hybrid stack among them.
+* Jamba's reduced tree and cache: the reference's paths, shapes and
+  dtypes (its parity tests are in ``tests/test_torch_mamba.py``).
 
 The reference's router calls are recorded through a host callback, its
 ``moe_apply`` traced anew inside each test's jit.
@@ -333,7 +335,7 @@ def _dropless(cfg):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["qwen1.5-32b", "dbrx-132b",
-                                          "yi-34b"])
+                                          "yi-34b", "jamba-1.5-large-398b"])
 def test_prefill_then_decode_matches_forward(arch):
     from repro_torch.models import model as M
 
@@ -403,7 +405,28 @@ def test_cache_full_raises():
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
 def test_families_of_later_slices_raise(arch):
+    """Jamba, the last family a slice added: the port's bf16 init tree has
+    the reference's leaf paths, shapes and dtypes (the Mamba mixers'
+    A_log, D and dt_bias and the router float32), and its cache the
+    reference's (conv windows in the cache dtype, SSM states float32)."""
     from repro_torch.models import model as M
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(0, _port_cfg(arch), device="cpu")
+    def spec(tree):
+        return {jax.tree_util.keystr(k): (tuple(v.shape),
+                                          str(v.dtype).split(".")[-1])
+                for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    tp = M.init_params(0, _port_cfg(arch), dtype=torch.bfloat16,
+                       device="cpu")
+    jp = jax.eval_shape(lambda k: JM.init_params(
+        k, j_reduced(arch), dtype=jnp.bfloat16), jax.random.PRNGKey(0))
+    assert spec(tp) == spec(jp)
+    f32 = {k.split("[")[-1].strip("']") for k, (_, d) in spec(tp).items()
+           if d == "float32"}
+    assert f32 == {"A_log", "D", "dt_bias", "router"}
+    tc = M.init_cache(_port_cfg(arch), B, 8, dtype=torch.bfloat16,
+                      device="cpu")
+    jc = jax.eval_shape(lambda: JM.init_cache(j_reduced(arch), B, 8,
+                                              dtype=jnp.bfloat16))
+    assert spec(tc) == spec(jc)
+    assert tc["layers"]["pos0"]["ssm"].dtype == torch.float32

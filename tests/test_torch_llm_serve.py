@@ -22,7 +22,8 @@ def _port(arch, vocab):
     return get_reduced_config(arch).replace(vocab_size=vocab)
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b"])
 def test_engine_greedy_matches_jax(arch):
     from repro_torch.convert import params_from_numpy
     from repro_torch.serve import ServeEngine
@@ -179,8 +180,13 @@ def test_cli_serves_on_the_cpu(arch, capsys):
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
-def test_cli_refuses_families_of_later_slices(arch):
-    from repro_torch.serve.llm import run
+def test_cli_refuses_families_of_later_slices(arch, capsys):
+    """Jamba, the last family a slice added: the CLI serves its reduced
+    config on the CPU and names its cache as the reference's does."""
+    from repro_torch.serve.llm import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(arch, batch=1, prompt_len=2, new=2, device="cpu")
+    assert main(["--arch", arch, "--batch", "2", "--prompt-len", "8",
+                 "--new", "4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch} family=hybrid cache=hybrid" in out
+    assert "request 1:" in out and "8 tokens in" in out

@@ -220,6 +220,33 @@ def test_plan_picks_form_by_tokens(t, d, dtype, want):
     assert f["cluster"] & (f["cluster"] - 1) == 0 and f["cluster"] <= 16
 
 
+@pytest.mark.parametrize("t,want", [(4096, ("tile", 2, 64)),
+                                    (4, ("split", 16, 1))])
+def test_plan_at_jamba_shapes(t, want):
+    """Jamba's MoE (d 8,192, 16 experts, top-2): its prefill's 4,096
+    tokens in the tile form, a decode step's 4 in the split form, the
+    cluster of 16 CTAs spanning 8 chunks of 64 values of d each."""
+    from repro_torch.kernels.moe_router import plan
+
+    f = plan(torch.empty((t, 8192), dtype=torch.bfloat16, device="meta"),
+             torch.empty((8192, 16), device="meta"), top_k=2,
+             group_size=min(t, 1024))
+    assert (f["form"], f["cluster"], f["clusters"]) == want
+
+
+def test_forms_count_with_the_variants():
+    """``FORMS`` holds one count per form of the fused kernel, and
+    ``reset_variants`` sets it to 0 with ``VARIANTS``."""
+    from repro_torch.kernels import moe_router
+
+    assert set(moe_router.FORMS) == {"tile", "split"}
+    moe_router.FORMS["split"] += 3
+    moe_router.VARIANTS["fused"] += 3
+    moe_router.reset_variants()
+    assert moe_router.FORMS == {"tile": 0, "split": 0}
+    assert moe_router.VARIANTS == {"fused": 0, "logits": 0}
+
+
 def test_route_tokens_checks():
     from repro_torch.kernels.moe_router import plan, route_tokens
 
