@@ -261,6 +261,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
  13f. Jamba consistency: the same path cut to 2 layers with attn_period 2,
      [(mamba, dense), (attn, MoE)] (11,912,896,512 parameters, 47.65 GB in
      f32), kernels against plain versions, under step 10's rule.
+ 13g. attention backward check: flash_attention_bwd against its plain
+     version (``attention_bwd_ref``) from the (out, lse) the forward
+     kernel wrote, at phi3-mini's training shape (4 x 1,024, 32 heads of
+     96, bf16, causal), deepseek's (4 x 1,024, 16 of 128, bf16) and a GQA
+     12:2 windowed f32 case with 512 queries on 768 keys: max abs error
+     (bf16 2e-2, f32 1e-4), two launches bit-equal, its time (L2 cold),
+     the plain version's, the bound (2.5x the forward's FLOPs against its
+     bytes) and scaled_dot_product_attention's backward on the same
+     tensors.
+ 13h. LLM training at full width: phi3-mini-3.8b at every published width
+     in bf16 (3,821,079,552 parameters, 12 leaves), batches of 4 x 1,024
+     tokens from ``repro_torch.data.tokens``, with the counts set to 0
+     just before: one ``make_train_step`` with ``adamw()`` and grad_clip
+     1.0, then two ``make_tier_round`` rounds (l_local 2, the example's
+     alpha, lambda, gamma, eta, beta) of one team on the same batch:
+     flash_attention and flash_attention_bwd exactly 32 per forward /
+     backward pass (160 each), prox_update exactly 2 x 2 x 12 = 48, no
+     other kernel; finite losses, the tier loss lower in round 2; ms per
+     step, tokens/s, peak memory (under 80 GB), the second round's busy
+     share (torch.profiler).
+ 13i. training consistency: phi3 cut to 2 layers in f32, one SGD
+     ``make_train_step`` and one tier round through the kernels and
+     through ``mode="torch"`` from the same parameters: losses and every
+     parameter within 1e-5.
  14. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, the router (the routing seam: the fused
      kernel), the rest of the MoE layer, head;
@@ -279,8 +303,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      round of the Fig-3 sweep and of the PerMFL CNN 3-seed sweep beside
      one looped round (busy share, launches).
  15. the ``kernels`` JSON line (flash_attention's launches: those of
-     deepseek's, Whisper's, Qwen2-VL's and Jamba's counted generates;
-     moe_router's: deepseek's and Jamba's), then the ``ok`` JSON line
+     deepseek's, Whisper's, Qwen2-VL's and Jamba's counted generates and
+     of step 13h; moe_router's: deepseek's and Jamba's; prox_update's and
+     flash_attention_bwd's include step 13h's), then the ``ok`` JSON line
      last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -334,6 +359,9 @@ TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
     # with the XLA ops around it, src/repro/models/moe.py:73-92
     "moe_router": "src/repro/kernels/moe_router/moe_router.py:22",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:25",
+    # no Pallas kernel: the reference trains through jax.grad of its XLA
+    # attention_ref
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/ref.py:32",
 }
 KERNEL_SOURCE = {  # kernel -> its CUDA source
     "prox_update": "prox_update/csrc/prox_update.cu",
@@ -348,6 +376,7 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     # the served prefill's variant (chunked); the sequential simt kernel of
     # the decode and the f32 path is rwkv6_scan/csrc/rwkv6_scan.cu
     "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan_hopper.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
 }
 LLM_ARCH = "deepseek-moe-16b"
 RWKV_ARCH = "rwkv6-7b"
@@ -384,6 +413,24 @@ WHISPER_PROMPT, WHISPER_MAX_LEN = 64, 80
 # Qwen2-VL's prompt, as it lays out an image prompt: 64 text rows, a 28 x
 # 32 patch grid, 64 text rows (1,024 in all, the cache 1,040)
 VLM_TEXT, VLM_GRID = 64, (28, 32)
+# LLM training: phi3-mini-3.8b at every published width in bf16 (32
+# layers, d 3,072, 32 heads of 96, d_ff 8,192, vocab 32,064): its tree's
+# parameters (jax.eval_shape of repro.models.model.init_params; param_count
+# gives 3,821,076,480, without the final norm's 3,072), 12 leaves. One
+# AdamW step and two tier rounds (l_local 2, the example's hyperparameters)
+# on batches of 4 x 1,024 tokens from repro_torch.data.tokens; the
+# consistency check on a 2-layer cut in f32
+TRAIN_ARCH, TRAIN_PARAMS, TRAIN_LEAVES = "phi3-mini-3.8b", 3_821_079_552, 12
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ROUNDS, TRAIN_L_LOCAL = 4, 1024, 2, 2
+TRAIN_LR = 3e-4
+TIER_HP = dict(alpha=3e-3, lam=0.5, gamma=1.5, eta=0.03, beta=0.3)
+TRAIN_CONSISTENCY_CUT = dict(num_layers=2)
+TRAIN_CONSISTENCY_LR = 1e-2
+# kernel vs plain path of the f32 cut: losses and parameters (float32
+# gradients that differ in their sums' order, through one SGD step of lr
+# 1e-2 and one tier round)
+TRAIN_TOL = 1e-5
+HBM_CAPACITY = 80e9                # H100 SXM: 80 GB
 LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_MAX_LEN = 4, 1024, 16, 1040
 LLM_DECODE_OFFSET = 1030           # the timed decode's cache position
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # absolute
@@ -3344,6 +3391,331 @@ def phase_jamba_serving():
     return launches
 
 
+ATTN_BWD_CASES = (  # (label, b, sq, skv, hq, hkv, d, causal, window, dtype)
+    ("phi3 train", 4, 1024, 1024, 32, 32, 96, True, 0, "bfloat16"),
+    ("deepseek train", 4, 1024, 1024, 16, 16, 128, True, 0, "bfloat16"),
+    ("GQA 12:2 window 256", 2, 512, 768, 12, 2, 128, True, 256, "float32"),
+)
+
+
+def attention_bwd_bound(b, sq, skv, hq, hkv, d, causal, window, q_offset,
+                        dtype):
+    """(bound ms, bound by, MB moved, GFLOP) of the backward: q, k, v, out,
+    dout and lse read once, dq, dk, dv written once; 2.5x the forward's 4
+    FLOPs per live (query, key) pair and dim, over the bf16 tensor-core
+    peak in bf16 and the float32 (non-tensor) peak in f32."""
+    from repro_torch.kernels.flash_attention import live_pairs
+
+    size = 2 if dtype == "bfloat16" else 4
+    q_bytes = b * sq * hq * d * size
+    kv_bytes = b * skv * hkv * d * size
+    moved = 4 * q_bytes + 4 * kv_bytes + b * hq * sq * 4
+    flops = 2.5 * 4 * b * hq * d * live_pairs(sq, skv, causal=causal,
+                                              window=window,
+                                              q_offset=q_offset)
+    peak = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / peak
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, moved / 1e6, flops / 1e9
+
+
+def sdpa_bwd_call(q, k, v, dout, causal, window, q_offset):
+    """The library call beside the backward kernel: the backward of
+    ``scaled_dot_product_attention`` on the same tensors ((b, h, s, d)
+    views), its forward run once outside the timed call; a window or a
+    q_offset as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import _mask
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    kw = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
+    sq, skv = q.shape[1], k.shape[1]
+    if window or q_offset != 0 or sq != skv:
+        kw["attn_mask"] = _mask(sq, skv, q_offset, causal, window, q.device)
+    else:
+        kw["is_causal"] = causal
+    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    do = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), do,
+                                       retain_graph=True)
+
+
+def phase_attention_bwd_check():
+    """flash_attention_bwd against ``attention_bwd_ref`` on the card, from
+    the (out, lse) the forward kernel wrote, at phi3's and deepseek's
+    training shapes (bf16, causal) and a GQA 12:2 windowed f32 case with
+    sq != skv: max abs error (bf16 within 2e-2, f32 within 1e-4, absolute
+    and relative), two launches bit-equal; the kernel's time (L2 cold),
+    the plain version's, the bound and scaled_dot_product_attention's
+    backward on the same tensors. Returns {label: numbers}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (attention_bwd,
+                                                     attention_bwd_ref, plan)
+    from repro_torch.kernels.flash_attention.ops import _forward
+    from repro_torch.kernels.interface import KernelType
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    out_rows = {}
+    for (label, b, sq, skv, hq, hkv, d, causal, window,
+         dtype) in ATTN_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, dout = (torch.randn(b, sq, hq, d, device=DEVICE,
+                               generator=gen).to(dt) for _ in range(2))
+        k, v = (torch.randn(b, skv, hkv, d, device=DEVICE,
+                            generator=gen).to(dt) for _ in range(2))
+        q_offset = skv - sq
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        out, lse = _forward(q, k, v, causal, window, q_offset,
+                            KernelType.CUDA, True)
+        got = attention_bwd(q, k, v, out, lse, dout, **kw)
+        again = attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[dtype] if dtype == "bfloat16" else 1e-4
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)]
+        name = f"{label} {dtype} [forward {plan(q, k, v, **kw)[0]}]"
+        if not all(within(g, w, tol) for g, w in zip(got, want)):
+            raise AssertionError(f"flash_attention_bwd {name}: dq, dk, dv "
+                                 f"differ by {errs} (tol {tol})")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {name}: two launches "
+                                 "differ")
+        ms = cuda_time_ms(lambda: attention_bwd(q, k, v, out, lse, dout,
+                                                **kw), 10)
+        plain_ms = cuda_time_ms(lambda: attention_bwd_ref(
+            q, k, v, out, lse, dout, **kw), 5)
+        lib_ms = cuda_time_ms(sdpa_bwd_call(q, k, v, dout, causal, window,
+                                            q_offset), 10)
+        fwd_ms = cuda_time_ms(lambda: _forward(q, k, v, causal, window,
+                                               q_offset, KernelType.CUDA,
+                                               True), 10)
+        bound_ms, by, mb, gflop = attention_bwd_bound(
+            b, sq, skv, hq, hkv, d, causal, window, q_offset, dtype)
+        say("kernel", f"flash_attention_bwd {name} q ({b}, {sq}, {hq}, {d}), "
+            f"kv ({b}, {skv}, {hkv}, {d}), window {window}, q_offset "
+            f"{q_offset}: max abs err dq/dk/dv "
+            f"{', '.join(f'{e:.3g}' for e in errs)} (tol {tol:g}), two "
+            f"launches bit-equal; kernel {ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, scaled_dot_product_attention "
+            f"backward {lib_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+            f"({mb:.1f} MB, {gflop:.2f} GFLOP; by {by}), {bound_ms / ms:.2%} "
+            f"of bound; the forward with its log-sum-exp "
+            f"{fwd_ms * 1e3:.1f} us")
+        out_rows[label] = dict(max_abs_err=max(errs), ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=by, library_ms=lib_ms)
+        del q, k, v, dout, out, lse, got, again, want
+    release()
+    return out_rows
+
+
+def train_batches(vocab, steps):
+    """``steps`` batches of TRAIN_BATCH x TRAIN_SEQ tokens from
+    ``repro_torch.data.tokens.lm_batches`` (seed 0), on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.tokens import lm_batches
+
+    return [{k: torch.as_tensor(v, device=DEVICE) for k, v in b.items()}
+            for b in lm_batches(np.random.default_rng(0), vocab,
+                                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                steps=steps)]
+
+
+def phase_llm_training():
+    """phi3-mini-3.8b at every published width in bf16 (the reference
+    tree's 3,821,079,552 parameters, 12 leaves), with every launch count
+    set to 0 just before: one ``make_train_step`` with ``adamw()`` and
+    ``grad_clip=1.0``, then two ``make_tier_round`` rounds (l_local 2, the
+    example's hyperparameters) of one team from theta = w = x = the drawn
+    parameters (as the example starts), on the same batch each round. Launches: flash_attention
+    and flash_attention_bwd exactly 32 per forward/backward pass (1 + 4
+    passes), prox_update exactly rounds x l_local x 12, no other kernel.
+    Finite losses, the tier loss lower in round 2; ms per step, tokens/s,
+    peak memory (under the card's 80 GB) and the second round's device
+    busy share (torch.profiler). Returns its launches."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.train import optim
+    from repro_torch.train.train_state import TrainState
+    from repro_torch.train.trainer import make_tier_round, make_train_step
+
+    cfg, params = draw_full_width(TRAIN_ARCH, TRAIN_PARAMS)
+    n_leaves = len(list(_leaves(params)))
+    if n_leaves != TRAIN_LEAVES:
+        raise AssertionError(f"{TRAIN_ARCH}: {n_leaves} leaves")
+    batches = train_batches(cfg.vocab_size, 2)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = TrainState.create(params, optim.adamw())
+    step = make_train_step(cfg, optim.adamw(), lr=TRAIN_LR, grad_clip=1.0)
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_peak = torch.cuda.max_memory_allocated()
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    say("train", f"{TRAIN_ARCH} AdamW step (grad_clip 1.0, lr {TRAIN_LR}) on "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: loss {loss:.4f}, grad norm "
+        f"{gnorm:.4f}; {step_s * 1e3:.1f} ms (host clock, the card "
+        f"synchronized; AdamW state created inside), {tokens / step_s:,.0f} "
+        f"tokens/s, peak {step_peak / 2**30:.2f} GiB "
+        f"({step_peak / 1e9:.2f} GB)")
+    del params, state, m, step
+    release()
+    # the tier rounds start where the reference's example starts: theta =
+    # w = x = the drawn parameters (drawn again, seed 0)
+    _, params = draw_full_width(TRAIN_ARCH, TRAIN_PARAMS)
+    torch.cuda.reset_peak_memory_stats()
+    round_fn = make_tier_round(cfg, l_local=TRAIN_L_LOCAL, **TIER_HP)
+    theta = w = x = params
+    del params
+    losses, times, busy = [], [], None
+    for r in range(TRAIN_ROUNDS):
+        t0 = time.perf_counter()
+        if r == TRAIN_ROUNDS - 1:     # the wall clock before key_averages
+            (theta, w, x, mr), wall, rows = profiled(
+                lambda: round_fn(theta, w, x, batches[1]))
+            busy = sum(e.self_device_time_total for e in rows) / 1e6 / wall
+        else:
+            theta, w, x, mr = round_fn(theta, w, x, batches[1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        times.append(wall)
+        losses.append(float(mr["loss"]))
+    tier_peak = torch.cuda.max_memory_allocated()
+    launches = dict(LAUNCHES)
+    passes = 1 + TRAIN_ROUNDS * TRAIN_L_LOCAL
+    check_launches(launches, {
+        "flash_attention": cfg.num_layers * passes,
+        "flash_attention_bwd": cfg.num_layers * passes,
+        "prox_update": TRAIN_ROUNDS * TRAIN_L_LOCAL * TRAIN_LEAVES},
+        f"{TRAIN_ARCH} training")
+    say("train", f"{TRAIN_ARCH} tier rounds (l_local {TRAIN_L_LOCAL}, "
+        f"{TIER_HP}, one team, the same batch): mean local loss "
+        + " -> ".join(f"{v:.4f}" for v in losses) + "; "
+        + ", ".join(f"{t * 1e3:.1f} ms" for t in times)
+        + f" a round ({TRAIN_L_LOCAL * tokens / times[0]:,.0f} tokens/s in "
+        f"round 1; round {TRAIN_ROUNDS} under torch.profiler), peak "
+        f"{tier_peak / 2**30:.2f} GiB ({tier_peak / 1e9:.2f} GB); device "
+        f"busy {busy:.1%} of round {TRAIN_ROUNDS}, "
+        f"{sum(e.self_device_time_total for e in rows) / 1e3:.1f} ms of "
+        f"kernels")
+    say("train", f"{TRAIN_ARCH} launches: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(launches.items()) if v))
+    say("train", f"{TRAIN_ARCH} round {TRAIN_ROUNDS} under torch.profiler, "
+        f"{sum(e.count for e in rows)} kernels, by device time: " + "; ".join(
+            f"{e.key[:60]} x {e.count} {e.self_device_time_total / 1e3:.1f} "
+            f"ms" for e in rows[:10]))
+    prox_at_phi3(theta, w, x)
+    if not all(math.isfinite(v) for v in [loss, gnorm] + losses):
+        raise AssertionError(f"{TRAIN_ARCH}: losses {loss}, {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_ARCH}: the tier loss did not fall "
+                             f"({losses})")
+    if max(step_peak, tier_peak) >= HBM_CAPACITY:
+        raise AssertionError(f"{TRAIN_ARCH}: peak {max(step_peak, tier_peak)}"
+                             f" B is over the card's {HBM_CAPACITY:.0f} B")
+    del theta, w, x, batches
+    release()
+    return launches
+
+
+def prox_at_phi3(theta, w, x):
+    """prox_update at phi3's largest leaves (``w_gate``, 32 x 3,072 x 8,192
+    bf16: theta, w as the gradient, x as the anchor) against its plain
+    version (within the bf16 tolerance), its time (L2 cold), the plain
+    version's, the bound (three reads and a write of the leaf), and the
+    whole 12-leaf ``prox_sgd_tree`` (12 launches). Not counted: the
+    phase's launches were read before."""
+    import torch
+
+    from repro_torch.kernels.prox_update import (prox_sgd, prox_sgd_ref,
+                                                 prox_sgd_tree)
+
+    leaf = [t["blocks"]["pos0"]["mlp"]["w_gate"] for t in (theta, w, x)]
+    kw = dict(alpha=TIER_HP["alpha"], lam=TIER_HP["lam"])
+    got = prox_sgd(*leaf, **kw)[0]
+    want = prox_sgd_ref(*leaf, **kw)[0]
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not within(got, want, TOL["bfloat16"]):
+        raise AssertionError(f"prox_update at phi3's w_gate: {err}")
+    del got, want
+    ms = cuda_time_ms(lambda: prox_sgd(*leaf, **kw), 10)
+    plain_ms = cuda_time_ms(lambda: prox_sgd_ref(*leaf, **kw), 3)
+    tree_ms = cuda_time_ms(lambda: prox_sgd_tree(theta, w, x, **kw), 3)
+    n = leaf[0].numel()
+    bound_ms = 4 * n * 2 / HBM_BYTES_PER_S * 1e3
+    tree_bound = 4 * 2 * sum(t.numel() for t in _leaves(theta)) \
+        / HBM_BYTES_PER_S * 1e3
+    say("kernel", f"prox_update at {TRAIN_ARCH}'s w_gate ({n:,} bf16): max "
+        f"abs err {err:.3g} (tol {TOL['bfloat16']:g}); kernel "
+        f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+        f"{bound_ms * 1e3:.1f} us ({4 * n * 2 / 1e6:.1f} MB, bytes), "
+        f"{bound_ms / ms:.1%} of bound; the 12-leaf prox_sgd_tree "
+        f"{tree_ms:.2f} ms against {tree_bound:.2f} ms")
+
+
+def phase_training_consistency():
+    """phi3-mini-3.8b cut to 2 layers at every published width, in f32
+    (TF32 off), from the same parameters through the kernels and through
+    the plain versions (``mode="torch"``): one ``make_train_step`` (SGD,
+    lr 1e-2, grad_clip 1.0, so that the parameters move by the
+    gradients) and one tier round (l_local 2); losses and every parameter
+    within TRAIN_TOL (absolute and relative)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import optim
+    from repro_torch.train.train_state import TrainState
+    from repro_torch.train.trainer import make_tier_round, make_train_step
+
+    cfg = get_config(TRAIN_ARCH).replace(**TRAIN_CONSISTENCY_CUT)
+    params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                           cfg, dtype=torch.float32, device=DEVICE)
+    (batch,) = train_batches(cfg.vocab_size, 1)
+    runs = {}
+    for mode in (None, "torch"):
+        step = make_train_step(cfg, optim.sgd(), lr=TRAIN_CONSISTENCY_LR,
+                               grad_clip=1.0, mode=mode)
+        state, m = step(TrainState.create(params, optim.sgd()), batch)
+        rnd = make_tier_round(cfg, l_local=TRAIN_L_LOCAL, mode=mode,
+                              **TIER_HP)(params, state.params, params, batch)
+        runs[mode] = (m["loss"], m["grad_norm"], state.params, rnd)
+    torch.cuda.synchronize()
+    (lk, nk, pk, rk), (lp, np_, pp, rp) = runs[None], runs["torch"]
+    pairs = [("step loss", lk, lp), ("grad norm", nk, np_),
+             ("tier loss", rk[3]["loss"], rp[3]["loss"])]
+    for tag, a, b in (("step params", pk, pp), ("theta'", rk[0], rp[0]),
+                      ("w'", rk[1], rp[1]), ("x'", rk[2], rp[2])):
+        pairs += [(f"{tag} {i}", ga, gb)
+                  for i, (ga, gb) in enumerate(zip(_leaves(a), _leaves(b)))]
+    worst = max(pairs, key=lambda p: float((p[1] - p[2]).abs().max()))
+    bad = [tag for tag, a, b in pairs if not within(a, b, TRAIN_TOL)]
+    say("consistency", f"{TRAIN_ARCH} x {cfg.num_layers} layers f32 "
+        f"training, kernel vs plain path: step loss {float(lk):.6f} / "
+        f"{float(lp):.6f}, tier loss {float(rk[3]['loss']):.6f} / "
+        f"{float(rp[3]['loss']):.6f}; max |diff| over losses and every "
+        f"parameter {float((worst[1] - worst[2]).abs().max()):.3g} "
+        f"({worst[0]}; tol {TRAIN_TOL:g} abs + rel)")
+    if bad:
+        raise AssertionError(f"{TRAIN_ARCH} training: kernel and plain paths "
+                             f"disagree on {bad[:8]}")
+    del runs, params, batch
+    release()
+
+
 def phase_encdec_vlm_consistency():
     """whisper-small (1 decoder and 1 encoder layer) and qwen2-vl-2b (1
     layer) in f32 at full width, through the kernels and through the plain
@@ -3974,6 +4346,16 @@ def main(argv) -> int:
                           JAMBA_CONSISTENCY_PARAMS)
     say("llm", f"{JAMBA_ARCH}: serving phase {t_cons - t_jamba:.1f} s, "
         f"consistency {time.perf_counter() - t_cons:.1f} s")
+    t_train = time.perf_counter()
+    attn_bwd = phase_attention_bwd_check()
+    t_path = time.perf_counter()
+    for k, v in phase_llm_training().items():
+        launches[k] = launches.get(k, 0) + v
+    t_cons = time.perf_counter()
+    phase_training_consistency()
+    say("train", f"{TRAIN_ARCH}: backward check {t_path - t_train:.1f} s, "
+        f"training phase {t_cons - t_path:.1f} s, consistency "
+        f"{time.perf_counter() - t_cons:.1f} s")
     if "--profile" in argv:
         phase_llm_profile()
         phase_rwkv_profile()
@@ -3991,6 +4373,7 @@ def main(argv) -> int:
     checks["flash_attention"] = attn["deepseek prefill"]
     checks["moe_router"] = router["prefill"]         # the fused kernel
     checks["rwkv6_scan"] = scan["prefill"]
+    checks["flash_attention_bwd"] = attn_bwd["phi3 train"]
     say("done", f"{time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/"
     print(json.dumps({"kernels": [{

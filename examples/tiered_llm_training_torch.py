@@ -1,0 +1,96 @@
+"""PerMFL at LLM scale on the PyTorch port -- the production "tier mode"
+(DESIGN.md §2), as ``examples/tiered_llm_training.py`` runs it in JAX.
+
+    PYTHONPATH=src python examples/tiered_llm_training_torch.py \\
+        [--arch phi3-mini-3.8b] [--device cuda|cpu]
+
+Runs the tiered PerMFL round (device prox steps -> team update -> server
+update, ``repro_torch.train.trainer.make_tier_round``) on a REDUCED
+variant of a dense architecture, with federated LM data where each team
+has its own topic distribution -- the LM analogue of the paper's label
+skew. Shows personalized loss <= global loss on each team's
+distribution. On the card (the default) the device steps run through the
+attention kernels' backward and the ``prox_update`` kernel; ``--device
+cpu`` runs the plain versions.
+"""
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_reduced_config
+from repro_torch.data.tokens import federated_lm_data
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.train.trainer import make_tier_round
+
+VOCAB = 256
+# dense architectures: the MoE router, RWKV-6 and Mamba have no backward
+# on the card yet (ROADMAP.md queue 1, item 18)
+ARCHS = ("phi3-mini-3.8b", "qwen3-14b", "yi-34b", "qwen1.5-32b")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3-mini-3.8b", choices=ARCHS)
+    ap.add_argument("--teams", type=int, default=2)
+    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+
+    cfg = get_reduced_config(args.arch).replace(vocab_size=VOCAB)
+    data = federated_lm_data(np.random.default_rng(0), VOCAB,
+                             m_teams=args.teams, n_devices=1,
+                             seq_len=args.seq_len, seqs_per_device=8)
+
+    x = M.init_params(0, cfg, device=dev)            # global model
+    # every tier starts from x; a round writes no input, so they share it
+    thetas = [x] * args.teams
+    ws = [x] * args.teams
+
+    round_fn = make_tier_round(cfg, alpha=3e-3, lam=0.5, gamma=1.5,
+                               eta=0.03, beta=0.3, l_local=2)
+
+    def team_batch(i):
+        return {"tokens": torch.as_tensor(data["tokens"][i, 0], device=dev),
+                "targets": torch.as_tensor(data["targets"][i, 0],
+                                           device=dev)}
+
+    def loss_of(params, batch):
+        with torch.no_grad():
+            return float(M.loss_fn(params, cfg, batch))
+
+    for t in range(args.rounds):
+        xs = []
+        for i in range(args.teams):                  # pods, in production
+            thetas[i], ws[i], xi, metrics = round_fn(
+                thetas[i], ws[i], x, team_batch(i))
+            xs.append(xi)
+        # server aggregation over the teams (here: a mean)
+        x = _mean_trees(xs)
+        if t % 10 == 0 or t == args.rounds - 1:
+            pm = np.mean([loss_of(thetas[i], team_batch(i))
+                          for i in range(args.teams)])
+            gm = np.mean([loss_of(x, team_batch(i))
+                          for i in range(args.teams)])
+            print(f"round {t:3d}: personalized loss {pm:.4f} "
+                  f"(ppl {np.exp(pm):7.1f})   global loss {gm:.4f} "
+                  f"(ppl {np.exp(gm):7.1f})")
+
+    assert pm <= gm + 1e-6, "personalized should fit team topics at least as well"
+    print("\npersonalized models fit their team's topic better than the "
+          "global model -- the paper's mechanism, at LM scale.")
+    return pm, gm
+
+
+def _mean_trees(trees):
+    """The leaf-wise mean of parameter trees (nested dicts)."""
+    if isinstance(trees[0], dict):
+        return {k: _mean_trees([t[k] for t in trees]) for k in trees[0]}
+    return sum(trees) / len(trees)
+
+
+if __name__ == "__main__":
+    main()

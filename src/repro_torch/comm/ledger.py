@@ -33,6 +33,8 @@ import math
 from dataclasses import dataclass, field
 from typing import Optional
 
+import torch
+
 from repro_torch.comm.compressors import leaf_k
 from repro_torch.comm.config import CommConfig
 from repro_torch.flat import Layout
@@ -119,6 +121,16 @@ class CommLedger:
             wan_down=n_teams * full,
             lan_up=k_team * n_devices * comp,
             lan_down=k_team * n_devices * full))
+
+    def log_round_masks(self, *, k_team: int, team_mask, device_mask):
+        """:meth:`log_round` from raw participation masks (team (M,),
+        device (M, N); tensors or arrays): devices of masked-out teams
+        never transmit (nor receive), whatever ``device_mask`` says."""
+        tm = torch.as_tensor(team_mask, dtype=torch.float64).cpu()
+        gated = torch.as_tensor(device_mask,
+                                dtype=torch.float64).cpu() * tm[:, None]
+        self.log_round(k_team=k_team, n_teams=int(tm.sum()),
+                       n_devices=int(gated.sum()))
 
     # -- aggregates ---------------------------------------------------------
 

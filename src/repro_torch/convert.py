@@ -17,7 +17,11 @@ stay float32). A baseline's state crosses as the
 reference holds it: the global model tree ``x`` (FedAvg, Per-FedAvg,
 h-SGD) or the pair ``(x, personal)`` (pFedMe and L2GD's theta, Ditto's
 v). A sweep's stacked state (``FLSweepResult.state_stacked``, every leaf
-leading (C,)) crosses with :func:`sweep_state_from_numpy`.
+leading (C,)) crosses with :func:`sweep_state_from_numpy`. An LM
+trainer's ``TrainState`` (params, the optimizer's state -- sgd's (),
+momentum's buffer tree, AdamW's {"m", "v", "t"} -- and the step) crosses
+with :func:`train_state_from_numpy`, and comes back through
+:func:`to_numpy` as {"params", "opt_state", "step"}.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.flat import Layout
 
 __all__ = ["baseline_state_from_numpy", "comm_state_from_numpy",
            "params_from_numpy", "state_from_numpy", "sweep_state_from_numpy",
-           "to_numpy"]
+           "to_numpy", "train_state_from_numpy"]
 
 
 def params_from_numpy(tree, device="cpu", dtype=None) -> dict:
@@ -137,12 +141,39 @@ def sweep_state_from_numpy(state, device="cpu", round: int = 0):
                          for i in range(c)])
 
 
+def train_state_from_numpy(state, device="cpu"):
+    """A reference ``TrainState`` (or anything with its ``params``,
+    ``opt_state`` and ``step``; or a dict of those three) -> the port's
+    ``TrainState`` on ``device``: the params tree, the optimizer state
+    (``()``, a tree, or a dict with AdamW's int32 step ``t``) and the
+    int32 step, every leaf in its own type."""
+    from repro_torch.train.train_state import TrainState
+
+    get = (state.get if isinstance(state, dict)
+           else lambda k: getattr(state, k))
+    opt = get("opt_state")
+    if isinstance(opt, (tuple, list)) and not opt:
+        opt = ()
+    else:
+        opt = params_from_numpy(opt, device)
+    return TrainState(params=params_from_numpy(get("params"), device),
+                      opt_state=opt,
+                      step=params_from_numpy(get("step"), device))
+
+
 def to_numpy(obj):
     """Tensors, nested dicts of tensors, a ``PerMFLState`` (as ``{"x",
     "w", "theta", "round"}`` of nested numpy dicts, plus ``"comm":
     {"ef_dev", "ef_team"}`` for a compressed run), or a ``BaselineState``
-    (as the reference's state: the tree ``x``, or ``(x, personal)``) ->
-    numpy."""
+    (as the reference's state: the tree ``x``, or ``(x, personal)``), or
+    a ``TrainState`` (as {"params", "opt_state", "step"}) -> numpy."""
+    from repro_torch.train.train_state import TrainState
+
+    if isinstance(obj, TrainState):
+        return {"params": to_numpy(obj.params),
+                "opt_state": (() if isinstance(obj.opt_state, tuple)
+                              else to_numpy(obj.opt_state)),
+                "step": to_numpy(obj.step)}
     if isinstance(obj, BaselineState):
         x = to_numpy(obj.params("x"))
         if obj.personal is None:

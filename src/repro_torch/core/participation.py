@@ -21,7 +21,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["keep_fastest", "sample_cohort", "sample_masks"]
+__all__ = ["MODES", "keep_fastest", "sample_cohort", "sample_masks"]
+
+# the paper's four participation modes (§3.1) as sample_masks fractions
+MODES = {
+    "full": dict(team_frac=1.0, device_frac=1.0),
+    "partial_devices": dict(team_frac=1.0, device_frac=0.5),
+    "partial_teams": dict(team_frac=0.5, device_frac=1.0),
+    "partial_both": dict(team_frac=0.5, device_frac=0.5),
+}
 
 
 def sample_masks(generator: torch.Generator, m_teams: int, n_devices: int,

@@ -39,6 +39,8 @@ KERNEL_SOURCES = {
                         / "flash_attention.cu"),
     "flash_attention_hopper": (_KERNELS_DIR / "flash_attention" / "csrc"
                                / "flash_attention_hopper.cu"),
+    "flash_attention_bwd": (_KERNELS_DIR / "flash_attention" / "csrc"
+                            / "flash_attention_bwd.cu"),
     "moe_router": _KERNELS_DIR / "moe_router" / "csrc" / "moe_router.cu",
     "moe_router_hopper": (_KERNELS_DIR / "moe_router" / "csrc"
                           / "moe_router_hopper.cu"),

@@ -58,7 +58,8 @@ import torch
 from repro_torch.kernels.build import load
 from repro_torch.kernels.compress import ref as R
 from repro_torch.kernels.interface import (KernelType, count_launch,
-                                           kernel_mode, vec_aligned)
+                                           kernel_mode, refuse_grad,
+                                           vec_aligned)
 from repro_torch.kernels.quantize.ops import quantize_rows
 from repro_torch.kernels.segments import (Segments, check_rows, given,
                                           leaf_columns, raise_on, segments,
@@ -162,6 +163,8 @@ def _select(u, v, ef, segs, thresh, unbiased, mode):
     dq = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     ranks = torch.empty(v.shape, dtype=torch.int32, device=v.device)
     ef_new = None
+    if kernel_mode(v, mode) is KernelType.CUDA:
+        refuse_grad("compress select", u, v, ef)
     if kernel_mode(v, mode) is KernelType.TORCH:
         msg = v if ef is None else v + ef
         for i, sl, k in leaf_columns(segs):
@@ -318,6 +321,8 @@ def _sign(v, ef, segs, scales, mode):
                        device=v.device)
     dq = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     ef_new = None
+    if kernel_mode(v, mode) is KernelType.CUDA:
+        refuse_grad("compress sign", v, ef)
     if kernel_mode(v, mode) is KernelType.TORCH:
         msg = v if ef is None else v + ef
         for i, sl, _ in leaf_columns(segs):

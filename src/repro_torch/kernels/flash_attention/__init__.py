@@ -1,16 +1,20 @@
 """Flash attention (causal / sliding-window / non-causal, GQA): the Hopper
 CUDA kernels (a tensor-core prefill, a split-kv decode, a CUDA-core kernel
-for the rest) and their plain PyTorch version."""
+for the rest, and the backward) and their plain PyTorch versions."""
 from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, KERNELS,
                                                      VARIANTS, attention,
-                                                     plan, reset_variants)
-from repro_torch.kernels.flash_attention.ref import (attention_partials,
+                                                     attention_bwd, plan,
+                                                     reset_variants)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_partials,
                                                      attention_ref,
                                                      combine_partials,
                                                      live_pairs, sm_scale,
                                                      visible_keys)
 
-__all__ = ["HEAD_DIMS", "KERNELS", "VARIANTS", "attention",
-           "attention_partials", "attention_ref", "combine_partials",
+__all__ = ["HEAD_DIMS", "KERNELS", "VARIANTS", "attention", "attention_bwd",
+           "attention_bwd_ref", "attention_lse_ref", "attention_partials",
+           "attention_ref", "combine_partials",
            "live_pairs", "plan", "reset_variants", "sm_scale",
            "visible_keys"]

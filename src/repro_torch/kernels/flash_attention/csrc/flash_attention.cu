@@ -71,6 +71,7 @@ struct Params {
   int64_t o_sb, o_ss, o_sh;
   int q_offset, causal, window, vec;
   float sm_scale;
+  float* lse;   // (b, hq, sq) or null
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -270,9 +271,12 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(const Params prm) {
   }
 
   TQ* op = static_cast<TQ*>(prm.o) + bi * prm.o_sb + h * prm.o_sh;
+  const int64_t lse_at = (int64_t(bi) * prm.hq + h) * prm.sq;
   if (P == 1) {
     if (row_ok) {
       const float den = fmaxf(l, 1e-30f);
+      if (prm.lse != nullptr && sub == 0)
+        prm.lse[lse_at + qi] = m + logf(den);
 #pragma unroll
       for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -309,6 +313,8 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(const Params prm) {
       ll = fmaf(sl[s2], w, ll);
       aa = fmaf(st[s2 * D + d], w, aa);
     }
+    if (prm.lse != nullptr && d == 0)
+      prm.lse[lse_at + q0 + rr] = mm + logf(fmaxf(ll, 1e-30f));
     op[int64_t(q0 + rr) * prm.o_ss + d] = from_f32<TQ>(aa / fmaxf(ll, 1e-30f));
   }
 }
@@ -350,7 +356,9 @@ int by_dim(int d, const Params& prm, cudaStream_t s) {
 // output has q's). Shapes q (b, sq, hq, d), k/v (b, skv, hkv, d), o (b, sq,
 // hq, d); strides (*_sb, *_ss, *_sh) in elements for the batch, sequence and
 // head axes, unit stride along d. kv_len = skv. vec = 1: every k/v row start
-// is 16-byte aligned. Returns cudaGetLastError() after the launch (0 on
+// is 16-byte aligned. lse: null, or float32 (b, hq, sq) that receives each
+// row's log-sum-exp of its scaled scores, m + log(max(l, 1e-30)), which the
+// backward (flash_attention_bwd.cu) reads. Returns cudaGetLastError() after the launch (0 on
 // success).
 extern "C" int flash_attention(
     int q_dtype, int kv_dtype, int head_dim, const void* q, const void* k,
@@ -358,14 +366,14 @@ extern "C" int flash_attention(
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
     int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
     int64_t o_ss, int64_t o_sh, int q_offset, int causal, int window,
-    float sm_scale, int vec, void* stream) {
+    float sm_scale, int vec, float* lse, void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || hq < 1 || hkv < 1 || hq % hkv ||
       b > 65535 || hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{q,    k,    v,    o,    b,    sq,       skv,    hq,
                    hkv,  q_sb, q_ss, q_sh, k_sb, k_ss,     k_sh,   v_sb,
                    v_ss, v_sh, o_sb, o_ss, o_sh, q_offset, causal, window,
-                   vec,  sm_scale};
+                   vec,  sm_scale, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
     return by_dim<float, float>(head_dim, prm, s);

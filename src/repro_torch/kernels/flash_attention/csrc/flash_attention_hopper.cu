@@ -287,6 +287,7 @@ constexpr bool kPingpong = true;
 struct TcParams {
   int sq, skv, hq, group, q_offset, causal, window;
   float scale_log2;   // sm_scale * log2(e)
+  float* lse;         // (b, hq, sq) or null: each row's log-sum-exp
 };
 
 template <int D>
@@ -590,8 +591,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = 1.0f / fmaxf(l[r], 1e-30f);
+    l[r] = fmaxf(l[r], 1e-30f);
   }
+  // log-sum-exp of the scaled scores, (m * scale_log2 + log2 l) * ln 2,
+  // for the backward (flash_attention_bwd.cu)
+  if (p.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qrow = q0 + ra + 8 * r;
+      if (qrow < p.sq)
+        p.lse[(int64_t(bi) * p.hq + h) * p.sq + qrow] =
+            (m[r] * p.scale_log2 + log2f(l[r])) * 0.693147180559945f;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = 1.0f / l[r];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = warp * 16 + lane / 4 + 8 * r;   // in the warpgroup's 64
@@ -927,14 +941,16 @@ int by_group(const SkParams& p, int b, int hkv, cudaStream_t stream) {
 // (b, sq, hq, d); head_dim 64 or 128; strides (*_sb, *_ss, *_sh) in elements,
 // unit stride along d, every stride of an axis longer than 1 a multiple of 8
 // elements and every base 16-byte aligned (TMA). scale_log2 = sm_scale *
-// log2(e). Returns 0, a cudaError_t, or 10001 / 10002 + CUresult when a
+// log2(e). lse: null, or float32 (b, hq, sq) that receives each row's
+// log-sum-exp of its scaled scores. Returns 0, a cudaError_t, or 10001 / 10002 + CUresult when a
 // tensor map cannot be made.
 extern "C" int flash_attention_wgmma(
     int head_dim, const void* q, const void* k, const void* v, void* o, int b,
     int sq, int skv, int hq, int hkv, int64_t q_sb, int64_t q_ss,
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
     int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int q_offset, int causal, int window, float scale_log2, void* stream) {
+    int q_offset, int causal, int window, float scale_log2, float* lse,
+    void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv ||
       int64_t(b) * hq > 0x7fffffff || (sq + kBM - 1) / kBM > 65535 ||
       (head_dim != 64 && head_dim != 128))
@@ -949,7 +965,7 @@ extern "C" int flash_attention_wgmma(
     err = make_map(&to, o, head_dim, hq, sq, b, o_sh, o_ss, o_sb, 64);
   if (err) return err;
   const TcParams p{sq, skv, hq, hq / hkv, q_offset, causal, window,
-                   scale_log2};
+                   scale_log2, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return head_dim == 128 ? launch_wgmma<128>(tq, tk, tv, to, p, b, s)
                          : launch_wgmma<64>(tq, tk, tv, to, p, b, s);

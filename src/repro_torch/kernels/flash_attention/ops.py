@@ -29,6 +29,16 @@ and shape, written out (no variant gives way to another):
 All read q, k and v through their strides (unit stride along d). Each op
 call adds one to ``LAUNCHES["flash_attention"]`` and to
 ``VARIANTS[variant]``.
+
+The op is differentiable. When grad mode is on and q, k or v requires a
+gradient, the forward runs the kernel :func:`plan` picks (``wgmma`` or
+``simt``; the ``split_kv`` decode has no log-sum-exp output and raises)
+with each row's log-sum-exp written to a float32 (b, hq, sq) buffer, and
+the backward is :func:`attention_bwd`: the kernel
+``csrc/flash_attention_bwd.cu`` for CUDA tensors (one call adds one to
+``LAUNCHES["flash_attention_bwd"]``), ``ref.attention_bwd_ref`` for CPU
+tensors or ``mode="torch"``. Without a gradient the forward kernels run
+exactly as before (no log-sum-exp is written).
 """
 from __future__ import annotations
 
@@ -38,16 +48,18 @@ import math
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.flash_attention.ref import attention_ref, sm_scale, \
+from repro_torch.kernels.flash_attention.ref import NEG_INF, \
+    attention_bwd_ref, attention_lse_ref, attention_ref, sm_scale, \
     visible_keys
 from repro_torch.kernels.interface import KernelType, count_launch, \
     kernel_mode
 
-__all__ = ["HEAD_DIMS", "KERNELS", "VARIANTS", "attention", "plan",
-           "reset_variants"]
+__all__ = ["HEAD_DIMS", "KERNELS", "VARIANTS", "attention", "attention_bwd",
+           "plan", "reset_variants"]
 
 _NAME = "flash_attention"
-KERNELS = (_NAME,)
+_BWD = "flash_attention_bwd"
+KERNELS = (_NAME, _BWD)
 HEAD_DIMS = (32, 64, 96, 128)
 _TC_HEAD_DIMS = (64, 128)         # wgmma and split_kv
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,12 +93,19 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 def _simt_fn():
     return _fn(_NAME, "flash_attention",
                [_I] * 3 + [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 3
-               + [_F, _I, _P])
+               + [_F, _I, _P, _P])
 
 
 def _wgmma_fn():
     return _fn("flash_attention_hopper", "flash_attention_wgmma",
-               [_I] + [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 3 + [_F, _P])
+               [_I] + [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 3
+               + [_F, _P, _P])
+
+
+def _bwd_fn():
+    return _fn(_BWD, "flash_attention_bwd",
+               [_I] * 3 + [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I] * 3
+               + [_F, _P])
 
 
 def _split_fn():
@@ -170,15 +189,50 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=None, mode=None):
     ``q_offset`` is the absolute position of q[:, 0] (a Python int):
     None means ``skv - sq`` (aligned to the end); decode passes the cache
     position. ``window`` > 0 lets a query see only the ``window`` keys
-    up to its own position.
+    up to its own position. Differentiable in q, k and v (module
+    docstring).
     """
     _check(q, k, v)
+    sq, skv = q.shape[1], k.shape[1]
+    q_offset = skv - sq if q_offset is None else int(q_offset)
+    kt = kernel_mode(q, mode)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, bool(causal), int(window), q_offset,
+                                kt)
+    return _forward(q, k, v, causal, window, q_offset, kt, False)[0]
+
+
+class _Attention(torch.autograd.Function):
+    """The forward with its log-sum-exp, then :func:`attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kt):
+        out, lse = _forward(q, k, v, causal, window, q_offset, kt, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, q_offset, kt)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        causal, window, q_offset, kt = ctx.opts
+        dq, dk, dv = attention_bwd(*ctx.saved_tensors, dout, causal=causal,
+                                   window=window, q_offset=q_offset, mode=kt)
+        return dq, dk, dv, None, None, None, None
+
+
+def _forward(q, k, v, causal, window, q_offset, kt, want_lse):
+    """(out, lse or None): the plain version for ``KernelType.TORCH``, else
+    the kernel :func:`plan` picks, writing the log-sum-exp when
+    ``want_lse``."""
+    if kt is KernelType.TORCH:
+        if want_lse:
+            return attention_lse_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset), None
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    q_offset = skv - sq if q_offset is None else int(q_offset)
-    if kernel_mode(q, mode) is KernelType.TORCH:
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {d}")
@@ -188,10 +242,20 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=None, mode=None):
         raise ValueError(f"flash_attention kernel takes at most 65535 "
                          f"batch rows and heads, got {b} x {hq}")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if out.numel() == 0 or skv == 0:
-        return out.zero_()
+        if lse is not None:
+            lse.fill_(NEG_INF)
+        return out.zero_(), lse
     variant, splits = plan(q, k, v, causal=causal, window=window,
                            q_offset=q_offset)
+    if variant == "split_kv" and want_lse:
+        raise NotImplementedError(
+            "flash_attention: the split_kv decode kernel (one bfloat16 query "
+            "row, head_dim 64/128) writes no log-sum-exp, so it has no "
+            "backward; differentiate a prefill (sq > 1) instead")
+    lse_ptr = lse.data_ptr() if lse is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *out.stride()[:3])
@@ -200,7 +264,8 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=None, mode=None):
         count_launch(_NAME)
         err = fn(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, sq, skv, hq, hkv, *strides, q_offset, int(bool(causal)),
-                 int(window), sm_scale(d) * math.log2(math.e), stream)
+                 int(window), sm_scale(d) * math.log2(math.e), lse_ptr,
+                 stream)
     elif variant == "split_kv":
         fn = _split_fn()
         lo, n = visible_keys(skv, causal=causal, window=window,
@@ -225,10 +290,68 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=None, mode=None):
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
                  sq, skv, hq, hkv, *strides, q_offset, int(bool(causal)),
                  int(window), sm_scale(d),
-                 int(_aligned(k) and _aligned(v)), stream)
+                 int(_aligned(k) and _aligned(v)), lse_ptr, stream)
     VARIANTS[variant] += 1
     if err:
         raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
                            f"error {err} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)})")
-    return out
+    return out, lse
+
+
+def attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
+                  q_offset=None, mode=None):
+    """(dq, dk, dv) of :func:`attention` at q, k, v, given its output
+    ``out``, its log-sum-exp ``lse`` (b, hq, sq) float32 and the gradient
+    ``dout`` of ``out``: the backward kernel for CUDA tensors, the plain
+    ``attention_bwd_ref`` for CPU tensors or ``mode="torch"``. dq has q's
+    dtype, dk and dv k's; all three are new contiguous tensors."""
+    _check(q, k, v)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    q_offset = skv - sq if q_offset is None else int(q_offset)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"out is {out.dtype} and dout {dout.dtype}, q is "
+                        f"{q.dtype}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 ({b}, {hq}, {sq}), got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if kernel_mode(q, mode) is KernelType.TORCH:
+        return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                 window=window, q_offset=q_offset)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if b > 65535 or hq > 65535:
+        raise ValueError(f"flash_attention_bwd kernel takes at most 65535 "
+                         f"batch rows and heads, got {b} x {hq}")
+    dout = dout if dout.stride(3) == 1 else dout.contiguous()
+    if any(t.stride(3) != 1 for t in (q, k, v, out)):
+        raise ValueError("flash_attention_bwd kernel needs unit stride "
+                         "along d")
+    lse = lse.contiguous()
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, skv, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, skv, hkv, d), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0 or skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = _bwd_fn()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    count_launch(_BWD)
+    err = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], d, q.data_ptr(),
+             k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), b, sq, skv, hq, hkv, *q.stride()[:3],
+             *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+             *dout.stride()[:3], q_offset, int(bool(causal)), int(window),
+             sm_scale(d), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"error {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)})")
+    return dq, dk, dv

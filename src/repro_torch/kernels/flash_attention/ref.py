@@ -22,6 +22,11 @@ version only to bfloat16 rounding. The softmax is taken over the whole row at on
 the kernel's online softmax over kv tiles gives the same function up to
 float32 rounding. The CPU path runs this version.
 
+:func:`attention_lse_ref` adds each row's log-sum-exp, which the forward
+kernels write when a gradient is asked for, and :func:`attention_bwd_ref`
+is the backward from it (``csrc/flash_attention_bwd.cu``'s math): the
+CPU path's gradient, and what the kernel is held against on the card.
+
 :func:`attention_partials` and :func:`combine_partials` are the split-kv
 decode's math in plain PyTorch (``csrc/flash_attention_hopper.cu``): the
 keys one query sees, cut into chunks, each chunk's (m, l, acc), and the
@@ -31,8 +36,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "attention_partials", "attention_ref",
-           "combine_partials", "live_pairs", "sm_scale", "visible_keys"]
+__all__ = ["NEG_INF", "attention_bwd_ref", "attention_lse_ref",
+           "attention_partials", "attention_ref", "combine_partials",
+           "live_pairs", "sm_scale", "visible_keys"]
 
 NEG_INF = -1e30
 
@@ -67,6 +73,14 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=None):
     (q and k/v may differ). Returns (b, sq, hq, d) in q's dtype.
     ``q_offset`` is the absolute position of q[:, 0]: None means
     ``skv - sq`` (aligned to the end)."""
+    return attention_lse_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)[0]
+
+
+def attention_lse_ref(q, k, v, *, causal=True, window=0, q_offset=None):
+    """:func:`attention_ref` and each row's log-sum-exp of its scaled,
+    masked scores, ``m + log(max(l, 1e-30))``: (out, lse (b, hq, sq)
+    float32), what the forward kernels write for the backward."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q_offset is None:
@@ -78,10 +92,52 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=None):
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
-    o = o / l.clamp_min(1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    o = o / l
+    lse = (m + torch.log(l)).reshape(b, hq, sq)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype), lse
+
+
+def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, window=0,
+                      q_offset=None):
+    """The gradient of :func:`attention_ref` by explicit formulas from the
+    forward's log-sum-exp, as the backward kernel
+    (``csrc/flash_attention_bwd.cu``) computes it:
+
+        p  = exp(s - lse), 0 where masked;   D = rowsum(dout * out)
+        dv = r(p)^T dout;   dp = dout v^T;   ds = p * (dp - D)
+        dq = ds k * d ** -0.5;   dk = ds^T (q * d ** -0.5)
+
+    in float32, where ``r`` rounds p to bfloat16 when q is bfloat16 (the
+    JAX package's ``attention_ref`` rounds p to q's type before its PV
+    product, so its gradient forms dv from the rounded p). GQA: dk and dv
+    of a kv-head sum over its q-heads. ``out`` (q's shape) and ``lse`` (b,
+    hq, sq) are the forward's; ``dout`` the gradient of ``out``. Returns
+    (dq in q's dtype, dk and dv in k's)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if q_offset is None:
+        q_offset = skv - sq
+    group = hq // hkv
+    scale = sm_scale(d)
+    qf = (q.float() * scale).reshape(b, sq, hkv, group, d)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(b, sq, hkv, group, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+    mask = _mask(sq, skv, int(q_offset), causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hkv, group, sq, 1)),
+                    0.0)
+    pv = p.to(torch.bfloat16).float() if q.dtype == torch.bfloat16 else p
+    delta = (dout.float() * out.float()).sum(-1)              # (b, sq, hq)
+    delta = delta.permute(0, 2, 1).reshape(b, hkv, group, sq, 1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pv, dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def visible_keys(skv, *, causal=True, window=0, q_offset=0):

@@ -15,6 +15,11 @@ kernel or raises, and nothing falls back to the plain version.
 
 ``LAUNCHES`` counts, per kernel name, the launches each wrapper made: a
 run can read it to show that its main path went through the kernels.
+
+A kernel returns new tensors with no ``grad_fn``. A kernel op that has
+no backward yet calls :func:`refuse_grad` before it launches, so that a
+caller who asked for a gradient gets an error and not a silently
+detached result.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from enum import Enum
 import torch
 
 __all__ = ["KernelType", "LAUNCHES", "count_launch", "kernel_mode",
-           "reset_launches", "vec_aligned"]
+           "refuse_grad", "reset_launches", "vec_aligned"]
 
 
 class KernelType(Enum):
@@ -40,6 +45,18 @@ def count_launch(name: str) -> None:
     """Add one launch of kernel ``name``: called by a wrapper right where
     it launches its kernel, and nowhere else."""
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` (None entries skipped) requires a gradient: kernel
+    ``name`` has no backward, and its outputs would carry none."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP.md "
+            f"queue 1, item 18); run it under torch.no_grad(), or "
+            f"differentiate the plain version (mode='torch')")
 
 
 def reset_launches() -> None:

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import KernelType, count_launch, \
-    kernel_mode
+    kernel_mode, refuse_grad
 from repro_torch.kernels.moe_router.ref import route_ref, route_tokens_ref
 
 __all__ = ["BLOCK_TOKENS", "FORMS", "KERNELS", "MAX_EXPERTS", "VARIANTS",
@@ -116,6 +116,7 @@ def route_topk(logits, *, top_k: int, renormalize: bool = True, mode=None):
         gates, idx, _, aux = route_ref(logits, top_k=top_k,
                                        renormalize=renormalize)
         return gates, idx, aux
+    refuse_grad("moe_router route_topk", logits)
     if e > MAX_EXPERTS:
         raise ValueError(f"moe_router kernel takes at most {MAX_EXPERTS} "
                          f"experts, got {e}")
@@ -257,6 +258,7 @@ def route_tokens(x, w, *, top_k: int, renormalize: bool = True,
     if kernel_mode(x, mode) is KernelType.TORCH:
         return route_tokens_ref(x, w, top_k=top_k, renormalize=renormalize,
                                 group_size=group_size)
+    refuse_grad("moe_router route_tokens", x, w)
     form = plan(x, w, top_k=top_k, group_size=group_size)
     if x.stride(1) != 1 or (x.stride(0) * x.element_size()) % 16 \
             or x.data_ptr() % 16:

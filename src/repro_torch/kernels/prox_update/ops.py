@@ -1,9 +1,12 @@
 """The PerMFL device step (paper eq. 4): CUDA kernel or plain version.
 
-Two wrappers over one kernel (``csrc/prox_update.cu``):
+Three wrappers over one kernel (``csrc/prox_update.cu``):
 
   * :func:`prox_sgd` -- one tensor of any shape, new outputs; the port of
     the reference's single-array ``prox_sgd``.
+  * :func:`prox_sgd_tree` -- a parameter tree (nested dicts), leaf by
+    leaf through :func:`prox_sgd`: one launch per leaf; the LLM trainers'
+    device step (``repro_torch.train.trainer``).
   * :func:`prox_step_` -- the op the round runs: the whole stacked device
     tier as one (rows, cols) tensor, updated in place by one launch, with
     the anchor given per team (one anchor row for every ``rows //
@@ -26,7 +29,7 @@ from repro_torch.kernels.interface import (KernelType, count_launch,
                                            kernel_mode, vec_aligned)
 from repro_torch.kernels.prox_update.ref import prox_sgd_ref
 
-__all__ = ["prox_sgd", "prox_step_"]
+__all__ = ["prox_sgd", "prox_sgd_tree", "prox_step_"]
 
 _NAME = "prox_update"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -125,12 +128,13 @@ def prox_sgd(theta, grad, anchor, mom_buf=None, *, alpha, lam,
     """One tensor of any shape; theta/grad/anchor share shape and dtype;
     alpha, lam: floats (per-group values are :func:`prox_step_`'s).
     Returns new (theta, mom) and leaves the inputs as they are; with
-    ``momentum == 0`` the returned buffer is ``mom_buf`` itself (zeros if
-    None). On CUDA the operands must be contiguous."""
+    ``momentum == 0`` the returned buffer is ``mom_buf`` itself (if None,
+    float32 zeros expanded to theta's shape with stride 0: no memory).
+    On CUDA the operands must be contiguous (``mom_buf`` only when
+    momentum > 0: the kernel reads it then only)."""
     alpha, lam = float(alpha), float(lam)
     if mom_buf is None:
-        mom_buf = torch.zeros(theta.shape, dtype=torch.float32,
-                              device=theta.device)
+        mom_buf = _zeros(theta, momentum)
     if anchor.shape != theta.shape:
         raise ValueError(f"anchor {tuple(anchor.shape)} != theta "
                          f"{tuple(theta.shape)}")
@@ -140,7 +144,7 @@ def prox_sgd(theta, grad, anchor, mom_buf=None, *, alpha, lam,
                             alpha=alpha, lam=lam, momentum=momentum,
                             weight_decay=weight_decay)
     for name, t in (("theta", theta), ("grad", grad), ("anchor", anchor),
-                    ("mom_buf", mom_buf)):
+                    ("mom_buf", mom_buf if momentum > 0.0 else theta)):
         if not t.is_contiguous():
             raise ValueError(f"prox_sgd kernel needs contiguous {name}")
     out = torch.empty_like(theta)
@@ -151,6 +155,36 @@ def prox_sgd(theta, grad, anchor, mom_buf=None, *, alpha, lam,
                 flat(m_out), flat(mom_buf), alpha=alpha, lam=lam,
                 momentum=momentum, weight_decay=weight_decay)
     return out, m_out
+
+
+def _zeros(theta, momentum):
+    """A float32 zero buffer of theta's shape: allocated when momentum > 0
+    (the step reads and replaces it), else one zero expanded (stride 0)."""
+    if momentum > 0.0:
+        return torch.zeros(theta.shape, dtype=torch.float32,
+                           device=theta.device)
+    return torch.zeros((), dtype=torch.float32,
+                       device=theta.device).expand(theta.shape)
+
+
+def prox_sgd_tree(theta, grad, anchor, mom_tree=None, *, alpha, lam,
+                  momentum=0.0, weight_decay=0.0, mode=None):
+    """The PerMFL device step (eq. 4) over a parameter tree: nested dicts
+    of tensors, ``grad`` and ``anchor`` (and ``mom_tree``) of theta's
+    structure, leaf by leaf through :func:`prox_sgd` (one kernel launch
+    per leaf on the card). Returns (theta', mom_tree') as new trees, the
+    inputs left as they are, as the reference's ``prox_sgd_tree``; with
+    ``mom_tree`` None and ``momentum == 0`` each returned buffer is zeros
+    expanded with stride 0, so a full-width tree costs no float32 copy."""
+    if isinstance(theta, dict):
+        out = {k: prox_sgd_tree(
+            v, grad[k], anchor[k], None if mom_tree is None else mom_tree[k],
+            alpha=alpha, lam=lam, momentum=momentum,
+            weight_decay=weight_decay, mode=mode) for k, v in theta.items()}
+        return ({k: v[0] for k, v in out.items()},
+                {k: v[1] for k, v in out.items()})
+    return prox_sgd(theta, grad, anchor, mom_tree, alpha=alpha, lam=lam,
+                    momentum=momentum, weight_decay=weight_decay, mode=mode)
 
 
 @torch.no_grad()

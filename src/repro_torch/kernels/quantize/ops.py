@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import (KernelType, count_launch,
-                                           kernel_mode, vec_aligned)
+                                           kernel_mode, refuse_grad,
+                                           vec_aligned)
 from repro_torch.kernels.quantize import ref as R
 from repro_torch.kernels.segments import (Segments, check_rows,
                                           leaf_columns, raise_on, segments,
@@ -66,6 +67,8 @@ def quantize_rows(v, ef, noise, segs: Segments, mode=None):
                          device=v.device)
     dq = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     ef_new = None
+    if kernel_mode(v, mode) is KernelType.CUDA:
+        refuse_grad("quantize", v, ef, noise)
     if kernel_mode(v, mode) is KernelType.TORCH:
         msg = v if ef is None else v + ef
         for i, sl, _ in leaf_columns(segs):

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import KernelType, count_launch, \
-    kernel_mode
+    kernel_mode, refuse_grad
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
 __all__ = ["HEAD_SIZES", "KERNELS", "VARIANTS", "launch", "plan",
@@ -179,6 +179,7 @@ def wkv(r, k, v, w, u, state=None, *, out_state=None, mode=None):
         if out_state is None:
             return out, s
         return out, out_state.copy_(s)
+    refuse_grad("rwkv6_scan wkv", r, k, v, w, u, state)
     b, t, h, n = r.shape
     # contiguous, and on 16-byte boundaries (a new allocation is)
     r, k, v, w = (x if x.is_contiguous() and x.data_ptr() % 16 == 0

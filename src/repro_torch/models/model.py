@@ -18,8 +18,13 @@ Batch conventions, as the reference's:
 Every function takes ``mode``, the kernels' dispatch mode: None runs the
 hand-written kernels for CUDA tensors and their plain versions for CPU
 tensors; "torch" runs the plain versions on any device (for comparing
-the two paths on the card). ``loss_fn`` is forward-only here: training
-the zoo is a later slice, and the attention kernel has no backward yet.
+the two paths on the card). ``loss_fn`` is differentiable: autograd runs
+through the attention kernel's backward (``flash_attention_bwd``) on the
+card and through the plain versions on the CPU; ``remat=True``
+checkpoints each block (``torch.utils.checkpoint``). The dense stacks
+train (phi3, qwen3, yi, qwen1.5, ...). The MoE router and RWKV-6 scan
+kernels have no backward yet and refuse a gradient on the card, and
+Mamba's in-place scan has none either (ROADMAP.md queue 1, item 18).
 The reference's ``input_specs`` / ``param_specs`` / ``cache_specs`` are
 XLA dry-run helpers and have no counterpart yet (ROADMAP.md queue 1
 item 14).
@@ -106,20 +111,20 @@ def _logits_out(params, cfg, x):
     return logits
 
 
-def forward(params, cfg, batch, *, mode=None):
+def forward(params, cfg, batch, *, remat=False, mode=None):
     """Full-sequence forward -> (logits (b, s, V) float32, aux_loss)."""
     x = _embed_in(params, cfg, batch)
     x, _, aux = transformer.stack_apply(
         params["blocks"], cfg, x, mode="full",
         mrope_positions=batch.get("mrope_positions"),
-        enc_out=_encode(params, cfg, batch, mode), kmode=mode)
+        enc_out=_encode(params, cfg, batch, mode), kmode=mode, remat=remat)
     return _logits_out(params, cfg, x), aux
 
 
-def loss_fn(params, cfg, batch, *, mode=None):
-    """Mean next-token cross-entropy + MoE aux loss (forward only).
-    Targets of -100 (any negative) are masked."""
-    logits, aux = forward(params, cfg, batch, mode=mode)
+def loss_fn(params, cfg, batch, *, remat=False, mode=None):
+    """Mean next-token cross-entropy + MoE aux loss, differentiable in
+    ``params``. Targets of -100 (any negative) are masked."""
+    logits, aux = forward(params, cfg, batch, remat=remat, mode=mode)
     targets = batch["targets"].long()
     mask = (targets >= 0).float()
     logp = torch.log_softmax(logits, dim=-1)

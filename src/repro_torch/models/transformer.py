@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention, layers, mamba, moe, rwkv
 
@@ -219,25 +220,54 @@ def _block(tree, i):
     return tree[i]
 
 
+def _unbind(tree, n):
+    """[block i's views of every leaf of ``tree``] for i < n, through
+    ``leaf.unbind(0)``: under autograd its backward stacks the blocks'
+    gradients into one tensor per leaf, where indexing ``leaf[i]`` would
+    build a full-size zero gradient for every block."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 def stack_apply(params, cfg, x, *, mode="full", cache=None, pos=None,
-                mrope_positions=None, enc_out=None, kmode=None):
+                mrope_positions=None, enc_out=None, kmode=None,
+                remat=False):
     """Run the block stack. mode 'full' (forward; with a cache, prefill)
     or 'decode' (one token at cache position ``pos``). ``enc_out`` (b,
     encoder_seq_len, d) is the encoder's output, which an encoder-decoder
     needs in 'full' mode. The cache, if given, is written in place.
-    Returns (x, cache, total aux loss)."""
+    ``remat`` (training without a cache, grad mode on) checkpoints each
+    block with ``torch.utils.checkpoint`` as the reference's
+    ``jax.checkpoint`` does: its activations are recomputed in the
+    backward, so its kernels launch twice. Returns (x, cache, total aux
+    loss)."""
     n_blocks, pattern = block_pattern(cfg)
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = _unbind(params, n_blocks)
+    remat = remat and cache is None and torch.is_grad_enabled()
     for b in range(n_blocks):
-        blk = _block(params, b)
+        blk = blocks[b]
         blk_cache = _block(cache, b) if cache is not None else None
-        for i, (kind, is_moe) in enumerate(pattern):
-            c = blk_cache[f"pos{i}"] if blk_cache is not None else None
-            x, _, aux = _apply_position(
-                blk[f"pos{i}"], cfg, kind, is_moe, x, mode=mode, cache=c,
-                pos=pos, mrope_positions=mrope_positions, enc_out=enc_out,
-                kmode=kmode)
-            aux_tot = aux_tot + aux
+
+        def run(x, blk=blk, blk_cache=blk_cache):
+            aux_blk = 0.0
+            for i, (kind, is_moe) in enumerate(pattern):
+                c = blk_cache[f"pos{i}"] if blk_cache is not None else None
+                x, _, aux = _apply_position(
+                    blk[f"pos{i}"], cfg, kind, is_moe, x, mode=mode, cache=c,
+                    pos=pos, mrope_positions=mrope_positions,
+                    enc_out=enc_out, kmode=kmode)
+                aux_blk = aux_blk + aux
+            return x, aux_blk
+
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(run, x,
+                                                       use_reentrant=False)
+        else:
+            x, aux = run(x)
+        aux_tot = aux_tot + aux
     return x, cache, aux_tot
 
 

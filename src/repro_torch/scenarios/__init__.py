@@ -5,9 +5,10 @@ from repro_torch.scenarios.registry import (SCENARIOS, families,
                                             get_scenario, register)
 from repro_torch.scenarios.runner import (ScenarioBuild, build_scenario,
                                           run_scenario, sweep_scenario)
-from repro_torch.scenarios.spec import (AlgoSpec, DataSpec, FLScenario,
-                                        ModelSpec)
+from repro_torch.scenarios.spec import (PAPER_HP, AlgoSpec, DataSpec,
+                                        FLScenario, ModelSpec)
 
-__all__ = ["AlgoSpec", "DataSpec", "FLScenario", "ModelSpec", "SCENARIOS",
+__all__ = ["AlgoSpec", "DataSpec", "FLScenario", "ModelSpec", "PAPER_HP",
+           "SCENARIOS",
            "ScenarioBuild", "build_scenario", "families", "get_scenario",
            "register", "run_scenario", "sweep_scenario"]

@@ -25,7 +25,13 @@ the CPU) and prints the final value of each metric the algorithm
 reports (PerMFL: pm, tm, gm and train_loss; FedAvg and h-SGD: gm; the
 personalized baselines: pm and gm), for a compressed scenario the
 megabytes its links carried, and with a system model its simulated
-seconds; ``--json`` prints them as one JSON object on stdout instead.
+seconds; ``--json`` prints instead, as one JSON object on stdout, the
+reference's ``run_footer`` event of ``repro_torch.obs.events.run_events``
+(the metrics under ``final``; ``seconds``, ``compile_seconds``,
+``run_seconds``, ``dispatches``; ``comm``, ``timeline``, ``probes``,
+``cost`` and ``health`` where the run has them) with ``scenario``,
+``spec_hash``, ``events_path`` when traced, and ``device``. The rounds,
+cohort and population are in the event log's header (``--trace-dir``).
 ``--system PROFILE`` prices the run on that profile, ``--deadline
 SECONDS`` drops the stragglers of each round (it needs a system model:
 ``--system``, or a spec that carries one), ``--cohort C`` runs C devices
@@ -77,7 +83,8 @@ def _cmd_list(args) -> int:
         print(f"{s.name:44} {d.m_teams}x{d.n_devices:<5} "
               f"{d.partitioner:10} {s.model.kind:5} {s.algo.name:9} "
               f"{s.rounds:<6} {s.spec_hash()}")
-    print(f"\n{len(rows)} scenario(s)")
+    print(f"\n{len(rows)} scenario(s)"
+          + ("" if args.family else f" in {len(families())} families"))
     return 0
 
 
@@ -194,29 +201,26 @@ def _cmd_run(args) -> int:
     except HealthError as e:
         print(f"error: {e}")
         return 3
+    if args.json:
+        from repro_torch.obs.events import run_events
+
+        # the reference's footer (obs.events.run_events) and its keys, plus
+        # the device the run took, as serve --json prints it
+        footer = run_events(
+            res, algo=None,
+            meta={"scenario": s.name, "spec_hash": s.spec_hash()})[-1]
+        footer["scenario"] = s.name
+        footer["spec_hash"] = s.spec_hash()
+        footer["device"] = res.device
+        if res.events_path:
+            footer["events_path"] = res.events_path
+        print(json.dumps(footer, sort_keys=True))
+        return 0
     # only the metrics the algorithm reported (the baselines report no
     # team model and no train loss)
     hists = {"pm": res.pm_acc, "tm": res.tm_acc, "gm": res.gm_acc,
              "train_loss": res.train_loss}
     finals = {m: hist[-1] for m, hist in hists.items() if hist}
-    if args.json:
-        rec = {"scenario": s.name, "spec_hash": s.spec_hash(),
-               "rounds": rounds, "device": res.device, **finals,
-               "seconds": res.seconds,
-               "participation": res.participation[-1]}
-        if res.comm is not None:
-            rec["comm"] = res.comm.summary()
-        if res.timeline is not None:
-            rec["system"] = res.timeline.summary()
-        if res.cohort is not None:
-            rec["cohort"] = res.cohort
-            rec["population"] = res.population
-        if res.health is not None:
-            rec["health"] = res.health.summary()
-        if res.events_path:
-            rec["events_path"] = res.events_path
-        print(json.dumps(rec, sort_keys=True))
-        return 0
     print(f"{s.name}: rounds={rounds} "
           + " ".join(f"{m}={v:.4f}" for m, v in finals.items())
           + f" ({res.seconds:.1f}s on {res.device})")

@@ -44,7 +44,7 @@ from repro_torch.models import paper_models as PM
 from repro_torch.system import SystemSpec, get_profile
 
 __all__ = ["ALGO_METRICS", "AlgoSpec", "DataSpec", "FLScenario",
-           "ModelSpec", "fns_for", "init_model", "to_torch"]
+           "ModelSpec", "PAPER_HP", "fns_for", "init_model", "to_torch"]
 
 # metrics each algorithm reports (keys of FLAlgorithm.eval): the Table-1
 # columns -- personalized/team/global for PerMFL, GM-only for the purely
@@ -201,11 +201,15 @@ class ModelSpec:
 # AlgoSpec
 # ---------------------------------------------------------------------------
 
+# paper §4.1.4 hyperparameters: the PerMFL defaults every scenario starts
+# from (AlgoSpec overrides replace individual fields)
+PAPER_HP = PerMFLHParams(alpha=0.01, eta=0.03, beta=0.6, lam=0.5,
+                         gamma=1.5, k_team=5, l_local=10)
+
 # paper-default constructor arguments per algorithm (Table-1 settings);
 # AlgoSpec.overrides replaces individual entries
 _ALGO_DEFAULTS = {
-    "permfl": dict(alpha=0.01, eta=0.03, beta=0.6, lam=0.5, gamma=1.5,
-                   k_team=5, l_local=10, momentum=0.0, weight_decay=0.0),
+    "permfl": dataclasses.asdict(PAPER_HP),
     "fedavg": dict(lr=0.03, local_steps=50),
     "perfedavg": dict(lr=0.03, inner_lr=0.03, local_steps=20),
     "pfedme": dict(lr=1.0, inner_lr=0.03, lam=15.0, inner_steps=10,

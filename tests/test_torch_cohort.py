@@ -693,19 +693,30 @@ def test_cohort_cell_runs_one_round_on_the_cpu():
     assert full.cohort is None and full.participation == [(2, 2000)]
 
 
-def test_cli_run_with_cohort_and_system_json():
+def test_cli_run_with_cohort_and_system_json(tmp_path, monkeypatch):
+    """The footer carries the timeline; the event log's header the cohort
+    and population; the run the CLI made its participation."""
+    import repro_torch.scenarios as scenarios
+    from repro_torch.obs.events import read_jsonl
     from repro_torch.scenarios.__main__ import main
 
+    runs = []
+    run = scenarios.run_scenario
+    monkeypatch.setattr(scenarios, "run_scenario",
+                        lambda *a, **k: runs.append(run(*a, **k)) or runs[-1])
     rc, out = _cli(main, ["run", "table1/mnist/mclr/permfl", "--smoke",
                           "--cohort", "2", "--system", "wan-cellular",
                           "--deadline", "30", "--device", "cpu",
-                          "--json"])
+                          "--trace-dir", str(tmp_path / "c2"), "--json"])
     assert rc == 0
     rec = json.loads(out.strip().splitlines()[-1])
-    assert rec["cohort"] == 2 and rec["population"] == 3
-    assert rec["system"]["profile"] == "wan-cellular"
-    assert rec["system"]["rounds"] == 2
-    assert rec["participation"] == [2, 4]
+    header = read_jsonl(rec["events_path"])[0]
+    assert header["cohort"] == 2 and header["population"] == 3
+    assert rec["timeline"]["profile"] == "wan-cellular"
+    assert rec["timeline"]["rounds"] == 2
+    assert runs[-1].participation[-1] == (2, 4)
     rc, out = _cli(main, ["run", "table1/mnist/mclr/permfl", "--smoke",
-                          "--cohort", "0", "--device", "cpu", "--json"])
-    assert rc == 0 and "cohort" not in json.loads(out)
+                          "--cohort", "0", "--device", "cpu",
+                          "--trace-dir", str(tmp_path / "c0"), "--json"])
+    assert rc == 0
+    assert "cohort" not in read_jsonl(json.loads(out)["events_path"])[0]

@@ -587,6 +587,39 @@ def test_ledger_rounds_match_the_reference(compressor):
     assert led.total_bytes() == jled.total_bytes()
 
 
+@pytest.mark.parametrize("compressor", ["topk", "int8"])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_ledger_log_round_masks_matches_the_reference(compressor, as_tensor):
+    """log_round_masks from raw masks (devices of masked-out teams gated)
+    as the reference's; equal to log_round with the counts the engine
+    gates itself."""
+    from repro_torch.comm import CommConfig, CommLedger
+    from repro_torch.configs.paper_cnn import CONFIG as CNN
+    from repro_torch.flat import Layout
+    from repro_torch.models.paper_models import init_params
+
+    layout = Layout.of(init_params(CNN, torch.Generator().manual_seed(0)))
+    led = CommLedger.for_layout(CommConfig(compressor), layout)
+    counted = CommLedger.for_layout(CommConfig(compressor), layout)
+    jled = JL.CommLedger.for_params(JCommConfig(compressor), jax_init("cnn"))
+    ones_t, ones_d = np.ones_like(TEAM_MASK), np.ones_like(DEVICE_MASK)
+    for tm, dm in ((TEAM_MASK, DEVICE_MASK), (ones_t, ones_d),
+                   (TEAM_MASK, ones_d)):
+        given = ((torch.from_numpy(np.asarray(tm)),
+                  torch.from_numpy(np.asarray(dm)))
+                 if as_tensor else (tm, dm))
+        led.log_round_masks(k_team=5, team_mask=given[0],
+                            device_mask=given[1])
+        jled.log_round_masks(k_team=5, team_mask=tm, device_mask=dm)
+        counted.log_round(k_team=5, n_teams=int(np.sum(tm)),
+                          n_devices=int((np.asarray(dm)
+                                         * np.asarray(tm)[:, None]).sum()))
+    assert [dataclasses.astuple(r) for r in led.rounds] == \
+        [dataclasses.astuple(r) for r in jled.rounds] == \
+        [dataclasses.astuple(r) for r in counted.rounds]
+    assert led.summary() == jled.summary()
+
+
 # ------------------------------------------- scenarios, engine, CLI
 
 COMM_CELLS = ["comm/mnist/mclr/" + c for c in (

@@ -28,6 +28,7 @@ PUBLIC_MODULES = (
     "repro_torch.core.participation",
     "repro_torch.core.permfl",
     "repro_torch.core.theory",
+    "repro_torch.data.tokens",
     "repro_torch.device",
     "repro_torch.flat",
     "repro_torch.kernels.build",
@@ -86,8 +87,12 @@ PUBLIC_MODULES = (
     "repro_torch.train.checkpoint",
     "repro_torch.train.engine",
     "repro_torch.train.fl_trainer",
+    "repro_torch.train.metrics",
+    "repro_torch.train.optim",
     "repro_torch.train.store",
     "repro_torch.train.sweep",
+    "repro_torch.train.train_state",
+    "repro_torch.train.trainer",
 )
 
 

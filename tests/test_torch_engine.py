@@ -174,18 +174,22 @@ def test_unported_engine_options_raise(arg, tmp_path):
         assert list(tmp_path.glob("spans-*.trace.json"))
 
 
-def test_cli_run_on_cpu():
+def test_cli_run_on_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.scenarios", "run",
          "table1/mnist/mclr/permfl", "--rounds", "2", "--device", "cpu",
-         "--json"], cwd=REPO, capture_output=True, text=True, timeout=120,
+         "--trace-dir", str(tmp_path), "--json"], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
     assert out.returncode == 0, out.stderr
     import json
+
+    from repro_torch.obs.events import read_jsonl
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["scenario"] == "table1/mnist/mclr/permfl"
-    assert rec["device"] == "cpu" and rec["rounds"] == 2
-    assert 0.0 <= rec["pm"] <= 1.0
+    assert rec["device"] == "cpu"
+    assert read_jsonl(rec["events_path"])[0]["rounds"] == 2
+    assert 0.0 <= rec["final"]["pm"] <= 1.0
 
 
 def test_entry_points_default_to_the_card():

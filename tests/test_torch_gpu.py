@@ -1302,3 +1302,132 @@ def test_full_width_cohort_is_the_stacked_run_on_the_card(cuda):
     for tier in ("x", "w", "theta"):
         assert torch.equal(getattr(a.state, tier), getattr(b.state, tier))
     assert b.cohort_indices[0] == [list(range(1000))] * 2
+
+
+# (b, sq, skv, hq, hkv, d, causal, window, q_offset)
+ATTN_BWD_CASES = [(2, 100, 100, 4, 2, 32, True, 0, None),
+                  (1, 70, 130, 6, 2, 64, False, 0, 0),
+                  (2, 90, 90, 4, 4, 96, True, 17, 0),
+                  (1, 50, 120, 4, 1, 128, True, 0, None),
+                  (1, 64, 200, 4, 4, 64, False, 33, 0),
+                  (2, 130, 130, 4, 2, 128, True, 0, 0),
+                  # one query row: the simt decode form (64 partitions of
+                  # the keys, merged) writes the log-sum-exp
+                  (2, 1, 77, 4, 2, 96, True, 0, None)]
+
+
+@pytest.mark.parametrize("case", ATTN_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
+    """The backward kernel against ``attention_bwd_ref`` from the same
+    (out, lse), which the forward kernel wrote (its lse against the plain
+    one's); repeated launches bit-equal (no atomics); one launch counted
+    per call."""
+    from repro_torch.kernels.flash_attention import (attention_bwd,
+                                                     attention_bwd_ref,
+                                                     attention_lse_ref)
+    from repro_torch.kernels.flash_attention.ops import _forward
+    from repro_torch.kernels.interface import LAUNCHES, KernelType
+
+    b, sq, skv, hq, hkv, d, causal, window, q_offset = case
+    q_offset = skv - sq if q_offset is None else q_offset
+    rng = np.random.default_rng(sq + d)
+    dt = getattr(torch, dtype)
+    q, do = (_randn(rng, (b, sq, hq, d), dt, cuda) for _ in range(2))
+    k, v = (_randn(rng, (b, skv, hkv, d), dt, cuda) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = _forward(q, k, v, causal, window, q_offset, KernelType.CUDA,
+                        True)
+    _, lse_ref = attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    before = LAUNCHES.get("flash_attention_bwd", 0)
+    got = attention_bwd(q, k, v, out, lse, do, **kw)
+    again = attention_bwd(q, k, v, out, lse, do, **kw)
+    want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 2
+    tol = 1e-4 if dtype == "float32" else TOL[dtype]
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_attention_autograd_on_the_card(cuda):
+    """loss.backward() through the op on the card: one forward and one
+    backward launch, gradients equal to the plain path's."""
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.interface import LAUNCHES
+
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (2, 64, 4, 64), torch.float32, cuda).requires_grad_()
+    k = _randn(rng, (2, 64, 2, 64), torch.float32, cuda).requires_grad_()
+    v = _randn(rng, (2, 64, 2, 64), torch.float32, cuda).requires_grad_()
+    f0 = LAUNCHES.get("flash_attention", 0)
+    b0 = LAUNCHES.get("flash_attention_bwd", 0)
+    attention(q, k, v).square().sum().backward()
+    assert LAUNCHES["flash_attention"] == f0 + 1
+    assert LAUNCHES["flash_attention_bwd"] == b0 + 1
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    attention(q, k, v, mode="torch").square().sum().backward()
+    for g, t in zip(got, (q, k, v)):
+        torch.testing.assert_close(g, t.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_kernels_without_backward_refuse_a_gradient(cuda):
+    """Under grad mode, an input that requires a gradient makes the
+    router, WKV and split-kv kernels raise instead of returning detached
+    tensors; under no_grad they run."""
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.moe_router import route_tokens, route_topk
+    from repro_torch.kernels.rwkv6_scan import wkv
+
+    rng = np.random.default_rng(1)
+    x = _randn(rng, (64, 32), torch.float32, cuda).requires_grad_()
+    w = _randn(rng, (32, 8), torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        route_tokens(x, w, top_k=2, group_size=64)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        route_topk(x @ w, top_k=2)
+    with torch.no_grad():
+        route_tokens(x, w, top_k=2, group_size=64)
+    r, kk, vv = (_randn(rng, (1, 8, 2, 64), torch.float32, cuda)
+                 for _ in range(3))
+    decay = torch.rand((1, 8, 2, 64), device=cuda)
+    u = _randn(rng, (2, 64), torch.float32, cuda).requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 18"):
+        wkv(r, kk, vv, decay, u)
+    q = _randn(rng, (1, 1, 4, 64), torch.bfloat16, cuda).requires_grad_()
+    kv = _randn(rng, (1, 32, 4, 64), torch.bfloat16, cuda)
+    with pytest.raises(NotImplementedError, match="split_kv"):
+        attention(q, kv, kv)
+    with torch.no_grad():
+        assert attention(q, kv, kv).shape == q.shape
+
+
+def test_tiered_llm_example_on_the_card(cuda, capsys):
+    """examples/tiered_llm_training_torch.py on the card (reduced phi3,
+    3 rounds): its assertion holds, and every device step went through
+    the attention kernels and prox_update (2 teams x 2 local steps x 2
+    layers a round; 12 leaves a step)."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.kernels.interface import LAUNCHES
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "tiered_llm_training_torch.py")
+    spec = importlib.util.spec_from_file_location("tiered_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before = {k: LAUNCHES.get(k, 0) for k in ("flash_attention_bwd",
+                                              "prox_update")}
+    pm, gm = mod.main(["--rounds", "3"])
+    assert pm <= gm and np.isfinite(pm)
+    assert LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"] \
+        == 3 * 2 * 2 * 2
+    assert LAUNCHES["prox_update"] - before["prox_update"] == 3 * 2 * 2 * 12
+    assert "round   2: personalized loss" in capsys.readouterr().out

@@ -627,6 +627,37 @@ def test_cli_run_trace_dir(tmp_path):
     assert rc == 0 and rec["health"]["ok"] and rec["events_path"]
 
 
+@pytest.mark.parametrize("traced", [False, True])
+def test_scenarios_cli_json_footer_matches_the_reference(tmp_path, traced):
+    """``run --json`` prints the reference's run_footer: the same keys,
+    the same metrics under ``final``, and ``device`` besides."""
+    from repro.scenarios.__main__ import main as j_main
+
+    trace = ["--trace-dir", str(tmp_path / "port")] if traced else []
+    rc, out = _cli(["run", *SMOKE, *trace, "--json"])
+    assert rc == 0
+    ev = json.loads(out)
+    j_out = io.StringIO()
+    j_trace = ["--trace-dir", str(tmp_path / "ref")] if traced else []
+    with contextlib.redirect_stdout(j_out):
+        assert j_main(["run", "table1/mnist/mclr/permfl", "--smoke",
+                       *j_trace, "--json"]) == 0
+    j_ev = json.loads(j_out.getvalue().strip().splitlines()[-1])
+    assert ev["event"] == j_ev["event"] == "run_footer"
+    assert set(ev) - set(j_ev) == {"device"} and set(j_ev) <= set(ev)
+    assert set(ev["final"]) == set(j_ev["final"]) == {"pm", "tm", "gm",
+                                                      "train_loss"}
+    assert ev["scenario"] == "table1/mnist/mclr/permfl"
+    assert ev["spec_hash"] == j_ev["spec_hash"]
+    if traced:
+        from repro_torch.obs.__main__ import main as obs_main
+
+        assert ev["events_path"].startswith(str(tmp_path / "port"))
+        assert obs_main(["summarize", str(tmp_path / "port")]) == 0
+        assert set(ev["probes"]) == set(j_ev["probes"])
+        assert set(ev["health"]) == set(j_ev["health"])
+
+
 def test_cli_run_fail_fast_exits_3():
     rc, out = _cli(["run", *SMOKE, "--fail-fast", "--hparam", "eta=1e30"])
     assert rc == 3

@@ -195,7 +195,30 @@ def test_cli_describe_and_dump_round_trip(capsys):
     assert JFLScenario.from_dict(d) == J_SCENARIOS[d["name"]]
 
 
-def test_cli_run_baseline_smoke_prints_only_its_metrics(capsys):
+def test_paper_hp_and_participation_modes_match_the_reference():
+    """PAPER_HP (paper §4.1.4, the PerMFL defaults every scenario starts
+    from) and the four participation modes (§3.1) as the reference's."""
+    import dataclasses
+
+    from repro.core.participation import MODES as J_MODES
+    from repro.scenarios import PAPER_HP as J_PAPER_HP
+    from repro_torch.core.participation import MODES
+    from repro_torch.core.permfl import PerMFLHParams
+    from repro_torch.scenarios import PAPER_HP, AlgoSpec
+
+    assert isinstance(PAPER_HP, PerMFLHParams)
+    assert dataclasses.asdict(PAPER_HP) == dataclasses.asdict(J_PAPER_HP)
+    assert dataclasses.asdict(AlgoSpec("permfl").hparams()) == \
+        dataclasses.asdict(PAPER_HP)
+    assert MODES == J_MODES
+    assert list(MODES) == ["full", "partial_devices", "partial_teams",
+                           "partial_both"]
+
+
+def test_cli_run_baseline_smoke_prints_only_its_metrics(capsys, tmp_path,
+                                                        monkeypatch):
+    import repro_torch.scenarios as scenarios
+    from repro_torch.obs.events import read_jsonl
     from repro_torch.scenarios.__main__ import main
 
     assert main(["run", "table1/mnist/mclr/fedavg", "--smoke",
@@ -204,11 +227,17 @@ def test_cli_run_baseline_smoke_prints_only_its_metrics(capsys):
     assert "gm=" in out and "rounds=2" in out
     for absent in ("pm=", "tm=", "train_loss="):
         assert absent not in out
+    runs = []
+    run = scenarios.run_scenario
+    monkeypatch.setattr(scenarios, "run_scenario",
+                        lambda *a, **k: runs.append(run(*a, **k)) or runs[-1])
     assert main(["run", "table1/mnist/mclr/pfedme", "--smoke", "--device",
-                 "cpu", "--json"]) == 0
+                 "cpu", "--trace-dir", str(tmp_path), "--json"]) == 0
     rec = json.loads(capsys.readouterr().out)
-    assert {"pm", "gm"} <= set(rec) and not {"tm", "train_loss"} & set(rec)
-    assert rec["rounds"] == 2 and rec["participation"] == [2, 6]
+    final = set(rec["final"])
+    assert {"pm", "gm"} <= final and not {"tm", "train_loss"} & final
+    assert read_jsonl(rec["events_path"])[0]["rounds"] == 2
+    assert runs[-1].participation[-1] == (2, 6)
 
 
 def test_cli_run_hparam(capsys):
