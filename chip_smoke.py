@@ -264,12 +264,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
  13g. attention backward check: flash_attention_bwd against its plain
      version (``attention_bwd_ref``) from the (out, lse) the forward
      kernel wrote, at phi3-mini's training shape (4 x 1,024, 32 heads of
-     96, bf16, causal), deepseek's (4 x 1,024, 16 of 128, bf16) and a GQA
-     12:2 windowed f32 case with 512 queries on 768 keys: max abs error
-     (bf16 2e-2, f32 1e-4), two launches bit-equal, its time (L2 cold),
-     the plain version's, the bound (2.5x the forward's FLOPs against its
-     bytes) and scaled_dot_product_attention's backward on the same
-     tensors.
+     96, bf16, causal), deepseek's (4 x 1,024, 16 of 128, bf16), GQA 12:2
+     with a 256 window on 512 queries and 768 keys (bf16, and f32), and a
+     ragged non-causal bf16 case at head_dim 64 (4 x 1,500, 12 heads):
+     each case's backward variant (``plan_bwd``: the tensor-core
+     ``wgmma`` for every bf16 case, the CUDA-core ``simt`` for f32),
+     held to the plain version with that variant's rounding (bf16 2e-2,
+     f32 1e-4) and its error against the unrounded one printed, two
+     launches bit-equal, its time (L2 cold), the plain version's, the
+     bound (2.5x the forward's FLOPs against its bytes) and
+     scaled_dot_product_attention's backward on the same tensors.
  13h. LLM training at full width: phi3-mini-3.8b at every published width
      in bf16 (3,821,079,552 parameters, 12 leaves), batches of 4 x 1,024
      tokens from ``repro_torch.data.tokens``, with the counts set to 0
@@ -277,10 +281,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      1.0, then two ``make_tier_round`` rounds (l_local 2, the example's
      alpha, lambda, gamma, eta, beta) of one team on the same batch:
      flash_attention and flash_attention_bwd exactly 32 per forward /
-     backward pass (160 each), prox_update exactly 2 x 2 x 12 = 48, no
-     other kernel; finite losses, the tier loss lower in round 2; ms per
-     step, tokens/s, peak memory (under 80 GB), the second round's busy
-     share (torch.profiler).
+     backward pass (160 each; every backward the ``wgmma`` variant),
+     prox_update exactly 2 x 2 x 12 = 48, no other kernel; finite
+     losses, the tier loss lower in round 2; ms per step, tokens/s, peak
+     memory (under 80 GB), the second round's busy share (torch.profiler).
  13i. training consistency: phi3 cut to 2 layers in f32, one SGD
      ``make_train_step`` and one tier round through the kernels and
      through ``mode="torch"`` from the same parameters: losses and every
@@ -376,7 +380,10 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     # the served prefill's variant (chunked); the sequential simt kernel of
     # the decode and the f32 path is rwkv6_scan/csrc/rwkv6_scan.cu
     "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan_hopper.cu",
-    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
+    # the training path's variant (wgmma); the CUDA-core simt backward of
+    # f32 and the other cases is flash_attention/csrc/flash_attention_bwd.cu
+    "flash_attention_bwd": ("flash_attention/csrc/"
+                            "flash_attention_bwd_hopper.cu"),
 }
 LLM_ARCH = "deepseek-moe-16b"
 RWKV_ARCH = "rwkv6-7b"
@@ -3394,7 +3401,12 @@ def phase_jamba_serving():
 ATTN_BWD_CASES = (  # (label, b, sq, skv, hq, hkv, d, causal, window, dtype)
     ("phi3 train", 4, 1024, 1024, 32, 32, 96, True, 0, "bfloat16"),
     ("deepseek train", 4, 1024, 1024, 16, 16, 128, True, 0, "bfloat16"),
-    ("GQA 12:2 window 256", 2, 512, 768, 12, 2, 128, True, 256, "float32"),
+    ("GQA 12:2 window 256", 2, 512, 768, 12, 2, 128, True, 256, "bfloat16"),
+    # ragged: 1,500 keys and queries end mid-tile, no causal mask
+    ("head_dim 64 non-causal", 4, 1500, 1500, 12, 12, 64, False, 0,
+     "bfloat16"),
+    ("GQA 12:2 window 256 f32", 2, 512, 768, 12, 2, 128, True, 256,
+     "float32"),
 )
 
 
@@ -3446,15 +3458,21 @@ def sdpa_bwd_call(q, k, v, dout, causal, window, q_offset):
 def phase_attention_bwd_check():
     """flash_attention_bwd against ``attention_bwd_ref`` on the card, from
     the (out, lse) the forward kernel wrote, at phi3's and deepseek's
-    training shapes (bf16, causal) and a GQA 12:2 windowed f32 case with
-    sq != skv: max abs error (bf16 within 2e-2, f32 within 1e-4, absolute
-    and relative), two launches bit-equal; the kernel's time (L2 cold),
-    the plain version's, the bound and scaled_dot_product_attention's
-    backward on the same tensors. Returns {label: numbers}."""
+    training shapes (bf16, causal), GQA 12:2 with a 256 window and sq !=
+    skv in bf16 and in f32, and a ragged non-causal bf16 case at head_dim
+    64: each case's backward variant (``plan_bwd``; every bf16 case
+    ``wgmma``, f32 ``simt``), held to ``attention_bwd_ref`` with that
+    variant's rounding (bf16 within 2e-2, f32 within 1e-4, absolute and
+    relative), its error against the unrounded version printed too; two
+    launches bit-equal; the kernel's time (L2 cold), the plain version's,
+    the bound and scaled_dot_product_attention's backward on the same
+    tensors. Returns {label: numbers}."""
     import torch
 
-    from repro_torch.kernels.flash_attention import (attention_bwd,
-                                                     attention_bwd_ref, plan)
+    from repro_torch.kernels.flash_attention import (BWD_VARIANTS,
+                                                     attention_bwd,
+                                                     attention_bwd_ref, plan,
+                                                     plan_bwd)
     from repro_torch.kernels.flash_attention.ops import _forward
     from repro_torch.kernels.interface import KernelType
 
@@ -3471,14 +3489,27 @@ def phase_attention_bwd_check():
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         out, lse = _forward(q, k, v, causal, window, q_offset,
                             KernelType.CUDA, True)
+        variant = plan_bwd(q, k, v, out, dout)
+        if variant != ("wgmma" if dtype == "bfloat16" else "simt"):
+            raise AssertionError(f"flash_attention_bwd {label} {dtype}: "
+                                 f"plan_bwd picks {variant}")
+        before = BWD_VARIANTS[variant]
         got = attention_bwd(q, k, v, out, lse, dout, **kw)
         again = attention_bwd(q, k, v, out, lse, dout, **kw)
-        want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        if BWD_VARIANTS[variant] != before + 2:
+            raise AssertionError(f"flash_attention_bwd {label}: {variant} "
+                                 f"did not run ({BWD_VARIANTS})")
+        want = attention_bwd_ref(q, k, v, out, lse, dout, variant=variant,
+                                 **kw)
+        unrounded = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
         tol = ATTN_TOL[dtype] if dtype == "bfloat16" else 1e-4
         errs = [float((g.float() - w.float()).abs().max())
                 for g, w in zip(got, want)]
-        name = f"{label} {dtype} [forward {plan(q, k, v, **kw)[0]}]"
+        errs_f32 = [float((g.float() - w.float()).abs().max())
+                    for g, w in zip(got, unrounded)]
+        name = (f"{label} {dtype} [backward {variant}, forward "
+                f"{plan(q, k, v, **kw)[0]}]")
         if not all(within(g, w, tol) for g, w in zip(got, want)):
             raise AssertionError(f"flash_attention_bwd {name}: dq, dk, dv "
                                  f"differ by {errs} (tol {tol})")
@@ -3499,8 +3530,11 @@ def phase_attention_bwd_check():
         say("kernel", f"flash_attention_bwd {name} q ({b}, {sq}, {hq}, {d}), "
             f"kv ({b}, {skv}, {hkv}, {d}), window {window}, q_offset "
             f"{q_offset}: max abs err dq/dk/dv "
-            f"{', '.join(f'{e:.3g}' for e in errs)} (tol {tol:g}), two "
-            f"launches bit-equal; kernel {ms * 1e3:.1f} us, plain "
+            f"{', '.join(f'{e:.3g}' for e in errs)} (tol {tol:g}) from the "
+            f"plain version with {variant}'s rounding, "
+            f"{', '.join(f'{e:.3g}' for e in errs_f32)} from the unrounded "
+            f"one (ds in f32), two launches bit-equal; kernel "
+            f"{ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us, scaled_dot_product_attention "
             f"backward {lib_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
             f"({mb:.1f} MB, {gflop:.2f} GFLOP; by {by}), {bound_ms / ms:.2%} "
@@ -3509,7 +3543,7 @@ def phase_attention_bwd_check():
         out_rows[label] = dict(max_abs_err=max(errs), ms=ms,
                                plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=by, library_ms=lib_ms)
-        del q, k, v, dout, out, lse, got, again, want
+        del q, k, v, dout, out, lse, got, again, want, unrounded
     release()
     return out_rows
 
@@ -3536,12 +3570,15 @@ def phase_llm_training():
     example's hyperparameters) of one team from theta = w = x = the drawn
     parameters (as the example starts), on the same batch each round. Launches: flash_attention
     and flash_attention_bwd exactly 32 per forward/backward pass (1 + 4
-    passes), prox_update exactly rounds x l_local x 12, no other kernel.
+    passes), every backward the ``wgmma`` variant, prox_update exactly
+    rounds x l_local x 12, no other kernel.
     Finite losses, the tier loss lower in round 2; ms per step, tokens/s,
     peak memory (under the card's 80 GB) and the second round's device
     busy share (torch.profiler). Returns its launches."""
     import torch
 
+    from repro_torch.kernels.flash_attention import (BWD_VARIANTS, VARIANTS,
+                                                     reset_variants)
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
     from repro_torch.train import optim
     from repro_torch.train.train_state import TrainState
@@ -3556,6 +3593,7 @@ def phase_llm_training():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    reset_variants()
     t0 = time.perf_counter()
     state = TrainState.create(params, optim.adamw())
     step = make_train_step(cfg, optim.adamw(), lr=TRAIN_LR, grad_clip=1.0)
@@ -3594,12 +3632,16 @@ def phase_llm_training():
         losses.append(float(mr["loss"]))
     tier_peak = torch.cuda.max_memory_allocated()
     launches = dict(LAUNCHES)
+    bwd_variants = dict(BWD_VARIANTS)
     passes = 1 + TRAIN_ROUNDS * TRAIN_L_LOCAL
     check_launches(launches, {
         "flash_attention": cfg.num_layers * passes,
         "flash_attention_bwd": cfg.num_layers * passes,
         "prox_update": TRAIN_ROUNDS * TRAIN_L_LOCAL * TRAIN_LEAVES},
         f"{TRAIN_ARCH} training")
+    if bwd_variants != {"wgmma": cfg.num_layers * passes, "simt": 0}:
+        raise AssertionError(f"{TRAIN_ARCH} training: backward variants "
+                             f"{bwd_variants}")
     say("train", f"{TRAIN_ARCH} tier rounds (l_local {TRAIN_L_LOCAL}, "
         f"{TIER_HP}, one team, the same batch): mean local loss "
         + " -> ".join(f"{v:.4f}" for v in losses) + "; "
@@ -3611,7 +3653,9 @@ def phase_llm_training():
         f"{sum(e.self_device_time_total for e in rows) / 1e3:.1f} ms of "
         f"kernels")
     say("train", f"{TRAIN_ARCH} launches: " + ", ".join(
-        f"{k} {v}" for k, v in sorted(launches.items()) if v))
+        f"{k} {v}" for k, v in sorted(launches.items()) if v)
+        + f"; flash_attention variants {dict(VARIANTS)}, flash_attention_bwd "
+        f"variants {bwd_variants}")
     say("train", f"{TRAIN_ARCH} round {TRAIN_ROUNDS} under torch.profiler, "
         f"{sum(e.count for e in rows)} kernels, by device time: " + "; ".join(
             f"{e.key[:60]} x {e.count} {e.self_device_time_total / 1e3:.1f} "
@@ -3676,6 +3720,8 @@ def phase_training_consistency():
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (BWD_VARIANTS,
+                                                     reset_variants)
     from repro_torch.models import model as M
     from repro_torch.train import optim
     from repro_torch.train.train_state import TrainState
@@ -3686,6 +3732,7 @@ def phase_training_consistency():
                            cfg, dtype=torch.float32, device=DEVICE)
     (batch,) = train_batches(cfg.vocab_size, 1)
     runs = {}
+    reset_variants()
     for mode in (None, "torch"):
         step = make_train_step(cfg, optim.sgd(), lr=TRAIN_CONSISTENCY_LR,
                                grad_clip=1.0, mode=mode)
@@ -3708,7 +3755,8 @@ def phase_training_consistency():
         f"{float(lp):.6f}, tier loss {float(rk[3]['loss']):.6f} / "
         f"{float(rp[3]['loss']):.6f}; max |diff| over losses and every "
         f"parameter {float((worst[1] - worst[2]).abs().max()):.3g} "
-        f"({worst[0]}; tol {TRAIN_TOL:g} abs + rel)")
+        f"({worst[0]}; tol {TRAIN_TOL:g} abs + rel); flash_attention_bwd "
+        f"variants {dict(BWD_VARIANTS)}")
     if bad:
         raise AssertionError(f"{TRAIN_ARCH} training: kernel and plain paths "
                              f"disagree on {bad[:8]}")

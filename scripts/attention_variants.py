@@ -4,10 +4,11 @@
     python3 scripts/attention_variants.py            # from the repository root
     python3 scripts/attention_variants.py --trace    # the prefill's timeline
 
-Each variant is ``csrc/flash_attention_hopper.cu`` with a few constants
-replaced (a ring of 2 K/V stages instead of 3, the warpgroups' turns off,
-another register split, 8 rows in flight per thread in the split-kv
-decode, ...). All are compiled at once with the flags of
+Each variant is ``csrc/flash_attention_hopper.cu`` (the shared
+``csrc/hopper.cuh`` it includes inlined) with a few constants replaced (a
+ring of 2 K/V stages instead of 3, the warpgroups' turns off, another
+register split, 8 rows in flight per thread in the split-kv decode,
+...). All are compiled at once with the flags of
 ``repro_torch.kernels.build`` into ``build/kernels/variants/``, then timed
 at the serving shapes and a few others with the L2 cold
 (``chip_smoke.py::cuda_time_ms``), in two rounds of opposite order, beside
@@ -66,7 +67,7 @@ def build_variants():
     """{name: ctypes library} of every variant that compiles."""
     from repro_torch.kernels import build as B
 
-    src = B.KERNEL_SOURCES["flash_attention_hopper"].read_text()
+    src = B.inlined(B.KERNEL_SOURCES["flash_attention_hopper"])
     out = B.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -201,7 +202,7 @@ def trace():
     from repro_torch.kernels import build as B
     from repro_torch.kernels.flash_attention import attention
 
-    text = B.KERNEL_SOURCES["flash_attention_hopper"].read_text()
+    text = B.inlined(B.KERNEL_SOURCES["flash_attention_hopper"])
     for old, new in TRACE_EDITS:
         if old not in text:
             raise SystemExit(f"--trace: {old[:60]!r} not in source")

@@ -3,10 +3,12 @@
 Each kernel is one ``.cu`` file with a plain C interface, compiled for
 Hopper (``sm_90a``) into a shared library at first use. The library goes
 into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``) under a name that carries a digest of its source and
-flags, so an edited source builds anew and an unchanged one is loaded as
-it is. ``nvcc`` writes to a temporary name that is renamed into place,
-so two processes building at once never load a half-written library.
+``.gitignore``) under a name that carries a digest of its source, of
+every header it includes by a quoted ``#include`` (resolved beside the
+including file, recursively) and of the flags, so an edited source or
+header builds anew and an unchanged one is loaded as it is. ``nvcc``
+writes to a temporary name that is renamed into place, so two processes
+building at once never load a half-written library.
 ``-Xptxas -v`` is always on; its report (registers, spills) is kept
 beside the library and returned by :func:`build_log`.
 
@@ -19,12 +21,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "KERNEL_SOURCES", "NVCC_FLAGS", "build",
-           "build_log", "load", "nvcc_path"]
+           "build_log", "inlined", "load", "nvcc_path", "sources_of"]
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
@@ -41,6 +44,8 @@ KERNEL_SOURCES = {
                                / "flash_attention_hopper.cu"),
     "flash_attention_bwd": (_KERNELS_DIR / "flash_attention" / "csrc"
                             / "flash_attention_bwd.cu"),
+    "flash_attention_bwd_hopper": (_KERNELS_DIR / "flash_attention" / "csrc"
+                                   / "flash_attention_bwd_hopper.cu"),
     "moe_router": _KERNELS_DIR / "moe_router" / "csrc" / "moe_router.cu",
     "moe_router_hopper": (_KERNELS_DIR / "moe_router" / "csrc"
                           / "moe_router_hopper.cu"),
@@ -68,11 +73,49 @@ def nvcc_path() -> str:
         "kernels are built at first use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(path: Path) -> list:
+    """``path`` and every file it includes by a quoted ``#include``,
+    resolved beside the including file, recursively, each once, in the
+    order first met."""
+    out, todo = [], [Path(path)]
+    while todo:
+        src = todo.pop(0)
+        if src in out:
+            continue
+        out.append(src)
+        todo += [src.parent / m.decode()
+                 for m in _INCLUDE.findall(src.read_bytes())]
+    return out
+
+
+def inlined(path: Path) -> str:
+    """``path``'s text with each quoted ``#include`` line replaced by the
+    included file's text (resolved beside the including file,
+    recursively, each file once): one translation unit that compiles from
+    any directory, as the scripts that build edited copies of a kernel
+    need."""
+    seen = set()
+
+    def expand(src: Path) -> bytes:
+        seen.add(src)
+        return _INCLUDE.sub(
+            lambda m: b"" if src.parent / m[1].decode() in seen
+            else expand(src.parent / m[1].decode()).replace(
+                b"#pragma once\n", b""),
+            src.read_bytes())
+
+    return expand(Path(path)).decode()
+
+
 def _library(name: str) -> Path:
-    src = KERNEL_SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256()
+    for src in sources_of(KERNEL_SOURCES[name]):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict:

@@ -1,6 +1,10 @@
 // Flash-attention backward (causal / sliding-window / non-causal, GQA) for
 // Hopper, sm_90a: dq, dk and dv of the attention that flash_attention.cu
-// ("simt") and flash_attention_hopper.cu ("wgmma") compute forward.
+// ("simt") and flash_attention_hopper.cu ("wgmma") compute forward. This is
+// the CUDA-core "simt" backward: it serves what the tensor-core backward
+// (flash_attention_bwd_hopper.cu, "wgmma") does not take -- float32, a
+// bfloat16 q over float32 k and v, head_dim 32, rows that are not 16-byte
+// aligned; ops.py::plan_bwd picks the variant.
 //
 // Replaces no Pallas kernel: the JAX package trains through jax.grad of its
 // XLA reference, repro/kernels/flash_attention/ref.py::attention_ref. This
@@ -25,8 +29,9 @@
 //
 // What bounds it: at phi3-mini's training shape (4 x 1024 queries, 32 heads
 // of 96, causal) the work is ~2.5x the forward's 25.8 GFLOP against ~150 MB,
-// far above the card's ~295 operations per byte: the tensor cores would be
-// the bound (~65 us). This first kernel uses none. It is a simple,
+// far above the card's ~295 operations per byte: the tensor cores are the
+// bound (~65 us), and the wgmma variant takes that shape. In float32, the
+// cases left here, the bound is the CUDA cores' 67 TFLOP/s. It is a simple,
 // deterministic two-pass design on CUDA cores in float32:
 //  * delta_kernel: D_i, one warp per (batch, query, q-head) row.
 //  * dq_kernel: grid (query tiles of 64, q-heads, batch). A slot of 4

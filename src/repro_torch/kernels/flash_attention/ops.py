@@ -34,11 +34,25 @@ The op is differentiable. When grad mode is on and q, k or v requires a
 gradient, the forward runs the kernel :func:`plan` picks (``wgmma`` or
 ``simt``; the ``split_kv`` decode has no log-sum-exp output and raises)
 with each row's log-sum-exp written to a float32 (b, hq, sq) buffer, and
-the backward is :func:`attention_bwd`: the kernel
-``csrc/flash_attention_bwd.cu`` for CUDA tensors (one call adds one to
-``LAUNCHES["flash_attention_bwd"]``), ``ref.attention_bwd_ref`` for CPU
-tensors or ``mode="torch"``. Without a gradient the forward kernels run
-exactly as before (no log-sum-exp is written).
+the backward is :func:`attention_bwd`: for CUDA tensors the backward
+kernel :func:`plan_bwd` picks, written out (no variant gives way to the
+other; a failed build or launch raises):
+
+  * ``"wgmma"``: bfloat16 q, k, v, out and dout, head_dim 64, 96 or 128,
+    16-byte aligned rows. The tensor-core backward
+    (``csrc/flash_attention_bwd_hopper.cu``: a D pre-pass, a dq pass with
+    queries stationary, a dk/dv pass with keys stationary; TMA + wgmma).
+    p and ds are rounded to bfloat16 before their products
+    (``ref.attention_bwd_ref(variant="wgmma")`` models it).
+  * ``"simt"``: everything else -- float32, a bfloat16 q over a float32
+    k and v, head_dim 32, rows that are not 16-byte aligned. The CUDA-core
+    backward ``csrc/flash_attention_bwd.cu`` (f32; ds stays f32).
+
+Neither uses float atomics: two launches are bit-equal. One call adds one
+to ``LAUNCHES["flash_attention_bwd"]`` and to ``BWD_VARIANTS[variant]``;
+on CPU tensors or with ``mode="torch"`` ``ref.attention_bwd_ref`` runs.
+Without a gradient the forward kernels run exactly as before (no
+log-sum-exp is written).
 """
 from __future__ import annotations
 
@@ -54,14 +68,17 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, \
 from repro_torch.kernels.interface import KernelType, count_launch, \
     kernel_mode
 
-__all__ = ["HEAD_DIMS", "KERNELS", "VARIANTS", "attention", "attention_bwd",
-           "plan", "reset_variants"]
+__all__ = ["BWD_VARIANTS", "HEAD_DIMS", "KERNELS", "VARIANTS", "attention",
+           "attention_bwd", "plan", "plan_bwd", "reset_variants"]
 
 _NAME = "flash_attention"
 _BWD = "flash_attention_bwd"
 KERNELS = (_NAME, _BWD)
 HEAD_DIMS = (32, 64, 96, 128)
 _TC_HEAD_DIMS = (64, 128)         # wgmma and split_kv
+_TC_BWD_HEAD_DIMS = (64, 96, 128)  # the wgmma backward
+_BWD_PAD = 128                    # rows of its lse2 / delta scratch: a
+                                  # multiple of its query block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SM_COUNT = 132                   # H100 SXM
 _SPLIT_WAVES = 4                  # split_kv: aim for 4 CTAs per SM
@@ -71,12 +88,15 @@ _SPLIT_HEADS = 8                  # q-heads one split_kv CTA serves at most
 
 # variant -> op calls that ran it since the last reset_variants()
 VARIANTS = {"wgmma": 0, "split_kv": 0, "simt": 0}
+# backward variant -> attention_bwd kernel calls that ran it, likewise
+BWD_VARIANTS = {"wgmma": 0, "simt": 0}
 
 
 def reset_variants() -> None:
-    """Set every variant's count to 0."""
-    for name in VARIANTS:
-        VARIANTS[name] = 0
+    """Set every variant's count to 0, forward and backward."""
+    for counts in (VARIANTS, BWD_VARIANTS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _fn(lib, name, argtypes):
@@ -105,6 +125,12 @@ def _wgmma_fn():
 def _bwd_fn():
     return _fn(_BWD, "flash_attention_bwd",
                [_I] * 3 + [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I] * 3
+               + [_F, _P])
+
+
+def _bwd_wgmma_fn():
+    return _fn("flash_attention_bwd_hopper", "flash_attention_bwd_wgmma",
+               [_I] + [_P] * 11 + [_I] * 6 + [_L] * 15 + [_I] * 3
                + [_F, _P])
 
 
@@ -180,6 +206,19 @@ def plan(q, k, v, *, causal=True, window=0, q_offset=None):
     splits = min(_SPLIT_MAX, n // _SPLIT_MIN_ROWS,
                  math.ceil(_SPLIT_WAVES * _SM_COUNT / blocks))
     return "split_kv", max(1, splits)
+
+
+def plan_bwd(q, k, v, out=None, dout=None) -> str:
+    """The backward kernel :func:`attention_bwd` launches for these
+    tensors: ``"wgmma"`` for bfloat16 q, k, v (and out, dout where given)
+    with head_dim 64, 96 or 128 and 16-byte aligned rows with unit stride
+    along d; ``"simt"`` otherwise. A pure function of types, shapes,
+    strides and addresses."""
+    ts = [t for t in (q, k, v, out, dout) if t is not None]
+    fast = (all(t.dtype == torch.bfloat16 for t in ts)
+            and q.shape[3] in _TC_BWD_HEAD_DIMS
+            and all(t.stride(3) == 1 and _aligned(t) for t in ts))
+    return "wgmma" if fast else "simt"
 
 
 def attention(q, k, v, *, causal=True, window=0, q_offset=None, mode=None):
@@ -303,9 +342,10 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
                   q_offset=None, mode=None):
     """(dq, dk, dv) of :func:`attention` at q, k, v, given its output
     ``out``, its log-sum-exp ``lse`` (b, hq, sq) float32 and the gradient
-    ``dout`` of ``out``: the backward kernel for CUDA tensors, the plain
-    ``attention_bwd_ref`` for CPU tensors or ``mode="torch"``. dq has q's
-    dtype, dk and dv k's; all three are new contiguous tensors."""
+    ``dout`` of ``out``: the backward kernel :func:`plan_bwd` picks for
+    CUDA tensors, the plain ``attention_bwd_ref`` for CPU tensors or
+    ``mode="torch"``. dq has q's dtype, dk and dv k's; all three are new
+    contiguous tensors."""
     _check(q, k, v)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -339,19 +379,35 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     dv = torch.empty((b, skv, hkv, d), dtype=v.dtype, device=q.device)
     if dq.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    fn = _bwd_fn()
+    variant = plan_bwd(q, k, v, out, dout)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    count_launch(_BWD)
-    err = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], d, q.data_ptr(),
-             k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), b, sq, skv, hq, hkv, *q.stride()[:3],
-             *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-             *dout.stride()[:3], q_offset, int(bool(causal)), int(window),
-             sm_scale(d), stream)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *out.stride()[:3], *dout.stride()[:3])
+    flags = (q_offset, int(bool(causal)), int(window), sm_scale(d), stream)
+    if variant == "wgmma":
+        fn = _bwd_wgmma_fn()
+        sq_pad = -(-sq // _BWD_PAD) * _BWD_PAD
+        stats = torch.empty((2, b, hq, sq_pad), dtype=torch.float32,
+                            device=q.device)       # lse * log2(e), D
+        count_launch(_BWD)
+        err = fn(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), stats[0].data_ptr(),
+                 stats[1].data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, sq, skv, hq, hkv, sq_pad, *strides,
+                 *flags)
+    else:
+        fn = _bwd_fn()
+        delta = torch.empty((b, hq, sq), dtype=torch.float32,
+                            device=q.device)
+        count_launch(_BWD)
+        err = fn(_DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], d,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq,
+                 hkv, *strides, *flags)
+    BWD_VARIANTS[variant] += 1
     if err:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
-                           f"error {err} (q {tuple(q.shape)}, k "
+        raise RuntimeError(f"flash_attention_bwd {variant} kernel launch "
+                           f"failed: error {err} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)})")
     return dq, dk, dv

@@ -24,8 +24,9 @@ float32 rounding. The CPU path runs this version.
 
 :func:`attention_lse_ref` adds each row's log-sum-exp, which the forward
 kernels write when a gradient is asked for, and :func:`attention_bwd_ref`
-is the backward from it (``csrc/flash_attention_bwd.cu``'s math): the
-CPU path's gradient, and what the kernel is held against on the card.
+is the backward from it (the backward kernels' math, with the tensor-core
+one's rounding of ds as an option): the CPU path's gradient, and what
+the kernels are held against on the card.
 
 :func:`attention_partials` and :func:`combine_partials` are the split-kv
 decode's math in plain PyTorch (``csrc/flash_attention_hopper.cu``): the
@@ -100,21 +101,28 @@ def attention_lse_ref(q, k, v, *, causal=True, window=0, q_offset=None):
 
 
 def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, window=0,
-                      q_offset=None):
+                      q_offset=None, variant="simt"):
     """The gradient of :func:`attention_ref` by explicit formulas from the
-    forward's log-sum-exp, as the backward kernel
-    (``csrc/flash_attention_bwd.cu``) computes it:
+    forward's log-sum-exp, as the backward kernels
+    (``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd_hopper.cu``)
+    compute it:
 
         p  = exp(s - lse), 0 where masked;   D = rowsum(dout * out)
         dv = r(p)^T dout;   dp = dout v^T;   ds = p * (dp - D)
-        dq = ds k * d ** -0.5;   dk = ds^T (q * d ** -0.5)
+        dq = r'(ds) k * d ** -0.5;   dk = r'(ds)^T (q * d ** -0.5)
 
     in float32, where ``r`` rounds p to bfloat16 when q is bfloat16 (the
     JAX package's ``attention_ref`` rounds p to q's type before its PV
-    product, so its gradient forms dv from the rounded p). GQA: dk and dv
-    of a kv-head sum over its q-heads. ``out`` (q's shape) and ``lse`` (b,
-    hq, sq) are the forward's; ``dout`` the gradient of ``out``. Returns
-    (dq in q's dtype, dk and dv in k's)."""
+    product, so its gradient forms dv from the rounded p). ``r'`` is the
+    identity for ``variant="simt"`` (the CUDA-core kernel, and the JAX
+    package's gradient, keep ds in float32) and, for ``variant="wgmma"``
+    with a bfloat16 q, rounds ds to bfloat16 as the tensor-core kernel's
+    operands are. GQA: dk and dv of a kv-head sum over its q-heads.
+    ``out`` (q's shape) and ``lse`` (b, hq, sq) are the forward's;
+    ``dout`` the gradient of ``out``. Returns (dq in q's dtype, dk and dv
+    in k's)."""
+    if variant not in ("simt", "wgmma"):
+        raise ValueError(f"variant must be 'simt' or 'wgmma', got {variant!r}")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q_offset is None:
@@ -134,6 +142,8 @@ def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, window=0,
     dv = torch.einsum("bhgqk,bqhgd->bkhd", pv, dof)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
     ds = p * (dp - delta)
+    if variant == "wgmma" and q.dtype == torch.bfloat16:
+        ds = ds.to(torch.bfloat16).float()
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
     return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),

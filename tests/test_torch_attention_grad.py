@@ -8,7 +8,10 @@ The port differentiates ``kernels.flash_attention.attention`` through a
 ``attention_bwd_ref`` here and the ``flash_attention_bwd`` kernel on the
 card. Causal, non-causal and windowed masks, GQA, sq != skv and
 ``q_offset``; float32 within 1e-5 (rtol and atol), bfloat16 within
-2e-2 (the forward's tolerance). Inputs from numpy seeds.
+2e-2 (the forward's tolerance). Inputs from numpy seeds. The tensor-core
+backward rounds ds to bfloat16 before its dq and dk products as well as
+p before dv; ``attention_bwd_ref(variant="wgmma")`` models that, and is
+held to the reference's bfloat16 gradient here.
 """
 import jax
 import jax.numpy as jnp
@@ -145,3 +148,32 @@ def test_no_grad_forward_is_the_plain_one_and_grad_is_opt_in():
         assert attention(qg, k, v).grad_fn is None
     (dq,) = torch.autograd.grad(out.square().sum(), (qg,))
     assert dq.shape == q.shape and torch.isfinite(dq).all()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_wgmma_rounding_model_matches_jax_grad_bf16(name):
+    """``attention_bwd_ref(variant="wgmma")`` -- p and ds rounded to
+    bfloat16 before their products, as the tensor-core backward's
+    operands are -- from ``attention_lse_ref``'s bfloat16 (out, lse),
+    against ``jax.vjp`` of the JAX package's ``attention_ref`` in
+    bfloat16, within 2e-2. The default (``"simt"``: ds in float32) is
+    the function it was, and the rounding moves dq or dk."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref)
+
+    case = CASES[name]
+    causal, window, q_offset = case[6:]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    jx, tx = _inputs(case, "bfloat16", seed=4)
+    _, jgrads = _jax_grads(jx, causal, window, q_offset)
+    q, k, v, do = tx
+    out, lse = attention_lse_ref(q, k, v, **kw)
+    got = attention_bwd_ref(q, k, v, out, lse, do, variant="wgmma", **kw)
+    for g, t, jg, what in zip(got, (q, k, v), jgrads, ("dq", "dk", "dv")):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16
+        _check(g, jg, "bfloat16", what)
+    simt = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(simt, attention_bwd_ref(
+        q, k, v, out, lse, do, variant="simt", **kw)))
+    assert torch.equal(got[2], simt[2])             # dv: p rounded in both
+    assert not all(torch.equal(a, b) for a, b in zip(got[:2], simt[:2]))

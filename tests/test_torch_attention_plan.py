@@ -2,7 +2,10 @@
 
 ``plan`` picks the kernel variant (``wgmma`` / ``split_kv`` / ``simt``)
 from types, shapes, strides and addresses alone, so it is held here
-without a card for the served models' shapes. ``attention_partials`` +
+without a card for the served models' shapes; ``plan_bwd`` picks the
+backward's (``wgmma`` / ``simt``) for the trained models' shapes, and
+the backward's wrapper hands its kernel the arguments its C signature
+takes and raises, never falls back, when the kernel fails. ``attention_partials`` +
 ``combine_partials`` are the split-kv kernel's math in plain PyTorch
 (chunks of the visible keys, each chunk's (m, l, acc), the merge); in
 float32 they must equal ``attention_ref`` within 1e-6 (one softmax over the
@@ -19,8 +22,9 @@ torch.set_num_threads(1)
 from repro.kernels.flash_attention.ref import \
     attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    VARIANTS, attention, attention_partials, attention_ref, combine_partials,
-    plan, visible_keys)
+    BWD_VARIANTS, VARIANTS, attention, attention_bwd, attention_lse_ref,
+    attention_partials, attention_ref, combine_partials, plan, plan_bwd,
+    visible_keys)
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -229,3 +233,133 @@ def test_split_partials_take_one_row_only():
     k = torch.zeros(1, 8, 4, 64)
     with pytest.raises(ValueError, match="one query row"):
         attention_partials(q, k, k, q_offset=7)
+
+
+# The backward's variant (label, q shape, kv shape, q dtype, kv dtype,
+# expected), asked with meta-device tensors: the tensor-core backward for
+# bf16 at head_dim 64, 96 and 128, the CUDA-core one for the rest.
+BWD_PLAN_CASES = [
+    ("phi3 train", (4, 1024, 32, 96), (4, 1024, 32, 96), BF16, BF16,
+     "wgmma"),
+    ("deepseek train", (4, 1024, 16, 128), (4, 1024, 16, 128), BF16, BF16,
+     "wgmma"),
+    ("qwen2-vl 12:2 train", (4, 1024, 12, 128), (4, 1024, 2, 128), BF16,
+     BF16, "wgmma"),
+    ("head_dim 64 non-causal", (4, 1500, 12, 64), (4, 1500, 12, 64), BF16,
+     BF16, "wgmma"),
+    ("one query row", (2, 1, 4, 96), (2, 77, 2, 96), BF16, BF16, "wgmma"),
+    ("f32 phi3", (4, 1024, 32, 96), (4, 1024, 32, 96), F32, F32, "simt"),
+    ("f32 GQA 12:2", (2, 512, 12, 128), (2, 768, 2, 128), F32, F32, "simt"),
+    ("head_dim 32", (2, 100, 4, 32), (2, 100, 2, 32), BF16, BF16, "simt"),
+    ("bf16 q, f32 cache", (2, 64, 16, 128), (2, 1040, 16, 128), BF16, F32,
+     "simt"),
+]
+
+
+@pytest.mark.parametrize("case", BWD_PLAN_CASES, ids=lambda c: c[0])
+def test_plan_bwd_picks_variant(case):
+    _, qs, kvs, qdt, kvdt, want = case
+    q, out, dout = (torch.empty(qs, dtype=qdt, device="meta")
+                    for _ in range(3))
+    k, v = (torch.empty(kvs, dtype=kvdt, device="meta") for _ in range(2))
+    assert plan_bwd(q, k, v) == plan_bwd(q, k, v, out, dout) == want
+
+
+def test_plan_bwd_unaligned_views_take_simt():
+    """A stacked-cache view whose rows do not start on 16 bytes (heads
+    sliced at an odd column), an odd row stride or a misaligned dout take
+    the CUDA-core backward; a 16-byte offset keeps the tensor-core one."""
+    kv = torch.zeros(2, 50, 5, 136, dtype=BF16)
+    q = torch.zeros(2, 40, 4, 128, dtype=BF16)
+    k, v = kv[:, :, 1:3, 1:129], kv[:, :, 3:5, :128]
+    assert plan_bwd(q, k, v) == "simt"
+    k2 = kv[:, :, 1:3, 8:136]                       # 16-byte offset
+    assert plan_bwd(q, k2, v) == "wgmma"
+    wide = torch.zeros(2, 40, 4, 129, dtype=BF16)[..., :128]  # odd stride
+    assert plan_bwd(wide, k2, v) == "simt"
+    assert plan_bwd(q, k2, v, q, wide) == "simt"    # dout
+    assert plan_bwd(q, k2, v, q, q.transpose(1, 2).contiguous()
+                    .transpose(1, 2)) == "wgmma"    # strided but aligned
+
+
+def test_cpu_attention_bwd_counts_no_variant():
+    """On the CPU the plain backward runs: no backward variant is
+    counted."""
+    before = dict(BWD_VARIANTS)
+    q, do = (torch.randn(1, 8, 4, 64).to(BF16) for _ in range(2))
+    k = torch.randn(1, 8, 4, 64).to(BF16)
+    out, lse = attention_lse_ref(q, k, k)
+    attention_bwd(q, k, k, out, lse, do)
+    assert BWD_VARIANTS == before
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+def _bwd_inputs(d, dtype=BF16):
+    rng = np.random.default_rng(d)
+    q, do = (torch.from_numpy(rng.standard_normal((2, 200, 4, d))
+                              .astype(np.float32)).to(dtype)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 150, 2, d))
+                             .astype(np.float32)).to(dtype)
+            for _ in range(2))
+    out, lse = attention_lse_ref(q, k, v, q_offset=0)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("d,variant", [(96, "wgmma"), (32, "simt")])
+def test_bwd_wrapper_calls_its_kernel_and_raises_on_failure(monkeypatch, d,
+                                                            variant):
+    """With the kernel path forced on CPU tensors and each library's entry
+    point stubbed, attention_bwd calls the variant plan_bwd picks with as
+    many arguments as its C signature has (the wgmma one with sq padded
+    to 128 rows of lse2 / delta scratch), counts one launch and the
+    variant, and raises on the kernel's error code; the other variant is
+    never run (no fallback). A build that fails raises too."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.interface import LAUNCHES, KernelType
+
+    calls = {}
+
+    def stub(name, n_args):
+        def fn(*args):
+            calls[name] = args
+            assert len(args) == n_args
+            return 700                  # cudaErrorIllegalAddress
+        return lambda: fn
+
+    def fail():
+        raise AssertionError("the other variant ran")
+
+    monkeypatch.setattr(ops, "kernel_mode", lambda t, mode: KernelType.CUDA)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    wgmma, simt = stub("wgmma", 38), stub("simt", 38)
+    monkeypatch.setattr(ops, "_bwd_wgmma_fn",
+                        wgmma if variant == "wgmma" else fail)
+    monkeypatch.setattr(ops, "_bwd_fn", simt if variant == "simt" else fail)
+    q, k, v, out, lse, do = _bwd_inputs(d)
+    assert plan_bwd(q, k, v, out, do) == variant
+    launches = LAUNCHES.get("flash_attention_bwd", 0)
+    counted = BWD_VARIANTS[variant]
+    with pytest.raises(RuntimeError,
+                       match=f"flash_attention_bwd {variant} kernel launch "
+                             "failed: error 700"):
+        attention_bwd(q, k, v, out, lse, do, q_offset=0)
+    assert LAUNCHES["flash_attention_bwd"] == launches + 1
+    assert BWD_VARIANTS[variant] == counted + 1
+    args = calls[variant]
+    if variant == "wgmma":
+        assert args[0] == d and args[12:18] == (2, 200, 150, 4, 2, 256)
+    else:
+        assert args[:3] == (1, 1, d) and args[13:18] == (2, 200, 150, 4, 2)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(ops, "_bwd_wgmma_fn" if variant == "wgmma"
+                        else "_bwd_fn", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        attention_bwd(q, k, v, out, lse, do, q_offset=0)

@@ -1320,11 +1320,14 @@ ATTN_BWD_CASES = [(2, 100, 100, 4, 2, 32, True, 0, None),
                          ids=lambda c: "-".join(map(str, c)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
-    """The backward kernel against ``attention_bwd_ref`` from the same
-    (out, lse), which the forward kernel wrote (its lse against the plain
-    one's); repeated launches bit-equal (no atomics); one launch counted
-    per call."""
-    from repro_torch.kernels.flash_attention import (attention_bwd,
+    """The backward kernel against ``attention_bwd_ref`` with its
+    variant's rounding, from the same (out, lse), which the forward
+    kernel wrote (its lse against the plain one's); the variant that ran
+    is the tensor-core one for bf16 at head_dim 64, 96 and 128, the
+    CUDA-core one for f32 and head_dim 32; repeated launches bit-equal
+    (no atomics); one launch counted per call."""
+    from repro_torch.kernels.flash_attention import (BWD_VARIANTS,
+                                                     attention_bwd,
                                                      attention_bwd_ref,
                                                      attention_lse_ref)
     from repro_torch.kernels.flash_attention.ops import _forward
@@ -1341,12 +1344,16 @@ def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
                         True)
     _, lse_ref = attention_lse_ref(q, k, v, **kw)
     torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    variant = "wgmma" if dtype == "bfloat16" and d != 32 else "simt"
     before = LAUNCHES.get("flash_attention_bwd", 0)
+    ran = dict(BWD_VARIANTS)
     got = attention_bwd(q, k, v, out, lse, do, **kw)
     again = attention_bwd(q, k, v, out, lse, do, **kw)
-    want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    want = attention_bwd_ref(q, k, v, out, lse, do, variant=variant, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_bwd"] == before + 2
+    assert {n: c - ran[n] for n, c in BWD_VARIANTS.items()} == \
+        {"wgmma": 0, "simt": 0, variant: 2}
     tol = 1e-4 if dtype == "float32" else TOL[dtype]
     for g, a, w in zip(got, again, want):
         assert g.dtype == w.dtype and g.shape == w.shape
