@@ -289,6 +289,42 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      ``make_train_step`` and one tier round through the kernels and
      through ``mode="torch"`` from the same parameters: losses and every
      parameter within 1e-5.
+ 13j. the MoE and RWKV-6 backward kernels against their plain versions:
+     moe_router_bwd (dl of the router's logits) at deepseek's training
+     shape, from the fused forward's logits (written under a gradient),
+     ids and gates of 4,096 x 2,048 bf16 tokens (E 64, k 6, groups of
+     1,024), unit cotangents for the gates and mean_prob: as drawn
+     (timed: L2 cold, the plain version, the bound by bytes, the op's
+     whole backward with its two f32 products), with zero rows and tied
+     experts, and with a padded last group; dl within 1e-6 absolute +
+     1e-5 relative, a repeat bit-equal; rwkv6_scan_bwd at rwkv6-7b's (4,
+     1,024, 64, 64), bf16 r/k/v, f32 w, without a state and a final-state
+     cotangent (the training path's) and with both (each timed: L2 cold,
+     the plain version, the bound by bytes, the CUDA-core floor), and at
+     t = 17 and 1,000: dr, dk, dv, dw, du and dstate0 each within 1e-5 of
+     its scale (bf16 also one bf16 rounding), a repeat bit-equal.
+ 13k. MoE training: deepseek-moe-16b cut to 6 of 28 layers at every
+     published width (every layer MoE: 64 experts, top-6, 2 shared;
+     3,946,604,544 bf16 parameters, 16 leaves), 13h's AdamW step and two
+     tier rounds with the counts set to 0 just before: flash_attention and
+     flash_attention_bwd exactly 6 a pass (all ``wgmma``), moe_router
+     exactly 6 a pass (all ``fused``, ``tile``), moe_router_bwd exactly 6
+     a pass, prox_update exactly 2 x 2 x 16, no other kernel; finite
+     losses, the tier loss falling, peaks under 80 GB; ms a step and a
+     round, tokens/s, busy share and the ten largest kernels.
+ 13l. RWKV-6 training: rwkv6-7b cut to 12 of 32 layers (3,161,001,984
+     parameters, 25 leaves, decay_w0 and bonus_u float32), the same:
+     rwkv6_scan exactly 12 a pass (all ``chunked``), rwkv6_scan_bwd
+     exactly 12 a pass, prox_update exactly 2 x 2 x 25.
+ 13m. their consistency: each cut to 2 layers in f32, one AdamW step (lr
+     1e-2, grad_clip 1.0) and one tier round through the kernels and
+     through ``mode="torch"``: losses and the gradient norm within 1e-5,
+     the first moments (the gradients) within 1e-5 of each leaf's scale,
+     every stepped parameter within 1e-5 plus lr |u(g_k) - u(g_p)| (u(g)
+     = g / (|g| + 1e-8), AdamW's first step: near g = 0 the two paths'
+     rounding moves it by up to 2 lr), every leaf after the tier round
+     within 1e-5; deepseek's router choices recorded at the routing seam
+     and the tokens routed differently counted.
  14. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, the router (the routing seam: the fused
      kernel), the rest of the MoE layer, head;
@@ -308,9 +344,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      one looped round (busy share, launches).
  15. the ``kernels`` JSON line (flash_attention's launches: those of
      deepseek's, Whisper's, Qwen2-VL's and Jamba's counted generates and
-     of step 13h; moe_router's: deepseek's and Jamba's; prox_update's and
-     flash_attention_bwd's include step 13h's), then the ``ok`` JSON line
-     last.
+     of steps 13h and 13k; moe_router's: deepseek's and Jamba's generates
+     and 13k; rwkv6_scan's: rwkv6-7b's generate and 13l; prox_update's
+     and flash_attention_bwd's include steps 13h and 13k (prox_update
+     13l too); moe_router_bwd's 13k's, rwkv6_scan_bwd's 13l's; the
+     backward kernels' numbers from 13j at the training paths' shapes),
+     then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -366,6 +405,11 @@ TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
     # no Pallas kernel: the reference trains through jax.grad of its XLA
     # attention_ref
     "flash_attention_bwd": "src/repro/kernels/flash_attention/ref.py:32",
+    # no Pallas kernel: jax.grad of the XLA route_ref and of the router
+    # product at src/repro/models/moe.py:73
+    "moe_router_bwd": "src/repro/kernels/moe_router/ref.py:16",
+    # no Pallas kernel: jax.grad of the XLA wkv6_ref (a checkpointed scan)
+    "rwkv6_scan_bwd": "src/repro/kernels/rwkv6_scan/ref.py:20",
 }
 KERNEL_SOURCE = {  # kernel -> its CUDA source
     "prox_update": "prox_update/csrc/prox_update.cu",
@@ -384,6 +428,8 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     # f32 and the other cases is flash_attention/csrc/flash_attention_bwd.cu
     "flash_attention_bwd": ("flash_attention/csrc/"
                             "flash_attention_bwd_hopper.cu"),
+    "moe_router_bwd": "moe_router/csrc/moe_router_bwd.cu",
+    "rwkv6_scan_bwd": "rwkv6_scan/csrc/rwkv6_scan_bwd.cu",
 }
 LLM_ARCH = "deepseek-moe-16b"
 RWKV_ARCH = "rwkv6-7b"
@@ -433,6 +479,52 @@ TRAIN_LR = 3e-4
 TIER_HP = dict(alpha=3e-3, lam=0.5, gamma=1.5, eta=0.03, beta=0.3)
 TRAIN_CONSISTENCY_CUT = dict(num_layers=2)
 TRAIN_CONSISTENCY_LR = 1e-2
+# the MoE and RWKV-6 families trained on the same batches and settings,
+# cut in depth only (theta, w, x and the gradients of 28 or 32 layers do
+# not fit 80 GB): deepseek-moe-16b to 6 of 28 layers (every one a MoE
+# layer), rwkv6-7b to 12 of 32. CUT_TREES: the reference trees of such
+# cuts (jax.eval_shape of repro.models.model.init_params): parameters in
+# the embedding and the head, parameters a layer, and leaves (the layers
+# stacked, so any depth has as many). Their consistency cuts: 2 layers in
+# f32, one AdamW step and one tier round
+CUT_TREES = {LLM_ARCH: (419_432_448, 587_862_016, 16),
+             RWKV_ARCH: (536_875_008, 218_677_248, 25)}
+
+
+def cut_tree(arch, layers):
+    """(parameters, leaves) of ``arch``'s reference tree cut to
+    ``layers`` layers, from CUT_TREES."""
+    base, per_layer, leaves = CUT_TREES[arch]
+    return base + layers * per_layer, leaves
+
+
+MOE_TRAIN_CUT = dict(num_layers=6)
+MOE_TRAIN_PARAMS, MOE_TRAIN_LEAVES = cut_tree(LLM_ARCH, 6)     # 3.95e9
+RWKV_TRAIN_CUT = dict(num_layers=12)
+RWKV_TRAIN_PARAMS, RWKV_TRAIN_LEAVES = cut_tree(RWKV_ARCH, 12)  # 3.16e9
+FAMILY_CONSISTENCY_PARAMS = {a: cut_tree(a, 2)[0]
+                             for a in (LLM_ARCH, RWKV_ARCH)}
+# AdamW's first step moves a parameter by lr * u(g), u(g) = g / (|g| +
+# 1e-8): about lr * sign(g) wherever |g| >> 1e-8, so a gradient near 0
+# whose two paths' values differ by their rounding moves the parameter
+# by up to 2 lr more on one path than on the other
+ADAM_EPS = 1e-8
+# the most of a leaf whose step that allowance may excuse (entries whose
+# two gradients' steps differ by more than TRAIN_TOL): 0.098% (rwkv6) and
+# 0.049% (deepseek) at most on the H100, so a kernel gradient that drifts
+# near 0 over more of a leaf fails
+ADAM_EXCUSED_SHARE = 0.003
+# the backward kernels against their plain versions: the router's dl
+# within 1e-5 relative and 1e-6 absolute (unit cotangents); each WKV
+# gradient within 1e-5 of its largest value (sums over keys, values and
+# steps in other orders), in bf16 also one bf16 rounding (2^-7) of each
+# value
+ROUTER_BWD_TOL = 1e-6
+WKV_BWD_TOL = 1e-5
+# float32 operations per state element and step of the WKV backward on
+# CUDA cores: the state's recomputation (k v, one FMA: 3), the sums of
+# dr, dk, dw and dv (an FMA each: 8) and dS's update (r dout, one FMA: 3)
+RWKV_BWD_OPS_PER_ELEMENT = 14
 # kernel vs plain path of the f32 cut: losses and parameters (float32
 # gradients that differ in their sums' order, through one SGD step of lr
 # 1e-2 and one tier round)
@@ -3562,38 +3654,43 @@ def train_batches(vocab, steps):
                                 steps=steps)]
 
 
-def phase_llm_training():
-    """phi3-mini-3.8b at every published width in bf16 (the reference
-    tree's 3,821,079,552 parameters, 12 leaves), with every launch count
-    set to 0 just before: one ``make_train_step`` with ``adamw()`` and
-    ``grad_clip=1.0``, then two ``make_tier_round`` rounds (l_local 2, the
-    example's hyperparameters) of one team from theta = w = x = the drawn
-    parameters (as the example starts), on the same batch each round. Launches: flash_attention
-    and flash_attention_bwd exactly 32 per forward/backward pass (1 + 4
-    passes), every backward the ``wgmma`` variant, prox_update exactly
-    rounds x l_local x 12, no other kernel.
-    Finite losses, the tier loss lower in round 2; ms per step, tokens/s,
-    peak memory (under the card's 80 GB) and the second round's device
-    busy share (torch.profiler). Returns its launches."""
+def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
+    """``arch`` at every published width in bf16 (``cut``: fewer layers),
+    its tree's ``n_params`` parameters in ``n_leaves`` leaves, with every
+    launch count set to 0 just before: one ``make_train_step`` with
+    ``adamw()`` and ``grad_clip=1.0``, then two ``make_tier_round`` rounds
+    (l_local 2, the example's hyperparameters) of one team from theta = w
+    = x = the drawn parameters (as the example starts), on the same batch
+    each round. Launches: each kernel of ``per_pass`` exactly that many
+    times a forward and backward pass (1 + 4 passes), prox_update exactly
+    rounds x l_local x leaves, no other kernel; ``variants`` maps a name
+    to (its counts dict, the counts per pass it must read). Finite
+    losses, the tier loss lower in round 2; ms per step, tokens/s, peak
+    memory (under the card's 80 GB), the second round's device busy share
+    and its ten largest kernels (torch.profiler). Returns (its launches,
+    (theta, w, x) after the last round)."""
     import torch
 
-    from repro_torch.kernels.flash_attention import (BWD_VARIANTS, VARIANTS,
-                                                     reset_variants)
+    from repro_torch.kernels import flash_attention, moe_router, rwkv6_scan
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
     from repro_torch.train import optim
     from repro_torch.train.train_state import TrainState
     from repro_torch.train.trainer import make_tier_round, make_train_step
 
-    cfg, params = draw_full_width(TRAIN_ARCH, TRAIN_PARAMS)
-    n_leaves = len(list(_leaves(params)))
-    if n_leaves != TRAIN_LEAVES:
-        raise AssertionError(f"{TRAIN_ARCH}: {n_leaves} leaves")
+    cut = cut or {}
+    tag = arch + (f" cut to {cut['num_layers']} layers" if cut else "")
+    cfg, params = draw_full_width(arch, n_params, **cut)
+    got_leaves = len(list(_leaves(params)))
+    if got_leaves != n_leaves:
+        raise AssertionError(f"{arch}: {got_leaves} leaves, expected "
+                             f"{n_leaves}")
     batches = train_batches(cfg.vocab_size, 2)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    reset_variants()
+    for mod in (flash_attention, moe_router, rwkv6_scan):
+        mod.reset_variants()
     t0 = time.perf_counter()
     state = TrainState.create(params, optim.adamw())
     step = make_train_step(cfg, optim.adamw(), lr=TRAIN_LR, grad_clip=1.0)
@@ -3602,7 +3699,7 @@ def phase_llm_training():
     step_s = time.perf_counter() - t0
     step_peak = torch.cuda.max_memory_allocated()
     loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-    say("train", f"{TRAIN_ARCH} AdamW step (grad_clip 1.0, lr {TRAIN_LR}) on "
+    say("train", f"{tag} AdamW step (grad_clip 1.0, lr {TRAIN_LR}) on "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: loss {loss:.4f}, grad norm "
         f"{gnorm:.4f}; {step_s * 1e3:.1f} ms (host clock, the card "
         f"synchronized; AdamW state created inside), {tokens / step_s:,.0f} "
@@ -3612,7 +3709,7 @@ def phase_llm_training():
     release()
     # the tier rounds start where the reference's example starts: theta =
     # w = x = the drawn parameters (drawn again, seed 0)
-    _, params = draw_full_width(TRAIN_ARCH, TRAIN_PARAMS)
+    _, params = draw_full_width(arch, n_params, **cut)
     torch.cuda.reset_peak_memory_stats()
     round_fn = make_tier_round(cfg, l_local=TRAIN_L_LOCAL, **TIER_HP)
     theta = w = x = params
@@ -3632,17 +3729,17 @@ def phase_llm_training():
         losses.append(float(mr["loss"]))
     tier_peak = torch.cuda.max_memory_allocated()
     launches = dict(LAUNCHES)
-    bwd_variants = dict(BWD_VARIANTS)
     passes = 1 + TRAIN_ROUNDS * TRAIN_L_LOCAL
     check_launches(launches, {
-        "flash_attention": cfg.num_layers * passes,
-        "flash_attention_bwd": cfg.num_layers * passes,
-        "prox_update": TRAIN_ROUNDS * TRAIN_L_LOCAL * TRAIN_LEAVES},
-        f"{TRAIN_ARCH} training")
-    if bwd_variants != {"wgmma": cfg.num_layers * passes, "simt": 0}:
-        raise AssertionError(f"{TRAIN_ARCH} training: backward variants "
-                             f"{bwd_variants}")
-    say("train", f"{TRAIN_ARCH} tier rounds (l_local {TRAIN_L_LOCAL}, "
+        **{k: n * passes for k, n in per_pass.items()},
+        "prox_update": TRAIN_ROUNDS * TRAIN_L_LOCAL * got_leaves},
+        f"{tag} training")
+    for name, (counts, want) in variants.items():
+        ran = {k: c for k, c in counts.items() if c}
+        if ran != {k: n * passes for k, n in want.items()}:
+            raise AssertionError(f"{tag} training: {name} {ran}, expected "
+                                 f"{want} a pass")
+    say("train", f"{tag} tier rounds (l_local {TRAIN_L_LOCAL}, "
         f"{TIER_HP}, one team, the same batch): mean local loss "
         + " -> ".join(f"{v:.4f}" for v in losses) + "; "
         + ", ".join(f"{t * 1e3:.1f} ms" for t in times)
@@ -3652,24 +3749,90 @@ def phase_llm_training():
         f"busy {busy:.1%} of round {TRAIN_ROUNDS}, "
         f"{sum(e.self_device_time_total for e in rows) / 1e3:.1f} ms of "
         f"kernels")
-    say("train", f"{TRAIN_ARCH} launches: " + ", ".join(
+    say("train", f"{tag} launches: " + ", ".join(
         f"{k} {v}" for k, v in sorted(launches.items()) if v)
-        + f"; flash_attention variants {dict(VARIANTS)}, flash_attention_bwd "
-        f"variants {bwd_variants}")
-    say("train", f"{TRAIN_ARCH} round {TRAIN_ROUNDS} under torch.profiler, "
+        + "; variants " + ", ".join(
+            f"{name} {dict(counts)}" for name, (counts, _) in
+            variants.items()))
+    say("train", f"{tag} round {TRAIN_ROUNDS} under torch.profiler, "
         f"{sum(e.count for e in rows)} kernels, by device time: " + "; ".join(
             f"{e.key[:60]} x {e.count} {e.self_device_time_total / 1e3:.1f} "
             f"ms" for e in rows[:10]))
-    prox_at_phi3(theta, w, x)
     if not all(math.isfinite(v) for v in [loss, gnorm] + losses):
-        raise AssertionError(f"{TRAIN_ARCH}: losses {loss}, {losses}")
+        raise AssertionError(f"{tag}: losses {loss}, {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"{TRAIN_ARCH}: the tier loss did not fall "
+        raise AssertionError(f"{tag}: the tier loss did not fall "
                              f"({losses})")
     if max(step_peak, tier_peak) >= HBM_CAPACITY:
-        raise AssertionError(f"{TRAIN_ARCH}: peak {max(step_peak, tier_peak)}"
-                             f" B is over the card's {HBM_CAPACITY:.0f} B")
-    del theta, w, x, batches
+        raise AssertionError(f"{tag}: peak {max(step_peak, tier_peak)} B is "
+                             f"over the card's {HBM_CAPACITY:.0f} B")
+    return launches, (theta, w, x)
+
+
+def phase_llm_training():
+    """phi3-mini-3.8b at every published width in bf16 (the reference
+    tree's 3,821,079,552 parameters, 12 leaves) through
+    :func:`run_training`: flash_attention and flash_attention_bwd exactly
+    32 per forward/backward pass (1 + 4 passes), every backward the
+    ``wgmma`` variant, prox_update exactly rounds x l_local x 12, no
+    other kernel (the forward ``simt``: head_dim 96); then prox_update at
+    its largest leaves (:func:`prox_at_phi3`). Returns its launches."""
+    from repro_torch.kernels.flash_attention import BWD_VARIANTS, VARIANTS
+
+    layers = 32
+    launches, (theta, w, x) = run_training(
+        TRAIN_ARCH, TRAIN_PARAMS, TRAIN_LEAVES,
+        {"flash_attention": layers, "flash_attention_bwd": layers},
+        {"flash_attention variants": (VARIANTS, {"simt": layers}),
+         "flash_attention_bwd variants": (BWD_VARIANTS,
+                                          {"wgmma": layers})})
+    prox_at_phi3(theta, w, x)
+    del theta, w, x
+    release()
+    return launches
+
+
+def phase_moe_training():
+    """deepseek-moe-16b cut to MOE_TRAIN_CUT (every layer a MoE layer: 64
+    experts, top-6, 2 shared, capacity 120 a group of 1,024) at every
+    published width in bf16 through :func:`run_training`: flash_attention
+    and flash_attention_bwd exactly 6 a pass (every forward and backward
+    ``wgmma``),
+    moe_router exactly 6 a pass (all ``fused``, ``tile``), moe_router_bwd
+    exactly 6 a pass, prox_update rounds x l_local x 16, no other kernel.
+    Returns its launches."""
+    from repro_torch.kernels.flash_attention import BWD_VARIANTS
+    from repro_torch.kernels.flash_attention import VARIANTS as ATTENTION
+    from repro_torch.kernels.moe_router import FORMS, VARIANTS
+
+    n = MOE_TRAIN_CUT["num_layers"]
+    launches, trees = run_training(
+        LLM_ARCH, MOE_TRAIN_PARAMS, MOE_TRAIN_LEAVES,
+        {"flash_attention": n, "flash_attention_bwd": n, "moe_router": n,
+         "moe_router_bwd": n},
+        {"flash_attention variants": (ATTENTION, {"wgmma": n}),
+         "flash_attention_bwd variants": (BWD_VARIANTS, {"wgmma": n}),
+         "moe_router variants": (VARIANTS, {"fused": n}),
+         "moe_router forms": (FORMS, {"tile": n})}, MOE_TRAIN_CUT)
+    del trees
+    release()
+    return launches
+
+
+def phase_rwkv_training():
+    """rwkv6-7b cut to RWKV_TRAIN_CUT at every published width in bf16
+    (decay_w0 and bonus_u float32 leaves) through :func:`run_training`:
+    rwkv6_scan exactly 12 a pass (all ``chunked``), rwkv6_scan_bwd exactly
+    12 a pass, prox_update rounds x l_local x 25 (the float32 leaves'
+    launches among them), no other kernel. Returns its launches."""
+    from repro_torch.kernels.rwkv6_scan import VARIANTS
+
+    n = RWKV_TRAIN_CUT["num_layers"]
+    launches, trees = run_training(
+        RWKV_ARCH, RWKV_TRAIN_PARAMS, RWKV_TRAIN_LEAVES,
+        {"rwkv6_scan": n, "rwkv6_scan_bwd": n},
+        {"rwkv6_scan variants": (VARIANTS, {"chunked": n})}, RWKV_TRAIN_CUT)
+    del trees
     release()
     return launches
 
@@ -3762,6 +3925,355 @@ def phase_training_consistency():
                              f"disagree on {bad[:8]}")
     del runs, params, batch
     release()
+
+
+def router_bwd_bound(t, e, k):
+    """(bound ms, bound by, MB moved, MFLOP) of the router's backward:
+    the float32 logits read and dl written, idx, gates and dG (t, k) read
+    (4 bytes each), dmean read; ~10 float32 operations an element
+    (max, exp, sum, divide, dp, the dot product, the product) and 4 a
+    choice, over the float32 peak."""
+    moved = 2 * t * e * 4 + 3 * t * k * 4 + e * 4
+    flops = 10 * t * e + 4 * t * k
+    t_b, t_o = moved / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            moved / 1e6, flops / 1e6)
+
+
+def wkv_bwd_bound(b, t, h, n, dtype, state):
+    """(bound ms, bound by, MB moved, the CUDA-core floor ms) of the WKV
+    backward: r, k, v, dout read and dr, dk, dv written in ``dtype``, w
+    read and dw written in float32, u read and du written, the state (if
+    given) and the final state's cotangent read, dstate0 written. A
+    tensor-core (chunked) form of the backward exists as of the forward,
+    so the bytes are the function's least time, as for the forward
+    (:func:`wkv_bound`); the step-by-step form on CUDA cores needs
+    RWKV_BWD_OPS_PER_ELEMENT float32 operations per state element and
+    step over the card's float32 peak."""
+    tokens = b * t * h * n
+    moved = 7 * tokens * dtype.itemsize + 2 * tokens * 4 + 2 * h * n * 4 \
+        + (2 + bool(state)) * b * h * n * n * 4
+    flops = RWKV_BWD_OPS_PER_ELEMENT * b * t * h * n * n
+    return (moved / HBM_BYTES_PER_S * 1e3, "bytes", moved / 1e6,
+            flops / F32_OPS_PER_S * 1e3)
+
+
+def wkv_grad_errors(got, want):
+    """(max abs error per gradient, within tolerance): each of dr, dk, dv,
+    dw, du, dstate0 within WKV_BWD_TOL of its largest value, in bf16 also
+    within one bf16 rounding (2^-7) of each value."""
+    import torch
+
+    errs, ok = [], True
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs()
+        rel = 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        ok &= g.dtype == w.dtype and bool(
+            (err <= rel * w.float().abs()
+             + WKV_BWD_TOL * float(w.float().abs().max())).all())
+        errs.append(float(err.max()))
+    return errs, ok
+
+
+def phase_family_bwd_check():
+    """The two backward kernels of the MoE and RWKV-6 training paths
+    against their plain versions on the card. moe_router_bwd at
+    deepseek's training shape (the fused forward's logits, ids and gates
+    of 4,096 x 2,048 bf16 tokens, E 64, k 6, groups of 1,024; unit
+    cotangents for the gates and mean_prob): as it is (timed), with zero
+    rows and tied experts, and with a padded last group (4,000 tokens in
+    4,096 rows, the padded rows' gates' cotangent 0, mean_prob over 4,096
+    rows); dl within ROUTER_BWD_TOL, a repeat bit-equal; the logits the
+    forward wrote against f32(x) @ w; the whole op's backward (dl and the
+    two float32 products) timed beside it. rwkv6_scan_bwd at rwkv6-7b's
+    (4, 1,024, 64, 64), bf16 r/k/v and f32 w: without a state and with a
+    zero final-state cotangent (the training path's; timed) and with a
+    state and a cotangent (timed), and at t = 17 and 1,000; each gradient within WKV_BWD_TOL of
+    its scale (bf16 also one bf16 rounding), a repeat bit-equal. Times
+    with the L2 cold, the plain versions', the bounds. Returns {label:
+    numbers}."""
+    import torch
+
+    from repro_torch.kernels.interface import kernel_mode
+    from repro_torch.kernels.moe_router import logits_bwd, plan
+    from repro_torch.kernels.moe_router.ops import _tokens_forward, \
+        launch_bwd
+    from repro_torch.kernels.rwkv6_scan import wkv_bwd
+    from repro_torch.kernels.rwkv6_scan.ops import BWD_CHUNK
+    from repro_torch.kernels.rwkv6_scan.ops import launch_bwd as wkv_launch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    out = {}
+    t, d, e, k = LLM_BATCH * LLM_PROMPT, 2048, 64, 6
+    for label, zero, tied, pad in (("deepseek train", False, False, 0),
+                                   ("zero rows, tied experts", True, True,
+                                    0),
+                                   ("a padded last group", False, False,
+                                    96)):
+        x, w = router_inputs(t, d, e, torch.bfloat16, gen, zero, tied)
+        if pad:
+            x[t - pad:] = 0
+        opts = (k, True, LLM_GROUP, kernel_mode(x),
+                plan(x, w, top_k=k, group_size=LLM_GROUP))
+        with torch.no_grad():
+            gates, idx, _, _, _, logits = _tokens_forward(x, w, opts, True)
+        dg = torch.randn(t, k, device=DEVICE, generator=gen)
+        if pad:
+            dg[t - pad:] = 0
+        dm = torch.randn(e, device=DEVICE, generator=gen)
+        got = logits_bwd(logits, idx, gates, dg, dm)
+        again = logits_bwd(logits, idx, gates, dg, dm)
+        want = logits_bwd(logits, idx, gates, dg, dm, mode="torch")
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        lerr = float((logits - x.float() @ w).abs().max())
+        if not bool(((got - want).abs() <= ROUTER_BWD_TOL
+                     + 1e-5 * want.abs()).all()):
+            raise AssertionError(f"moe_router_bwd {label}: dl off by {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"moe_router_bwd {label}: two launches "
+                                 "differ")
+        tag = (f"moe_router_bwd {label} ({t} x {e}, k {k}, from the fused "
+               f"forward of {t} x {d} bf16 tokens, groups of {LLM_GROUP}"
+               + (f", the last {pad} rows padding" if pad else "")
+               + f"): dl max abs err {err:.3g} (tol {ROUTER_BWD_TOL:g} + "
+               f"1e-5 relative), two launches bit-equal; the forward's "
+               f"logits within {lerr:.3g} of f32(x) @ w")
+        if label != "deepseek train":
+            say("kernel", tag)
+            continue
+        dl = torch.empty_like(got)
+        ms = cuda_time_ms(lambda: launch_bwd(logits, idx, gates, dg, dm, dl,
+                                             renormalize=True),
+                          TIMED_LAUNCHES)
+        plain_ms = cuda_time_ms(lambda: logits_bwd(
+            logits, idx, gates, dg, dm, mode="torch"), 20)
+        xf = x.float()
+
+        def whole_op():
+            d_l = logits_bwd(logits, idx, gates, dg, dm)
+            return (d_l @ w.T).to(x.dtype), xf.T @ d_l
+
+        op_ms = cuda_time_ms(whole_op, 20)
+        bound_ms, by, mb, mflop = router_bwd_bound(t, e, k)
+        say("kernel", tag)
+        say("kernel", f"moe_router_bwd {label}: kernel {ms * 1e3:.1f} us "
+            f"L2-cold, plain {plain_ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({mb:.2f} MB, {mflop:.1f} MFLOP; by "
+            f"{by}), {bound_ms / ms:.1%} of bound; the op's whole backward "
+            f"(dl, dx = dl w^T, dw = f32(x)^T dl) {op_ms * 1e3:.1f} us; no "
+            f"library call")
+        out["router"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=by, library_ms=None)
+        del x, w, xf, dl
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, b, t, given state, final cotangent, timed)
+    for label, b, tt, state, final, timed in (
+            ("train", LLM_BATCH, LLM_PROMPT, False, False, True),
+            ("train, a state and a final cotangent", LLM_BATCH, LLM_PROMPT,
+             True, True, True),
+            ("t 17", LLM_BATCH, 17, True, True, False),
+            ("t 1000", LLM_BATCH, 1000, False, True, False)):
+        h, n = 64, 64
+        r, kk, v, wd, u, s0 = wkv_inputs(b, tt, h, n, bf16, gen, state)
+        dout = torch.randn(b, tt, h, n, device=DEVICE, generator=gen).to(
+            bf16)
+        # without one, the zeros autograd hands a final state nothing reads
+        dsf = (torch.randn(b, h, n, n, device=DEVICE, generator=gen)
+               if final else torch.zeros(b, h, n, n, device=DEVICE))
+        args = (r, kk, v, wd, u, s0, dout, dsf)
+        got = wkv_bwd(*args)
+        again = wkv_bwd(*args)
+        want = wkv_bwd(*args, mode="torch")
+        torch.cuda.synchronize()
+        errs, ok = wkv_grad_errors(got, want)
+        shape = (f"({b}, {tt}, {h}, {n}) bf16/f32 w, "
+                 + ("a given state" if state else "state None") + ", "
+                 + ("a final-state cotangent" if final
+                    else "a zero final-state cotangent"))
+        tag = (f"rwkv6_scan_bwd rwkv6-7b {label} {shape}: max abs err dr/dk/"
+               f"dv/dw/du/dstate0 " + ", ".join(f"{x:.3g}" for x in errs)
+               + f" (tol {WKV_BWD_TOL:g} of each scale, bf16 also 2^-7 of "
+               f"each value), two launches bit-equal")
+        if not ok:
+            raise AssertionError(f"{tag}: kernel and plain version differ")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"rwkv6_scan_bwd {label}: two launches "
+                                 "differ")
+        if not timed:
+            say("kernel", tag)
+            continue
+        grads = tuple(torch.empty_like(g) for g in got[:4]) + (
+            torch.empty(b, h, n, device=DEVICE), torch.empty_like(got[5]))
+        snap = torch.empty(b * h * -(-tt // BWD_CHUNK) * n * n,
+                           device=DEVICE)
+        uc = u.contiguous()
+        ms = cuda_time_ms(lambda: wkv_launch(r, kk, v, wd, uc, s0, dout, dsf,
+                                             grads, snap), 10)
+        plain_ms = cuda_time_ms(lambda: wkv_bwd(*args, mode="torch"), 3)
+        bound_ms, by, mb, cc_ms = wkv_bwd_bound(b, tt, h, n, bf16, state)
+        say("kernel", tag)
+        say("kernel", f"rwkv6_scan_bwd {label}: kernel {ms * 1e3:.1f} us "
+            f"L2-cold (its snapshots {snap.numel() * 4 / 1e6:.0f} MB), "
+            f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+            f"({mb:.1f} MB, by {by}), {bound_ms / ms:.1%} of bound; the "
+            f"step-by-step form's CUDA-core floor {cc_ms * 1e3:.1f} us "
+            f"({RWKV_BWD_OPS_PER_ELEMENT} f32 operations per element-step), "
+            f"{cc_ms / ms:.1%} of it; no library call")
+        out[f"wkv {label}"] = dict(max_abs_err=max(errs), ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=by, library_ms=None)
+        del grads, snap
+    del r, kk, v, wd, u, s0, dout, dsf, got, again, want
+    release()
+    return out
+
+
+def adam_close(got, want, m_got, m_want, lr, tol):
+    """(within, max |diff| of the parameters, the share of entries whose
+    steps differ by more than ``tol`` through their gradients): AdamW's
+    first-step parameters ``got`` vs ``want``, each held within ``tol``
+    (abs + rel) plus lr |u(g_got) - u(g_want)|, the part of the step the
+    two paths' gradients g = m / (1 - b1) account for (module constant
+    ADAM_EPS); the gradients themselves are held by the caller."""
+    g, w = got.float(), want.float()
+    u = [m / 0.1 for m in (m_got, m_want)]             # adamw's b1 = 0.9
+    u = [x / (x.abs() + ADAM_EPS) for x in u]
+    step = lr * (u[0] - u[1]).abs()
+    diff = (g - w).abs()
+    ok = bool((diff <= tol + tol * w.abs() + step).all())
+    return ok, float(diff.max()), float((step > tol).float().mean())
+
+
+def grads_close(a, b, tol):
+    """``a`` within ``tol`` of ``b``'s largest value plus ``tol`` of each
+    value: two gradients summed in other orders."""
+    scale = float(b.abs().max())
+    return bool(((a - b).abs() <= tol * scale + tol * b.abs()).all())
+
+
+def phase_family_consistency():
+    """deepseek-moe-16b and rwkv6-7b, each cut to 2 layers at every
+    published width, in f32 (TF32 off), from the same parameters through
+    the kernels and through the plain versions (``mode="torch"``): one
+    ``make_train_step`` with ``adamw()`` (lr 1e-2, grad_clip 1.0): the
+    losses and the gradient norm within TRAIN_TOL, the first moments (the
+    clipped gradients x 0.1) within TRAIN_TOL of each leaf's largest
+    value (:func:`grads_close`), every parameter under
+    :func:`adam_close`'s rule;
+    then one tier round (l_local 2) from theta = x = the drawn parameters
+    and w = the kernel path's stepped ones: the loss and every leaf of
+    theta', w', x' within TRAIN_TOL. The MoE layers' router choices are
+    recorded at the routing seam and the tokens routed differently
+    counted."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import optim
+    from repro_torch.train.train_state import TrainState
+    from repro_torch.train.trainer import make_tier_round, make_train_step
+
+    for arch in (LLM_ARCH, RWKV_ARCH):
+        cfg = get_config(arch).replace(**TRAIN_CONSISTENCY_CUT)
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                               cfg, dtype=torch.float32, device=DEVICE)
+        n = sum(t.numel() for t in _leaves(params))
+        if n != FAMILY_CONSISTENCY_PARAMS[arch]:
+            raise AssertionError(f"{arch} x 2: {n} parameters")
+        (batch,) = train_batches(cfg.vocab_size, 1)
+        route = moe_mod.route
+        ids = {}
+
+        def run(mode, fn):
+            calls = ids.setdefault(mode, [])
+
+            def recording(xp, w, **kw):
+                res = route(xp, w, **kw)
+                calls.append(res[1].detach().sort(1).values)
+                return res
+
+            moe_mod.route = recording
+            try:
+                return fn(mode)
+            finally:
+                moe_mod.route = route
+
+        def adam_step(mode):
+            step = make_train_step(cfg, optim.adamw(),
+                                   lr=TRAIN_CONSISTENCY_LR, grad_clip=1.0,
+                                   mode=mode)
+            st, m = step(TrainState.create(params, optim.adamw()), batch)
+            return m["loss"], m["grad_norm"], st.params, st.opt_state["m"]
+
+        step_k = run(None, adam_step)
+        step_p = run("torch", adam_step)
+        torch.cuda.synchronize()
+        bad, worst, flat = [], 0.0, []
+        for tag, a, b in (("step loss", step_k[0], step_p[0]),
+                          ("grad norm", step_k[1], step_p[1])):
+            if not within(a, b, TRAIN_TOL):
+                bad.append(tag)
+        for i, (a, b) in enumerate(zip(_leaves(step_k[3]),
+                                       _leaves(step_p[3]))):
+            if not grads_close(a, b, TRAIN_TOL):
+                bad.append(f"m {i}")
+        for i, (a, b, mk, mp) in enumerate(zip(
+                _leaves(step_k[2]), _leaves(step_p[2]), _leaves(step_k[3]),
+                _leaves(step_p[3]))):
+            ok, diff, share = adam_close(a, b, mk, mp, TRAIN_CONSISTENCY_LR,
+                                         TRAIN_TOL)
+            worst = max(worst, diff)
+            flat.append(share)
+            if not ok:
+                bad.append(f"step param {i}")
+            if share > ADAM_EXCUSED_SHARE:
+                bad.append(f"step param {i}: {share:.3%} excused")
+        w_step = step_k[2]
+        losses = (float(step_k[0]), float(step_p[0]))
+        del step_k, step_p
+        release()
+
+        def tier_round(mode):
+            return make_tier_round(cfg, l_local=TRAIN_L_LOCAL, mode=mode,
+                                   **TIER_HP)(params, w_step, params, batch)
+
+        rk = run(None, tier_round)
+        rp = run("torch", tier_round)
+        torch.cuda.synchronize()
+        pairs = [("tier loss", rk[3]["loss"], rp[3]["loss"])]
+        for tag, a, b in (("theta'", rk[0], rp[0]), ("w'", rk[1], rp[1]),
+                          ("x'", rk[2], rp[2])):
+            pairs += [(f"{tag} {i}", ga, gb)
+                      for i, (ga, gb) in enumerate(zip(_leaves(a),
+                                                       _leaves(b)))]
+        round_worst = max(float((a - b).abs().max()) for _, a, b in pairs)
+        bad += [tag for tag, a, b in pairs if not within(a, b, TRAIN_TOL)]
+        flips = sum(int((a != b).any(1).sum())
+                    for a, b in zip(ids.get(None, []), ids.get("torch", [])))
+        say("consistency", f"{arch} x {cfg.num_layers} layers f32 training "
+            f"({n:,} parameters), kernel vs plain path: AdamW step loss "
+            f"{losses[0]:.6f} / {losses[1]:.6f}, the first moments within "
+            f"{TRAIN_TOL:g} of each leaf's scale, max |diff| of the stepped "
+            f"parameters {worst:.3g} (steps whose gradients' difference "
+            f"moves them by more than {TRAIN_TOL:g}: {max(flat):.3%} of a "
+            f"leaf at most, under {ADAM_EXCUSED_SHARE:.1%}); tier loss "
+            f"{float(rk[3]['loss']):.6f} / {float(rp[3]['loss']):.6f}, max "
+            f"|diff| over the loss and theta', w', x' {round_worst:.3g} "
+            f"(tol {TRAIN_TOL:g} abs + rel)"
+            + (f"; {len(ids.get(None, []))} router calls a path, "
+               f"{flips} token(s) routed differently" if ids.get(None)
+               else "")
+            + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if bad:
+            raise AssertionError(f"{arch} training: kernel and plain paths "
+                                 f"disagree on {bad[:8]}"
+                                 + (f" ({flips} router flips)" if flips
+                                    else ""))
+        del rk, rp, params, w_step, batch
+        release()
 
 
 def phase_encdec_vlm_consistency():
@@ -4404,6 +4916,17 @@ def main(argv) -> int:
     say("train", f"{TRAIN_ARCH}: backward check {t_path - t_train:.1f} s, "
         f"training phase {t_cons - t_path:.1f} s, consistency "
         f"{time.perf_counter() - t_cons:.1f} s")
+    t_train = time.perf_counter()
+    family_bwd = phase_family_bwd_check()
+    t_path = time.perf_counter()
+    for phase in (phase_moe_training, phase_rwkv_training):
+        for k, v in phase().items():
+            launches[k] = launches.get(k, 0) + v
+    t_cons = time.perf_counter()
+    phase_family_consistency()
+    say("train", f"{LLM_ARCH} and {RWKV_ARCH}: backward checks "
+        f"{t_path - t_train:.1f} s, training phases {t_cons - t_path:.1f} s,"
+        f" consistency {time.perf_counter() - t_cons:.1f} s")
     if "--profile" in argv:
         phase_llm_profile()
         phase_rwkv_profile()
@@ -4422,6 +4945,9 @@ def main(argv) -> int:
     checks["moe_router"] = router["prefill"]         # the fused kernel
     checks["rwkv6_scan"] = scan["prefill"]
     checks["flash_attention_bwd"] = attn_bwd["phi3 train"]
+    # the backward kernels at the MoE and RWKV-6 training paths' shapes
+    checks["moe_router_bwd"] = family_bwd["router"]
+    checks["rwkv6_scan_bwd"] = family_bwd["wkv train"]
     say("done", f"{time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/"
     print(json.dumps({"kernels": [{

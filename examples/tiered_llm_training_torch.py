@@ -6,12 +6,13 @@
 
 Runs the tiered PerMFL round (device prox steps -> team update -> server
 update, ``repro_torch.train.trainer.make_tier_round``) on a REDUCED
-variant of a dense architecture, with federated LM data where each team
-has its own topic distribution -- the LM analogue of the paper's label
-skew. Shows personalized loss <= global loss on each team's
-distribution. On the card (the default) the device steps run through the
-attention kernels' backward and the ``prox_update`` kernel; ``--device
-cpu`` runs the plain versions.
+variant of a dense, MoE or RWKV-6 architecture, with federated LM data
+where each team has its own topic distribution -- the LM analogue of the
+paper's label skew. Shows personalized loss <= global loss on each
+team's distribution. On the card (the default) the device steps run
+through the backward kernels (attention, the MoE router, the WKV-6 scan)
+and the ``prox_update`` kernel; ``--device cpu`` runs the plain
+versions.
 """
 import argparse
 
@@ -25,9 +26,10 @@ from repro_torch.models import model as M
 from repro_torch.train.trainer import make_tier_round
 
 VOCAB = 256
-# dense architectures: the MoE router, RWKV-6 and Mamba have no backward
-# on the card yet (ROADMAP.md queue 1, item 18)
-ARCHS = ("phi3-mini-3.8b", "qwen3-14b", "yi-34b", "qwen1.5-32b")
+# the dense, MoE and RWKV-6 architectures: Mamba's scan has no backward
+# yet (ROADMAP.md queue 1, item 18c)
+ARCHS = ("phi3-mini-3.8b", "qwen3-14b", "yi-34b", "qwen1.5-32b",
+         "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b")
 
 
 def main(argv=None):

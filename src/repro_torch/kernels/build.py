@@ -49,9 +49,13 @@ KERNEL_SOURCES = {
     "moe_router": _KERNELS_DIR / "moe_router" / "csrc" / "moe_router.cu",
     "moe_router_hopper": (_KERNELS_DIR / "moe_router" / "csrc"
                           / "moe_router_hopper.cu"),
+    "moe_router_bwd": (_KERNELS_DIR / "moe_router" / "csrc"
+                       / "moe_router_bwd.cu"),
     "rwkv6_scan": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
     "rwkv6_scan_hopper": (_KERNELS_DIR / "rwkv6_scan" / "csrc"
                           / "rwkv6_scan_hopper.cu"),
+    "rwkv6_scan_bwd": (_KERNELS_DIR / "rwkv6_scan" / "csrc"
+                       / "rwkv6_scan_bwd.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

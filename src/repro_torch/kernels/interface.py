@@ -17,7 +17,8 @@ kernel or raises, and nothing falls back to the plain version.
 run can read it to show that its main path went through the kernels.
 
 A kernel returns new tensors with no ``grad_fn``. A kernel op that has
-no backward yet calls :func:`refuse_grad` before it launches, so that a
+no backward (the wire compressors and ``quantize``: nothing trains
+through them) calls :func:`refuse_grad` before it launches, so that a
 caller who asked for a gradient gets an error and not a silently
 detached result.
 """
@@ -54,9 +55,10 @@ def refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP.md "
-            f"queue 1, item 18); run it under torch.no_grad(), or "
-            f"differentiate the plain version (mode='torch')")
+            f"{name}: the CUDA kernel has no backward (training lacks "
+            f"only Mamba's scan, ROADMAP.md queue 1, item 18c); run it "
+            f"under torch.no_grad(), or differentiate the plain version "
+            f"(mode='torch')")
 
 
 def reset_launches() -> None:

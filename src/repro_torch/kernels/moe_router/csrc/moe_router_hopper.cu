@@ -75,6 +75,11 @@
 //    order and writes mean_prob and frac_tokens. No float atomics; the
 //    results do not depend on scheduling. The last CTA, after every CTA
 //    has taken both tickets, sets them back to 0 for the next launch.
+//  * Under a gradient the wrapper also passes `logits` (t, E) float32:
+//    each row's logits, as the softmax took them, are written there for
+//    the backward kernel (csrc/moe_router_bwd.cu), 1 MB at deepseek's
+//    (4,096, 64). Serving passes a null pointer; the store is a branch on
+//    a kernel argument, the same for every thread.
 // The wrapper allocates the scratch (tails, block statistics, tickets)
 // once per stream; the kernel runs on that stream and allocates nothing.
 // One launch at a time may use a scratch: stream order keeps them apart.
@@ -449,6 +454,7 @@ struct Args {
   int32_t* idx;
   int32_t* pos;
   float* aux;                  // (2, e): mean_prob, frac_tokens
+  float* logits;               // (t, e) or null: the logits, for a backward
   unsigned long long* tails;   // (blocks, 64) epoch << 32 | count
   float* stats;                // (blocks, 2, 64) sums of p, counts
   unsigned* tickets;  // [0] tiles started, [1] CTAs finished, [2] launches
@@ -644,6 +650,10 @@ __global__ void __launch_bounds__(kThreads, 1) route_kernel(const Args a) {
       v[i] = (live && ex < a.e) ? ep.lg[r * kPStride + ex]
                                 : (ex < a.e ? 0.0f : neg_inf());
     }
+    if (a.logits != nullptr && live)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (l + 8 * i < a.e) a.logits[(brow + r) * a.e + l + 8 * i] = v[i];
     float mx = v[0];
 #pragma unroll
     for (int i = 1; i < 8; ++i) mx = fmaxf(mx, v[i]);
@@ -875,7 +885,8 @@ int by_shape(int dtype, int block_tokens, F&& f) {
 // dtype: 0 = float32 x, 1 = bfloat16 x. x (t, d) with row stride ldx
 // (elements), unit stride along d, 16-byte aligned rows; w (d, e) float32
 // contiguous, 16-byte aligned; gates (t, k) float32, idx and pos (t, k)
-// int32, aux (2, e) float32, all contiguous. 1 <= k <= e <= 64, e % 4 == 0,
+// int32, aux (2, e) float32, all contiguous; logits (t, e) float32
+// contiguous, or null (not written). 1 <= k <= e <= 64, e % 4 == 0,
 // d % 8 == 0, group >= 1. block_tokens (BM) 32 or 128 rows a cluster of
 // `cluster` CTAs (1, 2, 4, 8 or 16; BM / cluster <= 32 rows a CTA). tails
 // (ceil(t / BM) * cluster, 64) uint64 and tickets (3,) uint32, zeroed once,
@@ -886,7 +897,7 @@ extern "C" int moe_route_tokens(int dtype, const void* x, int64_t ldx,
                                 const float* w, int t, int d, int e, int k,
                                 int renorm, int group, int block_tokens,
                                 int cluster, float* gates, int32_t* idx,
-                                int32_t* pos, float* aux,
+                                int32_t* pos, float* aux, float* logits,
                                 unsigned long long* tails, float* stats,
                                 unsigned* tickets, void* stream) {
   if (t < 1 || e < 4 || e > kMaxExperts || e % 4 || k < 1 || k > e ||
@@ -909,6 +920,7 @@ extern "C" int moe_route_tokens(int dtype, const void* x, int64_t ldx,
   a.idx = idx;
   a.pos = pos;
   a.aux = aux;
+  a.logits = logits;
   a.tails = tails;
   a.stats = stats;
   a.tickets = tickets;

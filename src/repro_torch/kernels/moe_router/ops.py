@@ -22,6 +22,19 @@ tensor, the plain version (``ref.py``) for a CPU tensor or an explicit
 call adds one to ``LAUNCHES["moe_router"]``, and to ``VARIANTS["fused"]``
 or ``VARIANTS["logits"]``; a fused launch also to ``FORMS["tile"]`` or
 ``FORMS["split"]``, the form it ran.
+
+Both ops are differentiable: the gates in the logits (and so in x and
+w), ``mean_prob`` likewise; the ids, the positions and ``frac_tokens``
+carry no gradient. When grad mode is on and an input requires a
+gradient, the fused kernel also writes the float32 logits it took the
+softmax of (an optional pointer; without a gradient it writes none),
+and the backward is :func:`logits_bwd`: on CUDA tensors the kernel
+``csrc/moe_router_bwd.cu`` (one launch adds one to
+``LAUNCHES["moe_router_bwd"]``), on CPU tensors or with ``mode="torch"``
+``ref.route_tokens_bwd_ref``. :func:`route_tokens`' backward then takes
+``dx = dl w^T`` (in x's type) and ``dw = f32(x)^T dl`` as float32
+``torch.matmul`` products, the plain router product the reference leaves
+to XLA.
 """
 from __future__ import annotations
 
@@ -31,16 +44,18 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import KernelType, count_launch, \
-    kernel_mode, refuse_grad
-from repro_torch.kernels.moe_router.ref import route_ref, route_tokens_ref
+    kernel_mode
+from repro_torch.kernels.moe_router.ref import route_ref, \
+    route_tokens_bwd_ref, route_tokens_ref
 
 __all__ = ["BLOCK_TOKENS", "FORMS", "KERNELS", "MAX_EXPERTS", "VARIANTS",
-           "launch", "launch_fused", "plan", "reset_variants",
-           "route_tokens", "route_topk"]
+           "launch", "launch_bwd", "launch_fused", "logits_bwd", "plan",
+           "reset_variants", "route_tokens", "route_topk"]
 
 _NAME = "moe_router"
 _FUSED = "moe_router_hopper"
-KERNELS = (_NAME,)
+_BWD = "moe_router_bwd"
+KERNELS = (_NAME, _BWD)
 MAX_EXPERTS = 64
 BLOCK_TOKENS = 16          # token rows per block of the kernel (stats row)
 SPLIT_TOKENS = 32          # the fused op's split form: at most this many
@@ -77,7 +92,11 @@ def _library():
 
 def _fused_fn():
     return _fn(_FUSED, "moe_route_tokens", [_I, _P, _L, _P] + [_I] * 8
-               + [_P] * 8)
+               + [_P] * 9)
+
+
+def _bwd_fn():
+    return _fn(_BWD, "moe_router_bwd", [_P] * 6 + [_I] * 4 + [_P])
 
 
 def launch(logits, gates, idx, stats, *, top_k: int, renormalize: bool):
@@ -100,7 +119,8 @@ def launch(logits, gates, idx, stats, *, top_k: int, renormalize: bool):
 
 def route_topk(logits, *, top_k: int, renormalize: bool = True, mode=None):
     """logits: (t, E). Returns (gates (t, k), idx (t, k) int32, aux
-    {"mean_prob", "frac_tokens"})."""
+    {"mean_prob", "frac_tokens"}); differentiable in the logits (module
+    docstring)."""
     if logits.dim() != 2:
         raise ValueError(f"route_topk takes (tokens, experts) logits, got "
                          f"{tuple(logits.shape)}")
@@ -112,16 +132,28 @@ def route_topk(logits, *, top_k: int, renormalize: bool = True, mode=None):
         raise ValueError(f"top_k {top_k} outside [1, {e}]")
     if t == 0:
         raise ValueError("route_topk needs at least one token")
-    if kernel_mode(logits, mode) is KernelType.TORCH:
+    kt = kernel_mode(logits, mode)
+    if kt is KernelType.CUDA:
+        if e > MAX_EXPERTS:
+            raise ValueError(f"moe_router kernel takes at most "
+                             f"{MAX_EXPERTS} experts, got {e}")
+        if logits.stride(1) != 1:
+            raise ValueError("moe_router kernel needs unit-stride experts")
+    if torch.is_grad_enabled() and logits.requires_grad:
+        gates, idx, mean, frac = _RouteTopk.apply(logits, top_k,
+                                                  bool(renormalize), kt)
+    else:
+        gates, idx, mean, frac = _topk_forward(logits, top_k, renormalize, kt)
+    return gates, idx, {"mean_prob": mean, "frac_tokens": frac}
+
+
+def _topk_forward(logits, top_k, renormalize, kt):
+    """(gates, idx, mean_prob, frac_tokens) of :func:`route_topk`."""
+    if kt is KernelType.TORCH:
         gates, idx, _, aux = route_ref(logits, top_k=top_k,
                                        renormalize=renormalize)
-        return gates, idx, aux
-    refuse_grad("moe_router route_topk", logits)
-    if e > MAX_EXPERTS:
-        raise ValueError(f"moe_router kernel takes at most {MAX_EXPERTS} "
-                         f"experts, got {e}")
-    if logits.stride(1) != 1:
-        raise ValueError("moe_router kernel needs unit-stride experts")
+        return gates, idx, aux["mean_prob"], aux["frac_tokens"]
+    t, e = logits.shape
     dev = logits.device
     gates = torch.empty((t, top_k), dtype=logits.dtype, device=dev)
     idx = torch.empty((t, top_k), dtype=torch.int32, device=dev)
@@ -129,8 +161,80 @@ def route_topk(logits, *, top_k: int, renormalize: bool = True, mode=None):
                         device=dev)
     launch(logits, gates, idx, stats, top_k=top_k, renormalize=renormalize)
     sums = stats.sum(0)
-    aux = {"mean_prob": sums[0] / t, "frac_tokens": sums[1] / (t * top_k)}
-    return gates, idx, aux
+    return gates, idx, sums[0] / t, sums[1] / (t * top_k)
+
+
+class _RouteTopk(torch.autograd.Function):
+    """:func:`route_topk` on given logits, then :func:`logits_bwd`."""
+
+    @staticmethod
+    def forward(ctx, logits, top_k, renormalize, kt):
+        with torch.no_grad():
+            gates, idx, mean, frac = _topk_forward(logits, top_k,
+                                                   renormalize, kt)
+        ctx.mark_non_differentiable(idx, frac)
+        ctx.save_for_backward(logits, idx, gates)
+        ctx.opts = (renormalize, kt)
+        return gates, idx, mean, frac
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dgates, _didx, dmean, _dfrac):
+        logits, idx, gates = ctx.saved_tensors
+        renormalize, kt = ctx.opts
+        dl = logits_bwd(logits.float(), idx, gates, dgates, dmean,
+                        renormalize=renormalize, mode=kt)
+        return dl.to(logits.dtype), None, None, None
+
+
+def launch_bwd(logits, idx, gates, dgates, dmean, dl, *, renormalize: bool):
+    """One launch of the backward kernel into ``dl`` (t, E) float32: CUDA
+    logits (t, E) float32, idx (t, k) int32, gates and dgates (t, k)
+    float32, dmean (E,) float32, all contiguous. No checks:
+    :func:`logits_bwd` makes them (a timing loop calls this directly)."""
+    t, e = logits.shape
+    fn = _bwd_fn()
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    count_launch(_BWD)
+    err = fn(logits.data_ptr(), idx.data_ptr(), gates.data_ptr(),
+             dgates.data_ptr(), dmean.data_ptr(), dl.data_ptr(), t, e,
+             idx.shape[1], int(bool(renormalize)), stream)
+    if err:
+        raise RuntimeError(f"moe_router_bwd kernel launch failed: CUDA error "
+                           f"{err} (logits {tuple(logits.shape)}, k "
+                           f"{idx.shape[1]})")
+
+
+def logits_bwd(logits, idx, gates, dgates, dmean, *, renormalize=True,
+               mode=None):
+    """dl (t, E) float32, the gradient of the router's float32 logits
+    (t, E) from the gates' gradient ``dgates`` (t, k) and ``mean_prob``'s
+    ``dmean`` (E,), given the chosen ids ``idx`` and the ``gates`` of the
+    forward. The kernel ``csrc/moe_router_bwd.cu`` for CUDA tensors,
+    ``ref.route_tokens_bwd_ref`` for CPU tensors or ``mode="torch"``."""
+    t, e = logits.shape
+    if logits.dtype != torch.float32:
+        raise TypeError(f"logits_bwd takes float32 logits, got "
+                        f"{logits.dtype}")
+    if idx.dim() != 2 or idx.shape[0] != t or gates.shape != idx.shape \
+            or dgates.shape != idx.shape:
+        raise ValueError(f"idx {tuple(idx.shape)}, gates "
+                         f"{tuple(gates.shape)} and dgates must be (t, k) "
+                         f"for logits {tuple(logits.shape)}")
+    if dmean.shape != (e,):
+        raise ValueError(f"dmean {tuple(dmean.shape)} is not ({e},)")
+    if kernel_mode(logits, mode) is KernelType.TORCH:
+        return route_tokens_bwd_ref(logits, idx, gates, dgates, dmean,
+                                    renormalize=renormalize)
+    if e > MAX_EXPERTS:
+        raise ValueError(f"moe_router_bwd kernel takes at most {MAX_EXPERTS} "
+                         f"experts, got {e}")
+    f32 = (lambda x: x.to(torch.float32).contiguous())
+    dl = torch.empty((t, e), dtype=torch.float32, device=logits.device)
+    launch_bwd(logits.contiguous(), idx.to(torch.int32).contiguous(),
+               f32(gates), f32(dgates), f32(dmean), dl,
+               renormalize=renormalize)
+    return dl
 
 
 def plan(x, w, *, top_k: int, group_size: int):
@@ -218,13 +322,14 @@ def _scratch(device, stream, blocks):
 
 
 def launch_fused(x, w, gates, idx, pos, aux, *, top_k: int,
-                 renormalize: bool, group_size: int, form=None):
+                 renormalize: bool, group_size: int, form=None, logits=None):
     """One launch of the fused kernel into given outputs: CUDA x (t, d)
     with unit stride along d and 16-byte aligned rows, w (d, E) float32
     contiguous, gates (t, k) float32, idx and pos (t, k) int32, aux (2, E)
-    float32, all contiguous. ``form`` is a :func:`plan` dict (default:
-    the plan for these tensors). No checks beyond the plan's: the op
-    makes them (a timing loop calls this directly)."""
+    float32, and ``logits`` (t, E) float32 or None (not written), all
+    contiguous. ``form`` is a :func:`plan` dict (default: the plan for
+    these tensors). No checks beyond the plan's: the op makes them (a
+    timing loop calls this directly)."""
     if form is None:
         form = plan(x, w, top_k=top_k, group_size=group_size)
     t, d = x.shape
@@ -237,6 +342,7 @@ def launch_fused(x, w, gates, idx, pos, aux, *, top_k: int,
     err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), x.stride(0), w.data_ptr(),
              t, d, e, top_k, int(bool(renormalize)), group_size, bt, cl,
              gates.data_ptr(), idx.data_ptr(), pos.data_ptr(), aux.data_ptr(),
+             None if logits is None else logits.data_ptr(),
              sc["tails"].data_ptr(), sc["stats"].data_ptr(),
              sc["tickets"].data_ptr(), stream.cuda_stream)
     VARIANTS["fused"] += 1
@@ -253,26 +359,75 @@ def route_tokens(x, w, *, top_k: int, renormalize: bool = True,
     k) float32, idx (t, k) int32, pos (t, k) int32, aux {"mean_prob",
     "frac_tokens"} (E,) float32), as :func:`ref.route_tokens_ref`: pos is
     each choice's count of earlier choices of its expert in its group of
-    ``group_size`` tokens, and the statistics run over all t rows."""
+    ``group_size`` tokens, and the statistics run over all t rows.
+    Differentiable in x and w (module docstring)."""
     _check(x, w, top_k, group_size)
-    if kernel_mode(x, mode) is KernelType.TORCH:
-        return route_tokens_ref(x, w, top_k=top_k, renormalize=renormalize,
-                                group_size=group_size)
-    refuse_grad("moe_router route_tokens", x, w)
-    form = plan(x, w, top_k=top_k, group_size=group_size)
-    if x.stride(1) != 1 or (x.stride(0) * x.element_size()) % 16 \
-            or x.data_ptr() % 16:
-        raise ValueError("moe_router_hopper kernel takes x with unit stride "
-                         "along d and 16-byte aligned rows")
-    if not w.is_contiguous() or w.data_ptr() % 16:
-        raise ValueError("moe_router_hopper kernel takes a contiguous, "
-                         "16-byte aligned w")
+    kt = kernel_mode(x, mode)
+    form = None
+    if kt is KernelType.CUDA:
+        form = plan(x, w, top_k=top_k, group_size=group_size)
+        if x.stride(1) != 1 or (x.stride(0) * x.element_size()) % 16 \
+                or x.data_ptr() % 16:
+            raise ValueError("moe_router_hopper kernel takes x with unit "
+                             "stride along d and 16-byte aligned rows")
+        if not w.is_contiguous() or w.data_ptr() % 16:
+            raise ValueError("moe_router_hopper kernel takes a contiguous, "
+                             "16-byte aligned w")
+    opts = (top_k, bool(renormalize), group_size, kt, form)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        gates, idx, pos, mean, frac = _RouteTokens.apply(x, w, opts)
+    else:
+        gates, idx, pos, mean, frac, _ = _tokens_forward(x, w, opts, False)
+    return gates, idx, pos, {"mean_prob": mean, "frac_tokens": frac}
+
+
+def _tokens_forward(x, w, opts, want_logits):
+    """(gates, idx, pos, mean_prob, frac_tokens, logits or None) of
+    :func:`route_tokens`; the kernel's float32 logits when
+    ``want_logits`` (the plain version's backward takes its own)."""
+    top_k, renormalize, group_size, kt, form = opts
+    if kt is KernelType.TORCH:
+        gates, idx, pos, aux = route_tokens_ref(
+            x, w, top_k=top_k, renormalize=renormalize,
+            group_size=group_size)
+        return gates, idx, pos, aux["mean_prob"], aux["frac_tokens"], None
     t, e = x.shape[0], w.shape[1]
     dev = x.device
     gates = torch.empty((t, top_k), dtype=torch.float32, device=dev)
     idx = torch.empty((t, top_k), dtype=torch.int32, device=dev)
     pos = torch.empty((t, top_k), dtype=torch.int32, device=dev)
     aux = torch.empty((2, e), dtype=torch.float32, device=dev)
+    logits = (torch.empty((t, e), dtype=torch.float32, device=dev)
+              if want_logits else None)
     launch_fused(x, w, gates, idx, pos, aux, top_k=top_k,
-                 renormalize=renormalize, group_size=group_size, form=form)
-    return gates, idx, pos, {"mean_prob": aux[0], "frac_tokens": aux[1]}
+                 renormalize=renormalize, group_size=group_size, form=form,
+                 logits=logits)
+    return gates, idx, pos, aux[0], aux[1], logits
+
+
+class _RouteTokens(torch.autograd.Function):
+    """The fused routing with its logits, then :func:`logits_bwd` and the
+    router product's two float32 products."""
+
+    @staticmethod
+    def forward(ctx, x, w, opts):
+        with torch.no_grad():
+            gates, idx, pos, mean, frac, logits = _tokens_forward(x, w, opts,
+                                                                  True)
+        ctx.mark_non_differentiable(idx, pos, frac)
+        ctx.save_for_backward(x, w, logits, idx, gates)
+        ctx.opts = opts
+        return gates, idx, pos, mean, frac
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dgates, _didx, _dpos, dmean, _dfrac):
+        x, w, logits, idx, gates = ctx.saved_tensors
+        _, renormalize, _, kt, _ = ctx.opts
+        if logits is None:                      # the plain version's
+            logits = x.float() @ w
+        dl = logits_bwd(logits, idx, gates, dgates, dmean,
+                        renormalize=renormalize, mode=kt)
+        dx = (dl @ w.T).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = x.float().T @ dl if ctx.needs_input_grad[1] else None
+        return dx, dw, None

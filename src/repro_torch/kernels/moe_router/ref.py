@@ -21,6 +21,13 @@ product, :func:`route_ref` on its logits, and :func:`positions_ref`, the
 reference's ``cumsum`` over the (groups, group * k, E) one-hot selection
 (``repro/models/moe.py``) that gives each choice its place in its
 expert's capacity buffer, before capacity is applied.
+
+Both are differentiable in the logits (and in x and w) by autograd, as
+the reference's ``route_ref`` is by ``jax.grad``: the top-k rounds mask
+the chosen expert out of a new tensor each round, so no tensor autograd
+saved is written. :func:`route_tokens_bwd_ref` is the same gradient in
+closed form, the plain version of the backward kernel
+``csrc/moe_router_bwd.cu``.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["NEG_INF", "load_balance_loss", "positions_blocked",
-           "positions_ref", "route_ref", "route_tokens_ref", "softmax_rows"]
+           "positions_ref", "route_ref", "route_tokens_bwd_ref",
+           "route_tokens_ref", "softmax_rows"]
 
 NEG_INF = -1e30
 _LANES = 32
@@ -65,7 +73,8 @@ def route_ref(logits, *, top_k: int, renormalize: bool = True):
     for _ in range(top_k):
         a = work.argmax(dim=-1, keepdim=True)     # first index of the max
         g = work.gather(1, a)
-        work.scatter_(1, a, NEG_INF)
+        work = work.scatter(1, a, NEG_INF)     # out of place: autograd
+                                               # saved the old work
         gs.append(g)
         ids.append(a)
         gsum = gsum + g[:, 0]
@@ -145,3 +154,31 @@ def route_tokens_ref(x, w, *, top_k: int, renormalize: bool = True,
     gates, idx, _, aux = route_ref(logits, top_k=top_k,
                                    renormalize=renormalize)
     return gates, idx, positions_ref(idx, group_size, w.shape[1]), aux
+
+
+def route_tokens_bwd_ref(logits, idx, gates, dgates, dmean, *,
+                         renormalize: bool = True):
+    """The gradient of the router's logits (t, E), float32, given the
+    logits, the chosen ids ``idx`` (t, k), the gates (t, k) the forward
+    returned, the gates' cotangent ``dgates`` (t, k) and ``mean_prob``'s
+    ``dmean`` (E,). Per row, with p = softmax(l), g_j = p[idx_j] and s =
+    sum_j g_j:
+
+        dg_j  = (dG_j - sum_i dG_i gates_i) / s     (renormalised; else dG_j)
+        dp[e] = sum_j [idx_j = e] dg_j + dM[e] / T
+        dl    = p * (dp - sum_e p_e dp_e)
+
+    T = t counts every row ``mean_prob`` averaged over (a padded group's
+    zero rows are rows of the routed tensor). ``frac_tokens`` is a count
+    and carries none."""
+    lf = logits.float()
+    t = lf.shape[0]
+    p = softmax_rows(lf)
+    ids = idx.long()
+    dg = dgates.float()
+    if renormalize:
+        s = p.gather(1, ids).sum(1, keepdim=True).clamp_min(1e-20)
+        dg = (dg - (dg * gates.float()).sum(1, keepdim=True)) / s
+    dp = torch.zeros_like(p).scatter_add(1, ids, dg) \
+        + dmean.float()[None, :] / t
+    return p * (dp - (p * dp).sum(1, keepdim=True))

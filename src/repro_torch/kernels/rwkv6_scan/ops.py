@@ -23,6 +23,16 @@ the plain version for a CUDA tensor. ``out_state`` names where the final
 state goes, and may be ``state`` itself (the model's recurrent cache,
 updated in place). Each launch adds one to ``LAUNCHES["rwkv6_scan"]``
 and to ``VARIANTS[variant]``.
+
+The op is differentiable in r, k, v, w, u and ``state``. When grad mode
+is on and one of them requires a gradient, the forward runs as above
+(the variant :func:`plan` picks; ``out_state`` is refused there: a state
+written in place has no gradient) and saves r, k, v, w, u and the
+initial state; the backward is :func:`wkv_bwd`: on CUDA tensors the
+kernel ``csrc/rwkv6_scan_bwd.cu`` (CUDA cores, float32; forward states
+recomputed from snapshots it writes every 8 steps; one launch adds one
+to ``LAUNCHES["rwkv6_scan_bwd"]``), on CPU tensors or with
+``mode="torch"`` ``ref.wkv6_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -32,14 +42,16 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import KernelType, count_launch, \
-    kernel_mode, refuse_grad
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+    kernel_mode
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_bwd_ref, wkv6_ref
 
-__all__ = ["HEAD_SIZES", "KERNELS", "VARIANTS", "launch", "plan",
-           "reset_variants", "wkv"]
+__all__ = ["BWD_CHUNK", "HEAD_SIZES", "KERNELS", "VARIANTS", "launch",
+           "launch_bwd", "plan", "reset_variants", "wkv", "wkv_bwd"]
 
 _NAME = "rwkv6_scan"
-KERNELS = (_NAME,)
+_BWD = "rwkv6_scan_bwd"
+KERNELS = (_NAME, _BWD)
+BWD_CHUNK = 8                     # the backward's steps between snapshots
 HEAD_SIZES = (16, 32, 64)
 _CHUNK = 16                       # chunked: steps a chunk, and its least t
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,6 +84,11 @@ def _simt_fn():
 def _chunked_fn():
     return _fn("rwkv6_scan_hopper", "rwkv6_scan_chunked",
                [_I] + [_P] * 8 + [_I] * 3 + [_P])
+
+
+def _bwd_fn():
+    return _fn(_BWD, "rwkv6_scan_bwd", [_I] * 3 + [_P] * 15 + [_I] * 3
+               + [_P])
 
 
 def plan(r, k, v, w, state=None):
@@ -172,19 +189,31 @@ def wkv(r, k, v, w, u, state=None, *, out_state=None, mode=None):
     """WKV-6 scan over (b, t, h, n) inputs from ``state`` (None: zeros).
     Returns (out (b, t, h, n) in r's dtype, final state (b, h, n, n)
     float32): ``out_state`` when given (written in place; it may be
-    ``state``), else a new tensor."""
+    ``state``), else a new tensor. Differentiable (module docstring)."""
     _check(r, k, v, w, u, state, out_state)
-    if kernel_mode(r, mode) is KernelType.TORCH:
+    kt = kernel_mode(r, mode)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (r, k, v, w, u,
+                                                       state)):
+        if out_state is not None:
+            raise ValueError("wkv: a state written in place (out_state) "
+                             "has no gradient; differentiate with "
+                             "out_state=None")
+        return _WKV.apply(r, k, v, w, u, state, kt)
+    return _forward(r, k, v, w, u, state, out_state, kt)
+
+
+def _forward(r, k, v, w, u, state, out_state, kt):
+    """(out, final state) of :func:`wkv`: the plain version for
+    ``KernelType.TORCH``, else the kernel :func:`plan` picks."""
+    if kt is KernelType.TORCH:
         out, s = wkv6_ref(r, k, v, w, u, state)
         if out_state is None:
             return out, s
         return out, out_state.copy_(s)
-    refuse_grad("rwkv6_scan wkv", r, k, v, w, u, state)
     b, t, h, n = r.shape
     # contiguous, and on 16-byte boundaries (a new allocation is)
-    r, k, v, w = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
-                  else x.clone(memory_format=torch.contiguous_format)
-                  for x in (r, k, v, w))
+    r, k, v, w = (_aligned(x) for x in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
     if state is not None:
         state = state.to(torch.float32).contiguous()
@@ -194,3 +223,94 @@ def wkv(r, k, v, w, u, state=None, *, out_state=None, mode=None):
     out = torch.empty((b, t, h, n), dtype=r.dtype, device=r.device)
     launch(r, k, v, w, u, state, out, out_state)
     return out, out_state
+
+
+def _aligned(x):
+    """``x``, or a contiguous copy where it is not contiguous or not on a
+    16-byte boundary."""
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+class _WKV(torch.autograd.Function):
+    """The scan, then :func:`wkv_bwd` from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, kt):
+        with torch.no_grad():
+            out, s = _forward(r, k, v, w, u, state, None, kt)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.kt = kt
+        return out, s
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        dr, dk, dv, dw, du, ds = wkv_bwd(r, k, v, w, u, state, dout, dstate,
+                                         mode=ctx.kt)
+        return (dr, dk, dv, dw, du.to(u.dtype),
+                None if state is None else ds.to(state.dtype), None)
+
+
+def launch_bwd(r, k, v, w, u, state, dout, dstate, grads, snap):
+    """One launch of the backward kernel into ``grads`` = (dr, dk, dv, dw
+    (r's shape, dr/dk/dv in r's type, dw in w's), du_part (b, h, n)
+    float32, dstate0 (b, h, n, n) float32): CUDA r, k, v, w, dout (b, t,
+    h, n), u (h, n) float32, ``state`` (b, h, n, n) float32 or None
+    (zeros), ``dstate`` (b, h, n, n) float32, ``snap`` float32 of b * h * ceil(t / BWD_CHUNK) * n *
+    n, all contiguous and 16-byte aligned. No checks: :func:`wkv_bwd`
+    makes them (a timing loop calls this directly)."""
+    b, t, h, n = r.shape
+    fn = _bwd_fn()
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    count_launch(_BWD)
+    err = fn(_DTYPE_CODES[r.dtype], _DTYPE_CODES[w.dtype], n,
+             *(x.data_ptr() for x in (r, k, v, w, u)),
+             None if state is None else state.data_ptr(),
+             *(x.data_ptr() for x in (dout, dstate) + tuple(grads)),
+             snap.data_ptr(), b, t, h, stream)
+    if err:
+        raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA error "
+                           f"{err} (r {tuple(r.shape)} {r.dtype}, w "
+                           f"{w.dtype})")
+
+
+def wkv_bwd(r, k, v, w, u, state, dout, dstate, *, mode=None):
+    """The gradient of :func:`wkv` at r, k, v, w, u, ``state`` (None:
+    zeros), given the output's cotangent ``dout`` and the final state's
+    ``dstate``: (dr, dk, dv in r's type, dw in w's, du (h, n) float32,
+    dstate0 (b, h, n, n) float32). The kernel
+    ``csrc/rwkv6_scan_bwd.cu`` for CUDA tensors, ``ref.wkv6_bwd_ref`` for
+    CPU tensors or ``mode="torch"``."""
+    _check(r, k, v, w, u, state, dstate)
+    b, t, h, n = r.shape
+    if dout.shape != r.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != r {tuple(r.shape)}")
+    if kernel_mode(r, mode) is KernelType.TORCH:
+        return wkv6_bwd_ref(r, k, v, w, u, state, dout, dstate)
+    if n not in HEAD_SIZES:
+        raise ValueError(f"rwkv6_scan_bwd kernel takes head size n in "
+                         f"{HEAD_SIZES}, got {n}")
+    if r.dtype not in _DTYPE_CODES or w.dtype not in _DTYPE_CODES:
+        raise TypeError(f"rwkv6_scan_bwd kernel takes float32 or bfloat16 r "
+                        f"and w, got {r.dtype} and {w.dtype}")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6_scan_bwd kernel takes r, k, v in one type, "
+                        f"got {r.dtype}, {k.dtype}, {v.dtype}")
+    r, k, v, w = (_aligned(x) for x in (r, k, v, w))
+    dout = _aligned(dout.to(r.dtype))
+    u, dstate = (_aligned(x.to(torch.float32)) for x in (u, dstate))
+    if state is not None:
+        state = _aligned(state.to(torch.float32))
+    dev = r.device
+    grads = (torch.empty_like(r), torch.empty_like(r), torch.empty_like(r),
+             torch.empty_like(w),
+             torch.empty((b, h, n), dtype=torch.float32, device=dev),
+             torch.empty((b, h, n, n), dtype=torch.float32, device=dev))
+    snap = torch.empty(b * h * -(-t // BWD_CHUNK) * n * n,
+                       dtype=torch.float32, device=dev)
+    launch_bwd(r, k, v, w, u, state, dout, dstate, grads, snap)
+    dr, dk, dv, dw, du_part, ds = grads
+    return dr, dk, dv, dw, du_part.sum(0), ds

@@ -18,12 +18,17 @@ tensor-core kernel (``csrc/rwkv6_scan_hopper.cu``): 16 steps at a time,
 from prefix, suffix and pairwise products of the decays, with the option
 of the kernel's 3xTF32 operand splits. The CPU tests hold it to
 :func:`wkv6_ref`; nothing on the card's path calls it.
+
+:func:`wkv6_bwd_ref` is the recurrence's gradient, the reverse scan
+written out in torch ops: the plain version of the backward kernel
+``csrc/rwkv6_scan_bwd.cu``, which the CPU path runs and the card's tests
+hold the kernel to.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["wkv6_chunked", "wkv6_ref"]
+__all__ = ["wkv6_bwd_ref", "wkv6_chunked", "wkv6_ref"]
 
 
 def wkv6_ref(r, k, v, w, u, state=None):
@@ -43,6 +48,68 @@ def wkv6_ref(r, k, v, w, u, state=None):
         out[:, i] = ((s + uf * kv) * rf[:, i, :, :, None]).sum(dim=-2)
         s = wf[:, i, :, :, None] * s + kv
     return out.to(r.dtype), s
+
+
+_BWD_CHUNK = 64                   # wkv6_bwd_ref's steps between snapshots
+
+
+def wkv6_bwd_ref(r, k, v, w, u, state, dout, dstate):
+    """The gradient of :func:`wkv6_ref` at r, k, v, w (b, t, h, n), u (h,
+    n) and ``state`` (b, h, n, n) float32 or None (zeros), given ``dout``
+    (b, t, h, n), the output's cotangent, and ``dstate`` (b, h, n, n), the
+    final state's. Returns (dr, dk, dv in r's, k's, v's types, dw in
+    w's, du (h, n) float32, dstate0 (b, h, n, n) float32, the initial
+    state's). In float32, per (b, h), from dS = dstate back to step 0:
+
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) dout_t
+        dk_t = dS_t v_t + u * r_t (v_t . dout_t)
+        dv_t = dS_t^T k_t + (sum_i r_t,i u_i k_t,i) dout_t
+        dw_t = rowsum(dS_t * S_{t-1})
+        du  += r_t * k_t (v_t . dout_t)                 (summed over b too)
+        dS_{t-1} = diag(w_t) dS_t + r_t dout_t^T
+
+    The forward states are recomputed a chunk at a time from snapshots
+    taken every ``_BWD_CHUNK`` steps; none is recovered by dividing by w,
+    which may be 0."""
+    b, t, h, n = r.shape
+    rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
+    uf = u.float()[None]                                   # (1, h, n)
+    if state is None:
+        s = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    else:
+        s = state.float().clone()
+    snaps = []
+    for c0 in range(0, t, _BWD_CHUNK):
+        snaps.append(s)
+        for i in range(c0, min(t, c0 + _BWD_CHUNK)):
+            s = wf[:, i, :, :, None] * s \
+                + kf[:, i, :, :, None] * vf[:, i, :, None, :]
+    ds = dstate.float().clone()
+    grads = [torch.empty((b, t, h, n), dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((h, n), dtype=torch.float32, device=r.device)
+    for c, s in reversed(list(enumerate(snaps))):
+        c0 = c * _BWD_CHUNK
+        c1 = min(t, c0 + _BWD_CHUNK)
+        prev = []                                          # S_{t-1}
+        for i in range(c0, c1):
+            prev.append(s)
+            s = wf[:, i, :, :, None] * s \
+                + kf[:, i, :, :, None] * vf[:, i, :, None, :]
+        for i in reversed(range(c0, c1)):
+            sp = prev[i - c0]
+            ri, ki, vi, wi, di = (x[:, i] for x in (rf, kf, vf, wf, df))
+            vdo = (vi * di).sum(-1, keepdim=True)          # (b, h, 1)
+            ruk = (ri * uf * ki).sum(-1, keepdim=True)
+            dr[:, i] = (sp * di[..., None, :]).sum(-1) + uf * ki * vdo
+            dk[:, i] = (ds * vi[..., None, :]).sum(-1) + uf * ri * vdo
+            dv[:, i] = (ds * ki[..., :, None]).sum(-2) + ruk * di
+            dw[:, i] = (ds * sp).sum(-1)
+            du += (ri * ki * vdo).sum(0)
+            ds = wi[..., :, None] * ds + ri[..., :, None] * di[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du, ds)
 
 
 def _tf32(x):

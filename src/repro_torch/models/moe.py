@@ -13,7 +13,11 @@ top-k, each choice's place in capacity, statistics), on the CPU or with
 ``route_topk``, the cumsum over the one-hot selection). Dispatch and
 combine are one-hot einsums, the expert products batched einsums, as the
 reference leaves them to XLA. The router weight is float32 even in a
-bfloat16 model, and the router logits are computed in float32.
+bfloat16 model, and the router logits are computed in float32. The layer
+is differentiable: the routing ops' gates and ``mean_prob`` carry the
+gradient into x and the router weight (on the card through the router's
+backward kernel, ``moe_router_bwd``); the dispatch, the expert products
+and the combine differentiate as torch ops.
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@ channel mix (the port of ``repro/models/rwkv.py``).
 
 The WKV recurrence is ``repro_torch.kernels.rwkv6_scan.wkv``: the
 hand-written CUDA kernel for CUDA tensors, its plain version on the CPU
-or with ``mode="torch"``. Around it, as the reference writes it: the
+or with ``mode="torch"``; differentiable, through the backward kernel
+``rwkv6_scan_bwd`` on the card (training runs without a cache, so no
+state is written in place). Around it, as the reference writes it: the
 token shift and its interpolations, the decay LoRA (float32, the
 data-dependent w_t), the receptance/key/value/gate projections, ``ln_x``
 (an RMSNorm over all of d, standing in for the per-head group norm),

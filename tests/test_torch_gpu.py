@@ -1385,34 +1385,301 @@ def test_attention_autograd_on_the_card(cuda):
 
 
 def test_kernels_without_backward_refuse_a_gradient(cuda):
-    """Under grad mode, an input that requires a gradient makes the
-    router, WKV and split-kv kernels raise instead of returning detached
-    tensors; under no_grad they run."""
+    """Under grad mode the router and WKV ops differentiate on the card (a
+    forward and a backward launch each, none refused); the split-kv
+    decode and the wire compressors, which have no backward, raise
+    instead of returning detached tensors; under no_grad they run."""
     from repro_torch.kernels.flash_attention import attention
+    from repro_torch.kernels.interface import LAUNCHES
     from repro_torch.kernels.moe_router import route_tokens, route_topk
+    from repro_torch.kernels.quantize import quantize_int8
     from repro_torch.kernels.rwkv6_scan import wkv
 
     rng = np.random.default_rng(1)
     x = _randn(rng, (64, 32), torch.float32, cuda).requires_grad_()
     w = _randn(rng, (32, 8), torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        route_tokens(x, w, top_k=2, group_size=64)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        route_topk(x @ w, top_k=2)
-    with torch.no_grad():
-        route_tokens(x, w, top_k=2, group_size=64)
+    before = {k: LAUNCHES.get(k, 0) for k in (
+        "moe_router", "moe_router_bwd", "rwkv6_scan", "rwkv6_scan_bwd")}
+    g, _, _, aux = route_tokens(x, w, top_k=2, group_size=64)
+    (g.sum() + aux["mean_prob"].sum()).backward()
+    g, _, aux = route_topk(x @ w, top_k=2)
+    (g.sum() + aux["mean_prob"].sum()).backward()
     r, kk, vv = (_randn(rng, (1, 8, 2, 64), torch.float32, cuda)
                  for _ in range(3))
     decay = torch.rand((1, 8, 2, 64), device=cuda)
     u = _randn(rng, (2, 64), torch.float32, cuda).requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        wkv(r, kk, vv, decay, u)
+    wkv(r, kk, vv, decay, u)[0].sum().backward()
+    assert {k: LAUNCHES[k] - v for k, v in before.items()} == {
+        "moe_router": 2, "moe_router_bwd": 2, "rwkv6_scan": 1,
+        "rwkv6_scan_bwd": 1}
+    assert bool(torch.isfinite(x.grad).all()) and float(u.grad.abs().max()) > 0
     q = _randn(rng, (1, 1, 4, 64), torch.bfloat16, cuda).requires_grad_()
     kv = _randn(rng, (1, 32, 4, 64), torch.bfloat16, cuda)
     with pytest.raises(NotImplementedError, match="split_kv"):
         attention(q, kv, kv)
     with torch.no_grad():
         assert attention(q, kv, kv).shape == q.shape
+    v = _randn(rng, (3, 256), torch.float32, cuda).requires_grad_()
+    noise = torch.full((3, 256), 0.5, device=cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        quantize_int8(v, noise)
+    with torch.no_grad():
+        quantize_int8(v, noise)
+
+
+# --- the backward kernels: moe_router_bwd, rwkv6_scan_bwd -----------------
+
+# (t, E, k, renormalize): one row, odd rows, every expert chosen, E not a
+# multiple of 4, deepseek's training shape
+ROUTER_BWD_CASES = [(1, 4, 1, True), (37, 16, 2, True), (37, 64, 6, False),
+                    (70, 64, 64, True), (1000, 12, 3, True),
+                    (4096, 64, 6, True), (4099, 64, 1, True)]
+
+
+@pytest.mark.parametrize("case", ROUTER_BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c[:3]))
+                         + ("r" if c[3] else "n"))
+@pytest.mark.parametrize("given", ["both", "gates", "mean"])
+def test_moe_router_bwd_matches_plain(cuda, case, given):
+    """dl of the kernel against route_tokens_bwd_ref on the same logits,
+    ids and gates (the forward kernel's, tied rows included; past 8 rows
+    the last 5 a padded group's zero rows, mean_prob averaged over all t;
+    "gates" / "mean": the other cotangent zero): within
+    1e-5 relative and 1e-6 absolute (unit cotangents; the two sum in
+    other orders); a repeat bit-equal; one launch."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.moe_router import logits_bwd, route_topk
+
+    t, e, k, renorm = case
+    rng = np.random.default_rng(t + e + k)
+    logits = _randn(rng, (t, e), torch.float32, cuda) * 2
+    logits[0] = 0.5
+    if t > 2:
+        logits[2, :4] = 3.0
+    pad = 5 if t > 8 else 0
+    # a padded last group: zero tokens, so zero logits, and no cotangent
+    # for their gates, yet rows of mean_prob's average
+    logits[t - pad:] = 0.0
+    with torch.no_grad():
+        gates, idx, _ = route_topk(logits, top_k=k, renormalize=renorm)
+    dg = _randn(rng, (t, k), torch.float32, cuda)
+    dm = _randn(rng, (e,), torch.float32, cuda)
+    dg[t - pad:] = 0.0
+    if given == "mean":             # the zeros autograd hands in
+        dg.zero_()
+    if given == "gates":
+        dm.zero_()
+    before = LAUNCHES.get("moe_router_bwd", 0)
+    got = logits_bwd(logits, idx, gates, dg, dm, renormalize=renorm)
+    again = logits_bwd(logits, idx, gates, dg, dm, renormalize=renorm)
+    torch.cuda.synchronize()
+    assert LAUNCHES["moe_router_bwd"] == before + 2
+    want = logits_bwd(logits, idx, gates, dg, dm, renormalize=renorm,
+                      mode="torch")
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _route_grads(x, w, dg, fn):
+    x, w = (a.detach().clone().requires_grad_() for a in (x, w))
+    g, idx, pos, aux = fn(x, w)
+    (g * dg).sum().add(aux["mean_prob"].square().sum()).backward()
+    return x.grad, w.grad, idx, pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_tokens_autograd_on_the_card(cuda, dtype):
+    """Gradients of x and w through the fused forward (logits written) and
+    the backward kernel against the plain path's, the same ids first;
+    one forward and one backward launch; the tile and split forms."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.moe_router import route_tokens
+
+    for t, gs in ((300, 128), (20, 20)):
+        rng = np.random.default_rng(t)
+        x = _randn(rng, (t, 256), getattr(torch, dtype), cuda)
+        w = _randn(rng, (256, 16), torch.float32, cuda) / 16
+        dg = _randn(rng, (t, 2), torch.float32, cuda)
+        before = {k: LAUNCHES.get(k, 0) for k in ("moe_router",
+                                                  "moe_router_bwd")}
+        got = _route_grads(x, w, dg, lambda a, b: route_tokens(
+            a, b, top_k=2, group_size=gs))
+        assert {k: LAUNCHES[k] - v for k, v in before.items()} == {
+            "moe_router": 1, "moe_router_bwd": 1}
+        want = _route_grads(x, w, dg, lambda a, b: route_tokens(
+            a, b, top_k=2, group_size=gs, mode="torch"))
+        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        assert got[0].dtype == x.dtype and got[1].dtype == torch.float32
+        tol = 2e-2 if dtype == "bfloat16" else 1e-5
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+def test_route_tokens_forward_is_the_same_with_its_logits(cuda):
+    """The fused forward writing its logits (under a gradient) gives the
+    same gates, ids, positions and statistics as without, bit for bit,
+    and the logits are the router product's."""
+    from repro_torch.kernels.interface import KernelType
+    from repro_torch.kernels.moe_router import route_tokens
+    from repro_torch.kernels.moe_router.ops import _tokens_forward, plan
+
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (1000, 2048), torch.bfloat16, cuda)
+    w = _randn(rng, (2048, 64), torch.float32, cuda) / 2048 ** 0.5
+    opts = (6, True, 1024, KernelType.CUDA,
+            plan(x, w, top_k=6, group_size=1024))
+    with torch.no_grad():
+        plain = route_tokens(x, w, top_k=6, group_size=1024)
+        g, i, p, m, f, logits = _tokens_forward(x, w, opts, True)
+    torch.cuda.synchronize()
+    assert torch.equal(g, plain[0]) and torch.equal(i, plain[1])
+    assert torch.equal(p, plain[2])
+    assert torch.equal(m, plain[3]["mean_prob"])
+    assert torch.equal(f, plain[3]["frac_tokens"])
+    torch.testing.assert_close(logits, x.float() @ w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_topk_autograd_on_the_card(cuda, dtype):
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.moe_router import route_topk
+
+    rng = np.random.default_rng(11)
+    logits = (_randn(rng, (77, 64), torch.float32, cuda) * 2).to(
+        getattr(torch, dtype))
+    dg = _randn(rng, (77, 6), torch.float32, cuda)
+    grads = []
+    for mode in (None, "torch"):
+        x = logits.clone().requires_grad_()
+        before = LAUNCHES.get("moe_router_bwd", 0)
+        g, _, aux = route_topk(x, top_k=6, mode=mode)
+        (g.float() * dg).sum().add(aux["mean_prob"].square().sum()) \
+            .backward()
+        assert LAUNCHES.get("moe_router_bwd", 0) - before == (
+            1 if mode is None else 0)
+        grads.append(x.grad)
+    assert grads[0].dtype == logits.dtype
+    tol = 2e-2 if dtype == "bfloat16" else 1e-6
+    torch.testing.assert_close(grads[0].float(), grads[1].float(),
+                               rtol=1e-5, atol=tol)
+
+
+# (b, t, h, n, given state, final cotangent, strong decays: w 0 and 1)
+WKV_BWD_CASES = [(2, 1, 3, 16, True, True, False),
+                 (2, 17, 2, 32, False, True, True),
+                 (1, 130, 2, 64, True, False, True),
+                 (2, 33, 4, 64, True, True, False),
+                 (1, 257, 1, 64, False, False, False),
+                 (3, 40, 3, 16, True, False, False)]
+
+
+def _wkv_bwd_args(rng, case, dtype, w_dtype, cuda):
+    b, t, h, n, state, final, strong = case
+    r, k, v, w, u, s = _wkv_inputs(rng, b, t, h, n, dtype, torch.float32,
+                                   state, cuda)
+    if strong:
+        w = torch.exp(-torch.exp(_randn(rng, (b, t, h, n), torch.float32,
+                                        cuda) * 2))
+        w[..., ::7] = 0.0
+        w[:, 3::5, :, 1::6] = 1.0
+    dout = _randn(rng, (b, t, h, n), torch.float32, cuda).to(dtype)
+    ds = _randn(rng, (b, h, n, n), torch.float32, cuda)
+    if not final:                   # the zeros autograd hands in
+        ds.zero_()
+    return r, k, v, w.to(w_dtype), u, s, dout, ds
+
+
+def _assert_wkv_grads_close(got, want):
+    """Each gradient within 1e-5 of its largest value (the two sum over
+    keys, values and steps in other orders); one in bf16 also within one
+    bf16 rounding (2^-7) of each value."""
+    for name, g, wt in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got,
+                           want):
+        assert g.dtype == wt.dtype and g.shape == wt.shape, name
+        scale = float(wt.float().abs().max())
+        rel = 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        err = (g.float() - wt.float()).abs()
+        assert bool((err <= rel * wt.float().abs() + 1e-5 * scale).all()), \
+            (name, float(err.max()), scale)
+
+
+@pytest.mark.parametrize("case", WKV_BWD_CASES, ids=lambda c: (
+    "x".join(map(str, c[:4])) + ("s" if c[4] else "z")
+    + ("d" if c[5] else "") + ("w01" if c[6] else "")))
+@pytest.mark.parametrize("dtype,w_dtype", [("float32", "float32"),
+                                           ("bfloat16", "float32"),
+                                           ("bfloat16", "bfloat16")])
+def test_rwkv6_scan_bwd_matches_plain(cuda, case, dtype, w_dtype):
+    """The backward kernel against wkv6_bwd_ref: dr, dk, dv in r's type,
+    dw in w's, du and dstate float32; a repeat bit-equal; one launch."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.rwkv6_scan import wkv_bwd
+
+    rng = np.random.default_rng(sum(case[:4]))
+    args = _wkv_bwd_args(rng, case, getattr(torch, dtype),
+                         getattr(torch, w_dtype), cuda)
+    before = LAUNCHES.get("rwkv6_scan_bwd", 0)
+    got = wkv_bwd(*args)
+    again = wkv_bwd(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rwkv6_scan_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_wkv_grads_close(got, wkv_bwd(*args, mode="torch"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_autograd_on_the_card(cuda, dtype):
+    """loss.backward() through wkv on the card (chunked forward in bf16,
+    simt in f32; the backward kernel) against the plain path's autograd,
+    from a given state: one forward and one backward launch."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.rwkv6_scan import plan, wkv
+
+    rng = np.random.default_rng(5)
+    base = _wkv_inputs(rng, 2, 40, 2, 64, getattr(torch, dtype),
+                       torch.float32, True, cuda)
+    dout = _randn(rng, (2, 40, 2, 64), torch.float32, cuda)
+    dsf = _randn(rng, (2, 2, 64, 64), torch.float32, cuda)
+    grads = []
+    for mode in (None, "torch"):
+        ins = [a.clone().requires_grad_() for a in base]
+        before = {k: LAUNCHES.get(k, 0) for k in ("rwkv6_scan",
+                                                  "rwkv6_scan_bwd")}
+        out, s = wkv(*ins, mode=mode)
+        ((out.float() * dout).sum() + (s * dsf).sum()).backward()
+        assert {k: LAUNCHES.get(k, 0) - v for k, v in before.items()} == (
+            {"rwkv6_scan": 1, "rwkv6_scan_bwd": 1} if mode is None
+            else {"rwkv6_scan": 0, "rwkv6_scan_bwd": 0})
+        grads.append([a.grad for a in ins])
+    assert plan(*base[:4]) == ("chunked" if dtype == "bfloat16" else "simt")
+    _assert_wkv_grads_close(*grads)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-7b"])
+def test_tiered_llm_example_on_the_card_moe_and_rwkv(cuda, capsys, arch):
+    """examples/tiered_llm_training_torch.py on the card for the reduced
+    deepseek (2 MoE layers) and rwkv6 (2 RWKV layers), 3 rounds: its
+    assertion holds, and each device step went through the backward
+    kernels (2 teams x 2 local steps x 2 layers a round)."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.kernels.interface import LAUNCHES
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "tiered_llm_training_torch.py")
+    spec = importlib.util.spec_from_file_location("tiered_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    names = (("flash_attention_bwd", "moe_router_bwd")
+             if arch.startswith("deepseek") else ("rwkv6_scan_bwd",))
+    before = {k: LAUNCHES.get(k, 0) for k in names}
+    pm, gm = mod.main(["--rounds", "3", "--arch", arch])
+    assert pm <= gm and np.isfinite(pm)
+    for k in names:
+        assert LAUNCHES[k] - before[k] == 3 * 2 * 2 * 2, k
+    assert "round   2: personalized loss" in capsys.readouterr().out
 
 
 def test_tiered_llm_example_on_the_card(cuda, capsys):

@@ -3,14 +3,18 @@ train_state, metrics}``, ``repro_torch.data.tokens``,
 ``prox_update.prox_sgd_tree``) against the JAX package on the CPU.
 
 Reduced configs: ``phi3-mini-3.8b`` (2 layers, d 256, 4 heads of 64,
-vocab 512) and ``qwen3-14b`` (GQA 4:1 and qk-norm), the reference's
-``init_params`` carried across, batches from ``tokens.lm_batches``.
+vocab 512), ``qwen3-14b`` (GQA 4:1 and qk-norm), ``deepseek-moe-16b``
+(the MoE router's gradient, the aux loss of every MoE layer, which ends
+each block as in the reference) and ``rwkv6-7b`` (the WKV-6 scan's
+gradient), the reference's ``init_params`` carried across, batches from
+``tokens.lm_batches``.
 Float32 throughout. Losses and parameters after ``make_train_step`` (sgd,
 momentum, adamw), ``make_permfl_device_step`` and one ``make_tier_round``
 (l_local 2) against the jitted reference within rtol 1e-4 / atol 1e-5,
 the optimizer states likewise. The reference differentiates its XLA
-attention (``jax.grad``); the port its plain backward
-(``attention_bwd_ref``), so they agree to float32 rounding.
+attention, router and WKV scan (``jax.grad``); the port its plain
+backward versions (``attention_bwd_ref``, ``route_tokens_bwd_ref``,
+``wkv6_bwd_ref``), so they agree to float32 rounding.
 """
 import jax
 import jax.numpy as jnp
@@ -30,7 +34,7 @@ from repro.train import trainer as JTR  # noqa: E402
 from repro.train.train_state import TrainState as JTrainState  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
-ARCHS = ["phi3-mini-3.8b", "qwen3-14b"]
+ARCHS = ["phi3-mini-3.8b", "qwen3-14b", "deepseek-moe-16b", "rwkv6-7b"]
 B, S, VOCAB = 2, 16, 512
 # the example's tier hyperparameters
 TIER = dict(alpha=3e-3, lam=0.5, gamma=1.5, eta=0.03, beta=0.3)
@@ -177,10 +181,15 @@ def test_clip_by_global_norm_matches(max_norm):
 # ---------------------------------------------------------------------------
 
 # (arch, optimizer, grad_clip): clipping is active at 1.0 (the norm is
-# ~20) and idle at 100
+# ~20) and idle at 100. rwkv6-7b takes momentum, not AdamW: its decay_A
+# leaf's gradient is mostly under ADAM_FLAT (decay_B starts at scale
+# 0.01), so AdamW's first step there is rounding noise on most of the
+# leaf, which _close_adam's 1% rule refuses, as it should
 STEP_CASES = [("phi3-mini-3.8b", "sgd", 1.0), ("phi3-mini-3.8b", "sgd", 100.0),
               ("phi3-mini-3.8b", "momentum", 100.0),
-              ("phi3-mini-3.8b", "adamw", 100.0), ("qwen3-14b", "adamw", 100.0)]
+              ("phi3-mini-3.8b", "adamw", 100.0), ("qwen3-14b", "adamw", 100.0),
+              ("deepseek-moe-16b", "adamw", 100.0),
+              ("rwkv6-7b", "momentum", 100.0)]
 ADAM_FLAT = 1e-6      # |grad| under which AdamW's first update is noise
 
 
@@ -411,3 +420,20 @@ def test_tiered_llm_example_on_cpu(capsys):
     assert pm <= gm and np.isfinite(pm)
     out = capsys.readouterr().out
     assert "round   2: personalized loss" in out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-7b"])
+def test_tiered_llm_example_on_cpu_moe_and_rwkv(arch, capsys):
+    """The example trains the reduced MoE and RWKV-6 models too (the
+    router's and the WKV scan's plain backward), 3 rounds."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "tiered_llm_training_torch.py")
+    spec = importlib.util.spec_from_file_location("tiered_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    pm, gm = mod.main(["--device", "cpu", "--rounds", "3", "--arch", arch])
+    assert pm <= gm and np.isfinite(pm)
+    assert "round   2: personalized loss" in capsys.readouterr().out
