@@ -297,12 +297,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (timed: L2 cold, the plain version, the bound by bytes, the op's
      whole backward with its two f32 products), with zero rows and tied
      experts, and with a padded last group; dl within 1e-6 absolute +
-     1e-5 relative, a repeat bit-equal; rwkv6_scan_bwd at rwkv6-7b's (4,
-     1,024, 64, 64), bf16 r/k/v, f32 w, without a state and a final-state
-     cotangent (the training path's) and with both (each timed: L2 cold,
-     the plain version, the bound by bytes, the CUDA-core floor), and at
-     t = 17 and 1,000: dr, dk, dv, dw, du and dstate0 each within 1e-5 of
-     its scale (bf16 also one bf16 rounding), a repeat bit-equal.
+     1e-5 relative, a repeat bit-equal; rwkv6_scan_bwd, both variants
+     (``chunked``, the training path's, and ``simt``) on the same
+     tensors, at rwkv6-7b's (4, 1,024, 64, 64), bf16 r/k/v, f32 w,
+     without a state and a final-state cotangent (the training path's)
+     and with both (each timed, both variants: L2 cold, the plain
+     version, the bound by bytes, the CUDA-core floor), and at t = 17 and
+     1,000: dr, dk, dv, dw, du and dstate0 each within 1e-5 of its scale
+     (bf16 also one bf16 rounding), a repeat bit-equal, each launch
+     counted on its variant.
  13k. MoE training: deepseek-moe-16b cut to 6 of 28 layers at every
      published width (every layer MoE: 64 experts, top-6, 2 shared;
      3,946,604,544 bf16 parameters, 16 leaves), 13h's AdamW step and two
@@ -315,7 +318,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
  13l. RWKV-6 training: rwkv6-7b cut to 12 of 32 layers (3,161,001,984
      parameters, 25 leaves, decay_w0 and bonus_u float32), the same:
      rwkv6_scan exactly 12 a pass (all ``chunked``), rwkv6_scan_bwd
-     exactly 12 a pass, prox_update exactly 2 x 2 x 25.
+     exactly 12 a pass (all ``chunked``), prox_update exactly 2 x 2 x 25.
  13m. their consistency: each cut to 2 layers in f32, one AdamW step (lr
      1e-2, grad_clip 1.0) and one tier round through the kernels and
      through ``mode="torch"``: losses and the gradient norm within 1e-5,
@@ -429,7 +432,9 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     "flash_attention_bwd": ("flash_attention/csrc/"
                             "flash_attention_bwd_hopper.cu"),
     "moe_router_bwd": "moe_router/csrc/moe_router_bwd.cu",
-    "rwkv6_scan_bwd": "rwkv6_scan/csrc/rwkv6_scan_bwd.cu",
+    # the training path's variant (chunked); the CUDA-core simt backward of
+    # f32 and the other cases is rwkv6_scan/csrc/rwkv6_scan_bwd.cu
+    "rwkv6_scan_bwd": "rwkv6_scan/csrc/rwkv6_scan_bwd_hopper.cu",
 }
 LLM_ARCH = "deepseek-moe-16b"
 RWKV_ARCH = "rwkv6-7b"
@@ -3823,15 +3828,18 @@ def phase_rwkv_training():
     """rwkv6-7b cut to RWKV_TRAIN_CUT at every published width in bf16
     (decay_w0 and bonus_u float32 leaves) through :func:`run_training`:
     rwkv6_scan exactly 12 a pass (all ``chunked``), rwkv6_scan_bwd exactly
-    12 a pass, prox_update rounds x l_local x 25 (the float32 leaves'
-    launches among them), no other kernel. Returns its launches."""
-    from repro_torch.kernels.rwkv6_scan import VARIANTS
+    12 a pass (all ``chunked``), prox_update rounds x l_local x 25 (the
+    float32 leaves' launches among them), no other kernel. Returns its
+    launches."""
+    from repro_torch.kernels.rwkv6_scan import BWD_VARIANTS, VARIANTS
 
     n = RWKV_TRAIN_CUT["num_layers"]
     launches, trees = run_training(
         RWKV_ARCH, RWKV_TRAIN_PARAMS, RWKV_TRAIN_LEAVES,
         {"rwkv6_scan": n, "rwkv6_scan_bwd": n},
-        {"rwkv6_scan variants": (VARIANTS, {"chunked": n})}, RWKV_TRAIN_CUT)
+        {"rwkv6_scan variants": (VARIANTS, {"chunked": n}),
+         "rwkv6_scan_bwd variants": (BWD_VARIANTS, {"chunked": n})},
+        RWKV_TRAIN_CUT)
     del trees
     release()
     return launches
@@ -3985,21 +3993,25 @@ def phase_family_bwd_check():
     4,096 rows, the padded rows' gates' cotangent 0, mean_prob over 4,096
     rows); dl within ROUTER_BWD_TOL, a repeat bit-equal; the logits the
     forward wrote against f32(x) @ w; the whole op's backward (dl and the
-    two float32 products) timed beside it. rwkv6_scan_bwd at rwkv6-7b's
-    (4, 1,024, 64, 64), bf16 r/k/v and f32 w: without a state and with a
-    zero final-state cotangent (the training path's; timed) and with a
-    state and a cotangent (timed), and at t = 17 and 1,000; each gradient within WKV_BWD_TOL of
-    its scale (bf16 also one bf16 rounding), a repeat bit-equal. Times
-    with the L2 cold, the plain versions', the bounds. Returns {label:
-    numbers}."""
+    two float32 products) timed beside it. rwkv6_scan_bwd, both variants
+    on the same tensors, at rwkv6-7b's (4, 1,024, 64, 64), bf16 r/k/v and
+    f32 w: without a state and with a zero final-state cotangent (the
+    training path's; timed) and with a state and a cotangent (timed), and
+    at t = 17 and 1,000; each gradient within WKV_BWD_TOL of its scale
+    (bf16 also one bf16 rounding), a repeat bit-equal, two launches
+    counted on the variant; ``plan_bwd`` picks ``chunked`` at each. Times
+    with the L2 cold (``chunked`` and ``simt``), the plain versions', the
+    bounds. Returns {label: numbers}, a WKV label's the ``chunked``
+    variant's."""
     import torch
 
     from repro_torch.kernels.interface import kernel_mode
     from repro_torch.kernels.moe_router import logits_bwd, plan
     from repro_torch.kernels.moe_router.ops import _tokens_forward, \
         launch_bwd
-    from repro_torch.kernels.rwkv6_scan import wkv_bwd
-    from repro_torch.kernels.rwkv6_scan.ops import BWD_CHUNK
+    from repro_torch.kernels.rwkv6_scan import BWD_VARIANTS, plan_bwd, \
+        wkv_bwd
+    from repro_torch.kernels.rwkv6_scan.ops import bwd_scratch
     from repro_torch.kernels.rwkv6_scan.ops import launch_bwd as wkv_launch
 
     gen = torch.Generator(device=DEVICE).manual_seed(11)
@@ -4082,48 +4094,68 @@ def phase_family_bwd_check():
         dsf = (torch.randn(b, h, n, n, device=DEVICE, generator=gen)
                if final else torch.zeros(b, h, n, n, device=DEVICE))
         args = (r, kk, v, wd, u, s0, dout, dsf)
-        got = wkv_bwd(*args)
-        again = wkv_bwd(*args)
         want = wkv_bwd(*args, mode="torch")
-        torch.cuda.synchronize()
-        errs, ok = wkv_grad_errors(got, want)
         shape = (f"({b}, {tt}, {h}, {n}) bf16/f32 w, "
                  + ("a given state" if state else "state None") + ", "
                  + ("a final-state cotangent" if final
                     else "a zero final-state cotangent"))
-        tag = (f"rwkv6_scan_bwd rwkv6-7b {label} {shape}: max abs err dr/dk/"
-               f"dv/dw/du/dstate0 " + ", ".join(f"{x:.3g}" for x in errs)
-               + f" (tol {WKV_BWD_TOL:g} of each scale, bf16 also 2^-7 of "
-               f"each value), two launches bit-equal")
-        if not ok:
-            raise AssertionError(f"{tag}: kernel and plain version differ")
-        if not all(torch.equal(a, c) for a, c in zip(got, again)):
-            raise AssertionError(f"rwkv6_scan_bwd {label}: two launches "
-                                 "differ")
-        if not timed:
+        if plan_bwd(r, kk, v, wd, s0) != "chunked":
+            raise AssertionError(f"rwkv6_scan_bwd {label}: plan_bwd picks "
+                                 f"{plan_bwd(r, kk, v, wd, s0)}, not chunked")
+        errs = {}
+        for var in ("chunked", "simt"):
+            before = dict(BWD_VARIANTS)
+            got = wkv_bwd(*args, variant=var)
+            again = wkv_bwd(*args, variant=var)
+            torch.cuda.synchronize()
+            counted = {k: BWD_VARIANTS[k] - before[k] for k in before}
+            if counted != {v2: 2 if v2 == var else 0 for v2 in before}:
+                raise AssertionError(f"rwkv6_scan_bwd {var} {label}: "
+                                     f"variant counts {counted}")
+            errs[var], ok = wkv_grad_errors(got, want)
+            tag = (f"rwkv6_scan_bwd {var} rwkv6-7b {label} {shape}: max abs "
+                   f"err dr/dk/dv/dw/du/dstate0 "
+                   + ", ".join(f"{x:.3g}" for x in errs[var])
+                   + f" (tol {WKV_BWD_TOL:g} of each scale, bf16 also 2^-7 "
+                   f"of each value), two launches bit-equal")
+            if not ok:
+                raise AssertionError(f"{tag}: kernel and plain version "
+                                     "differ")
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"rwkv6_scan_bwd {var} {label}: two "
+                                     "launches differ")
             say("kernel", tag)
+        if not timed:
             continue
         grads = tuple(torch.empty_like(g) for g in got[:4]) + (
             torch.empty(b, h, n, device=DEVICE), torch.empty_like(got[5]))
-        snap = torch.empty(b * h * -(-tt // BWD_CHUNK) * n * n,
-                           device=DEVICE)
         uc = u.contiguous()
-        ms = cuda_time_ms(lambda: wkv_launch(r, kk, v, wd, uc, s0, dout, dsf,
-                                             grads, snap), 10)
+        ms, mb = {}, {}
+        for var in ("chunked", "simt"):
+            scratch = bwd_scratch(r, var)
+            mb[var] = scratch.numel() * 4 / 1e6
+            ms[var] = cuda_time_ms(lambda: wkv_launch(
+                r, kk, v, wd, uc, s0, dout, dsf, grads, scratch,
+                variant=var), 10)
+            del scratch
         plain_ms = cuda_time_ms(lambda: wkv_bwd(*args, mode="torch"), 3)
-        bound_ms, by, mb, cc_ms = wkv_bwd_bound(b, tt, h, n, bf16, state)
-        say("kernel", tag)
-        say("kernel", f"rwkv6_scan_bwd {label}: kernel {ms * 1e3:.1f} us "
-            f"L2-cold (its snapshots {snap.numel() * 4 / 1e6:.0f} MB), "
-            f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
-            f"({mb:.1f} MB, by {by}), {bound_ms / ms:.1%} of bound; the "
-            f"step-by-step form's CUDA-core floor {cc_ms * 1e3:.1f} us "
-            f"({RWKV_BWD_OPS_PER_ELEMENT} f32 operations per element-step), "
-            f"{cc_ms / ms:.1%} of it; no library call")
-        out[f"wkv {label}"] = dict(max_abs_err=max(errs), ms=ms,
-                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=by, library_ms=None)
-        del grads, snap
+        bound_ms, by, moved, cc_ms = wkv_bwd_bound(b, tt, h, n, bf16, state)
+        say("kernel", f"rwkv6_scan_bwd {label}: chunked "
+            f"{ms['chunked'] * 1e3:.1f} us L2-cold (its snapshots "
+            f"{mb['chunked']:.1f} MB), {bound_ms / ms['chunked']:.1%} of "
+            f"bound; simt on the same tensors {ms['simt'] * 1e3:.1f} us "
+            f"(snapshots {mb['simt']:.1f} MB), "
+            f"{ms['simt'] / ms['chunked']:.2f}x; plain "
+            f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+            f"({moved:.1f} MB, by {by}); the step-by-step form's CUDA-core "
+            f"floor {cc_ms * 1e3:.1f} us ({RWKV_BWD_OPS_PER_ELEMENT} f32 "
+            f"operations per element-step), {cc_ms / ms['chunked']:.1%} of "
+            f"it; no library call")
+        out[f"wkv {label}"] = dict(max_abs_err=max(errs["chunked"]),
+                                   ms=ms["chunked"], plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=by,
+                                   library_ms=None)
+        del grads
     del r, kk, v, wd, u, s0, dout, dsf, got, again, want
     release()
     return out

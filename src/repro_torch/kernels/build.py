@@ -56,6 +56,8 @@ KERNEL_SOURCES = {
                           / "rwkv6_scan_hopper.cu"),
     "rwkv6_scan_bwd": (_KERNELS_DIR / "rwkv6_scan" / "csrc"
                        / "rwkv6_scan_bwd.cu"),
+    "rwkv6_scan_bwd_hopper": (_KERNELS_DIR / "rwkv6_scan" / "csrc"
+                              / "rwkv6_scan_bwd_hopper.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

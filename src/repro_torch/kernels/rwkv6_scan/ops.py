@@ -28,11 +28,22 @@ The op is differentiable in r, k, v, w, u and ``state``. When grad mode
 is on and one of them requires a gradient, the forward runs as above
 (the variant :func:`plan` picks; ``out_state`` is refused there: a state
 written in place has no gradient) and saves r, k, v, w, u and the
-initial state; the backward is :func:`wkv_bwd`: on CUDA tensors the
-kernel ``csrc/rwkv6_scan_bwd.cu`` (CUDA cores, float32; forward states
-recomputed from snapshots it writes every 8 steps; one launch adds one
-to ``LAUNCHES["rwkv6_scan_bwd"]``), on CPU tensors or with
-``mode="torch"`` ``ref.wkv6_bwd_ref``.
+initial state; the backward is :func:`wkv_bwd`: on CPU tensors or with
+``mode="torch"`` ``ref.wkv6_bwd_ref``; on CUDA tensors the backward
+kernel :func:`plan_bwd` picks, written out as :func:`plan`'s:
+
+  * ``"chunked"``: bfloat16 r, k, v, float32 or bfloat16 w, head size 64,
+    t >= 16 (the training path). The reverse scan 16 steps at a time with
+    its products on the tensor cores, a cluster of 4 CTAs per (batch,
+    head), each 16 keys (``csrc/rwkv6_scan_bwd_hopper.cu``); it recomputes
+    the forward states from a snapshot every ``BWD_SEGMENT`` steps.
+  * ``"simt"``: everything else. The step-by-step reverse scan on CUDA
+    cores, float32 (``csrc/rwkv6_scan_bwd.cu``), from a snapshot every
+    ``BWD_CHUNK`` steps.
+
+Both take their snapshots in a float32 scratch the wrapper allocates
+(:func:`bwd_scratch`). Each launch adds one to
+``LAUNCHES["rwkv6_scan_bwd"]`` and to ``BWD_VARIANTS[variant]``.
 """
 from __future__ import annotations
 
@@ -45,25 +56,30 @@ from repro_torch.kernels.interface import KernelType, count_launch, \
     kernel_mode
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_bwd_ref, wkv6_ref
 
-__all__ = ["BWD_CHUNK", "HEAD_SIZES", "KERNELS", "VARIANTS", "launch",
-           "launch_bwd", "plan", "reset_variants", "wkv", "wkv_bwd"]
+__all__ = ["BWD_CHUNK", "BWD_SEGMENT", "BWD_VARIANTS", "HEAD_SIZES",
+           "KERNELS", "VARIANTS", "bwd_scratch", "launch", "launch_bwd",
+           "plan", "plan_bwd", "reset_variants", "wkv", "wkv_bwd"]
 
 _NAME = "rwkv6_scan"
 _BWD = "rwkv6_scan_bwd"
 KERNELS = (_NAME, _BWD)
-BWD_CHUNK = 8                     # the backward's steps between snapshots
+BWD_CHUNK = 8                     # simt backward: steps between snapshots
+BWD_SEGMENT = 64                  # chunked backward: steps between snapshots
 HEAD_SIZES = (16, 32, 64)
 _CHUNK = 16                       # chunked: steps a chunk, and its least t
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# variant -> launches that ran it since the last reset_variants()
+# variant -> launches that ran it since the last reset_variants(): the
+# forward's and the backward's
 VARIANTS = {"chunked": 0, "simt": 0}
+BWD_VARIANTS = {"chunked": 0, "simt": 0}
 
 
 def reset_variants() -> None:
-    """Set every variant's count to 0."""
-    for name in VARIANTS:
-        VARIANTS[name] = 0
+    """Set every variant's count to 0, forward and backward."""
+    for counts in (VARIANTS, BWD_VARIANTS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _fn(lib, name, argtypes):
@@ -91,6 +107,11 @@ def _bwd_fn():
                + [_P])
 
 
+def _bwd_chunked_fn():
+    return _fn("rwkv6_scan_bwd_hopper", "rwkv6_scan_bwd_chunked",
+               [_I] + [_P] * 15 + [_I] * 3 + [_P])
+
+
 def plan(r, k, v, w, state=None):
     """The kernel variant :func:`wkv` launches for these tensors:
     ``"chunked"`` for bfloat16 r, k, v with float32 or bfloat16 w, head
@@ -101,6 +122,25 @@ def plan(r, k, v, w, state=None):
             and w.dtype in _DTYPE_CODES and n == 64 and t >= _CHUNK):
         return "chunked"
     return "simt"
+
+
+def plan_bwd(r, k, v, w, state=None):
+    """The backward kernel :func:`wkv_bwd` launches for these tensors: the
+    same rule as :func:`plan` (``"chunked"`` for bfloat16 r, k, v with
+    float32 or bfloat16 w, head size 64 and t >= 16; ``"simt"``
+    otherwise). A pure function of types and shapes."""
+    return plan(r, k, v, w, state)
+
+
+def bwd_scratch(r, variant):
+    """The float32 snapshot scratch :func:`launch_bwd` takes for ``r``'s
+    shape and ``variant``: b * h * (snapshots) * n * n floats, a snapshot
+    every BWD_CHUNK steps (``simt``) or every BWD_SEGMENT steps
+    (``chunked``)."""
+    b, t, h, n = r.shape
+    every = BWD_SEGMENT if variant == "chunked" else BWD_CHUNK
+    return torch.empty(b * h * -(-t // every) * n * n, dtype=torch.float32,
+                       device=r.device)
 
 
 def _check(r, k, v, w, u, state, out_state):
@@ -254,36 +294,59 @@ class _WKV(torch.autograd.Function):
                 None if state is None else ds.to(state.dtype), None)
 
 
-def launch_bwd(r, k, v, w, u, state, dout, dstate, grads, snap):
-    """One launch of the backward kernel into ``grads`` = (dr, dk, dv, dw
-    (r's shape, dr/dk/dv in r's type, dw in w's), du_part (b, h, n)
-    float32, dstate0 (b, h, n, n) float32): CUDA r, k, v, w, dout (b, t,
-    h, n), u (h, n) float32, ``state`` (b, h, n, n) float32 or None
-    (zeros), ``dstate`` (b, h, n, n) float32, ``snap`` float32 of b * h * ceil(t / BWD_CHUNK) * n *
-    n, all contiguous and 16-byte aligned. No checks: :func:`wkv_bwd`
-    makes them (a timing loop calls this directly)."""
+def launch_bwd(r, k, v, w, u, state, dout, dstate, grads, snap, *,
+               variant=None):
+    """One launch of the backward kernel :func:`plan_bwd` picks (or
+    ``variant``, named explicitly, as a measurement compares the two) into
+    ``grads`` = (dr, dk, dv, dw (r's shape, dr/dk/dv in r's type, dw in
+    w's), du_part (b, h, n) float32, dstate0 (b, h, n, n) float32): CUDA
+    r, k, v, w, dout (b, t, h, n), u (h, n) float32, ``state`` (b, h, n,
+    n) float32 or None (zeros), ``dstate`` (b, h, n, n) float32, ``snap``
+    :func:`bwd_scratch` of the variant, all contiguous and 16-byte
+    aligned. Checks only what picks the variant: :func:`wkv_bwd` makes the
+    rest (a timing loop calls this directly)."""
     b, t, h, n = r.shape
-    fn = _bwd_fn()
+    if variant is None:
+        variant = plan_bwd(r, k, v, w, state)
+    elif variant not in BWD_VARIANTS:
+        raise ValueError(f"rwkv6_scan_bwd variant {variant!r} is not one of "
+                         f"{tuple(BWD_VARIANTS)}")
+    if variant == "chunked":
+        if n != 64 or r.dtype != torch.bfloat16:
+            raise ValueError(f"rwkv6_scan_bwd chunked kernel takes bfloat16 "
+                             f"r, k, v of head size 64, got {r.dtype}, n {n}")
+        if any(x.data_ptr() % 16 for x in (r, k, v, w, dout)):
+            raise ValueError("rwkv6_scan_bwd chunked kernel takes r, k, v, w, "
+                             "dout on 16-byte boundaries")
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    count_launch(_BWD)
-    err = fn(_DTYPE_CODES[r.dtype], _DTYPE_CODES[w.dtype], n,
-             *(x.data_ptr() for x in (r, k, v, w, u)),
-             None if state is None else state.data_ptr(),
-             *(x.data_ptr() for x in (dout, dstate) + tuple(grads)),
-             snap.data_ptr(), b, t, h, stream)
+    ptrs = (*(x.data_ptr() for x in (r, k, v, w, u)),
+            None if state is None else state.data_ptr(),
+            *(x.data_ptr() for x in (dout, dstate) + tuple(grads)),
+            snap.data_ptr(), b, t, h, stream)
+    if variant == "chunked":
+        fn = _bwd_chunked_fn()
+        count_launch(_BWD)
+        err = fn(_DTYPE_CODES[w.dtype], *ptrs)
+    else:
+        fn = _bwd_fn()
+        count_launch(_BWD)
+        err = fn(_DTYPE_CODES[r.dtype], _DTYPE_CODES[w.dtype], n, *ptrs)
+    BWD_VARIANTS[variant] += 1
     if err:
-        raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA error "
-                           f"{err} (r {tuple(r.shape)} {r.dtype}, w "
-                           f"{w.dtype})")
+        raise RuntimeError(f"rwkv6_scan_bwd {variant} kernel launch failed: "
+                           f"CUDA error {err} (r {tuple(r.shape)} {r.dtype}, "
+                           f"w {w.dtype})")
 
 
-def wkv_bwd(r, k, v, w, u, state, dout, dstate, *, mode=None):
+def wkv_bwd(r, k, v, w, u, state, dout, dstate, *, mode=None,
+            variant=None):
     """The gradient of :func:`wkv` at r, k, v, w, u, ``state`` (None:
     zeros), given the output's cotangent ``dout`` and the final state's
     ``dstate``: (dr, dk, dv in r's type, dw in w's, du (h, n) float32,
-    dstate0 (b, h, n, n) float32). The kernel
-    ``csrc/rwkv6_scan_bwd.cu`` for CUDA tensors, ``ref.wkv6_bwd_ref`` for
-    CPU tensors or ``mode="torch"``."""
+    dstate0 (b, h, n, n) float32). For CUDA tensors the kernel
+    :func:`plan_bwd` picks, or ``variant`` named explicitly (as a
+    measurement compares the two; one the tensors do not fit raises);
+    ``ref.wkv6_bwd_ref`` for CPU tensors or ``mode="torch"``."""
     _check(r, k, v, w, u, state, dstate)
     b, t, h, n = r.shape
     if dout.shape != r.shape:
@@ -309,8 +372,9 @@ def wkv_bwd(r, k, v, w, u, state, dout, dstate, *, mode=None):
              torch.empty_like(w),
              torch.empty((b, h, n), dtype=torch.float32, device=dev),
              torch.empty((b, h, n, n), dtype=torch.float32, device=dev))
-    snap = torch.empty(b * h * -(-t // BWD_CHUNK) * n * n,
-                       dtype=torch.float32, device=dev)
-    launch_bwd(r, k, v, w, u, state, dout, dstate, grads, snap)
+    if variant is None:
+        variant = plan_bwd(r, k, v, w, state)
+    launch_bwd(r, k, v, w, u, state, dout, dstate, grads,
+               bwd_scratch(r, variant), variant=variant)
     dr, dk, dv, dw, du_part, ds = grads
     return dr, dk, dv, dw, du_part.sum(0), ds

@@ -20,15 +20,19 @@ of the kernel's 3xTF32 operand splits. The CPU tests hold it to
 :func:`wkv6_ref`; nothing on the card's path calls it.
 
 :func:`wkv6_bwd_ref` is the recurrence's gradient, the reverse scan
-written out in torch ops: the plain version of the backward kernel
-``csrc/rwkv6_scan_bwd.cu``, which the CPU path runs and the card's tests
-hold the kernel to.
+written out in torch ops: the plain version of both backward kernels
+(``csrc/rwkv6_scan_bwd.cu``, ``csrc/rwkv6_scan_bwd_hopper.cu``), which
+the CPU path runs and the card's tests hold the kernels to.
+:func:`wkv6_chunked_bwd` is the same gradient in the order of the chunked
+backward kernel (``csrc/rwkv6_scan_bwd_hopper.cu``); the CPU tests hold
+it to :func:`wkv6_bwd_ref` and to the JAX reference; nothing on the
+card's path calls it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["wkv6_bwd_ref", "wkv6_chunked", "wkv6_ref"]
+__all__ = ["wkv6_bwd_ref", "wkv6_chunked", "wkv6_chunked_bwd", "wkv6_ref"]
 
 
 def wkv6_ref(r, k, v, w, u, state=None):
@@ -189,3 +193,139 @@ def wkv6_chunked(r, k, v, w, u, state=None, *, chunk=16, split_tf32=False):
         out[:, :, c0:c0 + L] = _mm(rc * pre, s, p3) + _mm(a, vc, p2)
         s = d[..., None] * s + _mm((kc * suf).transpose(-1, -2), vc, p2)
     return out.transpose(1, 2).to(r.dtype), s
+
+
+def _pad_rows(x, rows, fill):
+    """x (b, h, L, n) padded to ``rows`` steps with ``fill``."""
+    if x.shape[2] == rows:
+        return x
+    pad = x.new_full((*x.shape[:2], rows - x.shape[2], x.shape[3]), fill)
+    return torch.cat([x, pad], dim=2)
+
+
+def wkv6_chunked_bwd(r, k, v, w, u, state, dout, dstate, *, chunk=16,
+                     split_tf32=False):
+    """:func:`wkv6_bwd_ref` taken ``chunk`` steps at a time, in the order
+    of the chunked backward kernel. Same arguments and results.
+
+    Per (batch, head), the chunks run backward from G = ``dstate``, each
+    from its start state S_c (recomputed forward, as :func:`wkv6_chunked`
+    takes it). With the chunk's L steps padded to ``chunk`` (r, k, v,
+    dout 0 and w 1 past L, so every padded term is 0), per key i the
+    prefix P_t = prod_{m<t} w_m, suffix Q_s = prod_{s<m<L} w_m, total D
+    and pairwise decay M(t, s) = prod_{s<m<t} w_m (s < t), all plain
+    products (no division, no logarithm):
+
+        dA    = tril(dout . v^T)                 X = S_c . dout^T
+        Y     = G . v^T                          rs = rowsum(S_c * G)
+        dv    = A^T . dout + (k * Q) . G         (A as in wkv6_chunked)
+        dS_c  = diag(D) G + (r * P)^T . dout     (G of the chunk before)
+
+    and per key i and step t the in-chunk sums by the kernel's
+    recurrence: Z_{m+1}(t) = w_m Z_m(t) + dA[t, m] k_m from Z_0 = 0, so
+    Z_m(t) = sum_{s<m} dA[t, s] M(m, s) k_s, then
+
+        dr_t = P_t X[:, t] + Z_t(t) + dA[t, t] u k_t
+        dk_s = Q_s Y[:, s] + sum_{t>s} dA[t, s] M(t, s) r_t + dA[s, s] r_s u
+        dw_m = P_m Q_m rs + sum_{t>m} M(t, m) r_t (Z_m(t) + P_m X[:, t])
+               + Q_m sum_{s<m} M(m, s) k_s Y[:, s]
+        du  += sum_t dA[t, t] r_t k_t            (summed over b too)
+
+    (dw_m is rowsum(dS_m * S_{m-1}) split into its cross-chunk and
+    in-chunk parts). With ``split_tf32`` each product takes its operands
+    as the kernel does: bf16 operands exact, each float32 one split into
+    two TF32 parts, so X, Y, (r * P)^T . dout, A^T . dout and the state
+    update (k * Q)^T . v take 2 passes and (k * Q) . G takes 3; dA is a
+    product of bf16 values summed in float32 (exact terms)."""
+    b, t, h, n = r.shape
+    rf, kf, vf, wf, df = (x.float().transpose(1, 2)
+                          for x in (r, k, v, w, dout))      # (b, h, t, n)
+    uf = u.float()[None, :, :, None]                        # (1, h, n, 1)
+    p2, p3 = (2, 3) if split_tf32 else (None, None)
+    dev = r.device
+    if state is None:
+        s = torch.zeros((b, h, n, n), dtype=torch.float32, device=dev)
+    else:
+        s = state.float().clone()
+    steps = torch.arange(chunk, device=dev)
+
+    def tiles(c0):
+        """The chunk's r, k, v, dout, w, padded; keys-first copies of r,
+        k, w (b, h, n, chunk); Q (b, h, n, chunk) and D (b, h, n)."""
+        sl = slice(c0, c0 + chunk)
+        rc, kc, vc, dc = (_pad_rows(x[:, :, sl], chunk, 0.0)
+                          for x in (rf, kf, vf, df))
+        wc = _pad_rows(wf[:, :, sl], chunk, 1.0)
+        rk, kk, wk = (x.transpose(-1, -2) for x in (rc, kc, wc))
+        q = torch.empty_like(wk)
+        run = torch.ones_like(wk[..., 0])
+        for i in reversed(range(chunk)):
+            q[..., i] = run
+            run = run * wk[..., i]
+        return rc, kc, vc, dc, rk, kk, wk, q, run
+
+    starts = []
+    for c0 in range(0, t, chunk):
+        starts.append(s)
+        if c0 + chunk < t:
+            _, kc, vc, _, _, kk, _, q, d = tiles(c0)
+            s = d[..., None] * s + _mm(kk * q, vc, p2)
+    g = dstate.float().clone()
+    grads = [torch.empty((b, h, t, n), dtype=torch.float32, device=dev)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((h, n), dtype=torch.float32, device=dev)
+    for c, sc in reversed(list(enumerate(starts))):
+        c0 = c * chunk
+        L = min(chunk, t - c0)
+        rc, kc, vc, dc, rk, kk, wk, q, d = tiles(c0)
+        x = _mm(sc, dc.transpose(-1, -2), p2)               # X (b, h, n, C)
+        y = _mm(g, vc.transpose(-1, -2), p2)                # Y
+        da = torch.tril(dc @ vc.transpose(-1, -2))          # dA[t, s]
+        rs = (sc * g).sum(-1)[..., None]                    # (b, h, n, 1)
+        # M(t, m) per key as the kernel's thread (key, t) builds it: a
+        # running product down from m = t - 1
+        mrow = torch.zeros((b, h, n, chunk, chunk), dtype=torch.float32,
+                           device=dev)
+        run = torch.ones_like(rk)
+        for m in reversed(range(chunk)):
+            on = steps > m
+            mrow[..., m] = torch.where(on, run, 0.0)
+            run = torch.where(on, run * wk[..., m:m + 1], run)
+        z = torch.zeros_like(rk)                            # Z_m(t)
+        f = torch.zeros_like(rk)
+        pm = torch.ones_like(rk[..., 0])                    # P_m
+        pt = torch.ones_like(rk)                            # P_t
+        part = torch.zeros_like(mrow)                       # [.., t, m]
+        part3 = torch.zeros_like(mrow)
+        aterm = torch.zeros_like(mrow)                      # A's terms
+        for m in range(chunk):
+            on = steps > m
+            dam = da[:, :, None, :, m]                      # dA[t, m]
+            mrr = mrow[..., m] * rk
+            part[..., m] = mrr * (z + pm[..., None] * x)
+            part3[..., m] = mrr * dam
+            cm = mrow[..., m] * kk[..., m:m + 1]
+            f = f + cm * y[..., m:m + 1]
+            aterm[..., m] = torch.where(
+                on, rk * cm, torch.where(steps == m, rk * uf * kk, 0.0))
+            z = torch.where(on, wk[..., m:m + 1] * z + dam * kk[..., m:m + 1],
+                            z)
+            pt = torch.where(steps == m, pm[..., None], pt)
+            pm = pm * wk[..., m]
+        dag = torch.diagonal(da, dim1=-2, dim2=-1)[:, :, None, :]
+        dr_c = pt * x + z + dag * uf * kk
+        dk_c = q * y + part3.sum(-2) + dag * rk * uf
+        dw_c = pt * q * rs + part.sum(-2) + q * f
+        du += (dag * rk * kk).sum((0, 3))
+        a = aterm.sum(2)                                    # (b, h, C, C)
+        kq = (kk * q).transpose(-1, -2)                     # (k * Q)[s, i]
+        dv_c = _mm(a.transpose(-1, -2), dc, p2) + _mm(kq, g, p3)
+        g = d[..., None] * g + _mm(rk * pt, dc, p2)
+        for out, val in ((dr, dr_c.transpose(-1, -2)),
+                         (dk, dk_c.transpose(-1, -2)), (dv, dv_c),
+                         (dw, dw_c.transpose(-1, -2))):
+            out[:, :, c0:c0 + L] = val[:, :, :L]
+    dr, dk, dv, dw = (x.transpose(1, 2) for x in grads)
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du, g)

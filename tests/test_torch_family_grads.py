@@ -22,6 +22,10 @@ against ``jax.vjp`` of those, with cotangents drawn from numpy:
     and bf16 r/k/v with float32 w; t = 1, 17 and 130; a given state and
     a final-state cotangent; decays exactly 0 and 1; and the ``wkv``
     Function on the CPU;
+  * ``wkv6_chunked_bwd``, the same gradient in the order of the chunked
+    backward kernel ``rwkv6_scan_bwd_hopper``, against ``wkv6_bwd_ref``
+    and ``jax.vjp`` at t = 1 .. 100 around the chunk of 16, and with the
+    kernel's TF32 operand splits in bf16;
   * ``loss_fn(...).backward()`` of the reduced deepseek-moe-16b,
     dbrx-132b and rwkv6-7b.
 
@@ -418,6 +422,63 @@ def test_wkv6_bwd_ref_matches_jax_vjp(case, dtype):
             _close(g, wt, rtol=BF16_REL, atol=1e-5, msg=name)
         else:
             _close(g, wt, rtol=1e-5, atol=1e-5, msg=name)
+
+
+# (t, given state, final cotangent, strong decays: w exactly 0 and 1, the
+# kernel's operand splits in bf16): lengths around the chunk of 16
+CHUNKED_BWD_CASES = [
+    (t, state, state, strong, False) for t in (1, 15, 16, 17, 33, 100)
+    for state in (True, False) for strong in (False, True)] + [
+    (33, True, False, True, False), (33, False, True, False, False)] + [
+    (t, state, state, strong, True) for t, state in ((17, True), (100, False),
+                                                     (100, True))
+    for strong in (False, True)]
+WKV_BWD_TOL = 1e-5          # chip_smoke.py::WKV_BWD_TOL
+
+
+@pytest.mark.parametrize("case", CHUNKED_BWD_CASES, ids=lambda c: (
+    f"t{c[0]}" + ("-state" if c[1] else "") + ("-dstate" if c[2] else "")
+    + ("-w01" if c[3] else "") + ("-split-bf16" if c[4] else "")))
+def test_wkv6_chunked_bwd_matches_the_scan_and_jax(case):
+    """ref.wkv6_chunked_bwd, the chunked backward kernel's order (chunks
+    of 16, Z recurrences, prefix / suffix / pairwise decay products),
+    against the port's reverse scan wkv6_bwd_ref and jax.vjp of the
+    reference's wkv6_ref, at (2, t, 2, 64): float32 within rtol 1e-5 /
+    atol 1e-6 of each gradient's largest value; with split_tf32 (the
+    kernel's operand splits) and bf16 r, k, v, dout, against
+    wkv6_bwd_ref within WKV_BWD_TOL of each scale, bf16 also within one
+    bf16 rounding (2^-7) of each value, as chip_smoke.py holds the
+    kernel."""
+    from repro_torch.kernels.rwkv6_scan import wkv6_bwd_ref, wkv6_chunked_bwd
+
+    t, state, final, strong, split = case
+    r, k, v, w, u, s0, dout, ds = _wkv_inputs(2, t, 2, 64, 40 + t, strong)
+    s0 = s0 if state else None
+    ds = ds if final else np.zeros_like(ds)     # what autograd hands in
+    dt = torch.bfloat16 if split else torch.float32
+    tr, tk, tv, tdo = (torch.from_numpy(a).to(dt) for a in (r, k, v, dout))
+    rest = (torch.from_numpy(w), torch.from_numpy(u),
+            None if s0 is None else torch.from_numpy(s0))
+    got = wkv6_chunked_bwd(tr, tk, tv, *rest, tdo, torch.from_numpy(ds),
+                           split_tf32=split)
+    want = wkv6_bwd_ref(tr, tk, tv, *rest, tdo, torch.from_numpy(ds))
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    assert [g.dtype for g in got] == [g.dtype for g in want]
+    assert [g.shape for g in got] == [g.shape for g in want]
+    if split:
+        for name, g, wt in zip(names, got, want):
+            scale = float(wt.float().abs().max())
+            rel = BF16_REL if g.dtype == torch.bfloat16 else 0.0
+            err = (g.float() - wt.float()).abs()
+            assert bool((err <= rel * wt.float().abs()
+                         + WKV_BWD_TOL * scale).all()), \
+                (name, float(err.max()), scale)
+        return
+    for name, g, wt in zip(names, got, want):
+        _close(g, wt, rtol=1e-5, atol=1e-6, msg=name)
+    jwant = _j_wkv_vjp(r, k, v, w, u, s0, dout, ds, "float32")
+    for name, g, wt in zip(names, got, jwant):  # no dstate without a state
+        _close(g, wt, rtol=1e-5, atol=1e-6, msg=f"{name} vs jax")
 
 
 def test_wkv_function_on_the_cpu():

@@ -1565,13 +1565,26 @@ def test_route_topk_autograd_on_the_card(cuda, dtype):
                                rtol=1e-5, atol=tol)
 
 
-# (b, t, h, n, given state, final cotangent, strong decays: w 0 and 1)
+# (b, t, h, n, given state, final cotangent, strong decays: w 0 and 1); the
+# last four at head size 64 around the chunked variant's chunk of 16
 WKV_BWD_CASES = [(2, 1, 3, 16, True, True, False),
                  (2, 17, 2, 32, False, True, True),
                  (1, 130, 2, 64, True, False, True),
                  (2, 33, 4, 64, True, True, False),
                  (1, 257, 1, 64, False, False, False),
-                 (3, 40, 3, 16, True, False, False)]
+                 (3, 40, 3, 16, True, False, False),
+                 (2, 15, 2, 64, True, True, False),
+                 (2, 16, 2, 64, False, True, True),
+                 (2, 17, 2, 64, True, True, True),
+                 (1, 1000, 2, 64, False, True, False)]
+# (case, r/k/v type, w type, variant: None for plan_bwd's, or named): both
+# variants where the chunked one takes the tensors (bf16, head size 64)
+WKV_BWD_PARAMS = [
+    (case, dt, wdt, var) for case in WKV_BWD_CASES
+    for dt, wdt in (("float32", "float32"), ("bfloat16", "float32"),
+                    ("bfloat16", "bfloat16"))
+    for var in ((None, "simt", "chunked")
+                if dt == "bfloat16" and case[3] == 64 else (None,))]
 
 
 def _wkv_bwd_args(rng, case, dtype, w_dtype, cuda):
@@ -1604,37 +1617,44 @@ def _assert_wkv_grads_close(got, want):
             (name, float(err.max()), scale)
 
 
-@pytest.mark.parametrize("case", WKV_BWD_CASES, ids=lambda c: (
-    "x".join(map(str, c[:4])) + ("s" if c[4] else "z")
-    + ("d" if c[5] else "") + ("w01" if c[6] else "")))
-@pytest.mark.parametrize("dtype,w_dtype", [("float32", "float32"),
-                                           ("bfloat16", "float32"),
-                                           ("bfloat16", "bfloat16")])
-def test_rwkv6_scan_bwd_matches_plain(cuda, case, dtype, w_dtype):
-    """The backward kernel against wkv6_bwd_ref: dr, dk, dv in r's type,
-    dw in w's, du and dstate float32; a repeat bit-equal; one launch."""
+@pytest.mark.parametrize("case,dtype,w_dtype,variant", WKV_BWD_PARAMS, ids=[
+    "x".join(map(str, c[:4])) + ("s" if c[4] else "z") + ("d" if c[5] else "")
+    + ("w01" if c[6] else "") + f"-{dt}-w{wdt}-{var or 'plan'}"
+    for c, dt, wdt, var in WKV_BWD_PARAMS])
+def test_rwkv6_scan_bwd_matches_plain(cuda, case, dtype, w_dtype, variant):
+    """A backward kernel against wkv6_bwd_ref: dr, dk, dv in r's type, dw
+    in w's, du and dstate float32; the one plan_bwd picks, or each
+    variant named on the tensors the chunked one takes; a repeat
+    bit-equal; two launches, both counted on the variant that ran."""
     from repro_torch.kernels.interface import LAUNCHES
-    from repro_torch.kernels.rwkv6_scan import wkv_bwd
+    from repro_torch.kernels.rwkv6_scan import BWD_VARIANTS, plan_bwd, \
+        wkv_bwd
 
     rng = np.random.default_rng(sum(case[:4]))
     args = _wkv_bwd_args(rng, case, getattr(torch, dtype),
                          getattr(torch, w_dtype), cuda)
+    ran = variant or plan_bwd(*args[:4], args[5])
     before = LAUNCHES.get("rwkv6_scan_bwd", 0)
-    got = wkv_bwd(*args)
-    again = wkv_bwd(*args)
+    counts = dict(BWD_VARIANTS)
+    got = wkv_bwd(*args, variant=variant)
+    again = wkv_bwd(*args, variant=variant)
     torch.cuda.synchronize()
     assert LAUNCHES["rwkv6_scan_bwd"] == before + 2
+    assert {k: BWD_VARIANTS[k] - counts[k] for k in counts} == {
+        k: 2 if k == ran else 0 for k in counts}
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _assert_wkv_grads_close(got, wkv_bwd(*args, mode="torch"))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wkv_autograd_on_the_card(cuda, dtype):
-    """loss.backward() through wkv on the card (chunked forward in bf16,
-    simt in f32; the backward kernel) against the plain path's autograd,
-    from a given state: one forward and one backward launch."""
+    """loss.backward() through wkv on the card (chunked forward and
+    backward in bf16, simt in f32) against the plain path's autograd,
+    from a given state: one forward and one backward launch, the
+    backward counted on the variant plan_bwd picks."""
     from repro_torch.kernels.interface import LAUNCHES
-    from repro_torch.kernels.rwkv6_scan import plan, wkv
+    from repro_torch.kernels.rwkv6_scan import BWD_VARIANTS, plan, \
+        plan_bwd, wkv
 
     rng = np.random.default_rng(5)
     base = _wkv_inputs(rng, 2, 40, 2, 64, getattr(torch, dtype),
@@ -1646,11 +1666,15 @@ def test_wkv_autograd_on_the_card(cuda, dtype):
         ins = [a.clone().requires_grad_() for a in base]
         before = {k: LAUNCHES.get(k, 0) for k in ("rwkv6_scan",
                                                   "rwkv6_scan_bwd")}
+        counts = dict(BWD_VARIANTS)
         out, s = wkv(*ins, mode=mode)
         ((out.float() * dout).sum() + (s * dsf).sum()).backward()
         assert {k: LAUNCHES.get(k, 0) - v for k, v in before.items()} == (
             {"rwkv6_scan": 1, "rwkv6_scan_bwd": 1} if mode is None
             else {"rwkv6_scan": 0, "rwkv6_scan_bwd": 0})
+        assert {k: BWD_VARIANTS[k] - counts[k] for k in counts} == {
+            k: int(mode is None and k == plan_bwd(*base[:4]))
+            for k in counts}
         grads.append([a.grad for a in ins])
     assert plan(*base[:4]) == ("chunked" if dtype == "bfloat16" else "simt")
     _assert_wkv_grads_close(*grads)

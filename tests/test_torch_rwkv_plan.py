@@ -171,3 +171,105 @@ def test_tf32_rounds_to_nearest_ties_away():
     y = torch.randn(1000, generator=torch.Generator().manual_seed(1))
     hi, lo = _split(y)
     assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -21
+
+
+# --- the backward's variants --------------------------------------------
+
+@pytest.mark.parametrize("args,want", [c[1:] for c in PLAN_CASES],
+                         ids=[c[0] for c in PLAN_CASES])
+def test_plan_bwd_picks_the_variant(args, want):
+    """plan_bwd takes the forward's rule (chunked: bf16 r, k, v, f32 or
+    bf16 w, head size 64, t >= 16), a pure function of types and shapes:
+    meta tensors, with the state or without, and contiguous or not."""
+    from repro_torch.kernels.rwkv6_scan import plan_bwd
+
+    assert plan_bwd(*args) == want
+    assert plan_bwd(*args[:4], None) == want
+    strided = [torch.empty(x.shape[:3] + (2 * x.shape[3],), dtype=x.dtype,
+                           device="meta")[..., ::2] for x in args[:4]]
+    assert not strided[0].is_contiguous()
+    assert plan_bwd(*strided) == want
+
+
+def test_bwd_variant_counts_and_scratch():
+    """The backward's variant counters start at 0 and reset with the
+    forward's; the snapshot scratch is a state every 64 steps (chunked)
+    or every 8 (simt)."""
+    from repro_torch.kernels.rwkv6_scan import BWD_VARIANTS, reset_variants
+    from repro_torch.kernels.rwkv6_scan.ops import BWD_CHUNK, BWD_SEGMENT, \
+        bwd_scratch
+
+    assert set(BWD_VARIANTS) == {"chunked", "simt"}
+    BWD_VARIANTS["chunked"] += 2
+    reset_variants()
+    assert BWD_VARIANTS == {"chunked": 0, "simt": 0}
+    assert (BWD_SEGMENT, BWD_CHUNK) == (64, 8)
+    r = _meta((4, 1024, 64, 64), BF16)
+    assert bwd_scratch(r, "chunked").shape == (4 * 64 * 16 * 64 * 64,)
+    assert bwd_scratch(r, "simt").shape == (4 * 64 * 128 * 64 * 64,)
+    r = _meta((2, 1000, 3, 64), BF16)     # a ragged last segment
+    assert bwd_scratch(r, "chunked").shape == (2 * 3 * 16 * 64 * 64,)
+    assert bwd_scratch(r, "chunked").dtype == torch.float32
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("dtype,n,variant,want", [
+    ("bfloat16", 64, None, "chunked"),
+    ("bfloat16", 64, "simt", "simt"),
+    ("float32", 64, None, "simt"),
+    ("bfloat16", 32, None, "simt")])
+def test_bwd_wrapper_calls_its_kernel_and_raises_on_failure(
+        monkeypatch, dtype, n, variant, want):
+    """With the kernel path forced on CPU tensors and each library's entry
+    point stubbed, wkv_bwd calls the variant plan_bwd picks (or the one
+    named) with as many arguments as its C signature has, counts one
+    launch and the variant, and raises on the kernel's error code; the
+    other variant is never run (no fallback). A chunked launch on tensors
+    it does not take raises before anything runs."""
+    from repro_torch.kernels.interface import LAUNCHES, KernelType
+    from repro_torch.kernels.rwkv6_scan import BWD_VARIANTS, ops, wkv_bwd
+
+    calls = {}
+
+    def stub(name, n_args):
+        def fn(*args):
+            calls[name] = args
+            assert len(args) == n_args
+            return 700                  # cudaErrorIllegalAddress
+        return lambda: fn
+
+    def fail():
+        raise AssertionError("the other variant ran")
+
+    monkeypatch.setattr(ops, "kernel_mode", lambda t, mode: KernelType.CUDA)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    monkeypatch.setattr(ops, "_bwd_chunked_fn", stub("chunked", 20)
+                        if want == "chunked" else fail)
+    monkeypatch.setattr(ops, "_bwd_fn", stub("simt", 22)
+                        if want == "simt" else fail)
+    r, k, v, w, u, s = _inputs(2, 40, 3, n, "model", True, seed=n)
+    dt = getattr(torch, dtype)
+    args = [torch.from_numpy(x).to(dt) for x in (r, k, v)] + [
+        torch.from_numpy(w), torch.from_numpy(u), torch.from_numpy(s),
+        torch.zeros(2, 40, 3, n, dtype=dt), torch.zeros(2, 3, n, n)]
+    launches = LAUNCHES.get("rwkv6_scan_bwd", 0)
+    counted = BWD_VARIANTS[want]
+    with pytest.raises(RuntimeError, match=f"rwkv6_scan_bwd {want} kernel "
+                                           "launch failed: CUDA error 700"):
+        wkv_bwd(*args, variant=variant)
+    assert LAUNCHES["rwkv6_scan_bwd"] == launches + 1
+    assert BWD_VARIANTS[want] == counted + 1
+    got = calls[want]
+    if want == "chunked":
+        assert got[0] == 0 and got[16:19] == (2, 40, 3)    # f32 w; b, t, h
+    else:
+        assert got[:3] == (1 if dtype == "bfloat16" else 0, 0, n)
+        assert got[18:21] == (2, 40, 3)
+    if want == "simt" and n == 64 and dtype == "float32":
+        with pytest.raises(ValueError, match="chunked kernel takes bfloat16"):
+            wkv_bwd(*args, variant="chunked")
+        assert LAUNCHES["rwkv6_scan_bwd"] == launches + 1
