@@ -290,14 +290,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      through ``mode="torch"`` from the same parameters: losses and every
      parameter within 1e-5.
  13j. the MoE and RWKV-6 backward kernels against their plain versions:
-     moe_router_bwd (dl of the router's logits) at deepseek's training
-     shape, from the fused forward's logits (written under a gradient),
-     ids and gates of 4,096 x 2,048 bf16 tokens (E 64, k 6, groups of
-     1,024), unit cotangents for the gates and mean_prob: as drawn
-     (timed: L2 cold, the plain version, the bound by bytes, the op's
-     whole backward with its two f32 products), with zero rows and tied
-     experts, and with a padded last group; dl within 1e-6 absolute +
-     1e-5 relative, a repeat bit-equal; rwkv6_scan_bwd, both variants
+     moe_router_bwd's ``fused`` variant (dl, dx and dw in one kernel)
+     against ``route_tokens_full_bwd_ref``, from the fused forward's
+     logits (written under a gradient), ids and gates of 4,096 x 2,048
+     bf16 tokens (E 64, k 6, groups of 1,024), cotangents drawn for the
+     gates and mean_prob: as drawn (timed: L2 cold, the plain version,
+     the bound, the chain it replaced with x's cast inside), with zero
+     rows and tied experts, with a padded last group, at Jamba's 4,096 x
+     8,192 (E 16, k 2; timed), and dx only and dw only: dx within one
+     bf16 rounding (2^-7) of each value plus 1e-5 of the largest, dw
+     within 1e-5 of the largest, a repeat bit-equal, two launches counted
+     ``fused``; the ``logits`` variant's dl within 1e-6 absolute + 1e-5
+     relative at each, bit-equal; rwkv6_scan_bwd, both variants
      (``chunked``, the training path's, and ``simt``) on the same
      tensors, at rwkv6-7b's (4, 1,024, 64, 64), bf16 r/k/v, f32 w,
      without a state and a final-state cotangent (the training path's)
@@ -312,7 +316,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      tier rounds with the counts set to 0 just before: flash_attention and
      flash_attention_bwd exactly 6 a pass (all ``wgmma``), moe_router
      exactly 6 a pass (all ``fused``, ``tile``), moe_router_bwd exactly 6
-     a pass, prox_update exactly 2 x 2 x 16, no other kernel; finite
+     a pass (all ``fused``), prox_update exactly 2 x 2 x 16, no other
+     kernel; finite
      losses, the tier loss falling, peaks under 80 GB; ms a step and a
      round, tokens/s, busy share and the ten largest kernels.
  13l. RWKV-6 training: rwkv6-7b cut to 12 of 32 layers (3,161,001,984
@@ -327,7 +332,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      = g / (|g| + 1e-8), AdamW's first step: near g = 0 the two paths'
      rounding moves it by up to 2 lr), every leaf after the tier round
      within 1e-5; deepseek's router choices recorded at the routing seam
-     and the tokens routed differently counted.
+     and the tokens routed differently counted; its f32 router backward
+     runs the ``logits`` variant.
  14. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, the router (the routing seam: the fused
      kernel), the rest of the MoE layer, head;
@@ -431,7 +437,10 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     # f32 and the other cases is flash_attention/csrc/flash_attention_bwd.cu
     "flash_attention_bwd": ("flash_attention/csrc/"
                             "flash_attention_bwd_hopper.cu"),
-    "moe_router_bwd": "moe_router/csrc/moe_router_bwd.cu",
+    # the training path's variant (fused: dl, dx and dw in one kernel);
+    # route_topk's backward and float32 x take moe_router/csrc/
+    # moe_router_bwd.cu
+    "moe_router_bwd": "moe_router/csrc/moe_router_bwd_hopper.cu",
     # the training path's variant (chunked); the CUDA-core simt backward of
     # f32 and the other cases is rwkv6_scan/csrc/rwkv6_scan_bwd.cu
     "rwkv6_scan_bwd": "rwkv6_scan/csrc/rwkv6_scan_bwd_hopper.cu",
@@ -526,6 +535,13 @@ ADAM_EXCUSED_SHARE = 0.003
 # value
 ROUTER_BWD_TOL = 1e-6
 WKV_BWD_TOL = 1e-5
+# the fused router backward against its plain version: dx within one bf16
+# rounding (2^-7) of each value plus this of the largest |dx|, dw within
+# this of the largest |dw| (sums over E and over t in other orders)
+ROUTER_BWD_TOL_SCALE = 1e-5
+# the router backward's two timed shapes: deepseek-moe-16b's training
+# (t, d, E, k) and Jamba's (4,096 tokens of d 8,192, 16 experts, top-2)
+JAMBA_ROUTER = (4096, 8192, 16, 2)
 # float32 operations per state element and step of the WKV backward on
 # CUDA cores: the state's recomputation (k v, one FMA: 3), the sums of
 # dr, dk, dw and dv (an FMA each: 8) and dS's update (r dout, one FMA: 3)
@@ -3804,10 +3820,12 @@ def phase_moe_training():
     and flash_attention_bwd exactly 6 a pass (every forward and backward
     ``wgmma``),
     moe_router exactly 6 a pass (all ``fused``, ``tile``), moe_router_bwd
-    exactly 6 a pass, prox_update rounds x l_local x 16, no other kernel.
+    exactly 6 a pass (all ``fused``: dl, dx and dw in one kernel, no
+    ``logits``), prox_update rounds x l_local x 16, no other kernel.
     Returns its launches."""
     from repro_torch.kernels.flash_attention import BWD_VARIANTS
     from repro_torch.kernels.flash_attention import VARIANTS as ATTENTION
+    from repro_torch.kernels.moe_router import BWD_VARIANTS as ROUTER_BWD
     from repro_torch.kernels.moe_router import FORMS, VARIANTS
 
     n = MOE_TRAIN_CUT["num_layers"]
@@ -3818,7 +3836,9 @@ def phase_moe_training():
         {"flash_attention variants": (ATTENTION, {"wgmma": n}),
          "flash_attention_bwd variants": (BWD_VARIANTS, {"wgmma": n}),
          "moe_router variants": (VARIANTS, {"fused": n}),
-         "moe_router forms": (FORMS, {"tile": n})}, MOE_TRAIN_CUT)
+         "moe_router forms": (FORMS, {"tile": n}),
+         "moe_router_bwd variants": (ROUTER_BWD, {"fused": n})},
+        MOE_TRAIN_CUT)
     del trees
     release()
     return launches
@@ -3935,17 +3955,40 @@ def phase_training_consistency():
     release()
 
 
-def router_bwd_bound(t, e, k):
-    """(bound ms, bound by, MB moved, MFLOP) of the router's backward:
-    the float32 logits read and dl written, idx, gates and dG (t, k) read
-    (4 bytes each), dmean read; ~10 float32 operations an element
-    (max, exp, sum, divide, dp, the dot product, the product) and 4 a
-    choice, over the float32 peak."""
-    moved = 2 * t * e * 4 + 3 * t * k * 4 + e * 4
-    flops = 10 * t * e + 4 * t * k
-    t_b, t_o = moved / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+def router_bwd_bound(t, d, e, k):
+    """(bound ms, bound by, MB moved, GFLOP) of the router's whole
+    backward (dl, dx = dl w^T, dw = f32(x)^T dl): bf16 x read and dx
+    written, the float32 logits read, w read and dw written, idx, gates
+    and dG (t, k) read (4 bytes each), dmean read; the
+    operations: six bf16 tensor-core products of 2 t d E (three a
+    product: dl's bf16 pieces against w's, a bf16 x's against dl's, for
+    f32's accuracy), over the bf16 peak."""
+    moved = 2 * t * d * 2 + t * e * 4 + 2 * d * e * 4 \
+        + 3 * t * k * 4 + e * 4
+    flops = 6 * 2 * t * d * e
+    t_b, t_o = moved / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-            moved / 1e6, flops / 1e6)
+            moved / 1e6, flops / 1e9)
+
+
+def router_bwd_errors(got, want):
+    """(max abs error of dx, of dw, within tolerance) of the fused
+    backward's (dx, dw) against the plain version's: dx within one bf16
+    rounding (2^-7) of each value plus ROUTER_BWD_TOL_SCALE of the largest
+    |dx|, dw within ROUTER_BWD_TOL_SCALE of the largest |dw|; an output
+    left out (None) on both sides."""
+    errs, ok = [], True
+    for g, w, rel in zip(got, want, (2.0 ** -7, 0.0)):
+        if g is None or w is None:
+            ok &= g is None and w is None
+            errs.append(0.0)
+            continue
+        err = (g.float() - w.float()).abs()
+        ok &= g.dtype == w.dtype and bool(
+            (err <= rel * w.float().abs()
+             + ROUTER_BWD_TOL_SCALE * float(w.float().abs().max())).all())
+        errs.append(float(err.max()))
+    return errs[0], errs[1], ok
 
 
 def wkv_bwd_bound(b, t, h, n, dtype, state):
@@ -3985,44 +4028,63 @@ def wkv_grad_errors(got, want):
 
 def phase_family_bwd_check():
     """The two backward kernels of the MoE and RWKV-6 training paths
-    against their plain versions on the card. moe_router_bwd at
-    deepseek's training shape (the fused forward's logits, ids and gates
-    of 4,096 x 2,048 bf16 tokens, E 64, k 6, groups of 1,024; unit
-    cotangents for the gates and mean_prob): as it is (timed), with zero
-    rows and tied experts, and with a padded last group (4,000 tokens in
-    4,096 rows, the padded rows' gates' cotangent 0, mean_prob over 4,096
-    rows); dl within ROUTER_BWD_TOL, a repeat bit-equal; the logits the
-    forward wrote against f32(x) @ w; the whole op's backward (dl and the
-    two float32 products) timed beside it. rwkv6_scan_bwd, both variants
-    on the same tensors, at rwkv6-7b's (4, 1,024, 64, 64), bf16 r/k/v and
-    f32 w: without a state and with a zero final-state cotangent (the
-    training path's; timed) and with a state and a cotangent (timed), and
-    at t = 17 and 1,000; each gradient within WKV_BWD_TOL of its scale
-    (bf16 also one bf16 rounding), a repeat bit-equal, two launches
-    counted on the variant; ``plan_bwd`` picks ``chunked`` at each. Times
-    with the L2 cold (``chunked`` and ``simt``), the plain versions', the
-    bounds. Returns {label: numbers}, a WKV label's the ``chunked``
+    against their plain versions on the card. moe_router_bwd, the fused
+    variant (``csrc/moe_router_bwd_hopper.cu``) against
+    ``route_tokens_full_bwd_ref`` on the fused forward's logits, ids and
+    gates (groups of 1,024; cotangents drawn for the gates and mean_prob):
+    deepseek's training shape (4,096 x 2,048 bf16 tokens, E 64, k 6;
+    timed), with zero rows and tied experts, with a padded last group
+    (4,000 tokens in 4,096 rows, the padded rows' gates' cotangent 0,
+    mean_prob over 4,096 rows), Jamba's (4,096 x 8,192, E 16, k 2;
+    timed), and dx only and dw only; dx and dw within
+    :func:`router_bwd_errors`' tolerance, a repeat bit-equal, two launches
+    counted ``fused``, ``plan_bwd`` picking it; the ``logits`` variant's
+    dl (route_topk's backward, and float32 x's) within ROUTER_BWD_TOL at
+    each; the logits the forward wrote against f32(x) @ w. Timed with the
+    L2 cold beside the plain version, the chain the fused kernel replaced
+    (the dl kernel, then dl w^T cast to bf16 and f32(x)^T dl, the cast of
+    x inside, as the training path ran it) and the bound. rwkv6_scan_bwd,
+    both variants on the same tensors, at rwkv6-7b's (4, 1,024, 64, 64),
+    bf16 r/k/v and f32 w: without a state and with a zero final-state
+    cotangent (the training path's; timed) and with a state and a
+    cotangent (timed), and at t = 17 and 1,000; each gradient within
+    WKV_BWD_TOL of its scale (bf16 also one bf16 rounding), a repeat
+    bit-equal, two launches counted on the variant; ``plan_bwd`` picks
+    ``chunked`` at each. Times with the L2 cold (``chunked`` and
+    ``simt``), the plain versions', the bounds. Returns {label: numbers}:
+    "router" deepseek's, "router jamba", a WKV label's the ``chunked``
     variant's."""
     import torch
 
     from repro_torch.kernels.interface import kernel_mode
-    from repro_torch.kernels.moe_router import logits_bwd, plan
+    from repro_torch.kernels.moe_router import BWD_VARIANTS as ROUTER_BWD
+    from repro_torch.kernels.moe_router import (logits_bwd, plan, plan_bwd,
+                                                tokens_bwd)
     from repro_torch.kernels.moe_router.ops import _tokens_forward, \
-        launch_bwd
-    from repro_torch.kernels.rwkv6_scan import BWD_VARIANTS, plan_bwd, \
-        wkv_bwd
+        launch_bwd, launch_bwd_fused
+    from repro_torch.kernels.moe_router.ref import route_tokens_full_bwd_ref
+    from repro_torch.kernels.rwkv6_scan import BWD_VARIANTS, wkv_bwd
+    from repro_torch.kernels.rwkv6_scan import plan_bwd as wkv_plan_bwd
     from repro_torch.kernels.rwkv6_scan.ops import bwd_scratch
     from repro_torch.kernels.rwkv6_scan.ops import launch_bwd as wkv_launch
 
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     out = {}
-    t, d, e, k = LLM_BATCH * LLM_PROMPT, 2048, 64, 6
-    for label, zero, tied, pad in (("deepseek train", False, False, 0),
-                                   ("zero rows, tied experts", True, True,
-                                    0),
-                                   ("a padded last group", False, False,
-                                    96)):
-        x, w = router_inputs(t, d, e, torch.bfloat16, gen, zero, tied)
+    deepseek = (LLM_BATCH * LLM_PROMPT, 2048, 64, 6)
+    both = (True, True)
+    # (label, (t, d, E, k), zero rows and tied experts, padded rows, the
+    # outputs asked for, timed)
+    for label, shape, tied, pad, need, timed in (
+            ("deepseek train", deepseek, False, 0, both, True),
+            ("zero rows, tied experts", deepseek, True, 0, both, False),
+            ("a padded last group", deepseek, False, 96, both, False),
+            ("jamba", JAMBA_ROUTER, False, 0, both, True),
+            ("deepseek train, dx only", deepseek, False, 0, (True, False),
+             False),
+            ("deepseek train, dw only", deepseek, False, 0, (False, True),
+             False)):
+        t, d, e, k = shape
+        x, w = router_inputs(t, d, e, torch.bfloat16, gen, tied, tied)
         if pad:
             x[t - pad:] = 0
         opts = (k, True, LLM_GROUP, kernel_mode(x),
@@ -4033,51 +4095,86 @@ def phase_family_bwd_check():
         if pad:
             dg[t - pad:] = 0
         dm = torch.randn(e, device=DEVICE, generator=gen)
-        got = logits_bwd(logits, idx, gates, dg, dm)
-        again = logits_bwd(logits, idx, gates, dg, dm)
-        want = logits_bwd(logits, idx, gates, dg, dm, mode="torch")
+        form = plan_bwd(x, w, top_k=k)
+        if form["variant"] != "fused":
+            raise AssertionError(f"moe_router_bwd {label}: plan_bwd picks "
+                                 f"{form}")
+        before = dict(ROUTER_BWD)
+        got = tokens_bwd(x, w, logits, idx, gates, dg, dm, need=need)
+        again = tokens_bwd(x, w, logits, idx, gates, dg, dm, need=need)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        lerr = float((logits - x.float() @ w).abs().max())
-        if not bool(((got - want).abs() <= ROUTER_BWD_TOL
-                     + 1e-5 * want.abs()).all()):
-            raise AssertionError(f"moe_router_bwd {label}: dl off by {err}")
-        if not torch.equal(got, again):
+        counted = {v: ROUTER_BWD[v] - before[v] for v in before}
+        _, dx_p, dw_p = route_tokens_full_bwd_ref(x, w, logits, idx, gates,
+                                                  dg, dm)
+        want = (dx_p if need[0] else None, dw_p if need[1] else None)
+        ex, ew, ok = router_bwd_errors(got, want)
+        tag = (f"moe_router_bwd fused {label} ({t} x {d} bf16 tokens, E "
+               f"{e}, k {k}, groups of {LLM_GROUP}"
+               + (f", the last {pad} rows padding" if pad else "")
+               + f"; {form['slices']} slices x {form['ranges']} ranges of "
+               f"{form['stages_per_range']} stages): dx max abs err "
+               f"{ex:.3g}, dw {ew:.3g} (dx within 2^-7 of each value, both "
+               f"within {ROUTER_BWD_TOL_SCALE:g} of the largest), two "
+               f"launches bit-equal")
+        if not ok:
+            raise AssertionError(f"{tag}: kernel and plain version differ")
+        if not all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(got, again)):
             raise AssertionError(f"moe_router_bwd {label}: two launches "
                                  "differ")
-        tag = (f"moe_router_bwd {label} ({t} x {e}, k {k}, from the fused "
-               f"forward of {t} x {d} bf16 tokens, groups of {LLM_GROUP}"
-               + (f", the last {pad} rows padding" if pad else "")
-               + f"): dl max abs err {err:.3g} (tol {ROUTER_BWD_TOL:g} + "
-               f"1e-5 relative), two launches bit-equal; the forward's "
-               f"logits within {lerr:.3g} of f32(x) @ w")
-        if label != "deepseek train":
-            say("kernel", tag)
+        if counted != {"fused": 2, "logits": 0}:
+            raise AssertionError(f"moe_router_bwd {label}: variant counts "
+                                 f"{counted}")
+        # the logits variant's dl on the same tensors
+        dl = logits_bwd(logits, idx, gates, dg, dm)
+        dl_want = logits_bwd(logits, idx, gates, dg, dm, mode="torch")
+        torch.cuda.synchronize()
+        dl_err = float((dl - dl_want).abs().max())
+        if not bool(((dl - dl_want).abs() <= ROUTER_BWD_TOL
+                     + 1e-5 * dl_want.abs()).all()):
+            raise AssertionError(f"moe_router_bwd logits {label}: dl off by "
+                                 f"{dl_err}")
+        if not torch.equal(dl, logits_bwd(logits, idx, gates, dg, dm)):
+            raise AssertionError(f"moe_router_bwd logits {label}: two "
+                                 "launches differ")
+        lerr = float((logits - x.float() @ w).abs().max())
+        say("kernel", f"{tag}; the logits variant's dl within {dl_err:.3g} "
+            f"(tol {ROUTER_BWD_TOL:g} + 1e-5 relative), bit-equal; the "
+            f"forward's logits within {lerr:.3g} of f32(x) @ w")
+        del got, again, want, dx_p, dw_p, dl_want
+        if not timed:
             continue
-        dl = torch.empty_like(got)
-        ms = cuda_time_ms(lambda: launch_bwd(logits, idx, gates, dg, dm, dl,
-                                             renormalize=True),
-                          TIMED_LAUNCHES)
-        plain_ms = cuda_time_ms(lambda: logits_bwd(
-            logits, idx, gates, dg, dm, mode="torch"), 20)
-        xf = x.float()
+        dx = torch.empty(t, d, dtype=x.dtype, device=DEVICE)
+        dw = torch.empty(d, e, device=DEVICE)
+        ms = cuda_time_ms(lambda: launch_bwd_fused(
+            x, w, logits, idx, gates, dg, dm, dx, dw, renormalize=True,
+            form=form), TIMED_LAUNCHES)
+        plain_ms = cuda_time_ms(lambda: route_tokens_full_bwd_ref(
+            x, w, logits, idx, gates, dg, dm), 20)
+        dl_ms = cuda_time_ms(lambda: launch_bwd(logits, idx, gates, dg, dm,
+                                                dl, renormalize=True),
+                             TIMED_LAUNCHES)
 
-        def whole_op():
+        def chain():
             d_l = logits_bwd(logits, idx, gates, dg, dm)
-            return (d_l @ w.T).to(x.dtype), xf.T @ d_l
+            return (d_l @ w.T).to(x.dtype), x.float().T @ d_l
 
-        op_ms = cuda_time_ms(whole_op, 20)
-        bound_ms, by, mb, mflop = router_bwd_bound(t, e, k)
-        say("kernel", tag)
-        say("kernel", f"moe_router_bwd {label}: kernel {ms * 1e3:.1f} us "
-            f"L2-cold, plain {plain_ms * 1e3:.1f} us, bound "
-            f"{bound_ms * 1e3:.2f} us ({mb:.2f} MB, {mflop:.1f} MFLOP; by "
-            f"{by}), {bound_ms / ms:.1%} of bound; the op's whole backward "
-            f"(dl, dx = dl w^T, dw = f32(x)^T dl) {op_ms * 1e3:.1f} us; no "
+        chain_ms = cuda_time_ms(chain, 20)
+        bound_ms, by, mb, gflop = router_bwd_bound(t, d, e, k)
+        say("kernel", f"moe_router_bwd fused {label}: {ms * 1e3:.1f} us "
+            f"L2-cold, {bound_ms / ms:.1%} of bound; bound "
+            f"{bound_ms * 1e3:.2f} us ({mb:.2f} MB, {gflop:.2f} GFLOP of "
+            f"bf16 products; by {by}); the chain it replaced (the dl "
+            f"kernel {dl_ms * 1e3:.1f} us, dl w^T cast to bf16, f32(x)^T dl "
+            f"with x's cast) {chain_ms * 1e3:.1f} us, "
+            f"{chain_ms / ms:.2f}x; plain {plain_ms * 1e3:.1f} us; no "
             f"library call")
-        out["router"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=by, library_ms=None)
-        del x, w, xf, dl
+        out["router" if label == "deepseek train" else f"router {label}"] = \
+            dict(max_abs_err=max(ex, ew), ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=by, library_ms=None,
+                 chain_ms=chain_ms)
+        del dx, dw
+    del x, w, logits, dl
     bf16, f32 = torch.bfloat16, torch.float32
     # (label, b, t, given state, final cotangent, timed)
     for label, b, tt, state, final, timed in (
@@ -4099,9 +4196,10 @@ def phase_family_bwd_check():
                  + ("a given state" if state else "state None") + ", "
                  + ("a final-state cotangent" if final
                     else "a zero final-state cotangent"))
-        if plan_bwd(r, kk, v, wd, s0) != "chunked":
+        if wkv_plan_bwd(r, kk, v, wd, s0) != "chunked":
             raise AssertionError(f"rwkv6_scan_bwd {label}: plan_bwd picks "
-                                 f"{plan_bwd(r, kk, v, wd, s0)}, not chunked")
+                                 f"{wkv_plan_bwd(r, kk, v, wd, s0)}, not "
+                                 "chunked")
         errs = {}
         for var in ("chunked", "simt"):
             before = dict(BWD_VARIANTS)
@@ -4197,10 +4295,12 @@ def phase_family_consistency():
     and w = the kernel path's stepped ones: the loss and every leaf of
     theta', w', x' within TRAIN_TOL. The MoE layers' router choices are
     recorded at the routing seam and the tokens routed differently
-    counted."""
+    counted. The f32 MoE path's router backward is the ``logits`` variant
+    (``plan_bwd``: the fused kernel takes bf16 x), asserted."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_router
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
     from repro_torch.train import optim
@@ -4240,10 +4340,14 @@ def phase_family_consistency():
             st, m = step(TrainState.create(params, optim.adamw()), batch)
             return m["loss"], m["grad_norm"], st.params, st.opt_state["m"]
 
+        moe_router.reset_variants()
         step_k = run(None, adam_step)
+        router_bwd = {v: c for v, c in moe_router.BWD_VARIANTS.items() if c}
         step_p = run("torch", adam_step)
         torch.cuda.synchronize()
         bad, worst, flat = [], 0.0, []
+        if arch == LLM_ARCH and set(router_bwd) != {"logits"}:
+            bad.append(f"router backward variants {router_bwd}")
         for tag, a, b in (("step loss", step_k[0], step_p[0]),
                           ("grad norm", step_k[1], step_p[1])):
             if not within(a, b, TRAIN_TOL):
@@ -4296,7 +4400,8 @@ def phase_family_consistency():
             f"|diff| over the loss and theta', w', x' {round_worst:.3g} "
             f"(tol {TRAIN_TOL:g} abs + rel)"
             + (f"; {len(ids.get(None, []))} router calls a path, "
-               f"{flips} token(s) routed differently" if ids.get(None)
+               f"{flips} token(s) routed differently, the kernel path's "
+               f"router backward {router_bwd} (f32 x)" if ids.get(None)
                else "")
             + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if bad:

@@ -51,6 +51,8 @@ KERNEL_SOURCES = {
                           / "moe_router_hopper.cu"),
     "moe_router_bwd": (_KERNELS_DIR / "moe_router" / "csrc"
                        / "moe_router_bwd.cu"),
+    "moe_router_bwd_hopper": (_KERNELS_DIR / "moe_router" / "csrc"
+                              / "moe_router_bwd_hopper.cu"),
     "rwkv6_scan": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
     "rwkv6_scan_hopper": (_KERNELS_DIR / "rwkv6_scan" / "csrc"
                           / "rwkv6_scan_hopper.cu"),

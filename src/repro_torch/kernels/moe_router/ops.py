@@ -27,14 +27,18 @@ Both ops are differentiable: the gates in the logits (and so in x and
 w), ``mean_prob`` likewise; the ids, the positions and ``frac_tokens``
 carry no gradient. When grad mode is on and an input requires a
 gradient, the fused kernel also writes the float32 logits it took the
-softmax of (an optional pointer; without a gradient it writes none),
-and the backward is :func:`logits_bwd`: on CUDA tensors the kernel
-``csrc/moe_router_bwd.cu`` (one launch adds one to
-``LAUNCHES["moe_router_bwd"]``), on CPU tensors or with ``mode="torch"``
-``ref.route_tokens_bwd_ref``. :func:`route_tokens`' backward then takes
-``dx = dl w^T`` (in x's type) and ``dw = f32(x)^T dl`` as float32
-``torch.matmul`` products, the plain router product the reference leaves
-to XLA.
+softmax of (an optional pointer; without a gradient it writes none).
+:func:`route_topk`'s backward is :func:`logits_bwd`: on CUDA tensors the
+kernel ``csrc/moe_router_bwd.cu``, on CPU tensors or with ``mode="torch"``
+``ref.route_tokens_bwd_ref``. :func:`route_tokens`' backward is
+:func:`tokens_bwd`, dl and the router product's ``dx = dl w^T`` (in x's
+type) and ``dw = f32(x)^T dl`` (float32) in the variant :func:`plan_bwd`
+picks: ``fused`` (bfloat16 x: one kernel, ``csrc/moe_router_bwd_hopper.cu``,
+dl once a row, then both products on the tensor cores) or
+``logits`` (float32 x: ``moe_router_bwd.cu``'s dl and two float32
+``torch.matmul`` products); on CPU tensors ``ref.route_tokens_full_bwd_ref``.
+Every backward launch adds one to ``LAUNCHES["moe_router_bwd"]`` and to
+``BWD_VARIANTS["fused"]`` or ``BWD_VARIANTS["logits"]``.
 """
 from __future__ import annotations
 
@@ -46,31 +50,39 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import KernelType, count_launch, \
     kernel_mode
 from repro_torch.kernels.moe_router.ref import route_ref, \
-    route_tokens_bwd_ref, route_tokens_ref
+    route_tokens_bwd_ref, route_tokens_full_bwd_ref, route_tokens_ref
 
-__all__ = ["BLOCK_TOKENS", "FORMS", "KERNELS", "MAX_EXPERTS", "VARIANTS",
-           "launch", "launch_bwd", "launch_fused", "logits_bwd", "plan",
-           "reset_variants", "route_tokens", "route_topk"]
+__all__ = ["BLOCK_TOKENS", "BWD_VARIANTS", "FORMS", "KERNELS", "MAX_EXPERTS",
+           "SLICE_D", "VARIANTS", "launch", "launch_bwd", "launch_bwd_fused",
+           "launch_fused", "logits_bwd", "plan", "plan_bwd", "reset_variants",
+           "route_tokens", "route_topk", "tokens_bwd"]
 
 _NAME = "moe_router"
 _FUSED = "moe_router_hopper"
-_BWD = "moe_router_bwd"
+_BWD = "moe_router_bwd"               # the launch count of both backwards
+_BWD_FUSED = "moe_router_bwd_hopper"
 KERNELS = (_NAME, _BWD)
 MAX_EXPERTS = 64
 BLOCK_TOKENS = 16          # token rows per block of the kernel (stats row)
 SPLIT_TOKENS = 32          # the fused op's split form: at most this many
 _CHUNK = 64                # values of d a stage of the fused kernel
+SLICE_D = 128              # values of d a CTA of the fused backward
+_BWD_STAGE = 64            # token rows a stage of the fused backward
+_SMS = 132                 # H100 SXM: the fused backward's grid fills them
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variant -> launches that ran it since the last reset_variants()
 VARIANTS = {"fused": 0, "logits": 0}
 # the fused kernel's form (plan's "form") -> launches since the last reset
 FORMS = {"tile": 0, "split": 0}
+# the backward's variant (plan_bwd's "variant") -> launches since the last
+# reset; route_topk's backward counts as "logits"
+BWD_VARIANTS = {"fused": 0, "logits": 0}
 
 
 def reset_variants() -> None:
     """Set every variant's and every form's count to 0."""
-    for counts in (VARIANTS, FORMS):
+    for counts in (VARIANTS, FORMS, BWD_VARIANTS):
         for name in counts:
             counts[name] = 0
 
@@ -97,6 +109,11 @@ def _fused_fn():
 
 def _bwd_fn():
     return _fn(_BWD, "moe_router_bwd", [_P] * 6 + [_I] * 4 + [_P])
+
+
+def _bwd_fused_fn():
+    return _fn(_BWD_FUSED, "moe_router_bwd_fused", [_P, _L] + [_P] * 11
+               + [_I] * 7 + [_P])
 
 
 def launch(logits, gates, idx, stats, *, top_k: int, renormalize: bool):
@@ -199,6 +216,7 @@ def launch_bwd(logits, idx, gates, dgates, dmean, dl, *, renormalize: bool):
     err = fn(logits.data_ptr(), idx.data_ptr(), gates.data_ptr(),
              dgates.data_ptr(), dmean.data_ptr(), dl.data_ptr(), t, e,
              idx.shape[1], int(bool(renormalize)), stream)
+    BWD_VARIANTS["logits"] += 1
     if err:
         raise RuntimeError(f"moe_router_bwd kernel launch failed: CUDA error "
                            f"{err} (logits {tuple(logits.shape)}, k "
@@ -406,8 +424,7 @@ def _tokens_forward(x, w, opts, want_logits):
 
 
 class _RouteTokens(torch.autograd.Function):
-    """The fused routing with its logits, then :func:`logits_bwd` and the
-    router product's two float32 products."""
+    """The fused routing with its logits, then :func:`tokens_bwd`."""
 
     @staticmethod
     def forward(ctx, x, w, opts):
@@ -424,10 +441,151 @@ class _RouteTokens(torch.autograd.Function):
     def backward(ctx, dgates, _didx, _dpos, dmean, _dfrac):
         x, w, logits, idx, gates = ctx.saved_tensors
         _, renormalize, _, kt, _ = ctx.opts
-        if logits is None:                      # the plain version's
-            logits = x.float() @ w
-        dl = logits_bwd(logits, idx, gates, dgates, dmean,
-                        renormalize=renormalize, mode=kt)
-        dx = (dl @ w.T).to(x.dtype) if ctx.needs_input_grad[0] else None
-        dw = x.float().T @ dl if ctx.needs_input_grad[1] else None
+        dx, dw = tokens_bwd(x, w, logits, idx, gates, dgates, dmean,
+                            renormalize=renormalize,
+                            need=tuple(ctx.needs_input_grad[:2]), mode=kt)
         return dx, dw, None
+
+
+def plan_bwd(x, w, *, top_k: int):
+    """The variant :func:`tokens_bwd` runs for tokens x (t, d) and router
+    weight w (d, E), a pure function of types and shapes: a dict with
+    ``variant`` "fused" (bfloat16 x, E a multiple of 4 up to 64, d a
+    multiple of 8: ``csrc/moe_router_bwd_hopper.cu``, a grid of
+    ``slices`` of SLICE_D values of d by ``ranges`` ranges of
+    ``stages_per_range`` stages of 64 tokens, about one CTA an SM) or
+    "logits" (``csrc/moe_router_bwd.cu``'s dl and two float32
+    ``torch.matmul`` products; ``reason`` says why: float32 x, whose
+    products the fused kernel does not take yet, ROADMAP.md section 2).
+    Raises for what neither takes (E > 64, the types route_tokens
+    refuses)."""
+    _check(x, w, top_k, 1)
+    t, d = x.shape
+    e = w.shape[1]
+    if e > MAX_EXPERTS:
+        raise ValueError(f"moe_router_bwd kernels take at most {MAX_EXPERTS} "
+                         f"experts, got {e}")
+    if x.dtype != torch.bfloat16:
+        return {"variant": "logits", "reason": f"{x.dtype} x: the fused "
+                "kernel takes bfloat16 x (ROADMAP.md section 2)"}
+    if e % 4:
+        return {"variant": "logits", "reason": f"E {e} not a multiple of 4"}
+    if d % 8:
+        return {"variant": "logits", "reason": f"d {d} not a multiple of 8"}
+    slices = -(-d // SLICE_D)
+    stages = -(-t // _BWD_STAGE)
+    per = -(-stages // max(1, min(stages, _SMS // slices)))
+    return {"variant": "fused", "slices": slices, "ranges": -(-stages // per),
+            "stages_per_range": per}
+
+
+# (device, stream) -> the fused backward's scratch, each grown as needed:
+# the partial dw of each (range, slice), dl's three bf16 pieces (64 a row),
+# and its grid barrier's count and generation (zeroed when made; the kernel
+# leaves the count at 0).
+_BWD_SCRATCH: dict = {}
+
+
+def _bwd_scratch(device, stream, ranges, slices, rows):
+    key = (device, stream.cuda_stream)
+    sc = _BWD_SCRATCH.setdefault(key, {})
+    sizes = {"part": ranges * slices * SLICE_D * MAX_EXPERTS,
+             "dlp": 3 * rows * MAX_EXPERTS, "counters": 2}
+    short = [n for n, size in sizes.items()
+             if n not in sc or sc[n].numel() < size]
+    if not short:
+        return sc
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("route_tokens' backward: run it once, at this "
+                           "size, on the capturing stream before capturing "
+                           "a CUDA graph")
+    make = {"part": lambda n: torch.empty(n, dtype=torch.float32,
+                                          device=device),
+            "dlp": lambda n: torch.empty(n, dtype=torch.bfloat16,
+                                         device=device),
+            "counters": lambda n: torch.zeros(n, dtype=torch.int32,
+                                              device=device)}
+    for name in short:
+        sc[name] = make[name](sizes[name])
+    return sc
+
+
+def launch_bwd_fused(x, w, logits, idx, gates, dgates, dmean, dx, dw, *,
+                     renormalize: bool, form=None):
+    """One launch of the fused backward into ``dx`` (t, d) in x's type and
+    ``dw`` (d, E) float32 (either None: not computed): CUDA x (t, d)
+    bfloat16 with unit stride along d and 16-byte aligned rows, w (d, E)
+    and the forward's logits (t, E) float32, idx (t, k) int32, gates and
+    dgates (t, k) and dmean (E,) float32, all contiguous but x. ``form``
+    is a :func:`plan_bwd` dict (default: the plan for these tensors). No
+    checks: :func:`tokens_bwd` makes them (a timing loop calls this
+    directly)."""
+    if form is None:
+        form = plan_bwd(x, w, top_k=idx.shape[1])
+    t, d = x.shape
+    e = w.shape[1]
+    stream = torch.cuda.current_stream(x.device)
+    sc = _bwd_scratch(x.device, stream, form["ranges"], form["slices"],
+                      -(-t // _BWD_STAGE) * _BWD_STAGE)
+    fn = _bwd_fused_fn()
+    count_launch(_BWD)
+    err = fn(x.data_ptr(), x.stride(0), w.data_ptr(), logits.data_ptr(),
+             idx.data_ptr(), gates.data_ptr(), dgates.data_ptr(),
+             dmean.data_ptr(), None if dx is None else dx.data_ptr(),
+             None if dw is None else dw.data_ptr(), sc["part"].data_ptr(),
+             sc["dlp"].data_ptr(), sc["counters"].data_ptr(), t, d, e,
+             idx.shape[1],
+             int(bool(renormalize)), form["ranges"],
+             form["stages_per_range"], stream.cuda_stream)
+    BWD_VARIANTS["fused"] += 1
+    if err:
+        raise RuntimeError(f"moe_router_bwd_hopper kernel launch failed: CUDA "
+                           f"error {err} (x {tuple(x.shape)} {x.dtype}, E "
+                           f"{e}, k {idx.shape[1]}, form {form})")
+
+
+def tokens_bwd(x, w, logits, idx, gates, dgates, dmean, *,
+               renormalize=True, need=(True, True), mode=None):
+    """(dx in x's type, dw float32): the gradient of :func:`route_tokens`'
+    x and w, given the forward's float32 ``logits`` (t, E) (None: the
+    plain version computes them), ids and gates, and the cotangents
+    ``dgates`` (t, k) and ``dmean`` (E,); an output ``need`` leaves out
+    is None. For CUDA tensors the variant :func:`plan_bwd` picks, which
+    launches its kernel or raises; ``ref.route_tokens_full_bwd_ref`` for
+    CPU tensors or ``mode="torch"``."""
+    need_dx, need_dw = need
+    if kernel_mode(x, mode) is KernelType.TORCH:
+        _, dx, dw = route_tokens_full_bwd_ref(x, w, logits, idx, gates,
+                                              dgates, dmean,
+                                              renormalize=renormalize)
+        return dx if need_dx else None, dw if need_dw else None
+    if not (need_dx or need_dw):
+        return None, None
+    t, d = x.shape
+    e = w.shape[1]
+    form = plan_bwd(x, w, top_k=idx.shape[1])
+    if form["variant"] == "logits":
+        dl = logits_bwd(logits, idx, gates, dgates, dmean,
+                        renormalize=renormalize)
+        return ((dl @ w.T).to(x.dtype) if need_dx else None,
+                x.float().T @ dl if need_dw else None)
+    if x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
+        raise ValueError("moe_router_bwd_hopper kernel takes x with unit "
+                         "stride along d and 16-byte aligned rows")
+    if logits is None or logits.shape != (t, e) \
+            or logits.dtype != torch.float32:
+        raise ValueError(f"moe_router_bwd_hopper kernel takes the forward's "
+                         f"({t}, {e}) float32 logits")
+    f32 = (lambda a: a.to(torch.float32).contiguous())
+    w, logits = w.contiguous(), logits.contiguous()
+    if w.data_ptr() % 16 or logits.data_ptr() % 16:
+        raise ValueError("moe_router_bwd_hopper kernel takes 16-byte aligned "
+                         "w and logits")
+    dev = x.device
+    dx = torch.empty((t, d), dtype=x.dtype, device=dev) if need_dx else None
+    dw = torch.empty((d, e), dtype=torch.float32, device=dev) \
+        if need_dw else None
+    launch_bwd_fused(x, w, logits, idx.to(torch.int32).contiguous(),
+                     f32(gates), f32(dgates), f32(dmean), dx, dw,
+                     renormalize=renormalize, form=form)
+    return dx, dw

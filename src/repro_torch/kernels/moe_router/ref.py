@@ -27,15 +27,20 @@ the reference's ``route_ref`` is by ``jax.grad``: the top-k rounds mask
 the chosen expert out of a new tensor each round, so no tensor autograd
 saved is written. :func:`route_tokens_bwd_ref` is the same gradient in
 closed form, the plain version of the backward kernel
-``csrc/moe_router_bwd.cu``.
+``csrc/moe_router_bwd.cu``; :func:`route_tokens_full_bwd_ref` adds the
+router product's dx and dw, the plain version of
+``csrc/moe_router_bwd_hopper.cu``, and :func:`full_bwd_pieces` computes
+them in that kernel's arithmetic (bf16 pieces, its products, its running
+sum), for the tests to hold to the exact products.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "load_balance_loss", "positions_blocked",
-           "positions_ref", "route_ref", "route_tokens_bwd_ref",
+__all__ = ["NEG_INF", "full_bwd_pieces", "load_balance_loss",
+           "positions_blocked", "positions_ref", "route_ref",
+           "route_tokens_bwd_ref", "route_tokens_full_bwd_ref",
            "route_tokens_ref", "softmax_rows"]
 
 NEG_INF = -1e30
@@ -182,3 +187,55 @@ def route_tokens_bwd_ref(logits, idx, gates, dgates, dmean, *,
     dp = torch.zeros_like(p).scatter_add(1, ids, dg) \
         + dmean.float()[None, :] / t
     return p * (dp - (p * dp).sum(1, keepdim=True))
+
+
+def route_tokens_full_bwd_ref(x, w, logits, idx, gates, dgates, dmean, *,
+                              renormalize: bool = True):
+    """The gradient of :func:`route_tokens_ref`'s gates and ``mean_prob``
+    in its logits, x and w: (dl (t, E) float32 by
+    :func:`route_tokens_bwd_ref`, dx = (dl w^T) in x's type, dw = f32(x)^T
+    dl float32), given the forward's float32 ``logits`` (None: f32(x) @ w)
+    and the rest as :func:`route_tokens_bwd_ref` takes them."""
+    if logits is None:
+        logits = x.float() @ w
+    dl = route_tokens_bwd_ref(logits, idx, gates, dgates, dmean,
+                              renormalize=renormalize)
+    return dl, (dl @ w.T).to(x.dtype), x.float().T @ dl
+
+
+def _bf16_pieces(v, n):
+    """float32 v as n bfloat16 pieces, each the rounding to nearest of
+    what the earlier ones leave."""
+    out, rest = [], v.float()
+    for _ in range(n):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return out
+
+
+def full_bwd_pieces(x, w, dl, *, stage: int = 64):
+    """(dx float32, before its rounding to x's type; dw float32) of
+    bfloat16 x (t, d), float32 w (d, E) and dl (t, E) in the arithmetic of
+    ``csrc/moe_router_bwd_hopper.cu``: dl and w each split into three bf16
+    pieces (l1 + l2 + l3, w1 + w2 + w3, each rounded to nearest); dx = the
+    six products of a term down to 2^-16, l3.w1 + l2.w2 + l1.w3 + l2.w1 +
+    l1.w2 + l1.w1 (transposed w), each exact (float64) and summed in
+    float32 in that order; dw per stage of ``stage`` token rows x^T.l3 +
+    x^T.l2 + x^T.l1 likewise, each stage's sum added to a float32 running
+    sum in stage order. (The tensor cores' own sums inside a product, and
+    the sum of the token ranges' partials, are not modelled.)"""
+    lp = [p.double() for p in _bf16_pieces(dl, 3)]
+    wp = [p.double() for p in _bf16_pieces(w, 3)]
+    dx = torch.zeros(dl.shape[0], w.shape[0], dtype=torch.float32,
+                     device=dl.device)
+    for a, b in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        dx = dx + (lp[a] @ wp[b].T).float()
+    xd = x.double()
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=dl.device)
+    for s in range(0, x.shape[0], stage):
+        xs = xd[s:s + stage].T
+        acc = torch.zeros_like(dw)
+        for piece in lp[::-1]:
+            acc = acc + (xs @ piece[s:s + stage]).float()
+        dw = dw + acc
+    return dx, dw

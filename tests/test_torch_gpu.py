@@ -1480,6 +1480,71 @@ def test_moe_router_bwd_matches_plain(cuda, case, given):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+# (t, d, E, k, renormalize): one stage, a ragged last stage and d not a
+# multiple of 128, E 12 (padded to 16 columns), Jamba's E 16, deepseek's
+# training shape, a token range of one stage each, and more items (160
+# slices) than the card holds CTAs, so that some CTAs take two
+ROUTER_FUSED_CASES = [(1, 8, 4, 1, True), (300, 200, 12, 3, True),
+                      (130, 256, 16, 2, False), (1000, 2048, 64, 6, True),
+                      (4096, 2048, 64, 6, True), (70, 640, 64, 64, True),
+                      (200, 20480, 64, 6, True)]
+
+
+@pytest.mark.parametrize("case", ROUTER_FUSED_CASES,
+                         ids=lambda c: "x".join(map(str, c[:4]))
+                         + ("r" if c[4] else "n"))
+@pytest.mark.parametrize("need", ["both", "dx", "dw"])
+def test_moe_router_bwd_fused_matches_plain(cuda, case, need):
+    """The fused backward (dl, dx, dw in one kernel) against
+    route_tokens_full_bwd_ref on the fused forward's logits, ids and
+    gates (tied rows, zero rows): dx within one bf16 rounding (2^-7) of
+    each value plus 1e-5 of the largest, dw within 1e-5 of its largest;
+    a repeat bit-equal; plan_bwd picks it, one launch each, counted
+    ``fused``; an output not asked for is None."""
+    from repro_torch.kernels.interface import LAUNCHES, KernelType
+    from repro_torch.kernels.moe_router import BWD_VARIANTS, plan, \
+        plan_bwd, tokens_bwd
+    from repro_torch.kernels.moe_router.ops import _tokens_forward
+    from repro_torch.kernels.moe_router.ref import route_tokens_full_bwd_ref
+
+    t, d, e, k, renorm = case
+    rng = np.random.default_rng(t + d + e)
+    x = _randn(rng, (t, d), torch.bfloat16, cuda)
+    w = _randn(rng, (d, e), torch.float32, cuda) / d ** 0.5
+    x[::7] = 0
+    if e >= 4:
+        w[:, e - 1] = w[:, 0]
+    opts = (k, renorm, 64, KernelType.CUDA,
+            plan(x, w, top_k=k, group_size=64))
+    with torch.no_grad():
+        gates, idx, _, _, _, logits = _tokens_forward(x, w, opts, True)
+    dg = _randn(rng, (t, k), torch.float32, cuda)
+    dm = _randn(rng, (e,), torch.float32, cuda)
+    want = dict(zip(("dx", "dw"), route_tokens_full_bwd_ref(
+        x, w, logits, idx, gates, dg, dm, renormalize=renorm)[1:]))
+    asked = (need != "dw", need != "dx")
+    assert plan_bwd(x, w, top_k=k)["variant"] == "fused"
+    before = (LAUNCHES.get("moe_router_bwd", 0), BWD_VARIANTS["fused"])
+    got = tokens_bwd(x, w, logits, idx, gates, dg, dm, renormalize=renorm,
+                     need=asked)
+    again = tokens_bwd(x, w, logits, idx, gates, dg, dm,
+                       renormalize=renorm, need=asked)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["moe_router_bwd"], BWD_VARIANTS["fused"]) == (
+        before[0] + 2, before[1] + 2)
+    for name, g, a, on, rel in zip(("dx", "dw"), got, again, asked,
+                                   (2.0 ** -7, 0.0)):
+        if not on:
+            assert g is None and a is None
+            continue
+        ref = want[name]
+        assert g.dtype == ref.dtype and g.shape == ref.shape
+        assert torch.equal(g, a), name
+        err = (g.float() - ref.float()).abs()
+        tol = rel * ref.float().abs() + 1e-5 * float(ref.float().abs().max())
+        assert bool((err <= tol).all()), (name, float(err.max()))
+
+
 def _route_grads(x, w, dg, fn):
     x, w = (a.detach().clone().requires_grad_() for a in (x, w))
     g, idx, pos, aux = fn(x, w)
