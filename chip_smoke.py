@@ -177,7 +177,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      1,040 slots, split_kv), timed; the fused router at Jamba's MoE (d
      8,192, E 16, k 2): its prefill (4,096 tokens, the tile form) and its
      decode (4 tokens, the split form: a cluster of 16 CTAs, each 8 chunks
-     of 64 values of d), timed.
+     of 64 values of d), timed. phi3-mini's training forward (4 x 1,024,
+     32 heads of 96, bf16, causal; ``simt``) with the log-sum-exp its
+     backward reads, against ``attention_lse_ref``, timed beside its bound
+     and scaled_dot_product_attention on the same tensors.
   9. LLM serving at full width: deepseek-moe-16b (28 layers, its
      published widths) in bf16, drawn on the card from a seeded
      generator; ``ServeEngine(max_len=1040, cache_dtype=bf16).generate``
@@ -254,13 +257,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      parameters as the reference's tree counts them (A_log, D, dt_bias and
      the router float32), 48.09 GB; the same generate as step 9:
      flash_attention exactly 16 (1 wgmma + 15 split_kv), moe_router
-     exactly 32, all fused (2 tile + 30 split), no other kernel (the Mamba
-     mixers' selective scan is torch ops); prefill ms, decode ms per step,
-     tokens/s, peak memory; then every kernel one prefill and one decode
-     step launch (torch.profiler).
+     exactly 32, all fused (2 tile + 30 split), mamba_scan exactly 4 (the
+     prefill's Mamba mixers; a decode step's recurrence step is torch
+     ops), no other kernel; prefill ms, decode ms per step, tokens/s, peak
+     memory; then every kernel one prefill and one decode step launch
+     (torch.profiler).
  13f. Jamba consistency: the same path cut to 2 layers with attn_period 2,
      [(mamba, dense), (attn, MoE)] (11,912,896,512 parameters, 47.65 GB in
-     f32), kernels against plain versions, under step 10's rule.
+     f32), kernels against plain versions, under step 10's rule; the
+     kernel path's prefill launches mamba_scan once, the plain path not
+     at all. Then the Jamba cut's serving time by part (the Mamba mixer's
+     in_proj, conv, SSM parameters, scan and out_proj, the rest of the
+     mixer, attention, router, the rest of the MoE, the MLP, head), as
+     step 14 times the other paths, its prefill's scan now the kernel.
  13g. attention backward check: flash_attention_bwd against its plain
      version (``attention_bwd_ref``) from the (out, lse) the forward
      kernel wrote, at phi3-mini's training shape (4 x 1,024, 32 heads of
@@ -334,16 +343,38 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      within 1e-5; deepseek's router choices recorded at the routing seam
      and the tokens routed differently counted; its f32 router backward
      runs the ``logits`` variant.
+ 13n. Mamba's selective scan: mamba_scan (with its snapshots, a state
+     every 32 steps) and mamba_scan_bwd against ``scan_ref`` and
+     ``scan_bwd_ref`` at Jamba's (4, 1,024, 16,384, 16) in bf16, as
+     training gives them (no h0, no final-state cotangent) and with both,
+     in f32 with both, and at s = 1, 17 and 1,000: y within one bf16
+     rounding plus 1e-5 of the largest, the states, snapshots and every
+     gradient within 1e-5 of their largest (bf16 gradients also one bf16
+     rounding), a repeat bit-equal, each launch counted; the training
+     shape timed L2-cold (the forward with and without snapshots), beside
+     the plain versions and the bound (the larger of bytes and the 1.07e9
+     exponentials at 16 a clock an SM).
+ 13o. Jamba training: jamba-1.5-large-398b cut to [mamba, attn, mamba]
+     (num_layers 3, attn_period 3, every FFN dense: moe_layer_period past
+     the depth) at every published width in bf16 (3,877,396,480
+     parameters, 40 leaves), 13h's AdamW step and two tier rounds with
+     the counts set to 0 just before: flash_attention and
+     flash_attention_bwd exactly 1 a pass (``wgmma``), mamba_scan and
+     mamba_scan_bwd exactly 2 a pass, prox_update exactly 2 x 2 x 40, no
+     other kernel; finite losses, the tier loss falling, peaks under 80
+     GB; ms, tokens/s, busy share, the ten largest kernels.
+ 13p. its consistency under 13m's rule: the 2-layer cut [mamba, attn]
+     (2,853,068,800 parameters, 11.41 GB in f32), the kernel path's step
+     launching mamba_scan and mamba_scan_bwd once, the plain path's
+     neither.
  14. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, the router (the routing seam: the fused
      kernel), the rest of the MoE layer, head;
      rwkv6-7b: the time mix's GEMMs and elementwise ops, the decay LoRA,
      the WKV scan, the channel mix, head; whisper-small: the encoder,
      self-attention, cross-attention, MLP, head; qwen2-vl-2b: attention,
-     MLP, head; the Jamba cut: the Mamba mixer's in_proj, conv, SSM
-     parameters, scan and out_proj, the rest of the mixer, attention,
-     router, the rest of the MoE, the MLP, head) for a prefill and 8 decode
-     steps, and a profiled decode step and prefill (busy share, time by
+     MLP, head; the Jamba cut's runs in step 13f) for a prefill and 8
+     decode steps, and a profiled decode step and prefill (busy share, time by
      kernel); then the CNN round's host-clock time, uncompressed and with
      each lossy compressor, over several unprofiled rounds in alternating
      order (medians and ranges, and the host time spent issuing the
@@ -353,12 +384,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      one looped round (busy share, launches).
  15. the ``kernels`` JSON line (flash_attention's launches: those of
      deepseek's, Whisper's, Qwen2-VL's and Jamba's counted generates and
-     of steps 13h and 13k; moe_router's: deepseek's and Jamba's generates
-     and 13k; rwkv6_scan's: rwkv6-7b's generate and 13l; prox_update's
-     and flash_attention_bwd's include steps 13h and 13k (prox_update
-     13l too); moe_router_bwd's 13k's, rwkv6_scan_bwd's 13l's; the
-     backward kernels' numbers from 13j at the training paths' shapes),
-     then the ``ok`` JSON line last.
+     of steps 13h, 13k and 13o; moe_router's: deepseek's and Jamba's
+     generates and 13k; rwkv6_scan's: rwkv6-7b's generate and 13l;
+     mamba_scan's: Jamba's generate and 13o; prox_update's and
+     flash_attention_bwd's include steps 13h, 13k and 13o (prox_update 13l
+     too); moe_router_bwd's 13k's, rwkv6_scan_bwd's 13l's,
+     mamba_scan_bwd's 13o's; the backward kernels' numbers from 13j and
+     13n at the training paths' shapes), then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -419,6 +451,10 @@ TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
     "moe_router_bwd": "src/repro/kernels/moe_router/ref.py:16",
     # no Pallas kernel: jax.grad of the XLA wkv6_ref (a checkpointed scan)
     "rwkv6_scan_bwd": "src/repro/kernels/rwkv6_scan/ref.py:20",
+    # no Pallas kernel: the XLA selective scan (chunk_fn under
+    # jax.checkpoint, lax.scan over chunks of 16 steps) and its jax.grad
+    "mamba_scan": "src/repro/models/mamba.py:124",
+    "mamba_scan_bwd": "src/repro/models/mamba.py:142",
 }
 KERNEL_SOURCE = {  # kernel -> its CUDA source
     "prox_update": "prox_update/csrc/prox_update.cu",
@@ -444,6 +480,8 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     # the training path's variant (chunked); the CUDA-core simt backward of
     # f32 and the other cases is rwkv6_scan/csrc/rwkv6_scan_bwd.cu
     "rwkv6_scan_bwd": "rwkv6_scan/csrc/rwkv6_scan_bwd_hopper.cu",
+    "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
+    "mamba_scan_bwd": "mamba_scan/csrc/mamba_scan_bwd.cu",
 }
 LLM_ARCH = "deepseek-moe-16b"
 RWKV_ARCH = "rwkv6-7b"
@@ -474,6 +512,26 @@ JAMBA_ARCH = "jamba-1.5-large-398b"
 JAMBA_CUT, JAMBA_PARAMS = dict(num_layers=5), 24_045_707_264
 JAMBA_CONSISTENCY_CUT = dict(num_layers=2, attn_period=2)
 JAMBA_CONSISTENCY_PARAMS = 11_912_896_512
+# Jamba trained (phases 13n-13p): one block of attn_period = num_layers
+# positions (the attention layer at num_layers // 2, the rest Mamba), every
+# FFN dense (moe_layer_period past the depth: one MoE FFN at published
+# widths, 16 x 3 x 8,192 x 24,576 parameters, takes ~117 GiB to train).
+# JAMBA_TREE: the reference tree of such a cut (jax.eval_shape of
+# repro.models.model.init_params; the CPU tests hold it): the embedding,
+# final norm and head, then each Mamba layer and the attention layer (each
+# with its SwiGLU FFN and two norms); leaves 3, 14 a Mamba position, 9 the
+# attention's
+JAMBA_TREE = (1_073_750_016, 1_024_327_680, 754_991_104)
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_CONSISTENCY_LAYERS = 3, 2
+# Mamba's selective scan at Jamba's (b, s, d_in, N); the kernels held to
+# their plain versions within MAMBA_TOL of each tensor's largest value
+# (bf16 also one bf16 rounding, 2^-7, of each value): sums over d and over
+# (b, t) in other orders
+JAMBA_SCAN = (4, 1024, 16384, 16)
+MAMBA_TOL = 1e-5
+# exponentials a second: the special-function units issue 16 a clock per SM
+# (compute capability 9.0), 132 SMs at the H100 SXM's 1.98 GHz boost
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 # Whisper's decoder prompt and cache, within its 448-token context; the
 # encoder reads 1,500 frames (30 s of audio)
 WHISPER_PROMPT, WHISPER_MAX_LEN = 64, 80
@@ -512,12 +570,27 @@ def cut_tree(arch, layers):
     return base + layers * per_layer, leaves
 
 
+def jamba_cut(layers):
+    """Jamba's training cut to ``layers`` layers: one block, one attention
+    layer (at ``layers // 2``), dense FFNs."""
+    return dict(num_layers=layers, attn_period=layers,
+                moe_layer_period=layers + 1)
+
+
+def jamba_tree(layers):
+    """(parameters, leaves) of the reference tree of :func:`jamba_cut`."""
+    base, mamba, attn = JAMBA_TREE
+    return base + (layers - 1) * mamba + attn, 3 + 14 * (layers - 1) + 9
+
+
 MOE_TRAIN_CUT = dict(num_layers=6)
 MOE_TRAIN_PARAMS, MOE_TRAIN_LEAVES = cut_tree(LLM_ARCH, 6)     # 3.95e9
 RWKV_TRAIN_CUT = dict(num_layers=12)
 RWKV_TRAIN_PARAMS, RWKV_TRAIN_LEAVES = cut_tree(RWKV_ARCH, 12)  # 3.16e9
 FAMILY_CONSISTENCY_PARAMS = {a: cut_tree(a, 2)[0]
                              for a in (LLM_ARCH, RWKV_ARCH)}
+FAMILY_CONSISTENCY_PARAMS[JAMBA_ARCH] = jamba_tree(
+    JAMBA_TRAIN_CONSISTENCY_LAYERS)[0]
 # AdamW's first step moves a parameter by lr * u(g), u(g) = g / (|g| +
 # 1e-8): about lr * sign(g) wherever |g| >> 1e-8, so a gradient near 0
 # whose two paths' values differ by their rounding moves the parameter
@@ -1143,12 +1216,13 @@ def check_launches(launches, expect, path):
     every other kernel not at all."""
     from repro_torch.kernels.compress import KERNELS
     from repro_torch.kernels.flash_attention import KERNELS as ATTENTION
+    from repro_torch.kernels.mamba_scan import KERNELS as MAMBA
     from repro_torch.kernels.moe_router import KERNELS as ROUTER
     from repro_torch.kernels.quantize import KERNELS as QUANTIZE
     from repro_torch.kernels.rwkv6_scan import KERNELS as RWKV
 
     for name in (("prox_update",) + KERNELS + QUANTIZE + ATTENTION + ROUTER
-                 + RWKV):
+                 + RWKV + MAMBA):
         want = expect.get(name, 0)
         if launches.get(name, 0) != want:
             raise AssertionError(
@@ -2609,7 +2683,57 @@ def phase_attention_check():
             f"scaled_dot_product_attention {clean_lib * 1e3:.1f} us")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    out["phi3 train forward"] = phi3_train_forward(gen)
     return out
+
+
+def phi3_train_forward(gen):
+    """flash_attention at phi3-mini's training shape (4 x 1,024, 32 heads
+    of 96, bf16, causal) as a training pass runs it: the variant ``plan``
+    picks (``simt``: the ``wgmma`` forward takes head_dim 64 and 128) with
+    the log-sum-exp its backward reads, against ``attention_lse_ref``
+    (out within 2e-2, lse within 1e-4), timed L2-cold beside its plain
+    version, its bound and scaled_dot_product_attention on the same
+    tensors. Returns its numbers."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import plan
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    from repro_torch.kernels.interface import KernelType
+
+    b, s, h, d, bf16 = TRAIN_BATCH, TRAIN_SEQ, 32, 96, torch.bfloat16
+    q, k, v = (torch.randn(b, s, h, d, device=DEVICE, generator=gen).to(bf16)
+               for _ in range(3))
+
+    def kernel():
+        return fa_ops._forward(q, k, v, True, 0, 0, KernelType.CUDA, True)
+
+    variant = plan(q, k, v, causal=True)[0]
+    got, lse = kernel()
+    want, lse_p = attention_lse_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    lse_err = float((lse - lse_p).abs().max())
+    tag = (f"flash_attention phi3 train forward bf16 [{variant}, with the "
+           f"log-sum-exp] q, kv ({b}, {s}, {h}, {d})")
+    if not (err <= ATTN_TOL["bfloat16"] and lse_err <= 1e-4):
+        raise AssertionError(f"{tag}: kernel and plain version differ by "
+                             f"{err} (out), {lse_err} (lse)")
+    ms = cuda_time_ms(kernel, 20)
+    plain_ms = cuda_time_ms(lambda: attention_lse_ref(q, k, v, causal=True),
+                            5)
+    lib_ms = cuda_time_ms(sdpa_call(q, k, v, True, 0), 20)
+    bound_ms, by, mb, gflop = attention_bound(b, s, s, h, h, d, True, 0, 0,
+                                              bf16, bf16)
+    say("kernel", f"{tag}: max abs err {err:.3g} (tol "
+        f"{ATTN_TOL['bfloat16']:g}), lse {lse_err:.3g} (tol 1e-4); kernel "
+        f"{ms * 1e3:.1f} us L2-cold, plain {plain_ms * 1e3:.1f} us, "
+        f"scaled_dot_product_attention {lib_ms * 1e3:.1f} us, bound "
+        f"{bound_ms * 1e3:.1f} us ({mb:.1f} MB, {gflop:.2f} GFLOP; by {by}),"
+        f" {bound_ms / ms:.1%} of bound")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=lib_ms)
 
 
 def router_logits(t, e, gen, tied):
@@ -3446,8 +3570,9 @@ def phase_jamba_serving():
     flash_attention (GQA 64:8 at head_dim 128; the prefill on wgmma, each
     decode step on split_kv), each of the 2 MoE layers on the fused router
     (the prefill's 4,096 tokens in the tile form, each decode step's 4 in
-    the split form), the 4 Mamba mixers on torch ops. Then the kernels
-    launched by one prefill and by one decode step. Returns its
+    the split form), each of the 4 Mamba mixers' prefill scan on
+    mamba_scan (a decode step's recurrence step is torch ops). Then the
+    kernels launched by one prefill and by one decode step. Returns its
     launches."""
     import torch
 
@@ -3470,8 +3595,10 @@ def phase_jamba_serving():
     launches = counted_generate(cfg, params, prompts)
     n_attn = cfg.layer_kinds().count("attn")
     n_moe = sum(cfg.moe_layer_mask())
+    n_mamba = cfg.layer_kinds().count("mamba")
     check_launches(launches, {"flash_attention": LLM_NEW * n_attn,
-                              "moe_router": LLM_NEW * n_moe},
+                              "moe_router": LLM_NEW * n_moe,
+                              "mamba_scan": n_mamba},
                    f"{JAMBA_ARCH} generate")
     from repro_torch.kernels.flash_attention import VARIANTS
 
@@ -4259,6 +4386,226 @@ def phase_family_bwd_check():
     return out
 
 
+def mamba_inputs(b, s, d_in, dtype, gen, state):
+    """The selective scan's operands as Jamba's mixer makes them: xc (b,
+    s, d_in) normal, dt = softplus(N(-2, 1)), B and C the strided views of
+    one (b, s, 512 + 32) projection (x_proj's output at dt_rank 512), A =
+    -(1..16) a row (the init's -exp(A_log)); h0 normal x 0.5 or None."""
+    import torch
+    import torch.nn.functional as F
+
+    def normal(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen)
+
+    xc = normal(b, s, d_in).to(dtype)
+    dt = F.softplus(normal(b, s, d_in) - 2.0).to(dtype)
+    _, b_mat, c_mat = normal(b, s, 512 + 32).to(dtype).split([512, 16, 16],
+                                                            dim=-1)
+    a = -torch.arange(1, 17, dtype=torch.float32, device=DEVICE).expand(
+        d_in, 16).contiguous()
+    h0 = normal(b, d_in, 16) * 0.5 if state else None
+    return xc, dt, b_mat, c_mat, a, h0
+
+
+def mamba_bound(b, s, d_in, n, dtype, backward, state, final):
+    """(bound ms, bound by, MB moved, exponentials) of the scan or its
+    gradient: the function's inputs read once and outputs written once
+    (forward: xc, dt, B, C, A, h0 read, y and the final state written;
+    backward: xc, dt, B, C, A, dy, the final state's cotangent read, dxc,
+    ddt, dB, dC, dA, dh0 written; the backward kernel's snapshots are its
+    own and not counted) over the card's memory rate, against the b s
+    d_in N exponentials exp(dt A) over the special-function units' rate.
+    The larger bounds."""
+    es = dtype.itemsize
+    acts, bc = b * s * d_in * es, b * s * n * es
+    states, a_bytes = b * d_in * n * 4, d_in * n * 4
+    if backward:
+        moved = 5 * acts + 4 * bc + 2 * a_bytes + (1 + bool(state)
+                                                   + bool(final)) * states
+    else:
+        moved = 3 * acts + 2 * bc + a_bytes + (1 + bool(state)) * states
+    exps = b * s * d_in * n
+    t_bytes, t_exp = moved / HBM_BYTES_PER_S, exps / MUFU_EXP_PER_S
+    by = "bytes" if t_bytes >= t_exp else "operations"
+    return max(t_bytes, t_exp) * 1e3, by, moved / 1e6, exps
+
+
+def mamba_errors(got, want):
+    """(max abs error per tensor, within tolerance): each within MAMBA_TOL
+    of its largest value, in bf16 also one bf16 rounding (2^-7) of each
+    value; None entries must match."""
+    import torch
+
+    errs, ok = [], True
+    for g, w in zip(got, want):
+        if w is None or g is None:
+            ok &= g is None and w is None
+            continue
+        err = (g.float() - w.float()).abs()
+        rel = 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        ok &= g.dtype == w.dtype and g.shape == w.shape and bool(
+            (err <= rel * w.float().abs()
+             + MAMBA_TOL * float(w.float().abs().max())).all())
+        errs.append(float(err.max()))
+    return errs, ok
+
+
+def phase_mamba_check():
+    """Mamba's selective scan: the forward kernel (mamba_scan, with its
+    snapshots) and the backward kernel (mamba_scan_bwd, from them) against
+    their plain versions (``scan_ref``, ``scan_bwd_ref`` at the kernels'
+    SNAPSHOT_EVERY) at Jamba's (4, 1,024, 16,384, 16) in bf16 -- as the
+    training path gives them (no h0, no final-state cotangent; timed), and
+    with both -- in f32 with both, and at s = 1, 17 and 1,000: y, the
+    final state, the snapshots and dxc, ddt, dB, dC, dA (and dh0 where h0
+    is given) under :func:`mamba_errors`, two launches bit-equal and
+    counted. Timed: each kernel L2-cold (the forward without snapshots,
+    as serving runs it, and with them), its plain version, its bound
+    (:func:`mamba_bound`). Returns {"fwd", "bwd"}: their numbers."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, KernelType
+    from repro_torch.kernels.mamba_scan import BWD_CHANNELS, \
+        SNAPSHOT_EVERY, bwd_scratch, launch, launch_bwd, ops, scan_bwd, \
+        scan_bwd_ref, scan_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    b, s_full, d_in, n = JAMBA_SCAN
+    out = {}
+    # (label, s, dtype, h0, final-state cotangent, timed)
+    for label, s, dtype, state, final, timed in (
+            ("jamba train", s_full, bf16, False, False, True),
+            ("jamba, h0 and a final cotangent", s_full, bf16, True, True,
+             False),
+            ("jamba f32, h0 and a final cotangent", s_full, f32, True, True,
+             False),
+            ("s 1", 1, bf16, True, True, False),
+            ("s 17", 17, bf16, False, True, False),
+            ("s 1000", 1000, bf16, True, False, False)):
+        args = mamba_inputs(b, s, d_in, dtype, gen, state)
+        shape = (f"({b}, {s}, {d_in}, {n}) {str(dtype).split('.')[-1]}, "
+                 + ("a given h0" if state else "h0 None") + ", "
+                 + ("a final-state cotangent" if final
+                    else "no final-state cotangent"))
+        before = LAUNCHES.get("mamba_scan", 0)
+        got = ops._forward(*args, SNAPSHOT_EVERY, dtype, KernelType.CUDA,
+                           True)
+        again = ops._forward(*args, SNAPSHOT_EVERY, dtype, KernelType.CUDA,
+                             True)
+        torch.cuda.synchronize()
+        if LAUNCHES["mamba_scan"] != before + 2:
+            raise AssertionError(f"mamba_scan {label}: launches "
+                                 f"{LAUNCHES['mamba_scan'] - before}")
+        if not all(torch.equal(x, z) for x, z in zip(got, again)):
+            raise AssertionError(f"mamba_scan {label}: two launches differ")
+        want = scan_ref(*args, segment=SNAPSHOT_EVERY, snapshots=True)
+        errs, ok = mamba_errors(got, want)
+        tag = (f"mamba_scan {label} {shape}: max abs err y / final state / "
+               f"snapshots " + ", ".join(f"{e:.3g}" for e in errs)
+               + f" (tol {MAMBA_TOL:g} of each scale, bf16 y also 2^-7 of "
+               f"each value), two launches bit-equal")
+        if not ok:
+            raise AssertionError(f"{tag}: kernel and plain version differ")
+        say("kernel", tag)
+        snaps = got[2]
+        dy = torch.randn(b, s, d_in, device=DEVICE, generator=gen).to(dtype)
+        dh = (torch.randn(b, d_in, n, device=DEVICE, generator=gen)
+              if final else None)
+        bargs = (*args[:5], snaps, dy, dh)
+        before = LAUNCHES.get("mamba_scan_bwd", 0)
+        got_b = scan_bwd(*bargs, want_dh0=state)
+        again_b = scan_bwd(*bargs, want_dh0=state)
+        torch.cuda.synchronize()
+        if LAUNCHES["mamba_scan_bwd"] != before + 2:
+            raise AssertionError(f"mamba_scan_bwd {label}: launches "
+                                 f"{LAUNCHES['mamba_scan_bwd'] - before}")
+        if not all(x is z is None or torch.equal(x, z)
+                   for x, z in zip(got_b, again_b)):
+            raise AssertionError(f"mamba_scan_bwd {label}: two launches "
+                                 "differ")
+        want_b = scan_bwd(*bargs, segment=SNAPSHOT_EVERY, want_dh0=state,
+                          mode="torch")
+        errs_b, ok = mamba_errors(got_b, want_b)
+        tag = (f"mamba_scan_bwd {label} {shape}: max abs err dxc / ddt / dB "
+               f"/ dC / dA" + (" / dh0" if state else "") + " "
+               + ", ".join(f"{e:.3g}" for e in errs_b)
+               + f" (tol {MAMBA_TOL:g} of each scale, bf16 also 2^-7 of each "
+               f"value), two launches bit-equal")
+        if not ok:
+            raise AssertionError(f"{tag}: kernel and plain version differ")
+        say("kernel", tag)
+        if not timed:
+            continue
+        y, h_out = torch.empty_like(got[0]), torch.empty_like(got[1])
+        ms = cuda_time_ms(lambda: launch(*args, y, h_out), 20)
+        ms_snaps = cuda_time_ms(lambda: launch(*args, y, h_out, snaps), 20)
+        plain_ms = cuda_time_ms(lambda: scan_ref(*args), 3)
+        bound_ms, by, mb, exps = mamba_bound(b, s, d_in, n, dtype, False,
+                                             state, False)
+        say("kernel", f"mamba_scan {label}: {ms * 1e3:.1f} us L2-cold "
+            f"(with the snapshots, {snaps.numel() * 4 / 1e6:.1f} MB every "
+            f"{SNAPSHOT_EVERY} steps: {ms_snaps * 1e3:.1f} us), "
+            f"{bound_ms / ms:.1%} of bound; bound {bound_ms * 1e3:.1f} us "
+            f"({mb:.1f} MB, {exps:.3g} exponentials at 16 a clock an SM; "
+            f"by {by}); plain {plain_ms * 1e3:.1f} us; no library call")
+        out["fwd"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None,
+                          snaps_ms=ms_snaps)
+        grads = tuple(None if g is None else torch.empty_like(g)
+                      for g in got_b)
+        scratch = bwd_scratch(args[0])
+        ms = cuda_time_ms(lambda: launch_bwd(*bargs, grads, scratch), 10)
+        plain_ms = cuda_time_ms(lambda: scan_bwd_ref(
+            *args, dy, dh, snaps=snaps, segment=SNAPSHOT_EVERY), 3)
+        bound_ms, by, mb, exps = mamba_bound(b, s, d_in, n, dtype, True,
+                                             state, final)
+        say("kernel", f"mamba_scan_bwd {label}: {ms * 1e3:.1f} us L2-cold, "
+            f"{bound_ms / ms:.1%} of bound; bound {bound_ms * 1e3:.1f} us "
+            f"({mb:.1f} MB, {exps:.3g} exponentials; by {by}); its scratch: "
+            f"the snapshots {snaps.numel() * 4 / 1e6:.1f} MB, partial dB/dC "
+            f"of each CTA of {BWD_CHANNELS} channels "
+            f"{scratch[0].numel() * 4 / 1e6:.1f} MB, partial dA "
+            f"{scratch[1].numel() * 4 / 1e6:.1f} MB; plain "
+            f"{plain_ms * 1e3:.1f} us; no library call")
+        out["bwd"] = dict(max_abs_err=max(errs_b), ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None)
+        del grads, scratch, y, h_out
+    release()
+    return out
+
+
+def phase_jamba_training():
+    """jamba-1.5-large-398b cut to JAMBA_TRAIN_LAYERS layers at every
+    published width in bf16 (:func:`jamba_cut`: [mamba, attn, mamba], dense
+    FFNs; A_log, D and dt_bias float32) through :func:`run_training`:
+    flash_attention and flash_attention_bwd exactly 1 a pass (``wgmma``),
+    mamba_scan and mamba_scan_bwd exactly 2 a pass, prox_update rounds x
+    l_local x 40, no other kernel. Returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import BWD_VARIANTS, VARIANTS
+
+    cut = jamba_cut(JAMBA_TRAIN_LAYERS)
+    cfg = get_config(JAMBA_ARCH).replace(**cut)
+    if any(cfg.moe_layer_mask()):
+        raise AssertionError(f"{JAMBA_ARCH} {cut}: an MoE FFN")
+    kinds = cfg.layer_kinds()
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    n_params, n_leaves = jamba_tree(JAMBA_TRAIN_LAYERS)
+    say("train", f"{JAMBA_ARCH} cut to {kinds}, dense FFNs: "
+        f"{n_params:,} parameters, {n_leaves} leaves")
+    launches, trees = run_training(
+        JAMBA_ARCH, n_params, n_leaves,
+        {"flash_attention": n_attn, "flash_attention_bwd": n_attn,
+         "mamba_scan": n_mamba, "mamba_scan_bwd": n_mamba},
+        {"flash_attention variants": (VARIANTS, {"wgmma": n_attn}),
+         "flash_attention_bwd variants": (BWD_VARIANTS, {"wgmma": n_attn})},
+        cut)
+    del trees
+    release()
+    return launches
+
+
 def adam_close(got, want, m_got, m_want, lr, tol):
     """(within, max |diff| of the parameters, the share of entries whose
     steps differ by more than ``tol`` through their gradients): AdamW's
@@ -4275,6 +4622,14 @@ def adam_close(got, want, m_got, m_want, lr, tol):
     return ok, float(diff.max()), float((step > tol).float().mean())
 
 
+def tree_to(tree, device):
+    """A parameter tree (nested dicts of tensors) with every tensor on
+    ``device`` (the same tensors where they are there already)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def grads_close(a, b, tol):
     """``a`` within ``tol`` of ``b``'s largest value plus ``tol`` of each
     value: two gradients summed in other orders."""
@@ -4282,8 +4637,9 @@ def grads_close(a, b, tol):
     return bool(((a - b).abs() <= tol * scale + tol * b.abs()).all())
 
 
-def phase_family_consistency():
-    """deepseek-moe-16b and rwkv6-7b, each cut to 2 layers at every
+def phase_family_consistency(archs=(LLM_ARCH, RWKV_ARCH)):
+    """``archs`` (deepseek-moe-16b and rwkv6-7b, each cut to 2 layers; or
+    Jamba's 2-layer training cut, :func:`jamba_cut`) at every
     published width, in f32 (TF32 off), from the same parameters through
     the kernels and through the plain versions (``mode="torch"``): one
     ``make_train_step`` with ``adamw()`` (lr 1e-2, grad_clip 1.0): the
@@ -4296,19 +4652,25 @@ def phase_family_consistency():
     theta', w', x' within TRAIN_TOL. The MoE layers' router choices are
     recorded at the routing seam and the tokens routed differently
     counted. The f32 MoE path's router backward is the ``logits`` variant
-    (``plan_bwd``: the fused kernel takes bf16 x), asserted."""
+    (``plan_bwd``: the fused kernel takes bf16 x), asserted; Jamba's
+    kernel path launches mamba_scan and mamba_scan_bwd once a Mamba layer
+    a pass, its plain path neither."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import moe_router
+    from repro_torch.kernels.interface import LAUNCHES
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
     from repro_torch.train import optim
     from repro_torch.train.train_state import TrainState
     from repro_torch.train.trainer import make_tier_round, make_train_step
 
-    for arch in (LLM_ARCH, RWKV_ARCH):
-        cfg = get_config(arch).replace(**TRAIN_CONSISTENCY_CUT)
+    for arch in archs:
+        cfg = get_config(arch).replace(
+            **(jamba_cut(JAMBA_TRAIN_CONSISTENCY_LAYERS) if arch == JAMBA_ARCH
+               else TRAIN_CONSISTENCY_CUT))
+        n_mamba = cfg.layer_kinds().count("mamba")
         torch.cuda.reset_peak_memory_stats()
         params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0),
                                cfg, dtype=torch.float32, device=DEVICE)
@@ -4333,50 +4695,72 @@ def phase_family_consistency():
             finally:
                 moe_mod.route = route
 
+        # a cut whose f32 tree takes over 8 GB (Jamba's, 11.41 GB) parks
+        # the kernel path's results in host memory while the plain path
+        # runs: the card holds one path's AdamW step (5 trees) or tier
+        # round (about 6) at a time
+        park = "cpu" if n * 4 > 8e9 else DEVICE
+
         def adam_step(mode):
             step = make_train_step(cfg, optim.adamw(),
                                    lr=TRAIN_CONSISTENCY_LR, grad_clip=1.0,
                                    mode=mode)
             st, m = step(TrainState.create(params, optim.adamw()), batch)
-            return m["loss"], m["grad_norm"], st.params, st.opt_state["m"]
+            dest = park if mode is None else DEVICE
+            return (m["loss"], m["grad_norm"], tree_to(st.params, dest),
+                    tree_to(st.opt_state["m"], dest))
 
         moe_router.reset_variants()
+        scans = ("mamba_scan", "mamba_scan_bwd")
+        before = {k: LAUNCHES.get(k, 0) for k in scans}
         step_k = run(None, adam_step)
+        release()
         router_bwd = {v: c for v, c in moe_router.BWD_VARIANTS.items() if c}
+        mid = {k: LAUNCHES.get(k, 0) for k in scans}
         step_p = run("torch", adam_step)
         torch.cuda.synchronize()
         bad, worst, flat = [], 0.0, []
         if arch == LLM_ARCH and set(router_bwd) != {"logits"}:
             bad.append(f"router backward variants {router_bwd}")
+        scan_launches = [{k: mid[k] - before[k] for k in scans},
+                         {k: LAUNCHES.get(k, 0) - mid[k] for k in scans}]
+        if scan_launches != [{k: n_mamba for k in scans},
+                             {k: 0 for k in scans}]:
+            bad.append(f"selective scan launches (kernel, plain path) "
+                       f"{scan_launches}")
         for tag, a, b in (("step loss", step_k[0], step_p[0]),
                           ("grad norm", step_k[1], step_p[1])):
             if not within(a, b, TRAIN_TOL):
                 bad.append(tag)
         for i, (a, b) in enumerate(zip(_leaves(step_k[3]),
                                        _leaves(step_p[3]))):
-            if not grads_close(a, b, TRAIN_TOL):
+            if not grads_close(a.to(DEVICE), b, TRAIN_TOL):
                 bad.append(f"m {i}")
         for i, (a, b, mk, mp) in enumerate(zip(
                 _leaves(step_k[2]), _leaves(step_p[2]), _leaves(step_k[3]),
                 _leaves(step_p[3]))):
-            ok, diff, share = adam_close(a, b, mk, mp, TRAIN_CONSISTENCY_LR,
-                                         TRAIN_TOL)
+            ok, diff, share = adam_close(a.to(DEVICE), b, mk.to(DEVICE), mp,
+                                         TRAIN_CONSISTENCY_LR, TRAIN_TOL)
             worst = max(worst, diff)
             flat.append(share)
             if not ok:
                 bad.append(f"step param {i}")
             if share > ADAM_EXCUSED_SHARE:
                 bad.append(f"step param {i}: {share:.3%} excused")
-        w_step = step_k[2]
         losses = (float(step_k[0]), float(step_p[0]))
-        del step_k, step_p
+        del step_p
         release()
+        w_step = tree_to(step_k[2], DEVICE)
+        del step_k
 
         def tier_round(mode):
-            return make_tier_round(cfg, l_local=TRAIN_L_LOCAL, mode=mode,
-                                   **TIER_HP)(params, w_step, params, batch)
+            out = make_tier_round(cfg, l_local=TRAIN_L_LOCAL, mode=mode,
+                                  **TIER_HP)(params, w_step, params, batch)
+            return (*(tree_to(t, park if mode is None else DEVICE)
+                      for t in out[:3]), out[3])
 
         rk = run(None, tier_round)
+        release()
         rp = run("torch", tier_round)
         torch.cuda.synchronize()
         pairs = [("tier loss", rk[3]["loss"], rp[3]["loss"])]
@@ -4385,8 +4769,13 @@ def phase_family_consistency():
             pairs += [(f"{tag} {i}", ga, gb)
                       for i, (ga, gb) in enumerate(zip(_leaves(a),
                                                        _leaves(b)))]
-        round_worst = max(float((a - b).abs().max()) for _, a, b in pairs)
-        bad += [tag for tag, a, b in pairs if not within(a, b, TRAIN_TOL)]
+        round_worst = 0.0
+        for tag, a, b in pairs:          # a leaf at a time onto the card
+            a = a.to(DEVICE)
+            round_worst = max(round_worst, float((a - b).abs().max()))
+            if not within(a, b, TRAIN_TOL):
+                bad.append(tag)
+        del pairs
         flips = sum(int((a != b).any(1).sum())
                     for a, b in zip(ids.get(None, []), ids.get("torch", [])))
         say("consistency", f"{arch} x {cfg.num_layers} layers f32 training "
@@ -4403,6 +4792,8 @@ def phase_family_consistency():
                f"{flips} token(s) routed differently, the kernel path's "
                f"router backward {router_bwd} (f32 x)" if ids.get(None)
                else "")
+            + (f"; the kernel path's AdamW step launched "
+               f"{scan_launches[0]}" if n_mamba else "")
             + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if bad:
             raise AssertionError(f"{arch} training: kernel and plain paths "
@@ -4529,10 +4920,13 @@ def phase_llm_consistency(arch=LLM_ARCH, cut=None, n_params=None):
     tok = torch.randint(0, cfg.vocab_size, (LLM_BATCH, 1), device=DEVICE,
                         generator=torch.Generator(DEVICE).manual_seed(2),
                         dtype=torch.int32)
+    from repro_torch.kernels.interface import LAUNCHES
+
     route = moe_mod.route
-    runs = {}
+    runs, scans = {}, {}
     for mode in (None, "torch"):
         calls = []
+        before = LAUNCHES.get("mamba_scan", 0)
 
         def recording(xp, w, **kw):
             res = route(xp, w, **kw)
@@ -4551,8 +4945,16 @@ def phase_llm_consistency(arch=LLM_ARCH, cut=None, n_params=None):
         finally:
             moe_mod.route = route
         runs[mode] = (pre, dec, calls)
+        scans[mode] = LAUNCHES.get("mamba_scan", 0) - before
         del cache
     torch.cuda.synchronize()
+    n_mamba = cfg.layer_kinds().count("mamba")
+    if scans != {None: n_mamba, "torch": 0}:
+        raise AssertionError(f"{arch} {cut}: mamba_scan launches (kernel, "
+                             f"plain path) {scans}, expected {n_mamba}, 0")
+    if n_mamba:
+        say("consistency", f"{arch} x {layers}: the kernel path's prefill "
+            f"launched mamba_scan {scans[None]} time(s)")
     for step, which, t, gs in (("prefill", 0, LLM_BATCH * LLM_PROMPT,
                                 min(1024, LLM_BATCH * LLM_PROMPT)),
                                ("decode", 1, LLM_BATCH, LLM_BATCH)):
@@ -5037,12 +5439,15 @@ def main(argv) -> int:
         f" s")
     t_jamba = time.perf_counter()
     for k, v in phase_jamba_serving().items():
-        launches[k] += v
+        launches[k] = launches.get(k, 0) + v
     t_cons = time.perf_counter()
     phase_llm_consistency(JAMBA_ARCH, JAMBA_CONSISTENCY_CUT,
                           JAMBA_CONSISTENCY_PARAMS)
+    t_prof = time.perf_counter()
+    phase_jamba_profile()
     say("llm", f"{JAMBA_ARCH}: serving phase {t_cons - t_jamba:.1f} s, "
-        f"consistency {time.perf_counter() - t_cons:.1f} s")
+        f"consistency {t_prof - t_cons:.1f} s, profile "
+        f"{time.perf_counter() - t_prof:.1f} s")
     t_train = time.perf_counter()
     attn_bwd = phase_attention_bwd_check()
     t_path = time.perf_counter()
@@ -5064,12 +5469,21 @@ def main(argv) -> int:
     say("train", f"{LLM_ARCH} and {RWKV_ARCH}: backward checks "
         f"{t_path - t_train:.1f} s, training phases {t_cons - t_path:.1f} s,"
         f" consistency {time.perf_counter() - t_cons:.1f} s")
+    t_train = time.perf_counter()
+    mamba = phase_mamba_check()
+    t_path = time.perf_counter()
+    for k, v in phase_jamba_training().items():
+        launches[k] = launches.get(k, 0) + v
+    t_cons = time.perf_counter()
+    phase_family_consistency((JAMBA_ARCH,))
+    say("train", f"{JAMBA_ARCH}: scan check {t_path - t_train:.1f} s, "
+        f"training phase {t_cons - t_path:.1f} s, consistency "
+        f"{time.perf_counter() - t_cons:.1f} s")
     if "--profile" in argv:
         phase_llm_profile()
         phase_rwkv_profile()
         phase_whisper_profile()
         phase_vlm_profile()
-        phase_jamba_profile()
         phase_round_times(ROUND_REPS)
         for comp in (None,) + tuple(COMPRESS_KERNEL):
             phase_profile(comp)
@@ -5085,6 +5499,10 @@ def main(argv) -> int:
     # the backward kernels at the MoE and RWKV-6 training paths' shapes
     checks["moe_router_bwd"] = family_bwd["router"]
     checks["rwkv6_scan_bwd"] = family_bwd["wkv train"]
+    # the selective scan at Jamba's training shape (the forward as serving
+    # runs it, without snapshots)
+    checks["mamba_scan"] = mamba["fwd"]
+    checks["mamba_scan_bwd"] = mamba["bwd"]
     say("done", f"{time.perf_counter() - t_start:.1f} s")
     src = "src/repro_torch/kernels/"
     print(json.dumps({"kernels": [{

@@ -6,13 +6,13 @@
 
 Runs the tiered PerMFL round (device prox steps -> team update -> server
 update, ``repro_torch.train.trainer.make_tier_round``) on a REDUCED
-variant of a dense, MoE or RWKV-6 architecture, with federated LM data
-where each team has its own topic distribution -- the LM analogue of the
-paper's label skew. Shows personalized loss <= global loss on each
-team's distribution. On the card (the default) the device steps run
-through the backward kernels (attention, the MoE router, the WKV-6 scan)
-and the ``prox_update`` kernel; ``--device cpu`` runs the plain
-versions.
+variant of a dense, MoE, RWKV-6 or hybrid attention/Mamba (Jamba)
+architecture, with federated LM data where each team has its own topic
+distribution -- the LM analogue of the paper's label skew. Shows
+personalized loss <= global loss on each team's distribution. On the card
+(the default) the device steps run through the backward kernels
+(attention, the MoE router, the WKV-6 scan, Mamba's selective scan) and
+the ``prox_update`` kernel; ``--device cpu`` runs the plain versions.
 """
 import argparse
 
@@ -26,10 +26,10 @@ from repro_torch.models import model as M
 from repro_torch.train.trainer import make_tier_round
 
 VOCAB = 256
-# the dense, MoE and RWKV-6 architectures: Mamba's scan has no backward
-# yet (ROADMAP.md queue 1, item 18c)
+# the dense, MoE, RWKV-6 and hybrid attention/Mamba architectures
 ARCHS = ("phi3-mini-3.8b", "qwen3-14b", "yi-34b", "qwen1.5-32b",
-         "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b")
+         "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b",
+         "jamba-1.5-large-398b")
 
 
 def main(argv=None):

@@ -60,6 +60,9 @@ KERNEL_SOURCES = {
                        / "rwkv6_scan_bwd.cu"),
     "rwkv6_scan_bwd_hopper": (_KERNELS_DIR / "rwkv6_scan" / "csrc"
                               / "rwkv6_scan_bwd_hopper.cu"),
+    "mamba_scan": _KERNELS_DIR / "mamba_scan" / "csrc" / "mamba_scan.cu",
+    "mamba_scan_bwd": (_KERNELS_DIR / "mamba_scan" / "csrc"
+                       / "mamba_scan_bwd.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -55,10 +55,9 @@ def refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward (training lacks "
-            f"only Mamba's scan, ROADMAP.md queue 1, item 18c); run it "
-            f"under torch.no_grad(), or differentiate the plain version "
-            f"(mode='torch')")
+            f"{name}: the CUDA kernel has no backward (nothing trains "
+            f"through it); run it under torch.no_grad(), or differentiate "
+            f"the plain version (mode='torch')")
 
 
 def reset_launches() -> None:

@@ -9,13 +9,15 @@ The full sequence (and a prefill) runs a time scan carrying the float32
 the cache: the conv window (the last ``d_conv - 1`` conv inputs, in the
 cache dtype) and the float32 SSM state, both written in place.
 
-The selective scan has no kernel: the reference runs it as an XLA
-``lax.scan``, and here it is torch ops. The recurrence runs step by step
-(one in-place multiply-add a step); its elementwise terms, exp(dt * A)
-and dt * x * B, and the read-out y = C . h are computed for a block of
+The selective scan of the full sequence goes through
+``kernels/mamba_scan`` (the reference runs an XLA ``lax.scan`` and has
+no Pallas kernel here): the hand-written CUDA kernel for CUDA tensors, a
+prefill's as a training pass's, with a backward kernel under a gradient;
+its plain version on the CPU, which computes the elementwise terms,
+exp(dt * A) and dt * x * B, and the read-out y = C . h for a block of
 ``SCAN_BLOCK`` steps at once (the same numbers: each is elementwise or a
-per-step product), which bounds the launches of a prefill to about one a
-step.
+per-step product) and the recurrence one multiply-add a step. A decode
+step's recurrence is torch ops (``_step``).
 
 The reference's numerics are kept where they are easy to lose:
 ``A_log``, ``D`` and ``dt_bias`` are float32 leaves in a bfloat16 tree;
@@ -34,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import mamba_scan
 from repro_torch.models import layers
 
 __all__ = ["SCAN_BLOCK", "init_mamba_cache", "mamba_apply", "mamba_decode",
@@ -139,33 +142,21 @@ def _step(h, xc, dt, b_mat, c_mat, a, out_dtype):
     return torch.einsum("bdn,bn->bd", h, c_mat.float()).to(out_dtype), h
 
 
-def _scan(xc, dt, b_mat, c_mat, a, h0, block, out_dtype):
-    """The selective scan over s steps. xc, dt (b, s, d_in); b_mat, c_mat
-    (b, s, N); a (d_in, N) float32; h0 (b, d_in, N) float32 (read, not
-    written). Returns (y (b, s, d_in) in ``out_dtype``, the state after
-    the last step (b, d_in, N) float32)."""
-    b, s, d_in = xc.shape
-    # step-major copies, so that each block's and each step's slices are
-    # contiguous
-    xc_t, dt_t, b_t, c_t = (v.transpose(0, 1).contiguous()
-                            for v in (xc, dt, b_mat, c_mat))
-    y_t = torch.empty((s, b, d_in), dtype=out_dtype, device=xc.device)
-    h = h0
-    for t0 in range(0, s, block):
-        t1 = min(s, t0 + block)
-        dt_c = dt_t[t0:t1].float()                            # (L, b, d_in)
-        da = torch.exp(dt_c[..., None] * a)                   # (L, b, d_in, N)
-        hs = (dt_c * xc_t[t0:t1].float())[..., None] \
-            * b_t[t0:t1].float()[:, :, None, :]               # dt x B
-        for i in range(t1 - t0):                  # h_i = da_i h_{i-1} + bb_i
-            h = hs[i].addcmul_(da[i], h)
-        y_t[t0:t1] = torch.einsum("lbdn,lbn->lbd", hs, c_t[t0:t1].float())
-        h = h.clone() if t1 < s else h            # hs is freed with the block
-    return y_t.transpose(0, 1), h
+def _scan(xc, dt, b_mat, c_mat, a, h0, block, out_dtype, mode=None):
+    """The selective scan over s steps (``mamba_scan.scan``: the kernel for
+    CUDA tensors, differentiable). xc, dt (b, s, d_in); b_mat, c_mat (b,
+    s, N); a (d_in, N) float32; h0 (b, d_in, N) float32 (read, not
+    written); ``block`` the plain version's steps a block. Returns (y (b,
+    s, d_in) in ``out_dtype``, the state after the last step (b, d_in, N)
+    float32)."""
+    return mamba_scan.scan(xc, dt, b_mat, c_mat, a, h0, segment=block,
+                           out_dtype=out_dtype, mode=mode)
 
 
-def mamba_apply(params, cfg, x, cache=None):
+def mamba_apply(params, cfg, x, cache=None, mode=None):
     """Full-sequence Mamba. x: (b, s, d) -> (y (b, s, d), cache or None).
+    ``mode`` is the kernels' dispatch mode (None, or "torch" for the plain
+    scan on any device).
 
     With a ``cache`` (prefill semantics) the conv starts from its window
     and the scan from its state, and the cache is written in place: the
@@ -189,7 +180,11 @@ def mamba_apply(params, cfg, x, cache=None):
     h0 = (cache["ssm"] if cache is not None else
           torch.zeros((b, d_in, d_state), dtype=torch.float32,
                       device=x.device))
-    y, h = _scan(xc, dt, b_mat, c_mat, a, h0, min(SCAN_BLOCK, s), x.dtype)
+    # the seam's positional call; the mode by keyword only when one is
+    # asked for
+    kw = {} if mode is None else {"mode": mode}
+    y, h = _scan(xc, dt, b_mat, c_mat, a, h0, min(SCAN_BLOCK, s), x.dtype,
+                 **kw)
     y = y + xc * params["D"].to(x.dtype)
     y = y * F.silu(z)
     if cache is not None:

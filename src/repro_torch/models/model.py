@@ -20,12 +20,12 @@ hand-written kernels for CUDA tensors and their plain versions for CPU
 tensors; "torch" runs the plain versions on any device (for comparing
 the two paths on the card). ``loss_fn`` is differentiable: autograd runs
 through the attention kernel's backward (``flash_attention_bwd``) on the
-card, the MoE router's (``moe_router_bwd``) and the WKV-6 scan's
-(``rwkv6_scan_bwd``), and through the plain versions on the CPU;
-``remat=True`` checkpoints each block (``torch.utils.checkpoint``). The
-dense, MoE and RWKV-6 stacks train (phi3, qwen3, deepseek, dbrx, rwkv6,
-...). Mamba's in-place scan has no backward yet (ROADMAP.md queue 1,
-item 18c).
+card, the MoE router's (``moe_router_bwd``), the WKV-6 scan's
+(``rwkv6_scan_bwd``) and Mamba's selective scan's (``mamba_scan_bwd``),
+and through the plain versions on the CPU; ``remat=True`` checkpoints
+each block (``torch.utils.checkpoint``). Every family trains: the dense,
+MoE, RWKV-6 and hybrid attention/Mamba stacks (phi3, qwen3, deepseek,
+dbrx, rwkv6, Jamba, ...).
 The reference's ``input_specs`` / ``param_specs`` / ``cache_specs`` are
 XLA dry-run helpers and have no counterpart yet (ROADMAP.md queue 1
 item 14).

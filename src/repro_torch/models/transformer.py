@@ -101,7 +101,8 @@ def _apply_position(p, cfg, kind, is_moe, x, *, mode, cache=None, pos=None,
     h = layers.norm_apply(cfg, p["norm1"], x)
     if kind == "mamba":
         if mode == "full":
-            y, _ = mamba.mamba_apply(p["mamba"], cfg, h, cache=cache)
+            y, _ = mamba.mamba_apply(p["mamba"], cfg, h, cache=cache,
+                                     mode=kmode)
         else:
             y, _ = mamba.mamba_decode(p["mamba"], cfg, h, cache)
     elif mode == "full":

@@ -39,6 +39,9 @@ PUBLIC_MODULES = (
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.flash_attention.ref",
     "repro_torch.kernels.interface",
+    "repro_torch.kernels.mamba_scan",
+    "repro_torch.kernels.mamba_scan.ops",
+    "repro_torch.kernels.mamba_scan.ref",
     "repro_torch.kernels.moe_router",
     "repro_torch.kernels.moe_router.ops",
     "repro_torch.kernels.moe_router.ref",

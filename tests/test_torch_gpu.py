@@ -993,7 +993,8 @@ def test_encdec_vlm_generate_launch_counts(cuda, arch):
 def test_jamba_generate_launch_counts(cuda):
     """Reduced jamba-1.5-large-398b ([(mamba, dense), (attn, MoE)] x 4):
     a prefill and 3 decode steps launch flash_attention and moe_router
-    once per attention and MoE layer each, the Mamba layers no kernel. In
+    once per attention and MoE layer each, and the prefill mamba_scan once
+    per Mamba layer (a decode step's recurrence step is torch ops). In
     float32 the prefill's logits are the plain path's within 1e-4 and the
     greedy tokens equal; in bfloat16 the attention's prefill runs wgmma
     and its decode steps split_kv, the router the tile form in the prefill
@@ -1007,6 +1008,7 @@ def test_jamba_generate_launch_counts(cuda):
 
     cfg = get_reduced_config("jamba-1.5-large-398b")
     n = sum(cfg.moe_layer_mask())               # = the attention layers
+    n_mamba = cfg.layer_kinds().count("mamba")
     prompt = torch.randint(0, cfg.vocab_size, (3, 24), device=cuda,
                            generator=torch.Generator(cuda).manual_seed(1))
     for dt in (torch.float32, torch.bfloat16):
@@ -1020,7 +1022,8 @@ def test_jamba_generate_launch_counts(cuda):
         torch.cuda.synchronize()
         launches = {k: c for k, c in LAUNCHES.items() if c}
         assert launches == {"flash_attention": 4 * n,
-                            "moe_router": 4 * n}, launches
+                            "moe_router": 4 * n,
+                            "mamba_scan": n_mamba}, launches
         assert moe_router.VARIANTS == {"fused": 4 * n, "logits": 0}
         assert moe_router.FORMS == {"tile": n, "split": 3 * n}
         assert out.shape == (3, 4) and out.dtype == torch.int32
@@ -1793,4 +1796,178 @@ def test_tiered_llm_example_on_the_card(cuda, capsys):
     assert LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"] \
         == 3 * 2 * 2 * 2
     assert LAUNCHES["prox_update"] - before["prox_update"] == 3 * 2 * 2 * 12
+    assert "round   2: personalized loss" in capsys.readouterr().out
+
+
+# --- Mamba's selective scan: mamba_scan, mamba_scan_bwd -------------------
+
+# (b, s, d_in, given h0, final-state cotangent): one step, an odd length,
+# d_in not a multiple of a CTA, segments crossed, a long ragged scan
+MAMBA_CASES = [(2, 1, 64, True, True), (2, 17, 100, False, False),
+               (3, 130, 256, True, True), (1, 1000, 128, True, False),
+               (4, 64, 192, False, True)]
+
+
+def _mamba_inputs(rng, b, s, d_in, dtype, h0, cuda):
+    """xc, dt (softplus, about 0.7), B and C as strided views of one (b,
+    s, 8 + 32) projection, A = -(1..16) scaled per row, h0 or None."""
+    xc = _randn(rng, (b, s, d_in), dtype, cuda)
+    dt = torch.nn.functional.softplus(
+        _randn(rng, (b, s, d_in), torch.float32, cuda)).to(dtype)
+    proj = _randn(rng, (b, s, 8 + 32), dtype, cuda)
+    _, b_mat, c_mat = proj.split([8, 16, 16], dim=-1)
+    a = (-torch.arange(1, 17, dtype=torch.float32, device=cuda)
+         * torch.from_numpy(rng.uniform(0.5, 1.5, (d_in, 1)).astype(
+             np.float32)).to(cuda)).contiguous()
+    state = (_randn(rng, (b, d_in, 16), torch.float32, cuda) * 0.5
+             if h0 else None)
+    return xc, dt, b_mat, c_mat, a, state
+
+
+def _assert_mamba_close(got, want):
+    """Each tensor within 1e-5 of its largest value (sums in other
+    orders), a bf16 one also within one bf16 rounding (2^-7) of each
+    value."""
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs()
+        rel = 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        bound = rel * w.float().abs() + 1e-5 * float(w.float().abs().max())
+        assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.parametrize("case", MAMBA_CASES,
+                         ids=lambda c: "x".join(map(str, c[:3])))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_matches_plain(cuda, case, dtype):
+    """The forward kernel against scan_ref: y, the final state and the
+    snapshots (every 32 steps), two launches bit-equal and counted."""
+    from repro_torch.kernels.interface import KernelType, LAUNCHES
+    from repro_torch.kernels.mamba_scan import SNAPSHOT_EVERY, ops, scan_ref
+
+    b, s, d_in, h0, _ = case
+    args = _mamba_inputs(np.random.default_rng(s + d_in), b, s, d_in,
+                         getattr(torch, dtype), h0, cuda)
+    before = LAUNCHES.get("mamba_scan", 0)
+    got = ops._forward(*args, SNAPSHOT_EVERY, args[0].dtype, KernelType.CUDA,
+                       True)
+    again = ops._forward(*args, SNAPSHOT_EVERY, args[0].dtype,
+                         KernelType.CUDA, True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mamba_scan"] == before + 2
+    assert all(torch.equal(x, z) for x, z in zip(got, again))
+    want = scan_ref(*args, segment=SNAPSHOT_EVERY, snapshots=True)
+    _assert_mamba_close(got, want)
+
+
+@pytest.mark.parametrize("case", MAMBA_CASES,
+                         ids=lambda c: "x".join(map(str, c[:3])))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_bwd_matches_plain(cuda, case, dtype):
+    """The backward kernel against scan_bwd_ref from the same snapshots:
+    dxc, ddt, dB, dC, dA and dh0, with and without a final-state
+    cotangent; two launches bit-equal and counted."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.mamba_scan import SNAPSHOT_EVERY, scan_bwd, \
+        scan_ref
+
+    b, s, d_in, h0, final = case
+    rng = np.random.default_rng(7 * s + d_in)
+    dt_ = getattr(torch, dtype)
+    args = _mamba_inputs(rng, b, s, d_in, dt_, h0, cuda)
+    snaps = scan_ref(*args, segment=SNAPSHOT_EVERY, snapshots=True)[2]
+    dy = _randn(rng, (b, s, d_in), dt_, cuda)
+    dh = _randn(rng, (b, d_in, 16), torch.float32, cuda) if final else None
+    before = LAUNCHES.get("mamba_scan_bwd", 0)
+    got = scan_bwd(*args[:5], snaps, dy, dh, want_dh0=True)
+    again = scan_bwd(*args[:5], snaps, dy, dh, want_dh0=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mamba_scan_bwd"] == before + 2
+    assert all(torch.equal(x, z) for x, z in zip(got, again))
+    want = scan_bwd(*args[:5], snaps, dy, dh, segment=SNAPSHOT_EVERY,
+                    want_dh0=True, mode="torch")
+    _assert_mamba_close(got, want)
+    assert scan_bwd(*args[:5], snaps, dy, dh)[5] is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_autograd_on_the_card(cuda, dtype):
+    """loss.backward() through the reduced Jamba mixer on the card (70
+    steps from a cache) against the plain path's autograd: one forward
+    and one backward launch, every leaf's and the input's gradient
+    within 1e-4 of its scale (bf16: 2e-2)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.models import mamba
+
+    cfg = get_reduced_config("jamba-1.5-large-398b")
+    dt_ = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = mamba.mamba_init(gen, cfg, dt_)
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (2, 70, cfg.d_model), dt_, cuda) * 0.3
+    dy = _randn(rng, (2, 70, cfg.d_model), torch.float32, cuda)
+    cache0 = mamba.init_mamba_cache(cfg, 2, dt_, device=cuda)
+    cache0["ssm"].normal_(generator=gen)
+    grads = []
+    for mode in (None, "torch"):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xi = x.clone().requires_grad_()
+        cache = {k: v.clone() for k, v in cache0.items()}
+        before = {k: LAUNCHES.get(k, 0) for k in ("mamba_scan",
+                                                  "mamba_scan_bwd")}
+        y, _ = mamba.mamba_apply(leaves, cfg, xi, cache=cache, mode=mode)
+        (y.float() * dy).sum().backward()
+        assert {k: LAUNCHES.get(k, 0) - v for k, v in before.items()} == (
+            {"mamba_scan": 1, "mamba_scan_bwd": 1} if mode is None
+            else {"mamba_scan": 0, "mamba_scan_bwd": 0})
+        grads.append([xi.grad] + [leaves[k].grad for k in sorted(leaves)])
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for g, w in zip(*grads):
+        assert bool(torch.isfinite(g).all())
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+def test_mamba_scan_refuses_what_it_does_not_take(cuda):
+    """Mixed types and a state size other than 16 raise on the card; no
+    launch, nothing in the kernel's place."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.mamba_scan import scan
+
+    xc, dt, b_mat, c_mat, a, h0 = _mamba_inputs(
+        np.random.default_rng(0), 1, 9, 64, torch.bfloat16, True, cuda)
+    before = LAUNCHES.get("mamba_scan", 0)
+    with pytest.raises(TypeError, match="one type"):
+        scan(xc, dt.float(), b_mat, c_mat, a, h0)
+    with pytest.raises(ValueError, match="N = 16"):
+        scan(xc, dt, b_mat[..., :8], c_mat[..., :8], a[:, :8], None)
+    assert LAUNCHES.get("mamba_scan", 0) == before
+
+
+def test_tiered_llm_example_on_the_card_jamba(cuda, capsys):
+    """examples/tiered_llm_training_torch.py on the card for the reduced
+    Jamba ([(mamba, dense), (attn, MoE)] x 4), 3 rounds: its assertion
+    holds, and each device step went through the selective scan's
+    forward and backward kernels (2 teams x 2 local steps x 4 Mamba
+    layers a round)."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.kernels.interface import LAUNCHES
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "tiered_llm_training_torch.py")
+    spec = importlib.util.spec_from_file_location("tiered_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    names = ("mamba_scan_bwd", "flash_attention_bwd", "moe_router_bwd")
+    before = {k: LAUNCHES.get(k, 0) for k in names}
+    pm, gm = mod.main(["--rounds", "3", "--arch", "jamba-1.5-large-398b"])
+    assert pm <= gm and np.isfinite(pm)
+    for k in names:
+        assert LAUNCHES[k] - before[k] == 3 * 2 * 2 * 4, k
     assert "round   2: personalized loss" in capsys.readouterr().out
