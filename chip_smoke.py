@@ -257,9 +257,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      parameters as the reference's tree counts them (A_log, D, dt_bias and
      the router float32), 48.09 GB; the same generate as step 9:
      flash_attention exactly 16 (1 wgmma + 15 split_kv), moe_router
-     exactly 32, all fused (2 tile + 30 split), mamba_scan exactly 4 (the
-     prefill's Mamba mixers; a decode step's recurrence step is torch
-     ops), no other kernel; prefill ms, decode ms per step, tokens/s, peak
+     exactly 32, all fused (2 tile + 30 split), mamba_scan exactly 4, all
+     ``ring`` (the prefill's Mamba mixers; a decode step's recurrence step
+     is torch ops), no other kernel; prefill ms, decode ms per step, tokens/s, peak
      memory; then every kernel one prefill and one decode step launch
      (torch.profiler).
  13f. Jamba consistency: the same path cut to 2 layers with attn_period 2,
@@ -343,26 +343,34 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      within 1e-5; deepseek's router choices recorded at the routing seam
      and the tokens routed differently counted; its f32 router backward
      runs the ``logits`` variant.
- 13n. Mamba's selective scan: mamba_scan (with its snapshots, a state
-     every 32 steps) and mamba_scan_bwd against ``scan_ref`` and
+ 13n. Mamba's selective scan: each variant of mamba_scan (``ring``, the
+     main path's, with its snapshots every 8 steps, and ``simt``, every
+     32) and of mamba_scan_bwd (from them) against ``scan_ref`` and
      ``scan_bwd_ref`` at Jamba's (4, 1,024, 16,384, 16) in bf16, as
      training gives them (no h0, no final-state cotangent) and with both,
-     in f32 with both, and at s = 1, 17 and 1,000: y within one bf16
+     in f32 with both, at s = 1, 17 and 1,000, and with A off the initial
+     value's lattice (-exp(log(1..16) + N(0, 0.3))) in bf16 and f32; ring
+     also with snapshots every 32 steps in two cases: y within one bf16
      rounding plus 1e-5 of the largest, the states, snapshots and every
      gradient within 1e-5 of their largest (bf16 gradients also one bf16
-     rounding), a repeat bit-equal, each launch counted; the training
-     shape timed L2-cold (the forward with and without snapshots), beside
-     the plain versions and the bound (the larger of bytes and the 1.07e9
-     exponentials at 16 a clock an SM).
+     rounding), a repeat bit-equal, each launch counted. The ring
+     kernels' registers, spills, shared memory and CTAs an SM; the
+     training shape timed L2-cold on the same tensors (each forward
+     without and with snapshots, each backward, the training pass's sum
+     at each cadence), beside the plain versions, the bound (the larger
+     of bytes and the 1.07e9 exponentials at 16 a clock an SM) and the
+     ring kernels' issue floor (instructions an element-step of their
+     SASS loop).
  13o. Jamba training: jamba-1.5-large-398b cut to [mamba, attn, mamba]
      (num_layers 3, attn_period 3, every FFN dense: moe_layer_period past
      the depth) at every published width in bf16 (3,877,396,480
      parameters, 40 leaves), 13h's AdamW step and two tier rounds with
      the counts set to 0 just before: flash_attention and
      flash_attention_bwd exactly 1 a pass (``wgmma``), mamba_scan and
-     mamba_scan_bwd exactly 2 a pass, prox_update exactly 2 x 2 x 40, no
-     other kernel; finite losses, the tier loss falling, peaks under 80
-     GB; ms, tokens/s, busy share, the ten largest kernels.
+     mamba_scan_bwd exactly 2 a pass (``ring``), prox_update exactly 2 x 2
+     x 40, no other kernel; finite losses, the tier loss falling, peaks
+     under 80 GB; ms, tokens/s, busy share, the ten largest kernels and
+     the selective scan's.
  13p. its consistency under 13m's rule: the 2-layer cut [mamba, attn]
      (2,853,068,800 parameters, 11.41 GB in f32), the kernel path's step
      launching mamba_scan and mamba_scan_bwd once, the plain path's
@@ -480,8 +488,10 @@ KERNEL_SOURCE = {  # kernel -> its CUDA source
     # the training path's variant (chunked); the CUDA-core simt backward of
     # f32 and the other cases is rwkv6_scan/csrc/rwkv6_scan_bwd.cu
     "rwkv6_scan_bwd": "rwkv6_scan/csrc/rwkv6_scan_bwd_hopper.cu",
-    "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
-    "mamba_scan_bwd": "mamba_scan/csrc/mamba_scan_bwd.cu",
+    # the main path's variant (ring); the simt kernels of the shapes it
+    # does not take are mamba_scan/csrc/mamba_scan.cu, mamba_scan_bwd.cu
+    "mamba_scan": "mamba_scan/csrc/mamba_scan_hopper.cu",
+    "mamba_scan_bwd": "mamba_scan/csrc/mamba_scan_bwd_hopper.cu",
 }
 LLM_ARCH = "deepseek-moe-16b"
 RWKV_ARCH = "rwkv6-7b"
@@ -532,6 +542,9 @@ MAMBA_TOL = 1e-5
 # exponentials a second: the special-function units issue 16 a clock per SM
 # (compute capability 9.0), 132 SMs at the H100 SXM's 1.98 GHz boost
 MUFU_EXP_PER_S = 16 * 132 * 1.98e9
+# instructions a second: each SM's four schedulers issue one warp
+# instruction (32 lanes) a clock
+ISSUE_PER_S = 128 * 132 * 1.98e9
 # Whisper's decoder prompt and cache, within its 448-token context; the
 # encoder reads 1,500 frames (30 s of audio)
 WHISPER_PROMPT, WHISPER_MAX_LEN = 64, 80
@@ -3271,7 +3284,7 @@ def counted_generate(cfg, params, prompts, max_len=LLM_MAX_LEN):
     launches."""
     import torch
 
-    from repro_torch.kernels import moe_router, rwkv6_scan
+    from repro_torch.kernels import mamba_scan, moe_router, rwkv6_scan
     from repro_torch.kernels.flash_attention import VARIANTS, reset_variants
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
     from repro_torch.serve import ServeEngine
@@ -3310,6 +3323,7 @@ def counted_generate(cfg, params, prompts, max_len=LLM_MAX_LEN):
         reset_variants()
         rwkv6_scan.reset_variants()
         moe_router.reset_variants()
+        mamba_scan.reset_variants()
         t0 = time.perf_counter()
         out = engine.generate(prompts, max_new_tokens=LLM_NEW)
         torch.cuda.synchronize()
@@ -3612,7 +3626,14 @@ def phase_jamba_serving():
         raise AssertionError(f"{JAMBA_ARCH} generate: moe_router variants "
                              f"{moe_router.VARIANTS}, forms "
                              f"{moe_router.FORMS}")
-    say("llm", f"{JAMBA_ARCH} moe_router forms {moe_router.FORMS}")
+    from repro_torch.kernels import mamba_scan
+
+    if mamba_scan.VARIANTS != {"ring": n_mamba, "simt": 0}:
+        raise AssertionError(f"{JAMBA_ARCH} generate: mamba_scan variants "
+                             f"{mamba_scan.VARIANTS}, expected "
+                             f"{n_mamba} ring")
+    say("llm", f"{JAMBA_ARCH} moe_router forms {moe_router.FORMS}; "
+        f"mamba_scan variants {mamba_scan.VARIANTS}")
     with torch.inference_mode():
         cache = M.init_cache(cfg, LLM_BATCH, LLM_MAX_LEN,
                              dtype=torch.bfloat16, device=DEVICE)
@@ -3819,7 +3840,8 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     (theta, w, x) after the last round)."""
     import torch
 
-    from repro_torch.kernels import flash_attention, moe_router, rwkv6_scan
+    from repro_torch.kernels import flash_attention, mamba_scan, \
+        moe_router, rwkv6_scan
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
     from repro_torch.train import optim
     from repro_torch.train.train_state import TrainState
@@ -3837,7 +3859,7 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    for mod in (flash_attention, moe_router, rwkv6_scan):
+    for mod in (flash_attention, mamba_scan, moe_router, rwkv6_scan):
         mod.reset_variants()
     t0 = time.perf_counter()
     state = TrainState.create(params, optim.adamw())
@@ -3906,6 +3928,12 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
         f"{sum(e.count for e in rows)} kernels, by device time: " + "; ".join(
             f"{e.key[:60]} x {e.count} {e.self_device_time_total / 1e3:.1f} "
             f"ms" for e in rows[:10]))
+    scans = [e for e in rows if "mamba_scan" in e.key]
+    if scans:
+        say("train", f"{tag} round {TRAIN_ROUNDS}: the selective scan's "
+            "kernels " + "; ".join(
+                f"{e.key[:60]} x {e.count} "
+                f"{e.self_device_time_total / 1e3:.2f} ms" for e in scans))
     if not all(math.isfinite(v) for v in [loss, gnorm] + losses):
         raise AssertionError(f"{tag}: losses {loss}, {losses}")
     if not losses[-1] < losses[0]:
@@ -4386,11 +4414,13 @@ def phase_family_bwd_check():
     return out
 
 
-def mamba_inputs(b, s, d_in, dtype, gen, state):
+def mamba_inputs(b, s, d_in, dtype, gen, state, lattice=True):
     """The selective scan's operands as Jamba's mixer makes them: xc (b,
     s, d_in) normal, dt = softplus(N(-2, 1)), B and C the strided views of
     one (b, s, 512 + 32) projection (x_proj's output at dt_rank 512), A =
-    -(1..16) a row (the init's -exp(A_log)); h0 normal x 0.5 or None."""
+    -(1..16) a row (the init's -exp(A_log)), or with ``lattice`` False A =
+    -exp(log(1..16) + N(0, 0.3)) drawn per entry (a trained A_log's: off
+    the lattice exp(dt A_n) = exp(dt A_1)^n); h0 normal x 0.5 or None."""
     import torch
     import torch.nn.functional as F
 
@@ -4401,8 +4431,9 @@ def mamba_inputs(b, s, d_in, dtype, gen, state):
     dt = F.softplus(normal(b, s, d_in) - 2.0).to(dtype)
     _, b_mat, c_mat = normal(b, s, 512 + 32).to(dtype).split([512, 16, 16],
                                                             dim=-1)
-    a = -torch.arange(1, 17, dtype=torch.float32, device=DEVICE).expand(
-        d_in, 16).contiguous()
+    n = torch.arange(1, 17, dtype=torch.float32, device=DEVICE)
+    a = -n.expand(d_in, 16).contiguous() if lattice else \
+        -(n.log() + 0.3 * normal(d_in, 16)).exp()
     h0 = normal(b, d_in, 16) * 0.5 if state else None
     return xc, dt, b_mat, c_mat, a, h0
 
@@ -4450,129 +4481,273 @@ def mamba_errors(got, want):
     return errs, ok
 
 
+def sass_loop(lib, *match):
+    """(instructions, MUFU.EX2, SHFL) in the SASS body of the largest loop
+    (a backward branch) of the kernel of library ``lib`` whose mangled name
+    holds every string of ``match``, from ``cuobjdump -sass``; None where
+    the tool or the kernel is missing."""
+    import re
+    import subprocess
+
+    from repro_torch.kernels.build import build, nvcc_path
+
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(build([lib])[lib])],
+                          capture_output=True, text=True).stdout
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        if not all(m in name for m in match):
+            continue
+        code = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;/]*?);", part)]
+        best = None
+        for addr, op in code:
+            hit = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if hit and int(hit[1], 16) < addr:
+                body = [o for a, o in code
+                        if int(hit[1], 16) <= a <= addr and "NOP" not in o]
+                if best is None or len(body) > len(best):
+                    best = body
+        if best:
+            return (len(best), sum("MUFU.EX2" in o for o in best),
+                    sum("SHFL" in o for o in best))
+    return None
+
+
 def phase_mamba_check():
-    """Mamba's selective scan: the forward kernel (mamba_scan, with its
-    snapshots) and the backward kernel (mamba_scan_bwd, from them) against
-    their plain versions (``scan_ref``, ``scan_bwd_ref`` at the kernels'
-    SNAPSHOT_EVERY) at Jamba's (4, 1,024, 16,384, 16) in bf16 -- as the
-    training path gives them (no h0, no final-state cotangent; timed), and
-    with both -- in f32 with both, and at s = 1, 17 and 1,000: y, the
-    final state, the snapshots and dxc, ddt, dB, dC, dA (and dh0 where h0
-    is given) under :func:`mamba_errors`, two launches bit-equal and
-    counted. Timed: each kernel L2-cold (the forward without snapshots,
-    as serving runs it, and with them), its plain version, its bound
-    (:func:`mamba_bound`). Returns {"fwd", "bwd"}: their numbers."""
+    """Mamba's selective scan: each forward variant (mamba_scan: ``ring``,
+    the main path's, and ``simt``; with their snapshots) and each backward
+    (mamba_scan_bwd, from them) against their plain versions
+    (``scan_ref``, ``scan_bwd_ref`` at the variant's cadence) at Jamba's
+    (4, 1,024, 16,384, 16) in bf16 -- as the training path gives them (no
+    h0, no final-state cotangent; timed), and with both -- in f32 with
+    both, at s = 1, 17 and 1,000, and with an A off the initial value's
+    lattice in bf16 and f32: y, the final state, the snapshots and dxc,
+    ddt, dB, dC, dA (and dh0 where h0 is given) under
+    :func:`mamba_errors`, two launches bit-equal and counted. ``ring``
+    also with snapshots every 32 steps in the timed and off-lattice bf16
+    cases. Timed on the same tensors: each kernel L2-cold (the forward
+    without snapshots, as serving runs it, and with them), the training
+    pass's forward with snapshots plus backward at each cadence, the plain
+    versions, the bound (:func:`mamba_bound`) and the ring kernels' issue
+    floor (instructions an element-step of their SASS loop). Returns
+    {"fwd", "bwd"}: the main path's numbers (``ring``)."""
     import torch
 
     from repro_torch.kernels.interface import LAUNCHES, KernelType
-    from repro_torch.kernels.mamba_scan import BWD_CHANNELS, \
-        SNAPSHOT_EVERY, bwd_scratch, launch, launch_bwd, ops, scan_bwd, \
-        scan_bwd_ref, scan_ref
+    from repro_torch.kernels.mamba_scan import SNAPSHOT_EVERY, ops, plan, \
+        ring_resources, scan_bwd, scan_ref
 
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     b, s_full, d_in, n = JAMBA_SCAN
+    ring_every = SNAPSHOT_EVERY["ring"]
+    for dtype in (bf16, f32):
+        for every in (8, 32):
+            for bwd in (False, True):
+                r = ring_resources(dtype, every, bwd)
+                say("kernel", f"mamba_scan{'_bwd' if bwd else ''} ring "
+                    f"{str(dtype).split('.')[-1]}, snapshots every {every}: "
+                    f"{r['registers']} registers, {r['spill_bytes']} bytes "
+                    f"spilled, {r['smem']:,} bytes of shared memory a CTA, "
+                    f"{r['ctas_per_sm']} CTAs an SM")
     out = {}
-    # (label, s, dtype, h0, final-state cotangent, timed)
-    for label, s, dtype, state, final, timed in (
-            ("jamba train", s_full, bf16, False, False, True),
+    # (label, s, dtype, h0, final-state cotangent, A on the lattice, timed)
+    for label, s, dtype, state, final, lattice, timed in (
+            ("jamba train", s_full, bf16, False, False, True, True),
             ("jamba, h0 and a final cotangent", s_full, bf16, True, True,
-             False),
+             True, False),
             ("jamba f32, h0 and a final cotangent", s_full, f32, True, True,
+             True, False),
+            ("s 1", 1, bf16, True, True, True, False),
+            ("s 17", 17, bf16, False, True, True, False),
+            ("s 1000", 1000, bf16, True, False, True, False),
+            ("jamba off-lattice A, h0 and a final cotangent", s_full, bf16,
+             True, True, False, False),
+            ("jamba f32 off-lattice A", s_full, f32, False, False, False,
              False),
-            ("s 1", 1, bf16, True, True, False),
-            ("s 17", 17, bf16, False, True, False),
-            ("s 1000", 1000, bf16, True, False, False)):
-        args = mamba_inputs(b, s, d_in, dtype, gen, state)
+            ("s 17 f32 off-lattice A, h0 and a final cotangent", 17, f32,
+             True, True, False, False)):
+        args = mamba_inputs(b, s, d_in, dtype, gen, state, lattice)
         shape = (f"({b}, {s}, {d_in}, {n}) {str(dtype).split('.')[-1]}, "
                  + ("a given h0" if state else "h0 None") + ", "
                  + ("a final-state cotangent" if final
-                    else "no final-state cotangent"))
-        before = LAUNCHES.get("mamba_scan", 0)
-        got = ops._forward(*args, SNAPSHOT_EVERY, dtype, KernelType.CUDA,
-                           True)
-        again = ops._forward(*args, SNAPSHOT_EVERY, dtype, KernelType.CUDA,
-                             True)
-        torch.cuda.synchronize()
-        if LAUNCHES["mamba_scan"] != before + 2:
-            raise AssertionError(f"mamba_scan {label}: launches "
-                                 f"{LAUNCHES['mamba_scan'] - before}")
-        if not all(torch.equal(x, z) for x, z in zip(got, again)):
-            raise AssertionError(f"mamba_scan {label}: two launches differ")
-        want = scan_ref(*args, segment=SNAPSHOT_EVERY, snapshots=True)
-        errs, ok = mamba_errors(got, want)
-        tag = (f"mamba_scan {label} {shape}: max abs err y / final state / "
-               f"snapshots " + ", ".join(f"{e:.3g}" for e in errs)
-               + f" (tol {MAMBA_TOL:g} of each scale, bf16 y also 2^-7 of "
-               f"each value), two launches bit-equal")
-        if not ok:
-            raise AssertionError(f"{tag}: kernel and plain version differ")
-        say("kernel", tag)
-        snaps = got[2]
+                    else "no final-state cotangent")
+                 + ("" if lattice else ", A off the lattice"))
+        if plan(*args) != "ring":
+            raise AssertionError(f"mamba_scan {label}: plan picks "
+                                 f"{plan(*args)}, not ring")
         dy = torch.randn(b, s, d_in, device=DEVICE, generator=gen).to(dtype)
         dh = (torch.randn(b, d_in, n, device=DEVICE, generator=gen)
               if final else None)
-        bargs = (*args[:5], snaps, dy, dh)
-        before = LAUNCHES.get("mamba_scan_bwd", 0)
-        got_b = scan_bwd(*bargs, want_dh0=state)
-        again_b = scan_bwd(*bargs, want_dh0=state)
-        torch.cuda.synchronize()
-        if LAUNCHES["mamba_scan_bwd"] != before + 2:
-            raise AssertionError(f"mamba_scan_bwd {label}: launches "
-                                 f"{LAUNCHES['mamba_scan_bwd'] - before}")
-        if not all(x is z is None or torch.equal(x, z)
-                   for x, z in zip(got_b, again_b)):
-            raise AssertionError(f"mamba_scan_bwd {label}: two launches "
-                                 "differ")
-        want_b = scan_bwd(*bargs, segment=SNAPSHOT_EVERY, want_dh0=state,
-                          mode="torch")
-        errs_b, ok = mamba_errors(got_b, want_b)
-        tag = (f"mamba_scan_bwd {label} {shape}: max abs err dxc / ddt / dB "
-               f"/ dC / dA" + (" / dh0" if state else "") + " "
-               + ", ".join(f"{e:.3g}" for e in errs_b)
-               + f" (tol {MAMBA_TOL:g} of each scale, bf16 also 2^-7 of each "
-               f"value), two launches bit-equal")
-        if not ok:
-            raise AssertionError(f"{tag}: kernel and plain version differ")
-        say("kernel", tag)
+        runs = [("ring", ring_every), ("simt", SNAPSHOT_EVERY["simt"])]
+        if timed or (not lattice and dtype == bf16):
+            runs.append(("ring", 32 if ring_every == 8 else 8))
+        errs_out = {}
+        for variant, every in runs:
+            tag0 = f"{variant}, snapshots every {every}"
+            before = LAUNCHES.get("mamba_scan", 0)
+            got = ops._forward(*args, every, dtype, KernelType.CUDA, True,
+                               variant=variant, every=every)
+            again = ops._forward(*args, every, dtype, KernelType.CUDA, True,
+                                 variant=variant, every=every)
+            torch.cuda.synchronize()
+            if LAUNCHES["mamba_scan"] != before + 2:
+                raise AssertionError(f"mamba_scan {label} {tag0}: launches "
+                                     f"{LAUNCHES['mamba_scan'] - before}")
+            if not all(torch.equal(x, z) for x, z in zip(got, again)):
+                raise AssertionError(f"mamba_scan {label} {tag0}: two "
+                                     "launches differ")
+            want = scan_ref(*args, segment=every, snapshots=True)
+            errs, ok = mamba_errors(got, want)
+            tag = (f"mamba_scan {tag0}, {label} {shape}: max abs err y / "
+                   f"final state / snapshots "
+                   + ", ".join(f"{e:.3g}" for e in errs)
+                   + f" (tol {MAMBA_TOL:g} of each scale, bf16 y also 2^-7 "
+                   f"of each value), two launches bit-equal")
+            if not ok:
+                raise AssertionError(f"{tag}: kernel and plain version "
+                                     "differ")
+            say("kernel", tag)
+            bargs = (*args[:5], got[2], dy, dh)
+            before = LAUNCHES.get("mamba_scan_bwd", 0)
+            got_b = scan_bwd(*bargs, every=every, variant=variant,
+                             want_dh0=state)
+            again_b = scan_bwd(*bargs, every=every, variant=variant,
+                               want_dh0=state)
+            torch.cuda.synchronize()
+            if LAUNCHES["mamba_scan_bwd"] != before + 2:
+                raise AssertionError(f"mamba_scan_bwd {label} {tag0}: "
+                                     f"launches "
+                                     f"{LAUNCHES['mamba_scan_bwd'] - before}")
+            if not all(x is z is None or torch.equal(x, z)
+                       for x, z in zip(got_b, again_b)):
+                raise AssertionError(f"mamba_scan_bwd {label} {tag0}: two "
+                                     "launches differ")
+            want_b = scan_bwd(*bargs, segment=every, want_dh0=state,
+                              mode="torch")
+            errs_b, ok = mamba_errors(got_b, want_b)
+            tag = (f"mamba_scan_bwd {tag0}, {label} {shape}: max abs err "
+                   f"dxc / ddt / dB / dC / dA" + (" / dh0" if state else "")
+                   + " " + ", ".join(f"{e:.3g}" for e in errs_b)
+                   + f" (tol {MAMBA_TOL:g} of each scale, bf16 also 2^-7 of "
+                   f"each value), two launches bit-equal")
+            if not ok:
+                raise AssertionError(f"{tag}: kernel and plain version "
+                                     "differ")
+            say("kernel", tag)
+            errs_out[(variant, every)] = (max(errs), max(errs_b))
+            del got, again, want, got_b, again_b, want_b
         if not timed:
             continue
-        y, h_out = torch.empty_like(got[0]), torch.empty_like(got[1])
-        ms = cuda_time_ms(lambda: launch(*args, y, h_out), 20)
-        ms_snaps = cuda_time_ms(lambda: launch(*args, y, h_out, snaps), 20)
-        plain_ms = cuda_time_ms(lambda: scan_ref(*args), 3)
-        bound_ms, by, mb, exps = mamba_bound(b, s, d_in, n, dtype, False,
-                                             state, False)
-        say("kernel", f"mamba_scan {label}: {ms * 1e3:.1f} us L2-cold "
-            f"(with the snapshots, {snaps.numel() * 4 / 1e6:.1f} MB every "
-            f"{SNAPSHOT_EVERY} steps: {ms_snaps * 1e3:.1f} us), "
-            f"{bound_ms / ms:.1%} of bound; bound {bound_ms * 1e3:.1f} us "
-            f"({mb:.1f} MB, {exps:.3g} exponentials at 16 a clock an SM; "
-            f"by {by}); plain {plain_ms * 1e3:.1f} us; no library call")
-        out["fwd"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=by, library_ms=None,
-                          snaps_ms=ms_snaps)
-        grads = tuple(None if g is None else torch.empty_like(g)
-                      for g in got_b)
-        scratch = bwd_scratch(args[0])
-        ms = cuda_time_ms(lambda: launch_bwd(*bargs, grads, scratch), 10)
-        plain_ms = cuda_time_ms(lambda: scan_bwd_ref(
-            *args, dy, dh, snaps=snaps, segment=SNAPSHOT_EVERY), 3)
-        bound_ms, by, mb, exps = mamba_bound(b, s, d_in, n, dtype, True,
-                                             state, final)
-        say("kernel", f"mamba_scan_bwd {label}: {ms * 1e3:.1f} us L2-cold, "
-            f"{bound_ms / ms:.1%} of bound; bound {bound_ms * 1e3:.1f} us "
-            f"({mb:.1f} MB, {exps:.3g} exponentials; by {by}); its scratch: "
-            f"the snapshots {snaps.numel() * 4 / 1e6:.1f} MB, partial dB/dC "
-            f"of each CTA of {BWD_CHANNELS} channels "
-            f"{scratch[0].numel() * 4 / 1e6:.1f} MB, partial dA "
-            f"{scratch[1].numel() * 4 / 1e6:.1f} MB; plain "
-            f"{plain_ms * 1e3:.1f} us; no library call")
-        out["bwd"] = dict(max_abs_err=max(errs_b), ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=by, library_ms=None)
-        del grads, scratch, y, h_out
+        out.update(mamba_times(label, args, dy, dh, errs_out))
     release()
     return out
+
+
+def mamba_times(label, args, dy, dh, errs):
+    """The scan's kernels on the same tensors (``args`` at Jamba's
+    training shape), L2-cold: each forward variant without and with
+    snapshots, each backward, the training pass (forward with snapshots
+    plus backward) of ``ring`` at both cadences and of ``simt``, the
+    plain versions, the bound and the ring kernels' issue floor. Returns
+    {"fwd", "bwd"}: ``ring``'s numbers at its cadence, the max abs errors
+    from ``errs`` ((variant, every) -> (forward's, backward's))."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import BWD_CHANNELS, \
+        SNAPSHOT_EVERY, bwd_scratch, launch, launch_bwd, scan_bwd_ref, \
+        scan_ref
+
+    xc = args[0]
+    b, s, d_in = xc.shape
+    n, dtype = args[4].shape[1], xc.dtype
+    ring_every = SNAPSHOT_EVERY["ring"]
+    y = torch.empty_like(xc)
+    h_out = torch.empty((b, d_in, n), dtype=torch.float32, device=DEVICE)
+    fwd_ms, bwd_ms, snap_mb = {}, {}, {}
+    for variant, every in (("ring", 8), ("ring", 32), ("simt", 32)):
+        snaps = torch.empty((b, -(-s // every), d_in, n),
+                            dtype=torch.float32, device=DEVICE)
+        fwd_ms[variant, every] = cuda_time_ms(lambda: launch(
+            *args, y, h_out, snaps, variant=variant, every=every), 20)
+        launch(*args, y, h_out, snaps, variant=variant, every=every)
+        grads = (torch.empty_like(xc), torch.empty_like(xc),
+                 torch.empty((b, s, n), dtype=dtype, device=DEVICE),
+                 torch.empty((b, s, n), dtype=dtype, device=DEVICE),
+                 torch.empty((d_in, n), dtype=torch.float32, device=DEVICE),
+                 None)
+        scratch = bwd_scratch(xc, variant)
+        bwd_ms[variant, every] = cuda_time_ms(lambda: launch_bwd(
+            *args[:5], snaps, dy, dh, grads, scratch, variant=variant,
+            every=every), 10)
+        snap_mb[variant, every] = snaps.numel() * 4 / 1e6
+        del snaps, grads, scratch
+    fwd_plain = {v: cuda_time_ms(lambda: launch(*args, y, h_out,
+                                                variant=v), 20)
+                 for v in ("ring", "simt")}
+    plain_ms = cuda_time_ms(lambda: scan_ref(*args), 3)
+    snaps = scan_ref(*args, segment=ring_every, snapshots=True)[2]
+    plain_bwd_ms = cuda_time_ms(lambda: scan_bwd_ref(
+        *args, dy, dh, snaps=snaps, segment=ring_every), 3)
+    del snaps
+    f_bound, f_by, f_mb, exps = mamba_bound(b, s, d_in, n, dtype, False,
+                                            args[5] is not None, False)
+    b_bound, b_by, b_mb, _ = mamba_bound(b, s, d_in, n, dtype, True,
+                                         args[5] is not None, dh is not None)
+    # the ring kernels' issue floor: instructions an element-step of the
+    # SASS loop, its element-steps counted by its MUFU.EX2 (the design's
+    # exponentials an element-step: 1 forward, 2 backward; the loop holds
+    # a full window's or stage's code and the ragged one's)
+    floors = {}
+    for key, lib, per_step in (("fwd", "mamba_scan_hopper", 1),
+                               ("bwd", "mamba_scan_bwd_hopper", 2)):
+        loop = sass_loop(lib, "ring_kernel", "Li8E",
+                         "bfloat16" if dtype == torch.bfloat16 else "If")
+        if loop is None or not loop[1]:
+            floors[key] = "issue floor not measured (no SASS loop found)"
+            continue
+        steps = loop[1] / per_step
+        per = loop[0] / steps
+        floors[key] = (f"issue floor {per * exps / ISSUE_PER_S * 1e6:.1f} us "
+                       f"({loop[0]} instructions, {loop[1]} MUFU.EX2, "
+                       f"{loop[2]} SHFL in the SASS loop: {per:.2f} "
+                       f"instructions, {loop[2] / steps:.2f} SHFL an "
+                       f"element-step)")
+    for variant in ("ring", "simt"):
+        ms = fwd_plain[variant]
+        every = ring_every if variant == "ring" else SNAPSHOT_EVERY["simt"]
+        say("kernel", f"mamba_scan {variant} {label}: {ms * 1e3:.1f} us "
+            f"L2-cold, {f_bound / ms:.1%} of bound; with snapshots "
+            + ", ".join(f"every {e}: {fwd_ms[v, e] * 1e3:.1f} us "
+                        f"({snap_mb[v, e]:.1f} MB)"
+                        for v, e in fwd_ms if v == variant)
+            + f"; bound {f_bound * 1e3:.1f} us ({f_mb:.1f} MB, {exps:.3g} "
+            f"exponentials at 16 a clock an SM; by {f_by})"
+            + (f"; {floors['fwd']}" if variant == "ring" else "")
+            + f"; plain {plain_ms * 1e3:.1f} us; no library call")
+    for (variant, every), ms in bwd_ms.items():
+        say("kernel", f"mamba_scan_bwd {variant}, snapshots every {every}, "
+            f"{label}: {ms * 1e3:.1f} us L2-cold, {b_bound / ms:.1%} of "
+            f"bound; training pass (forward with snapshots + backward) "
+            f"{(fwd_ms[variant, every] + ms) * 1e3:.1f} us; bound "
+            f"{b_bound * 1e3:.1f} us ({b_mb:.1f} MB, {exps:.3g} "
+            f"exponentials; by {b_by}); scratch: the snapshots "
+            f"{snap_mb[variant, every]:.1f} MB, partial dB/dC of each CTA of "
+            f"{BWD_CHANNELS[variant]} channels "
+            f"{b * s * -(-d_in // BWD_CHANNELS[variant]) * 32 * 4 / 1e6:.1f} "
+            f"MB, partial dA {b * d_in * n * 4 / 1e6:.1f} MB"
+            + (f"; {floors['bwd']}" if variant == "ring" and every == 8
+               else "")
+            + f"; plain {plain_bwd_ms * 1e3:.1f} us; no library call")
+    return {"fwd": dict(max_abs_err=errs["ring", ring_every][0],
+                        ms=fwd_plain["ring"], plain_ms=plain_ms,
+                        bound_ms=f_bound, bound_by=f_by, library_ms=None),
+            "bwd": dict(max_abs_err=errs["ring", ring_every][1],
+                        ms=bwd_ms["ring", ring_every], plain_ms=plain_bwd_ms,
+                        bound_ms=b_bound, bound_by=b_by, library_ms=None)}
 
 
 def phase_jamba_training():
@@ -4583,6 +4758,7 @@ def phase_jamba_training():
     mamba_scan and mamba_scan_bwd exactly 2 a pass, prox_update rounds x
     l_local x 40, no other kernel. Returns its launches."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan
     from repro_torch.kernels.flash_attention import BWD_VARIANTS, VARIANTS
 
     cut = jamba_cut(JAMBA_TRAIN_LAYERS)
@@ -4599,7 +4775,10 @@ def phase_jamba_training():
         {"flash_attention": n_attn, "flash_attention_bwd": n_attn,
          "mamba_scan": n_mamba, "mamba_scan_bwd": n_mamba},
         {"flash_attention variants": (VARIANTS, {"wgmma": n_attn}),
-         "flash_attention_bwd variants": (BWD_VARIANTS, {"wgmma": n_attn})},
+         "flash_attention_bwd variants": (BWD_VARIANTS, {"wgmma": n_attn}),
+         "mamba_scan variants": (mamba_scan.VARIANTS, {"ring": n_mamba}),
+         "mamba_scan_bwd variants": (mamba_scan.BWD_VARIANTS,
+                                     {"ring": n_mamba})},
         cut)
     del trees
     release()

@@ -63,6 +63,10 @@ KERNEL_SOURCES = {
     "mamba_scan": _KERNELS_DIR / "mamba_scan" / "csrc" / "mamba_scan.cu",
     "mamba_scan_bwd": (_KERNELS_DIR / "mamba_scan" / "csrc"
                        / "mamba_scan_bwd.cu"),
+    "mamba_scan_hopper": (_KERNELS_DIR / "mamba_scan" / "csrc"
+                          / "mamba_scan_hopper.cu"),
+    "mamba_scan_bwd_hopper": (_KERNELS_DIR / "mamba_scan" / "csrc"
+                              / "mamba_scan_bwd_hopper.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,5 +1,7 @@
-// Mamba's selective scan for Hopper, sm_90a: per (batch, channel d), with a
-// float32 state of N = 16 elements,
+// Mamba's selective scan for Hopper, sm_90a, variant "simt" (the shapes the
+// ring kernel, csrc/mamba_scan_hopper.cu, does not take: d_in not a
+// multiple of 128): per (batch, channel d), with a float32 state of N = 16
+// elements,
 //
 //     a_t = exp(dt_t A[d]),  u_t = f32(dt_t) f32(x_t)
 //     h_t = a_t h_{t-1} + u_t B_t,   y_t = sum_n C_t[n] h_t[n]
@@ -13,12 +15,12 @@
 // 25 ms a layer at Jamba's prefill on an H100).
 //
 // What bounds it: at Jamba's (b, s, d_in, N) = (4, 1,024, 16,384, 16) in
-// bf16 it reads xc and dt and writes y, 412 MB (123 us at 3.35 TB/s; 134
-// MB more with the snapshots), but it takes b s d_in N = 1.07e9 exponentials,
-// which the special-function units issue at 16 a clock per SM: 0.26 ms at
-// 132 SMs and 1.98 GHz. Exponentials, then. The multiply-adds (three an
-// element-step) and expf's own range reduction issue on the FMA pipes
-// beside them.
+// bf16 it reads xc, dt, B, C, A and writes y and the final state, 408.2
+// MB (121.9 us at 3.35 TB/s; 134.2 MB more with the snapshots), but it
+// takes b s d_in N = 1.07e9 exponentials, which the special-function units
+// issue at 16 a clock per SM: 0.26 ms at 132 SMs and 1.98 GHz.
+// Exponentials, then. The multiply-adds (three an element-step) and expf's
+// own range reduction issue on the FMA pipes beside them.
 //
 // The design, a simple one first:
 //  * one thread per (batch, channel): its N = 16 states and A's row in
@@ -158,7 +160,7 @@ int launch_typed(const void* x, const void* dt, const void* bm,
 
 // dtype: 0 float32, 1 bfloat16 (x, dt, B, C and y). B and C are read at
 // element (b, t, n) = b * bc_sb + t * bc_st + n. h0 may be null (a zero
-// state), snaps null (no snapshots; else (b, ceil(s / 64), d_in, 16)
+// state), snaps null (no snapshots; else (b, ceil(s / 32), d_in, 16)
 // float32). Returns a CUDA error code, 0 if the launch was accepted.
 extern "C" int mamba_scan(int dtype, const void* x, const void* dt,
                           const void* bm, const void* cm, long long bc_sb,

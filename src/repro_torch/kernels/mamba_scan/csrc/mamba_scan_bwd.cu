@@ -1,6 +1,8 @@
 // The gradient of Mamba's selective scan (csrc/mamba_scan.cu) for Hopper,
-// sm_90a. Per (batch, channel d), with g_t the state's cotangent (g after
-// the last step: the final state's cotangent, or zero):
+// sm_90a, variant "simt" (the shapes the ring backward,
+// csrc/mamba_scan_bwd_hopper.cu, does not take). Per (batch, channel d),
+// with g_t the state's cotangent (g after the last step: the final state's
+// cotangent, or zero):
 //
 //     g_t    = a_{t+1} g_{t+1} + dy_t C_t
 //     dC_t   = sum_d dy_t h_t          du_t = sum_n g_t B_t
@@ -13,8 +15,9 @@
 // (repro/models/mamba.py:142, chunk_fn under jax.checkpoint).
 //
 // What bounds it: at Jamba's (4, 1,024, 16,384, 16) in bf16 it reads xc,
-// dt, dy and the forward's snapshots and writes dxc and ddt, about 740 MB
-// (221 us at 3.35 TB/s), and it needs at least the forward's 1.07e9
+// dt, B, C, A, dy (and the final cotangent) and writes dxc, ddt, dB, dC,
+// dA (and dh0), 677.9 MB (202.4 us at 3.35 TB/s; the snapshots, its own
+// scratch, 134.2 MB more), and it needs at least the forward's 1.07e9
 // exponentials (0.26 ms at 16 a clock per SM, 132 SMs, 1.98 GHz):
 // exponentials. This kernel takes three an element-step (the segment's
 // recomputation, the window's, the backward step's).
@@ -327,7 +330,7 @@ int launch_typed(const void* x, const void* dt, const void* bm,
 
 // dtype: 0 float32, 1 bfloat16 (x, dt, B, C, dy, dx, ddt, dB, dC). B and C
 // are read at element (b, t, n) = b * bc_sb + t * bc_st + n; dB and dC are
-// written contiguous (b, s, 16). snaps: the forward's (b, ceil(s / 64),
+// written contiguous (b, s, 16). snaps: the forward's (b, ceil(s / 32),
 // d_in, 16) float32. dh (the final state's cotangent) may be null (zero),
 // dh0 null (not asked). part_bc: (b, s, ceil(d_in / 64), 32) float32,
 // part_a: (b, d_in, 16) float32 scratch. Returns a CUDA error code, 0 if

@@ -1801,27 +1801,47 @@ def test_tiered_llm_example_on_the_card(cuda, capsys):
 
 # --- Mamba's selective scan: mamba_scan, mamba_scan_bwd -------------------
 
-# (b, s, d_in, given h0, final-state cotangent): one step, an odd length,
-# d_in not a multiple of a CTA, segments crossed, a long ragged scan
+# (b, s, d_in, given h0, final-state cotangent[, A on the lattice]): one
+# step, an odd length, d_in not a multiple of a CTA (simt), segments
+# crossed, a long ragged scan; d_in 128 and 256 run ring (and simt on the
+# same tensors); A off the initial value's lattice in both variants
 MAMBA_CASES = [(2, 1, 64, True, True), (2, 17, 100, False, False),
                (3, 130, 256, True, True), (1, 1000, 128, True, False),
-               (4, 64, 192, False, True)]
+               (4, 64, 192, False, True), (2, 130, 256, True, True, False),
+               (2, 17, 100, True, True, False)]
 
 
-def _mamba_inputs(rng, b, s, d_in, dtype, h0, cuda):
+def _mamba_inputs(rng, b, s, d_in, dtype, h0, cuda, lattice=True):
     """xc, dt (softplus, about 0.7), B and C as strided views of one (b,
-    s, 8 + 32) projection, A = -(1..16) scaled per row, h0 or None."""
+    s, 8 + 32) projection, A = -(1..16) scaled per row (``lattice``) or
+    -exp(log(1..16) + N(0, 0.3)) per entry, h0 or None."""
     xc = _randn(rng, (b, s, d_in), dtype, cuda)
     dt = torch.nn.functional.softplus(
         _randn(rng, (b, s, d_in), torch.float32, cuda)).to(dtype)
     proj = _randn(rng, (b, s, 8 + 32), dtype, cuda)
     _, b_mat, c_mat = proj.split([8, 16, 16], dim=-1)
-    a = (-torch.arange(1, 17, dtype=torch.float32, device=cuda)
-         * torch.from_numpy(rng.uniform(0.5, 1.5, (d_in, 1)).astype(
-             np.float32)).to(cuda)).contiguous()
+    n = torch.arange(1, 17, dtype=torch.float32, device=cuda)
+    if lattice:
+        a = (-n * torch.from_numpy(rng.uniform(0.5, 1.5, (d_in, 1)).astype(
+            np.float32)).to(cuda)).contiguous()
+    else:
+        a = -(n.log() + torch.from_numpy(rng.normal(0.0, 0.3, (
+            d_in, 16)).astype(np.float32)).to(cuda)).exp()
     state = (_randn(rng, (b, d_in, 16), torch.float32, cuda) * 0.5
              if h0 else None)
     return xc, dt, b_mat, c_mat, a, state
+
+
+def _mamba_id(case):
+    return "x".join(map(str, case[:3])) + ("" if all(case[5:]) else "-off")
+
+
+def _mamba_variants(args):
+    """The variants a test runs on these tensors: the one plan picks,
+    then simt where that is ring."""
+    from repro_torch.kernels.mamba_scan import plan
+
+    return ["ring", "simt"] if plan(*args) == "ring" else ["simt"]
 
 
 def _assert_mamba_close(got, want):
@@ -1839,58 +1859,65 @@ def _assert_mamba_close(got, want):
         assert bool((err <= bound).all()), float(err.max())
 
 
-@pytest.mark.parametrize("case", MAMBA_CASES,
-                         ids=lambda c: "x".join(map(str, c[:3])))
+@pytest.mark.parametrize("case", MAMBA_CASES, ids=_mamba_id)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_scan_matches_plain(cuda, case, dtype):
-    """The forward kernel against scan_ref: y, the final state and the
-    snapshots (every 32 steps), two launches bit-equal and counted."""
+    """Each forward variant (the one plan picks, and simt on the same
+    tensors) against scan_ref: y, the final state and the snapshots (at
+    the variant's cadence), two launches bit-equal and counted."""
     from repro_torch.kernels.interface import KernelType, LAUNCHES
     from repro_torch.kernels.mamba_scan import SNAPSHOT_EVERY, ops, scan_ref
 
-    b, s, d_in, h0, _ = case
+    b, s, d_in, h0, _ = case[:5]
     args = _mamba_inputs(np.random.default_rng(s + d_in), b, s, d_in,
-                         getattr(torch, dtype), h0, cuda)
-    before = LAUNCHES.get("mamba_scan", 0)
-    got = ops._forward(*args, SNAPSHOT_EVERY, args[0].dtype, KernelType.CUDA,
-                       True)
-    again = ops._forward(*args, SNAPSHOT_EVERY, args[0].dtype,
-                         KernelType.CUDA, True)
-    torch.cuda.synchronize()
-    assert LAUNCHES["mamba_scan"] == before + 2
-    assert all(torch.equal(x, z) for x, z in zip(got, again))
-    want = scan_ref(*args, segment=SNAPSHOT_EVERY, snapshots=True)
-    _assert_mamba_close(got, want)
+                         getattr(torch, dtype), h0, cuda, *case[5:])
+    for variant in _mamba_variants(args):
+        every = SNAPSHOT_EVERY[variant]
+        before = LAUNCHES.get("mamba_scan", 0)
+        got = ops._forward(*args, every, args[0].dtype, KernelType.CUDA,
+                           True, variant=variant)
+        again = ops._forward(*args, every, args[0].dtype, KernelType.CUDA,
+                             True, variant=variant)
+        torch.cuda.synchronize()
+        assert LAUNCHES["mamba_scan"] == before + 2
+        assert all(torch.equal(x, z) for x, z in zip(got, again))
+        want = scan_ref(*args, segment=every, snapshots=True)
+        _assert_mamba_close(got, want)
 
 
-@pytest.mark.parametrize("case", MAMBA_CASES,
-                         ids=lambda c: "x".join(map(str, c[:3])))
+@pytest.mark.parametrize("case", MAMBA_CASES, ids=_mamba_id)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_scan_bwd_matches_plain(cuda, case, dtype):
-    """The backward kernel against scan_bwd_ref from the same snapshots:
+    """Each backward variant (the one plan picks, and simt on the same
+    tensors) against scan_bwd_ref from the same snapshots at its cadence:
     dxc, ddt, dB, dC, dA and dh0, with and without a final-state
     cotangent; two launches bit-equal and counted."""
     from repro_torch.kernels.interface import LAUNCHES
     from repro_torch.kernels.mamba_scan import SNAPSHOT_EVERY, scan_bwd, \
         scan_ref
 
-    b, s, d_in, h0, final = case
+    b, s, d_in, h0, final = case[:5]
     rng = np.random.default_rng(7 * s + d_in)
     dt_ = getattr(torch, dtype)
-    args = _mamba_inputs(rng, b, s, d_in, dt_, h0, cuda)
-    snaps = scan_ref(*args, segment=SNAPSHOT_EVERY, snapshots=True)[2]
+    args = _mamba_inputs(rng, b, s, d_in, dt_, h0, cuda, *case[5:])
     dy = _randn(rng, (b, s, d_in), dt_, cuda)
     dh = _randn(rng, (b, d_in, 16), torch.float32, cuda) if final else None
-    before = LAUNCHES.get("mamba_scan_bwd", 0)
-    got = scan_bwd(*args[:5], snaps, dy, dh, want_dh0=True)
-    again = scan_bwd(*args[:5], snaps, dy, dh, want_dh0=True)
-    torch.cuda.synchronize()
-    assert LAUNCHES["mamba_scan_bwd"] == before + 2
-    assert all(torch.equal(x, z) for x, z in zip(got, again))
-    want = scan_bwd(*args[:5], snaps, dy, dh, segment=SNAPSHOT_EVERY,
-                    want_dh0=True, mode="torch")
-    _assert_mamba_close(got, want)
-    assert scan_bwd(*args[:5], snaps, dy, dh)[5] is None
+    for variant in _mamba_variants(args):
+        every = SNAPSHOT_EVERY[variant]
+        snaps = scan_ref(*args, segment=every, snapshots=True)[2]
+        before = LAUNCHES.get("mamba_scan_bwd", 0)
+        got = scan_bwd(*args[:5], snaps, dy, dh, every=every,
+                       variant=variant, want_dh0=True)
+        again = scan_bwd(*args[:5], snaps, dy, dh, every=every,
+                         variant=variant, want_dh0=True)
+        torch.cuda.synchronize()
+        assert LAUNCHES["mamba_scan_bwd"] == before + 2
+        assert all(torch.equal(x, z) for x, z in zip(got, again))
+        want = scan_bwd(*args[:5], snaps, dy, dh, segment=every,
+                        want_dh0=True, mode="torch")
+        _assert_mamba_close(got, want)
+        assert scan_bwd(*args[:5], snaps, dy, dh, every=every,
+                        variant=variant)[5] is None
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

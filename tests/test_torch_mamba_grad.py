@@ -217,10 +217,10 @@ def test_bf16_mixer_gradients_match_jax(monkeypatch):
 # the plain backward against autograd
 # ---------------------------------------------------------------------------
 
-def _scan_inputs(s, seed, dtype=torch.float32):
+def _scan_inputs(s, seed, dtype=torch.float32, d_in=24):
     """xc, dt (softplus of a normal, about 0.7), B and C as strided views
     of one (b, s, 4 + 2N) projection, A = -(1..N) per row, h0 nonzero."""
-    d_in, n = 24, 16
+    n = 16
     rng = np.random.default_rng(seed)
     xc = torch.from_numpy(rng.standard_normal((B, s, d_in)).astype(
         np.float32)).to(dtype)
@@ -251,7 +251,7 @@ def _oop_scan(xc, dt, b_mat, c_mat, a, h0):
 
 @pytest.mark.parametrize("s,segment,final", [
     (1, 64, False), (17, 64, True), (130, 64, True), (130, 16, False),
-    (64, 16, True)])
+    (64, 16, True), (130, 8, True), (17, 8, False)])
 def test_scan_bwd_ref_matches_autograd_of_an_out_of_place_scan(
         s, segment, final):
     from repro_torch.kernels.mamba_scan import scan_bwd_ref, scan_ref
@@ -538,3 +538,171 @@ def test_scan_wrappers_call_their_kernels_and_raise_on_failure(monkeypatch):
         ops.scan_bwd(xc, dt, b_mat, c_mat, a, snaps[:, :1],
                      torch.ones_like(xc))
     assert LAUNCHES["mamba_scan"] == 2 and LAUNCHES["mamba_scan_bwd"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the kernel variants: plan, plan_bwd, the ring entry points, the cadence
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,d_in,want", [
+    (4, 1024, 16384, "ring"), (4, 1, 16384, "ring"), (2, 17, 128, "ring"),
+    (1, 1000, 256, "ring"), (2, 17, 100, "simt"), (2, 64, 64, "simt"),
+    (2, 9, 24, "simt"), (3, 130, 192, "simt")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_picks_ring_by_width(b, s, d_in, want, dtype):
+    """plan and plan_bwd as pure functions of the shapes (meta tensors):
+    ring where d_in is a multiple of 128, simt else, in either type; the
+    backward for each forward variant's own cadence, None read as it."""
+    from repro_torch.kernels.mamba_scan import SNAPSHOT_EVERY, plan, \
+        plan_bwd
+
+    xc = torch.empty((b, s, d_in), dtype=dtype, device="meta")
+    proj = torch.empty((b, s, 512 + 32), dtype=dtype, device="meta")
+    _, b_mat, c_mat = proj.split([512, 16, 16], dim=-1)
+    a = torch.empty((d_in, 16), device="meta")
+    assert plan(xc, xc, b_mat, c_mat, a) == want
+    assert plan_bwd(xc, xc, b_mat, c_mat, a) == want
+    assert plan_bwd(xc, xc, b_mat, c_mat, a, SNAPSHOT_EVERY[want]) == want
+    assert plan_bwd(xc, xc, b_mat, c_mat, a, SNAPSHOT_EVERY["simt"]) == \
+        ("ring" if want == "ring" and SNAPSHOT_EVERY["ring"] == 32
+         else "simt")
+    with pytest.raises(ValueError, match="snapshots every 64"):
+        plan_bwd(xc, xc, b_mat, c_mat, a, 64)
+
+
+def test_bwd_scratch_and_cadences_per_variant():
+    """Each variant's scratch (partial dB, dC of its CTAs' channels) and
+    the cadences each kernel takes; a cadence the variant does not take
+    raises before anything launches."""
+    from repro_torch.kernels.mamba_scan import BWD_CHANNELS, \
+        SNAPSHOT_EVERY, bwd_scratch, ops
+
+    xc = torch.empty((4, 1024, 16384), device="meta")
+    part, part_a = bwd_scratch(xc, "ring")
+    assert part.shape == (4, 1024, 128, 32) and part_a.shape == (4, 16384,
+                                                                   16)
+    assert bwd_scratch(xc, "simt")[0].shape == (4, 1024, 256, 32)
+    assert BWD_CHANNELS == {"ring": 128, "simt": 64}
+    assert SNAPSHOT_EVERY == {"ring": 8, "simt": 32}
+    assert ops._variant_and_cadence("x", xc, "ring", None) == 8
+    assert ops._variant_and_cadence("x", xc, "ring", 32) == 32
+    assert ops._variant_and_cadence("x", xc, "simt", None) == 32
+    with pytest.raises(ValueError, match="every"):
+        ops._variant_and_cadence("x", xc, "simt", 8)
+    with pytest.raises(ValueError, match="every"):
+        ops._variant_and_cadence("x", xc, "ring", 16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ops._variant_and_cadence("x", xc[..., :100], "ring", 8)
+    with pytest.raises(ValueError, match="not one of"):
+        ops._variant_and_cadence("x", xc, "wgmma", 8)
+
+
+def _ring_entries(monkeypatch, ops, seen, rc=0):
+    """Stub every C entry point: each records its arguments under its
+    name and returns ``rc``."""
+    def entry(name):
+        def fn(*args):
+            seen.setdefault(name, []).append(args)
+            return rc
+        return lambda: fn
+
+    for attr in ("_scan_fn", "_bwd_fn", "_scan_ring_fn", "_bwd_ring_fn"):
+        monkeypatch.setattr(ops, attr, entry(attr))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_wrappers_call_their_kernels_and_raise_on_failure(monkeypatch,
+                                                               dtype):
+    """At d_in 128 the kernel path calls the ring entry points once each
+    (dtype code, cadence 8, then the operands' pointers and strides, B and
+    C as x_proj's strided views where they are 16-byte aligned, else
+    copies), counts one launch and
+    one ring variant each, and raises when an entry point returns a CUDA
+    error; simt named explicitly on the same tensors calls its own entry
+    points; B and C views the ring does not take are copied."""
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.kernels.mamba_scan import ops
+
+    _on_the_card(monkeypatch, ops)
+    seen = {}
+    _ring_entries(monkeypatch, ops, seen)
+    xc, dt, b_mat, c_mat, a, h0 = _scan_inputs(70, seed=9, dtype=dtype,
+                                               d_in=128)
+    reset_launches()
+    ops.reset_variants()
+    y, h = ops.scan(xc, dt, b_mat, c_mat, a, h0)
+    (args,) = seen["_scan_ring_fn"]
+    code = 0 if dtype == torch.float32 else 1
+    assert args[:3] == (code, 8, xc.data_ptr())
+    if dtype == torch.float32:          # views on 16-byte boundaries
+        assert args[4:6] == (b_mat.data_ptr(), c_mat.data_ptr())
+        assert args[6:8] == b_mat.stride()[:2] == (70 * 36, 36)
+    else:                               # bf16 rows of 72 bytes: copies
+        assert args[4] != b_mat.data_ptr() and args[6:8] == (70 * 16, 16)
+    assert args[13:16] == (B, 70, 128) and args[12] is None
+    assert y.shape == xc.shape and y.dtype == dtype
+    snaps = torch.zeros(B, 9, 128, 16)                   # ceil(70 / 8)
+    grads = ops.scan_bwd(xc, dt, b_mat, c_mat, a, snaps, torch.ones_like(xc),
+                         want_dh0=True)
+    (args,) = seen["_bwd_ring_fn"]
+    assert args[:2] == (code, 8) and args[9] == snaps.data_ptr()
+    assert args[11] is None and args[17] is not None     # no dh; dh0
+    assert args[18].__class__ is int and args[20:23] == (B, 70, 128)
+    assert [g.shape for g in grads] == [xc.shape, dt.shape, b_mat.shape,
+                                        c_mat.shape, a.shape, h0.shape]
+    assert ops.VARIANTS == {"ring": 1, "simt": 0}
+    assert ops.BWD_VARIANTS == {"ring": 1, "simt": 0}
+    # simt named on the same tensors, from its own 32-step snapshots
+    ops.scan_bwd(xc, dt, b_mat, c_mat, a, snaps[:, :3], torch.ones_like(xc),
+                 variant="simt")
+    assert len(seen["_bwd_fn"]) == 1 and "_scan_fn" not in seen
+    with pytest.raises(ValueError, match="snapshots"):
+        ops.scan_bwd(xc, dt, b_mat, c_mat, a, snaps[:, :3],
+                     torch.ones_like(xc))
+    # a misaligned view (B at element 1 of its row) is copied for ring
+    _, b_odd, c_odd = torch.cat([b_mat[..., :1], b_mat, c_mat], -1).split(
+        [1, 16, 16], dim=-1)
+    ops.scan(xc, dt, b_odd, c_odd, a, h0)
+    args = seen["_scan_ring_fn"][-1]
+    assert args[4] != b_odd.data_ptr() and args[6:8] == (70 * 16, 16)
+    assert LAUNCHES["mamba_scan"] == 2 and LAUNCHES["mamba_scan_bwd"] == 2
+    seen.clear()
+    _ring_entries(monkeypatch, ops, seen, rc=700)
+    with pytest.raises(RuntimeError, match="mamba_scan kernel launch failed "
+                                           r"\(ring\)"):
+        ops.scan(xc, dt, b_mat, c_mat, a, h0)
+    with pytest.raises(RuntimeError, match="mamba_scan_bwd kernel launch "
+                                           r"failed \(ring\)"):
+        ops.scan_bwd(xc, dt, b_mat, c_mat, a, snaps, torch.ones_like(xc))
+    assert LAUNCHES["mamba_scan"] == 3 and LAUNCHES["mamba_scan_bwd"] == 3
+
+
+@pytest.mark.parametrize("d_in,variant,every", [(128, "ring", 8),
+                                                (24, "simt", 32)])
+def test_scan_context_keeps_the_cadence_its_backward_reads(
+        monkeypatch, d_in, variant, every):
+    """Under a gradient the kernel path's forward writes snapshots at its
+    variant's cadence, the autograd context keeps that cadence, and the
+    backward launches the same variant's kernel on those snapshots."""
+    from repro_torch.kernels.mamba_scan import ops
+
+    _on_the_card(monkeypatch, ops)
+    seen = {}
+    _ring_entries(monkeypatch, ops, seen)
+    fwd, bwd = (("_scan_ring_fn", "_bwd_ring_fn") if variant == "ring"
+                else ("_scan_fn", "_bwd_fn"))
+    args = list(_scan_inputs(70, seed=10, d_in=d_in))
+    args[0] = args[0].clone().requires_grad_()
+    y, h = ops.scan(*args)
+    assert y.grad_fn.every == every
+    (fa,) = seen[fwd]
+    snaps_ptr = fa[12] if variant == "ring" else fa[11]
+    assert snaps_ptr is not None
+    (dx,) = torch.autograd.grad(y.sum(), args[0])
+    (ba,) = seen[bwd]
+    if variant == "ring":
+        assert ba[1] == every and ba[9] == snaps_ptr
+    else:
+        assert ba[8] == snaps_ptr
+    assert dx.shape == args[0].shape
+    assert set(seen) == {fwd, bwd}
