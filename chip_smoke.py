@@ -349,15 +349,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      ``scan_bwd_ref`` at Jamba's (4, 1,024, 16,384, 16) in bf16, as
      training gives them (no h0, no final-state cotangent) and with both,
      in f32 with both, at s = 1, 17 and 1,000, and with A off the initial
-     value's lattice (-exp(log(1..16) + N(0, 0.3))) in bf16 and f32; ring
-     also with snapshots every 32 steps in two cases: y within one bf16
-     rounding plus 1e-5 of the largest, the states, snapshots and every
-     gradient within 1e-5 of their largest (bf16 gradients also one bf16
-     rounding), a repeat bit-equal, each launch counted. The ring
-     kernels' registers, spills, shared memory and CTAs an SM; the
-     training shape timed L2-cold on the same tensors (each forward
-     without and with snapshots, each backward, the training pass's sum
-     at each cadence), beside the plain versions, the bound (the larger
+     value's lattice (-exp(log(1..16) + N(0, 0.3))) in bf16 and f32: y
+     within one bf16 rounding plus 1e-5 of the largest, the states,
+     snapshots and every gradient within 1e-5 of their largest (bf16
+     gradients also one bf16 rounding), a repeat bit-equal, each launch
+     counted (the kernels' registers and spills are phase 2's ptxas
+     lines); the training shape timed L2-cold on the same tensors (each
+     forward without and with snapshots, each backward, each variant's
+     training pass, forward with snapshots plus backward), beside the plain versions, the bound (the larger
      of bytes and the 1.07e9 exponentials at 16 a clock an SM) and the
      ring kernels' issue floor (instructions an element-step of their
      SASS loop).
@@ -827,8 +826,8 @@ def phase_build():
 
 
 def kernel_entry(line):
-    """``name<int template arguments>`` of the kernel a ptxas
-    ``Compiling entry function '<mangled>'`` line names."""
+    """``name<template arguments>`` (ints, float, bf16) of the kernel a
+    ptxas ``Compiling entry function '<mangled>'`` line names."""
     import re
 
     mangled = line.split("'")[1]
@@ -839,10 +838,14 @@ def kernel_entry(line):
         pos += len(m[0])
         name, pos = mangled[pos:pos + int(m[0])], pos + int(m[0])
         if name.endswith("kernel"):
-            args = re.match(r"I((?:Li\d+E)+)", mangled[pos:])
+            args = re.match(r"I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+                            mangled[pos:])
             if args is None:
                 return name
-            return f"{name}<{', '.join(re.findall(r'Li(\d+)E', args[1]))}>"
+            return "{}<{}>".format(name, ", ".join(
+                i or ("bf16" if bf else "float")
+                for i, bf in re.findall(r"Li(\d+)E|(13__nv_bfloat16)|f",
+                                        args[1])))
     return mangled[:40]
 
 
@@ -4526,11 +4529,10 @@ def phase_mamba_check():
     both, at s = 1, 17 and 1,000, and with an A off the initial value's
     lattice in bf16 and f32: y, the final state, the snapshots and dxc,
     ddt, dB, dC, dA (and dh0 where h0 is given) under
-    :func:`mamba_errors`, two launches bit-equal and counted. ``ring``
-    also with snapshots every 32 steps in the timed and off-lattice bf16
-    cases. Timed on the same tensors: each kernel L2-cold (the forward
-    without snapshots, as serving runs it, and with them), the training
-    pass's forward with snapshots plus backward at each cadence, the plain
+    :func:`mamba_errors`, two launches bit-equal and counted. Timed on the
+    same tensors: each kernel L2-cold (the forward without snapshots, as
+    serving runs it, and with them), each variant's training pass
+    (forward with snapshots plus backward), the plain
     versions, the bound (:func:`mamba_bound`) and the ring kernels' issue
     floor (instructions an element-step of their SASS loop). Returns
     {"fwd", "bwd"}: the main path's numbers (``ring``)."""
@@ -4538,21 +4540,11 @@ def phase_mamba_check():
 
     from repro_torch.kernels.interface import LAUNCHES, KernelType
     from repro_torch.kernels.mamba_scan import SNAPSHOT_EVERY, ops, plan, \
-        ring_resources, scan_bwd, scan_ref
+        scan_bwd, scan_ref
 
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     b, s_full, d_in, n = JAMBA_SCAN
-    ring_every = SNAPSHOT_EVERY["ring"]
-    for dtype in (bf16, f32):
-        for every in (8, 32):
-            for bwd in (False, True):
-                r = ring_resources(dtype, every, bwd)
-                say("kernel", f"mamba_scan{'_bwd' if bwd else ''} ring "
-                    f"{str(dtype).split('.')[-1]}, snapshots every {every}: "
-                    f"{r['registers']} registers, {r['spill_bytes']} bytes "
-                    f"spilled, {r['smem']:,} bytes of shared memory a CTA, "
-                    f"{r['ctas_per_sm']} CTAs an SM")
     out = {}
     # (label, s, dtype, h0, final-state cotangent, A on the lattice, timed)
     for label, s, dtype, state, final, lattice, timed in (
@@ -4582,17 +4574,15 @@ def phase_mamba_check():
         dy = torch.randn(b, s, d_in, device=DEVICE, generator=gen).to(dtype)
         dh = (torch.randn(b, d_in, n, device=DEVICE, generator=gen)
               if final else None)
-        runs = [("ring", ring_every), ("simt", SNAPSHOT_EVERY["simt"])]
-        if timed or (not lattice and dtype == bf16):
-            runs.append(("ring", 32 if ring_every == 8 else 8))
         errs_out = {}
-        for variant, every in runs:
+        for variant in ("ring", "simt"):
+            every = SNAPSHOT_EVERY[variant]
             tag0 = f"{variant}, snapshots every {every}"
             before = LAUNCHES.get("mamba_scan", 0)
             got = ops._forward(*args, every, dtype, KernelType.CUDA, True,
-                               variant=variant, every=every)
+                               variant=variant)
             again = ops._forward(*args, every, dtype, KernelType.CUDA, True,
-                                 variant=variant, every=every)
+                                 variant=variant)
             torch.cuda.synchronize()
             if LAUNCHES["mamba_scan"] != before + 2:
                 raise AssertionError(f"mamba_scan {label} {tag0}: launches "
@@ -4638,7 +4628,7 @@ def phase_mamba_check():
                 raise AssertionError(f"{tag}: kernel and plain version "
                                      "differ")
             say("kernel", tag)
-            errs_out[(variant, every)] = (max(errs), max(errs_b))
+            errs_out[variant] = (max(errs), max(errs_b))
             del got, again, want, got_b, again_b, want_b
         if not timed:
             continue
@@ -4650,11 +4640,11 @@ def phase_mamba_check():
 def mamba_times(label, args, dy, dh, errs):
     """The scan's kernels on the same tensors (``args`` at Jamba's
     training shape), L2-cold: each forward variant without and with
-    snapshots, each backward, the training pass (forward with snapshots
-    plus backward) of ``ring`` at both cadences and of ``simt``, the
-    plain versions, the bound and the ring kernels' issue floor. Returns
-    {"fwd", "bwd"}: ``ring``'s numbers at its cadence, the max abs errors
-    from ``errs`` ((variant, every) -> (forward's, backward's))."""
+    snapshots (at its cadence), each backward, each variant's training
+    pass (forward with snapshots plus backward), the plain versions, the
+    bound and the ring kernels' issue floor. Returns {"fwd", "bwd"}:
+    ``ring``'s numbers, the max abs errors from ``errs`` (variant ->
+    (forward's, backward's))."""
     import torch
 
     from repro_torch.kernels.mamba_scan import BWD_CHANNELS, \
@@ -4668,22 +4658,21 @@ def mamba_times(label, args, dy, dh, errs):
     y = torch.empty_like(xc)
     h_out = torch.empty((b, d_in, n), dtype=torch.float32, device=DEVICE)
     fwd_ms, bwd_ms, snap_mb = {}, {}, {}
-    for variant, every in (("ring", 8), ("ring", 32), ("simt", 32)):
-        snaps = torch.empty((b, -(-s // every), d_in, n),
+    for variant in ("ring", "simt"):
+        snaps = torch.empty((b, -(-s // SNAPSHOT_EVERY[variant]), d_in, n),
                             dtype=torch.float32, device=DEVICE)
-        fwd_ms[variant, every] = cuda_time_ms(lambda: launch(
-            *args, y, h_out, snaps, variant=variant, every=every), 20)
-        launch(*args, y, h_out, snaps, variant=variant, every=every)
+        fwd_ms[variant] = cuda_time_ms(lambda: launch(
+            *args, y, h_out, snaps, variant=variant), 20)
+        launch(*args, y, h_out, snaps, variant=variant)
         grads = (torch.empty_like(xc), torch.empty_like(xc),
                  torch.empty((b, s, n), dtype=dtype, device=DEVICE),
                  torch.empty((b, s, n), dtype=dtype, device=DEVICE),
                  torch.empty((d_in, n), dtype=torch.float32, device=DEVICE),
                  None)
         scratch = bwd_scratch(xc, variant)
-        bwd_ms[variant, every] = cuda_time_ms(lambda: launch_bwd(
-            *args[:5], snaps, dy, dh, grads, scratch, variant=variant,
-            every=every), 10)
-        snap_mb[variant, every] = snaps.numel() * 4 / 1e6
+        bwd_ms[variant] = cuda_time_ms(lambda: launch_bwd(
+            *args[:5], snaps, dy, dh, grads, scratch, variant=variant), 10)
+        snap_mb[variant] = snaps.numel() * 4 / 1e6
         del snaps, grads, scratch
     fwd_plain = {v: cuda_time_ms(lambda: launch(*args, y, h_out,
                                                 variant=v), 20)
@@ -4704,8 +4693,8 @@ def mamba_times(label, args, dy, dh, errs):
     floors = {}
     for key, lib, per_step in (("fwd", "mamba_scan_hopper", 1),
                                ("bwd", "mamba_scan_bwd_hopper", 2)):
-        loop = sass_loop(lib, "ring_kernel", "Li8E",
-                         "bfloat16" if dtype == torch.bfloat16 else "If")
+        loop = sass_loop(lib, "ring_kernelI13__nv_bfloat16E"
+                         if dtype == torch.bfloat16 else "ring_kernelIfE")
         if loop is None or not loop[1]:
             floors[key] = "issue floor not measured (no SASS loop found)"
             continue
@@ -4718,35 +4707,33 @@ def mamba_times(label, args, dy, dh, errs):
                        f"element-step)")
     for variant in ("ring", "simt"):
         ms = fwd_plain[variant]
-        every = ring_every if variant == "ring" else SNAPSHOT_EVERY["simt"]
         say("kernel", f"mamba_scan {variant} {label}: {ms * 1e3:.1f} us "
-            f"L2-cold, {f_bound / ms:.1%} of bound; with snapshots "
-            + ", ".join(f"every {e}: {fwd_ms[v, e] * 1e3:.1f} us "
-                        f"({snap_mb[v, e]:.1f} MB)"
-                        for v, e in fwd_ms if v == variant)
+            f"L2-cold, {f_bound / ms:.1%} of bound; with snapshots every "
+            f"{SNAPSHOT_EVERY[variant]}: {fwd_ms[variant] * 1e3:.1f} us "
+            f"({snap_mb[variant]:.1f} MB)"
             + f"; bound {f_bound * 1e3:.1f} us ({f_mb:.1f} MB, {exps:.3g} "
             f"exponentials at 16 a clock an SM; by {f_by})"
             + (f"; {floors['fwd']}" if variant == "ring" else "")
             + f"; plain {plain_ms * 1e3:.1f} us; no library call")
-    for (variant, every), ms in bwd_ms.items():
-        say("kernel", f"mamba_scan_bwd {variant}, snapshots every {every}, "
-            f"{label}: {ms * 1e3:.1f} us L2-cold, {b_bound / ms:.1%} of "
-            f"bound; training pass (forward with snapshots + backward) "
-            f"{(fwd_ms[variant, every] + ms) * 1e3:.1f} us; bound "
+    for variant, ms in bwd_ms.items():
+        say("kernel", f"mamba_scan_bwd {variant}, snapshots every "
+            f"{SNAPSHOT_EVERY[variant]}, {label}: {ms * 1e3:.1f} us "
+            f"L2-cold, {b_bound / ms:.1%} of bound; training pass (forward "
+            f"with snapshots + backward) "
+            f"{(fwd_ms[variant] + ms) * 1e3:.1f} us; bound "
             f"{b_bound * 1e3:.1f} us ({b_mb:.1f} MB, {exps:.3g} "
             f"exponentials; by {b_by}); scratch: the snapshots "
-            f"{snap_mb[variant, every]:.1f} MB, partial dB/dC of each CTA of "
+            f"{snap_mb[variant]:.1f} MB, partial dB/dC of each CTA of "
             f"{BWD_CHANNELS[variant]} channels "
             f"{b * s * -(-d_in // BWD_CHANNELS[variant]) * 32 * 4 / 1e6:.1f} "
             f"MB, partial dA {b * d_in * n * 4 / 1e6:.1f} MB"
-            + (f"; {floors['bwd']}" if variant == "ring" and every == 8
-               else "")
+            + (f"; {floors['bwd']}" if variant == "ring" else "")
             + f"; plain {plain_bwd_ms * 1e3:.1f} us; no library call")
-    return {"fwd": dict(max_abs_err=errs["ring", ring_every][0],
+    return {"fwd": dict(max_abs_err=errs["ring"][0],
                         ms=fwd_plain["ring"], plain_ms=plain_ms,
                         bound_ms=f_bound, bound_by=f_by, library_ms=None),
-            "bwd": dict(max_abs_err=errs["ring", ring_every][1],
-                        ms=bwd_ms["ring", ring_every], plain_ms=plain_bwd_ms,
+            "bwd": dict(max_abs_err=errs["ring"][1],
+                        ms=bwd_ms["ring"], plain_ms=plain_bwd_ms,
                         bound_ms=b_bound, bound_by=b_by, library_ms=None)}
 
 

@@ -49,7 +49,7 @@ DC_FORWARD = [
      """\
                                      j ? hs[j - 1][c][q] : h0s[c][q], u[c],
                                      bv[q]);
-        if (tk.bwd) {
+        {
           const float2 dyv =
               *reinterpret_cast<const float2*>(&sm.cdy[j][2 * cp]);
           float v[4];
@@ -186,14 +186,13 @@ def build_variants():
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
                 kernel = ln.split("'")[1]
-            elif ("registers" in ln and kernel and "ring_kernel" in kernel
-                  and "bfloat16Li8E" in kernel):
+            elif ("registers" in ln and kernel
+                  and "ring_kernelI13__nv_bfloat16E" in kernel):
                 entry.append(ln.split("Used ")[1].split(",")[0])
-            elif ("spill" in ln and kernel and "ring_kernel" in kernel
-                  and "bfloat16Li8E" in kernel):
+            elif ("spill" in ln and kernel
+                  and "ring_kernelI13__nv_bfloat16E" in kernel):
                 entry.append(ln.strip())
-        print(f"{kind} {name}: bf16, snapshots every 8: {'; '.join(entry)}",
-              flush=True)
+        print(f"{kind} {name}: bf16: {'; '.join(entry)}", flush=True)
         fn = getattr(ctypes.CDLL(str(so)), SOURCES[kind][1])
         tree = (ops._scan_ring_fn if kind == "fwd" else ops._bwd_ring_fn)()
         fn.argtypes, fn.restype = tree.argtypes, tree.restype
@@ -225,22 +224,21 @@ def main():
                 torch.empty((b, s, n), dtype=xc.dtype, device="cuda"),
                 torch.empty((d_in, n), device="cuda"), None)
 
-    launch(*args, y, h, snaps, variant="ring", every=8)
+    launch(*args, y, h, snaps, variant="ring")
     want_fwd = (y.clone(), h.clone(), snaps.clone())
     scratch = bwd_scratch(xc, "ring")
     want_bwd = grads()
     launch_bwd(*args[:5], snaps, dy, None, want_bwd, scratch,
-               variant="ring", every=8)
+               variant="ring")
 
     def run(kind, fn, out=None):
         attr = "_scan_ring_fn" if kind == "fwd" else "_bwd_ring_fn"
         setattr(ops, attr, lambda: fn)
         if kind == "fwd":
             o = out or (y, h, snaps)
-            return lambda: launch(*args, *o, variant="ring", every=8)
+            return lambda: launch(*args, *o, variant="ring")
         return lambda: launch_bwd(*args[:5], want_fwd[2], dy, None,
-                                  out or gs, scratch, variant="ring",
-                                  every=8)
+                                  out or gs, scratch, variant="ring")
 
     gs = grads()
     real = {"fwd": ops._scan_ring_fn, "bwd": ops._bwd_ring_fn}

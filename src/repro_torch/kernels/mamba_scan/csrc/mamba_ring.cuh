@@ -1,7 +1,8 @@
 // What the selective scan's ring kernels (csrc/mamba_scan_hopper.cu and
-// csrc/mamba_scan_bwd_hopper.cu) share: the state step, whose expression
-// the backward repeats so that its recomputed states are the forward's bit
-// for bit, the cp.async ring's copies, and the type conversions.
+// csrc/mamba_scan_bwd_hopper.cu) share: the snapshot cadence, the state
+// step, whose expression the backward repeats so that its recomputed
+// states are the forward's bit for bit, the cp.async ring's copies, and
+// the type conversions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +13,7 @@
 namespace mamba_ring {
 
 constexpr int kN = 16;            // state size
+constexpr int kEvery = 8;         // steps between snapshots
 constexpr float kLog2e = 1.44269504088896340736f;
 constexpr float kLn2 = 0.693147180559945309417f;
 

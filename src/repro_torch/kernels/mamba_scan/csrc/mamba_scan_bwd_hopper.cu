@@ -20,8 +20,11 @@
 // forward's 1.07e9 exponentials, 256.8 us at 16 a clock per SM (132 SMs,
 // 1.98 GHz): exponentials. This kernel takes two an element-step (a
 // window's recomputation, and the backward step's a_t), so the
-// special-function units alone take 513.6 us; its issue (about 23
-// instructions an element-step) is the floor above that.
+// special-function units alone take 513.6 us. Its issue is the floor above
+// that: the SASS loop holds about 31.5 instructions an element-step (bf16),
+// an issue floor of about 1,011 us at 128 a clock an SM (on an H100 80GB
+// HBM3 at 700 W it runs in about 1,527 us, 66% of that floor, the
+// reductions waiting on shuffle latency; PERF.md row 17).
 //
 // The design:
 //  * a_t = ex2.approx(dt * A log2 e), the forward's expression
@@ -38,17 +41,16 @@
 //    (step, value) is written to a float32 partial (b, s, d_in / 128, 32),
 //    67.1 MB at Jamba's shape. du and ddt's sums over n cross the 4 lanes
 //    of a channel pair in 2 shuffle levels.
-//  * the scan runs backward in windows of 8 steps. With snapshots every 8
-//    steps a window starts from its snapshot; with snapshots every 32 a
-//    segment's first three windows are first run forward from its
-//    snapshot, their end states kept in shared memory. A window's 8
-//    states are recomputed into registers, then the window runs backward
-//    from them.
+//  * the scan runs backward in windows of kEvery = 8 steps, the forward's
+//    snapshot cadence, last window first: a window's 8 states are
+//    recomputed into registers from its snapshot, then the window runs
+//    backward from them.
 //  * a three-stage cp.async ring of each window's dt, x, dy tiles (8 steps
 //    x 128 channels), B and C (from x_proj's strided views) and snapshot
 //    tile (128 channels x 16), issued two windows ahead; the CTA converts
 //    a window's tiles to float32 once (two barriers a window, neither
-//    waiting on a global load).
+//    waiting on a global load). 70,144 B of shared memory a CTA in bf16,
+//    94,208 in f32.
 //  * dA's partial is each thread's sum over its steps, (b, d_in, 16); a
 //    second and third kernel sum dC, dB over the CTAs and dA over the batch
 //    rows in a fixed order. No atomics: repeats are bit-equal.
@@ -65,52 +67,22 @@ using namespace mamba_ring;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCh = 128;          // channels a CTA, 2 a thread
-constexpr int kW = 8;             // steps a window
+constexpr int kW = kEvery;        // steps a window: one a snapshot
 constexpr int kStages = 3;        // the ring's depth
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T, int EVERY>
+template <typename T>
 struct Bwd {
-  static constexpr int kSubs = EVERY / kW - 1;   // end states kept
   T dt[kStages][kW][kCh];
   T x[kStages][kW][kCh];
   T dy[kStages][kW][kCh];
   T bc[kStages][kW][2 * kN];      // a step's B (0..15), C (16..31)
-  float snap[kStages][kCh][kN];   // the segment's snapshot
+  float snap[kStages][kCh][kN];   // the window's snapshot
   float cdt[kW][kCh], cx[kW][kCh], cdy[kW][kCh];   // the window in f32
   float cbc[kW][2 * kN];
   float red[kWarps][kW][2 * kN];  // each warp's sums of dC, dB a step
   T odx[kW][kCh], oddt[kW][kCh];  // the window's dxc, ddt
-  // windows' end states (none kept for snapshots every kW steps)
-  float sub[kSubs > 0 ? kSubs : 1][kSubs > 0 ? kThreads : 1][8];
 };
-
-// one task of the CTA's sequence: window ``win`` (steps 8 win ..), the
-// ``m``-th of the segment starting at window ``first``, run forward (to
-// keep its end state) or backward
-struct Task {
-  int win, first, m;
-  bool bwd;
-};
-
-// Tasks in order: segments from the last; in each, its windows but the
-// last forward, then all of them backward, last first
-template <int EVERY>
-__device__ __forceinline__ Task task_of(int i, int nwin, int nseg) {
-  constexpr int kWps = EVERY / kW;               // windows a segment
-  const int nw_last = nwin - kWps * (nseg - 1);
-  int seg, l, nw;
-  if (i < 2 * nw_last - 1) {
-    seg = nseg - 1, l = i, nw = nw_last;
-  } else {
-    i -= 2 * nw_last - 1;
-    seg = nseg - 2 - i / (2 * kWps - 1), l = i % (2 * kWps - 1), nw = kWps;
-  }
-  const int first = seg * kWps;
-  if (l < nw - 1) return {first + l, first, l, false};
-  const int m = 2 * (nw - 1) - l;
-  return {first + m, first, m, true};
-}
 
 // lane's share of a reduce-scatter level: lanes with bit K set keep the
 // upper K of their 2K values, the others the lower, each adding its
@@ -126,7 +98,7 @@ __device__ __forceinline__ void scatter_level(float (&v)[2 * K], int lane) {
   }
 }
 
-template <typename T, int EVERY>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     mamba_scan_bwd_ring_kernel(
         const T* __restrict__ x, const T* __restrict__ dt,
@@ -136,7 +108,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float* __restrict__ dh, T* __restrict__ dx, T* __restrict__ ddt,
         float* __restrict__ dh0, float* __restrict__ part_bc,
         float* __restrict__ part_a, int s, int d_in) {
-  using Smem = Bwd<T, EVERY>;
+  using Smem = Bwd<T>;
   constexpr int kE = 16 / sizeof(T);          // elements a 16-byte chunk
   constexpr int kRow = kCh / kE;              // chunks a tile row
   constexpr int kVec = kN / kE;               // chunks of B (or C) a step
@@ -148,27 +120,23 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int bi = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
   const int d0 = blk * kCh;
   const int nwin = (s + kW - 1) / kW;
-  const int nseg = (s + EVERY - 1) / EVERY;
-  constexpr int kWps = EVERY / kW;
-  const int ntask = 2 * (nwin - kWps * (nseg - 1)) - 1
-                    + (nseg - 1) * (2 * kWps - 1);
   const size_t tile = static_cast<size_t>(bi) * s * d_in + d0;
   const T* bb = bm + bi * bc_sb;
   const T* cb = cm + bi * bc_sb;
 
-  // task i's copies into slot i % kStages, then one commit (empty past
-  // the end, so that every thread counts the same groups)
+  // the i-th window's copies (window nwin - 1 - i) into slot i % kStages,
+  // then one commit (empty past the end, so that every thread counts the
+  // same groups)
   auto issue = [&](int i) {
-    if (i < ntask) {
-      const Task tk = task_of<EVERY>(i, nwin, nseg);
-      const int t0 = tk.win * kW, slot = i % kStages;
+    if (i < nwin) {
+      const int win = nwin - 1 - i, t0 = win * kW, slot = i % kStages;
       for (int c = tid; c < kW * kRow; c += kThreads) {
         const int j = c / kRow, q = (c % kRow) * kE;
         if (t0 + j < s) {
           const size_t off = tile + static_cast<size_t>(t0 + j) * d_in + q;
           cp_async16(&sm.dt[slot][j][q], dt + off);
           cp_async16(&sm.x[slot][j][q], x + off);
-          if (tk.bwd) cp_async16(&sm.dy[slot][j][q], dy + off);
+          cp_async16(&sm.dy[slot][j][q], dy + off);
         }
       }
       if (tid < kW * 2 * kVec) {
@@ -178,13 +146,10 @@ __global__ void __launch_bounds__(kThreads, 2)
           cp_async16(&sm.bc[slot][j][which * kN + q],
                      (which ? cb : bb) + (t0 + j) * bc_st + q);
       }
-      if (tk.m == 0) {                        // the segment's snapshot
-        const float* src =
-            snaps + ((static_cast<size_t>(bi) * nseg + tk.first / kWps)
-                         * d_in + d0) * kN;
-        for (int c = tid; c < kCh * kN / 4; c += kThreads)
-          cp_async16(&sm.snap[slot][0][0] + 4 * c, src + 4 * c);
-      }
+      const float* src =                      // the window's snapshot
+          snaps + ((static_cast<size_t>(bi) * nwin + win) * d_in + d0) * kN;
+      for (int c = tid; c < kCh * kN / 4; c += kThreads)
+        cp_async16(&sm.snap[slot][0][0] + 4 * c, src + 4 * c);
     }
     cp_async_commit();
   };
@@ -236,44 +201,38 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   issue(0);
   issue(1);
-  for (int i = 0; i < ntask; ++i) {
-    cp_async_wait<1>();                   // task i landed (this thread's)
+  for (int i = 0; i < nwin; ++i) {
+    cp_async_wait<1>();                   // window i landed (this thread's)
     __syncthreads();                      // everyone's; slot i - 1 free
     issue(i + 2);
-    const Task tk = task_of<EVERY>(i, nwin, nseg);
-    const int slot = i % kStages, t0 = tk.win * kW, len = min(kW, s - t0);
+    const int slot = i % kStages, t0 = (nwin - 1 - i) * kW;
+    const int len = min(kW, s - t0);
     for (int e = tid; e < kW * kCh; e += kThreads) {
       const int j = e / kCh, c = e % kCh;
       sm.cdt[j][c] = to_f32(sm.dt[slot][j][c]);
       sm.cx[j][c] = to_f32(sm.x[slot][j][c]);
-      if (tk.bwd) sm.cdy[j][c] = to_f32(sm.dy[slot][j][c]);
+      sm.cdy[j][c] = to_f32(sm.dy[slot][j][c]);
     }
     (&sm.cbc[0][0])[tid] = to_f32((&sm.bc[slot][0][0])[tid]);
     flush();
-    out_t0 = tk.bwd ? t0 : -1;
+    out_t0 = t0;
     out_len = len;
     __syncthreads();                      // the window in f32 for all
 
-    // the window's start state: the snapshot, or the end state the
-    // segment's previous window kept (read again for the last backward
-    // step rather than held in registers)
+    // the window's start state, its snapshot (read again for the last
+    // backward step rather than held in registers)
     float h0s[2][4];
     auto start_state = [&]() {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        float4 v;
-        if (tk.m == 0)
-          v = *reinterpret_cast<const float4*>(
-              &sm.snap[slot][2 * cp + c][4 * ng]);
-        else
-          v = *reinterpret_cast<const float4*>(
-              &sm.sub[tk.m - 1][tid][4 * c]);
+        const float4 v = *reinterpret_cast<const float4*>(
+            &sm.snap[slot][2 * cp + c][4 * ng]);
         h0s[c][0] = v.x, h0s[c][1] = v.y, h0s[c][2] = v.z, h0s[c][3] = v.w;
       }
     };
     // the window, ``full`` (a std::integral_constant) when it has kW steps:
-    // forward through it (its states after each step), then, for a
-    // backward task, backward through it, last step first
+    // forward through it (its states after each step), then backward
+    // through it, last step first
     auto window = [&](auto full) {
       constexpr bool kFull = decltype(full)::value;
       start_state();
@@ -296,15 +255,6 @@ __global__ void __launch_bounds__(kThreads, 2)
             hs[j][c][q] = state_step(decay(dts[c], a2[c][q]),
                                      j ? hs[j - 1][c][q] : h0s[c][q], u[c],
                                      bv[q]);
-      }
-      if (!tk.bwd) {                      // keep the end state
-        float* dst = &sm.sub[tk.m][tid][0];
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          *reinterpret_cast<float4*>(dst + 4 * c) = make_float4(
-              hs[kW - 1][c][0], hs[kW - 1][c][1], hs[kW - 1][c][2],
-              hs[kW - 1][c][3]);
-        return;
       }
 #pragma unroll
       for (int j = kW - 1; j >= 0; --j) {
@@ -417,7 +367,7 @@ __global__ void __launch_bounds__(256)
   da[i] = sum;
 }
 
-template <typename T, int EVERY>
+template <typename T>
 int launch_typed(const void* x, const void* dt, const void* bm,
                  const void* cm, long long bc_sb, long long bc_st,
                  const float* A, const float* snaps, const void* dy,
@@ -425,13 +375,13 @@ int launch_typed(const void* x, const void* dt, const void* bm,
                  float* da, float* dh0, float* part_bc, float* part_a, int b,
                  int s, int d_in, cudaStream_t stream) {
   // above 48 KB of dynamic shared memory, on the current device
-  const int smem = static_cast<int>(sizeof(Bwd<T, EVERY>));
+  const int smem = static_cast<int>(sizeof(Bwd<T>));
   cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_bwd_ring_kernel<T, EVERY>,
+      mamba_scan_bwd_ring_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nblk = d_in / kCh;
-  mamba_scan_bwd_ring_kernel<T, EVERY>
+  mamba_scan_bwd_ring_kernel<T>
       <<<dim3(nblk, b), kThreads, smem, stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(dt),
           static_cast<const T*>(bm), static_cast<const T*>(cm), bc_sb, bc_st,
@@ -450,48 +400,8 @@ int launch_typed(const void* x, const void* dt, const void* bm,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_every(int every, const void* x, const void* dt, const void* bm,
-                 const void* cm, long long bc_sb, long long bc_st,
-                 const float* A, const float* snaps, const void* dy,
-                 const float* dh, void* dx, void* ddt, void* db, void* dc,
-                 float* da, float* dh0, float* part_bc, float* part_a, int b,
-                 int s, int d_in, cudaStream_t stream) {
-  if (every == 8)
-    return launch_typed<T, 8>(x, dt, bm, cm, bc_sb, bc_st, A, snaps, dy, dh,
-                              dx, ddt, db, dc, da, dh0, part_bc, part_a, b, s,
-                              d_in, stream);
-  if (every == 32)
-    return launch_typed<T, 32>(x, dt, bm, cm, bc_sb, bc_st, A, snaps, dy, dh,
-                               dx, ddt, db, dc, da, dh0, part_bc, part_a, b,
-                               s, d_in, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-template <typename T, int EVERY>
-int info_typed(int* out) {
-  const void* fn =
-      reinterpret_cast<const void*>(mamba_scan_bwd_ring_kernel<T, EVERY>);
-  const int smem = static_cast<int>(sizeof(Bwd<T, EVERY>));
-  cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_bwd_ring_kernel<T, EVERY>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = smem;
-  out[3] = blocks;
-  return 0;
 }
 
 }  // namespace
@@ -500,12 +410,11 @@ int info_typed(int* out) {
 // dy, dx, ddt contiguous (b, s, d_in), d_in a multiple of 128; B and C are
 // read at element (b, t, n) = b * bc_sb + t * bc_st + n (base pointers and
 // strides 16-byte aligned); dB and dC are written contiguous (b, s, 16).
-// snaps: the ring forward's (b, ceil(s / every), d_in, 16) float32, every 8
-// or 32. dh (the final state's cotangent) may be null (zero), dh0 null (not
-// asked). part_bc: (b, s, d_in / 128, 32) float32, part_a: (b, d_in, 16)
-// float32 scratch. Returns a CUDA error code, 0 if every launch was
-// accepted.
-extern "C" int mamba_scan_bwd_ring(int dtype, int every, const void* x,
+// snaps: the ring forward's (b, ceil(s / 8), d_in, 16) float32. dh (the
+// final state's cotangent) may be null (zero), dh0 null (not asked).
+// part_bc: (b, s, d_in / 128, 32) float32, part_a: (b, d_in, 16) float32
+// scratch. Returns a CUDA error code, 0 if every launch was accepted.
+extern "C" int mamba_scan_bwd_ring(int dtype, const void* x,
                                    const void* dt, const void* bm,
                                    const void* cm, long long bc_sb,
                                    long long bc_st, const void* A,
@@ -525,21 +434,11 @@ extern "C" int mamba_scan_bwd_ring(int dtype, int every, const void* x,
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0)
-    return launch_every<float>(every, x, dt, bm, cm, bc_sb, bc_st, f(A),
-                               f(snaps), dy, f(dh), dx, ddt, db, dc, w(da),
-                               w(dh0), w(part_bc), w(part_a), b, s, d_in, st);
-  return launch_every<__nv_bfloat16>(
-      every, x, dt, bm, cm, bc_sb, bc_st, f(A), f(snaps), dy, f(dh), dx, ddt,
-      db, dc, w(da), w(dh0), w(part_bc), w(part_a), b, s, d_in, st);
+    return launch_typed<float>(x, dt, bm, cm, bc_sb, bc_st, f(A), f(snaps),
+                               dy, f(dh), dx, ddt, db, dc, w(da), w(dh0),
+                               w(part_bc), w(part_a), b, s, d_in, st);
+  return launch_typed<__nv_bfloat16>(
+      x, dt, bm, cm, bc_sb, bc_st, f(A), f(snaps), dy, f(dh), dx, ddt, db, dc,
+      w(da), w(dh0), w(part_bc), w(part_a), b, s, d_in, st);
 }
 
-// The compiled scan kernel's resources: registers a thread, local
-// (spilled) bytes a thread, dynamic shared memory a CTA and CTAs an SM,
-// for dtype (0 float32, 1 bfloat16) and every (8 or 32). Returns a CUDA
-// error code.
-extern "C" int mamba_scan_bwd_ring_info(int dtype, int every, int* out) {
-  if (dtype == 0)
-    return every == 8 ? info_typed<float, 8>(out) : info_typed<float, 32>(out);
-  return every == 8 ? info_typed<__nv_bfloat16, 8>(out)
-                    : info_typed<__nv_bfloat16, 32>(out);
-}

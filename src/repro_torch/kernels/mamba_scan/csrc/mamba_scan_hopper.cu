@@ -6,24 +6,25 @@
 //     h_t = a_t h_{t-1} + u_t B_t,   y_t = sum_n C_t[n] h_t[n]
 //
 // y rounded to the activation type once a step, and the final state. Under
-// a gradient it also writes the state at the start of every EVERY steps
-// (8 or 32, the caller's choice; the training path takes 8), the snapshots
-// the ring backward (csrc/mamba_scan_bwd_hopper.cu) reads. It replaces no
-// Pallas kernel: the reference runs the scan as an XLA lax.scan
-// (repro/models/mamba.py:124).
+// a gradient it also writes the state at the start of every kEvery = 8
+// steps, the snapshots the ring backward (csrc/mamba_scan_bwd_hopper.cu)
+// reads. It replaces no Pallas kernel: the reference runs the scan as an
+// XLA lax.scan (repro/models/mamba.py:124).
 //
 // What bounds it: at Jamba's (b, s, d_in, N) = (4, 1,024, 16,384, 16) in
 // bf16, b s d_in N = 1.07e9 exponentials, which the special-function units
 // (MUFU) issue at 16 a clock per SM: 256.8 us at 132 SMs and 1.98 GHz. The
 // bytes (xc, dt read, y written: 408.2 MB, 121.9 us) are under that; the
-// snapshots add 536.9 MB every 8 steps (160.3 us), 134.2 MB every 32.
+// snapshots add 536.9 MB (160.3 us).
 //
 // The design:
 //  * a_t = ex2.approx(dt * A log2 e), A pre-scaled once a channel: a
 //    multiply and one MUFU.EX2 (mamba_ring.cuh::decay), where simt's
-//    accurate expf takes about 9 instructions. With u B and the two chains
-//    of y's sum, about 6 instructions an element-step: the MUFU sets the
-//    pace, not the issue.
+//    accurate expf takes about 9 instructions. The SASS loop holds 8.08
+//    instructions an element-step (bf16), an issue floor of 259.2 us at
+//    128 a clock an SM, level with the MUFU bound: both pipes set the pace
+//    (on an H100 80GB HBM3 at 700 W it runs in about 408 us, 63% of the
+//    bound; PERF.md row 16).
 //  * one thread per (batch, channel): its 16 states and A's row in
 //    registers, y summed over its own states (even and odd n apart). A CTA
 //    is 128 channels of one batch row; d_in a multiple of 128.
@@ -32,7 +33,8 @@
 //    strided views of x_proj's output, 16-byte aligned), issued two stages
 //    ahead: no barrier waits on a global load. A stage is 16 steps (bf16)
 //    or 8 (f32); a bf16 stage's B and C are converted to float32 once, by
-//    the CTA, and read as broadcasts.
+//    the CTA, and read as broadcasts. 29,696 B of shared memory a CTA in
+//    bf16, 28,672 in f32.
 // The kernel runs on the caller's stream and allocates nothing.
 
 #include "mamba_ring.cuh"
@@ -53,7 +55,7 @@ struct Fwd {
   float bcf[kSteps][2 * kN];      // bf16: the stage's B, C in float32
 };
 
-template <typename T, int EVERY>
+template <typename T>
 __global__ void __launch_bounds__(kCh)
     mamba_scan_ring_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                            const T* __restrict__ bm, const T* __restrict__ cm,
@@ -63,6 +65,7 @@ __global__ void __launch_bounds__(kCh)
                            float* __restrict__ h_out,
                            float* __restrict__ snaps, int s, int d_in) {
   constexpr int S = Fwd<T>::kSteps;
+  static_assert(S % kEvery == 0, "a stage holds whole snapshot intervals");
   constexpr int kE = 16 / sizeof(T);          // elements a 16-byte chunk
   constexpr int kRow = kCh / kE;              // chunks a tile row
   constexpr int kVec = kN / kE;               // chunks of B (or C) a step
@@ -71,7 +74,7 @@ __global__ void __launch_bounds__(kCh)
   const int tid = threadIdx.x, bi = blockIdx.y;
   const int d0 = blockIdx.x * kCh, d = d0 + tid;
   const int nst = (s + S - 1) / S;
-  const int nseg = (s + EVERY - 1) / EVERY;
+  const int nseg = (s + kEvery - 1) / kEvery;
   const size_t row = static_cast<size_t>(bi) * d_in + d;   // (b, d)
   const size_t tile = static_cast<size_t>(bi) * s * d_in + d0;
   const T* bb = bm + bi * bc_sb;
@@ -128,11 +131,11 @@ __global__ void __launch_bounds__(kCh)
     for (int j = 0; j < S; ++j) {
       if (j >= len) continue;
       const int t = t0 + j;
-      // a snapshot at each step t a multiple of EVERY: stages start on
-      // multiples of S, so only j a multiple of min(EVERY, S) can be one
-      if (j % (EVERY < S ? EVERY : S) == 0 && snaps && t % EVERY == 0) {
+      // a snapshot at each step t a multiple of kEvery (stages start on
+      // multiples of S, itself a multiple of kEvery)
+      if (j % kEvery == 0 && snaps) {
         float4* dst = reinterpret_cast<float4*>(
-            snaps + ((static_cast<size_t>(bi) * nseg + t / EVERY) * d_in + d)
+            snaps + ((static_cast<size_t>(bi) * nseg + t / kEvery) * d_in + d)
                         * kN);
 #pragma unroll
         for (int q = 0; q < kN / 4; ++q)
@@ -167,32 +170,18 @@ __global__ void __launch_bounds__(kCh)
     ho[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
 }
 
-template <typename T, int EVERY>
+template <typename T>
 int launch_typed(const void* x, const void* dt, const void* bm,
                  const void* cm, long long bc_sb, long long bc_st,
                  const float* A, const float* h0, void* y, float* h_out,
                  float* snaps, int b, int s, int d_in, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Fwd<T>));
-  mamba_scan_ring_kernel<T, EVERY>
+  mamba_scan_ring_kernel<T>
       <<<dim3(d_in / kCh, b), kCh, smem, stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(dt),
           static_cast<const T*>(bm), static_cast<const T*>(cm), bc_sb, bc_st,
           A, h0, static_cast<T*>(y), h_out, snaps, s, d_in);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_every(int every, const void* x, const void* dt, const void* bm,
-                 const void* cm, long long bc_sb, long long bc_st,
-                 const float* A, const float* h0, void* y, float* h_out,
-                 float* snaps, int b, int s, int d_in, cudaStream_t stream) {
-  if (every == 8)
-    return launch_typed<T, 8>(x, dt, bm, cm, bc_sb, bc_st, A, h0, y, h_out,
-                              snaps, b, s, d_in, stream);
-  if (every == 32)
-    return launch_typed<T, 32>(x, dt, bm, cm, bc_sb, bc_st, A, h0, y, h_out,
-                               snaps, b, s, d_in, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 bool aligned16(const void* p) {
@@ -205,9 +194,9 @@ bool aligned16(const void* p) {
 // element (b, t, n) = b * bc_sb + t * bc_st + n: both base pointers and
 // both strides 16-byte aligned. x and dt contiguous (b, s, d_in), d_in a
 // multiple of 128. h0 may be null (a zero state), snaps null (no
-// snapshots; else (b, ceil(s / every), d_in, 16) float32, every 8 or 32).
+// snapshots; else (b, ceil(s / 8), d_in, 16) float32).
 // Returns a CUDA error code, 0 if the launch was accepted.
-extern "C" int mamba_scan_ring(int dtype, int every, const void* x,
+extern "C" int mamba_scan_ring(int dtype, const void* x,
                                const void* dt, const void* bm,
                                const void* cm, long long bc_sb,
                                long long bc_st, const void* A,
@@ -226,40 +215,9 @@ extern "C" int mamba_scan_ring(int dtype, int every, const void* x,
   float* ho = static_cast<float*>(h_out);
   float* sn = static_cast<float*>(snaps);
   if (dtype == 0)
-    return launch_every<float>(every, x, dt, bm, cm, bc_sb, bc_st, af, hf, y,
-                               ho, sn, b, s, d_in, st);
-  return launch_every<__nv_bfloat16>(every, x, dt, bm, cm, bc_sb, bc_st, af,
-                                     hf, y, ho, sn, b, s, d_in, st);
+    return launch_typed<float>(x, dt, bm, cm, bc_sb, bc_st, af, hf, y, ho, sn,
+                               b, s, d_in, st);
+  return launch_typed<__nv_bfloat16>(x, dt, bm, cm, bc_sb, bc_st, af, hf, y,
+                                     ho, sn, b, s, d_in, st);
 }
 
-// The compiled kernel's resources: registers a thread, local (spilled)
-// bytes a thread, dynamic shared memory a CTA and CTAs an SM, for dtype
-// (0 float32, 1 bfloat16) and every (8 or 32). Returns a CUDA error code.
-extern "C" int mamba_scan_ring_info(int dtype, int every, int* out) {
-  cudaFuncAttributes attr;
-  const void* fn;
-  int smem;
-  if (dtype == 0) {
-    fn = every == 8 ? reinterpret_cast<const void*>(
-                          mamba_scan_ring_kernel<float, 8>)
-                    : reinterpret_cast<const void*>(
-                          mamba_scan_ring_kernel<float, 32>);
-    smem = static_cast<int>(sizeof(Fwd<float>));
-  } else {
-    fn = every == 8 ? reinterpret_cast<const void*>(
-                          mamba_scan_ring_kernel<__nv_bfloat16, 8>)
-                    : reinterpret_cast<const void*>(
-                          mamba_scan_ring_kernel<__nv_bfloat16, 32>);
-    smem = static_cast<int>(sizeof(Fwd<__nv_bfloat16>));
-  }
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kCh, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = smem;
-  out[3] = blocks;
-  return 0;
-}

@@ -35,9 +35,9 @@ and saves them beside its inputs, with their cadence. The backward is
 takes for that cadence, the forward variant's own (its recomputed states
 are the forward's bit for bit):
 
-  * ``"ring"``: ``csrc/mamba_scan_bwd_hopper.cu``, windows of 8 steps from
-    the snapshots (every 8 or 32 steps), a thread 4 state elements of 2
-    channels, dB and dC summed by shuffles into partials of 128 channels.
+  * ``"ring"``: ``csrc/mamba_scan_bwd_hopper.cu``, a window of 8 steps
+    from each snapshot, a thread 4 state elements of 2 channels, dB and dC
+    summed by shuffles into partials of 128 channels.
   * ``"simt"``: ``csrc/mamba_scan_bwd.cu``, from snapshots every 32 steps,
     a thread a channel, partials of 64 channels.
 
@@ -66,7 +66,7 @@ from repro_torch.kernels.mamba_scan.ref import SEGMENT, scan_bwd_ref, \
 __all__ = ["BWD_CHANNELS", "BWD_VARIANTS", "D_STATE", "KERNELS",
            "RING_CHANNELS", "SEGMENT", "SNAPSHOT_EVERY", "VARIANTS",
            "bwd_scratch", "launch", "launch_bwd", "plan", "plan_bwd",
-           "reset_variants", "ring_resources", "scan", "scan_bwd"]
+           "reset_variants", "scan", "scan_bwd"]
 
 _NAME = "mamba_scan"
 _BWD = "mamba_scan_bwd"
@@ -76,8 +76,8 @@ RING_CHANNELS = 128               # ring: channels a CTA (d_in's multiple)
 # the backward kernels' channels a CTA, whose partial dB, dC it writes
 BWD_CHANNELS = {"ring": RING_CHANNELS, "simt": 64}
 # each forward variant's steps between snapshots, which its backward reads
+# (fixed in each kernel, so the cadence names the variant that wrote them)
 SNAPSHOT_EVERY = {"ring": 8, "simt": 32}
-_RING_CADENCES = (8, 32)          # what the ring kernels take
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -113,30 +113,13 @@ def _bwd_fn():
 
 
 def _scan_ring_fn():
-    return _fn("mamba_scan_hopper", "mamba_scan_ring", [_I] * 2 + [_P] * 4
+    return _fn("mamba_scan_hopper", "mamba_scan_ring", [_I] + [_P] * 4
                + [_L] * 2 + [_P] * 5 + [_I] * 3 + [_P])
 
 
 def _bwd_ring_fn():
-    return _fn("mamba_scan_bwd_hopper", "mamba_scan_bwd_ring", [_I] * 2
+    return _fn("mamba_scan_bwd_hopper", "mamba_scan_bwd_ring", [_I]
                + [_P] * 4 + [_L] * 2 + [_P] * 12 + [_I] * 3 + [_P])
-
-
-def ring_resources(dtype, every, backward):
-    """The compiled ring kernel's resources on the current device, for
-    ``dtype`` (float32 or bfloat16) and snapshots ``every`` 8 or 32 steps:
-    {"registers", "spill_bytes" (local memory a thread), "smem" (dynamic
-    shared memory a CTA), "ctas_per_sm"}. Builds the library."""
-    lib, name = (("mamba_scan_bwd_hopper", "mamba_scan_bwd_ring_info")
-                 if backward else ("mamba_scan_hopper",
-                                   "mamba_scan_ring_info"))
-    fn = _fn(lib, name, [_I, _I, _P])
-    out = (ctypes.c_int * 4)()
-    err = fn(_DTYPE_CODES[dtype], every, ctypes.cast(out, _P))
-    if err:
-        raise RuntimeError(f"{name} failed: CUDA error {err}")
-    return dict(zip(("registers", "spill_bytes", "smem", "ctas_per_sm"),
-                    out))
 
 
 def plan(xc, dt, b_mat, c_mat, a, h0=None):
@@ -238,43 +221,38 @@ def _check_kernel(name, xc, dt, b_mat, c_mat, a, out_dtype):
 
 
 def _variant_and_cadence(name, xc, variant, every):
-    """Check ``variant`` (a name of VARIANTS) and ``every`` (None: the
-    variant's cadence) against what its kernel takes; return the
-    cadence."""
+    """Check ``variant`` (a name of VARIANTS) against what its kernel takes
+    and ``every`` (None: the variant's) against its cadence,
+    SNAPSHOT_EVERY[variant]; return the cadence."""
     if variant not in VARIANTS:
         raise ValueError(f"{name} variant {variant!r} is not one of "
                          f"{tuple(VARIANTS)}")
-    every = SNAPSHOT_EVERY[variant] if every is None else every
     if variant == "ring":
         b, _, d_in = xc.shape
         if d_in < RING_CHANNELS or d_in % RING_CHANNELS or b > 65535:
             raise ValueError(f"{name} ring kernel takes d_in a multiple of "
                              f"{RING_CHANNELS} and b <= 65535, got "
                              f"{tuple(xc.shape)}")
-        if every not in _RING_CADENCES:
-            raise ValueError(f"{name} ring kernel takes snapshots every "
-                             f"{_RING_CADENCES} steps, got {every}")
-    elif every != SNAPSHOT_EVERY["simt"]:
-        raise ValueError(f"{name} simt kernel takes snapshots every "
-                         f"{SNAPSHOT_EVERY['simt']} steps, got {every}")
-    return every
+    if every is not None and every != SNAPSHOT_EVERY[variant]:
+        raise ValueError(f"{name} {variant} kernel takes snapshots every "
+                         f"{SNAPSHOT_EVERY[variant]} steps, got {every}")
+    return SNAPSHOT_EVERY[variant]
 
 
 def launch(xc, dt, b_mat, c_mat, a, h0, y, h_out, snaps=None, *,
-           variant=None, every=None):
+           variant=None):
     """One launch of the forward kernel :func:`plan` picks (or
-    ``variant``, named explicitly, as a measurement compares the two; with
-    snapshots ``every`` steps, None: the variant's SNAPSHOT_EVERY) into
+    ``variant``, named explicitly, as a measurement compares the two) into
     given outputs: xc, dt and y (b, s, d_in) contiguous, B and C from
     :func:`_bc_views`' rule, a (d_in, N) and h0 (b, d_in, N) (or None:
     zeros) float32 contiguous, h_out (b, d_in, N) float32, ``snaps`` None
-    or (b, ceil(s / every), d_in, N) float32; all on one CUDA device and,
-    for ``ring``, on 16-byte boundaries; the types checked by :func:`scan`
-    (a timing loop calls this directly)."""
+    or (b, ceil(s / SNAPSHOT_EVERY[variant]), d_in, N) float32; all on one
+    CUDA device and, for ``ring``, on 16-byte boundaries; the types checked
+    by :func:`scan` (a timing loop calls this directly)."""
     b, s, d_in = xc.shape
     if variant is None:
         variant = plan(xc, dt, b_mat, c_mat, a, h0)
-    every = _variant_and_cadence(_NAME, xc, variant, every)
+    _variant_and_cadence(_NAME, xc, variant, None)
     if b * s * d_in == 0:
         return
     stream = torch.cuda.current_stream(xc.device).cuda_stream
@@ -283,14 +261,9 @@ def launch(xc, dt, b_mat, c_mat, a, h0, y, h_out, snaps=None, *,
             a.data_ptr(), None if h0 is None else h0.data_ptr(),
             y.data_ptr(), h_out.data_ptr(),
             None if snaps is None else snaps.data_ptr(), b, s, d_in, stream)
-    if variant == "ring":
-        fn = _scan_ring_fn()
-        count_launch(_NAME)
-        err = fn(_DTYPE_CODES[xc.dtype], every, *args)
-    else:
-        fn = _scan_fn()
-        count_launch(_NAME)
-        err = fn(_DTYPE_CODES[xc.dtype], *args)
+    fn = _scan_ring_fn() if variant == "ring" else _scan_fn()
+    count_launch(_NAME)
+    err = fn(_DTYPE_CODES[xc.dtype], *args)
     VARIANTS[variant] += 1
     if err:
         raise RuntimeError(f"mamba_scan kernel launch failed ({variant}): "
@@ -316,11 +289,11 @@ def scan(xc, dt, b_mat, c_mat, a, h0=None, *, segment=SEGMENT,
 
 
 def _forward(xc, dt, b_mat, c_mat, a, h0, segment, out_dtype, kt,
-             snapshots, variant=None, every=None):
+             snapshots, variant=None):
     """(y, final state, snapshots or None) of :func:`scan`: the plain
     version for ``KernelType.TORCH`` (snapshots every ``segment`` steps),
     else the kernel :func:`plan` picks (or ``variant``; snapshots every
-    ``every`` steps, None: the variant's SNAPSHOT_EVERY)."""
+    SNAPSHOT_EVERY[variant] steps)."""
     if kt is KernelType.TORCH:
         out = scan_ref(xc, dt, b_mat, c_mat, a, h0, segment=segment,
                        snapshots=snapshots, out_dtype=out_dtype)
@@ -329,7 +302,7 @@ def _forward(xc, dt, b_mat, c_mat, a, h0, segment, out_dtype, kt,
     b, s, d_in = xc.shape
     if variant is None:
         variant = plan(xc, dt, b_mat, c_mat, a, h0)
-    every = _variant_and_cadence(_NAME, xc, variant, every)
+    every = _variant_and_cadence(_NAME, xc, variant, None)
     xc, dt = _contiguous16(xc), _contiguous16(dt)
     b_mat, c_mat = _bc_views(b_mat, c_mat, variant)
     a = a.to(torch.float32).contiguous()
@@ -341,8 +314,7 @@ def _forward(xc, dt, b_mat, c_mat, a, h0, segment, out_dtype, kt,
     snaps = (torch.empty((b, -(-s // every), d_in, D_STATE),
                          dtype=torch.float32, device=dev)
              if snapshots else None)
-    launch(xc, dt, b_mat, c_mat, a, h0, y, h_out, snaps, variant=variant,
-           every=every)
+    launch(xc, dt, b_mat, c_mat, a, h0, y, h_out, snaps, variant=variant)
     return y, h_out, snaps
 
 
@@ -357,9 +329,7 @@ class _Scan(torch.autograd.Function):
                  else SNAPSHOT_EVERY[plan(xc, dt, b_mat, c_mat, a, h0)])
         with torch.no_grad():
             y, h, snaps = _forward(xc, dt, b_mat, c_mat, a, h0, segment,
-                                   out_dtype, kt, True, every=(
-                                       None if kt is KernelType.TORCH
-                                       else every))
+                                   out_dtype, kt, True)
         ctx.save_for_backward(xc, dt, b_mat, c_mat, a, snaps)
         ctx.segment, ctx.kt, ctx.every = segment, kt, every
         return y, h
@@ -394,22 +364,21 @@ def bwd_scratch(xc, variant):
 
 
 def launch_bwd(xc, dt, b_mat, c_mat, a, snaps, dy, dh, grads, scratch, *,
-               variant=None, every=None):
-    """One call of the backward :func:`plan_bwd` picks for snapshots every
-    ``every`` steps (or ``variant``, named explicitly; None: its
-    SNAPSHOT_EVERY) -- its scan kernel, then the kernels that sum the
+               variant=None):
+    """One call of the backward :func:`plan_bwd` picks (or ``variant``,
+    named explicitly) -- its scan kernel, then the kernels that sum the
     partials -- into ``grads`` = (dxc (xc's shape and type), ddt (dt's),
     dB, dC ((b, s, N) contiguous in B's type), dA (d_in, N) float32, dh0
     (b, d_in, N) float32 or None): CUDA tensors as :func:`launch` takes
-    them, ``snaps`` the forward's, dy (b, s, d_in) contiguous in xc's type,
-    dh (b, d_in, N) float32 or None (zeros), ``scratch``
-    :func:`bwd_scratch` of the variant. Checks the variant and cadence
+    them, ``snaps`` the same variant's forward's, dy (b, s, d_in)
+    contiguous in xc's type, dh (b, d_in, N) float32 or None (zeros),
+    ``scratch`` :func:`bwd_scratch` of the variant. Checks the variant
     only: :func:`scan_bwd` makes the operands (a timing loop calls this
     directly)."""
     b, s, d_in = xc.shape
     if variant is None:
-        variant = plan_bwd(xc, dt, b_mat, c_mat, a, every)
-    every = _variant_and_cadence(_BWD, xc, variant, every)
+        variant = plan_bwd(xc, dt, b_mat, c_mat, a)
+    _variant_and_cadence(_BWD, xc, variant, None)
     stream = torch.cuda.current_stream(xc.device).cuda_stream
     dx, ddt, db, dc, da, dh0 = grads
     args = (xc.data_ptr(), dt.data_ptr(), b_mat.data_ptr(),
@@ -419,14 +388,9 @@ def launch_bwd(xc, dt, b_mat, c_mat, a, snaps, dy, dh, grads, scratch, *,
             ddt.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
             None if dh0 is None else dh0.data_ptr(), scratch[0].data_ptr(),
             scratch[1].data_ptr(), b, s, d_in, stream)
-    if variant == "ring":
-        fn = _bwd_ring_fn()
-        count_launch(_BWD)
-        err = fn(_DTYPE_CODES[xc.dtype], every, *args)
-    else:
-        fn = _bwd_fn()
-        count_launch(_BWD)
-        err = fn(_DTYPE_CODES[xc.dtype], *args)
+    fn = _bwd_ring_fn() if variant == "ring" else _bwd_fn()
+    count_launch(_BWD)
+    err = fn(_DTYPE_CODES[xc.dtype], *args)
     BWD_VARIANTS[variant] += 1
     if err:
         raise RuntimeError(f"mamba_scan_bwd kernel launch failed "
@@ -443,8 +407,9 @@ def scan_bwd(xc, dt, b_mat, c_mat, a, snaps, dy, dh=None, *,
     given y's cotangent ``dy`` and the final state's ``dh`` (None:
     zeros): (dxc, ddt, dB, dC in their inputs' types, dA (d_in, N)
     float32, dh0 (b, d_in, N) float32 with ``want_dh0``, else None). The
-    backward kernel :func:`plan_bwd` takes (or ``variant``, named
-    explicitly) for CUDA tensors; ``ref.scan_bwd_ref`` for CPU tensors or
+    backward kernel :func:`plan_bwd` takes for that cadence (or
+    ``variant``, named explicitly; ``every`` must then be None or its
+    cadence) for CUDA tensors; ``ref.scan_bwd_ref`` for CPU tensors or
     ``mode="torch"``."""
     _check(xc, dt, b_mat, c_mat, a, None)
     b, s, d_in = xc.shape
@@ -477,5 +442,5 @@ def scan_bwd(xc, dt, b_mat, c_mat, a, snaps, dy, dh=None, *,
              if want_dh0 else None)
     if b * s * d_in:
         launch_bwd(xc, dt, b_mat, c_mat, a, snaps, dy, dh, grads,
-                   bwd_scratch(xc, variant), variant=variant, every=every)
+                   bwd_scratch(xc, variant), variant=variant)
     return grads

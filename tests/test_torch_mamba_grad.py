@@ -564,15 +564,14 @@ def test_plan_picks_ring_by_width(b, s, d_in, want, dtype):
     assert plan_bwd(xc, xc, b_mat, c_mat, a) == want
     assert plan_bwd(xc, xc, b_mat, c_mat, a, SNAPSHOT_EVERY[want]) == want
     assert plan_bwd(xc, xc, b_mat, c_mat, a, SNAPSHOT_EVERY["simt"]) == \
-        ("ring" if want == "ring" and SNAPSHOT_EVERY["ring"] == 32
-         else "simt")
+        "simt"
     with pytest.raises(ValueError, match="snapshots every 64"):
         plan_bwd(xc, xc, b_mat, c_mat, a, 64)
 
 
 def test_bwd_scratch_and_cadences_per_variant():
     """Each variant's scratch (partial dB, dC of its CTAs' channels) and
-    the cadences each kernel takes; a cadence the variant does not take
+    the one cadence each kernel takes; a cadence the variant does not take
     raises before anything launches."""
     from repro_torch.kernels.mamba_scan import BWD_CHANNELS, \
         SNAPSHOT_EVERY, bwd_scratch, ops
@@ -585,10 +584,12 @@ def test_bwd_scratch_and_cadences_per_variant():
     assert BWD_CHANNELS == {"ring": 128, "simt": 64}
     assert SNAPSHOT_EVERY == {"ring": 8, "simt": 32}
     assert ops._variant_and_cadence("x", xc, "ring", None) == 8
-    assert ops._variant_and_cadence("x", xc, "ring", 32) == 32
+    assert ops._variant_and_cadence("x", xc, "ring", 8) == 8
     assert ops._variant_and_cadence("x", xc, "simt", None) == 32
-    with pytest.raises(ValueError, match="every"):
+    with pytest.raises(ValueError, match="every 32 steps, got 8"):
         ops._variant_and_cadence("x", xc, "simt", 8)
+    with pytest.raises(ValueError, match="every 8 steps, got 32"):
+        ops._variant_and_cadence("x", xc, "ring", 32)
     with pytest.raises(ValueError, match="every"):
         ops._variant_and_cadence("x", xc, "ring", 16)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -614,10 +615,9 @@ def _ring_entries(monkeypatch, ops, seen, rc=0):
 def test_ring_wrappers_call_their_kernels_and_raise_on_failure(monkeypatch,
                                                                dtype):
     """At d_in 128 the kernel path calls the ring entry points once each
-    (dtype code, cadence 8, then the operands' pointers and strides, B and
-    C as x_proj's strided views where they are 16-byte aligned, else
-    copies), counts one launch and
-    one ring variant each, and raises when an entry point returns a CUDA
+    (dtype code, then the operands' pointers and strides, B and C as
+    x_proj's strided views where they are 16-byte aligned, else copies),
+    counts one launch and one ring variant each, and raises when an entry point returns a CUDA
     error; simt named explicitly on the same tensors calls its own entry
     points; B and C views the ring does not take are copied."""
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
@@ -633,21 +633,21 @@ def test_ring_wrappers_call_their_kernels_and_raise_on_failure(monkeypatch,
     y, h = ops.scan(xc, dt, b_mat, c_mat, a, h0)
     (args,) = seen["_scan_ring_fn"]
     code = 0 if dtype == torch.float32 else 1
-    assert args[:3] == (code, 8, xc.data_ptr())
+    assert args[:2] == (code, xc.data_ptr())
     if dtype == torch.float32:          # views on 16-byte boundaries
-        assert args[4:6] == (b_mat.data_ptr(), c_mat.data_ptr())
-        assert args[6:8] == b_mat.stride()[:2] == (70 * 36, 36)
+        assert args[3:5] == (b_mat.data_ptr(), c_mat.data_ptr())
+        assert args[5:7] == b_mat.stride()[:2] == (70 * 36, 36)
     else:                               # bf16 rows of 72 bytes: copies
-        assert args[4] != b_mat.data_ptr() and args[6:8] == (70 * 16, 16)
-    assert args[13:16] == (B, 70, 128) and args[12] is None
+        assert args[3] != b_mat.data_ptr() and args[5:7] == (70 * 16, 16)
+    assert args[12:15] == (B, 70, 128) and args[11] is None
     assert y.shape == xc.shape and y.dtype == dtype
     snaps = torch.zeros(B, 9, 128, 16)                   # ceil(70 / 8)
     grads = ops.scan_bwd(xc, dt, b_mat, c_mat, a, snaps, torch.ones_like(xc),
                          want_dh0=True)
     (args,) = seen["_bwd_ring_fn"]
-    assert args[:2] == (code, 8) and args[9] == snaps.data_ptr()
-    assert args[11] is None and args[17] is not None     # no dh; dh0
-    assert args[18].__class__ is int and args[20:23] == (B, 70, 128)
+    assert args[0] == code and args[8] == snaps.data_ptr()
+    assert args[10] is None and args[16] is not None     # no dh; dh0
+    assert args[17].__class__ is int and args[19:22] == (B, 70, 128)
     assert [g.shape for g in grads] == [xc.shape, dt.shape, b_mat.shape,
                                         c_mat.shape, a.shape, h0.shape]
     assert ops.VARIANTS == {"ring": 1, "simt": 0}
@@ -664,7 +664,7 @@ def test_ring_wrappers_call_their_kernels_and_raise_on_failure(monkeypatch,
         [1, 16, 16], dim=-1)
     ops.scan(xc, dt, b_odd, c_odd, a, h0)
     args = seen["_scan_ring_fn"][-1]
-    assert args[4] != b_odd.data_ptr() and args[6:8] == (70 * 16, 16)
+    assert args[3] != b_odd.data_ptr() and args[5:7] == (70 * 16, 16)
     assert LAUNCHES["mamba_scan"] == 2 and LAUNCHES["mamba_scan_bwd"] == 2
     seen.clear()
     _ring_entries(monkeypatch, ops, seen, rc=700)
@@ -696,13 +696,10 @@ def test_scan_context_keeps_the_cadence_its_backward_reads(
     y, h = ops.scan(*args)
     assert y.grad_fn.every == every
     (fa,) = seen[fwd]
-    snaps_ptr = fa[12] if variant == "ring" else fa[11]
+    snaps_ptr = fa[11]
     assert snaps_ptr is not None
     (dx,) = torch.autograd.grad(y.sum(), args[0])
     (ba,) = seen[bwd]
-    if variant == "ring":
-        assert ba[1] == every and ba[9] == snaps_ptr
-    else:
-        assert ba[8] == snaps_ptr
+    assert ba[8] == snaps_ptr
     assert dx.shape == args[0].shape
     assert set(seen) == {fwd, bwd}
