@@ -10,7 +10,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   1. environment: torch, the card, ``nvidia-smi`` name and power limit;
      TF32 off for float32 matmuls and convolutions.
   2. build: nvcc for every kernel source, all at once; the -Xptxas -v
-     report (registers, spills).
+     report (registers, spills). Then phase 14 (a)'s dry run starts in a
+     process of its own beside the phases that follow.
   3. kernel check at the main paths' shapes: each kernel against its plain
      version on the card (prox_update within the stated tolerance, and a
      sweep's per-config case -- 3 configs of the CNN's device tier, each
@@ -21,7 +22,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      MCLR LAN uplinks, with runs of zeros, ties and tied uniforms; quantize
      also at the int8 store export, noise 0.5), its time by CUDA events,
      the plain version's time (each with the L2 cache cold), and the least
-     time the card could take; for the compress kernels also the time of
+     time the card could take (every bound in this script comes from
+     ``repro_torch.roofline.kernels`` on ``repro_torch.launch.mesh``'s H100
+     constants); for the compress kernels also the time of
      the torch ops outside them (select thresholds, sign scales). The
      select kernels (topk, randk, ef_topk, ef_randk) are timed at all
      three uplinks, L2-cold and with a clean L2, each printing its grid
@@ -94,7 +97,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      within 1e-4; Fig 3's and the compressed cells' configs their looped
      runs within 1e-4 (the CNN cells' differences, which the batch size's
      summation order seeds and training amplifies, printed); configs per
-     second, swept against looped (host clock). Then
+     second, swept against looped (host clock). Fig 3's sweep again on
+     the one-card sweep mesh (``sweep_scenario(mesh=make_host_mesh(
+     n_sweep=1))``, phase 14 (d)): bit-equal to the unsharded sweep. Then
      ``table1/mnist/mclr/permfl`` swept over three system profiles
      (lan-campus, wan-cellular, edge-iot): each lane's timeline and
      trajectory equal to its solo run.
@@ -269,7 +274,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      at all. Then the Jamba cut's serving time by part (the Mamba mixer's
      in_proj, conv, SSM parameters, scan and out_proj, the rest of the
      mixer, attention, router, the rest of the MoE, the MLP, head), as
-     step 14 times the other paths, its prefill's scan now the kernel.
+     step 15 times the other paths, its prefill's scan now the kernel.
  13g. attention backward check: flash_attention_bwd against its plain
      version (``attention_bwd_ref``) from the (out, lse) the forward
      kernel wrote, at phi3-mini's training shape (4 x 1,024, 32 heads of
@@ -374,7 +379,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (2,853,068,800 parameters, 11.41 GB in f32), the kernel path's step
      launching mamba_scan and mamba_scan_bwd once, the plain path's
      neither.
- 14. with ``--profile``: each LLM serving path's time by layer part
+ 14. launch and roofline: (a) the dry run started after step 2
+     (``python -m repro_torch.launch.dryrun --all``: 10 architectures x 4
+     input shapes on fake tensors, no card visible to it), one line a
+     record (FLOPs, bytes, the roofline's terms and dominant one, each
+     kernel family's launches, peak bytes and whether they fit one
+     card): none FAILED, only whisper-small x long_500k skipped, the
+     seconds it took and waited for; (b) phi3-mini-3.8b's PerMFL device
+     step (remat forward and backward, prox_sgd_tree) and
+     deepseek-moe-16b's prefill at every published width on 4 x 1,024
+     tokens, each built by ``build_step_and_args`` and run once on fake
+     tensors and once on the card under the op counter, the counts set to
+     0 just before the card's run and read just after: argument bytes
+     equal to the byte, counted FLOPs and each seam's launches equal, the
+     card's launches each seam's, flash_attention, flash_attention_bwd
+     and prox_update (phi3) and flash_attention and moe_router (deepseek)
+     launched; the predicted peak against max_memory_allocated and their
+     ratio, the step's synchronized time against the larger of its
+     roofline's compute and memory terms; the phase's added seconds.
+ 15. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, the router (the routing seam: the fused
      kernel), the rest of the MoE layer, head;
      rwkv6-7b: the time mix's GEMMs and elementwise ops, the decay LoRA,
@@ -389,13 +412,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      round of each baseline's CNN cell (busy share, launches); then one
      round of the Fig-3 sweep and of the PerMFL CNN 3-seed sweep beside
      one looped round (busy share, launches).
- 15. the ``kernels`` JSON line (flash_attention's launches: those of
+ 16. the ``kernels`` JSON line (flash_attention's launches: those of
      deepseek's, Whisper's, Qwen2-VL's and Jamba's counted generates and
-     of steps 13h, 13k and 13o; moe_router's: deepseek's and Jamba's
-     generates and 13k; rwkv6_scan's: rwkv6-7b's generate and 13l;
-     mamba_scan's: Jamba's generate and 13o; prox_update's and
-     flash_attention_bwd's include steps 13h, 13k and 13o (prox_update 13l
-     too); moe_router_bwd's 13k's, rwkv6_scan_bwd's 13l's,
+     of steps 13h, 13k, 13o and 14 (b); moe_router's: deepseek's and
+     Jamba's generates, 13k and 14 (b); rwkv6_scan's: rwkv6-7b's generate
+     and 13l; mamba_scan's: Jamba's generate and 13o; prox_update's and
+     flash_attention_bwd's include steps 13h, 13k, 13o and 14 (b)
+     (prox_update 13l too); moe_router_bwd's 13k's, rwkv6_scan_bwd's 13l's,
      mamba_scan_bwd's 13o's; the backward kernels' numbers from 13j and
      13n at the training paths' shapes), then the ``ok`` JSON line last.
 
@@ -408,6 +431,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -432,9 +456,6 @@ PLAIN_KERNEL = {"topk": "topk", "randk": "randk", "int8": "quantize",
 # ef' sub (EF); rand-k without EF the p/k multiply; int8 also the row
 # max, divide, add, floor, two clamps and q * scale; sign the compare,
 # sign and multiply
-COMPRESS_OPS_PER_VALUE = {"ef_topk": 5, "ef_randk": 4, "ef_int8": 10,
-                          "ef_sign": 5, "topk": 3, "randk": 3,
-                          "quantize": 8, "sign": 3}
 TPU_KERNEL = {  # kernel -> the Pallas kernel body it replaces
     "prox_update": "src/repro/kernels/prox_update/prox_update.py:22",
     "ef_topk": "src/repro/kernels/compress/compress.py:107",
@@ -498,10 +519,6 @@ RWKV_ARCH = "rwkv6-7b"
 # repro.models.model.init_params; the CPU tests hold the port's tree to
 # it). Its param_count (5,675,155,456) counts the layers otherwise.
 RWKV_PARAMS = 7_534_546_944
-# the least float32 operations per state element and step: the bonus
-# folds into one dot product a step, out_t = r_t.S + (sum_i r_i u_i k_i) v_t,
-# so r.S is one FMA and S <- w*S + k v^T one multiply and one FMA
-RWKV_OPS_PER_ELEMENT = 5
 # Whisper-small (encoder-decoder) and Qwen2-VL-2B (embeds prefill, M-RoPE
 # decode): the parameters of the reference's trees (jax.eval_shape of
 # repro.models.model.init_params; the CPU tests hold the port's trees to
@@ -538,12 +555,6 @@ JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_CONSISTENCY_LAYERS = 3, 2
 # (b, t) in other orders
 JAMBA_SCAN = (4, 1024, 16384, 16)
 MAMBA_TOL = 1e-5
-# exponentials a second: the special-function units issue 16 a clock per SM
-# (compute capability 9.0), 132 SMs at the H100 SXM's 1.98 GHz boost
-MUFU_EXP_PER_S = 16 * 132 * 1.98e9
-# instructions a second: each SM's four schedulers issue one warp
-# instruction (32 lanes) a clock
-ISSUE_PER_S = 128 * 132 * 1.98e9
 # Whisper's decoder prompt and cache, within its 448-token context; the
 # encoder reads 1,500 frames (30 s of audio)
 WHISPER_PROMPT, WHISPER_MAX_LEN = 64, 80
@@ -627,19 +638,13 @@ ROUTER_BWD_TOL_SCALE = 1e-5
 # the router backward's two timed shapes: deepseek-moe-16b's training
 # (t, d, E, k) and Jamba's (4,096 tokens of d 8,192, 16 experts, top-2)
 JAMBA_ROUTER = (4096, 8192, 16, 2)
-# float32 operations per state element and step of the WKV backward on
-# CUDA cores: the state's recomputation (k v, one FMA: 3), the sums of
-# dr, dk, dw and dv (an FMA each: 8) and dS's update (r dout, one FMA: 3)
-RWKV_BWD_OPS_PER_ELEMENT = 14
 # kernel vs plain path of the f32 cut: losses and parameters (float32
 # gradients that differ in their sums' order, through one SGD step of lr
 # 1e-2 and one tier round)
 TRAIN_TOL = 1e-5
-HBM_CAPACITY = 80e9                # H100 SXM: 80 GB
 LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_MAX_LEN = 4, 1024, 16, 1040
 LLM_DECODE_OFFSET = 1030           # the timed decode's cache position
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # absolute
-BF16_OPS_PER_S = 989e12            # H100 SXM data sheet, dense tensor core
 SERVE_REQUESTS = 512
 SERVE_BATCH = 64
 # the six baselines' CNN cells (Table 1 and Fig 2) and the rounds each
@@ -688,16 +693,12 @@ DEADLINE_CELL = "fig2/fmnist/cnn/permfl"
 DEADLINE_PROFILE = "edge-iot"
 DEADLINE_S = 16.0
 DEADLINE_ROUNDS = 2
-# NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak
 # phase 7f: run telemetry on the main path
 TRACE_ROUNDS = 3
 TRACE_REPS = 6                     # more (off, on) pairs for round times
 TRACE_COMM = "comm/mnist/mclr/topk_10"
 FAIL_CELL = "table1/mnist/mclr/permfl"
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
-TF32_OPS_PER_S = 495e12            # H100 SXM data sheet, dense tensor core
 # the fused router: gates and mean_prob within this of the plain version's
 # (its logits come from another f32 product: ~1e-6); a token's choices may
 # differ only where the plain run's k-th and (k+1)-th probabilities lie
@@ -717,10 +718,25 @@ TIMED_LAUNCHES = 200
 ROUND_REPS = 8                   # unprofiled CNN rounds per variant
 SLEEP_CYCLES = 100_000_000       # ~50 ms at the H100's 1.98 GHz boost
 L2_FLUSH_BYTES = 256 * 2**20     # > 5x the H100's 50 MB L2
+# phase 14: the dry run's records (build/ is ignored by git) and its
+# combinations; the two full-width steps on the card at the LM cells' size
+DRYRUN_OUT = Path("build") / "dryrun.json"
+DRYRUN_COMBOS, DRYRUN_SKIPPED = 40, {("whisper-small", "long_500k")}
+LAUNCH_STEPS = (("phi3-mini-3.8b", "train"), ("deepseek-moe-16b", "prefill"))
+LAUNCH_KERNELS = {"train": ("flash_attention", "flash_attention_bwd",
+                            "prox_update"),
+                  "prefill": ("flash_attention", "moe_router")}
+STEP_REPS = 3                    # synchronized runs of each step, timed
 
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def bound(work):
+    """(bound ms, bound by, MB moved, GFLOP) of a
+    ``repro_torch.roofline.kernels.Work``."""
+    return work.bound_ms, work.bound_by, work.bytes / 1e6, work.flops / 1e9
 
 
 def cuda_time_ms(fn, iters, clean=False):
@@ -855,6 +871,7 @@ def phase_kernel_check(layout, m, n):
     import torch
 
     from repro_torch.kernels.prox_update import prox_step_
+    from repro_torch.roofline import kernels as W
 
     rows, p, s = m * n, layout.size, layout.stride
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -899,19 +916,14 @@ def phase_kernel_check(layout, m, n):
                           TIMED_LAUNCHES)
         plain_ms = cuda_time_ms(
             lambda: prox_step_(t_p, grad, w, m_p, mode="torch", **kw), 50)
-        es = theta.element_size()
-        # theta, grad read and theta' written per device row; the anchor
-        # read once per team row; the momentum buffer read and written
-        moved = (3 * rows + m) * p * es + (2 * rows * p * 4 if mu else 0)
-        ops = rows * p * (9 if mu else 7)
-        bound_ms = max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S \
-            else "operations"
+        bound_ms, by, moved, _ = bound(W.prox_update(
+            rows, p, itemsize=theta.element_size(), anchor_rows=m,
+            momentum=mu > 0))
         say("kernel", f"prox_update {label} ({rows}x{p}, anchor {m}x{p}): "
             f"max abs err {abs_err:.3g} rel {rel_err:.3g} (tol "
             f"{TOL[name]:g}); kernel {ms * 1e3:.1f} us, plain "
             f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
-            f"({moved / 1e6:.1f} MB by {by}), {bound_ms / ms:.1%} of bound")
+            f"({moved:.1f} MB by {by}), {bound_ms / ms:.1%} of bound")
         out[label] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=by)
     out["per-config"] = prox_per_config_check(buf, rows, m, p)
@@ -926,6 +938,7 @@ def prox_per_config_check(buf, rows, m, p):
     import torch
 
     from repro_torch.kernels.prox_update import prox_step_
+    from repro_torch.roofline import kernels as W
 
     c = SWEEP_KERNEL_CONFIGS
     theta, grad, w = (buf(c * rows, torch.float32),
@@ -947,19 +960,14 @@ def prox_per_config_check(buf, rows, m, p):
                                          lam=lam), TIMED_LAUNCHES)
     plain_ms = cuda_time_ms(lambda: prox_step_(
         t_p, grad, w, alpha=alpha, lam=lam, mode="torch"), 50)
-    # theta, grad read and theta' written per row; the anchors once; the
-    # per-config alpha and lam once
-    moved = (3 * c * rows + c * m) * p * 4 + 2 * c * 4
-    ops = c * rows * p * 7
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    bound_ms, by, moved, _ = bound(W.prox_update(
+        c * rows, p, itemsize=4, anchor_rows=c * m, groups=c))
     say("kernel", f"prox_update per-config ({c} configs x {rows}x{p}, "
         f"anchors {c * m}x{p}, alpha {alpha.tolist()}, lam {lam.tolist()} "
         f"from device memory): bit-equal to the plain version; kernel "
         f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-        f"{bound_ms * 1e3:.1f} us ({moved / 1e6:.1f} MB), "
+        f"{bound_ms * 1e3:.1f} us ({moved:.1f} MB), "
         f"{bound_ms / ms:.1%} of bound")
-    by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S \
-        else "operations"
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by)
 
@@ -1063,47 +1071,23 @@ def side_op(op, delta, ef, u, segs):
     return None
 
 
-def compress_bytes(op, senders, layout, segs, noise_rows=None):
-    """Bytes the op must move: each input read once, each output written
-    once (rows of S columns; uniforms of P, or ``noise_rows`` rows of
-    them; the per-leaf tables)."""
-    b, c, p, nseg = senders, layout.stride, layout.size, len(segs.lengths)
-    rows = segs.rows
-    noise = (b if noise_rows is None else noise_rows) * p * 4
-    if op == "ef_topk":      # delta, ef, thresh in; dq, ef', ranks out
-        return b * c * 4 * 5 + b * nseg * 4
-    if op == "ef_randk":     # + u in
-        return b * c * 4 * 5 + b * p * 4 + b * nseg * 4
-    if op == "ef_int8":      # delta, ef, u in; dq, ef', q, scales out
-        return b * c * (4 * 4 + 1) + b * p * 4 + b * rows * 4
-    if op == "ef_sign":
-        return b * c * 4 * 4 + b * nseg * 4 + b * rows * 16
-    if op == "topk":         # v, thresh in; dq, ranks out
-        return b * c * 4 * 3 + b * nseg * 4
-    if op == "randk":        # + u and the per-leaf scales in
-        return b * c * 4 * 3 + b * p * 4 + b * nseg * 4 + nseg * 4
-    if op == "sign":         # v, scales in; dq, bits out
-        return b * c * 4 * 2 + b * nseg * 4 + b * rows * 16
-    return b * c * (4 + 1 + 4) + noise + b * rows * 4      # quantize
-
-
 def time_compress(op, label, senders, layout, segs, fn, plain_fn, side,
                   noise_rows=None):
     """Time ``fn`` (the kernel) and ``plain_fn`` with the L2 cold, and
     the torch ops beside it; print and return the numbers."""
+    from repro_torch.roofline import kernels as W
+
     ms = cuda_time_ms(fn, TIMED_LAUNCHES)
     plain_ms = cuda_time_ms(plain_fn, 10)
     side_ms = cuda_time_ms(side[1], 20) if side else None
-    moved = compress_bytes(op, senders, layout, segs, noise_rows)
-    ops = senders * layout.size * COMPRESS_OPS_PER_VALUE[op]
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S \
-        else "operations"
+    bound_ms, by, moved, _ = bound(W.compress(
+        op, senders, layout.stride, layout.size, len(segs.lengths),
+        segs.rows, noise_rows))
     extra = f"; {side[0]} {side_ms * 1e3:.1f} us" if side else ""
     say("kernel", f"{op} {label} ({senders}x{layout.size}, "
         f"{len(segs.lengths)} leaves): equal to the plain version bit for "
         f"bit; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
-        f"bound {bound_ms * 1e3:.1f} us ({moved / 1e6:.1f} MB by {by}), "
+        f"bound {bound_ms * 1e3:.1f} us ({moved:.1f} MB by {by}), "
         f"{bound_ms / ms:.1%} of bound{extra}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 side_ms=side_ms)
@@ -1894,6 +1878,7 @@ def phase_sweeps():
     failures = []
     sw = sweep_against_loops(spec, grid, (0,), FIG3_ROUNDS, failures,
                              SWEEP_TOL)[0]
+    sweep_mesh_check(spec, grid, sw)
     say("sweep", f"fig3: prox_update {hp.k_team * hp.l_local} launches a "
         f"swept round for {len(grid)} configs (K*L = "
         f"{hp.k_team * hp.l_local})")
@@ -1941,6 +1926,37 @@ def phase_sweeps():
     sweep_profiles_check()
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+def sweep_mesh_check(spec, grid, sw):
+    """Phase 14 (d): the Fig-3 sweep again, on the one-card sweep mesh
+    (``sweep_scenario(mesh=make_host_mesh(n_sweep=1))``: states,
+    hyperparameters and system leaves placed by ``sweep_pspecs``, the data
+    replicated), bit-equal to ``sw``, the same sweep run without a mesh:
+    every config's histories and every tensor of the stacked state."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.scenarios import sweep_scenario
+    from repro_torch.train.store import state_fields
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(n_sweep=1)
+    meshed = sweep_scenario(spec, grid, (0,), rounds=FIG3_ROUNDS, mesh=mesh)
+    diffs = [run_diffs(a, b) for a, b in zip(sw, meshed)]
+    fields = list(zip(state_fields(sw.state_stacked),
+                      state_fields(meshed.state_stacked)))
+    tensors = [(p, x, y) for (p, x), (_, y) in fields
+               if isinstance(x, torch.Tensor)]
+    apart = [p for p, x, y in tensors if not torch.equal(x, y)]
+    if len(meshed) != len(sw) or any(any(d) for d in diffs) or apart:
+        raise AssertionError(f"fig3 on the sweep mesh {mesh.shape}: not "
+                             f"bit-equal to the unsharded sweep ({diffs}; "
+                             f"state fields {apart})")
+    say("sweep", f"fig3 on the one-card sweep mesh {mesh.shape} on "
+        f"{mesh.device}: {len(meshed)} configs, histories and {len(tensors)} "
+        f"state tensors bit-equal to the unsharded sweep "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_sweep_profile():
@@ -2608,23 +2624,6 @@ def attention_cases():
     return cases
 
 
-def attention_bound(b, sq, skv, hq, hkv, d, causal, window, q_offset, qdt,
-                    kvdt):
-    """(bound ms, bound by, MB moved, GFLOP): q, k, v read once (k and v up
-    to the last position a query sees), o written once; 4 FLOPs per live
-    (query, key) pair and dim over the bf16 tensor-core peak."""
-    from repro_torch.kernels.flash_attention import live_pairs
-
-    kv_rows = min(skv, q_offset + sq) if causal else skv
-    moved = (2 * b * sq * hq * d * qdt.itemsize
-             + 2 * b * kv_rows * hkv * d * kvdt.itemsize)
-    flops = 4 * b * hq * d * live_pairs(sq, skv, causal=causal,
-                                        window=window, q_offset=q_offset)
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by, moved / 1e6, flops / 1e9
-
-
 def sdpa_call(q, k, v, causal, q_offset):
     """The library call computing the same attention on the same tensors:
     ``scaled_dot_product_attention`` over (b, h, s, d) views; a causal
@@ -2650,6 +2649,7 @@ def phase_attention_check():
     import torch
 
     from repro_torch.kernels.flash_attention import attention, plan
+    from repro_torch.roofline import kernels as W
 
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     out = {}
@@ -2686,9 +2686,10 @@ def phase_attention_check():
                                 clean=True)
         clean_lib = cuda_time_ms(sdpa_call(q, k, v, causal, q_offset), 20,
                                  clean=True)
-        bound_ms, by, mb, gflop = attention_bound(b, sq, skv, hq, hkv, d,
-                                                  causal, window, q_offset,
-                                                  qdt, kvdt)
+        bound_ms, by, mb, gflop = bound(W.attention(
+            b, sq, skv, hq, hkv, d, causal=causal, window=window,
+            q_offset=q_offset, q_itemsize=qdt.itemsize,
+            kv_itemsize=kvdt.itemsize))
         say("kernel", f"flash_attention {name} {shape}, q_offset "
             f"{q_offset}: max abs err {err:.3g} (tol {tol:g}); kernel "
             f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
@@ -2717,6 +2718,7 @@ def phi3_train_forward(gen):
     from repro_torch.kernels.flash_attention import plan
     from repro_torch.kernels.flash_attention.ref import attention_lse_ref
     from repro_torch.kernels.interface import KernelType
+    from repro_torch.roofline import kernels as W
 
     b, s, h, d, bf16 = TRAIN_BATCH, TRAIN_SEQ, 32, 96, torch.bfloat16
     q, k, v = (torch.randn(b, s, h, d, device=DEVICE, generator=gen).to(bf16)
@@ -2740,8 +2742,9 @@ def phi3_train_forward(gen):
     plain_ms = cuda_time_ms(lambda: attention_lse_ref(q, k, v, causal=True),
                             5)
     lib_ms = cuda_time_ms(sdpa_call(q, k, v, True, 0), 20)
-    bound_ms, by, mb, gflop = attention_bound(b, s, s, h, h, d, True, 0, 0,
-                                              bf16, bf16)
+    bound_ms, by, mb, gflop = bound(W.attention(
+        b, s, s, h, h, d, causal=True, window=0, q_offset=0, q_itemsize=2,
+        kv_itemsize=2))
     say("kernel", f"{tag}: max abs err {err:.3g} (tol "
         f"{ATTN_TOL['bfloat16']:g}), lse {lse_err:.3g} (tol 1e-4); kernel "
         f"{ms * 1e3:.1f} us L2-cold, plain {plain_ms * 1e3:.1f} us, "
@@ -2772,6 +2775,7 @@ def phase_router_check():
 
     from repro_torch.kernels.moe_router import route_topk
     from repro_torch.kernels.moe_router.ops import BLOCK_TOKENS, launch
+    from repro_torch.roofline import kernels as W
 
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     e = 64
@@ -2802,20 +2806,16 @@ def phase_router_check():
         op_ms = cuda_time_ms(lambda: route_topk(x, top_k=k), TIMED_LAUNCHES)
         plain_ms = cuda_time_ms(lambda: route_topk(x, top_k=k, mode="torch"),
                                 20)
-        # logits in; gates, ids and the two (E,) statistics out (the
-        # kernel's per-block partials are its own, not the function's)
-        moved = t * e * 4 + 2 * t * k * 4 + 2 * e * 4
-        ops = t * e * (5 + 2 * k)      # softmax, k arg-max rounds, stats
-        t_b, t_o = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-        by = "bytes" if t_b >= t_o else "operations"
-        bound_ms = max(t_b, t_o) * 1e3
+        # the kernel's per-block partials are its own, not the function's
+        bound_ms, by, moved, _ = bound(W.route_topk(
+            t, e, k, itemsize=x.element_size()))
         say("kernel", f"moe_router on logits {label} ({t}x{e}, k={k}): ids "
             f"bit-equal, "
             f"gates and stats max abs err {err:.3g}; kernel {ms * 1e3:.1f} "
             f"us (the op, with the blocks' statistics summed, "
             f"{op_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, bound "
             f"{bound_ms * 1e3:.2f} "
-            f"us ({moved / 1e6:.2f} MB by {by}), {bound_ms / ms:.1%} of "
+            f"us ({moved:.2f} MB by {by}), {bound_ms / ms:.1%} of "
             f"bound")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=by, library_ms=None)
@@ -2907,19 +2907,6 @@ def router_chain(x, w, k, gs):
     return g, i, positions_ref(i, gs, w.shape[1]), aux
 
 
-def fused_bound(t, d, e, k, x_bytes):
-    """(bound ms, bound by, MB moved, TF32 floor ms, CUDA-core floor ms)
-    of the fused router: x and w read once, gates, ids, positions and the
-    two (E,) statistics written once; the f32 product as two TF32
-    products on the tensor cores, or on CUDA cores."""
-    moved = t * d * x_bytes + d * e * 4 + 3 * t * k * 4 + 2 * e * 4
-    flops = 2 * t * d * e
-    t_b = moved / HBM_BYTES_PER_S * 1e3
-    t_tc = 2 * flops / TF32_OPS_PER_S * 1e3
-    return (max(t_b, t_tc), "bytes" if t_b >= t_tc else "operations",
-            moved / 1e6, t_tc, flops / F32_OPS_PER_S * 1e3)
-
-
 # (label, t, d, E, k, group, x type, zero rows, tied experts, timed)
 FUSED_CASES = (
     ("prefill", LLM_BATCH * LLM_PROMPT, 2048, 64, 6, LLM_GROUP, "bfloat16",
@@ -2956,6 +2943,7 @@ def phase_fused_router_check():
     from repro_torch.kernels.moe_router import plan, route_tokens
     from repro_torch.kernels.moe_router.ops import launch_fused
     from repro_torch.models.moe import _capacity
+    from repro_torch.roofline import kernels as W
 
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     floor, floor_clean = timing_floor()
@@ -2995,8 +2983,10 @@ def phase_fused_router_check():
                                 TIMED_LAUNCHES)
         plain_ms = cuda_time_ms(lambda: route_tokens(
             x, w, top_k=k, group_size=gs, mode="torch"), 20)
-        bound_ms, by, mb, tc_ms, f32_ms = fused_bound(t, d, e, k,
-                                                      dtype.itemsize)
+        work = W.moe_router(t, d, e, k, x_itemsize=dtype.itemsize)
+        bound_ms, by, mb, _ = bound(work)
+        # the f32 product as two TF32 products, or once on CUDA cores
+        tc_ms, f32_ms = work.ops_s * 1e3, work.at("f32") * 1e3
         say("kernel", tag)
         say("kernel", f"moe_router fused {label}: kernel {ms * 1e3:.1f} us "
             f"L2-cold, {clean * 1e3:.1f} us clean (the op with its "
@@ -3072,25 +3062,6 @@ def wkv_errors(got, want):
     return float(eo.max()), float(es.max()), ok, tol
 
 
-def wkv_bound(b, t, h, n, dtype, state):
-    """(bound ms, bound by, MB moved, the sequential form's CUDA-core floor
-    ms): r, k, v read and out written in ``dtype``, w read in float32, u
-    read, the state read (if given) and written once, over the card's
-    memory rate. A tensor-core form of the scan exists (the chunked
-    kernel), so the bytes are the function's least time. The step-by-step
-    form on CUDA cores needs RWKV_OPS_PER_ELEMENT float32 operations per
-    state element and step over the card's float32 peak (80.1 us at the
-    serving prefill): the bonus term sum_i r_i u_i k_i v_t[j] is one O(n)
-    dot product a step times v_t, so only r.S (an FMA) and w*S + k v^T (a
-    multiply and an FMA) scale with the n x n state."""
-    tokens = b * t * h * n
-    moved = 4 * tokens * dtype.itemsize + 4 * tokens + 4 * h * n \
-        + (2 if state else 1) * b * h * n * n * 4
-    flops = RWKV_OPS_PER_ELEMENT * b * t * h * n * n
-    return (moved / HBM_BYTES_PER_S * 1e3, "bytes", moved / 1e6,
-            flops / F32_OPS_PER_S * 1e3)
-
-
 def timing_floor():
     """(L2-cold ms, clean-L2 ms) of one PyTorch elementwise add on 4 floats
     (16 bytes) under :func:`cuda_time_ms`: what the timing itself costs a
@@ -3113,6 +3084,7 @@ def phase_rwkv_check():
 
     from repro_torch.kernels.rwkv6_scan import plan, wkv
     from repro_torch.kernels.rwkv6_scan.ops import launch
+    from repro_torch.roofline import kernels as W
 
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=DEVICE).manual_seed(7)
@@ -3164,7 +3136,9 @@ def phase_rwkv_check():
                                 clean=True)
         plain_ms = cuda_time_ms(lambda: wkv(r, k, v, w, u, s0, mode="torch"),
                                 3 if t > 1 else 20)
-        bound_ms, by, mb, cc_ms = wkv_bound(b_, t, h, n, dt, state)
+        work = W.rwkv6_scan(b_, t, h, n, itemsize=dt.itemsize, state=state)
+        bound_ms, by, mb, _ = bound(work)
+        cc_ms = work.at("f32") * 1e3
         simt = ""
         if variant != "simt":
             launch(r, k, v, w, u, s0, o, so, variant="simt")
@@ -3674,27 +3648,6 @@ ATTN_BWD_CASES = (  # (label, b, sq, skv, hq, hkv, d, causal, window, dtype)
 )
 
 
-def attention_bwd_bound(b, sq, skv, hq, hkv, d, causal, window, q_offset,
-                        dtype):
-    """(bound ms, bound by, MB moved, GFLOP) of the backward: q, k, v, out,
-    dout and lse read once, dq, dk, dv written once; 2.5x the forward's 4
-    FLOPs per live (query, key) pair and dim, over the bf16 tensor-core
-    peak in bf16 and the float32 (non-tensor) peak in f32."""
-    from repro_torch.kernels.flash_attention import live_pairs
-
-    size = 2 if dtype == "bfloat16" else 4
-    q_bytes = b * sq * hq * d * size
-    kv_bytes = b * skv * hkv * d * size
-    moved = 4 * q_bytes + 4 * kv_bytes + b * hq * sq * 4
-    flops = 2.5 * 4 * b * hq * d * live_pairs(sq, skv, causal=causal,
-                                              window=window,
-                                              q_offset=q_offset)
-    peak = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / peak
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by, moved / 1e6, flops / 1e9
-
-
 def sdpa_bwd_call(q, k, v, dout, causal, window, q_offset):
     """The library call beside the backward kernel: the backward of
     ``scaled_dot_product_attention`` on the same tensors ((b, h, s, d)
@@ -3739,6 +3692,7 @@ def phase_attention_bwd_check():
                                                      plan_bwd)
     from repro_torch.kernels.flash_attention.ops import _forward
     from repro_torch.kernels.interface import KernelType
+    from repro_torch.roofline import kernels as W
 
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     out_rows = {}
@@ -3789,8 +3743,10 @@ def phase_attention_bwd_check():
         fwd_ms = cuda_time_ms(lambda: _forward(q, k, v, causal, window,
                                                q_offset, KernelType.CUDA,
                                                True), 10)
-        bound_ms, by, mb, gflop = attention_bwd_bound(
-            b, sq, skv, hq, hkv, d, causal, window, q_offset, dtype)
+        size = 2 if dtype == "bfloat16" else 4
+        bound_ms, by, mb, gflop = bound(W.attention_bwd(
+            b, sq, skv, hq, hkv, d, causal=causal, window=window,
+            q_offset=q_offset, q_itemsize=size, kv_itemsize=size))
         say("kernel", f"flash_attention_bwd {name} q ({b}, {sq}, {hq}, {d}), "
             f"kv ({b}, {skv}, {hkv}, {d}), window {window}, q_offset "
             f"{q_offset}: max abs err dq/dk/dv "
@@ -3846,6 +3802,7 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     from repro_torch.kernels import flash_attention, mamba_scan, \
         moe_router, rwkv6_scan
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import HBM_BYTES
     from repro_torch.train import optim
     from repro_torch.train.train_state import TrainState
     from repro_torch.train.trainer import make_tier_round, make_train_step
@@ -3942,9 +3899,9 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: the tier loss did not fall "
                              f"({losses})")
-    if max(step_peak, tier_peak) >= HBM_CAPACITY:
+    if max(step_peak, tier_peak) >= HBM_BYTES:
         raise AssertionError(f"{tag}: peak {max(step_peak, tier_peak)} B is "
-                             f"over the card's {HBM_CAPACITY:.0f} B")
+                             f"over the card's {HBM_BYTES:.0f} B")
     return launches, (theta, w, x)
 
 
@@ -4034,6 +3991,7 @@ def prox_at_phi3(theta, w, x):
 
     from repro_torch.kernels.prox_update import (prox_sgd, prox_sgd_ref,
                                                  prox_sgd_tree)
+    from repro_torch.roofline import kernels as W
 
     leaf = [t["blocks"]["pos0"]["mlp"]["w_gate"] for t in (theta, w, x)]
     kw = dict(alpha=TIER_HP["alpha"], lam=TIER_HP["lam"])
@@ -4048,9 +4006,10 @@ def prox_at_phi3(theta, w, x):
     plain_ms = cuda_time_ms(lambda: prox_sgd_ref(*leaf, **kw), 3)
     tree_ms = cuda_time_ms(lambda: prox_sgd_tree(theta, w, x, **kw), 3)
     n = leaf[0].numel()
-    bound_ms = 4 * n * 2 / HBM_BYTES_PER_S * 1e3
-    tree_bound = 4 * 2 * sum(t.numel() for t in _leaves(theta)) \
-        / HBM_BYTES_PER_S * 1e3
+    bound_ms = W.prox_update(1, n, itemsize=2, anchor_rows=1).bound_ms
+    tree_bound = sum(W.prox_update(1, t.numel(), itemsize=2,
+                                   anchor_rows=1).bound_ms
+                     for t in _leaves(theta))
     say("kernel", f"prox_update at {TRAIN_ARCH}'s w_gate ({n:,} bf16): max "
         f"abs err {err:.3g} (tol {TOL['bfloat16']:g}); kernel "
         f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
@@ -4113,22 +4072,6 @@ def phase_training_consistency():
     release()
 
 
-def router_bwd_bound(t, d, e, k):
-    """(bound ms, bound by, MB moved, GFLOP) of the router's whole
-    backward (dl, dx = dl w^T, dw = f32(x)^T dl): bf16 x read and dx
-    written, the float32 logits read, w read and dw written, idx, gates
-    and dG (t, k) read (4 bytes each), dmean read; the
-    operations: six bf16 tensor-core products of 2 t d E (three a
-    product: dl's bf16 pieces against w's, a bf16 x's against dl's, for
-    f32's accuracy), over the bf16 peak."""
-    moved = 2 * t * d * 2 + t * e * 4 + 2 * d * e * 4 \
-        + 3 * t * k * 4 + e * 4
-    flops = 6 * 2 * t * d * e
-    t_b, t_o = moved / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-            moved / 1e6, flops / 1e9)
-
-
 def router_bwd_errors(got, want):
     """(max abs error of dx, of dw, within tolerance) of the fused
     backward's (dx, dw) against the plain version's: dx within one bf16
@@ -4147,24 +4090,6 @@ def router_bwd_errors(got, want):
              + ROUTER_BWD_TOL_SCALE * float(w.float().abs().max())).all())
         errs.append(float(err.max()))
     return errs[0], errs[1], ok
-
-
-def wkv_bwd_bound(b, t, h, n, dtype, state):
-    """(bound ms, bound by, MB moved, the CUDA-core floor ms) of the WKV
-    backward: r, k, v, dout read and dr, dk, dv written in ``dtype``, w
-    read and dw written in float32, u read and du written, the state (if
-    given) and the final state's cotangent read, dstate0 written. A
-    tensor-core (chunked) form of the backward exists as of the forward,
-    so the bytes are the function's least time, as for the forward
-    (:func:`wkv_bound`); the step-by-step form on CUDA cores needs
-    RWKV_BWD_OPS_PER_ELEMENT float32 operations per state element and
-    step over the card's float32 peak."""
-    tokens = b * t * h * n
-    moved = 7 * tokens * dtype.itemsize + 2 * tokens * 4 + 2 * h * n * 4 \
-        + (2 + bool(state)) * b * h * n * n * 4
-    flops = RWKV_BWD_OPS_PER_ELEMENT * b * t * h * n * n
-    return (moved / HBM_BYTES_PER_S * 1e3, "bytes", moved / 1e6,
-            flops / F32_OPS_PER_S * 1e3)
 
 
 def wkv_grad_errors(got, want):
@@ -4225,6 +4150,7 @@ def phase_family_bwd_check():
     from repro_torch.kernels.rwkv6_scan import plan_bwd as wkv_plan_bwd
     from repro_torch.kernels.rwkv6_scan.ops import bwd_scratch
     from repro_torch.kernels.rwkv6_scan.ops import launch_bwd as wkv_launch
+    from repro_torch.roofline import kernels as W
 
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     out = {}
@@ -4318,7 +4244,7 @@ def phase_family_bwd_check():
             return (d_l @ w.T).to(x.dtype), x.float().T @ d_l
 
         chain_ms = cuda_time_ms(chain, 20)
-        bound_ms, by, mb, gflop = router_bwd_bound(t, d, e, k)
+        bound_ms, by, mb, gflop = bound(W.moe_router_bwd(t, d, e, k))
         say("kernel", f"moe_router_bwd fused {label}: {ms * 1e3:.1f} us "
             f"L2-cold, {bound_ms / ms:.1%} of bound; bound "
             f"{bound_ms * 1e3:.2f} us ({mb:.2f} MB, {gflop:.2f} GFLOP of "
@@ -4395,7 +4321,9 @@ def phase_family_bwd_check():
                 variant=var), 10)
             del scratch
         plain_ms = cuda_time_ms(lambda: wkv_bwd(*args, mode="torch"), 3)
-        bound_ms, by, moved, cc_ms = wkv_bwd_bound(b, tt, h, n, bf16, state)
+        work = W.rwkv6_scan_bwd(b, tt, h, n, itemsize=2, state=state)
+        bound_ms, by, moved, _ = bound(work)
+        cc_ms = work.at("f32") * 1e3
         say("kernel", f"rwkv6_scan_bwd {label}: chunked "
             f"{ms['chunked'] * 1e3:.1f} us L2-cold (its snapshots "
             f"{mb['chunked']:.1f} MB), {bound_ms / ms['chunked']:.1%} of "
@@ -4404,7 +4332,7 @@ def phase_family_bwd_check():
             f"{ms['simt'] / ms['chunked']:.2f}x; plain "
             f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
             f"({moved:.1f} MB, by {by}); the step-by-step form's CUDA-core "
-            f"floor {cc_ms * 1e3:.1f} us ({RWKV_BWD_OPS_PER_ELEMENT} f32 "
+            f"floor {cc_ms * 1e3:.1f} us ({W.RWKV_BWD_OPS_PER_ELEMENT} f32 "
             f"operations per element-step), {cc_ms / ms['chunked']:.1%} of "
             f"it; no library call")
         out[f"wkv {label}"] = dict(max_abs_err=max(errs["chunked"]),
@@ -4439,29 +4367,6 @@ def mamba_inputs(b, s, d_in, dtype, gen, state, lattice=True):
         -(n.log() + 0.3 * normal(d_in, 16)).exp()
     h0 = normal(b, d_in, 16) * 0.5 if state else None
     return xc, dt, b_mat, c_mat, a, h0
-
-
-def mamba_bound(b, s, d_in, n, dtype, backward, state, final):
-    """(bound ms, bound by, MB moved, exponentials) of the scan or its
-    gradient: the function's inputs read once and outputs written once
-    (forward: xc, dt, B, C, A, h0 read, y and the final state written;
-    backward: xc, dt, B, C, A, dy, the final state's cotangent read, dxc,
-    ddt, dB, dC, dA, dh0 written; the backward kernel's snapshots are its
-    own and not counted) over the card's memory rate, against the b s
-    d_in N exponentials exp(dt A) over the special-function units' rate.
-    The larger bounds."""
-    es = dtype.itemsize
-    acts, bc = b * s * d_in * es, b * s * n * es
-    states, a_bytes = b * d_in * n * 4, d_in * n * 4
-    if backward:
-        moved = 5 * acts + 4 * bc + 2 * a_bytes + (1 + bool(state)
-                                                   + bool(final)) * states
-    else:
-        moved = 3 * acts + 2 * bc + a_bytes + (1 + bool(state)) * states
-    exps = b * s * d_in * n
-    t_bytes, t_exp = moved / HBM_BYTES_PER_S, exps / MUFU_EXP_PER_S
-    by = "bytes" if t_bytes >= t_exp else "operations"
-    return max(t_bytes, t_exp) * 1e3, by, moved / 1e6, exps
 
 
 def mamba_errors(got, want):
@@ -4650,6 +4555,8 @@ def mamba_times(label, args, dy, dh, errs):
     from repro_torch.kernels.mamba_scan import BWD_CHANNELS, \
         SNAPSHOT_EVERY, bwd_scratch, launch, launch_bwd, scan_bwd_ref, \
         scan_ref
+    from repro_torch.launch.mesh import INSTRUCTION_RATE
+    from repro_torch.roofline import kernels as W
 
     xc = args[0]
     b, s, d_in = xc.shape
@@ -4682,10 +4589,13 @@ def mamba_times(label, args, dy, dh, errs):
     plain_bwd_ms = cuda_time_ms(lambda: scan_bwd_ref(
         *args, dy, dh, snaps=snaps, segment=ring_every), 3)
     del snaps
-    f_bound, f_by, f_mb, exps = mamba_bound(b, s, d_in, n, dtype, False,
-                                            args[5] is not None, False)
-    b_bound, b_by, b_mb, _ = mamba_bound(b, s, d_in, n, dtype, True,
-                                         args[5] is not None, dh is not None)
+    fwd = W.mamba_scan(b, s, d_in, n, itemsize=dtype.itemsize,
+                       backward=False, state=args[5] is not None)
+    f_bound, f_by, f_mb, _ = bound(fwd)
+    b_bound, b_by, b_mb, _ = bound(W.mamba_scan(
+        b, s, d_in, n, itemsize=dtype.itemsize, backward=True,
+        state=args[5] is not None, final=dh is not None))
+    exps = fwd.exponentials
     # the ring kernels' issue floor: instructions an element-step of the
     # SASS loop, its element-steps counted by its MUFU.EX2 (the design's
     # exponentials an element-step: 1 forward, 2 backward; the loop holds
@@ -4700,7 +4610,8 @@ def mamba_times(label, args, dy, dh, errs):
             continue
         steps = loop[1] / per_step
         per = loop[0] / steps
-        floors[key] = (f"issue floor {per * exps / ISSUE_PER_S * 1e6:.1f} us "
+        floor_us = per * exps / INSTRUCTION_RATE * 1e6
+        floors[key] = (f"issue floor {floor_us:.1f} us "
                        f"({loop[0]} instructions, {loop[1]} MUFU.EX2, "
                        f"{loop[2]} SHFL in the SASS loop: {per:.2f} "
                        f"instructions, {loop[2] / steps:.2f} SHFL an "
@@ -5537,6 +5448,227 @@ def phase_profile(comp=None):
             f"{e.count:6d}x  {e.key[:90]}")
 
 
+def start_dryrun():
+    """Phase 14 (a), started beside the card's phases: ``python -m
+    repro_torch.launch.dryrun --all`` (every architecture x input shape
+    on fake tensors: no allocation, no card) as a process of its own with
+    no CUDA device visible and one thread, its records to DRYRUN_OUT and
+    its output to a log beside them. Returns (the process, its log)."""
+    out = ROOT / DRYRUN_OUT
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    log = open(out.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(out)], cwd=ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def phase_dryrun(proc, log):
+    """Phase 14 (a): wait for the dry run started by :func:`start_dryrun`
+    and print one line a record: the counted FLOPs and bytes, the roofline
+    terms on the H100's peaks, each kernel family's launches, the peak
+    bytes and whether they fit one card. Every combination ran: none
+    FAILED, only DRYRUN_SKIPPED skipped. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        log.close()
+    waited = time.perf_counter() - t0
+    tail = (ROOT / DRYRUN_OUT).with_suffix(".log").read_text()
+    if rc != 0:
+        raise AssertionError(f"dryrun --all exited {rc}:\n{tail[-4000:]}")
+    records = json.loads((ROOT / DRYRUN_OUT).read_text())
+    for r in records:
+        tag = f"{r['arch']} x {r['shape']} x {r['mesh']}"
+        if r["status"] != "ok":
+            why = r.get("reason") or r.get("error")
+            say("dryrun", f"{tag}: {r['status']} ({why})")
+            continue
+        mem = r["bytes_per_device"]
+        say("dryrun", f"{tag}: {r['flops'] / 1e12:.2f} TFLOP, "
+            f"{r['hbm_bytes'] / 1e9:.1f} GB moved; compute "
+            f"{r['compute_s']:.3g} s, memory {r['memory_s']:.3g} s "
+            f"({r['dominant']}-bound, useful {r['useful_ratio']:.2f}); "
+            f"argument {mem['argument'] / 1e9:.2f} GB, peak "
+            f"{mem['peak'] / 1e9:.2f} GB "
+            f"({'fits' if r['fits'] else 'does not fit'} "
+            f"{r['hbm_capacity'] / 1e9:.0f} GB); kernels "
+            f"{ {k: v['launches'] for k, v in r['kernels'].items()} }; "
+            f"traced in {r['trace_s']} s")
+    failed = [(r["arch"], r["shape"]) for r in records
+              if r["status"] == "FAILED"]
+    skipped = {(r["arch"], r["shape"]) for r in records
+               if r["status"] == "skipped"}
+    if len(records) != DRYRUN_COMBOS or failed or skipped != DRYRUN_SKIPPED:
+        raise AssertionError(f"dryrun --all: {len(records)} records, failed "
+                             f"{failed}, skipped {sorted(skipped)}")
+    say("dryrun", tail.strip().splitlines()[-1] + f" (ran beside the card's "
+        f"phases; waited {waited:.1f} s for it here)")
+    return waited
+
+
+def real_args(arch, cfg, kind, fake_args):
+    """The step's arguments on the card, drawn from seeds 0 and 1, each
+    leaf of the fake arguments' shape and dtype: train (theta, w, mom,
+    batch) -- two parameter draws, float32 zeros, tokens and targets;
+    prefill (params, batch, cache) -- a parameter draw, tokens, a zeroed
+    cache."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    def params(seed):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        return M.init_params(gen, cfg, dtype=torch.bfloat16, device=DEVICE)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tokens = {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                               generator=gen, device=DEVICE, dtype=v.dtype)
+              for k, v in fake_args[-1 if kind == "train" else 1].items()}
+    if kind == "train":
+        theta = params(0)
+        args = (theta, params(1), _tree_zeros_f32(theta), tokens)
+    else:
+        b, s = tokens["tokens"].shape
+        args = (params(0), tokens, M.init_cache(cfg, b, s, torch.bfloat16,
+                                                device=DEVICE))
+    mine, want = _shapes(args), _shapes(fake_args)
+    if mine != want:
+        raise AssertionError(f"{arch} {kind}: the card's arguments "
+                             f"differ from the dry run's: "
+                             f"{set(mine) ^ set(want)}")
+    return args
+
+
+def _tree_zeros_f32(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tree_zeros_f32(v) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+
+
+def _shapes(tree, path=""):
+    """[(path, shape, dtype)] of a tree of tensors (tuples and dicts)."""
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree)
+                for x in _shapes(v, f"{path}/{i}")]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _shapes(tree[k],
+                                                         f"{path}/{k}")]
+    return [(path, tuple(tree.shape), str(tree.dtype))]
+
+
+def phase_launch_steps():
+    """Phase 14 (b): each of LAUNCH_STEPS built by the dry run's
+    ``build_step_and_args`` at the LM cells' size (TRAIN_BATCH x
+    TRAIN_SEQ tokens, every published width): phi3-mini's PerMFL device
+    step (a remat forward and backward, then ``prox_sgd_tree``) and
+    deepseek-moe-16b's prefill. Each runs once on fake tensors and once on
+    the card, both under the op counter, the launch counts set to 0 just
+    before the card's run and read just after. Held: the argument bytes
+    equal to the byte, the counted FLOPs and each seam's launches equal,
+    the card's launches each seam's, every kernel of LAUNCH_KERNELS
+    launched. Printed: the predicted peak (the fake run's) against
+    ``max_memory_allocated`` and their ratio, and the step's synchronized
+    time (the median of STEP_REPS runs without the counter) against the
+    larger of its roofline's compute and memory terms. Returns the
+    launches."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import build_step_and_args, card_mesh
+    from repro_torch.roofline import (analyze, model_flops_decode,
+                                      model_flops_train)
+    from repro_torch.roofline.op_analysis import analyze_ops
+
+    total = {}
+    for arch, kind in LAUNCH_STEPS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        shape = InputShape(f"{kind}_{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH,
+                           kind)
+        fm = FakeTensorMode()
+        step, fake_args, _, _ = build_step_and_args(cfg, shape, card_mesh(),
+                                                    fake_mode=fm)
+        with fm:
+            fake = analyze_ops(step, *fake_args)
+        t_fake = time.perf_counter() - t0
+        release()
+        args = real_args(arch, cfg, kind, fake_args)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        real = analyze_ops(step, *args)
+        torch.cuda.synchronize()
+        launches = {k: c for k, c in LAUNCHES.items() if c}
+        measured = torch.cuda.max_memory_allocated()
+        seams = {k: v["launches"] for k, v in real["kernels"].items()}
+        tag = f"{arch} {kind} ({TRAIN_BATCH} x {TRAIN_SEQ})"
+        checks = {
+            "argument bytes": (fake["argument_bytes"],
+                               real["argument_bytes"]),
+            "FLOPs": (fake["flops"], real["flops"]),
+            "seam launches": ({k: v["launches"] for k, v in
+                               fake["kernels"].items()}, seams),
+            "the card's launches": (seams, launches)}
+        for what, (want, got) in checks.items():
+            if want != got:
+                raise AssertionError(f"{tag}: {what} differ between the fake "
+                                     f"and the card's run: {want} vs {got}")
+        if any(not launches.get(k) for k in LAUNCH_KERNELS[kind]):
+            raise AssertionError(f"{tag}: kernels {LAUNCH_KERNELS[kind]} not "
+                                 f"all launched: {launches}")
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+        times = []
+        for _ in range(STEP_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            del out
+        step_s = sorted(times)[len(times) // 2]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        mflops = (model_flops_train if kind == "train"
+                  else model_flops_decode)(cfg, tokens)
+        roof = analyze(real, model_flops=mflops)
+        floor = max(roof.compute_s, roof.memory_s)
+        say("launch", f"{tag}: fake and card runs agree: argument "
+            f"{real['argument_bytes']:,} B, {real['flops']:,.0f} FLOPs, "
+            f"launches {launches}; bytes counted {fake['hbm_bytes'] / 1e9:.3f}"
+            f" GB on fake tensors, {real['hbm_bytes'] / 1e9:.3f} GB on the "
+            f"card; {fake['aten_ops']} / {real['aten_ops']} aten ops")
+        say("launch", f"{tag}: peak predicted {fake['peak_bytes'] / 2**30:.2f}"
+            f" GiB (the card's run counted {real['peak_bytes'] / 2**30:.2f} "
+            f"GiB), max_memory_allocated {measured / 2**30:.2f} GiB "
+            f"(arguments and what stayed from earlier phases "
+            f"{base / 2**30:.2f} GiB): measured / predicted "
+            f"{measured / fake['peak_bytes']:.3f}")
+        say("launch", f"{tag}: {step_s * 1e3:.1f} ms synchronized (median of "
+            f"{STEP_REPS}: {', '.join(f'{t * 1e3:.1f}' for t in times)}); "
+            f"roofline {roof.summary()}: compute {roof.compute_s * 1e3:.2f} "
+            f"ms, memory {roof.memory_s * 1e3:.2f} ms "
+            f"({real['hbm_bytes'] / 1e9:.1f} GB), the step at "
+            f"{floor / step_s:.1%} of its roofline; traced on fake tensors "
+            f"in {t_fake:.1f} s, the phase {time.perf_counter() - t0:.1f} s"
+            f"; {smi_line()}")
+        del args, step, fake_args, real
+        release()
+    return total
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -5551,15 +5683,29 @@ def main(argv) -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
+    phase_environment()
+    phase_build()
+    dryrun = start_dryrun()
+    try:
+        return run_phases(argv, t_start, dryrun)
+    finally:
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
+
+
+def run_phases(argv, t_start, dryrun) -> int:
+    """Phases 3 to 16 (the module docstring), the dry run of phase 14 (a)
+    already running beside them."""
+    import torch
+
     from repro_torch.configs.paper_cnn import CONFIG as CNN
     from repro_torch.configs.paper_mclr import CONFIG as MCLR
     from repro_torch.flat import Layout
     from repro_torch.models.paper_models import init_params
     from repro_torch.scenarios import get_scenario
 
-    t_start = time.perf_counter()
-    phase_environment()
-    phase_build()
     d = get_scenario(SCENARIO).data
     gen = torch.Generator().manual_seed(0)
     layout = Layout.of(init_params(CNN, gen))
@@ -5645,6 +5791,13 @@ def main(argv) -> int:
     say("train", f"{JAMBA_ARCH}: scan check {t_path - t_train:.1f} s, "
         f"training phase {t_cons - t_path:.1f} s, consistency "
         f"{time.perf_counter() - t_cons:.1f} s")
+    t_launch = time.perf_counter()
+    waited = phase_dryrun(*dryrun)
+    for k, v in phase_launch_steps().items():
+        launches[k] = launches.get(k, 0) + v
+    say("launch", f"phase 14 added {time.perf_counter() - t_launch:.1f} s "
+        f"(of it {waited:.1f} s waiting for the dry run) and the sweep mesh "
+        f"check of phase 7c")
     if "--profile" in argv:
         phase_llm_profile()
         phase_rwkv_profile()

@@ -47,6 +47,12 @@ route the cotangent of a kept coordinate to dq and of a dropped one to
 ef_new; without, a kept coordinate's cotangent (times rand-k's scale)
 reaches v and a dropped one's is 0, and rand-k's uniforms get 0; int8
 and sign are straight-through (d dq / d msg = I).
+
+The launches -- the select, the sign and (``quantize.ops``) the int8 op,
+each after its thresholds or scales -- are seams
+(:func:`repro_torch.kernels.interface.seam`): each records
+``roofline.kernels.compress`` under its kernel's name under an active
+work counter and returns empty outputs of its shapes on fake tensors.
 """
 from __future__ import annotations
 
@@ -58,12 +64,13 @@ import torch
 from repro_torch.kernels.build import load
 from repro_torch.kernels.compress import ref as R
 from repro_torch.kernels.interface import (KernelType, count_launch,
-                                           kernel_mode, refuse_grad,
+                                           kernel_mode, refuse_grad, seam,
                                            vec_aligned)
 from repro_torch.kernels.quantize.ops import quantize_rows
 from repro_torch.kernels.segments import (Segments, check_rows, given,
                                           leaf_columns, raise_on, segments,
                                           senders_ok, stream)
+from repro_torch.roofline import kernels as work
 
 __all__ = ["KERNELS", "Segments", "TILE", "ef_int8", "ef_randk", "ef_sign",
            "ef_topk", "randk", "segment_thresholds", "segments", "sign",
@@ -159,6 +166,33 @@ def _select(u, v, ef, segs, thresh, unbiased, mode):
         thresh = segment_thresholds(
             u if randk else (v if ef is None else v + ef).abs(), segs)
     thresh = given(thresh, b, segs, "thresh")
+    return _select_rows(u, v, ef, segs, thresh, unbiased, mode)
+
+
+def _select_name(u, v, ef, *_):
+    return ("ef_" if ef is not None else "") + \
+        ("randk" if u is not None else "topk")
+
+
+def _rows_work(name, v, segs, noise_rows=None):
+    """``roofline.kernels.compress`` of kernel ``name`` on rows ``v``."""
+    return work.compress(name, v.shape[0], v.shape[1], segs.end,
+                         len(segs.lengths), segs.rows, noise_rows)
+
+
+def _select_fake(u, v, ef, *_):
+    return (v.new_empty(v.shape, dtype=torch.float32),
+            v.new_empty(v.shape, dtype=torch.int32),
+            None if ef is None else v.new_empty(v.shape,
+                                                dtype=torch.float32))
+
+
+@seam(_select_name, lambda u, v, ef, segs, *_: _rows_work(
+    _select_name(u, v, ef), v, segs), _select_fake)
+def _select_rows(u, v, ef, segs, thresh, unbiased, mode):
+    """The select launch of :func:`_select`, given the thresholds."""
+    randk = u is not None
+    b = v.shape[0]
     scale = unbiased_scales(segs, v.device) if unbiased else None
     dq = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     ranks = torch.empty(v.shape, dtype=torch.int32, device=v.device)
@@ -317,6 +351,22 @@ def _sign(v, ef, segs, scales, mode):
     if scales is None:
         scales = sign_scales(v, segs, ef)
     scales = given(scales, b, segs, "scales")
+    return _sign_rows(v, ef, segs, scales, mode)
+
+
+def _sign_fake(v, ef, segs, scales, mode):
+    f32 = lambda: v.new_empty(v.shape, dtype=torch.float32)  # noqa: E731
+    return (v.new_empty((v.shape[0], segs.rows, R.LANES // 8),
+                        dtype=torch.uint8), scales, f32(),
+            None if ef is None else f32())
+
+
+@seam(lambda v, ef, *_: "sign" if ef is None else "ef_sign",
+      lambda v, ef, segs, *_: _rows_work(
+          "sign" if ef is None else "ef_sign", v, segs), _sign_fake)
+def _sign_rows(v, ef, segs, scales, mode):
+    """The sign launch of :func:`_sign`, given the scales."""
+    b = v.shape[0]
     bits = torch.empty((b, segs.rows, R.LANES // 8), dtype=torch.uint8,
                        device=v.device)
     dq = torch.empty(v.shape, dtype=torch.float32, device=v.device)

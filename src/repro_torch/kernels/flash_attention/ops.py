@@ -53,6 +53,11 @@ to ``LAUNCHES["flash_attention_bwd"]`` and to ``BWD_VARIANTS[variant]``;
 on CPU tensors or with ``mode="torch"`` ``ref.attention_bwd_ref`` runs.
 Without a gradient the forward kernels run exactly as before (no
 log-sum-exp is written).
+
+The forward and the backward are seams
+(:func:`repro_torch.kernels.interface.seam`): each records
+``roofline.kernels.attention`` / ``attention_bwd`` under an active work
+counter and returns empty outputs of its shapes on fake tensors.
 """
 from __future__ import annotations
 
@@ -66,7 +71,8 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, \
     attention_bwd_ref, attention_lse_ref, attention_ref, sm_scale, \
     visible_keys
 from repro_torch.kernels.interface import KernelType, count_launch, \
-    kernel_mode
+    kernel_mode, seam
+from repro_torch.roofline import kernels as work
 
 __all__ = ["BWD_VARIANTS", "HEAD_DIMS", "KERNELS", "VARIANTS", "attention",
            "attention_bwd", "plan", "plan_bwd", "reset_variants"]
@@ -260,6 +266,22 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _fwd_work(q, k, v, causal, window, q_offset, kt, want_lse):
+    b, sq, hq, d = q.shape
+    return work.attention(b, sq, k.shape[1], hq, k.shape[2], d,
+                          causal=causal, window=window, q_offset=q_offset,
+                          q_itemsize=q.element_size(),
+                          kv_itemsize=k.element_size(), lse=want_lse)
+
+
+def _fwd_fake(q, k, v, causal, window, q_offset, kt, want_lse):
+    b, sq, hq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, hq, sq), dtype=torch.float32) if want_lse
+            else None)
+
+
+@seam(_NAME, _fwd_work, _fwd_fake)
 def _forward(q, k, v, causal, window, q_offset, kt, want_lse):
     """(out, lse or None): the plain version for ``KernelType.TORCH``, else
     the kernel :func:`plan` picks, writing the log-sum-exp when
@@ -338,6 +360,21 @@ def _forward(q, k, v, causal, window, q_offset, kt, want_lse):
     return out, lse
 
 
+def _bwd_work(q, k, v, out, lse, dout, *, causal=True, window=0,
+              q_offset=None, mode=None):
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    return work.attention_bwd(
+        b, sq, skv, hq, k.shape[2], d, causal=causal, window=window,
+        q_offset=skv - sq if q_offset is None else int(q_offset),
+        q_itemsize=q.element_size(), kv_itemsize=k.element_size())
+
+
+def _bwd_fake(q, k, v, out, lse, dout, **_):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@seam(_BWD, _bwd_work, _bwd_fake)
 def attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
                   q_offset=None, mode=None):
     """(dq, dk, dv) of :func:`attention` at q, k, v, given its output

@@ -50,6 +50,12 @@ order) adds one to ``LAUNCHES["mamba_scan_bwd"]`` and to
 ``segment`` sets the plain version's steps a segment (the model's
 ``SCAN_BLOCK``); the kernels take their own cadence. The output does not
 depend on it but for the read-out's summation order.
+
+The scan and its backward are seams
+(:func:`repro_torch.kernels.interface.seam`): each records
+``roofline.kernels.mamba_scan`` under an active work counter and returns
+empty outputs of its shapes on fake tensors (the forward's snapshots at
+the cadence of the path it stands for).
 """
 from __future__ import annotations
 
@@ -59,9 +65,10 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import KernelType, count_launch, \
-    kernel_mode
+    kernel_mode, seam
 from repro_torch.kernels.mamba_scan.ref import SEGMENT, scan_bwd_ref, \
     scan_ref
+from repro_torch.roofline import kernels as work
 
 __all__ = ["BWD_CHANNELS", "BWD_VARIANTS", "D_STATE", "KERNELS",
            "RING_CHANNELS", "SEGMENT", "SNAPSHOT_EVERY", "VARIANTS",
@@ -288,6 +295,21 @@ def scan(xc, dt, b_mat, c_mat, a, h0=None, *, segment=SEGMENT,
                     False)[:2]
 
 
+def _fwd_fake(xc, dt, b_mat, c_mat, a, h0, segment, out_dtype, kt,
+              snapshots, variant=None):
+    (b, s, d_in), n = xc.shape, a.shape[1]
+    f32 = torch.float32
+    every = (segment if kt is KernelType.TORCH else
+             SNAPSHOT_EVERY[variant or plan(xc, dt, b_mat, c_mat, a, h0)])
+    return (xc.new_empty(xc.shape, dtype=out_dtype or xc.dtype),
+            xc.new_empty((b, d_in, n), dtype=f32),
+            xc.new_empty((b, -(-s // every), d_in, n), dtype=f32)
+            if snapshots else None)
+
+
+@seam(_NAME, lambda xc, dt, b_mat, c_mat, a, h0, *_, **__: work.mamba_scan(
+    *xc.shape, a.shape[1], itemsize=xc.element_size(), backward=False,
+    state=h0 is not None), _fwd_fake)
 def _forward(xc, dt, b_mat, c_mat, a, h0, segment, out_dtype, kt,
              snapshots, variant=None):
     """(y, final state, snapshots or None) of :func:`scan`: the plain
@@ -398,6 +420,24 @@ def launch_bwd(xc, dt, b_mat, c_mat, a, snaps, dy, dh, grads, scratch, *,
                            f"{tuple(xc.shape)} {xc.dtype})")
 
 
+def _bwd_fake(xc, dt, b_mat, c_mat, a, snaps, dy, dh=None, *,
+              want_dh0=False, **_):
+    (b, s, d_in), n = xc.shape, a.shape[1]
+    f32 = torch.float32
+    return (xc.new_empty(xc.shape), dt.new_empty(dt.shape),
+            b_mat.new_empty((b, s, n)), c_mat.new_empty((b, s, n)),
+            a.new_empty((d_in, n), dtype=f32),
+            a.new_empty((b, d_in, n), dtype=f32) if want_dh0 else None)
+
+
+def _bwd_work(xc, dt, b_mat, c_mat, a, snaps, dy, dh=None, *,
+              want_dh0=False, **_):
+    return work.mamba_scan(*xc.shape, a.shape[1],
+                           itemsize=xc.element_size(), backward=True,
+                           state=want_dh0, final=dh is not None)
+
+
+@seam(_BWD, _bwd_work, _bwd_fake)
 def scan_bwd(xc, dt, b_mat, c_mat, a, snaps, dy, dh=None, *,
              segment=SEGMENT, every=None, variant=None, want_dh0=False,
              mode=None):

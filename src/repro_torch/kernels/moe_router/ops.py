@@ -39,6 +39,13 @@ dl once a row, then both products on the tensor cores) or
 ``torch.matmul`` products); on CPU tensors ``ref.route_tokens_full_bwd_ref``.
 Every backward launch adds one to ``LAUNCHES["moe_router_bwd"]`` and to
 ``BWD_VARIANTS["fused"]`` or ``BWD_VARIANTS["logits"]``.
+
+The four ops' forwards and backwards are seams
+(:func:`repro_torch.kernels.interface.seam`): each records its
+``roofline.kernels`` work (``moe_router``, ``moe_router_bwd``,
+``route_topk``, ``route_topk_bwd``) under the kernel's launch name under
+an active work counter, and returns empty outputs of its shapes on fake
+tensors.
 """
 from __future__ import annotations
 
@@ -48,9 +55,10 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import KernelType, count_launch, \
-    kernel_mode
+    kernel_mode, seam
 from repro_torch.kernels.moe_router.ref import route_ref, \
     route_tokens_bwd_ref, route_tokens_full_bwd_ref, route_tokens_ref
+from repro_torch.roofline import kernels as work
 
 __all__ = ["BLOCK_TOKENS", "BWD_VARIANTS", "FORMS", "KERNELS", "MAX_EXPERTS",
            "SLICE_D", "VARIANTS", "launch", "launch_bwd", "launch_bwd_fused",
@@ -164,6 +172,16 @@ def route_topk(logits, *, top_k: int, renormalize: bool = True, mode=None):
     return gates, idx, {"mean_prob": mean, "frac_tokens": frac}
 
 
+def _topk_fake(logits, top_k, renormalize, kt):
+    t, e = logits.shape
+    return (logits.new_empty((t, top_k)),
+            logits.new_empty((t, top_k), dtype=torch.int32),
+            logits.new_empty((e,), dtype=torch.float32),
+            logits.new_empty((e,), dtype=torch.float32))
+
+
+@seam(_NAME, lambda logits, top_k, *_: work.route_topk(
+    *logits.shape, top_k, itemsize=logits.element_size()), _topk_fake)
 def _topk_forward(logits, top_k, renormalize, kt):
     """(gates, idx, mean_prob, frac_tokens) of :func:`route_topk`."""
     if kt is KernelType.TORCH:
@@ -223,6 +241,10 @@ def launch_bwd(logits, idx, gates, dgates, dmean, dl, *, renormalize: bool):
                            f"{idx.shape[1]})")
 
 
+@seam(_BWD, lambda logits, idx, *_, **__: work.route_topk_bwd(
+    *logits.shape, idx.shape[1]),
+    lambda logits, *_, **__: logits.new_empty(logits.shape,
+                                              dtype=torch.float32))
 def logits_bwd(logits, idx, gates, dgates, dmean, *, renormalize=True,
                mode=None):
     """dl (t, E) float32, the gradient of the router's float32 logits
@@ -384,13 +406,6 @@ def route_tokens(x, w, *, top_k: int, renormalize: bool = True,
     form = None
     if kt is KernelType.CUDA:
         form = plan(x, w, top_k=top_k, group_size=group_size)
-        if x.stride(1) != 1 or (x.stride(0) * x.element_size()) % 16 \
-                or x.data_ptr() % 16:
-            raise ValueError("moe_router_hopper kernel takes x with unit "
-                             "stride along d and 16-byte aligned rows")
-        if not w.is_contiguous() or w.data_ptr() % 16:
-            raise ValueError("moe_router_hopper kernel takes a contiguous, "
-                             "16-byte aligned w")
     opts = (top_k, bool(renormalize), group_size, kt, form)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         gates, idx, pos, mean, frac = _RouteTokens.apply(x, w, opts)
@@ -399,6 +414,20 @@ def route_tokens(x, w, *, top_k: int, renormalize: bool = True,
     return gates, idx, pos, {"mean_prob": mean, "frac_tokens": frac}
 
 
+def _tokens_work(x, w, opts, want_logits):
+    return work.moe_router(*x.shape, w.shape[1], opts[0],
+                           x_itemsize=x.element_size(), logits=want_logits)
+
+
+def _tokens_fake(x, w, opts, want_logits):
+    t, e, k = x.shape[0], w.shape[1], opts[0]
+    f32 = lambda *shape: x.new_empty(shape, dtype=torch.float32)  # noqa
+    i32 = lambda *shape: x.new_empty(shape, dtype=torch.int32)  # noqa
+    return (f32(t, k), i32(t, k), i32(t, k), f32(e), f32(e),
+            f32(t, e) if want_logits else None)
+
+
+@seam(_NAME, _tokens_work, _tokens_fake)
 def _tokens_forward(x, w, opts, want_logits):
     """(gates, idx, pos, mean_prob, frac_tokens, logits or None) of
     :func:`route_tokens`; the kernel's float32 logits when
@@ -409,6 +438,13 @@ def _tokens_forward(x, w, opts, want_logits):
             x, w, top_k=top_k, renormalize=renormalize,
             group_size=group_size)
         return gates, idx, pos, aux["mean_prob"], aux["frac_tokens"], None
+    if x.stride(1) != 1 or (x.stride(0) * x.element_size()) % 16 \
+            or x.data_ptr() % 16:
+        raise ValueError("moe_router_hopper kernel takes x with unit "
+                         "stride along d and 16-byte aligned rows")
+    if not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError("moe_router_hopper kernel takes a contiguous, "
+                         "16-byte aligned w")
     t, e = x.shape[0], w.shape[1]
     dev = x.device
     gates = torch.empty((t, top_k), dtype=torch.float32, device=dev)
@@ -544,6 +580,15 @@ def launch_bwd_fused(x, w, logits, idx, gates, dgates, dmean, dx, dw, *,
                            f"{e}, k {idx.shape[1]}, form {form})")
 
 
+def _tokens_bwd_fake(x, w, logits, idx, gates, dgates, dmean, *,
+                    need=(True, True), **_):
+    return (x.new_empty(x.shape) if need[0] else None,
+            w.new_empty(w.shape, dtype=torch.float32) if need[1] else None)
+
+
+@seam(_BWD, lambda x, w, logits, idx, *_, **__: work.moe_router_bwd(
+    *x.shape, w.shape[1], idx.shape[1], x_itemsize=x.element_size()),
+    _tokens_bwd_fake)
 def tokens_bwd(x, w, logits, idx, gates, dgates, dmean, *,
                renormalize=True, need=(True, True), mode=None):
     """(dx in x's type, dw float32): the gradient of :func:`route_tokens`'

@@ -17,6 +17,12 @@ Which implementation runs follows the tensors' device
 tensors, the plain version (``ref.py``) for CPU tensors or for an
 explicit ``mode="torch"``. Each launch adds one to
 ``LAUNCHES["prox_update"]``.
+
+:func:`prox_sgd` and :func:`prox_step_` are seams
+(:func:`repro_torch.kernels.interface.seam`): each records
+``roofline.kernels.prox_update`` under an active work counter and
+returns outputs of its shapes (the in-place step its own operands) on
+fake tensors.
 """
 from __future__ import annotations
 
@@ -26,8 +32,9 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import (KernelType, count_launch,
-                                           kernel_mode, vec_aligned)
+                                           kernel_mode, seam, vec_aligned)
 from repro_torch.kernels.prox_update.ref import prox_sgd_ref
+from repro_torch.roofline import kernels as work
 
 __all__ = ["prox_sgd", "prox_sgd_tree", "prox_step_"]
 
@@ -123,6 +130,17 @@ def _check(theta, grad, anchor, mom, momentum):
         raise ValueError(f"operands on several devices: {devs}")
 
 
+def _sgd_fake(theta, grad, anchor, mom_buf=None, *, momentum=0.0, **_):
+    if momentum > 0.0:
+        return theta.new_empty(theta.shape), \
+            theta.new_empty(theta.shape, dtype=torch.float32)
+    return theta.new_empty(theta.shape), \
+        _zeros(theta, momentum) if mom_buf is None else mom_buf
+
+
+@seam(_NAME, lambda theta, *_, momentum=0.0, **__: work.prox_update(
+    1, theta.numel(), itemsize=theta.element_size(), anchor_rows=1,
+    momentum=momentum > 0.0), _sgd_fake)
 def prox_sgd(theta, grad, anchor, mom_buf=None, *, alpha, lam,
              momentum=0.0, weight_decay=0.0, mode=None):
     """One tensor of any shape; theta/grad/anchor share shape and dtype;
@@ -187,7 +205,17 @@ def prox_sgd_tree(theta, grad, anchor, mom_tree=None, *, alpha, lam,
                     momentum=momentum, weight_decay=weight_decay, mode=mode)
 
 
+def _step_work(theta, grad, anchor, mom=None, *, alpha, momentum=0.0,
+               **_):
+    return work.prox_update(
+        *theta.shape, itemsize=theta.element_size(),
+        anchor_rows=anchor.shape[0], momentum=momentum > 0.0,
+        groups=alpha.shape[0] if isinstance(alpha, torch.Tensor) else 0)
+
+
 @torch.no_grad()
+@seam(_NAME, _step_work,
+      lambda theta, grad, anchor, mom=None, **_: (theta, mom))
 def prox_step_(theta, grad, anchor, mom=None, *, alpha, lam, momentum=0.0,
                weight_decay=0.0, mode=None):
     """The stacked device step, in place: one launch for all devices.

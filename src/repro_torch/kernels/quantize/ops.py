@@ -24,6 +24,11 @@ plain version (``ref.py``) for CPU tensors or ``mode="torch"``. Each
 launch adds one to ``LAUNCHES["quantize"]`` (``"ef_int8"`` with error
 feedback). Like the reference's op, :func:`quantize_int8` has no custom
 gradient.
+
+:func:`quantize_rows` is a seam (:func:`repro_torch.kernels.interface.seam`):
+it records ``roofline.kernels.compress`` ("quantize" or "ef_int8") under
+an active work counter and returns empty outputs of its shapes on fake
+tensors.
 """
 from __future__ import annotations
 
@@ -33,12 +38,13 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import (KernelType, count_launch,
-                                           kernel_mode, refuse_grad,
+                                           kernel_mode, refuse_grad, seam,
                                            vec_aligned)
 from repro_torch.kernels.quantize import ref as R
 from repro_torch.kernels.segments import (Segments, check_rows,
                                           leaf_columns, raise_on, segments,
                                           senders_ok, stream)
+from repro_torch.roofline import kernels as work
 
 __all__ = ["KERNELS", "dequantize_int8", "quantize_int8", "quantize_rows",
            "row_of_column"]
@@ -56,6 +62,25 @@ def _function():
     return fn
 
 
+def _int8_name(v, ef, *_):
+    return "quantize" if ef is None else "ef_int8"
+
+
+def _int8_work(v, ef, noise, segs, mode=None):
+    # a stride-0 noise row (the store export's constant) is read once
+    return work.compress(_int8_name(v, ef), v.shape[0], v.shape[1],
+                         segs.end, len(segs.lengths), segs.rows,
+                         1 if noise.stride(0) == 0 else None)
+
+
+def _int8_fake(v, ef, noise, segs, mode=None):
+    f32 = lambda: v.new_empty(v.shape, dtype=torch.float32)  # noqa: E731
+    return (v.new_empty(v.shape, dtype=torch.int8),
+            v.new_empty((v.shape[0], segs.rows), dtype=torch.float32), f32(),
+            None if ef is None else f32())
+
+
+@seam(_int8_name, _int8_work, _int8_fake)
 def quantize_rows(v, ef, noise, segs: Segments, mode=None):
     """The int8 launch: msg = v (+ ef, where ``ef`` is given); returns
     (q int8 (B, C), scales (B, segs.rows), dq (B, C), ef_new = msg - dq

@@ -44,6 +44,11 @@ kernel :func:`plan_bwd` picks, written out as :func:`plan`'s:
 Both take their snapshots in a float32 scratch the wrapper allocates
 (:func:`bwd_scratch`). Each launch adds one to
 ``LAUNCHES["rwkv6_scan_bwd"]`` and to ``BWD_VARIANTS[variant]``.
+
+The scan and its backward are seams
+(:func:`repro_torch.kernels.interface.seam`): each records
+``roofline.kernels.rwkv6_scan`` / ``rwkv6_scan_bwd`` under an active work
+counter and returns empty outputs of its shapes on fake tensors.
 """
 from __future__ import annotations
 
@@ -53,8 +58,9 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.interface import KernelType, count_launch, \
-    kernel_mode
+    kernel_mode, seam
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_bwd_ref, wkv6_ref
+from repro_torch.roofline import kernels as work
 
 __all__ = ["BWD_CHUNK", "BWD_SEGMENT", "BWD_VARIANTS", "HEAD_SIZES",
            "KERNELS", "VARIANTS", "bwd_scratch", "launch", "launch_bwd",
@@ -243,6 +249,16 @@ def wkv(r, k, v, w, u, state=None, *, out_state=None, mode=None):
     return _forward(r, k, v, w, u, state, out_state, kt)
 
 
+def _fwd_fake(r, k, v, w, u, state, out_state, kt):
+    b, _, h, n = r.shape
+    return (r.new_empty(r.shape),
+            r.new_empty((b, h, n, n), dtype=torch.float32)
+            if out_state is None else out_state)
+
+
+@seam(_NAME, lambda r, k, v, w, u, state, *_: work.rwkv6_scan(
+    *r.shape, itemsize=r.element_size(), state=state is not None,
+    w_itemsize=w.element_size()), _fwd_fake)
 def _forward(r, k, v, w, u, state, out_state, kt):
     """(out, final state) of :func:`wkv`: the plain version for
     ``KernelType.TORCH``, else the kernel :func:`plan` picks."""
@@ -338,6 +354,17 @@ def launch_bwd(r, k, v, w, u, state, dout, dstate, grads, snap, *,
                            f"w {w.dtype})")
 
 
+def _bwd_fake(r, k, v, w, u, state, dout, dstate, **_):
+    b, _, h, n = r.shape
+    f32 = torch.float32
+    return (r.new_empty(r.shape), r.new_empty(r.shape), r.new_empty(r.shape),
+            w.new_empty(w.shape), r.new_empty((h, n), dtype=f32),
+            r.new_empty((b, h, n, n), dtype=f32))
+
+
+@seam(_BWD, lambda r, k, v, w, u, state, *_, **__: work.rwkv6_scan_bwd(
+    *r.shape, itemsize=r.element_size(), state=state is not None,
+    w_itemsize=w.element_size()), _bwd_fake)
 def wkv_bwd(r, k, v, w, u, state, dout, dstate, *, mode=None,
             variant=None):
     """The gradient of :func:`wkv` at r, k, v, w, u, ``state`` (None:

@@ -26,19 +26,24 @@ and through the plain versions on the CPU; ``remat=True`` checkpoints
 each block (``torch.utils.checkpoint``). Every family trains: the dense,
 MoE, RWKV-6 and hybrid attention/Mamba stacks (phi3, qwen3, deepseek,
 dbrx, rwkv6, Jamba, ...).
-The reference's ``input_specs`` / ``param_specs`` / ``cache_specs`` are
-XLA dry-run helpers and have no counterpart yet (ROADMAP.md queue 1
-item 14).
+:func:`input_specs`, :func:`param_specs` and :func:`cache_specs` are
+the dry run's stand-ins: fake tensors (``FakeTensorMode``) of the
+published widths' shapes and types, made without allocating, where the
+reference returns ``jax.ShapeDtypeStruct`` trees.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers, transformer
 
-__all__ = ["decode_step", "forward", "init_cache", "init_params", "loss_fn",
-           "padded_vocab", "prefill"]
+__all__ = ["cache_specs", "decode_step", "forward", "init_cache",
+           "init_params", "input_specs", "loss_fn", "padded_vocab",
+           "param_specs", "prefill"]
 
 
 def padded_vocab(cfg) -> int:
@@ -163,3 +168,71 @@ def decode_step(params, cfg, cache, batch, pos, *, mode=None):
         pos=int(pos), mrope_positions=batch.get("mrope_positions"),
         kmode=mode)
     return _logits_out(params, cfg, x), {"layers": layers_cache}
+
+
+# ---------------------------------------------------------------------------
+# fake-tensor stand-ins for the dry run
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, *, batch: int, seq_len: int, kind: str,
+                act_dtype=torch.bfloat16, fake_mode: FakeTensorMode = None):
+    """Stand-in inputs of an (arch x input shape) step as fake tensors of
+    ``fake_mode`` (default a new one; nothing is allocated): the batch
+    dict :func:`forward` (kind "train" adds "targets"), :func:`prefill`
+    ("prefill") or :func:`decode_step` ("decode") takes; ints int32."""
+    i32 = torch.int32
+    with fake_mode or FakeTensorMode():
+        if kind in ("train", "prefill"):
+            spec = {}
+            if cfg.family == "vlm":
+                spec["embeds"] = torch.empty(batch, seq_len, cfg.d_model,
+                                             dtype=act_dtype)
+                spec["mrope_positions"] = torch.empty(batch, seq_len, 3,
+                                                      dtype=i32)
+            elif cfg.is_encoder_decoder:
+                spec["enc_frames"] = torch.empty(
+                    batch, cfg.encoder_seq_len, cfg.d_model, dtype=act_dtype)
+                spec["tokens"] = torch.zeros(batch, seq_len, dtype=i32)
+            else:
+                spec["tokens"] = torch.zeros(batch, seq_len, dtype=i32)
+            if kind == "train":
+                spec["targets"] = torch.zeros(batch, seq_len, dtype=i32)
+            return spec
+        if kind == "decode":
+            spec = {"tokens": torch.zeros(batch, 1, dtype=i32)}
+            if cfg.family == "vlm":
+                spec["mrope_positions"] = torch.zeros(batch, 1, 3, dtype=i32)
+            return spec
+    raise ValueError(kind)
+
+
+@functools.lru_cache(maxsize=32)
+def _param_shapes(cfg, dtype):
+    """:func:`init_params`' tree of (shape, dtype) pairs, drawn once a
+    (config, dtype) on fake tensors."""
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        return tuple(tree.shape), tree.dtype
+    with FakeTensorMode():
+        return shapes(init_params(0, cfg, dtype=dtype, device="cpu"))
+
+
+def param_specs(cfg, dtype=torch.bfloat16, fake_mode: FakeTensorMode = None):
+    """:func:`init_params`' tree as fake tensors of ``fake_mode`` (default a
+    new one): the published widths' shapes and types, nothing
+    allocated."""
+    def fake(tree):
+        if isinstance(tree, dict):
+            return {k: fake(v) for k, v in tree.items()}
+        return torch.empty(tree[0], dtype=tree[1])
+    with fake_mode or FakeTensorMode():
+        return fake(_param_shapes(cfg, dtype))
+
+
+def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                fake_mode: FakeTensorMode = None):
+    """:func:`init_cache`'s tree as fake tensors of ``fake_mode`` (default
+    a new one), nothing allocated."""
+    with fake_mode or FakeTensorMode():
+        return init_cache(cfg, batch, max_len, dtype=dtype, device="cpu")

@@ -143,12 +143,13 @@ def run_scenario(name_or_spec, *, rounds: Optional[int] = None,
 
 def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
                    rounds: Optional[int] = None, eval_every: int = 1,
-                   system=_KEEP_SPEC, cohort=_KEEP_SPEC, trace=None,
-                   trace_dir=None,
-                   device=DEFAULT_DEVICE) -> FLSweepResult:
+                   mesh=None, system=_KEEP_SPEC, cohort=_KEEP_SPEC,
+                   trace=None, trace_dir=None,
+                   device=None) -> FLSweepResult:
     """Run a hyperparameter grid x seeds over one scenario as one stacked
     run (``train.sweep.run_sweep``) on ``device`` (default the card;
-    raises without one).
+    raises without one), or on ``mesh``'s device: the one-card sweep
+    mesh (``launch.mesh.make_host_mesh(n_sweep=1)``), passed through.
 
     grid: list of {hparam: value} overrides on the scenario algorithm's
         sweepable floats (or a {name: [values...]} product dict); ``[{}]``
@@ -170,6 +171,8 @@ def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
     seeds = tuple(int(x) for x in seeds)
     with owned_log(trace_dir, {"kind": "scenario_sweep", "scenario": s.name},
                   f"sweep-{s.name}"):
+        if mesh is not None and device is None:
+            device = mesh.device
         b = build_scenario(s, seeds[0] if seeds else 0, device=device)
         return run_sweep(
             b.algo, grid, seeds, lambda sd: init_model(b.config, sd),
@@ -178,4 +181,5 @@ def sweep_scenario(name_or_spec, grid: Sequence = ({},), seeds=(0,), *,
             team_frac=s.team_frac, device_frac=s.device_frac,
             eval_every=eval_every, system=_keep(system, s.system),
             cohort=_keep(cohort, s.cohort_size), trace=trace,
-            trace_dir=trace_dir, event_meta=_identity(s), device=b.device)
+            trace_dir=trace_dir, event_meta=_identity(s), device=b.device,
+            mesh=mesh)

@@ -18,9 +18,9 @@ index map is (C, M, c). Cohort index maps are sorted and distinct
 (``core.participation.sample_cohort``), so ``scatter`` after ``gather``
 is an exact round trip: rows never sampled are bit-unchanged, and with
 ``c == n`` the map is ``arange(n)`` and the gather an identity copy.
-The reference's ``DeviceStateStore.pspecs`` (mesh sharding of the
-population axis) belongs to the sweep mesh, which the port does not run
-(ROADMAP.md item 14), and is left out.
+:meth:`DeviceStateStore.pspecs` gives the store's partition specs
+(``sharding.specs.store_pspecs``: the population axis over the mesh's
+data axis).
 """
 from __future__ import annotations
 
@@ -181,3 +181,11 @@ class DeviceStateStore:
         Returns this store."""
         scatter_cohort(self.tree, idx, update)
         return self
+
+    def pspecs(self, *, sweep: bool = False) -> dict:
+        """Partition specs sharding the population axis over the mesh's
+        data axis (:func:`repro_torch.sharding.specs.store_pspecs`);
+        ``sweep`` for leaves behind a sweep's config axis."""
+        from repro_torch.sharding.specs import store_pspecs
+        return store_pspecs(self.tree, m=self.m, population=self.n,
+                            sweep=sweep)

@@ -33,8 +33,13 @@ each config comes back with its own ``Timeline``; its links come from
 its own generator, seeded from its seed as its single run's are. With
 ``cohort=c`` every config runs the cohort engine: each round gathers
 per-config index maps (C, M, c) along dim 2 of the stacked store, each
-config's map from its own generator. The sweep mesh (``mesh=``) is not
-ported yet (ROADMAP.md item 14).
+config's map from its own generator. On a sweep mesh (``mesh=``, the
+one-card (sweep, data, model) mesh of ``launch.mesh.make_host_mesh``)
+the stacked states, hyperparameters and system leaves are laid out by
+``sharding.specs.sweep_pspecs`` (configs on the sweep axis, the
+generators put there explicitly) and the data replicated, through
+``sharding.specs.place``: on one card every axis has size 1, so the run
+equals the unsharded one bit for bit.
 
 Run telemetry (``trace=``) rides the same stacked round: each config's
 probe and detector values come out of the algorithm's ``probe_round`` /
@@ -61,6 +66,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.obs.events import write_sweep
 from repro_torch.obs.spans import owned_log, span
 from repro_torch.obs.trace import TraceConfig
+from repro_torch.sharding.specs import P, place, sweep_pspecs
 from repro_torch.system import SystemSpec, Timeline, get_profile, \
     workload_for
 from repro_torch.train.engine import (FLResult, RoundSystem, _to_device,
@@ -162,6 +168,7 @@ class _Prepared:
     seeds: tuple           # each config's seed
     profiles: list         # each config's SystemSpec, or None
     ledger_params: Any
+    hstack: dict           # each float hyperparameter's (C,) values
 
 
 def _profiles(system) -> list:
@@ -226,7 +233,7 @@ def _prepare(algo, grid, seeds, params0, m, n, team_frac, device_frac,
         state=stack_states([st_by_seed[s] for _, s, _ in combos]),
         configs=configs, seeds=tuple(s for _, s, _ in combos),
         profiles=[p for _, _, p in combos],
-        ledger_params=p_by_seed[seeds[0]])
+        ledger_params=p_by_seed[seeds[0]], hstack=values)
 
 
 def _per_config(hook, name, c):
@@ -245,12 +252,39 @@ def _expand(data, c, dev):
             for k, v in _to_device(data, dev).items()}
 
 
+def _device(device, mesh) -> torch.device:
+    """The sweep's device: ``device`` (None: the card), or the mesh's,
+    which ``device`` may name."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device).type != \
+            mesh.device.type:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device
+
+
+def _place(prep, train, val, sys_leaves, mesh, m, n):
+    """The sweep's operands laid out on ``mesh``: the stacked states,
+    hyperparameters and system leaves by ``sweep_pspecs`` (the configs'
+    generators on the sweep axis, explicitly), the data replicated."""
+    def by_sweep(tree):
+        return place(tree, sweep_pspecs(tree, m=m, n=n), mesh)
+
+    def replicated(data):
+        return place(data, {k: P() for k in data}, mesh)
+
+    prep = dataclasses.replace(prep, state=by_sweep(prep.state),
+                               hstack=by_sweep(prep.hstack))
+    return (prep, replicated(train), replicated(val),
+            None if sys_leaves is None else by_sweep(sys_leaves))
+
+
 def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
               metric_fn: Callable, rounds: int, m: int, n: int,
               team_frac: float = 1.0, device_frac: float = 1.0,
               eval_every: int = 1, masks: Optional[Sequence] = None,
               uniforms: Optional[Sequence] = None, mode=None,
-              device=DEFAULT_DEVICE, mesh=None, system=None, trace=None,
+              device=None, mesh=None, system=None, trace=None,
               trace_dir=None, event_meta: Optional[dict] = None,
               cohort: Optional[int] = None,
               cohort_indices: Optional[Sequence] = None,
@@ -289,12 +323,10 @@ def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
         event stream (sweep_header + per-config run sections) and a span
         file into trace_dir (the spans into a caller's active log, if
         any).
-    mesh: not ported yet (raises; ROADMAP.md item 14).
+    mesh: optional one-card sweep mesh (module docstring); the run's
+        device is the mesh's (``device`` left None, or naming it).
     Remaining arguments match ``run_experiment``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sweep(mesh=...) is not ported yet (ROADMAP.md item 14)")
     name = getattr(algo, "name", None)
     with owned_log(trace_dir, {"kind": "sweep", "algo": name},
                    f"sweep-{name or 'run'}"):
@@ -307,13 +339,18 @@ def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
             raise ValueError("cohort_indices= needs cohort=")
         if links is not None and system is None:
             raise ValueError("links= needs system=")
-        dev = resolve_device(device)
+        dev = _device(device, mesh)
         with span("build", algo=getattr(algo, "name", "?"), m=m, n=n,
                   rounds=rounds):
             prep = _prepare(algo, grid, seeds, params0, m, n, team_frac,
                             device_frac, dev, system)
             train = _expand(train_data, len(prep.configs), dev)
             val = _expand(val_data, len(prep.configs), dev)
+            sys_leaves = (None if prep.profiles[0] is None
+                          else spec_leaves(prep.profiles, dev))
+            if mesh is not None:
+                prep, train, val, sys_leaves = _place(
+                    prep, train, val, sys_leaves, mesh, m, n)
         c = len(prep.configs)
         masks = _per_config(masks, "masks", c)
         uniforms = _per_config(uniforms, "uniforms", c)
@@ -344,7 +381,7 @@ def run_sweep(algo, grid, seeds, params0, train_data, val_data, *,
                      for i, (s, p) in enumerate(zip(prep.seeds,
                                                     prep.profiles))]
             sysrun = RoundSystem(
-                spec_leaves(prep.profiles, dev),
+                sys_leaves,
                 workload_for(algo, prep.ledger_params),
                 lambda t: tuple(torch.stack(ls) for ls in
                                 zip(*[f(t) for f in lsrcs])))

@@ -54,6 +54,9 @@ PUBLIC_MODULES = (
     "repro_torch.kernels.rwkv6_scan.ops",
     "repro_torch.kernels.rwkv6_scan.ref",
     "repro_torch.kernels.segments",
+    "repro_torch.launch",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.mesh",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
     "repro_torch.models.mamba",
@@ -72,6 +75,10 @@ PUBLIC_MODULES = (
     "repro_torch.obs.report",
     "repro_torch.obs.spans",
     "repro_torch.obs.trace",
+    "repro_torch.roofline",
+    "repro_torch.roofline.analysis",
+    "repro_torch.roofline.kernels",
+    "repro_torch.roofline.op_analysis",
     "repro_torch.scenarios",
     "repro_torch.scenarios.registry",
     "repro_torch.scenarios.runner",
@@ -82,6 +89,8 @@ PUBLIC_MODULES = (
     "repro_torch.serve.personalized",
     "repro_torch.serve.sampler",
     "repro_torch.serve.store",
+    "repro_torch.sharding",
+    "repro_torch.sharding.specs",
     "repro_torch.system",
     "repro_torch.system.simulate",
     "repro_torch.system.spec",

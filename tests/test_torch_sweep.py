@@ -429,16 +429,24 @@ def test_refusals(small_fed_data, case):
 
 @pytest.mark.parametrize("arg", ["mesh", "trace", "trace_dir"])
 def test_unported_sweep_options_raise(arg, small_fed_data, tmp_path):
-    """The sweep mesh is still refused; run telemetry is ported, so
+    """The sweep mesh is ported for one card: a mesh on another device
+    than the run's raises, and so does one larger than the card (its
+    bit-equality with the unsharded sweep is
+    tests/test_torch_sharding.py's); run telemetry is ported, so
     ``trace=`` and ``trace_dir=`` run and give their products."""
     from repro_torch.core import PerMFL, PerMFLHParams
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
     from repro_torch.train.sweep import run_sweep
 
     if arg == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        card = Mesh(("sweep", "data", "model"), (1, 1, 1),
+                    torch.device("cuda"))
+        with pytest.raises(ValueError, match="mesh"):
             run_sweep(PerMFL(None, PerMFLHParams()), [{}], 0, {}, {}, {},
                       metric_fn=None, rounds=1, m=1, n=1, device="cpu",
-                      mesh=1)
+                      mesh=card)
+        with pytest.raises(ValueError, match="one card"):
+            make_host_mesh(n_sweep=2, device="cpu")
         return
     sw = port_sweep(PerMFL(port_fns()[0], PerMFLHParams(**HP)),
                     [dict(lam=0.3)], small_fed_data, 1,
