@@ -151,13 +151,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (wgmma, split_kv and its chunks, simt); small bf16 cases on the
      Hopper variants (a ragged prefill, head_dim 64, GQA 40:8 and 12:2
      decode, a windowed decode); and, small, in f32 and bf16: GQA 40:8,
-     head_dim 96, a 256 window, non-causal, q bf16 over an f32 cache (f32
-     within 1e-5, bf16 within 2e-2); the Whisper and Qwen2-VL serving
-     shapes in bf16: the encoder (4, 1,500, 12, 64) non-causal with 28-row
-     q and kv tails, the cross-attention's prefill (64 queries on 1,500
-     keys) and decode (one query on 1,500 cached keys, non-causal, q_offset
-     0, split_kv over 11 chunks), Qwen2-VL's 12:2 prefill (4, 1,024, 12,
-     128) and decode; the moe_router kernel on given logits
+     head_dim 96 (bf16 on wgmma), a 256 window, non-causal, q bf16 over an
+     f32 cache (f32 within 1e-5, bf16 within 2e-2); the Whisper and
+     Qwen2-VL serving shapes in bf16: the encoder (4, 1,500, 12, 64)
+     non-causal with 28-row q and kv tails, the cross-attention's prefill
+     (64 queries on 1,500 keys) and decode (one query on 1,500 cached
+     keys, non-causal, q_offset 0, split_kv over 11 chunks), Qwen2-VL's
+     12:2 prefill (4, 1,024, 12, 128) and decode; the moe_router kernel on given logits
      (route_topk) at (4096, 64, k=6), (4, 64, k=6) and with tied rows (ids
      bit-equal, gates and statistics within 1e-6); the fused router
      (route_tokens: router product, top-k, capacity positions,
@@ -182,10 +182,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      1,040 slots, split_kv), timed; the fused router at Jamba's MoE (d
      8,192, E 16, k 2): its prefill (4,096 tokens, the tile form) and its
      decode (4 tokens, the split form: a cluster of 16 CTAs, each 8 chunks
-     of 64 values of d), timed. phi3-mini's training forward (4 x 1,024,
-     32 heads of 96, bf16, causal; ``simt``) with the log-sum-exp its
-     backward reads, against ``attention_lse_ref``, timed beside its bound
-     and scaled_dot_product_attention on the same tensors.
+     of 64 values of d), timed. phi3-mini's attention at head_dim 96
+     (32 heads), timed: its prefill (4, 1,024, causal) on wgmma, its decode
+     (4 x 1 on 1,040 slots at q_offset 1,030) on split_kv, and its training
+     forward (the same prefill on ``wgmma`` with the log-sum-exp its
+     backward reads, against ``attention_lse_ref``: lse within 1e-4),
+     each beside its bound and scaled_dot_product_attention on the same
+     tensors.
   9. LLM serving at full width: deepseek-moe-16b (28 layers, its
      published widths) in bf16, drawn on the card from a seeded
      generator; ``ServeEngine(max_len=1040, cache_dtype=bf16).generate``
@@ -295,7 +298,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      1.0, then two ``make_tier_round`` rounds (l_local 2, the example's
      alpha, lambda, gamma, eta, beta) of one team on the same batch:
      flash_attention and flash_attention_bwd exactly 32 per forward /
-     backward pass (160 each; every backward the ``wgmma`` variant),
+     backward pass (160 each; every forward and every backward the
+     ``wgmma`` variant),
      prox_update exactly 2 x 2 x 12 = 48, no other kernel; finite
      losses, the tier loss lower in round 2; ms per step, tokens/s, peak
      memory (under 80 GB), the second round's busy share (torch.profiler).
@@ -379,6 +383,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (2,853,068,800 parameters, 11.41 GB in f32), the kernel path's step
      launching mamba_scan and mamba_scan_bwd once, the plain path's
      neither.
+ 13q. phi3-mini serving at full width: phi3-mini-3.8b (32 layers, d_model
+     3,072, 32 heads of 96, d_ff 8,192, vocab 32,064; 3,821,079,552 bf16
+     parameters, param_count's plus the final norm) drawn on the card; the
+     same generate as step 9: flash_attention exactly 512 launches, 32
+     wgmma (the prefill) and 480 split_kv (the decode steps), no simt, no
+     other kernel; prefill ms, decode ms per step, tokens/s, peak memory.
  14. launch and roofline: (a) the dry run started after step 2
      (``python -m repro_torch.launch.dryrun --all``: 10 architectures x 4
      input shapes on fake tensors, no card visible to it), one line a
@@ -394,7 +404,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      equal to the byte, counted FLOPs and each seam's launches equal, the
      card's launches each seam's, flash_attention, flash_attention_bwd
      and prox_update (phi3) and flash_attention and moe_router (deepseek)
-     launched; the predicted peak against max_memory_allocated and their
+     launched, every attention forward on wgmma (phi3's at head_dim 96);
+     the predicted peak against max_memory_allocated and their
      ratio, the step's synchronized time against the larger of its
      roofline's compute and memory terms; the phase's added seconds.
  15. with ``--profile``: each LLM serving path's time by layer part
@@ -413,9 +424,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      round of the Fig-3 sweep and of the PerMFL CNN 3-seed sweep beside
      one looped round (busy share, launches).
  16. the ``kernels`` JSON line (flash_attention's launches: those of
-     deepseek's, Whisper's, Qwen2-VL's and Jamba's counted generates and
-     of steps 13h, 13k, 13o and 14 (b); moe_router's: deepseek's and
-     Jamba's generates, 13k and 14 (b); rwkv6_scan's: rwkv6-7b's generate
+     deepseek's, Whisper's, Qwen2-VL's, Jamba's and phi3-mini's counted
+     generates and of steps 13h, 13k, 13o and 14 (b); moe_router's:
+     deepseek's and Jamba's generates, 13k and 14 (b); rwkv6_scan's: rwkv6-7b's generate
      and 13l; mamba_scan's: Jamba's generate and 13o; prox_update's and
      flash_attention_bwd's include steps 13h, 13k, 13o and 14 (b)
      (prox_update 13l too); moe_router_bwd's 13k's, rwkv6_scan_bwd's 13l's,
@@ -2574,9 +2585,9 @@ def attention_cases():
     """(label, b, sq, skv, hq, hkv, d, causal, window, q_offset, q dtype,
     kv dtype, timed): the serving paths' shapes in bf16 first (deepseek's
     prefill and decode, Whisper's encoder and cross decode, Qwen2-VL's
-    12:2 prefill and Jamba's 64:8 prefill and decode timed; Whisper's
-    cross prefill and Qwen2-VL's decode checked), then the small shapes in
-    f32 and bf16."""
+    12:2 prefill, Jamba's 64:8 prefill and decode and phi3-mini's 32 heads
+    of 96, prefill and decode, timed; Whisper's cross prefill and
+    Qwen2-VL's decode checked), then the small shapes in f32 and bf16."""
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2595,6 +2606,10 @@ def attention_cases():
              ("jamba prefill", b, p, p, 64, 8, 128, True, 0, 0, bf16, bf16,
               True),
              ("jamba decode", b, 1, n, 64, 8, 128, True, 0,
+              LLM_DECODE_OFFSET, bf16, bf16, True),
+             ("phi3 prefill", b, p, p, 32, 32, 96, True, 0, 0, bf16, bf16,
+              True),
+             ("phi3 decode", b, 1, n, 32, 32, 96, True, 0,
               LLM_DECODE_OFFSET, bf16, bf16, True),
              ("whisper cross prefill", b, WHISPER_PROMPT, enc, 12, 12, 64,
               False, 0, 0, bf16, bf16, False),
@@ -2707,11 +2722,11 @@ def phase_attention_check():
 def phi3_train_forward(gen):
     """flash_attention at phi3-mini's training shape (4 x 1,024, 32 heads
     of 96, bf16, causal) as a training pass runs it: the variant ``plan``
-    picks (``simt``: the ``wgmma`` forward takes head_dim 64 and 128) with
-    the log-sum-exp its backward reads, against ``attention_lse_ref``
-    (out within 2e-2, lse within 1e-4), timed L2-cold beside its plain
-    version, its bound and scaled_dot_product_attention on the same
-    tensors. Returns its numbers."""
+    picks, which must be ``wgmma`` (a row of 96 is a 64-column box and half
+    a box), with the log-sum-exp its backward reads, against
+    ``attention_lse_ref`` (out within 2e-2, lse within 1e-4), timed L2-cold
+    beside its plain version, its bound and scaled_dot_product_attention
+    on the same tensors. Returns its numbers."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2728,6 +2743,9 @@ def phi3_train_forward(gen):
         return fa_ops._forward(q, k, v, True, 0, 0, KernelType.CUDA, True)
 
     variant = plan(q, k, v, causal=True)[0]
+    if variant != "wgmma":
+        raise AssertionError(f"phi3's training forward plans {variant}, "
+                             "expected wgmma")
     got, lse = kernel()
     want, lse_p = attention_lse_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -3553,6 +3571,31 @@ def phase_vlm_serving():
     return launches
 
 
+def phase_phi3_serving():
+    """phi3-mini-3.8b at its published widths, bf16 (32 layers, d_model
+    3,072, 32 heads of 96, d_ff 8,192, vocab 32,064; the reference tree's
+    3,821,079,552 parameters, param_count's plus the final norm), through
+    ``ServeEngine.generate`` (:func:`counted_generate`) of 4 prompts of
+    1,024 tokens, a cache of 1,040 slots: every layer's prefill attention
+    on wgmma and every decode step's on split_kv, both at head_dim 96, no
+    simt. Returns its launches."""
+    from repro_torch.configs import param_count
+    from repro_torch.models import model as M
+
+    cfg, params = draw_full_width(TRAIN_ARCH, TRAIN_PARAMS)
+    pad = (M.padded_vocab(cfg) - cfg.vocab_size) * cfg.d_model * 2
+    if TRAIN_PARAMS != param_count(cfg) + cfg.d_model + pad:
+        raise AssertionError(f"{TRAIN_ARCH}: {TRAIN_PARAMS} parameters, "
+                             f"param_count {param_count(cfg)}")
+    launches = counted_generate(cfg, params,
+                                {"tokens": llm_prompts(cfg.vocab_size)})
+    n = cfg.num_layers
+    check_attention_variants(TRAIN_ARCH, launches, n, (LLM_NEW - 1) * n)
+    del params
+    release()
+    return launches
+
+
 def phase_jamba_serving():
     """jamba-1.5-large-398b cut to its first 5 layers at every published
     width, bf16 (A_log, D, dt_bias and the router float32), through
@@ -3794,9 +3837,10 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     rounds x l_local x leaves, no other kernel; ``variants`` maps a name
     to (its counts dict, the counts per pass it must read). Finite
     losses, the tier loss lower in round 2; ms per step, tokens/s, peak
-    memory (under the card's 80 GB), the second round's device busy share
-    and its ten largest kernels (torch.profiler). Returns (its launches,
-    (theta, w, x) after the last round)."""
+    memory (under the card's 80 GB), the second round's device busy share,
+    its ten largest kernels and its attention forward and selective scan
+    kernels (torch.profiler). Returns (its launches, (theta, w, x) after
+    the last round)."""
     import torch
 
     from repro_torch.kernels import flash_attention, mamba_scan, \
@@ -3888,12 +3932,14 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
         f"{sum(e.count for e in rows)} kernels, by device time: " + "; ".join(
             f"{e.key[:60]} x {e.count} {e.self_device_time_total / 1e3:.1f} "
             f"ms" for e in rows[:10]))
-    scans = [e for e in rows if "mamba_scan" in e.key]
-    if scans:
-        say("train", f"{tag} round {TRAIN_ROUNDS}: the selective scan's "
-            "kernels " + "; ".join(
-                f"{e.key[:60]} x {e.count} "
-                f"{e.self_device_time_total / 1e3:.2f} ms" for e in scans))
+    for what, key in (("attention forward's", "attn_"),
+                      ("selective scan's", "mamba_scan")):
+        found = [e for e in rows if key in e.key]
+        if found:
+            say("train", f"{tag} round {TRAIN_ROUNDS}: the {what} kernels "
+                + "; ".join(f"{e.key[:60]} x {e.count} "
+                            f"{e.self_device_time_total / 1e3:.2f} ms"
+                            for e in found))
     if not all(math.isfinite(v) for v in [loss, gnorm] + losses):
         raise AssertionError(f"{tag}: losses {loss}, {losses}")
     if not losses[-1] < losses[0]:
@@ -3911,15 +3957,16 @@ def phase_llm_training():
     :func:`run_training`: flash_attention and flash_attention_bwd exactly
     32 per forward/backward pass (1 + 4 passes), every backward the
     ``wgmma`` variant, prox_update exactly rounds x l_local x 12, no
-    other kernel (the forward ``simt``: head_dim 96); then prox_update at
-    its largest leaves (:func:`prox_at_phi3`). Returns its launches."""
+    other kernel (every forward the ``wgmma`` variant too, at head_dim 96);
+    then prox_update at its largest leaves (:func:`prox_at_phi3`). Returns
+    its launches."""
     from repro_torch.kernels.flash_attention import BWD_VARIANTS, VARIANTS
 
     layers = 32
     launches, (theta, w, x) = run_training(
         TRAIN_ARCH, TRAIN_PARAMS, TRAIN_LEAVES,
         {"flash_attention": layers, "flash_attention_bwd": layers},
-        {"flash_attention variants": (VARIANTS, {"simt": layers}),
+        {"flash_attention variants": (VARIANTS, {"wgmma": layers}),
          "flash_attention_bwd variants": (BWD_VARIANTS,
                                           {"wgmma": layers})})
     prox_at_phi3(theta, w, x)
@@ -4028,7 +4075,7 @@ def phase_training_consistency():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (BWD_VARIANTS,
+    from repro_torch.kernels.flash_attention import (BWD_VARIANTS, VARIANTS,
                                                      reset_variants)
     from repro_torch.models import model as M
     from repro_torch.train import optim
@@ -4063,7 +4110,8 @@ def phase_training_consistency():
         f"{float(lp):.6f}, tier loss {float(rk[3]['loss']):.6f} / "
         f"{float(rp[3]['loss']):.6f}; max |diff| over losses and every "
         f"parameter {float((worst[1] - worst[2]).abs().max()):.3g} "
-        f"({worst[0]}; tol {TRAIN_TOL:g} abs + rel); flash_attention_bwd "
+        f"({worst[0]}; tol {TRAIN_TOL:g} abs + rel); flash_attention "
+        f"variants {dict(VARIANTS)} (f32: simt), flash_attention_bwd "
         f"variants {dict(BWD_VARIANTS)}")
     if bad:
         raise AssertionError(f"{TRAIN_ARCH} training: kernel and plain paths "
@@ -5576,15 +5624,17 @@ def phase_launch_steps():
     before the card's run and read just after. Held: the argument bytes
     equal to the byte, the counted FLOPs and each seam's launches equal,
     the card's launches each seam's, every kernel of LAUNCH_KERNELS
-    launched. Printed: the predicted peak (the fake run's) against
-    ``max_memory_allocated`` and their ratio, and the step's synchronized
-    time (the median of STEP_REPS runs without the counter) against the
-    larger of its roofline's compute and memory terms. Returns the
-    launches."""
+    launched, every bf16 attention forward on a Hopper variant (phi3's 64
+    at head_dim 96 and deepseek's 28 on wgmma, none on simt). Printed: the
+    predicted peak (the fake run's) against ``max_memory_allocated`` and
+    their ratio, and the step's synchronized time (the median of
+    STEP_REPS runs without the counter) against the larger of its
+    roofline's compute and memory terms. Returns the launches."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels.flash_attention import VARIANTS, reset_variants
     from repro_torch.kernels.interface import LAUNCHES, reset_launches
     from repro_torch.launch.dryrun import build_step_and_args, card_mesh
     from repro_torch.roofline import (analyze, model_flops_decode,
@@ -5609,9 +5659,11 @@ def phase_launch_steps():
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        reset_variants()
         real = analyze_ops(step, *args)
         torch.cuda.synchronize()
         launches = {k: c for k, c in LAUNCHES.items() if c}
+        variants = {k: c for k, c in VARIANTS.items() if c}
         measured = torch.cuda.max_memory_allocated()
         seams = {k: v["launches"] for k, v in real["kernels"].items()}
         tag = f"{arch} {kind} ({TRAIN_BATCH} x {TRAIN_SEQ})"
@@ -5629,6 +5681,9 @@ def phase_launch_steps():
         if any(not launches.get(k) for k in LAUNCH_KERNELS[kind]):
             raise AssertionError(f"{tag}: kernels {LAUNCH_KERNELS[kind]} not "
                                  f"all launched: {launches}")
+        if variants != {"wgmma": launches["flash_attention"]}:
+            raise AssertionError(f"{tag}: flash_attention variants "
+                                 f"{variants}, expected every one wgmma")
         for k, c in launches.items():
             total[k] = total.get(k, 0) + c
         times = []
@@ -5647,8 +5702,8 @@ def phase_launch_steps():
         floor = max(roof.compute_s, roof.memory_s)
         say("launch", f"{tag}: fake and card runs agree: argument "
             f"{real['argument_bytes']:,} B, {real['flops']:,.0f} FLOPs, "
-            f"launches {launches}; bytes counted {fake['hbm_bytes'] / 1e9:.3f}"
-            f" GB on fake tensors, {real['hbm_bytes'] / 1e9:.3f} GB on the "
+            f"launches {launches} (flash_attention {variants}); bytes "
+            f"counted {fake['hbm_bytes'] / 1e9:.3f} GB on fake tensors, {real['hbm_bytes'] / 1e9:.3f} GB on the "
             f"card; {fake['aten_ops']} / {real['aten_ops']} aten ops")
         say("launch", f"{tag}: peak predicted {fake['peak_bytes'] / 2**30:.2f}"
             f" GiB (the card's run counted {real['peak_bytes'] / 2**30:.2f} "
@@ -5791,6 +5846,10 @@ def run_phases(argv, t_start, dryrun) -> int:
     say("train", f"{JAMBA_ARCH}: scan check {t_path - t_train:.1f} s, "
         f"training phase {t_cons - t_path:.1f} s, consistency "
         f"{time.perf_counter() - t_cons:.1f} s")
+    t_serve = time.perf_counter()
+    launches["flash_attention"] += phase_phi3_serving()["flash_attention"]
+    say("llm", f"{TRAIN_ARCH}: serving phase "
+        f"{time.perf_counter() - t_serve:.1f} s")
     t_launch = time.perf_counter()
     waited = phase_dryrun(*dryrun)
     for k, v in phase_launch_steps().items():

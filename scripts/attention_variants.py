@@ -13,10 +13,12 @@ register split, 8 rows in flight per thread in the split-kv decode,
 at the serving shapes and a few others with the L2 cold
 (``chip_smoke.py::cuda_time_ms``), in two rounds of opposite order, beside
 ``scaled_dot_product_attention`` on the same tensors. The decode cases are
-also timed at split counts other than the one ``plan`` picks. Every
-variant's output is checked against the plain version (bf16 tolerance
-2e-2). Needs one NVIDIA card and ``nvcc``; prints one line per
-(round, variant, case).
+also timed at split counts other than the one ``plan`` picks. The
+head_dim-96 cases are also timed on ``simt``, the CUDA-core kernel
+(``csrc/flash_attention.cu``) that ran them before the Hopper variants took
+head_dim 96. Every variant's output is checked against the plain version
+(bf16 tolerance 2e-2). Needs one NVIDIA card and ``nvcc``; prints one line
+per (round, variant, case).
 
 ``--trace`` instead builds a copy of the prefill kernel that stamps
 ``clock64`` at each step of each consumer warpgroup's loop (waiting for
@@ -59,6 +61,8 @@ CASES = [
     (1, 4096, 4096, 32, 8, 128, 0, (None,)),       # long, GQA 32:8
     (4, 1, 1040, 16, 16, 128, 1030, (None, 4, 16)),  # deepseek decode
     (1, 1, 1040, 40, 8, 128, 1030, (None, 32)),    # GQA 40:8 decode
+    (4, 1024, 1024, 32, 32, 96, 0, (None,)),       # phi3 prefill, head_dim 96
+    (4, 1, 1040, 32, 32, 96, 1030, (None, 8, 16)),  # phi3 decode
 ]
 TOL = 2e-2
 
@@ -263,7 +267,7 @@ def use(lib):
 
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     wg, sk = lib.flash_attention_wgmma, lib.flash_attention_split_kv
-    wg.argtypes = [I] + [P] * 4 + [I] * 5 + [L] * 12 + [I] * 3 + [F, P]
+    wg.argtypes = [I] + [P] * 4 + [I] * 5 + [L] * 12 + [I] * 3 + [F, P, P]
     sk.argtypes = [I] + [P] * 8 + [I] * 3 + [L] * 10 + [I] * 4 + [F, P]
     wg.restype = sk.restype = I
     ops._wgmma_fn = lambda: wg
@@ -315,6 +319,16 @@ def main() -> int:
                               f"{k.shape[1]} {used[0]}/{used[1]}: "
                               f"{ms * 1e3:.1f} us, max abs err {err:.3g}",
                               flush=True)
+        ops.plan = lambda *a, **kw: ("simt", 1)
+        for q, k, v, off, _, want in data:
+            if q.shape[3] != 96:
+                continue
+            got = attention(q, k, v, q_offset=off)
+            err = float((got.float() - want.float()).abs().max())
+            failed |= not err <= TOL
+            ms = cs.cuda_time_ms(lambda: attention(q, k, v, q_offset=off), 20)
+            print(f"simt (CUDA cores)  q {tuple(q.shape)} kv {k.shape[1]}: "
+                  f"{ms * 1e3:.1f} us, max abs err {err:.3g}", flush=True)
     finally:
         ops.plan = plan
     for q, k, v, off, _, _ in data:

@@ -21,11 +21,11 @@
 // card's ~295 operations per byte, so tensor-core throughput would be the
 // bound; at decode (one query against the cache) it is the K/V bytes.
 // This kernel uses no tensor cores: float32 FMAs on CUDA cores, K/V tiles
-// staged through shared memory. bfloat16 prefill and decode at head_dim 64
-// and 128 run on the tensor-core and split-kv kernels of
+// staged through shared memory. bfloat16 prefill and decode at head_dim
+// 64, 96 and 128 run on the tensor-core and split-kv kernels of
 // flash_attention_hopper.cu instead (ops.py::plan); this one ("simt")
 // serves float32, a bfloat16 q against a float32 cache, unaligned rows and
-// head_dim 32 and 96.
+// head_dim 32.
 //
 // Design:
 //  * Grid (query tiles, q-heads, batch). q-head h reads kv-head

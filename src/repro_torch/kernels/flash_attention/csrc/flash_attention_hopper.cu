@@ -1,8 +1,8 @@
 // Flash attention for Hopper (sm_90a): a tensor-core prefill ("wgmma") and a
-// split-kv decode ("split_kv"). The CUDA-core kernel beside it
-// (flash_attention.cu, "simt") serves every other case: float32, a bfloat16
-// q against a float32 cache, rows that are not 16-byte aligned, head_dim 32
-// and 96. ops.py::plan picks the variant by type and shape.
+// split-kv decode ("split_kv"), each at head_dim 64, 96 or 128. The CUDA-core
+// kernel beside it (flash_attention.cu, "simt") serves every other case:
+// float32, a bfloat16 q against a float32 cache, rows that are not 16-byte
+// aligned, head_dim 32. ops.py::plan picks the variant by type and shape.
 //
 // Both replace the Pallas TPU kernel
 // repro/kernels/flash_attention/flash_attention.py::_attn_kernel and compute
@@ -10,10 +10,11 @@
 // k_pos > q_pos - window; online softmax; rows with no key to see give 0;
 // q-head h reads kv-head h / (hq / hkv)).
 //
-// wgmma (bfloat16 q, k, v; sq > 1; head_dim 64 or 128). Bound: at the
+// wgmma (bfloat16 q, k, v; sq > 1; head_dim 64, 96 or 128). Bound: at the
 // serving prefill (4 x 1024 queries, 16 heads of 128, causal) 17.2 GFLOP
 // against 67 MB, above the card's ~295 operations per byte, so the tensor
-// cores. Design:
+// cores; likewise phi3-mini's training forward (4 x 1024, 32 heads of 96,
+// causal: 25.8 GFLOP against 101 MB). Design:
 //  * A CTA owns a 128-row q tile of one (batch, q-head): two consumer
 //    warpgroups of 64 rows each and a producer warpgroup, of which one
 //    thread issues every TMA copy and the rest only give back registers
@@ -21,11 +22,16 @@
 //  * Q, K, V come in by TMA with the 128-byte swizzle, through 4-D (d, h, s,
 //    b) tensor maps built per call from the tensors' strides (views of a
 //    stacked cache included). A row of 128 bf16 is 256 bytes, wider than the
-//    swizzle span, so every tile is one or two 64-column boxes and the
-//    wgmma descriptors step from box to box. K and V have a ring of 3
-//    stages (224 KB of shared memory with Q at head_dim 128); full barriers
-//    (K and V apart, so that S = Q.K^T starts before V lands) and one empty
-//    barrier per stage.
+//    swizzle span, so every tile is NB = ceil(D / 64) boxes of 64 columns
+//    and the wgmma descriptors step from box to box. At head_dim 96 a row
+//    is a full box and half a box that TMA fills with zeros (and counts
+//    toward the barrier's bytes: the expected bytes are whole boxes); S
+//    runs 6 k-steps, P.V is m64n96k16 with V MN-major across the box and
+//    a half, as the backward's output products (flash_attention_bwd_
+//    hopper.cu). K and V have a ring of 3 stages (224 KB of shared memory
+//    with Q at head_dim 96 and 128, 112 KB at 64); full barriers (K and V
+//    apart, so that S = Q.K^T starts before V lands) and one empty barrier
+//    per stage.
 //  * S = Q.K^T: wgmma m64n128k16, A = Q and B = K both K-major in shared
 //    memory, f32 accumulators. sm_scale * log2(e) is folded into one FFMA
 //    before ex2.approx. Only tiles that cross the diagonal, the window edge
@@ -33,8 +39,10 @@
 //    loaded. q tiles run heaviest first (the last causal tile has the most
 //    keys).
 //  * The output is staged as bf16 in the warpgroup's rows of the Q tile
-//    (which nothing reads by then) and written by TMA stores, which leave
-//    out rows past sq.
+//    (which nothing reads by then) and written by TMA stores of 64-column
+//    boxes, which leave out rows past sq and, at head_dim 96, columns 96-127
+//    of the second box (past the map's d: the next head's columns stay
+//    untouched).
 //  * Overlap: a warpgroup issues S of tile j + 1 and P.V of tile j together
 //    and runs the softmax of tile j + 1 while P.V runs; the two warpgroups
 //    take turns to issue (named barriers), so that one's softmax runs under
@@ -45,17 +53,32 @@
 //    the JAX package's own XLA reference (repro/kernels/flash_attention/
 //    ref.py) rounds p to the activation type before the PV product; the row
 //    sums l are taken over the f32 p.
+//  * ptxas (-Xptxas -v, chip_smoke.py phase 2): 168 registers at the
+//    launch bound at head_dim 64, 96 and 128 (the consumers raise theirs to
+//    232 with setmaxnreg), no spills; dynamic shared memory TcSmem<D> + 1 KB
+//    of alignment slack: 230,480 B at 96 and 128, 115,792 B at 64.
 //
-// split_kv (bfloat16 q, k, v; one query row; head_dim 64 or 128). Bound: the
-// K/V bytes (one query does ~1 FLOP per byte). Design:
+// split_kv (bfloat16 q, k, v; one query row; head_dim 64, 96 or 128). Bound:
+// the K/V bytes (one query does ~1 FLOP per byte). Design:
 //  * Grid (kv chunks, kv-heads x head blocks, batch). A CTA serves all
 //    hq / hkv q-heads of its kv-head (up to 8 at once), so every K/V row is
 //    read once. Chunks lie over the keys that can be seen only,
 //    [lo, lo + n_vis), their count chosen by ops.py::plan to fill the card.
-//  * 128 threads stream the chunk with 16-byte loads, D/8 lanes to a row,
+//  * 128 threads stream the chunk with 16-byte loads, LPR lanes to a row,
 //    4 rows each in flight; f32 math on CUDA cores (p stays f32); each CTA
 //    writes its (m, l, acc) in f32 to scratch the wrapper allocates, with
 //    m = -1e30 and l = 0 for a chunk in which nothing is seen.
+//  * LPR is D / 8 (8 bf16 a lane) rounded up to a power of two: a row's dot
+//    product is summed by an xor butterfly over its lanes, which is a sum
+//    only over a power-of-two group. At head_dim 96 a row takes 16 lanes of
+//    which 12 load (192 bytes) and 4 add zeros: every K/V row is still read
+//    once, with 16-byte loads, 2 rows a warp a load, and the block's 8 row
+//    slots keep sh_acc at 8 x MG x 96 floats. (4 lanes a row of three loads
+//    each would fill every lane but need 32 slots: 96 KB of sh_acc at MG =
+//    8, past the 48 KB of static shared memory.) ptxas, head_dim 96 at MG
+//    = 1, 2, 4, 8: 72, 125, 168, 236 registers (as at 64 and 128), no
+//    spills, 3,664, 7,312, 14,624, 29,232 B of static shared memory (64:
+//    4,752 to 37,936; 128: 4,688 to 37,424).
 //  * The last CTA of each (batch, kv-head) to finish, found with an atomic
 //    ticket, merges the chunks: weights exp(m_i - max m), out = sum(acc_i
 //    w_i) / max(sum(l_i w_i), 1e-30), and sets its ticket back to 0. One
@@ -91,8 +114,11 @@ struct TcParams {
 
 template <int D>
 struct TcSmem {
-  static constexpr int kQ = D * kBM * 2;     // bytes of the Q tile
-  static constexpr int kKV = D * kBN * 2;    // bytes of one K (or V) stage
+  static constexpr int NB = (D + kBox - 1) / kBox;   // 64-column boxes a row
+  // whole boxes: at head_dim 96 TMA fills the second box's last 32 columns
+  // with zeros and counts their bytes toward the barrier
+  static constexpr int kQ = NB * kBM * 128;    // bytes of the Q tile
+  static constexpr int kKV = NB * kBN * 128;   // bytes of one K (or V) stage
   static constexpr int kK = kQ;
   static constexpr int kV = kK + kStages * kKV;
   static constexpr int kBar = kV + kStages * kKV;
@@ -129,7 +155,8 @@ struct Rows {
 };
 
 // S (64 x kBN) = Q . K^T over head_dim, 16 at a time; each operand is one
-// or two 64-column boxes (K-major, 128-byte swizzle).
+// or two 64-column boxes (K-major, 128-byte swizzle): at head_dim 96 the
+// second box's first 32 columns.
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q,
                                          uint32_t k) {
@@ -141,7 +168,9 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t q,
   }
 }
 
-// O (64 x D) += P . V over the tile's kv rows, 16 at a time; V MN-major.
+// O (64 x D) += P . V over the tile's kv rows, 16 at a time; V MN-major,
+// its boxes kBN * 128 bytes apart (at head_dim 96 the product reads one box
+// and the first half of the next).
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pa)[kBN / 16][4],
@@ -151,6 +180,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
     const uint64_t dv = smem_desc(v + kk * 16 * 128, kBN * 128, 1024);
     if constexpr (D == 128)
       wgmma_rs_n128(o, pa[kk], dv);
+    else if constexpr (D == 96)
+      wgmma_rs_n96(o, pa[kk], dv);
     else
       wgmma_rs_n64(o, pa[kk], dv);
   }
@@ -235,7 +266,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                       const __grid_constant__ CUtensorMap tm_o,
                       const TcParams p) {
   using L = TcSmem<D>;
-  constexpr int NB = D / kBox;   // boxes per row
+  constexpr int NB = L::NB;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -379,7 +410,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
   // out = O / max(l, 1e-30) in bf16, staged in this warpgroup's rows of the
   // Q tile (no longer read) with the 128-byte swizzle, then one TMA store
-  // per 64-column box; TMA leaves out rows past sq.
+  // per 64-column box; TMA leaves out rows past sq and columns past D.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -463,7 +494,10 @@ __device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* p) {
 template <int D, int MG>
 __global__ void __launch_bounds__(kSkThreads)
     attn_split_kernel(const SkParams p) {
-  constexpr int LPR = D / 8;                 // lanes per row
+  static_assert(D % 8 == 0 && D <= 128, "head_dim: a multiple of 8, <= 128");
+  // lanes per row: D / 8 (one 16-byte load each) rounded up to a power of
+  // two, so that the xor butterfly stays in the row
+  constexpr int LPR = D / 8 <= 8 ? 8 : 16;
   constexpr int RPW = 32 / LPR;              // rows per warp per load
   constexpr int SLOTS = RPW * (kSkThreads / 32);
   constexpr int STEPS = 4;                   // rows each thread has in flight
@@ -478,6 +512,9 @@ __global__ void __launch_bounds__(kSkThreads)
   const int h0 = hk * p.group + g0;          // first q-head of the block
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int slot = warp * RPW + lane / LPR, c = (lane % LPR) * 8;
+  // whether this lane holds columns of the row (at head_dim 96, 4 of a
+  // row's 16 lanes do not: they load nothing and add zeros)
+  const bool live = LPR * 8 == D || c < D;
   const int row0 = p.lo + split * p.chunk;
   const int row1 = min(row0 + p.chunk, p.lo + p.n_vis);
 
@@ -485,8 +522,9 @@ __global__ void __launch_bounds__(kSkThreads)
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
     float x[8];
-    unpack8(g < ng ? ldg16(p.q + bi * p.q_sb + (h0 + g) * p.q_sh + c)
-                   : make_uint4(0u, 0u, 0u, 0u),
+    unpack8(g < ng && live
+                ? ldg16(p.q + bi * p.q_sb + (h0 + g) * p.q_sh + c)
+                : make_uint4(0u, 0u, 0u, 0u),
             x);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -507,7 +545,7 @@ __global__ void __launch_bounds__(kSkThreads)
       const int row = rb + u * SLOTS + slot;
       ok[u] = row < row1;
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[u]) {
+      if (ok[u] && live) {
         kr[u] = ldg16(kp + row * p.k_ss);
         vr[u] = ldg16(vp + row * p.v_ss);
       }
@@ -558,8 +596,10 @@ __global__ void __launch_bounds__(kSkThreads)
       sh_m[slot][g] = m[g];
       sh_l[slot][g] = l[g];
     }
+    if (live) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sh_acc[slot][g][c + e] = acc[g][e];
+      for (int e = 0; e < 8; ++e) sh_acc[slot][g][c + e] = acc[g][e];
+    }
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < ng * D; idx += kSkThreads) {
@@ -676,12 +716,12 @@ int by_group(const SkParams& p, int b, int hkv, cudaStream_t stream) {
 }  // namespace
 
 // Tensor-core prefill. bfloat16 q (b, sq, hq, d), k/v (b, skv, hkv, d), o
-// (b, sq, hq, d); head_dim 64 or 128; strides (*_sb, *_ss, *_sh) in elements,
-// unit stride along d, every stride of an axis longer than 1 a multiple of 8
-// elements and every base 16-byte aligned (TMA). scale_log2 = sm_scale *
-// log2(e). lse: null, or float32 (b, hq, sq) that receives each row's
-// log-sum-exp of its scaled scores. Returns 0, a cudaError_t, or 10001 / 10002 + CUresult when a
-// tensor map cannot be made.
+// (b, sq, hq, d); head_dim 64, 96 or 128; strides (*_sb, *_ss, *_sh) in
+// elements, unit stride along d, every stride of an axis longer than 1 a
+// multiple of 8 elements and every base 16-byte aligned (TMA). scale_log2 =
+// sm_scale * log2(e). lse: null, or float32 (b, hq, sq) that receives each
+// row's log-sum-exp of its scaled scores. Returns 0, a cudaError_t, or
+// 10001 / 10002 + CUresult when a tensor map cannot be made.
 extern "C" int flash_attention_wgmma(
     int head_dim, const void* q, const void* k, const void* v, void* o, int b,
     int sq, int skv, int hq, int hkv, int64_t q_sb, int64_t q_ss,
@@ -690,8 +730,7 @@ extern "C" int flash_attention_wgmma(
     int q_offset, int causal, int window, float scale_log2, float* lse,
     void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv ||
-      int64_t(b) * hq > 0x7fffffff || (sq + kBM - 1) / kBM > 65535 ||
-      (head_dim != 64 && head_dim != 128))
+      int64_t(b) * hq > 0x7fffffff || (sq + kBM - 1) / kBM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, to;
   int err = make_map(&tq, q, head_dim, hq, sq, b, q_sh, q_ss, q_sb, kBM);
@@ -705,12 +744,16 @@ extern "C" int flash_attention_wgmma(
   const TcParams p{sq, skv, hq, hq / hkv, q_offset, causal, window,
                    scale_log2, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return head_dim == 128 ? launch_wgmma<128>(tq, tk, tv, to, p, b, s)
-                         : launch_wgmma<64>(tq, tk, tv, to, p, b, s);
+  switch (head_dim) {
+    case 64: return launch_wgmma<64>(tq, tk, tv, to, p, b, s);
+    case 96: return launch_wgmma<96>(tq, tk, tv, to, p, b, s);
+    case 128: return launch_wgmma<128>(tq, tk, tv, to, p, b, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Split-kv decode of one query row. bfloat16 q (b, 1, hq, d), k/v (b, skv,
-// hkv, d), o (b, 1, hq, d); head_dim 64 or 128; 16-byte aligned rows. The
+// hkv, d), o (b, 1, hq, d); head_dim 64, 96 or 128; 16-byte aligned rows. The
 // keys [lo, lo + n_vis) are the ones the query sees, cut into `splits`
 // chunks of `chunk` rows; part_m, part_l (b, hq, splits) and part_acc (b,
 // hq, splits, d) are float32 scratch; tickets holds b * hkv * ceil(hq / hkv
@@ -725,8 +768,7 @@ extern "C" int flash_attention_split_kv(
     void* stream) {
   if (b < 1 || b > 65535 || hkv < 1 || hq % hkv || splits < 1 ||
       splits > kSkMaxSplits || chunk < 1 ||
-      hkv * ((hq / hkv + kSkHeads - 1) / kSkHeads) > 65535 ||
-      (head_dim != 64 && head_dim != 128))
+      hkv * ((hq / hkv + kSkHeads - 1) / kSkHeads) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const SkParams p{static_cast<const __nv_bfloat16*>(q),
                    static_cast<const __nv_bfloat16*>(k),
@@ -736,6 +778,10 @@ extern "C" int flash_attention_split_kv(
                    k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, hq, hq / hkv, lo,
                    std::max(n_vis, 0), chunk, splits, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return head_dim == 128 ? by_group<128>(p, b, hkv, s)
-                         : by_group<64>(p, b, hkv, s);
+  switch (head_dim) {
+    case 64: return by_group<64>(p, b, hkv, s);
+    case 96: return by_group<96>(p, b, hkv, s);
+    case 128: return by_group<128>(p, b, hkv, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

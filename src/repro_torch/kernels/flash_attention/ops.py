@@ -12,19 +12,20 @@ tensors, the plain version (``ref.py``) for CPU tensors or an explicit
 On a CUDA tensor, :func:`plan` picks one of three kernel variants by type
 and shape, written out (no variant gives way to another):
 
-  * ``"wgmma"``: bfloat16 q, k, v, more than one query row, head_dim 64 or
-    128, 16-byte aligned rows. The tensor-core prefill
-    (``csrc/flash_attention_hopper.cu``, TMA + wgmma); p is rounded to
-    bfloat16 before the PV product, as the JAX package's ``attention_ref``
-    rounds it.
+  * ``"wgmma"``: bfloat16 q, k, v, more than one query row, head_dim 64,
+    96 or 128, 16-byte aligned rows. The tensor-core prefill
+    (``csrc/flash_attention_hopper.cu``, TMA + wgmma; a row of 96 is a
+    64-column box and half a box that TMA fills with zeros); p is rounded
+    to bfloat16 before the PV product, as the JAX package's
+    ``attention_ref`` rounds it.
   * ``"split_kv"``: the same types, head dims and alignment, one query row
     (decode). The visible keys are cut into ``splits`` chunks, one CTA per
     (chunk, kv-head, batch); the last CTA of each (batch, kv-head) merges
     them (an atomic ticket): one CUDA launch. Its tickets are int32
     counters that each launch leaves at 0, kept per (device, stream).
   * ``"simt"``: everything else -- float32, a bfloat16 q against a float32
-    cache, rows that are not 16-byte aligned, head_dim 32 and 96. The
-    CUDA-core kernel ``csrc/flash_attention.cu`` (p stays float32).
+    cache, rows that are not 16-byte aligned, head_dim 32. The CUDA-core
+    kernel ``csrc/flash_attention.cu`` (p stays float32).
 
 All read q, k and v through their strides (unit stride along d). Each op
 call adds one to ``LAUNCHES["flash_attention"]`` and to
@@ -81,8 +82,7 @@ _NAME = "flash_attention"
 _BWD = "flash_attention_bwd"
 KERNELS = (_NAME, _BWD)
 HEAD_DIMS = (32, 64, 96, 128)
-_TC_HEAD_DIMS = (64, 128)         # wgmma and split_kv
-_TC_BWD_HEAD_DIMS = (64, 96, 128)  # the wgmma backward
+_TC_HEAD_DIMS = (64, 96, 128)     # wgmma, split_kv and the wgmma backward
 _BWD_PAD = 128                    # rows of its lse2 / delta scratch: a
                                   # multiple of its query block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -191,12 +191,14 @@ def _aligned(t) -> bool:
 
 def plan(q, k, v, *, causal=True, window=0, q_offset=None):
     """(variant, splits) of the kernel :func:`attention` launches for these
-    tensors: ``"wgmma"`` for bfloat16 q, k, v with sq > 1, head_dim 64 or
-    128 and 16-byte aligned rows with unit stride along d; ``"split_kv"``
-    for the same with sq == 1; ``"simt"`` otherwise. ``splits`` (1 but for
-    split_kv) cuts the visible keys into chunks so that the grid holds
-    about 4 CTAs per SM, of at least 64 keys each, at most 64 chunks. A
-    pure function of shapes, types, strides and addresses."""
+    tensors: ``"wgmma"`` for bfloat16 q, k, v with sq > 1, head_dim 64, 96
+    or 128 and 16-byte aligned rows with unit stride along d;
+    ``"split_kv"`` for the same with sq == 1; ``"simt"`` otherwise
+    (float32, a bfloat16 q over a float32 cache, unaligned rows, head_dim
+    32). ``splits`` (1 but for split_kv) cuts the visible keys into chunks
+    so that the grid holds about 4 CTAs per SM, of at least 64 keys each,
+    at most 64 chunks. A pure function of shapes, types, strides and
+    addresses."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     fast = (all(t.dtype == torch.bfloat16 for t in (q, k, v))
@@ -222,7 +224,7 @@ def plan_bwd(q, k, v, out=None, dout=None) -> str:
     strides and addresses."""
     ts = [t for t in (q, k, v, out, dout) if t is not None]
     fast = (all(t.dtype == torch.bfloat16 for t in ts)
-            and q.shape[3] in _TC_BWD_HEAD_DIMS
+            and q.shape[3] in _TC_HEAD_DIMS
             and all(t.stride(3) == 1 and _aligned(t) for t in ts))
     return "wgmma" if fast else "simt"
 
@@ -314,7 +316,7 @@ def _forward(q, k, v, causal, window, q_offset, kt, want_lse):
     if variant == "split_kv" and want_lse:
         raise NotImplementedError(
             "flash_attention: the split_kv decode kernel (one bfloat16 query "
-            "row, head_dim 64/128) writes no log-sum-exp, so it has no "
+            "row, head_dim 64/96/128) writes no log-sum-exp, so it has no "
             "backward; differentiate a prefill (sq > 1) instead")
     lse_ptr = lse.data_ptr() if lse is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream

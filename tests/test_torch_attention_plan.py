@@ -2,11 +2,12 @@
 
 ``plan`` picks the kernel variant (``wgmma`` / ``split_kv`` / ``simt``)
 from types, shapes, strides and addresses alone, so it is held here
-without a card for the served models' shapes; ``plan_bwd`` picks the
-backward's (``wgmma`` / ``simt``) for the trained models' shapes, and
-the backward's wrapper hands its kernel the arguments its C signature
-takes and raises, never falls back, when the kernel fails. ``attention_partials`` +
-``combine_partials`` are the split-kv kernel's math in plain PyTorch
+without a card for the served models' shapes (phi3-mini's head_dim 96
+on the Hopper variants too); ``plan_bwd`` picks the backward's
+(``wgmma`` / ``simt``) for the trained models' shapes, and the forward's
+and the backward's wrappers hand their kernels as many arguments as the
+C signatures in the sources have and raise, never fall back, when the
+kernel fails. ``attention_partials`` + ``combine_partials`` are the split-kv kernel's math in plain PyTorch
 (chunks of the visible keys, each chunk's (m, l, acc), the merge); in
 float32 they must equal ``attention_ref`` within 1e-6 (one softmax over the
 row against chunked ones: float32 rounding). The JAX package's
@@ -66,7 +67,18 @@ PLAN_CASES = [
     ("bf16 q, f32 cache", (4, 1, 16, 128), (4, 1040, 16, 128), BF16, F32,
      1030, 0, ("simt", 1)),
     ("head_dim 96", (2, 256, 8, 96), (2, 256, 8, 96), BF16, BF16, 0, 0,
+     ("wgmma", 1)),
+    # phi3-mini (32 heads of 96): its training forward, its decode on a
+    # 1,040-slot cache (128 (b, h) blocks: 5 chunks fill 4 waves of 132
+    # SMs), and in f32
+    ("phi3 train forward", (4, 1024, 32, 96), (4, 1024, 32, 96), BF16, BF16,
+     0, 0, ("wgmma", 1)),
+    ("phi3 decode", (4, 1, 32, 96), (4, 1040, 32, 96), BF16, BF16, 1030, 0,
+     ("split_kv", 5)),
+    ("f32 head_dim 96", (4, 1024, 32, 96), (4, 1024, 32, 96), F32, F32, 0, 0,
      ("simt", 1)),
+    ("f32 head_dim 96 decode", (4, 1, 32, 96), (4, 1040, 32, 96), F32, F32,
+     1030, 0, ("simt", 1)),
     ("head_dim 32 decode", (2, 1, 4, 32), (2, 96, 2, 32), BF16, BF16, 50, 0,
      ("simt", 1)),
 ]
@@ -113,6 +125,8 @@ def test_plan_serving_prefill_shapes(case):
     ("qwen2-vl-2b", 1040, False, 1024, ("split_kv", 16)),
     ("qwen2-vl-2b", 1040, False, 1038, ("split_kv", 16)),
     ("jamba-1.5-large-398b", 1040, False, 1030, ("split_kv", 16)),
+    ("phi3-mini-3.8b", 1040, False, 1024, ("split_kv", 5)),
+    ("phi3-mini-3.8b", 1040, False, 1039, ("split_kv", 5)),
 ])
 def test_serving_cache_slices_plan(arch, max_len, cross, q_offset, want):
     """Every block's slice of the full-width stacked bf16 cache (the meta
@@ -120,8 +134,9 @@ def test_serving_cache_slices_plan(arch, max_len, cross, q_offset, want):
     so a decode step's attention is split_kv, never simt: Whisper's cross
     K/V over its 1,500 frames (non-causal, q_offset 0: 11 chunks at b = 4,
     12 kv-heads) and its self K/V, Qwen2-VL's 12:2 cache, Jamba's 64:8
-    cache (the attention position of each hybrid block). A float32 cache
-    under a bf16 q takes simt."""
+    cache (the attention position of each hybrid block), phi3-mini's 32
+    heads of 96 (rows of 192 bytes). A float32 cache under a bf16 q takes
+    simt."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import _aligned
     from repro_torch.models import transformer
@@ -166,6 +181,16 @@ def test_plan_unaligned_views_take_simt():
     assert plan(q, k2, v2) == ("wgmma", 1)
     wide = torch.zeros(2, 40, 4, 129, dtype=BF16)[..., :128]  # odd stride
     assert plan(wide, k2, v2) == ("simt", 1)
+    # head_dim 96: 96 columns of a row of 104 (208 bytes) keep the Hopper
+    # variants; one column in, or a row of 100 (200 bytes), do not
+    kv96 = torch.zeros(2, 50, 4, 104, dtype=BF16)
+    q96 = torch.zeros(2, 40, 4, 96, dtype=BF16)
+    k96, v96 = kv96[:, :, :2, :96], kv96[:, :, 2:, 8:]
+    assert plan(q96, k96, v96) == ("wgmma", 1)
+    assert plan(q96[:, :1], k96, v96, q_offset=45)[0] == "split_kv"
+    assert plan(q96, kv96[:, :, :2, 1:97], v96) == ("simt", 1)
+    odd = torch.zeros(2, 50, 4, 100, dtype=BF16)[..., :96]
+    assert plan(q96, odd[:, :, :2], odd[:, :, 2:]) == ("simt", 1)
 
 
 def test_plan_ignores_strides_of_length_one_axes():
@@ -196,6 +221,8 @@ PARTIAL_CASES = [
     (1, 300, 40, 8, 128, True, 64, 250, 7),         # window starts mid-chunk
     (1, 300, 12, 2, 64, True, 100, 299, 3),
     (2, 200, 4, 4, 64, False, 0, 50, 64),           # empty chunks
+    (2, 1040, 32, 32, 96, True, 0, 1030, 5),        # phi3 decode, head_dim 96
+    (1, 300, 8, 2, 96, True, 100, 299, 3),          # head_dim 96, GQA, window
     (1, 50, 4, 1, 32, True, 30, 10, 5),
     (1, 40, 4, 2, 64, True, 0, -1, 2),              # nothing seen at all
 ]
@@ -297,6 +324,21 @@ class _Stream:
     cuda_stream = 0
 
 
+def _stub(calls, name, n_args):
+    """A loader of an entry point that records its arguments under
+    ``name``, checks their count and fails as a kernel does (error 700,
+    cudaErrorIllegalAddress)."""
+    def fn(*args):
+        calls[name] = args
+        assert len(args) == n_args
+        return 700
+    return lambda: fn
+
+
+def _fail():
+    raise AssertionError("another variant ran")
+
+
 def _bwd_inputs(d, dtype=BF16):
     rng = np.random.default_rng(d)
     q, do = (torch.from_numpy(rng.standard_normal((2, 200, 4, d))
@@ -322,24 +364,16 @@ def test_bwd_wrapper_calls_its_kernel_and_raises_on_failure(monkeypatch, d,
     from repro_torch.kernels.interface import LAUNCHES, KernelType
 
     calls = {}
-
-    def stub(name, n_args):
-        def fn(*args):
-            calls[name] = args
-            assert len(args) == n_args
-            return 700                  # cudaErrorIllegalAddress
-        return lambda: fn
-
-    def fail():
-        raise AssertionError("the other variant ran")
-
     monkeypatch.setattr(ops, "kernel_mode", lambda t, mode: KernelType.CUDA)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: _Stream())
-    wgmma, simt = stub("wgmma", 38), stub("simt", 38)
+    wgmma = _stub(calls, "wgmma", _c_arity("flash_attention_bwd_hopper.cu",
+                                           "flash_attention_bwd_wgmma"))
+    simt = _stub(calls, "simt", _c_arity("flash_attention_bwd.cu",
+                                         "flash_attention_bwd"))
     monkeypatch.setattr(ops, "_bwd_wgmma_fn",
-                        wgmma if variant == "wgmma" else fail)
-    monkeypatch.setattr(ops, "_bwd_fn", simt if variant == "simt" else fail)
+                        wgmma if variant == "wgmma" else _fail)
+    monkeypatch.setattr(ops, "_bwd_fn", simt if variant == "simt" else _fail)
     q, k, v, out, lse, do = _bwd_inputs(d)
     assert plan_bwd(q, k, v, out, do) == variant
     launches = LAUNCHES.get("flash_attention_bwd", 0)
@@ -363,3 +397,88 @@ def test_bwd_wrapper_calls_its_kernel_and_raises_on_failure(monkeypatch, d,
                         else "_bwd_fn", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         attention_bwd(q, k, v, out, lse, do, q_offset=0)
+
+
+def _c_arity(source, name):
+    """The number of parameters of ``extern "C" int name(...)`` in the
+    kernel source ``csrc/<source>``."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.flash_attention import ops
+
+    text = (Path(ops.__file__).parent / "csrc" / source).read_text()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    assert m, name
+    return m.group(1).count(",") + 1
+
+
+# (label, q shape, kv shape, q_offset, variant, its entry point: (source,
+# C name, ops' loader))
+FWD_WRAPPER_CASES = [
+    ("96 prefill", (2, 200, 4, 96), (2, 150, 2, 96), 0, "wgmma",
+     ("flash_attention_hopper.cu", "flash_attention_wgmma", "_wgmma_fn")),
+    ("96 decode", (2, 1, 4, 96), (2, 150, 2, 96), 140, "split_kv",
+     ("flash_attention_hopper.cu", "flash_attention_split_kv",
+      "_split_fn")),
+    ("32", (2, 200, 4, 32), (2, 150, 2, 32), 0, "simt",
+     ("flash_attention.cu", "flash_attention", "_simt_fn")),
+]
+
+
+@pytest.mark.parametrize("case", FWD_WRAPPER_CASES, ids=lambda c: c[0])
+def test_fwd_wrapper_calls_its_kernel_and_raises_on_failure(monkeypatch,
+                                                            case):
+    """The forward's counterpart of the backward's wrapper test: with the
+    kernel path forced on CPU tensors and each entry point stubbed,
+    attention calls the variant plan picks (head_dim 96 prefill on wgmma,
+    its decode on split_kv, head_dim 32 on simt) with as many arguments as
+    its C signature has, counts one launch and the variant, and raises on
+    the kernel's error code; no other variant runs (no fallback). A build
+    that fails raises too."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.interface import LAUNCHES, KernelType
+
+    _, qs, kvs, q_offset, variant, (source, c_name, loader) = case
+    calls = {}
+    monkeypatch.setattr(ops, "kernel_mode", lambda t, mode: KernelType.CUDA)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    for other in ("_wgmma_fn", "_split_fn", "_simt_fn"):
+        monkeypatch.setattr(ops, other, _fail)
+    monkeypatch.setattr(ops, loader,
+                        _stub(calls, variant, _c_arity(source, c_name)))
+    rng = np.random.default_rng(len(qs) + qs[1])
+    q = torch.from_numpy(rng.standard_normal(qs).astype(np.float32)).to(BF16)
+    k, v = (torch.from_numpy(rng.standard_normal(kvs).astype(np.float32))
+            .to(BF16) for _ in range(2))
+    assert plan(q, k, v, q_offset=q_offset)[0] == variant
+    launches = LAUNCHES.get("flash_attention", 0)
+    counted = dict(VARIANTS)
+    with pytest.raises(RuntimeError,
+                       match=f"flash_attention {variant} kernel launch "
+                             "failed: error 700"):
+        attention(q, k, v, q_offset=q_offset)
+    assert LAUNCHES["flash_attention"] == launches + 1
+    counted[variant] += 1
+    assert VARIANTS == counted
+    args = calls[variant]
+    b, sq, hq, d = qs
+    skv, hkv = kvs[1], kvs[2]
+    if variant == "wgmma":
+        assert args[0] == d and args[5:10] == (b, sq, skv, hq, hkv)
+        assert args[22:25] == (q_offset, 1, 0) and args[26] is None
+    elif variant == "split_kv":
+        splits = plan(q, k, v, q_offset=q_offset)[1]
+        lo, n = visible_keys(skv, q_offset=q_offset)
+        assert args[0] == d and args[9:12] == (b, hq, hkv)
+        assert args[22:26] == (lo, n, -(-n // splits), splits)
+    else:
+        assert args[:3] == (1, 1, d) and args[7:12] == (b, sq, skv, hq, hkv)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(ops, loader, no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        attention(q, k, v, q_offset=q_offset)

@@ -639,7 +639,7 @@ def test_serve_path_on_the_card(cuda, encoding):
 LLM_ATTN_CASES = [
     (2, 128, 128, 4, 4, 64, True, 0, None, "wgmma"),
     (1, 96, 256, 40, 8, 128, True, 0, None, "wgmma"),   # GQA 40:8 (qwen3)
-    (2, 80, 80, 4, 4, 96, True, 0, None, "simt"),       # head_dim 96 (phi3)
+    (2, 80, 80, 4, 4, 96, True, 0, None, "wgmma"),      # head_dim 96 (phi3)
     (1, 300, 300, 2, 2, 128, True, 64, None, "wgmma"),  # sliding window
     (1, 64, 72, 4, 2, 32, False, 0, 0, "simt"),         # non-causal, d 32
     (2, 1, 1040, 4, 4, 128, True, 0, 1030, "split_kv"),  # decode, long cache
@@ -661,6 +661,15 @@ LLM_ATTN_CASES = [
     (4, 1, 1500, 12, 12, 64, False, 0, 0, "split_kv"),
     (4, 1024, 1024, 12, 2, 128, True, 0, None, "wgmma"),
     (2, 12, 75, 4, 4, 64, False, 0, 0, "wgmma"),       # ragged, sq != skv
+    # head_dim 96 (a 64-column box and half a box): phi3-mini's decode on a
+    # 1,040-slot cache, GQA decodes (2 and 8 q-heads a CTA), a ragged GQA
+    # prefill, a windowed one, a non-causal one with sq != skv
+    (2, 1, 1040, 32, 32, 96, True, 0, 1030, "split_kv"),
+    (2, 1, 300, 8, 4, 96, True, 0, 250, "split_kv"),
+    (1, 1, 1040, 16, 2, 96, True, 0, 1000, "split_kv"),
+    (2, 300, 300, 8, 2, 96, True, 0, None, "wgmma"),
+    (1, 300, 300, 4, 4, 96, True, 64, None, "wgmma"),
+    (2, 12, 75, 4, 4, 96, False, 0, 0, "wgmma"),
 ]
 # f32: the kernel's online softmax against one softmax over the row;
 # bf16: one rounding of the output (the chip_smoke tolerances)
@@ -750,6 +759,62 @@ def test_flash_attention_bf16_strided_views_tensor_core(cuda, sq, variant):
     assert VARIANTS == ran
     assert float((got.float() - want.float()).abs().max()) <= \
         ATTN_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("sq", [300, 1])
+def test_flash_attention_head_dim_96_writes_only_its_columns(cuda, sq):
+    """head_dim 96 on the Hopper variants (300 queries: wgmma; one:
+    split_kv), k and v slices of a stacked bf16 cache as the engine hands
+    them over, q heads sliced out of a wider tensor, and the output a
+    strided view of 96 columns into a sentinel buffer of rows of 128 with a
+    head on either side: the entry point writes the view's 96 columns of
+    each head and nothing else (wgmma's TMA stores of 64-column boxes drop
+    columns 96-127; the neighbouring heads keep the sentinel), and the
+    output equals the plain version's."""
+    import math
+
+    from repro_torch.kernels.flash_attention import attention, ops
+    from repro_torch.kernels.flash_attention.ref import sm_scale, \
+        visible_keys
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(96 + sq)
+    b, skv, hq, hkv, d = 2, 300, 8, 2, 96
+    q_offset = 0 if sq > 1 else 250
+    stack = _randn(rng, (2, 3, b, skv, hkv, d), bf16, cuda)
+    k, v = stack[0, 1], stack[1, 1]
+    q = _randn(rng, (b, sq, hq + 2, d), bf16, cuda)[:, :, 1:hq + 1]
+    buf = torch.full((b, sq, hq + 2, 128), 7.0, dtype=bf16, device=cuda)
+    out = buf[:, :, 1:hq + 1, :d]
+    variant, splits = ops.plan(q, k, v, q_offset=q_offset)
+    assert variant == ("wgmma" if sq > 1 else "split_kv")
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if variant == "wgmma":
+        err = ops._wgmma_fn()(
+            d, *ptrs, b, sq, skv, hq, hkv, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], q_offset, 1, 0,
+            sm_scale(d) * math.log2(math.e), None, stream)
+    else:
+        lo, n = visible_keys(skv, q_offset=q_offset)
+        rows = b * hq * splits
+        part = torch.empty((2 + d) * rows, dtype=torch.float32, device=cuda)
+        tickets = torch.zeros(b * hkv, dtype=torch.int32, device=cuda)
+        err = ops._split_fn()(
+            d, *ptrs, part[:rows].data_ptr(), part[rows:2 * rows].data_ptr(),
+            part[2 * rows:].data_ptr(), tickets.data_ptr(), b, hq, hkv,
+            q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+            out.stride(0), out.stride(2), lo, n, -(-n // splits), splits,
+            sm_scale(d), stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want = attention(q, k, v, q_offset=q_offset, mode="torch")
+    assert float((out.float() - want.float()).abs().max()) <= \
+        ATTN_TOL["bfloat16"]
+    rest = buf.clone()
+    rest[:, :, 1:hq + 1, :d] = 7.0
+    assert bool((rest == 7.0).all()), "a column past 96 or a neighbouring " \
+        "head was written"
 
 
 @pytest.mark.parametrize("t", [4, 37, 4096])
@@ -1315,8 +1380,11 @@ ATTN_BWD_CASES = [(2, 100, 100, 4, 2, 32, True, 0, None),
                   (1, 64, 200, 4, 4, 64, False, 33, 0),
                   (2, 130, 130, 4, 2, 128, True, 0, 0),
                   # one query row: the simt decode form (64 partitions of
-                  # the keys, merged) writes the log-sum-exp
-                  (2, 1, 77, 4, 2, 96, True, 0, None)]
+                  # the keys, merged) writes the log-sum-exp; in bf16 at
+                  # head_dim 64, 96 and 128 one row plans split_kv, which
+                  # has no log-sum-exp output and raises
+                  (2, 1, 77, 4, 2, 96, True, 0, None),
+                  (2, 1, 77, 4, 2, 32, True, 0, None)]
 
 
 @pytest.mark.parametrize("case", ATTN_BWD_CASES,
@@ -1328,7 +1396,9 @@ def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
     kernel wrote (its lse against the plain one's); the variant that ran
     is the tensor-core one for bf16 at head_dim 64, 96 and 128, the
     CUDA-core one for f32 and head_dim 32; repeated launches bit-equal
-    (no atomics); one launch counted per call."""
+    (no atomics); one launch counted per call. A bf16 query of one row
+    at a tensor-core head_dim plans split_kv, whose forward refuses to
+    write the log-sum-exp: that case asserts the refusal."""
     from repro_torch.kernels.flash_attention import (BWD_VARIANTS,
                                                      attention_bwd,
                                                      attention_bwd_ref,
@@ -1343,6 +1413,11 @@ def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
     q, do = (_randn(rng, (b, sq, hq, d), dt, cuda) for _ in range(2))
     k, v = (_randn(rng, (b, skv, hkv, d), dt, cuda) for _ in range(2))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if sq == 1 and dtype == "bfloat16" and d != 32:
+        with pytest.raises(NotImplementedError, match="split_kv"):
+            _forward(q, k, v, causal, window, q_offset, KernelType.CUDA,
+                     True)
+        return
     out, lse = _forward(q, k, v, causal, window, q_offset, KernelType.CUDA,
                         True)
     _, lse_ref = attention_lse_ref(q, k, v, **kw)
