@@ -282,8 +282,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      version (``attention_bwd_ref``) from the (out, lse) the forward
      kernel wrote, at phi3-mini's training shape (4 x 1,024, 32 heads of
      96, bf16, causal), deepseek's (4 x 1,024, 16 of 128, bf16), GQA 12:2
-     with a 256 window on 512 queries and 768 keys (bf16, and f32), and a
-     ragged non-causal bf16 case at head_dim 64 (4 x 1,500, 12 heads):
+     with a 256 window on 512 queries and 768 keys (bf16, and f32), a
+     ragged non-causal bf16 case at head_dim 64 (4 x 1,500, 12 heads),
+     Whisper's cross-attention (4 x 448 queries on 1,500 keys, 12 of 64,
+     non-causal) and decoder self-attention (4 x 448, causal), Qwen2-VL's
+     (4 x 1,024, GQA 12:2 of 128) and qwen3-14b's (4 x 1,024, GQA 40:8 of
+     128), the bf16 ones each with the forward's lse, its time, bound and
+     SDPA's forward:
      each case's backward variant (``plan_bwd``: the tensor-core
      ``wgmma`` for every bf16 case, the CUDA-core ``simt`` for f32),
      held to the plain version with that variant's rounding (bf16 2e-2,
@@ -389,6 +394,30 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      same generate as step 9: flash_attention exactly 512 launches, 32
      wgmma (the prefill) and 480 split_kv (the decode steps), no simt, no
      other kernel; prefill ms, decode ms per step, tokens/s, peak memory.
+ 13r. Whisper training at full width: whisper-small's whole tree
+     (306,456,576 bf16 parameters, 35 leaves), 13h's AdamW step and two
+     tier rounds on batches of 4 x 448 decoder tokens over 4 x 1,500
+     frame embeddings drawn from a seeded generator, with the counts set
+     to 0 just before: flash_attention and flash_attention_bwd exactly 36
+     a pass (12 encoder, 12 self, 12 cross; all ``wgmma``), prox_update
+     exactly 2 x 2 x 35, no other kernel; finite losses, the tier loss
+     falling, peaks under 80 GB; ms, tokens/s, busy share, the ten
+     largest kernels. Then one value_and_grad at full width through the
+     kernels, the plain versions in bf16 and the plain versions in f32:
+     each leaf's kernel-path error against the f32 gradients within twice
+     the bf16 plain path's.
+ 13s. Qwen2-VL training at full width: qwen2-vl-2b's whole tree
+     (1,777,088,000 bf16 parameters, 15 leaves, ``embed`` unread: zero
+     gradients), the same on 4 x 1,024 embeddings at an image prompt's
+     M-RoPE positions, targets -100 on the 896 image positions:
+     flash_attention and flash_attention_bwd exactly 28 a pass (GQA 12:2
+     at head_dim 128, all ``wgmma``), prox_update exactly 2 x 2 x 15; the
+     same full-width gradient check. Then both models' consistency under
+     13i's rule: Whisper cut to 2 decoder and 2 encoder layers, Qwen2-VL
+     to 2 layers, in f32 (every attention ``simt``). 13i's SGD step, not
+     13m's AdamW step: AdamW's first step is decided by rounding on 18%
+     of Qwen2-VL's key bias, whose gradient is 0 but through M-RoPE's
+     slowest frequencies.
  14. launch and roofline: (a) the dry run started after step 2
      (``python -m repro_torch.launch.dryrun --all``: 10 architectures x 4
      input shapes on fake tensors, no card visible to it), one line a
@@ -425,10 +454,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      one looped round (busy share, launches).
  16. the ``kernels`` JSON line (flash_attention's launches: those of
      deepseek's, Whisper's, Qwen2-VL's, Jamba's and phi3-mini's counted
-     generates and of steps 13h, 13k, 13o and 14 (b); moe_router's:
-     deepseek's and Jamba's generates, 13k and 14 (b); rwkv6_scan's: rwkv6-7b's generate
-     and 13l; mamba_scan's: Jamba's generate and 13o; prox_update's and
-     flash_attention_bwd's include steps 13h, 13k, 13o and 14 (b)
+     generates and of steps 13h, 13k, 13o, 13r, 13s and 14 (b);
+     moe_router's: deepseek's and Jamba's generates, 13k and 14 (b);
+     rwkv6_scan's: rwkv6-7b's generate and 13l; mamba_scan's: Jamba's
+     generate and 13o; prox_update's and flash_attention_bwd's include
+     steps 13h, 13k, 13o, 13r, 13s and 14 (b)
      (prox_update 13l too); moe_router_bwd's 13k's, rwkv6_scan_bwd's 13l's,
      mamba_scan_bwd's 13o's; the backward kernels' numbers from 13j and
      13n at the training paths' shapes), then the ``ok`` JSON line last.
@@ -625,6 +655,22 @@ FAMILY_CONSISTENCY_PARAMS = {a: cut_tree(a, 2)[0]
                              for a in (LLM_ARCH, RWKV_ARCH)}
 FAMILY_CONSISTENCY_PARAMS[JAMBA_ARCH] = jamba_tree(
     JAMBA_TRAIN_CONSISTENCY_LAYERS)[0]
+# Whisper-small and Qwen2-VL-2B trained (phases 13r, 13s) on their whole
+# trees at every published width (WHISPER_PARAMS, VLM_PARAMS; leaves in
+# ENCDEC_VLM_LEAVES), on :func:`model_batches`: Whisper's max_decoder_len
+# (448) tokens over 1,500 frame embeddings, Qwen2-VL's 1,024 embeddings at
+# :func:`vlm_positions` with targets -100 on the image grid. Their
+# consistency cuts under 13i's rule (an SGD step: AdamW's first step is
+# decided by rounding on 18% of Qwen2-VL's key bias, whose gradient is 0
+# but through M-RoPE's slowest frequencies): 2 decoder layers (and 2
+# encoder layers), the reference trees' parameters (jax.eval_shape; the
+# CPU tests hold them)
+ENCDEC_VLM_LEAVES = {WHISPER_ARCH: 35, VLM_ARCH: 15}
+ENCDEC_VLM_CONSISTENCY_CUT = {
+    WHISPER_ARCH: dict(num_layers=2, encoder_layers=2),
+    VLM_ARCH: dict(num_layers=2)}
+ENCDEC_VLM_CONSISTENCY_PARAMS = {WHISPER_ARCH: 117_597_696,
+                                 VLM_ARCH: 560_344_576}
 # AdamW's first step moves a parameter by lr * u(g), u(g) = g / (|g| +
 # 1e-8): about lr * sign(g) wherever |g| >> 1e-8, so a gradient near 0
 # whose two paths' values differ by their rounding moves the parameter
@@ -3688,50 +3734,77 @@ ATTN_BWD_CASES = (  # (label, b, sq, skv, hq, hkv, d, causal, window, dtype)
      "bfloat16"),
     ("GQA 12:2 window 256 f32", 2, 512, 768, 12, 2, 128, True, 256,
      "float32"),
+    # the encoder-decoder and VLM training paths (13r, 13s): Whisper's
+    # cross-attention (448 decoder queries on 1,500 frames, non-causal,
+    # both ragged: 3.5 dq CTAs of 128 queries, the lse padded to 512) and
+    # decoder self-attention, Qwen2-VL's GQA 12:2; and qwen3-14b's GQA
+    # 40:8 (group 5) at the LM cells' 4 x 1,024
+    ("whisper cross", 4, 448, 1500, 12, 12, 64, False, 0, "bfloat16"),
+    ("whisper self", 4, 448, 448, 12, 12, 64, True, 0, "bfloat16"),
+    ("qwen2-vl train", 4, 1024, 1024, 12, 2, 128, True, 0, "bfloat16"),
+    ("qwen3 GQA 40:8", 4, 1024, 1024, 40, 8, 128, True, 0, "bfloat16"),
 )
 
 
-def sdpa_bwd_call(q, k, v, dout, causal, window, q_offset):
-    """The library call beside the backward kernel: the backward of
-    ``scaled_dot_product_attention`` on the same tensors ((b, h, s, d)
-    views), its forward run once outside the timed call; a window or a
-    q_offset as a boolean mask."""
-    import torch
-    import torch.nn.functional as F
-
+def sdpa_kw(q, k, causal, window, q_offset):
+    """``scaled_dot_product_attention``'s keywords for the mask of
+    (b, s, h, d) q and k: a window, or a causal diagonal off q_offset 0,
+    as a boolean mask; no mask for non-causal attention without a
+    window."""
     from repro_torch.kernels.flash_attention.ref import _mask
 
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
     kw = {"enable_gqa": True} if q.shape[2] != k.shape[2] else {}
     sq, skv = q.shape[1], k.shape[1]
-    if window or q_offset != 0 or sq != skv:
+    if window or (causal and (q_offset != 0 or sq != skv)):
         kw["attn_mask"] = _mask(sq, skv, q_offset, causal, window, q.device)
     else:
         kw["is_causal"] = causal
+    return kw
+
+
+def sdpa_bwd_call(q, k, v, dout, causal, window, q_offset):
+    """The library calls beside the backward kernel: (the forward, the
+    backward) of ``scaled_dot_product_attention`` on the same tensors
+    ((b, h, s, d) views, :func:`sdpa_kw`), the backward's forward run once
+    outside its timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    kw = sdpa_kw(q, k, causal, window, q_offset)
     out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
     do = dout.transpose(1, 2)
-    return lambda: torch.autograd.grad(out, (qt, kt, vt), do,
-                                       retain_graph=True)
+
+    def forward():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    return forward, lambda: torch.autograd.grad(out, (qt, kt, vt), do,
+                                                retain_graph=True)
 
 
 def phase_attention_bwd_check():
     """flash_attention_bwd against ``attention_bwd_ref`` on the card, from
     the (out, lse) the forward kernel wrote, at phi3's and deepseek's
     training shapes (bf16, causal), GQA 12:2 with a 256 window and sq !=
-    skv in bf16 and in f32, and a ragged non-causal bf16 case at head_dim
-    64: each case's backward variant (``plan_bwd``; every bf16 case
-    ``wgmma``, f32 ``simt``), held to ``attention_bwd_ref`` with that
-    variant's rounding (bf16 within 2e-2, f32 within 1e-4, absolute and
-    relative), its error against the unrounded version printed too; two
-    launches bit-equal; the kernel's time (L2 cold), the plain version's,
-    the bound and scaled_dot_product_attention's backward on the same
-    tensors. Returns {label: numbers}."""
+    skv in bf16 and in f32, a ragged non-causal bf16 case at head_dim 64,
+    Whisper's cross- and self-attention, Qwen2-VL's GQA 12:2 and
+    qwen3-14b's GQA 40:8 training shapes: each case's backward variant
+    (``plan_bwd``; every bf16 case ``wgmma``, f32 ``simt``), held to
+    ``attention_bwd_ref`` with that variant's rounding (bf16 within 2e-2,
+    f32 within 1e-4, absolute and relative), its error against the
+    unrounded version printed too; two launches bit-equal; the kernel's
+    time (L2 cold), the plain version's, the bound and
+    scaled_dot_product_attention's backward on the same tensors; the
+    forward with its log-sum-exp timed beside its bound, its plain
+    version's and SDPA's forward. Returns {label: numbers}."""
     import torch
 
     from repro_torch.kernels.flash_attention import (BWD_VARIANTS,
                                                      attention_bwd,
-                                                     attention_bwd_ref, plan,
+                                                     attention_bwd_ref,
+                                                     attention_lse_ref, plan,
                                                      plan_bwd)
     from repro_torch.kernels.flash_attention.ops import _forward
     from repro_torch.kernels.interface import KernelType
@@ -3781,15 +3854,23 @@ def phase_attention_bwd_check():
                                                 **kw), 10)
         plain_ms = cuda_time_ms(lambda: attention_bwd_ref(
             q, k, v, out, lse, dout, **kw), 5)
-        lib_ms = cuda_time_ms(sdpa_bwd_call(q, k, v, dout, causal, window,
-                                            q_offset), 10)
+        lib_fwd, lib_bwd = sdpa_bwd_call(q, k, v, dout, causal, window,
+                                         q_offset)
+        lib_ms = cuda_time_ms(lib_bwd, 10)
+        lib_fwd_ms = cuda_time_ms(lib_fwd, 10)
+        del lib_fwd, lib_bwd
         fwd_ms = cuda_time_ms(lambda: _forward(q, k, v, causal, window,
                                                q_offset, KernelType.CUDA,
                                                True), 10)
+        fwd_plain_ms = cuda_time_ms(lambda: attention_lse_ref(q, k, v, **kw),
+                                    5)
         size = 2 if dtype == "bfloat16" else 4
-        bound_ms, by, mb, gflop = bound(W.attention_bwd(
-            b, sq, skv, hq, hkv, d, causal=causal, window=window,
-            q_offset=q_offset, q_itemsize=size, kv_itemsize=size))
+        shape = (b, sq, skv, hq, hkv, d)
+        mask = dict(causal=causal, window=window, q_offset=q_offset,
+                    q_itemsize=size, kv_itemsize=size)
+        bound_ms, by, mb, gflop = bound(W.attention_bwd(*shape, **mask))
+        fwd_bound, fwd_by, fwd_mb, fwd_gflop = bound(W.attention(
+            *shape, lse=True, **mask))
         say("kernel", f"flash_attention_bwd {name} q ({b}, {sq}, {hq}, {d}), "
             f"kv ({b}, {skv}, {hkv}, {d}), window {window}, q_offset "
             f"{q_offset}: max abs err dq/dk/dv "
@@ -3802,7 +3883,11 @@ def phase_attention_bwd_check():
             f"backward {lib_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
             f"({mb:.1f} MB, {gflop:.2f} GFLOP; by {by}), {bound_ms / ms:.2%} "
             f"of bound; the forward with its log-sum-exp "
-            f"{fwd_ms * 1e3:.1f} us")
+            f"{fwd_ms * 1e3:.1f} us, bound {fwd_bound * 1e3:.1f} us "
+            f"({fwd_mb:.1f} MB, {fwd_gflop:.2f} GFLOP; by {fwd_by}), "
+            f"{fwd_bound / fwd_ms:.2%} of bound, plain "
+            f"{fwd_plain_ms * 1e3:.1f} us, scaled_dot_product_attention "
+            f"forward {lib_fwd_ms * 1e3:.1f} us")
         out_rows[label] = dict(max_abs_err=max(errs), ms=ms,
                                plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=by, library_ms=lib_ms)
@@ -3811,8 +3896,8 @@ def phase_attention_bwd_check():
     return out_rows
 
 
-def train_batches(vocab, steps):
-    """``steps`` batches of TRAIN_BATCH x TRAIN_SEQ tokens from
+def train_batches(vocab, steps, seq_len=TRAIN_SEQ):
+    """``steps`` batches of TRAIN_BATCH x ``seq_len`` tokens from
     ``repro_torch.data.tokens.lm_batches`` (seed 0), on the card."""
     import numpy as np
     import torch
@@ -3821,18 +3906,50 @@ def train_batches(vocab, steps):
 
     return [{k: torch.as_tensor(v, device=DEVICE) for k, v in b.items()}
             for b in lm_batches(np.random.default_rng(0), vocab,
-                                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                batch=TRAIN_BATCH, seq_len=seq_len,
                                 steps=steps)]
+
+
+def model_batches(cfg, steps, dtype):
+    """``steps`` training batches of ``cfg``'s family, on the card: a
+    token model's :func:`train_batches`; Whisper's tokens and targets of
+    max_decoder_len positions with (TRAIN_BATCH, 1,500, d) frame
+    embeddings * 0.2 in ``dtype`` (seed 3 + step; the frontend stub's
+    output); Qwen2-VL's (TRAIN_BATCH, 1,024, d) embeddings * 0.2 in
+    ``dtype`` (seed 1 + step) at :func:`vlm_positions` in place of the
+    tokens, the targets -100 on the image grid."""
+    import torch
+
+    seq = cfg.max_decoder_len if cfg.is_encoder_decoder else TRAIN_SEQ
+    batches = train_batches(cfg.vocab_size, steps, seq)
+    for i, b in enumerate(batches):
+        if cfg.is_encoder_decoder:
+            gen = torch.Generator(device=DEVICE).manual_seed(3 + i)
+            b["enc_frames"] = (torch.randn(
+                TRAIN_BATCH, cfg.encoder_seq_len, cfg.d_model, device=DEVICE,
+                generator=gen) * 0.2).to(dtype)
+        elif cfg.family == "vlm":
+            pos = vlm_positions()
+            gen = torch.Generator(device=DEVICE).manual_seed(1 + i)
+            b["embeds"] = (torch.randn(TRAIN_BATCH, len(pos), cfg.d_model,
+                                       device=DEVICE, generator=gen)
+                           * 0.2).to(dtype)
+            b["mrope_positions"] = pos[None].expand(TRAIN_BATCH, -1, -1)
+            del b["tokens"]
+            b["targets"][:, VLM_TEXT:VLM_TEXT + VLM_GRID[0] * VLM_GRID[1]] \
+                = -100
+    return batches
 
 
 def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     """``arch`` at every published width in bf16 (``cut``: fewer layers),
-    its tree's ``n_params`` parameters in ``n_leaves`` leaves, with every
-    launch count set to 0 just before: one ``make_train_step`` with
-    ``adamw()`` and ``grad_clip=1.0``, then two ``make_tier_round`` rounds
-    (l_local 2, the example's hyperparameters) of one team from theta = w
-    = x = the drawn parameters (as the example starts), on the same batch
-    each round. Launches: each kernel of ``per_pass`` exactly that many
+    its tree's ``n_params`` parameters in ``n_leaves`` leaves, on its
+    family's :func:`model_batches`, with every launch count set to 0 just
+    before: one ``make_train_step`` with ``adamw()`` and
+    ``grad_clip=1.0``, then two ``make_tier_round`` rounds (l_local 2, the
+    example's hyperparameters) of one team from theta = w = x = the drawn
+    parameters (as the example starts), on the same batch each round.
+    Launches: each kernel of ``per_pass`` exactly that many
     times a forward and backward pass (1 + 4 passes), prox_update exactly
     rounds x l_local x leaves, no other kernel; ``variants`` maps a name
     to (its counts dict, the counts per pass it must read). Finite
@@ -3858,8 +3975,9 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     if got_leaves != n_leaves:
         raise AssertionError(f"{arch}: {got_leaves} leaves, expected "
                              f"{n_leaves}")
-    batches = train_batches(cfg.vocab_size, 2)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batches = model_batches(cfg, 2, torch.bfloat16)
+    shape = tuple(batches[0]["targets"].shape)
+    tokens = math.prod(shape)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -3874,7 +3992,7 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     step_peak = torch.cuda.max_memory_allocated()
     loss, gnorm = float(m["loss"]), float(m["grad_norm"])
     say("train", f"{tag} AdamW step (grad_clip 1.0, lr {TRAIN_LR}) on "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: loss {loss:.4f}, grad norm "
+        f"{shape[0]} x {shape[1]} positions: loss {loss:.4f}, grad norm "
         f"{gnorm:.4f}; {step_s * 1e3:.1f} ms (host clock, the card "
         f"synchronized; AdamW state created inside), {tokens / step_s:,.0f} "
         f"tokens/s, peak {step_peak / 2**30:.2f} GiB "
@@ -4065,13 +4183,15 @@ def prox_at_phi3(theta, w, x):
         f"{tree_ms:.2f} ms against {tree_bound:.2f} ms")
 
 
-def phase_training_consistency():
-    """phi3-mini-3.8b cut to 2 layers at every published width, in f32
-    (TF32 off), from the same parameters through the kernels and through
-    the plain versions (``mode="torch"``): one ``make_train_step`` (SGD,
-    lr 1e-2, grad_clip 1.0, so that the parameters move by the
-    gradients) and one tier round (l_local 2); losses and every parameter
-    within TRAIN_TOL (absolute and relative)."""
+def phase_training_consistency(arch=TRAIN_ARCH):
+    """``arch`` (phi3-mini-3.8b cut to 2 layers, or whisper-small and
+    qwen2-vl-2b cut to ENCDEC_VLM_CONSISTENCY_CUT on :func:`model_batches`)
+    at every published width, in f32 (TF32 off), from the same parameters
+    through the kernels and through the plain versions (``mode="torch"``):
+    one ``make_train_step`` (SGD, lr 1e-2, grad_clip 1.0, so that the
+    parameters move by the gradients) and one tier round (l_local 2);
+    losses and every parameter within TRAIN_TOL (absolute and
+    relative)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4082,10 +4202,14 @@ def phase_training_consistency():
     from repro_torch.train.train_state import TrainState
     from repro_torch.train.trainer import make_tier_round, make_train_step
 
-    cfg = get_config(TRAIN_ARCH).replace(**TRAIN_CONSISTENCY_CUT)
+    cfg = get_config(arch).replace(
+        **ENCDEC_VLM_CONSISTENCY_CUT.get(arch, TRAIN_CONSISTENCY_CUT))
     params = M.init_params(torch.Generator(device=DEVICE).manual_seed(0),
                            cfg, dtype=torch.float32, device=DEVICE)
-    (batch,) = train_batches(cfg.vocab_size, 1)
+    n = sum(t.numel() for t in _leaves(params))
+    if n != ENCDEC_VLM_CONSISTENCY_PARAMS.get(arch, n):
+        raise AssertionError(f"{arch} cut: {n} parameters")
+    (batch,) = model_batches(cfg, 1, torch.float32)
     runs = {}
     reset_variants()
     for mode in (None, "torch"):
@@ -4105,7 +4229,7 @@ def phase_training_consistency():
                   for i, (ga, gb) in enumerate(zip(_leaves(a), _leaves(b)))]
     worst = max(pairs, key=lambda p: float((p[1] - p[2]).abs().max()))
     bad = [tag for tag, a, b in pairs if not within(a, b, TRAIN_TOL)]
-    say("consistency", f"{TRAIN_ARCH} x {cfg.num_layers} layers f32 "
+    say("consistency", f"{arch} x {cfg.num_layers} layers f32 "
         f"training, kernel vs plain path: step loss {float(lk):.6f} / "
         f"{float(lp):.6f}, tier loss {float(rk[3]['loss']):.6f} / "
         f"{float(rp[3]['loss']):.6f}; max |diff| over losses and every "
@@ -4114,7 +4238,7 @@ def phase_training_consistency():
         f"variants {dict(VARIANTS)} (f32: simt), flash_attention_bwd "
         f"variants {dict(BWD_VARIANTS)}")
     if bad:
-        raise AssertionError(f"{TRAIN_ARCH} training: kernel and plain paths "
+        raise AssertionError(f"{arch} training: kernel and plain paths "
                              f"disagree on {bad[:8]}")
     del runs, params, batch
     release()
@@ -4729,6 +4853,108 @@ def phase_jamba_training():
     del trees
     release()
     return launches
+
+
+def phase_encdec_vlm_training(arch):
+    """whisper-small (13r) or qwen2-vl-2b (13s) at every published width
+    in bf16, its whole tree (WHISPER_PARAMS or VLM_PARAMS; 35 or 15
+    leaves), through :func:`run_training` on :func:`model_batches`:
+    flash_attention and flash_attention_bwd exactly 36 a pass (Whisper:
+    12 encoder layers non-causal on 1,500 frames, 12 causal self on 448
+    tokens, 12 non-causal cross of 448 on 1,500) or 28 (Qwen2-VL: GQA 12:2
+    at head_dim 128), every forward and backward ``wgmma``, prox_update
+    rounds x l_local x leaves, no other kernel; then
+    :func:`full_width_grads_check`. Returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import BWD_VARIANTS, VARIANTS
+
+    cfg = get_config(arch)
+    n = cfg.encoder_layers + cfg.num_layers * (
+        2 if cfg.is_encoder_decoder else 1)
+    n_params = WHISPER_PARAMS if arch == WHISPER_ARCH else VLM_PARAMS
+    launches, trees = run_training(
+        arch, n_params, ENCDEC_VLM_LEAVES[arch],
+        {"flash_attention": n, "flash_attention_bwd": n},
+        {"flash_attention variants": (VARIANTS, {"wgmma": n}),
+         "flash_attention_bwd variants": (BWD_VARIANTS, {"wgmma": n})})
+    del trees
+    release()
+    full_width_grads_check(arch, n_params, n)
+    return launches
+
+
+def full_width_grads_check(arch, n_params, n_attn):
+    """One ``value_and_grad`` of ``arch`` at every published width in bf16
+    on its first :func:`model_batches` batch through the kernels (every
+    attention forward and backward ``wgmma``, ``n_attn`` of each) and
+    through the plain versions (``mode="torch"``), both held to the plain
+    path in f32 (the same bf16 parameters and inputs upcast, TF32 off):
+    each leaf's kernel-path error within twice the bf16 plain path's
+    (FlashAttention's test rule: the kernel rounds no worse than a bf16
+    implementation of the same function) plus 1e-6 of the leaf's largest
+    f32 gradient, the loss's within twice the plain path's plus 1e-3 of
+    it. Prints the largest kernel-vs-plain difference over each leaf's
+    scale. Not counted: the training phase's launches were read
+    before."""
+    import torch
+
+    from repro_torch.flat import tree_leaves
+    from repro_torch.kernels.flash_attention import (BWD_VARIANTS, VARIANTS,
+                                                     reset_variants)
+    from repro_torch.train.optim import tree_map
+    from repro_torch.train.trainer import value_and_grad
+
+    cfg, params = draw_full_width(arch, n_params)
+    (batch,) = model_batches(cfg, 1, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    # the f32 plain path first, its parameters freed before the bf16 paths
+    p32 = tree_map(lambda t: t.float(), params)
+    l32, g32 = value_and_grad(
+        p32, cfg, {k: v.float() if v.is_floating_point() else v
+                   for k, v in batch.items()}, mode="torch")
+    del p32
+    release()
+    reset_variants()
+    lk, gk = value_and_grad(params, cfg, batch)
+    ran = [{k: c for k, c in d.items() if c} for d in (VARIANTS,
+                                                        BWD_VARIANTS)]
+    lp, gp = value_and_grad(params, cfg, batch, mode="torch")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bad = []
+    if ran != [{"wgmma": n_attn}] * 2:
+        bad.append(f"attention variants (forward, backward) {ran}")
+    losses = [float(x) for x in (lk, lp, l32)]
+    if not (abs(losses[0] - losses[2]) <= 2 * abs(losses[1] - losses[2])
+            + 1e-3 * abs(losses[2])):
+        bad.append(f"loss {losses}")
+    rows = []
+    for (path, a), (_, b), (_, w) in zip(*map(tree_leaves, (gk, gp, g32))):
+        name, a, b = ".".join(path), a.float(), b.float()
+        scale = float(w.abs().max())
+        e_k, e_p = (float((t - w).abs().max()) for t in (a, b))
+        rows.append((float((a - b).abs().max()) / max(scale, 1e-30), name,
+                     e_k, e_p, scale))
+        if not e_k <= 2 * e_p + 1e-6 * scale:
+            bad.append(f"{name}: {e_k:.3g} against the plain path's "
+                       f"{e_p:.3g} (scale {scale:.3g})")
+    rows.sort(reverse=True)
+    say("consistency", f"{arch} at full width, bf16 value_and_grad: loss "
+        f"{losses[0]:.6f} (kernels) / {losses[1]:.6f} (plain) / "
+        f"{losses[2]:.6f} (plain, f32); {len(rows)} leaves, each kernel-path "
+        f"gradient's error against the f32 path within 2x the bf16 plain "
+        f"path's (largest ratio "
+        f"{max(r[2] / max(r[3], 1e-30) for r in rows):.3f}); kernel vs "
+        f"plain max |diff| over the leaf's scale: " + "; ".join(
+            f"{name} {d:.3g} (errors {e_k:.3g} / {e_p:.3g}, scale "
+            f"{scale:.3g})" for d, name, e_k, e_p, scale in rows[:4])
+        + f"; attention variants {ran[0]} / {ran[1]}; peak "
+        f"{peak / 2**30:.2f} GiB")
+    if bad:
+        raise AssertionError(f"{arch} full-width gradients: kernel path "
+                             f"off on {bad[:6]}")
+    del params, gk, gp, g32, batch
+    release()
 
 
 def adam_close(got, want, m_got, m_want, lr, tol):
@@ -5845,6 +6071,16 @@ def run_phases(argv, t_start, dryrun) -> int:
     phase_family_consistency((JAMBA_ARCH,))
     say("train", f"{JAMBA_ARCH}: scan check {t_path - t_train:.1f} s, "
         f"training phase {t_cons - t_path:.1f} s, consistency "
+        f"{time.perf_counter() - t_cons:.1f} s")
+    t_train = time.perf_counter()
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        for k, v in phase_encdec_vlm_training(arch).items():
+            launches[k] = launches.get(k, 0) + v
+    t_cons = time.perf_counter()
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        phase_training_consistency(arch)
+    say("train", f"{WHISPER_ARCH} and {VLM_ARCH}: training phases and "
+        f"full-width gradients {t_cons - t_train:.1f} s, consistency "
         f"{time.perf_counter() - t_cons:.1f} s")
     t_serve = time.perf_counter()
     launches["flash_attention"] += phase_phi3_serving()["flash_attention"]

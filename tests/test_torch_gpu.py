@@ -1439,6 +1439,127 @@ def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
 
 
+# the encoder-decoder and VLM training paths' backward shapes, reduced
+# (b, sq, skv, hq, hkv, d, causal): a cross-attention of ragged queries
+# on more ragged keys, non-causal; sq 192, 1.5 dq CTAs of 128 queries
+# (the lse padded to 256), as Whisper's 448 is 3.5; GQA groups 5 and 6
+ENCDEC_VLM_BWD_CASES = [(2, 72, 200, 4, 4, 64, False),
+                        (2, 192, 192, 4, 4, 64, True),
+                        (2, 130, 130, 10, 2, 128, True),
+                        (1, 256, 256, 12, 2, 128, True)]
+
+
+@pytest.mark.parametrize("case", ENCDEC_VLM_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_bwd_encdec_vlm_shapes(cuda, case):
+    """bf16 at the training paths' new shapes: the forward (``wgmma``)
+    writes the lse of ``attention_lse_ref`` and the backward (``wgmma``)
+    gives ``attention_bwd_ref``'s gradients with its rounding within the
+    bf16 tolerance, repeats bit-equal; without a causal mask the
+    q_offset (``skv - sq``, ``attention``'s default, or 0, which
+    ``cross_apply`` passes) changes no bit of either."""
+    from repro_torch.kernels.flash_attention import (BWD_VARIANTS, VARIANTS,
+                                                     attention_bwd,
+                                                     attention_bwd_ref,
+                                                     attention_lse_ref)
+    from repro_torch.kernels.flash_attention.ops import _forward
+    from repro_torch.kernels.interface import KernelType
+
+    b, sq, skv, hq, hkv, d, causal = case
+    rng = np.random.default_rng(sq + hq)
+    dt = torch.bfloat16
+    q, do = (_randn(rng, (b, sq, hq, d), dt, cuda) for _ in range(2))
+    k, v = (_randn(rng, (b, skv, hkv, d), dt, cuda) for _ in range(2))
+    offsets = (skv - sq, 0) if not causal else (skv - sq,)
+    runs = []
+    for q_offset in offsets:
+        kw = dict(causal=causal, window=0, q_offset=q_offset)
+        fwd, bwd = dict(VARIANTS), dict(BWD_VARIANTS)
+        out, lse = _forward(q, k, v, causal, 0, q_offset, KernelType.CUDA,
+                            True)
+        got = attention_bwd(q, k, v, out, lse, do, **kw)
+        again = attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert VARIANTS["wgmma"] == fwd["wgmma"] + 1
+        assert BWD_VARIANTS["wgmma"] == bwd["wgmma"] + 2
+        _, lse_ref = attention_lse_ref(q, k, v, **kw)
+        assert lse.shape == (b, hq, sq)
+        torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+        want = attention_bwd_ref(q, k, v, out, lse, do, variant="wgmma",
+                                 **kw)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)
+            torch.testing.assert_close(g.float(), w.float(),
+                                       rtol=TOL["bfloat16"],
+                                       atol=TOL["bfloat16"])
+        runs.append((out, lse, *got))
+    for x, y in zip(runs[0], runs[-1]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-2b"])
+def test_encdec_vlm_value_and_grad_on_the_card(cuda, arch):
+    """Reduced whisper-small and qwen2-vl-2b trained on the card: in
+    bf16 one ``value_and_grad`` launches flash_attention and
+    flash_attention_bwd once per attention (Whisper: 2 encoder, 2 self,
+    2 cross), every one ``wgmma``, and no other kernel; in f32 (``simt``)
+    its loss and every leaf's gradient equal the plain path's within 1e-5
+    of the leaf's scale, Qwen2-VL's unread ``embed`` zeros."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.flat import tree_leaves
+    from repro_torch.kernels.flash_attention import (BWD_VARIANTS, VARIANTS,
+                                                     reset_variants)
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import value_and_grad
+
+    cfg = get_reduced_config(arch)
+    n = cfg.encoder_layers + cfg.num_layers * (
+        2 if cfg.is_encoder_decoder else 1)
+    gen = torch.Generator(cuda).manual_seed(2)
+    b, s = 2, 80
+    batch = {"targets": torch.randint(0, cfg.vocab_size, (b, s),
+                                      device=cuda, generator=gen)}
+    if cfg.is_encoder_decoder:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                        device=cuda, generator=gen)
+        batch["enc_frames"] = torch.randn(b, cfg.encoder_seq_len,
+                                          cfg.d_model, device=cuda,
+                                          generator=gen)
+    else:
+        batch["embeds"] = torch.randn(b, s, cfg.d_model, device=cuda,
+                                      generator=gen)
+        pos = torch.arange(s, device=cuda)[:, None].repeat(1, 3)
+        pos[16:48, 1:] = torch.stack([torch.arange(32, device=cuda) // 8,
+                                      torch.arange(32, device=cuda) % 8],
+                                     -1) + 16
+        pos[16:48, 0] = 16
+        batch["mrope_positions"] = pos[None].expand(b, -1, -1).int()
+        batch["targets"][:, 16:48] = -100
+    for dt in (torch.bfloat16, torch.float32):
+        params = M.init_params(0, cfg, dtype=dt, device=cuda)
+        inputs = {k: v.to(dt) if v.is_floating_point() else v
+                  for k, v in batch.items()}
+        reset_launches()
+        reset_variants()
+        loss, grads = value_and_grad(params, cfg, inputs)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in LAUNCHES.items() if c} == \
+            {"flash_attention": n, "flash_attention_bwd": n}
+        variant = "wgmma" if dt == torch.bfloat16 else "simt"
+        assert VARIANTS[variant] == BWD_VARIANTS[variant] == n
+        assert bool(torch.isfinite(loss))
+        if dt == torch.bfloat16:
+            continue
+        lp, gp = value_and_grad(params, cfg, inputs, mode="torch")
+        torch.testing.assert_close(loss, lp, rtol=1e-5, atol=1e-5)
+        for (name, g), (_, w) in zip(tree_leaves(grads), tree_leaves(gp)):
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= 1e-5 * scale, name
+        if cfg.family == "vlm":
+            assert not grads["embed"].any()
+
+
 def test_attention_autograd_on_the_card(cuda):
     """loss.backward() through the op on the card: one forward and one
     backward launch, gradients equal to the plain path's."""
