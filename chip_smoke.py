@@ -277,7 +277,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      at all. Then the Jamba cut's serving time by part (the Mamba mixer's
      in_proj, conv, SSM parameters, scan and out_proj, the rest of the
      mixer, attention, router, the rest of the MoE, the MLP, head), as
-     step 15 times the other paths, its prefill's scan now the kernel.
+     step 16 times the other paths, its prefill's scan now the kernel.
  13g. attention backward check: flash_attention_bwd against its plain
      version (``attention_bwd_ref``) from the (out, lse) the forward
      kernel wrote, at phi3-mini's training shape (4 x 1,024, 32 heads of
@@ -437,7 +437,32 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the predicted peak against max_memory_allocated and their
      ratio, the step's synchronized time against the larger of its
      roofline's compute and memory terms; the phase's added seconds.
- 15. with ``--profile``: each LLM serving path's time by layer part
+ 15. examples: the port's counterparts of the reference's examples, run
+     on the card as a user runs them, each run with the counts set to 0
+     just before it and read just after, its host-clock seconds and
+     launches on a line of its own: ``examples/quickstart_torch.py`` at
+     its 10 rounds (the paper's MCLR cell at 4 x 10 devices, its top-10%
+     uplinks, fp32 and top-10% uplinks on wan-cellular): PM above GM at
+     the end, the compressed run's bytes under fp32's, top-10% fewer
+     simulated seconds than fp32, every field of the compressed run's
+     ``comm.summary()`` equal to the same cell's plain CPU run's,
+     prox_update exactly 4 x 10 x K x L and ef_topk 2 x 10 x (K + 1)
+     times; ``examples/federated_benchmark_torch.py`` at its defaults
+     (fmnist, MCLR, 15 rounds, PerMFL then FedAvg) and at ``--model cnn
+     --rounds 3`` (the paper's CNN at full width): the CSV's curves
+     finite in [0, 1], prox_update exactly rounds x K x L; then
+     ``examples/serve_model_torch.py`` for phi3-mini-3.8b, rwkv6-7b,
+     whisper-small, qwen2-vl-2b and jamba-1.5-large-398b (reduced, vocab
+     512, f32, 4 prompts of 32, 16 new greedy tokens after a 2-token
+     warm-up): the cache family's line, every token the plain path's
+     choice along the same tokens (or within 1e-4 of it), flash_attention
+     exactly 36 (phi3, qwen2-vl), 76 (whisper) and 72 (Jamba) times,
+     rwkv6_scan 36, moe_router 72 and mamba_scan 8 (Jamba), no other
+     kernel; and its ``--personalized`` store:
+     the tiers device, device, team, global, the classes and the device
+     tier's bytes equal to the plain CPU run's, prox_update exactly 2 x
+     K x L.
+ 16. with ``--profile``: each LLM serving path's time by layer part
      (deepseek: attention, the router (the routing seam: the fused
      kernel), the rest of the MoE layer, head;
      rwkv6-7b: the time mix's GEMMs and elementwise ops, the decay LoRA,
@@ -452,7 +477,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      round of each baseline's CNN cell (busy share, launches); then one
      round of the Fig-3 sweep and of the PerMFL CNN 3-seed sweep beside
      one looped round (busy share, launches).
- 16. the ``kernels`` JSON line (flash_attention's launches: those of
+ 17. the ``kernels`` JSON line (flash_attention's launches: those of
      deepseek's, Whisper's, Qwen2-VL's, Jamba's and phi3-mini's counted
      generates and of steps 13h, 13k, 13o, 13r, 13s and 14 (b);
      moe_router's: deepseek's and Jamba's generates, 13k and 14 (b);
@@ -461,7 +486,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      steps 13h, 13k, 13o, 13r, 13s and 14 (b)
      (prox_update 13l too); moe_router_bwd's 13k's, rwkv6_scan_bwd's 13l's,
      mamba_scan_bwd's 13o's; the backward kernels' numbers from 13j and
-     13n at the training paths' shapes), then the ``ok`` JSON line last.
+     13n at the training paths' shapes; every kernel's also step 15's),
+     then the ``ok`` JSON line last.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -784,6 +810,23 @@ LAUNCH_KERNELS = {"train": ("flash_attention", "flash_attention_bwd",
                             "prox_update"),
                   "prefill": ("flash_attention", "moe_router")}
 STEP_REPS = 3                    # synchronized runs of each step, timed
+# phase 15: the examples' runs, and each served arch's launches over the
+# example's 18 passes (a 2-token warm-up and 16 new tokens: 2 + 16
+# prefills and decode steps) of the reduced config: one a layer and pass,
+# Whisper's encoder and cross-attention in each prefill (2 x (2 + 2 + 2))
+# and its self and cross in each decode step (16 x (2 + 2)), Jamba's 4
+# attention and 4 MoE layers each pass and its 4 Mamba layers' scans in
+# the prefills only (a decode step's recurrence is torch ops)
+EXAMPLE_QUICKSTART_ROUNDS = 10
+EXAMPLE_BENCHMARKS = ((), ("--model", "cnn", "--rounds", "3"))
+EXAMPLE_SERVE = {"phi3-mini-3.8b": {"flash_attention": 36},
+                 "rwkv6-7b": {"rwkv6_scan": 36},
+                 "whisper-small": {"flash_attention": 76},
+                 "qwen2-vl-2b": {"flash_attention": 36},
+                 "jamba-1.5-large-398b": {"flash_attention": 72,
+                                          "moe_router": 72, "mamba_scan": 8}}
+EXAMPLE_SERVE_NEW = 16             # the example's default --new
+EXAMPLE_TIE = 1e-4                 # f32 logits: phase 10's 1-layer rule
 
 
 def say(phase, msg):
@@ -5950,6 +5993,198 @@ def phase_launch_steps():
     return total
 
 
+def load_example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def counted_example(label, fn, *args, **kw):
+    """``fn(*args, **kw)`` on the card with every launch count set to 0
+    just before and read just after; prints its host-clock seconds and
+    launches on a line of its own. Returns (its result, the launches)."""
+    import torch
+
+    from repro_torch.kernels.interface import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: c for k, c in LAUNCHES.items() if c}
+    say("examples", f"{label}: {sec:.3f} s (host clock, synchronized), "
+        f"launches {launches}")
+    return out, launches
+
+
+def forced_margins(cfg, params, prompt, toks):
+    """The plain path's greedy margins along the card's tokens ``toks``
+    (b, new): the prefill and each decode step through the kernels' plain
+    versions on the card, fed the card's tokens, each step's (b,) margin
+    max(logits) - logits[the card's token]; 0 where the plain path chose
+    the same token."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    b, new = toks.shape
+    first = prompt["embeds"] if "embeds" in prompt else prompt["tokens"]
+    plen = first.shape[1]
+    margins = []
+    with torch.inference_mode():
+        cache = M.init_cache(cfg, b, plen + new, dtype=torch.float32,
+                             device=toks.device)
+        logits, cache = M.prefill(params, cfg, prompt, cache,
+                                  last_only=True, mode="torch")
+        for i in range(new):
+            lg = logits[:, -1].float()
+            margins.append(lg.max(-1).values
+                           - lg.gather(1, toks[:, i:i + 1].long())[:, 0])
+            if i == new - 1:
+                break
+            batch = {"tokens": toks[:, i:i + 1]}
+            if cfg.family == "vlm":
+                batch["mrope_positions"] = torch.full(
+                    (b, 1, 3), plen + i, dtype=torch.int32,
+                    device=toks.device)
+            logits, cache = M.decode_step(params, cfg, cache, batch,
+                                          plen + i, mode="torch")
+    return torch.stack(margins, 1)
+
+
+def phase_examples():
+    """Phase 15 (the module docstring): the port's example counterparts
+    on the card. Returns their launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.scenarios import get_scenario, run_scenario
+    from repro_torch.serve.llm import VOCAB, prompts
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    t_phase = time.perf_counter()
+    # quickstart, at its 10 rounds
+    qs = load_example("quickstart_torch")
+    # every PerMFL run of the phase takes the default hyperparameters
+    hp = get_scenario("table1/mnist/mclr/permfl").algo.hparams()
+    (res, res_c, t_full, t_comp), launches = counted_example(
+        "quickstart_torch.py", qs.quickstart,
+        rounds=EXAMPLE_QUICKSTART_ROUNDS, device=DEVICE)
+    add(launches)
+    r = EXAMPLE_QUICKSTART_ROUNDS
+    check_launches(launches, {"prox_update": 4 * r * hp.k_team * hp.l_local,
+                              "ef_topk": 2 * r * (hp.k_team + 1)},
+                   "quickstart_torch.py")
+    summary = res_c.comm.summary()
+    if not res.pm_acc[-1] > res.gm_acc[-1]:
+        raise AssertionError(f"quickstart: PM {res.pm_acc[-1]} not above GM "
+                             f"{res.gm_acc[-1]}")
+    if not summary["total_bytes"] < summary["uncompressed_bytes"]:
+        raise AssertionError(f"quickstart: compressed bytes {summary}")
+    full_s, comp_s = (t.timeline.total_seconds() for t in (t_full, t_comp))
+    if not comp_s < full_s:
+        raise AssertionError(f"quickstart: top-10% {comp_s} simulated s, "
+                             f"fp32 {full_s}")
+    cpu = run_scenario("comm/mnist/mclr/topk_10", rounds=r, device="cpu")
+    if cpu.comm.summary() != summary:
+        raise AssertionError(f"quickstart: link bytes {summary} on the "
+                             f"card, {cpu.comm.summary()} on the CPU")
+    say("examples", f"quickstart: PM {res.pm_acc[-1]:.4f} > GM "
+        f"{res.gm_acc[-1]:.4f}; {summary['total_bytes']:,} B moved < "
+        f"{summary['uncompressed_bytes']:,} B at fp32, every link-byte field "
+        f"equal to the CPU run's; wan-cellular {comp_s:.2f} < {full_s:.2f} "
+        f"simulated s")
+
+    # federated_benchmark, at its defaults and with the paper's CNN
+    fb = load_example("federated_benchmark_torch")
+    out_dir = ROOT / "build" / "examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for extra in EXAMPLE_BENCHMARKS:
+        csv_path = out_dir / f"curves{'_'.join(extra)}.csv"
+        argv = list(extra) + ["--out", str(csv_path)]
+        label = ("federated_benchmark_torch.py "
+                 + (" ".join(extra) or "(its defaults)"))
+        (perm, fed), launches = counted_example(label, fb.main, argv)
+        add(launches)
+        # PerMFL's device steps; FedAvg's plain SGD launches no kernel
+        check_launches(launches, {"prox_update": perm.rounds * hp.k_team
+                                  * hp.l_local}, label)
+        rows = csv_path.read_text().splitlines()[1:]
+        vals = [float(v) for row in rows for v in row.split(",")[1:]]
+        if len(rows) != perm.rounds or not all(
+                math.isfinite(v) and 0.0 <= v <= 1.0 for v in vals):
+            raise AssertionError(f"federated_benchmark: curves {rows}")
+
+    # serve_model, the five cache families, then the personalized store
+    sm = load_example("serve_model_torch")
+    for arch, expect in EXAMPLE_SERVE.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            toks, launches = counted_example(
+                f"serve_model_torch.py --arch {arch}", sm.main,
+                ["--arch", arch])
+        print(buf.getvalue(), end="", flush=True)
+        add(launches)
+        cfg = get_reduced_config(arch).replace(vocab_size=VOCAB)
+        head = buf.getvalue().splitlines()
+        line = next(ln for ln in head if ln.startswith("arch="))
+        if line != (f"arch={arch} family={cfg.family} cache="
+                    f"{sm.cache_kind(cfg)}"):
+            raise AssertionError(f"serve_model: {line}")
+        check_launches(launches, expect, f"serve_model {arch}")
+        if toks.shape != (4, EXAMPLE_SERVE_NEW) or \
+                toks.dtype != torch.int32 or \
+                not bool(((toks >= 0) & (toks < VOCAB)).all()):
+            raise AssertionError(f"serve_model {arch}: tokens {toks}")
+        # the example's weights and prompts, redrawn: the plain path's
+        # choice along the card's tokens
+        params = M.init_params(0, cfg, device=DEVICE)
+        prompt = prompts(cfg, 4, 32, torch.Generator(
+            device=DEVICE).manual_seed(1))
+        margins = forced_margins(cfg, params, prompt, toks)
+        worst = float(margins.max())
+        if not worst <= EXAMPLE_TIE:
+            raise AssertionError(f"serve_model {arch}: the card chose a "
+                                 f"token {worst} below the plain path's")
+        say("examples", f"{arch}: {int((margins == 0).sum())} of "
+            f"{margins.numel()} tokens the plain path's choice, the rest "
+            f"within {worst:.2e} of it")
+        del params
+        release()
+    store = out_dir / "permfl_store.zip"
+    (rows, nbytes), launches = counted_example(
+        "serve_model_torch.py --personalized", sm.personalized_demo,
+        path=str(store), device=DEVICE)
+    add(launches)
+    check_launches(launches, {"prox_update": 2 * hp.k_team * hp.l_local},
+                   "--personalized")
+    want = sm.personalized_demo(path=str(out_dir / "permfl_store_cpu.zip"),
+                                device="cpu")
+    if (rows, nbytes) != want or [t for _, _, t, _ in rows] != [
+            "device", "device", "team", "global"]:
+        raise AssertionError(f"--personalized: {rows}, {nbytes} B on the "
+                             f"card; {want} on the CPU")
+    say("examples", f"phase 15 took {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {total}")
+    return total
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -5977,7 +6212,7 @@ def main(argv) -> int:
 
 
 def run_phases(argv, t_start, dryrun) -> int:
-    """Phases 3 to 16 (the module docstring), the dry run of phase 14 (a)
+    """Phases 3 to 17 (the module docstring), the dry run of phase 14 (a)
     already running beside them."""
     import torch
 
@@ -6093,6 +6328,8 @@ def run_phases(argv, t_start, dryrun) -> int:
     say("launch", f"phase 14 added {time.perf_counter() - t_launch:.1f} s "
         f"(of it {waited:.1f} s waiting for the dry run) and the sweep mesh "
         f"check of phase 7c")
+    for k, v in phase_examples().items():
+        launches[k] = launches.get(k, 0) + v
     if "--profile" in argv:
         phase_llm_profile()
         phase_rwkv_profile()

@@ -6,9 +6,10 @@
 
 Runs the tiered PerMFL round (device prox steps -> team update -> server
 update, ``repro_torch.train.trainer.make_tier_round``) on a REDUCED
-variant of a dense, MoE, RWKV-6 or hybrid attention/Mamba (Jamba)
-architecture, with federated LM data where each team has its own topic
-distribution -- the LM analogue of the paper's label skew. Shows
+variant of a dense, MoE, RWKV-6, hybrid attention/Mamba (Jamba) or
+vision-language (Qwen2-VL, on tokens) architecture, with federated LM
+data where each team has its own topic distribution -- the LM analogue
+of the paper's label skew. Shows
 personalized loss <= global loss on each team's distribution. On the card
 (the default) the device steps run through the backward kernels
 (attention, the MoE router, the WKV-6 scan, Mamba's selective scan) and
@@ -26,10 +27,12 @@ from repro_torch.models import model as M
 from repro_torch.train.trainer import make_tier_round
 
 VOCAB = 256
-# the dense, MoE, RWKV-6 and hybrid attention/Mamba architectures
+# the dense, MoE, RWKV-6, hybrid attention/Mamba and vision-language
+# architectures (Qwen2-VL on tokens alone); whisper-small is left out:
+# team_batch builds no enc_frames for its encoder, as in the reference
 ARCHS = ("phi3-mini-3.8b", "qwen3-14b", "yi-34b", "qwen1.5-32b",
          "deepseek-moe-16b", "dbrx-132b", "rwkv6-7b",
-         "jamba-1.5-large-398b")
+         "jamba-1.5-large-398b", "qwen2-vl-2b")
 
 
 def main(argv=None):

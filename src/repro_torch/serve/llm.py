@@ -32,7 +32,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device, synchronize
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeEngine
 
-__all__ = ["cache_kind", "main", "prompts", "run"]
+__all__ = ["cache_kind", "main", "prompts", "run", "timed_generate"]
 
 VOCAB = 512
 
@@ -68,6 +68,25 @@ def prompts(cfg, batch, prompt_len, gen):
     return out
 
 
+def timed_generate(cfg, params, prompt, *, new=16, sample="greedy",
+                   device=DEFAULT_DEVICE):
+    """Serve ``prompt`` (a :func:`prompts` dict) from ``params`` of
+    ``cfg`` with a cache of the prompt's length plus ``new``: a 2-token
+    warm-up, then the timed ``generate``. Returns (tokens (batch, new)
+    int32, its seconds, synchronized)."""
+    dev = resolve_device(device)
+    first = prompt["embeds"] if "embeds" in prompt else prompt["tokens"]
+    engine = ServeEngine(cfg=cfg, params=params,
+                         max_len=first.shape[1] + new, sample=sample,
+                         device=dev)
+    engine.generate(prompt, max_new_tokens=2)                 # warm-up
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = engine.generate(prompt, max_new_tokens=new)
+    synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
 def run(arch, *, batch=4, prompt_len=32, new=16, sample="greedy",
         device=DEFAULT_DEVICE):
     """Serve the reduced ``arch``: returns (tokens (batch, new) int32,
@@ -75,16 +94,10 @@ def run(arch, *, batch=4, prompt_len=32, new=16, sample="greedy",
     cfg = get_reduced_config(arch).replace(vocab_size=VOCAB)
     dev = resolve_device(device)
     params = M.init_params(0, cfg, device=dev)
-    engine = ServeEngine(cfg=cfg, params=params, max_len=prompt_len + new,
-                         sample=sample, device=dev)
     prompt = prompts(cfg, batch, prompt_len,
                      torch.Generator(device=dev).manual_seed(1))
-    engine.generate(prompt, max_new_tokens=2)                 # warm-up
-    synchronize(dev)
-    t0 = time.perf_counter()
-    out = engine.generate(prompt, max_new_tokens=new)
-    synchronize(dev)
-    return out, time.perf_counter() - t0
+    return timed_generate(cfg, params, prompt, new=new, sample=sample,
+                          device=dev)
 
 
 def main(argv=None) -> int:

@@ -514,11 +514,13 @@ def test_wkv_function_on_the_cpu():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "yi-34b", "qwen1.5-32b"])
 def test_loss_backward_runs_for_moe_and_rwkv(arch):
     """loss_fn(...).backward() of the reduced model, from the reference's
     parameters: its loss equals the reference's, every gradient is finite
-    and equals jax.grad's, and the router / WKV leaves get one."""
+    and equals jax.grad's, and the router / WKV / attention-bias leaves
+    get one (the dense yi-34b and qwen1.5-32b: GQA, and qwen1.5's q/k/v
+    biases)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.convert import params_from_numpy
     from repro_torch.data.tokens import lm_batches
@@ -543,6 +545,7 @@ def test_loss_backward_runs_for_moe_and_rwkv(arch):
         assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
         _close(leaf.grad, want[name], rtol=1e-4, atol=1e-5, msg=name)
     names = [name for name, _ in tree_leaves(p)]
-    key = "router" if arch != "rwkv6-7b" else "decay_w0"
+    key = {"rwkv6-7b": "decay_w0", "yi-34b": "wq",
+           "qwen1.5-32b": "bq"}.get(arch, "router")
     hit = [leaf for name, leaf in zip(names, leaves) if key in name]
     assert hit and all(float(h.grad.abs().max()) > 0 for h in hit)

@@ -458,11 +458,12 @@ def test_tiered_llm_example_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-7b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "qwen2-vl-2b"])
 def test_tiered_llm_example_on_cpu_moe_and_rwkv(arch, capsys):
-    """The example trains the reduced MoE, RWKV-6 and Jamba models too
-    (the router's, the WKV scan's and the selective scan's plain
-    backward), 3 rounds."""
+    """The example trains the reduced MoE, RWKV-6, Jamba and Qwen2-VL
+    models too (the router's, the WKV scan's and the selective scan's
+    plain backward; Qwen2-VL on tokens alone, as the reference's example
+    runs it), 3 rounds."""
     import importlib.util
     import pathlib
 
