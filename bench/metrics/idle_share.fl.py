@@ -1,0 +1,8 @@
+"""``idle_share.fl``: percent of the traced PerMFL rounds (evals
+included) in which no kernel or copy ran on the card, from the union of
+the device's intervals in the profiler's trace."""
+from bench.trace import idle_share
+
+
+def read(t):
+    return idle_share(t)
