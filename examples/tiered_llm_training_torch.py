@@ -2,7 +2,7 @@
 (DESIGN.md §2), as ``examples/tiered_llm_training.py`` runs it in JAX.
 
     PYTHONPATH=src python examples/tiered_llm_training_torch.py \\
-        [--arch phi3-mini-3.8b] [--device cuda|cpu]
+        [--arch phi3-mini-3.8b] [--device cuda|cpu] [--trace-dir DIR]
 
 Runs the tiered PerMFL round (device prox steps -> team update -> server
 update, ``repro_torch.train.trainer.make_tier_round``) on a REDUCED
@@ -14,6 +14,11 @@ personalized loss <= global loss on each team's distribution. On the card
 (the default) the device steps run through the backward kernels
 (attention, the MoE router, the WKV-6 scan, Mamba's selective scan) and
 the ``prox_update`` kernel; ``--device cpu`` runs the plain versions.
+``--trace-dir DIR`` saves the rounds' spans (``tier_round``,
+``local_step``, ``forward``, ``backward``, ``prox_step``,
+``team_update``, ``server_update``, and the loss evaluations' forward
+parts) there; ``python -m repro_torch.obs report DIR`` prints their
+totals by name.
 """
 import argparse
 
@@ -24,6 +29,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.data.tokens import federated_lm_data
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.obs.spans import owned_log
 from repro_torch.train.trainer import make_tier_round
 
 VOCAB = 256
@@ -42,6 +48,9 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace-dir", default=None,
+                    help="save the rounds' spans here (read them with "
+                         "python -m repro_torch.obs report DIR)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
@@ -67,22 +76,27 @@ def main(argv=None):
         with torch.no_grad():
             return float(M.loss_fn(params, cfg, batch))
 
-    for t in range(args.rounds):
-        xs = []
-        for i in range(args.teams):                  # pods, in production
-            thetas[i], ws[i], xi, metrics = round_fn(
-                thetas[i], ws[i], x, team_batch(i))
-            xs.append(xi)
-        # server aggregation over the teams (here: a mean)
-        x = _mean_trees(xs)
-        if t % 10 == 0 or t == args.rounds - 1:
-            pm = np.mean([loss_of(thetas[i], team_batch(i))
-                          for i in range(args.teams)])
-            gm = np.mean([loss_of(x, team_batch(i))
-                          for i in range(args.teams)])
-            print(f"round {t:3d}: personalized loss {pm:.4f} "
-                  f"(ppl {np.exp(pm):7.1f})   global loss {gm:.4f} "
-                  f"(ppl {np.exp(gm):7.1f})")
+    with owned_log(args.trace_dir, {"example": "tiered_llm_training",
+                                    "arch": args.arch}, "tiered"):
+        for t in range(args.rounds):
+            xs = []
+            for i in range(args.teams):              # pods, in production
+                thetas[i], ws[i], xi, metrics = round_fn(
+                    thetas[i], ws[i], x, team_batch(i))
+                xs.append(xi)
+            # server aggregation over the teams (here: a mean)
+            x = _mean_trees(xs)
+            if t % 10 == 0 or t == args.rounds - 1:
+                pm = np.mean([loss_of(thetas[i], team_batch(i))
+                              for i in range(args.teams)])
+                gm = np.mean([loss_of(x, team_batch(i))
+                              for i in range(args.teams)])
+                print(f"round {t:3d}: personalized loss {pm:.4f} "
+                      f"(ppl {np.exp(pm):7.1f})   global loss {gm:.4f} "
+                      f"(ppl {np.exp(gm):7.1f})")
+    if args.trace_dir:
+        print(f"spans saved: python -m repro_torch.obs report "
+              f"{args.trace_dir}")
 
     assert pm <= gm + 1e-6, "personalized should fit team topics at least as well"
     print("\npersonalized models fit their team's topic better than the "

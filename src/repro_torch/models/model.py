@@ -23,9 +23,11 @@ through the attention kernel's backward (``flash_attention_bwd``) on the
 card, the MoE router's (``moe_router_bwd``), the WKV-6 scan's
 (``rwkv6_scan_bwd``) and Mamba's selective scan's (``mamba_scan_bwd``),
 and through the plain versions on the CPU; ``remat=True`` checkpoints
-each block (``torch.utils.checkpoint``). Every family trains: the dense,
-MoE, RWKV-6 and hybrid attention/Mamba stacks (phi3, qwen3, deepseek,
-dbrx, rwkv6, Jamba, ...).
+each block (``torch.utils.checkpoint``). Under an active span log
+(``repro_torch.obs.spans``) :func:`forward` and :func:`loss_fn` record
+``embed``, ``blocks`` and ``head`` (the logits, and the loss). Every
+family trains: the dense, MoE, RWKV-6 and hybrid attention/Mamba stacks
+(phi3, qwen3, deepseek, dbrx, rwkv6, Jamba, ...).
 :func:`input_specs`, :func:`param_specs` and :func:`cache_specs` are
 the dry run's stand-ins: fake tensors (``FakeTensorMode``) of the
 published widths' shapes and types, made without allocating, where the
@@ -40,6 +42,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers, transformer
+from repro_torch.obs.spans import span
 
 __all__ = ["cache_specs", "decode_step", "forward", "init_cache",
            "init_params", "input_specs", "loss_fn", "padded_vocab",
@@ -117,26 +120,39 @@ def _logits_out(params, cfg, x):
     return logits
 
 
+def _hidden(params, cfg, batch, remat, mode):
+    """The last block's output and the aux loss, under the ``embed`` and
+    ``blocks`` spans."""
+    with span("embed"):
+        x = _embed_in(params, cfg, batch)
+    with span("blocks"):
+        x, _, aux = transformer.stack_apply(
+            params["blocks"], cfg, x, mode="full",
+            mrope_positions=batch.get("mrope_positions"),
+            enc_out=_encode(params, cfg, batch, mode), kmode=mode,
+            remat=remat)
+    return x, aux
+
+
 def forward(params, cfg, batch, *, remat=False, mode=None):
     """Full-sequence forward -> (logits (b, s, V) float32, aux_loss)."""
-    x = _embed_in(params, cfg, batch)
-    x, _, aux = transformer.stack_apply(
-        params["blocks"], cfg, x, mode="full",
-        mrope_positions=batch.get("mrope_positions"),
-        enc_out=_encode(params, cfg, batch, mode), kmode=mode, remat=remat)
-    return _logits_out(params, cfg, x), aux
+    x, aux = _hidden(params, cfg, batch, remat, mode)
+    with span("head"):
+        return _logits_out(params, cfg, x), aux
 
 
 def loss_fn(params, cfg, batch, *, remat=False, mode=None):
     """Mean next-token cross-entropy + MoE aux loss, differentiable in
     ``params``. Targets of -100 (any negative) are masked."""
-    logits, aux = forward(params, cfg, batch, remat=remat, mode=mode)
-    targets = batch["targets"].long()
-    mask = (targets >= 0).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
-    ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    return ce + aux
+    x, aux = _hidden(params, cfg, batch, remat, mode)
+    with span("head"):
+        logits = _logits_out(params, cfg, x)
+        targets = batch["targets"].long()
+        mask = (targets >= 0).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+        ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        return ce + aux
 
 
 def prefill(params, cfg, batch, cache, *, last_only=False, mode=None):

@@ -26,9 +26,8 @@ the port's eager engine:
   repro_torch.obs summarize``; ``python -m repro_torch.obs report DIR``
   joins events, spans, metrics and health. Either package's readers
   read the other's files.
-* profiling and regression hooks -- ``torch.profiler`` traces and a
-  FLOP count of the first round behind `TraceConfig`, and the
-  `repro_torch.obs.regress` comparator over ``BENCH_*.json`` markers.
+* profiling hooks -- ``torch.profiler`` traces and a FLOP count of the
+  first round behind `TraceConfig`.
 """
 from repro_torch.obs.events import (read_jsonl, run_events, summarize_run,
                                     sweep_events, write_jsonl, write_run,
@@ -36,13 +35,12 @@ from repro_torch.obs.events import (read_jsonl, run_events, summarize_run,
 from repro_torch.obs.health import HealthError, HealthReport, nonfinite_count
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.profiling import compiled_cost, profile_ctx
-from repro_torch.obs.regress import compare as compare_bench
 from repro_torch.obs.report import report_text
 from repro_torch.obs.spans import SpanLog, current_log, span
 from repro_torch.obs.trace import RunTrace, TraceConfig, eval_points
 
 __all__ = ["HealthError", "HealthReport", "MetricsRegistry", "RunTrace",
-           "SpanLog", "TraceConfig", "compare_bench", "compiled_cost",
+           "SpanLog", "TraceConfig", "compiled_cost",
            "current_log", "eval_points", "nonfinite_count",
            "profile_ctx", "read_jsonl", "report_text", "run_events",
            "span", "summarize_run", "sweep_events", "write_jsonl",

@@ -2,7 +2,6 @@
 
     PYTHONPATH=src python -m repro_torch.obs summarize PATH [PATH2]
     PYTHONPATH=src python -m repro_torch.obs report DIR
-    PYTHONPATH=src python -m repro_torch.obs regress BASELINE CURRENT [--tol T]
 
 ``summarize PATH`` reads a JSONL trace (one file, or every ``*.jsonl``
 in a directory) and renders each run: header identity, the eval-point
@@ -11,8 +10,7 @@ the footer cost split — plus, when the directory holds span trace
 files, the wall-clock span breakdown. With two paths it also diffs the
 final runs of each (metric deltas, wall/bytes deltas). ``report DIR``
 renders the full joined picture — events × spans × metrics × health
-(see `repro_torch.obs.report`). ``regress`` is the CI perf gate (see
-`repro_torch.obs.regress`).
+(see `repro_torch.obs.report`).
 """
 from __future__ import annotations
 
@@ -22,7 +20,6 @@ import pathlib
 import sys
 
 from repro_torch.obs import events as E
-from repro_torch.obs import regress as R
 from repro_torch.obs import report as REP
 
 
@@ -112,10 +109,10 @@ def _cmd_report(args) -> int:
 
 
 def main(argv=None) -> int:
-    """Entry point: dispatch summarize / regress."""
+    """Entry point: dispatch summarize / report."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.obs",
-        description="Read, render, and gate run-telemetry artifacts.")
+        description="Read and render run-telemetry artifacts.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("summarize",
                        help="render a JSONL run trace (or diff two)")
@@ -127,15 +124,7 @@ def main(argv=None) -> int:
                        help="joined events x spans x metrics x health")
     p.add_argument("path", help="trace directory")
     p.set_defaults(fn=_cmd_report)
-    p = sub.add_parser("regress",
-                       help="gate BENCH_engine.json against a baseline")
-    p.add_argument("baseline")
-    p.add_argument("current")
-    p.add_argument("--tol", type=float, default=R.DEFAULT_TOL)
     args = ap.parse_args(argv)
-    if args.cmd == "regress":
-        return R.main([args.baseline, args.current, "--tol",
-                       str(args.tol)])
     return args.fn(args)
 
 

@@ -21,9 +21,18 @@ the result with events, metrics and health.
 
 Spans carry free-form attributes (``span("compile", round=1)``) and the
 yielded `Span` accepts late ones via :meth:`Span.set` -- the engine
-stamps the first round's FLOP count onto its compile span. A span times
-the host: where it must time the card, the code inside it ends in a
-copy to the host or a synchronize.
+stamps the first round's FLOP count onto its compile span. Each span
+knows its parent, and the export names the parent's path
+(``tier_round/local_step``) in the event's ``args``. A span times the
+host: where it must time the card, the code inside it ends in a copy
+to the host or a synchronize.
+
+Spans are stamped with ``time.time_ns()``, the realtime clock that
+``torch.profiler``'s exported trace uses on the host (an event at
+``baseTimeNanoseconds`` + ``ts`` microseconds), so a span's bounds and
+the launches a profiler recorded inside it compare directly. The export
+gives its own ``baseTimeNanoseconds`` (``ts`` counts microseconds from
+it, the log's start) and names the clock in ``otherData``.
 """
 from __future__ import annotations
 
@@ -40,17 +49,22 @@ __all__ = ["Span", "SpanLog", "current_log", "owned_log", "span"]
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_span_log", default=None)
+# the clock every span is stamped on (module docstring)
+CLOCK = "time.time_ns (CLOCK_REALTIME, torch.profiler's host clock)"
 
 
 @dataclass
 class Span:
     """One named host-side interval: begin/duration (seconds, relative to
-    the owning log's epoch), nesting depth, and free-form attributes."""
+    the owning log's epoch), nesting depth, free-form attributes, and the
+    span it opened inside (None at the top)."""
     name: str
     t0: float                       # start, seconds since log epoch
     depth: int = 0                  # nesting level at begin time
     dur: Optional[float] = None     # seconds; None while still open
     attrs: dict = field(default_factory=dict)
+    parent: Optional["Span"] = field(default=None, repr=False,
+                                     compare=False)
 
     def set(self, **attrs) -> "Span":
         """Attach (or overwrite) attributes; usable after the span closed
@@ -58,6 +72,42 @@ class Span:
         in the trace."""
         self.attrs.update(attrs)
         return self
+
+    @property
+    def path(self) -> str:
+        """The names from the outermost span down to this one, joined by
+        ``/`` (``tier_round/local_step/backward``)."""
+        names, sp = [], self
+        while sp is not None:
+            names.append(sp.name)
+            sp = sp.parent
+        return "/".join(reversed(names))
+
+
+class _Recording:
+    """The context :meth:`SpanLog.span` returns: opens its span on entry
+    and closes it on exit (exceptions propagate)."""
+    __slots__ = ("_log", "_name", "_attrs", "_span")
+
+    def __init__(self, log, name, attrs):
+        self._log, self._name, self._attrs = log, name, attrs
+
+    def __enter__(self) -> Span:
+        log = self._log
+        parent = log._stack[-1] if log._stack else None
+        sp = Span(name=self._name,
+                  t0=(time.time_ns() - log.epoch_ns) * 1e-9,
+                  depth=len(log._stack), attrs=self._attrs, parent=parent)
+        log.spans.append(sp)
+        log._stack.append(sp)
+        self._span = sp
+        return sp
+
+    def __exit__(self, *exc) -> bool:
+        sp = self._span
+        sp.dur = (time.time_ns() - self._log.epoch_ns) * 1e-9 - sp.t0
+        self._log._stack.pop()
+        return False
 
 
 class SpanLog:
@@ -76,25 +126,18 @@ class SpanLog:
         self.meta = dict(meta or {})
         self.spans: list = []
         self._stack: list = []
-        self._epoch = time.perf_counter()
+        # the log's start on the clock the spans are stamped on
+        self.epoch_ns = time.time_ns()
 
     def __len__(self):
         return len(self.spans)
 
-    @contextlib.contextmanager
     def span(self, name: str, **attrs):
-        """Record one nested interval; yields the open `Span` so callers
-        can :meth:`Span.set` more attributes. Exceptions propagate after
-        the span is closed, so aborted phases still show in the trace."""
-        sp = Span(name=name, t0=time.perf_counter() - self._epoch,
-                  depth=len(self._stack), attrs=dict(attrs))
-        self.spans.append(sp)
-        self._stack.append(sp)
-        try:
-            yield sp
-        finally:
-            sp.dur = (time.perf_counter() - self._epoch) - sp.t0
-            self._stack.pop()
+        """Record one nested interval; the context yields the open `Span`
+        so callers can :meth:`Span.set` more attributes. Exceptions
+        propagate after the span is closed, so aborted phases still show
+        in the trace."""
+        return _Recording(self, name, attrs)
 
     @contextlib.contextmanager
     def activate(self):
@@ -115,23 +158,28 @@ class SpanLog:
 
     def to_chrome(self) -> dict:
         """Chrome trace-event JSON object: ``{"traceEvents": [...],
-        "metadata": ...}`` with one complete ("X") event per closed span
-        (timestamps/durations in microseconds)."""
+        "baseTimeNanoseconds", "otherData": {"clock"}, "metadata": ...}``
+        with one complete ("X") event per closed span (timestamps in
+        microseconds from ``baseTimeNanoseconds``, durations in
+        microseconds; ``args["parent"]``, the parent's path, where the
+        span has a parent)."""
         pid = os.getpid()
         events = []
         for sp in self.spans:
             if sp.dur is None:          # still open
                 continue
+            args = {k: v for k, v in sp.attrs.items()
+                    if isinstance(v, (str, int, float, bool, type(None)))}
+            if sp.parent is not None:
+                args["parent"] = sp.parent.path
             events.append({
                 "name": sp.name, "cat": "repro", "ph": "X",
                 "ts": sp.t0 * 1e6, "dur": sp.dur * 1e6,
-                "pid": pid, "tid": sp.depth,
-                "args": {k: v for k, v in sp.attrs.items()
-                         if isinstance(v, (str, int, float, bool,
-                                           type(None)))},
+                "pid": pid, "tid": sp.depth, "args": args,
             })
         return {"traceEvents": events, "displayTimeUnit": "ms",
-                "metadata": self.meta}
+                "baseTimeNanoseconds": self.epoch_ns,
+                "otherData": {"clock": CLOCK}, "metadata": self.meta}
 
     def save(self, trace_dir, tag: str = "run") -> pathlib.Path:
         """Write the Chrome-trace JSON to
@@ -161,7 +209,15 @@ class SpanLog:
 
 
 class _NullSpan:
-    """No-op stand-in yielded by :func:`span` when no log is active."""
+    """No-op stand-in :func:`span` returns when no log is active: its own
+    context, yielding itself. One object serves every call."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
 
     def set(self, **attrs):
         """Discard attributes (no log to record them)."""
@@ -194,15 +250,10 @@ def owned_log(trace_dir, meta: dict, tag: str):
             log.save(trace_dir, tag)
 
 
-@contextlib.contextmanager
-def _null_span():
-    yield _NULL_SPAN
-
-
 def span(name: str, **attrs):
     """Record a span into the active log, or do nothing when none is
-    active (one contextvar read)."""
+    active: one contextvar read, and the one shared no-op context."""
     log = _ACTIVE.get()
     if log is None:
-        return _null_span()
-    return log.span(name, **attrs)
+        return _NULL_SPAN
+    return _Recording(log, name, attrs)

@@ -17,6 +17,13 @@ versions. The returned losses are 0-d tensors on the device, so a step
 does not wait for the card. The reference's mesh arguments
 (``data_axis``, ``pod_axis``) are accepted and unused: the port trains on
 one card, where the team and server updates are local.
+
+Under an active span log (``repro_torch.obs.spans``) the phases record
+spans: ``forward`` (with the model's ``embed``, ``blocks`` and ``head``)
+and ``backward`` in :func:`value_and_grad`, ``prox_step`` around
+``prox_sgd_tree``, and in a tier round ``tier_round`` over
+``local_step`` and the ``team_update`` and ``server_update``. With no
+log active they cost one context-variable read each.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.flat import tree_leaves
 from repro_torch.kernels.prox_update import prox_sgd_tree
 from repro_torch.models import model as model_lib
+from repro_torch.obs.spans import span
 from repro_torch.train.optim import Optimizer, clip_by_global_norm, tree_map
 from repro_torch.train.train_state import TrainState
 
@@ -52,10 +60,13 @@ def value_and_grad(params, cfg, batch, *, remat=False, mode=None):
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     leaves = [p for _, p in tree_leaves(live)]
     with torch.enable_grad():
-        loss = model_lib.loss_fn(live, cfg, batch, remat=remat, mode=mode)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
+        with span("forward"):
+            loss = model_lib.loss_fn(live, cfg, batch, remat=remat,
+                                     mode=mode)
+        with span("backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
     return loss.detach(), _rebuild(params, iter(grads))
 
 
@@ -88,7 +99,7 @@ def make_permfl_device_step(cfg, *, alpha: float, lam: float,
     def device_step(theta, w, batch):
         loss_val, grads = value_and_grad(theta, cfg, batch, remat=remat,
                                          mode=mode)
-        with torch.no_grad():
+        with torch.no_grad(), span("prox_step"):
             theta, _ = prox_sgd_tree(theta, grads, w, alpha=alpha, lam=lam,
                                      mode=mode)
         return theta, {"loss": loss_val}
@@ -120,22 +131,27 @@ def make_tier_round(cfg, *, alpha: float, lam: float, gamma: float,
     del data_axis, pod_axis
 
     def round_fn(theta, w, x, batch):
-        loss_val = None
-        for _ in range(l_local):
-            lv, grads = value_and_grad(theta, cfg, batch, remat=remat,
-                                       mode=mode)
+        with span("tier_round"):
+            loss_val = None
+            for _ in range(l_local):
+                with span("local_step"):
+                    lv, grads = value_and_grad(theta, cfg, batch,
+                                               remat=remat, mode=mode)
+                    with torch.no_grad(), span("prox_step"):
+                        theta, _ = prox_sgd_tree(theta, grads, w,
+                                                 alpha=alpha, lam=lam,
+                                                 mode=mode)
+                    del grads
+                    loss_val = lv if loss_val is None else loss_val + lv
             with torch.no_grad():
-                theta, _ = prox_sgd_tree(theta, grads, w, alpha=alpha,
-                                         lam=lam, mode=mode)
-            del grads
-            loss_val = lv if loss_val is None else loss_val + lv
-        with torch.no_grad():
-            c = 1.0 - eta * lam - eta * gamma
-            w = tree_map(lambda wl, xl, tb: c * wl + eta * gamma * xl
-                         + lam * eta * tb, w, x, theta)
-            x = tree_map(lambda xl, wl: (1 - beta * gamma) * xl
-                         + beta * gamma * wl, x, w)
-        return theta, w, x, {"loss": loss_val / l_local}
+                c = 1.0 - eta * lam - eta * gamma
+                with span("team_update"):
+                    w = tree_map(lambda wl, xl, tb: c * wl + eta * gamma * xl
+                                 + lam * eta * tb, w, x, theta)
+                with span("server_update"):
+                    x = tree_map(lambda xl, wl: (1 - beta * gamma) * xl
+                                 + beta * gamma * wl, x, w)
+            return theta, w, x, {"loss": loss_val / l_local}
 
     return round_fn
 

@@ -71,7 +71,6 @@ PUBLIC_MODULES = (
     "repro_torch.obs.metrics",
     "repro_torch.obs.probes",
     "repro_torch.obs.profiling",
-    "repro_torch.obs.regress",
     "repro_torch.obs.report",
     "repro_torch.obs.spans",
     "repro_torch.obs.trace",
