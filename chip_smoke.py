@@ -305,9 +305,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      flash_attention and flash_attention_bwd exactly 32 per forward /
      backward pass (160 each; every forward and every backward the
      ``wgmma`` variant),
-     prox_update exactly 2 x 2 x 12 = 48, no other kernel; finite
-     losses, the tier loss lower in round 2; ms per step, tokens/s, peak
-     memory (under 80 GB), the second round's busy share (torch.profiler).
+     prox_update exactly 2 x 2 x 12 = 48, tier_update 2 x 12 = 24, no
+     other kernel; finite losses, the tier loss lower in round 2; ms per
+     step, tokens/s, peak memory (under 80 GB), the second round's busy
+     share (torch.profiler). Then prox_update and tier_update at phi3's
+     largest leaf, w_gate, against their plain versions (tier_update bit
+     for bit), timed beside their bounds, and each over the whole tree.
  13i. training consistency: phi3 cut to 2 layers in f32, one SGD
      ``make_train_step`` and one tier round through the kernels and
      through ``mode="torch"`` from the same parameters: losses and every
@@ -1321,8 +1324,8 @@ def check_launches(launches, expect, path):
     from repro_torch.kernels.quantize import KERNELS as QUANTIZE
     from repro_torch.kernels.rwkv6_scan import KERNELS as RWKV
 
-    for name in (("prox_update",) + KERNELS + QUANTIZE + ATTENTION + ROUTER
-                 + RWKV + MAMBA):
+    for name in (("prox_update", "tier_update") + KERNELS + QUANTIZE
+                 + ATTENTION + ROUTER + RWKV + MAMBA):
         want = expect.get(name, 0)
         if launches.get(name, 0) != want:
             raise AssertionError(
@@ -3994,7 +3997,8 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     parameters (as the example starts), on the same batch each round.
     Launches: each kernel of ``per_pass`` exactly that many
     times a forward and backward pass (1 + 4 passes), prox_update exactly
-    rounds x l_local x leaves, no other kernel; ``variants`` maps a name
+    rounds x l_local x leaves, tier_update rounds x leaves, no other
+    kernel; ``variants`` maps a name
     to (its counts dict, the counts per pass it must read). Finite
     losses, the tier loss lower in round 2; ms per step, tokens/s, peak
     memory (under the card's 80 GB), the second round's device busy share,
@@ -4067,7 +4071,8 @@ def run_training(arch, n_params, n_leaves, per_pass, variants, cut=None):
     passes = 1 + TRAIN_ROUNDS * TRAIN_L_LOCAL
     check_launches(launches, {
         **{k: n * passes for k, n in per_pass.items()},
-        "prox_update": TRAIN_ROUNDS * TRAIN_L_LOCAL * got_leaves},
+        "prox_update": TRAIN_ROUNDS * TRAIN_L_LOCAL * got_leaves,
+        "tier_update": TRAIN_ROUNDS * got_leaves},
         f"{tag} training")
     for name, (counts, want) in variants.items():
         ran = {k: c for k, c in counts.items() if c}
@@ -4117,10 +4122,11 @@ def phase_llm_training():
     tree's 3,821,079,552 parameters, 12 leaves) through
     :func:`run_training`: flash_attention and flash_attention_bwd exactly
     32 per forward/backward pass (1 + 4 passes), every backward the
-    ``wgmma`` variant, prox_update exactly rounds x l_local x 12, no
-    other kernel (every forward the ``wgmma`` variant too, at head_dim 96);
-    then prox_update at its largest leaves (:func:`prox_at_phi3`). Returns
-    its launches."""
+    ``wgmma`` variant, prox_update exactly rounds x l_local x 12,
+    tier_update rounds x 12, no other kernel (every forward the ``wgmma``
+    variant too, at head_dim 96); then prox_update and tier_update at its
+    largest leaves (:func:`prox_at_phi3`, :func:`tier_update_at_phi3`).
+    Returns its launches."""
     from repro_torch.kernels.flash_attention import BWD_VARIANTS, VARIANTS
 
     layers = 32
@@ -4131,6 +4137,7 @@ def phase_llm_training():
          "flash_attention_bwd variants": (BWD_VARIANTS,
                                           {"wgmma": layers})})
     prox_at_phi3(theta, w, x)
+    tier_update_at_phi3(theta, w, x)
     del theta, w, x
     release()
     return launches
@@ -4224,6 +4231,51 @@ def prox_at_phi3(theta, w, x):
         f"{bound_ms * 1e3:.1f} us ({4 * n * 2 / 1e6:.1f} MB, bytes), "
         f"{bound_ms / ms:.1%} of bound; the 12-leaf prox_sgd_tree "
         f"{tree_ms:.2f} ms against {tree_bound:.2f} ms")
+
+
+def tier_update_at_phi3(theta, w, x):
+    """tier_update (eqs. 9 and 13 in one pass) over phi3's tree (w, x and
+    theta of the last round) against its plain version (the eight eager
+    kernels a leaf), bit for bit; at the largest leaf (``w_gate``,
+    805,306,368 bf16) its time (L2 cold), the plain version's and the
+    bound (three reads and two writes of the leaf); the same for the
+    whole 12-leaf ``tier_update_tree`` (12 launches, a round's). Not
+    counted: the phase's launches were read before."""
+    import torch
+
+    from repro_torch.kernels.tier_update import (tier_update,
+                                                 tier_update_ref,
+                                                 tier_update_tree)
+    from repro_torch.roofline import kernels as W
+
+    hp = {k: TIER_HP[k] for k in ("eta", "lam", "gamma", "beta")}
+    leaf = [t["blocks"]["pos0"]["mlp"]["w_gate"] for t in (w, x, theta)]
+    got = tier_update_tree(w, x, theta, **hp)
+    want = tier_update_tree(w, x, theta, mode="torch", **hp)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for g, wt in zip(got, want)
+               for a, b in zip(_leaves(g), _leaves(wt))):
+        raise AssertionError("tier_update over phi3's tree: not bit-equal "
+                             "to the plain version")
+    del got, want
+    ms = cuda_time_ms(lambda: tier_update(*leaf, **hp), 10)
+    plain_ms = cuda_time_ms(lambda: tier_update_ref(*leaf, **hp), 3)
+    tree_ms = cuda_time_ms(lambda: tier_update_tree(w, x, theta, **hp), 5)
+    plain_tree_ms = cuda_time_ms(
+        lambda: tier_update_tree(w, x, theta, mode="torch", **hp), 3)
+    n = leaf[0].numel()
+    gate = W.tier_update(n, 2)
+    tree_bound = sum(W.tier_update(t.numel(), 2).bound_ms
+                     for t in _leaves(theta))
+    say("kernel", f"tier_update over {TRAIN_ARCH}'s tree bit-equal to the "
+        f"plain version; at its w_gate ({n:,} bf16): kernel "
+        f"{ms * 1e3:.1f} us, plain "
+        f"{plain_ms * 1e3:.1f} us, bound {gate.bound_ms * 1e3:.1f} us "
+        f"({gate.bytes / 1e6:.1f} MB, {gate.bound_by}), "
+        f"{gate.bound_ms / ms:.1%} of bound; the 12-leaf tier_update_tree "
+        f"(12 launches, a round's) {tree_ms:.2f} ms, plain "
+        f"{plain_tree_ms:.2f} ms, against {tree_bound:.2f} ms "
+        f"({tree_bound / tree_ms:.1%} of bound)")
 
 
 def phase_training_consistency(arch=TRAIN_ARCH):

@@ -13,7 +13,8 @@ of the paper's label skew. Shows
 personalized loss <= global loss on each team's distribution. On the card
 (the default) the device steps run through the backward kernels
 (attention, the MoE router, the WKV-6 scan, Mamba's selective scan) and
-the ``prox_update`` kernel; ``--device cpu`` runs the plain versions.
+the ``prox_update`` kernel, and the team and server updates through the
+``tier_update`` kernel; ``--device cpu`` runs the plain versions.
 ``--trace-dir DIR`` saves the rounds' spans (``tier_round``,
 ``local_step``, ``forward``, ``backward``, ``prox_step``,
 ``team_update``, ``server_update``, and the loss evaluations' forward

@@ -35,6 +35,8 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 # kernel name -> its CUDA source
 KERNEL_SOURCES = {
     "prox_update": _KERNELS_DIR / "prox_update" / "csrc" / "prox_update.cu",
+    "tier_update": (_KERNELS_DIR / "tier_update" / "csrc"
+                    / "tier_update.cu"),
     "compress": _KERNELS_DIR / "compress" / "csrc" / "compress.cu",
     "select_hopper": (_KERNELS_DIR / "compress" / "csrc"
                       / "select_hopper.cu"),

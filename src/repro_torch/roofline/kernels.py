@@ -27,7 +27,7 @@ __all__ = ["COMPRESS_OPS_PER_VALUE", "RATES", "RWKV_BWD_OPS_PER_ELEMENT",
            "RWKV_OPS_PER_ELEMENT", "Work", "attention", "attention_bwd",
            "compress", "live_pairs", "mamba_scan", "moe_router",
            "moe_router_bwd", "prox_update", "route_topk", "route_topk_bwd",
-           "rwkv6_scan", "rwkv6_scan_bwd"]
+           "rwkv6_scan", "rwkv6_scan_bwd", "tier_update"]
 
 # operations a second by the kind of unit that runs them
 RATES = {"bf16": PEAK_FLOPS_BF16, "tf32": PEAK_FLOPS_TF32,
@@ -99,6 +99,14 @@ def prox_update(rows: int, cols: int, *, itemsize: int, anchor_rows: int,
     moved = (3 * rows + anchor_rows) * cols * itemsize \
         + (2 * rows * cols * 4 if momentum else 0) + 2 * groups * 4
     return Work(moved, rows * cols * (9 if momentum else 7))
+
+
+def tier_update(values: int, itemsize: int) -> Work:
+    """PerMFL's team and server updates (eqs. 9 and 13) over a leaf of
+    ``values`` values: w, x and theta read, w' and x' written, each once
+    in the stored type; 8 float32 operations a value (5 scalings, 3
+    adds)."""
+    return Work(5 * values * itemsize, 8 * values)
 
 
 def compress(op: str, senders: int, cols: int, values: int, leaves: int,

@@ -6,7 +6,8 @@ variable. ``make_permfl_device_step`` and ``make_tier_round`` are PerMFL
 at LLM scale, the production "tier mode" (DESIGN.md §2): a device's
 prox-SGD steps toward its team model w (eq. 4, ``prox_update``, one
 launch per parameter leaf), the team update (eq. 9) and the server update
-(eq. 13).
+(eq. 13), both in one pass (``tier_update``, one launch per parameter
+leaf).
 
 Parameters are nested dicts of tensors on one device (the card by
 default); a batch is ``{"tokens", "targets"}`` (b, s) integer tensors on
@@ -22,8 +23,10 @@ Under an active span log (``repro_torch.obs.spans``) the phases record
 spans: ``forward`` (with the model's ``embed``, ``blocks`` and ``head``)
 and ``backward`` in :func:`value_and_grad`, ``prox_step`` around
 ``prox_sgd_tree``, and in a tier round ``tier_round`` over
-``local_step`` and the ``team_update`` and ``server_update``. With no
-log active they cost one context-variable read each.
+``local_step`` and the ``team_update`` and ``server_update``: both
+updates run in ``team_update`` (one ``tier_update`` launch a leaf on the
+card), and ``server_update`` holds no device work; readers sum the two.
+With no log active they cost one context-variable read each.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.flat import tree_leaves
 from repro_torch.kernels.prox_update import prox_sgd_tree
+from repro_torch.kernels.tier_update import tier_update_tree
 from repro_torch.models import model as model_lib
 from repro_torch.obs.spans import span
 from repro_torch.train.optim import Optimizer, clip_by_global_norm, tree_map
@@ -123,11 +127,14 @@ def make_tier_round(cfg, *, alpha: float, lam: float, gamma: float,
 
         x' = (1 - beta gamma) x + beta gamma w'
 
-    ``loss`` is the mean of the local steps' losses. Every output is a new
-    tree: theta, w and x are never written, so one x can be handed to
-    every team (the caller averages the teams' x' itself, as the
-    reference's example does). The mesh arguments are unused (module
-    docstring)."""
+    both in one pass, leaf by leaf (``tier_update_tree``: one kernel
+    launch a leaf on the card, bit-equal to the plain version's eight
+    eager ops), inside the ``team_update`` span; the ``server_update``
+    span that follows holds no device work. ``loss`` is the mean of the
+    local steps' losses. Every output is a new tree: theta, w and x are
+    never written, so one x can be handed to every team (the caller
+    averages the teams' x' itself, as the reference's example does). The
+    mesh arguments are unused (module docstring)."""
     del data_axis, pod_axis
 
     def round_fn(theta, w, x, batch):
@@ -143,14 +150,13 @@ def make_tier_round(cfg, *, alpha: float, lam: float, gamma: float,
                                                  mode=mode)
                     del grads
                     loss_val = lv if loss_val is None else loss_val + lv
-            with torch.no_grad():
-                c = 1.0 - eta * lam - eta * gamma
-                with span("team_update"):
-                    w = tree_map(lambda wl, xl, tb: c * wl + eta * gamma * xl
-                                 + lam * eta * tb, w, x, theta)
-                with span("server_update"):
-                    x = tree_map(lambda xl, wl: (1 - beta * gamma) * xl
-                                 + beta * gamma * wl, x, w)
+            with torch.no_grad(), span("team_update"):
+                w, x = tier_update_tree(w, x, theta, eta=eta, lam=lam,
+                                        gamma=gamma, beta=beta, mode=mode)
+            # eq. 13 ran in the pass above; the span stays, so that a
+            # reader of the two spans keeps its meaning
+            with span("server_update"):
+                pass
             return theta, w, x, {"loss": loss_val / l_local}
 
     return round_fn

@@ -54,6 +54,9 @@ PUBLIC_MODULES = (
     "repro_torch.kernels.rwkv6_scan.ops",
     "repro_torch.kernels.rwkv6_scan.ref",
     "repro_torch.kernels.segments",
+    "repro_torch.kernels.tier_update",
+    "repro_torch.kernels.tier_update.ops",
+    "repro_torch.kernels.tier_update.ref",
     "repro_torch.launch",
     "repro_torch.launch.dryrun",
     "repro_torch.launch.mesh",

@@ -1974,7 +1974,8 @@ def test_tiered_llm_example_on_the_card(cuda, capsys):
     """examples/tiered_llm_training_torch.py on the card (reduced phi3,
     3 rounds): its assertion holds, and every device step went through
     the attention kernels and prox_update (2 teams x 2 local steps x 2
-    layers a round; 12 leaves a step)."""
+    layers a round; 12 leaves a step), every team's updates through
+    tier_update (one launch a leaf)."""
     import importlib.util
     import pathlib
 
@@ -1986,12 +1987,13 @@ def test_tiered_llm_example_on_the_card(cuda, capsys):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     before = {k: LAUNCHES.get(k, 0) for k in ("flash_attention_bwd",
-                                              "prox_update")}
+                                              "prox_update", "tier_update")}
     pm, gm = mod.main(["--rounds", "3"])
     assert pm <= gm and np.isfinite(pm)
     assert LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"] \
         == 3 * 2 * 2 * 2
     assert LAUNCHES["prox_update"] - before["prox_update"] == 3 * 2 * 2 * 12
+    assert LAUNCHES["tier_update"] - before["tier_update"] == 3 * 2 * 12
     assert "round   2: personalized loss" in capsys.readouterr().out
 
 
@@ -2194,3 +2196,140 @@ def test_tiered_llm_example_on_the_card_jamba(cuda, capsys):
     for k in names:
         assert LAUNCHES[k] - before[k] == 3 * 2 * 2 * 4, k
     assert "round   2: personalized loss" in capsys.readouterr().out
+
+
+# --- tier_update: the tier round's team and server updates (eqs. 9, 13) --
+
+TIER_HP = {"phi3": dict(eta=0.03, lam=0.5, gamma=1.5, beta=0.3),
+           "other": dict(eta=0.07, lam=1.3, gamma=0.8, beta=0.45)}
+W_GATE = 32 * 3072 * 8192          # phi3-mini's largest leaf, w_gate
+
+
+def _tier_inputs(n, dtype, cuda, offset=0):
+    """w, x, theta of ``n`` values drawn on the card, each a view
+    ``offset`` values into its buffer (1: not 16-byte aligned)."""
+    gen = torch.Generator(device=cuda).manual_seed(n % 1000 + offset)
+    return [(s * torch.randn(n + offset, generator=gen, device=cuda))
+            .to(getattr(torch, dtype))[offset:] for s in (1.0, 0.5, 2.0)]
+
+
+def _tier_bit_equal(w, x, theta, hp):
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.tier_update import tier_update
+
+    before = LAUNCHES.get("tier_update", 0)
+    got = tier_update(w, x, theta, **hp)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tier_update"] == before + 1
+    want = tier_update(w, x, theta, mode="torch", **hp)
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and g.shape == wt.shape
+        assert torch.equal(g, wt)
+
+
+@pytest.mark.parametrize("hp", sorted(TIER_HP))
+@pytest.mark.parametrize("n", [1, 7, 8 * 1024 + 3, W_GATE])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tier_update_kernel_bit_equal(cuda, hp, n, dtype):
+    """The kernel against the eight eager ops it replaces, bit for bit:
+    one value, a scalar tail alone, vectors and a tail, phi3's w_gate."""
+    w, x, theta = _tier_inputs(n, dtype, cuda)
+    _tier_bit_equal(w, x, theta, TIER_HP[hp])
+
+
+@pytest.mark.parametrize("offset", ["all", "theta"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tier_update_kernel_unaligned_views_bit_equal(cuda, offset, dtype):
+    """Views one value into their buffers take the scalar path."""
+    w, x, theta = _tier_inputs(8 * 1024 + 3, dtype, cuda)
+    shifted = _tier_inputs(8 * 1024 + 3, dtype, cuda, offset=1)
+    if offset == "all":
+        w, x, theta = shifted
+    else:
+        theta = shifted[2]
+    assert theta.data_ptr() % 16
+    _tier_bit_equal(w, x, theta, TIER_HP["phi3"])
+
+
+def test_tier_update_kernel_leaves_aliased_inputs(cuda):
+    """One tensor as w, x and theta (a tier round's first): it is read,
+    never written, and the outputs are new."""
+    from repro_torch.kernels.tier_update import tier_update
+
+    (w, *_) = _tier_inputs(8 * 1024 + 3, "bfloat16", cuda)
+    before = w.clone()
+    got = tier_update(w, w, w, **TIER_HP["phi3"])
+    torch.cuda.synchronize()
+    assert torch.equal(w, before)
+    assert {t.data_ptr() for t in got}.isdisjoint({w.data_ptr()})
+    _tier_bit_equal(w, w, w, TIER_HP["phi3"])
+
+
+def _phi3_round(cuda):
+    """A 2-layer phi3 cut in bf16 on the card, its tier round (l_local 2)
+    and a batch of 2 x 64 tokens."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import make_tier_round
+
+    cfg = get_reduced_config("phi3-mini-3.8b")
+    params = M.init_params(0, cfg, dtype=torch.bfloat16, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen,
+                        device=cuda)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    round_fn = make_tier_round(cfg, l_local=2, alpha=3e-3,
+                               **TIER_HP["phi3"])
+    return params, batch, round_fn
+
+
+def test_tier_round_launches_tier_update_once_a_leaf(cuda):
+    """A round of a 2-layer phi3 cut: one tier_update launch a leaf, and
+    w', x' the plain version's updates of the round's theta', bit for
+    bit."""
+    from repro_torch.flat import tree_leaves
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.tier_update import tier_update_tree
+
+    params, batch, round_fn = _phi3_round(cuda)
+    leaves = len(tree_leaves(params))
+    before = LAUNCHES.get("tier_update", 0)
+    theta, w, x, _ = round_fn(params, params, params, batch)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tier_update"] - before == leaves
+    want = tier_update_tree(params, params, theta, mode="torch",
+                            **TIER_HP["phi3"])
+    for got, wt in zip((w, x), want):
+        assert all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(tree_leaves(got), tree_leaves(wt)))
+
+
+def test_only_tier_update_runs_under_the_update_spans(cuda, tmp_path):
+    """A round of the 2-layer phi3 cut traced with its spans: under
+    ``team_update`` one tier_update kernel a leaf, under
+    ``server_update`` no device work."""
+    import json
+
+    from bench import spans
+
+    from repro_torch.flat import tree_leaves
+    from repro_torch.obs.spans import SpanLog
+
+    params, batch, round_fn = _phi3_round(cuda)
+    round_fn(params, params, params, batch)          # builds, warms up
+    torch.cuda.synchronize()
+    log = SpanLog()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with log.activate():
+            round_fn(params, params, params, batch)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    window = spans.read(json.loads(path.read_text()), log)
+    owned = [(op[0], sp[0]) for op, sp in spans.attribute(window)
+             if sp and spans.under(sp[0], ("team_update", "server_update"))]
+    assert [p for _, p in owned] == \
+        ["tier_round/team_update"] * len(tree_leaves(params))
+    assert all("tier_update_kernel<" in name for name, _ in owned)

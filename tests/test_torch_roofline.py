@@ -163,6 +163,7 @@ def _seam_cases():
     from repro_torch.kernels.quantize import quantize_int8
     from repro_torch.kernels.rwkv6_scan import ops as RS
     from repro_torch.kernels.segments import segments
+    from repro_torch.kernels.tier_update import tier_update
     from repro_torch.roofline import kernels as W
 
     f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
@@ -187,6 +188,11 @@ def _seam_cases():
                     T((2,), f32, "pos"), T((2,), f32, "pos")),
          lambda t, g, a, al, lm: prox_step_(t, g, a, alpha=al, lam=lm),
          W.prox_update(12, 7, itemsize=4, anchor_rows=4, groups=2)),
+        ("tier_update", "tier_update",
+         lambda T: (T((6, 5), bf16), T((6, 5), bf16), T((6, 5), bf16)),
+         lambda w, x, t: tier_update(w, x, t, eta=0.03, lam=0.5, gamma=1.5,
+                                     beta=0.3),
+         W.tier_update(30, 2)),
         comp("ef_topk", lambda T: (T((bs, cols), f32), T((bs, cols), f32),
                                    T((bs, 2), f32, "pos")),
              lambda d, e, th: C.ef_topk(d, e, segs, thresh=th)),
@@ -370,7 +376,8 @@ def test_kernel_bounds_reproduce_the_kernel_table():
     prints) at its shapes: prox_update (CNN LAN, per config, cohort,
     phi3's w_gate), attention (deepseek prefill and decode, Whisper,
     Qwen2-VL, Jamba, phi3's training forward), the fused router, WKV-6,
-    the attention, router and WKV backwards, and the selective scan."""
+    the attention, router and WKV backwards, the selective scan, and
+    tier_update (phi3's w_gate and its whole tree)."""
     from repro_torch.roofline import kernels as W
 
     def us(w):
@@ -388,6 +395,10 @@ def test_kernel_bounds_reproduce_the_kernel_table():
     assert (mb(cohort), us(cohort)) == (3.8, 1.1)
     gate = W.prox_update(1, 805_306_368, itemsize=2, anchor_rows=1)
     assert (mb(gate), us(gate)) == (6442.5, 1923.1)
+    tier = W.tier_update(805_306_368, 2)
+    assert (mb(tier), us(tier), tier.bound_by) == (8053.1, 2403.9, "bytes")
+    tree = W.tier_update(3_821_079_552, 2)
+    assert (round(tree.bound_ms, 2), tree.bound_by) == (11.41, "bytes")
 
     pre = W.attention(4, 1024, 1024, 16, 16, 128, causal=True, window=0,
                       q_offset=0, **att)
