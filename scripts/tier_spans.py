@@ -14,7 +14,9 @@ then, over the windows with the log, the device milliseconds a round
 under each span by kernel family (``bench.spans.FAMILIES``), the share
 of device time under a span, the idle gaps by the span the host was in
 when each began, and the costliest kernels outside GEMM, attention and
-the prox step, by span.
+the prox step, by span; and, for a MoE model, the share of the MoE
+layers' (token, choice) pairs over capacity (the ``moe`` spans'
+``dropped`` over ``pairs``).
 """
 import argparse
 import statistics
@@ -58,6 +60,14 @@ def split(cell, windows) -> None:
         print(f"{cell}: idle {v:10.3f} ms a round, host in {k}")
     for (k, nm), v in sorted(names.items(), key=lambda kv: -kv[1])[:25]:
         print(f"{cell}: {v:10.3f} ms a round in {k}: {nm}")
+    pairs = sum(a["pairs"] for _, w in windows for _, _, _, a in w.spans
+                if "pairs" in a)
+    if pairs:
+        dropped = sum(int(a["dropped"]) for _, w in windows
+                      for _, _, _, a in w.spans if "dropped" in a)
+        print(f"{cell}: (token, choice) pairs over capacity in the MoE "
+              f"layers' forwards: {dropped} of {pairs} "
+              f"({100 * dropped / pairs:.3f}%)")
 
 
 def main(argv=None) -> int:

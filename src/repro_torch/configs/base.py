@@ -55,6 +55,7 @@ class MoEConfig:
     expert_d_ff: int = 0           # per-expert FFN width (fine-grained MoE)
     router_aux_weight: float = 0.01
     capacity_factor: float = 1.25  # tokens over capacity are dropped
+    renormalize: bool = True       # top-k gates divided by their sum
 
 
 @dataclass(frozen=True)
@@ -82,6 +83,8 @@ class ModelConfig:
     # MoE
     moe: MoEConfig = field(default_factory=MoEConfig)
     moe_layer_period: int = 1      # every n-th layer is MoE (1 = all, when moe on)
+    first_dense_layers: int = 0    # leading layers with a dense FFN (DeepSeek's
+                                   # first_k_dense_replace), before the pattern
     # hybrid (Jamba): 1 attention layer per `attn_period` layers, rest Mamba
     attn_period: int = 0           # 0 = pure attention (or pure ssm for rwkv)
     # ssm dims
@@ -121,11 +124,14 @@ class ModelConfig:
         return ["attn"] * self.num_layers
 
     def moe_layer_mask(self) -> list[bool]:
-        """Per-layer flag: is the layer's FFN a mixture of experts."""
+        """Per-layer flag: is the layer's FFN a mixture of experts (never
+        in the ``first_dense_layers`` leading layers)."""
         if self.moe.num_experts == 0:
             return [False] * self.num_layers
         p = max(self.moe_layer_period, 1)
-        return [(i % p == p - 1) if p > 1 else True for i in range(self.num_layers)]
+        return [i >= self.first_dense_layers
+                and ((i % p == p - 1) if p > 1 else True)
+                for i in range(self.num_layers)]
 
     def supports_long_decode(self) -> bool:
         """long_500k policy (DESIGN.md §5): native for ssm/hybrid, via SWA for

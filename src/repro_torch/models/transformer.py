@@ -1,9 +1,11 @@
 """Decoder stack of the LLM zoo (the port of ``repro/models/transformer.py``).
 
 Layers are grouped into *blocks*: the smallest repeating pattern of
-(mixer kind, MoE?) signatures. Per-layer params keep the reference's
-tree, ``pos{i}/...`` leaves stacked over blocks on a leading axis, so a
-JAX ``init_params`` tree carries across as it is
+(mixer kind, MoE?) signatures, after any leading dense layers
+(``cfg.first_dense_layers``, DeepSeek's ``first_k_dense_replace``), which
+are stacked apart under ``lead`` and run first. Per-layer params keep
+the reference's tree, ``pos{i}/...`` leaves stacked over blocks on a
+leading axis, so a JAX ``init_params`` tree carries across as it is
 (``repro_torch.convert.params_from_numpy``). The reference's
 ``lax.scan`` over blocks becomes a Python loop over block indices that
 reads views ``leaf[i]``; the KV cache is stacked the same way and each
@@ -35,31 +37,51 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention, layers, mamba, moe, rwkv
+from repro_torch.obs.spans import span
 
-__all__ = ["block_pattern", "encoder_apply", "encoder_init", "stack_apply",
-           "stack_cache", "stack_init"]
+__all__ = ["block_pattern", "encoder_apply", "encoder_init", "lead_pattern",
+           "stack_apply", "stack_cache", "stack_init"]
 
 
 # ---------------------------------------------------------------------------
 # block pattern
 # ---------------------------------------------------------------------------
 
+def lead_pattern(cfg):
+    """(n_lead, kind) of the ``cfg.first_dense_layers`` leading layers
+    (DeepSeek's ``first_k_dense_replace``): each a mixer of ``kind`` and
+    a dense SwiGLU FFN, kept apart from the periodic blocks under the
+    tree's ``lead`` entry with leaves stacked (n_lead, ...); (0, None)
+    without a lead."""
+    n = cfg.first_dense_layers
+    if not n:
+        return 0, None
+    kinds = set(cfg.layer_kinds()[:n])
+    if n >= cfg.num_layers or len(kinds) != 1:
+        raise ValueError(f"{n} leading dense layers of {cfg.num_layers}, "
+                         f"kinds {sorted(kinds)}: not one stack")
+    return n, kinds.pop()
+
+
 def block_pattern(cfg):
-    """Returns (n_blocks, [(kind, is_moe), ...] per position-in-block)."""
-    kinds = cfg.layer_kinds()
-    moe_mask = cfg.moe_layer_mask()
+    """Returns (n_blocks, [(kind, is_moe), ...] per position-in-block) of
+    the layers after the lead (:func:`lead_pattern`)."""
+    lead = cfg.first_dense_layers
+    kinds = cfg.layer_kinds()[lead:]
+    moe_mask = cfg.moe_layer_mask()[lead:]
+    n = cfg.num_layers - lead
     period = 1
     if cfg.attn_period and cfg.attn_period > 1:
         period = cfg.attn_period
     if cfg.moe.num_experts and cfg.moe_layer_period > 1:
         period = math.lcm(period, cfg.moe_layer_period)
-    if cfg.num_layers % period:
-        period = cfg.num_layers  # fall back to one unscanned mega-block
+    if n % period:
+        period = n  # fall back to one unscanned mega-block
     pattern = [(kinds[i], moe_mask[i]) for i in range(period)]
-    for i in range(cfg.num_layers):
+    for i in range(n):
         if (kinds[i], moe_mask[i]) != pattern[i % period]:
-            raise ValueError(f"layer pattern not periodic at {i}")
-    return cfg.num_layers // period, pattern
+            raise ValueError(f"layer pattern not periodic at {lead + i}")
+    return n // period, pattern
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +113,12 @@ def _position_init(gen, cfg, kind, is_moe, dtype, lead):
 
 
 def _apply_position(p, cfg, kind, is_moe, x, *, mode, cache=None, pos=None,
-                    mrope_positions=None, enc_out=None, kmode=None):
+                    mrope_positions=None, enc_out=None, kmode=None,
+                    in_lead=False):
     """One layer. mode: 'full' | 'decode'; ``kmode`` is the kernels'
-    dispatch mode (None, or "torch" for the plain versions). Returns (x,
-    cache (updated in place), aux)."""
+    dispatch mode (None, or "torch" for the plain versions); ``in_lead``:
+    a leading dense layer, its SwiGLU under the ``dense_ffn`` span. Returns
+    (x, cache (updated in place), aux)."""
     if kind == "rwkv":
         return _apply_rwkv(p, cfg, x, cache=cache, kmode=kmode)
     aux = 0.0
@@ -125,6 +149,9 @@ def _apply_position(p, cfg, kind, is_moe, x, *, mode, cache=None, pos=None,
     h2 = layers.norm_apply(cfg, p["norm2"], x)
     if is_moe:
         y2, aux = moe.moe_apply(p["moe"], cfg, h2, mode=kmode)
+    elif in_lead:
+        with span("dense_ffn"):
+            y2 = layers.swiglu_apply(p["mlp"], h2)
     else:
         y2 = layers.swiglu_apply(p["mlp"], h2)
     return x + y2, cache, aux
@@ -175,12 +202,18 @@ def _apply_rwkv(p, cfg, x, *, cache=None, kmode=None):
 # ---------------------------------------------------------------------------
 
 def stack_init(gen, cfg, dtype=torch.float32):
-    """{"pos{i}": layer params with leaves stacked (n_blocks, ...)}, drawn
-    on ``gen.device``."""
+    """{"pos{i}": layer params with leaves stacked (n_blocks, ...)}, and
+    with a lead {"lead": its layers' params stacked (n_lead, ...)}, drawn
+    on ``gen.device``, the lead first."""
+    out = {}
+    n_lead, kind = lead_pattern(cfg)
+    if n_lead:
+        out["lead"] = _position_init(gen, cfg, kind, False, dtype, (n_lead,))
     n_blocks, pattern = block_pattern(cfg)
-    return {f"pos{i}": _position_init(gen, cfg, kind, is_moe, dtype,
-                                      (n_blocks,))
-            for i, (kind, is_moe) in enumerate(pattern)}
+    out.update({f"pos{i}": _position_init(gen, cfg, kind, is_moe, dtype,
+                                          (n_blocks,))
+                for i, (kind, is_moe) in enumerate(pattern)})
+    return out
 
 
 def stack_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
@@ -192,26 +225,33 @@ def stack_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cpu"):
     {"wkv"} zeros (n_blocks, batch, h, n, n) float32 per RWKV position;
     {"conv"} zeros (n_blocks, batch, d_conv - 1, d_in) in ``dtype`` and
     {"ssm"} zeros (n_blocks, batch, d_in, d_state) float32 per Mamba
-    position (``max_len`` does not bound a recurrent state)."""
-    n_blocks, pattern = block_pattern(cfg)
+    position (``max_len`` does not bound a recurrent state); with a lead,
+    {"lead": its kind's cache stacked (n_lead, ...)}."""
     out = {}
+    n_lead, kind = lead_pattern(cfg)
+    if n_lead:
+        out["lead"] = _position_cache(cfg, kind, batch, max_len, dtype,
+                                      device, n_lead)
+    n_blocks, pattern = block_pattern(cfg)
     for i, (kind, _) in enumerate(pattern):
-        if kind == "rwkv":
-            out[f"pos{i}"] = rwkv.init_rwkv_cache(cfg, batch, dtype, device,
-                                                  lead=(n_blocks,))
-            continue
-        if kind == "mamba":
-            out[f"pos{i}"] = mamba.init_mamba_cache(cfg, batch, dtype, device,
-                                                    lead=(n_blocks,))
-            continue
-        c = attention.init_kv_cache(cfg, batch, max_len, dtype, device,
-                                    lead=(n_blocks,))
-        if cfg.is_encoder_decoder:
-            cross = attention.init_kv_cache(cfg, batch, cfg.encoder_seq_len,
-                                            dtype, device, lead=(n_blocks,))
-            c["cross_k"], c["cross_v"] = cross["k"], cross["v"]
-        out[f"pos{i}"] = c
+        out[f"pos{i}"] = _position_cache(cfg, kind, batch, max_len, dtype,
+                                         device, n_blocks)
     return out
+
+
+def _position_cache(cfg, kind, batch, max_len, dtype, device, n):
+    """One position's cache (:func:`stack_cache`), leaves stacked (n, ...)."""
+    if kind == "rwkv":
+        return rwkv.init_rwkv_cache(cfg, batch, dtype, device, lead=(n,))
+    if kind == "mamba":
+        return mamba.init_mamba_cache(cfg, batch, dtype, device, lead=(n,))
+    c = attention.init_kv_cache(cfg, batch, max_len, dtype, device,
+                                lead=(n,))
+    if cfg.is_encoder_decoder:
+        cross = attention.init_kv_cache(cfg, batch, cfg.encoder_seq_len,
+                                        dtype, device, lead=(n,))
+        c["cross_k"], c["cross_v"] = cross["k"], cross["v"]
+    return c
 
 
 def _block(tree, i):
@@ -242,24 +282,38 @@ def stack_apply(params, cfg, x, *, mode="full", cache=None, pos=None,
     ``remat`` (training without a cache, grad mode on) checkpoints each
     block with ``torch.utils.checkpoint`` as the reference's
     ``jax.checkpoint`` does: its activations are recomputed in the
-    backward, so its kernels launch twice. Returns (x, cache, total aux
-    loss)."""
+    backward, so its kernels launch twice; a leading dense layer
+    (:func:`lead_pattern`) runs first, checkpointed alone. Returns (x,
+    cache, total aux loss)."""
+    kw = dict(mode=mode, pos=pos, mrope_positions=mrope_positions,
+              enc_out=enc_out, kmode=kmode)
+    remat = remat and cache is None and torch.is_grad_enabled()
+    n_lead, lead_kind = lead_pattern(cfg)
+    for i, p in enumerate(_unbind(params["lead"], n_lead) if n_lead else ()):
+        c = _block(cache["lead"], i) if cache is not None else None
+
+        def run_lead(x, p=p, c=c):
+            return _apply_position(p, cfg, lead_kind, False, x, cache=c,
+                                   in_lead=True, **kw)[0]
+
+        x = torch.utils.checkpoint.checkpoint(run_lead, x,
+                                              use_reentrant=False) \
+            if remat else run_lead(x)
     n_blocks, pattern = block_pattern(cfg)
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks = _unbind(params, n_blocks)
-    remat = remat and cache is None and torch.is_grad_enabled()
+    positions = [f"pos{i}" for i in range(len(pattern))]
+    blocks = _unbind({k: params[k] for k in positions}, n_blocks)
     for b in range(n_blocks):
         blk = blocks[b]
-        blk_cache = _block(cache, b) if cache is not None else None
+        blk_cache = _block({k: cache[k] for k in positions}, b) \
+            if cache is not None else None
 
         def run(x, blk=blk, blk_cache=blk_cache):
             aux_blk = 0.0
             for i, (kind, is_moe) in enumerate(pattern):
                 c = blk_cache[f"pos{i}"] if blk_cache is not None else None
-                x, _, aux = _apply_position(
-                    blk[f"pos{i}"], cfg, kind, is_moe, x, mode=mode, cache=c,
-                    pos=pos, mrope_positions=mrope_positions,
-                    enc_out=enc_out, kmode=kmode)
+                x, _, aux = _apply_position(blk[f"pos{i}"], cfg, kind,
+                                            is_moe, x, cache=c, **kw)
                 aux_blk = aux_blk + aux
             return x, aux_blk
 

@@ -912,6 +912,41 @@ def test_moe_route_tokens_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_route_tokens_unrenormalised_matches_plain(cuda, dtype):
+    """The fused router at deepseek's training shape (4,096 x 2,048, E 64,
+    k 6, groups of 1,024) with its published gates, not renormalised,
+    against route_tokens_ref on the card, as the renormalised cases are
+    held: ids equal but where the plain run's probabilities lie within
+    1e-5, positions those of the kernel's own ids, gates of agreeing
+    tokens and mean_prob within 1e-5; the gates are the softmax
+    probabilities of the chosen experts (they sum to less than 1)."""
+    from repro_torch.kernels.interface import LAUNCHES
+    from repro_torch.kernels.moe_router import positions_ref, route_tokens
+
+    t, d, e, k, gs = 4096, 2048, 64, 6, 1024
+    rng = np.random.default_rng(t + d + e + k + 1)
+    x, w = _fused_router_inputs(rng, t, d, e, getattr(torch, dtype), cuda)
+    before = LAUNCHES.get("moe_router", 0)
+    g, i, p, aux = route_tokens(x, w, top_k=k, renormalize=False,
+                                group_size=gs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["moe_router"] == before + 1
+    g_p, i_p, _, aux_p = route_tokens(x, w, top_k=k, renormalize=False,
+                                      group_size=gs, mode="torch")
+    top = torch.softmax(x.float() @ w, -1).sort(1, descending=True).values
+    same = (i == i_p).all(1)
+    for row in (~same).nonzero()[:, 0].tolist():
+        assert float((top[row, :k] - top[row, 1:k + 1]).min()) <= 1e-5, row
+    assert torch.equal(p, positions_ref(i, gs, e))
+    assert float((g - g_p)[same].abs().max()) <= 1e-5
+    assert float((aux["mean_prob"] - aux_p["mean_prob"]).abs().max()) <= 1e-5
+    sums = g.sum(1)
+    assert bool((sums < 1).all()) and float((sums[~(x == 0).all(1)]
+                                             - top[~(x == 0).all(1), :k]
+                                             .sum(1)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_route_tokens_f32_accuracy(cuda, dtype):
     """The fused router's product at f32 accuracy, at deepseek's prefill
     shape: with k = E and no renormalisation its gates are the softmax
@@ -1682,11 +1717,12 @@ def test_moe_router_bwd_matches_plain(cuda, case, given):
 # (t, d, E, k, renormalize): one stage, a ragged last stage and d not a
 # multiple of 128, E 12 (padded to 16 columns), Jamba's E 16, deepseek's
 # training shape, a token range of one stage each, and more items (160
-# slices) than the card holds CTAs, so that some CTAs take two
+# slices) than the card holds CTAs, so that some CTAs take two; deepseek's
+# training shape with its published gates (not renormalised)
 ROUTER_FUSED_CASES = [(1, 8, 4, 1, True), (300, 200, 12, 3, True),
                       (130, 256, 16, 2, False), (1000, 2048, 64, 6, True),
                       (4096, 2048, 64, 6, True), (70, 640, 64, 64, True),
-                      (200, 20480, 64, 6, True)]
+                      (200, 20480, 64, 6, True), (4096, 2048, 64, 6, False)]
 
 
 @pytest.mark.parametrize("case", ROUTER_FUSED_CASES,
@@ -2333,3 +2369,70 @@ def test_only_tier_update_runs_under_the_update_spans(cuda, tmp_path):
     assert [p for _, p in owned] == \
         ["tier_round/team_update"] * len(tree_leaves(params))
     assert all("tier_update_kernel<" in name for name, _ in owned)
+
+
+# deepseek-moe-16b's benchmark path cut small in float32: 1 dense + 2 MoE
+# layers of width 128 (4 heads of 32), dense width 320, 8 experts of
+# width 64, top-2, 2 shared, vocabulary 512, 2 x 64 tokens
+MOE_SMALL = {"num_layers": 3, "first_dense_layers": 1, "d_model": 128,
+             "num_heads": 4, "num_kv_heads": 4, "head_dim": 32, "d_ff": 320,
+             "vocab_size": 512, "rope_theta": 10000.0, "norm_eps": 1e-6,
+             "tie_embeddings": False,
+             "moe": {"num_experts": 8, "num_shared_experts": 2, "top_k": 2,
+                     "expert_d_ff": 64, "aux_weight": 0.001,
+                     "capacity_factor": 1.25, "group_size": 1024}}
+
+
+@pytest.mark.parametrize("renorm", [False, True])
+def test_moe_tier_round_matches_the_reference(cuda, renorm):
+    """One tier round of the small cut through the kernels (attention
+    ``simt``, the fused router and its backward, prox_update a leaf a
+    step, tier_update a leaf) against ``bench/reference/deepseek_moe.py``
+    on the card, TF32 off: the loss within 1e-4 relative and every leaf
+    of the three tiers within 1e-5 of its scale (float32 sums in other
+    orders, as on the CPU); the kernels launched once a layer (the
+    router once a MoE layer) a pass."""
+    import numpy as np
+
+    import repro_torch.train.trainer as trainer
+    from bench.reference import deepseek_moe as ref
+    from repro_torch.configs import MoEConfig, get_config
+    from repro_torch.flat import tree_leaves
+    from repro_torch.kernels.interface import LAUNCHES
+
+    m = {**MOE_SMALL, "moe": {**MOE_SMALL["moe"], "renormalize": renorm}}
+    mo = m["moe"]
+    cfg = get_config("deepseek-moe-16b").replace(
+        **{k: v for k, v in m.items() if k != "moe"},
+        moe=MoEConfig(num_experts=8, num_shared_experts=2, top_k=2,
+                      expert_d_ff=64, router_aux_weight=mo["aux_weight"],
+                      capacity_factor=mo["capacity_factor"],
+                      renormalize=renorm))
+    rng = np.random.default_rng(41)
+    tok = torch.as_tensor(rng.integers(0, 512, (2, 65)), device=cuda)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    params = ref.init_params(m, 41, cuda, torch.float32)
+    hp = dict(alpha=3e-3, lam=0.5, gamma=1.5, eta=0.03, beta=0.3,
+              l_local=2)
+    want = ref.tier_round(params, params, params, m, batch["tokens"],
+                          batch["targets"], hp)
+    before = dict(LAUNCHES)
+    got = trainer.make_tier_round(cfg, **hp)(
+        *(ref.nest(params),) * 3, batch)
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES.get(k, 0) - before.get(k, 0)
+              for k in ("flash_attention", "flash_attention_bwd",
+                        "moe_router", "moe_router_bwd", "prox_update",
+                        "tier_update")}
+    assert counts == {"flash_attention": 6, "flash_attention_bwd": 6,
+                      "moe_router": 4, "moe_router_bwd": 4,
+                      "prox_update": 2 * len(params),
+                      "tier_update": len(params)}
+    assert abs(float(got[3]["loss"]) - want[3]) <= 1e-4 * abs(want[3])
+    for tree, ref_tree in zip(got[:3], want[:3]):
+        flat = {"/".join(p): v for p, v in tree_leaves(tree)}
+        assert set(flat) == set(ref_tree)
+        for k, v in flat.items():
+            scale = float(ref_tree[k].abs().max())
+            err = float((v - ref_tree[k]).abs().max())
+            assert err <= 1e-5 * scale, (k, err, scale)

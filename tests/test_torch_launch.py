@@ -70,7 +70,12 @@ def test_resolve_config_and_cache_len_match_the_reference(arch, shape):
     cfg, skip = resolve_config(arch, shape)
     jcfg, jskip = ref.resolve_config(arch, shape)
     assert skip == jskip
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    ours = dataclasses.asdict(cfg)
+    # the port's fields beyond the reference's (DeepSeek's leading dense
+    # layers, unrenormalised gates) hold the defaults that keep its tree
+    assert ours.pop("first_dense_layers") == 0
+    assert ours["moe"].pop("renormalize") is True
+    assert ours == dataclasses.asdict(jcfg)
     assert cache_len_for(cfg, INPUT_SHAPES[shape]) == \
         ref.cache_len_for(jcfg, INPUT_SHAPES[shape])
 
